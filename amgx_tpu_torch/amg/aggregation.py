@@ -1,0 +1,465 @@
+"""Aggregation-AMG coarsening (reference src/aggregation/**).
+
+Host-side numpy/scipy, copied from the JAX package's
+``amg/aggregation.py`` so both packages build the same aggregates and
+the same Galerkin operators:
+
+  * the structured path (the default, ``structured_aggregation=1``):
+    a matrix whose diagonals form a <=27-point stencil on an inferred
+    (nx, ny, nz) grid is aggregated in lexicographic blocks
+    (:func:`geo_aggregate`), which keeps every coarse operator a
+    stencil (DIA) and numbers coarse unknowns lexicographically, so the
+    transfer operators P and R have column locality;
+  * the matching path (SIZE_2/4/8, MULTI_PAIRWISE): deterministic
+    pairwise matching on the host (:func:`pairwise_match`).
+
+Not ported yet (ROADMAP.md, queue A: large-grid setup): the on-device
+matcher
+(``_device_match_rounds``) and the dense-reduction Galerkin
+``geo_galerkin_dia`` the JAX package uses above 4 M rows; above that
+size this port forms ``R @ A @ P`` with scipy, the same operator up to
+rounding.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sps
+
+def edge_weights(Asp: sps.csr_matrix, formula: int = 0) -> sps.csr_matrix:
+    """Symmetric positive weight graph (zero diagonal)."""
+    n = Asp.shape[0]
+    absA = abs(Asp)
+    d = np.abs(Asp.diagonal())
+    d = np.where(d > 0, d, 1.0)
+    if formula == 1:
+        # w_ij = -0.5*(a_ij/a_ii + a_ji/a_jj)
+        Dinv = sps.diags_array(1.0 / np.where(Asp.diagonal() != 0,
+                                              Asp.diagonal(), 1.0))
+        W = -(Dinv @ Asp + (Dinv @ Asp).T) * 0.5
+        W = W.tocsr()
+        W.data = np.maximum(W.data, 0.0)
+    else:
+        S = (absA + absA.T) * 0.5
+        # divide each w_ij by max(d_i, d_j): do it entrywise
+        S = S.tocoo()
+        denom = np.maximum(d[S.row], d[S.col])
+        W = sps.csr_matrix(
+            (S.data / denom, (S.row, S.col)), shape=(n, n)
+        )
+    W.setdiag(0.0)
+    W.eliminate_zeros()
+    W.sort_indices()
+    return W
+
+
+
+def _first_per_row(rows_sorted, n):
+    """Index of the first occurrence of each row id in a row-sorted
+    array; -1 for absent rows (boundary positions of the sorted ids)."""
+    first = np.full(n, -1, dtype=np.int64)
+    if rows_sorted.shape[0]:
+        mask = np.empty(rows_sorted.shape[0], dtype=bool)
+        mask[0] = True
+        np.not_equal(rows_sorted[1:], rows_sorted[:-1], out=mask[1:])
+        idx = np.nonzero(mask)[0]
+        first[rows_sorted[idx]] = idx
+    return first
+
+
+def pairwise_match(W: sps.csr_matrix, merge_singletons: bool = True,
+                   max_rounds: int = 15,
+                   max_unassigned: float = 0.0):
+    """Deterministic pairwise matching via mutual-strongest-neighbour
+    rounds (the handshaking scheme of the reference's size2 selector,
+    fully vectorized; max_rounds mirrors max_matching_iterations and
+    ``max_unassigned`` the max_unassigned_percentage early exit,
+    size2_selector.cu:621-625).
+
+    Returns agg (n,) int32 aggregate ids 0..n_agg-1.
+    """
+    n = W.shape[0]
+    coo = W.tocoo()
+    r, c, w = coo.row, coo.col, coo.data
+    # per-row preference: heavy edges first; ties broken by a symmetric
+    # per-edge hash (deterministic).  Without it, uniform-weight graphs
+    # (Poisson) deadlock the handshake into chains — the reference breaks
+    # ties with random edge weights for the same reason.
+    jitter = _edge_jitter(r, c, n)
+    order = np.lexsort((jitter, -w, r))
+    rs, cs = r[order], c[order]
+
+    partner = np.full(n, -1, dtype=np.int64)
+    for _ in range(max_rounds):
+        un = partner == -1
+        if max_unassigned > 0 and un.mean() <= max_unassigned:
+            break  # remaining rows join as merged singletons
+        valid = un[rs] & un[cs]
+        first = _first_per_row(rs[valid], n)
+        # strongest available neighbour per unmatched vertex
+        cand = np.full(n, -1, dtype=np.int64)
+        has = first >= 0
+        cand[has] = cs[valid][first[has]]
+        # mutual handshake
+        ok = (cand >= 0) & un
+        idx = np.nonzero(ok)[0]
+        mutual = idx[cand[cand[idx]] == idx]
+        a = mutual[mutual < cand[mutual]]
+        partner[a] = cand[a]
+        partner[cand[a]] = a
+        if a.size == 0:
+            break
+
+    # aggregate ids: pair root = min(i, partner); singletons own id
+    root = np.where(partner >= 0, np.minimum(np.arange(n), partner),
+                    np.arange(n))
+    uniq, agg = np.unique(root, return_inverse=True)
+
+    if merge_singletons:
+        sizes = np.bincount(agg)
+        is_single = sizes[agg] == 1
+        if is_single.any():
+            # strongest neighbour regardless of matching state
+            first_all = _first_per_row(rs, n)
+            best = np.full(n, -1, dtype=np.int64)
+            hasn = first_all >= 0
+            best[hasn] = cs[first_all[hasn]]
+            move = is_single & (best >= 0)
+            agg = agg.copy()
+            agg[move] = agg[best[move]]
+            uniq2, agg = np.unique(agg, return_inverse=True)
+    return agg.astype(np.int32)
+
+
+def _edge_jitter(r, c, n):
+    """Symmetric per-edge tie-break hash — the ONE definition both the
+    host and device matchers key on (bit-parity contract)."""
+    lo = np.minimum(r, c).astype(np.uint64)
+    hi = np.maximum(r, c).astype(np.uint64)
+    z = lo * np.uint64(n) + hi + np.uint64(0x9E3779B9)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return (z ^ (z >> np.uint64(31))).astype(np.float64)
+
+def filter_edge_weights(W: sps.csr_matrix,
+                        alpha: float) -> sps.csr_matrix:
+    """Weak-edge filter (reference multi_pairwise.cu:931-945,
+    filter_weights=1): drop edges with w_ij < alpha * max_k w_ik
+    (symmetrized so the graph stays matchable both ways)."""
+    coo = W.tocoo()
+    rmax = np.zeros(W.shape[0])
+    np.maximum.at(rmax, coo.row, coo.data)
+    keep = (coo.data >= alpha * rmax[coo.row]) | (
+        coo.data >= alpha * rmax[coo.col]
+    )
+    Wf = sps.csr_matrix(
+        (np.where(keep, coo.data, 0.0), (coo.row, coo.col)),
+        shape=W.shape,
+    )
+    Wf.eliminate_zeros()
+    Wf.sort_indices()
+    return Wf
+
+
+def aggregate(Asp: sps.csr_matrix, passes: int, formula: int = 0,
+              merge_singletons: bool = True, max_rounds: int = 15,
+              filter_alpha: float = 0.0,
+              max_unassigned: float = 0.0) -> np.ndarray:
+    """Compose `passes` pairwise matchings -> aggregates of size ~2^passes
+    (reference SIZE_2=1, SIZE_4=2, SIZE_8=3 passes).  ``max_rounds``
+    mirrors max_matching_iterations (size2_selector.cu:621);
+    ``filter_alpha`` > 0 applies the filter_weights weak-edge filter.
+    Matching runs on the host (the JAX package's on-device matcher is
+    bit-identical to it and is not ported yet)."""
+    n = Asp.shape[0]
+    agg = np.arange(n, dtype=np.int32)
+    W = edge_weights(Asp, formula)
+    if filter_alpha > 0:
+        W = filter_edge_weights(W, filter_alpha)
+    for p in range(passes):
+        sub = pairwise_match(W, merge_singletons,
+                             max_rounds=max_rounds,
+                             max_unassigned=max_unassigned)
+        agg = sub[agg]
+        if p + 1 < passes:
+            nc = int(sub.max()) + 1
+            Pb = sps.csr_matrix(
+                (np.ones(W.shape[0]), (np.arange(W.shape[0]), sub)),
+                shape=(W.shape[0], nc),
+            )
+            W = (Pb.T @ W @ Pb).tocsr()
+            W.setdiag(0.0)
+            W.eliminate_zeros()
+    return agg
+
+SELECTOR_PASSES = {
+    "SIZE_2": 1,
+    "SIZE_4": 2,
+    "SIZE_8": 3,
+    "MULTI_PAIRWISE": None,  # uses aggregation_passes config
+    "DUMMY": 1,
+    "GEO": 3,
+}
+
+
+def _col_diffs(Asp: sps.csr_matrix, dtype=np.int64):
+    """col - row per stored entry, straight from CSR (no COO copy —
+    this runs on every level of every setup).  ``dtype`` may be int32
+    when both dimensions fit (the offset-scan unique sorts ~2x faster
+    there) — entry ORDER is the contract axis_strengths relies on."""
+    rows = np.repeat(
+        np.arange(Asp.shape[0], dtype=dtype), np.diff(Asp.indptr)
+    )
+    return Asp.indices.astype(dtype, copy=False) - rows
+
+
+def stencil_offsets(Asp: sps.csr_matrix, max_diags: int = 64,
+                    return_diffs: bool = False):
+    """Distinct diagonal offsets of A if there are few, else None.
+
+    Short-circuits on a row sample first: unstructured matrices bail
+    after O(sample) work instead of sorting all nnz diffs.
+    ``return_diffs`` additionally returns the per-entry col-row diff
+    array (entry order) so the caller's geo path reuses the single
+    pass for ``axis_strengths`` — as ``(offs, diffs)``."""
+    n = Asp.shape[0]
+    if n > 4096:
+        take = min(n, 512)
+        stride = max(n // take, 1)
+        rsel = np.arange(0, n, stride)
+        sub = Asp[rsel]
+        rows = np.repeat(rsel, np.diff(sub.indptr))
+        if np.unique(
+            sub.indices.astype(np.int64) - rows
+        ).size > max_diags:
+            return (None, None) if return_diffs else None
+    # int32 diff arithmetic when both dimensions fit: the unique sort
+    # runs ~2x faster and the offsets themselves are tiny either way
+    use32 = max(Asp.shape) < np.iinfo(np.int32).max
+    diffs = _col_diffs(Asp, np.int32 if use32 else np.int64)
+    offs = np.unique(diffs)
+    if offs.size > max_diags:
+        return (None, None) if return_diffs else None
+    offs = offs.astype(np.int64)
+    return (offs, diffs) if return_diffs else offs
+
+
+def infer_grid(offsets, n: int):
+    """Infer (nx, ny, nz) with nx*ny*nz == n from stencil diagonal
+    offsets; None if the offsets are not <=27-point-stencil shaped.
+
+    A wrong-but-validating guess only degrades aggregate shapes (the
+    Galerkin product is correct for any partition), never correctness.
+    """
+    offs = set(int(o) for o in offsets)
+    pos = sorted(o for o in offs if o > 0)
+    if not pos or n < 8:
+        return None
+
+    def allowed_set(nx, ny, nz):
+        out = set()
+        for a in (-1, 0, 1) if nx > 1 else (0,):
+            for b in (-1, 0, 1) if ny > 1 else (0,):
+                for c in (-1, 0, 1) if nz > 1 else (0,):
+                    out.add(a + b * nx + c * nx * ny)
+        return out
+
+    cands_nx = {n}  # 1D chain
+    for o in pos:
+        for d in (o - 1, o, o + 1):
+            if 2 <= d < n and n % d == 0:
+                cands_nx.add(d)
+    best = None
+    best_score = None
+    for nx in sorted(cands_nx):
+        rem = n // nx
+        cands_ny = {rem}
+        for o in pos:
+            for d in (o - 1, o, o + 1):
+                if d >= 2 * nx and d % nx == 0 and rem % (d // nx) == 0:
+                    cands_ny.add(d // nx)
+        for ny in sorted(cands_ny):
+            if ny < 1 or rem % ny:
+                continue
+            nz = rem // ny
+            if offs <= allowed_set(nx, ny, nz):
+                # prefer geometries whose primary strides are actual
+                # offsets (true stencil axes), then the most cubic one
+                score = (
+                    (nx in offs or ny == 1)
+                    + (nx * ny in offs or nz == 1),
+                    -(max(nx, ny, nz) / max(min(nx, ny, nz), 1)),
+                )
+                if best is None or score > best_score:
+                    best, best_score = (nx, ny, nz), score
+    return best
+
+
+def axis_strengths(Asp: sps.csr_matrix, nx: int, ny: int, nz: int,
+                   diffs=None):
+    """Mean |coupling| along each grid axis (offsets ±1, ±nx, ±nx·ny).
+
+    Drives the semicoarsening decision: anisotropic stencils must be
+    aggregated along the STRONG axis (classical strength-of-connection
+    semantics), not by grid shape.
+    """
+    d = _col_diffs(Asp) if diffs is None else diffs
+    av = np.abs(Asp.data)
+    out = []
+    for stride, dim in ((1, nx), (nx, ny), (nx * ny, nz)):
+        if dim <= 1:
+            out.append(0.0)
+            continue
+        m = np.abs(d) == stride
+        out.append(float(av[m].mean()) if m.any() else 0.0)
+    return out
+
+
+def geo_block_shape(nx, ny, nz, passes, strengths=None):
+    """Block shape (bx, by, bz) the geometric aggregation uses: each
+    pass halves the axis with the largest remaining strength-to-block
+    ratio (semicoarsening on anisotropic stencils)."""
+    dims = [nx, ny, nz]
+    block = [1, 1, 1]
+    s = list(strengths) if strengths is not None else [1.0, 1.0, 1.0]
+    smax = max(s) if max(s) > 0 else 1.0
+    # breaking exact ties by dims keeps large axes first on cubes
+    for _ in range(passes):
+        ratios = [
+            (s[a] / smax + 1e-9 * dims[a]) / block[a]
+            if dims[a] > block[a]
+            else 0.0
+            for a in range(3)
+        ]
+        axis = int(np.argmax(ratios))
+        if ratios[axis] <= 0.0:
+            break
+        block[axis] *= 2
+    return tuple(block)
+
+
+def geo_aggregate(
+    nx: int, ny: int, nz: int, passes: int, strengths=None
+) -> np.ndarray:
+    """Blocked lexicographic aggregation on an (nx, ny, nz) grid.
+
+    Each pass halves one axis: the one with the largest remaining
+    coupling-strength-to-block ratio (``strengths`` from
+    :func:`axis_strengths`; unit strengths when absent).  Isotropic
+    stencils get the reference selector block shapes (SIZE_2 -> 2x1x1,
+    SIZE_4 -> 2x2x1, SIZE_8 -> 2x2x2 on a cube); anisotropic stencils
+    semicoarsen along the strong axis.  Coarse aggregates are numbered
+    lexicographically on the coarse grid, so bandedness is preserved.
+    """
+    dims = [nx, ny, nz]
+    block = list(geo_block_shape(nx, ny, nz, passes, strengths))
+    cdims = [-(-dims[a] // block[a]) for a in range(3)]
+    i = np.arange(nx * ny * nz, dtype=np.int64)
+    ix = i % nx
+    iy = (i // nx) % ny
+    iz = i // (nx * ny)
+    agg = (
+        ix // block[0]
+        + cdims[0] * (iy // block[1])
+        + cdims[0] * cdims[1] * (iz // block[2])
+    )
+    return agg.astype(np.int32)
+
+
+def select_aggregates(Asp, cfg, scope):
+    """The selector decision shared by the serial and distributed
+    setup paths: geometric blocks when the matrix is stencil-structured
+    (and structured_aggregation allows it, or selector is GEO),
+    matching-based aggregation otherwise.
+
+    Returns (agg, geo_info): geo_info is (grid, block) when the
+    geometric path was taken (enables the dense-reduction Galerkin in
+    geo_galerkin_dia), else None."""
+    selector = str(cfg.get("selector", scope)).upper()
+    passes = SELECTOR_PASSES.get(selector, 1)
+    if passes is None:
+        passes = int(cfg.get("aggregation_passes", scope))
+    if selector == "DUMMY":
+        # reference dummy.cu:51: aggregates[i] = i / aggregate_size
+        size = max(int(cfg.get("aggregate_size", scope)), 1)
+        agg = (np.arange(Asp.shape[0], dtype=np.int32) // size).astype(
+            np.int32
+        )
+        return _maybe_print_agg_info(cfg, scope, selector, agg), None
+    if bool(cfg.get("structured_aggregation", scope)) or selector == "GEO":
+        # one diff pass serves the offset scan and the axis strengths
+        offs, diffs = stencil_offsets(Asp, return_diffs=True)
+        grid = (
+            infer_grid(offs, Asp.shape[0]) if offs is not None else None
+        )
+        if grid is not None:
+            strengths = axis_strengths(Asp, *grid, diffs=diffs)
+            block = geo_block_shape(*grid, passes, strengths)
+            agg = geo_aggregate(*grid, passes, strengths=strengths)
+            return (
+                _maybe_print_agg_info(cfg, scope, selector, agg),
+                (grid, block),
+            )
+    # reference notay_weights=1 selects the Notay coupling formula
+    formula = (
+        1 if bool(cfg.get("notay_weights", scope))
+        else int(cfg.get("weight_formula", scope))
+    )
+    merge = bool(cfg.get("merge_singletons", scope))
+    max_rounds = int(cfg.get("max_matching_iterations", scope))
+    filter_alpha = (
+        float(cfg.get("filter_weights_alpha", scope))
+        if bool(cfg.get("filter_weights", scope)) else 0.0
+    )
+    # max_unassigned_percentage early exit is honored only when the
+    # config sets it (the registry default is a reference-GPU tuning)
+    max_un = (
+        float(cfg.get("max_unassigned_percentage", scope))
+        if cfg.has("max_unassigned_percentage", scope) else 0.0
+    )
+    agg = aggregate(Asp, passes, formula, merge, max_rounds=max_rounds,
+                    filter_alpha=filter_alpha, max_unassigned=max_un)
+    return _maybe_print_agg_info(cfg, scope, selector, agg), None
+
+def _maybe_print_agg_info(cfg, scope, selector, agg):
+    """print_aggregation_info (reference aggregation selectors'
+    printAggregationInfo): aggregate count + size histogram."""
+    if bool(cfg.get("print_aggregation_info", scope)):
+        nc = int(agg.max()) + 1 if agg.size else 0
+        sizes = np.bincount(agg, minlength=max(nc, 1))
+        print(
+            f"         Aggregation [{selector}]: {nc} aggregates over "
+            f"{agg.shape[0]} rows; avg size "
+            f"{agg.shape[0] / max(nc, 1):.2f}, max {int(sizes.max())}, "
+            f"singletons {int((sizes == 1).sum())}"
+        )
+    return agg
+
+
+def build_aggregation_level(Asp, cfg, scope):
+    """Returns (P, R, A_coarse) scipy matrices for one aggregation level
+    (reference aggregation_amg_level.cu:238-371): P is the binary
+    aggregate map, R = P^T and A_coarse = R A P (scipy product)."""
+    gen = str(cfg.get("coarseAgenerator", scope)).upper()
+    if gen not in ("", "LOW_DEG", "GALERKIN", "THRUST", "DEFAULT"):
+        raise KeyError(
+            f"CoarseAGeneratorFactory '{gen}' has not been registered"
+        )
+    if not Asp.data.flags.writeable:
+        # scipy's abs()/binops dedup IN PLACE: work on a private copy
+        Asp = Asp.copy()
+        Asp.sum_duplicates()
+        Asp.sort_indices()
+    agg, _ = select_aggregates(Asp, cfg, scope)
+    n = Asp.shape[0]
+    nc = int(agg.max()) + 1
+    P = sps.csr_matrix(
+        (np.ones(n, dtype=Asp.dtype), (np.arange(n), agg)),
+        shape=(n, nc),
+    )
+    R = P.T.tocsr()
+    Ac = (R @ Asp @ P).tocsr()
+    Ac.sum_duplicates()
+    Ac.eliminate_zeros()
+    Ac.sort_indices()
+    return P, R, Ac

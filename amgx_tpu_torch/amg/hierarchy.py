@@ -1,0 +1,417 @@
+"""AMG solver: hierarchy setup, cycles and the registered "AMG" solver
+(reference src/amg.cu setup loop :201-418, src/cycles/).
+
+Counterpart of the JAX package's ``amg/hierarchy.py``.  Setup is the
+same host-side loop: coarsen with scipy level by level until a stop
+condition hits (``_coarsen_from``), then ship the levels to the device,
+set up a smoother per level and the coarse solver on the last.  The
+cycle is a Python recursion over the levels, run eagerly; its SpMVs go
+through ``ops/spmv.py`` (DIA and ELL kernels on the card).
+
+Cycles V, W and F are ported.  Not ported yet, and raising
+``NotImplementedError`` when a config asks for them (ROADMAP.md, queue
+A): K-cycles (CG/CGF), ``matrix_free`` / fused cycle legs,
+``structure_reuse_levels``, ``hierarchy_dtype``, ``error_scaling``,
+CLASSICAL / ENERGYMIN coarsening and the setup store.
+
+:func:`hierarchy_from_numpy` builds a solver on a given hierarchy
+(per-level CSR arrays of A, P and R) without coarsening — the way the
+tests carry a hierarchy set up by the JAX package across.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from amgx_tpu_torch.core.matrix import SparseMatrix
+from amgx_tpu_torch.ops.spmv import op_pass_counter, spmv
+from amgx_tpu_torch.solvers.base import Solver
+from amgx_tpu_torch.solvers.registry import (
+    SolverRegistry,
+    create_solver,
+    make_nested,
+    register_solver,
+)
+
+# gamma-cycle branch-depth cap (the JAX package's W_MAX_BRANCH_LEVELS)
+W_MAX_BRANCH_LEVELS = 6
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP.md, queue A: {item})"
+    )
+
+
+class AMGLevel:
+    """One hierarchy level (reference AMG_Level, amg_level.h:50)."""
+
+    def __init__(self, A: SparseMatrix, level_id: int):
+        self.A = A
+        self.level_id = level_id
+        self.P: SparseMatrix | None = None
+        self.R: SparseMatrix | None = None
+        self.smoother: Solver | None = None
+
+    @property
+    def n_rows(self):
+        return self.A.n_rows
+
+    @property
+    def nnz(self):
+        return self.A.nnz
+
+
+@register_solver("AMG")
+class AMGSolver(Solver):
+    """Algebraic multigrid as a Solver (reference
+    algebraic_multigrid_solver.cu + AMG<> in amg.cu)."""
+
+    def __init__(self, cfg, scope="default", device="cuda"):
+        super().__init__(cfg, scope, device=device)
+        g = lambda k: cfg.get(k, scope)
+        self.algorithm = str(g("algorithm")).upper()
+        self.cycle_type = str(g("cycle")).upper()
+        self.max_levels = int(g("max_levels"))
+        self.min_coarse_rows = int(g("min_coarse_rows"))
+        self.min_fine_rows = int(g("min_fine_rows"))
+        self.presweeps = int(g("presweeps"))
+        self.postsweeps = int(g("postsweeps"))
+        self.finest_sweeps = int(g("finest_sweeps"))
+        self.coarsest_sweeps = int(g("coarsest_sweeps"))
+        self.dense_lu_num_rows = int(g("dense_lu_num_rows"))
+        self.dense_lu_max_rows = int(g("dense_lu_max_rows"))
+        self.print_grid_stats = bool(g("print_grid_stats"))
+        self.intensive_smoothing = bool(g("intensive_smoothing"))
+        self.coarsen_threshold = float(g("coarsen_threshold"))
+        self.error_scaling = (
+            int(g("error_scaling"))
+            if self.algorithm == "AGGREGATION" else 0
+        )
+        self.structure_reuse = int(g("structure_reuse_levels"))
+        self.matrix_free = bool(g("matrix_free"))
+        self.hierarchy_dtype = str(g("hierarchy_dtype")).upper()
+        if self.intensive_smoothing:
+            self.presweeps = max(self.presweeps, 4)
+            self.postsweeps = max(self.postsweeps, 4)
+            self.coarsest_sweeps = max(self.coarsest_sweeps, 8)
+        self.levels: list[AMGLevel] = []
+        self.coarse_solver: Solver | None = None
+        # per-level (A, P, R) given by hierarchy_from_numpy; consumed
+        # by the next setup in place of coarsening
+        self._given_levels = None
+
+    def _check_unported(self):
+        super()._check_unported()
+        if self.algorithm != "AGGREGATION":
+            raise _unported(
+                f"algorithm={self.algorithm}", "classical AMG"
+            )
+        if self.cycle_type not in ("V", "W", "F"):
+            raise _unported(f"cycle={self.cycle_type} (K-cycle)",
+                            "aggregation AMG extras")
+        if self.matrix_free:
+            raise _unported("matrix_free=1 (stencil kernel, fused legs)",
+                            "matrix-free stencils")
+        if self.structure_reuse != 0:
+            raise _unported("structure_reuse_levels",
+                            "aggregation AMG extras")
+        if self.hierarchy_dtype != "SAME":
+            raise _unported(f"hierarchy_dtype={self.hierarchy_dtype}",
+                            "block matrices and reduced precision")
+        if self.error_scaling >= 2:
+            raise _unported(f"error_scaling={self.error_scaling}",
+                            "aggregation AMG extras")
+
+    # ------------------------------------------------------------------
+    # setup (reference AMG_Setup::setup, amg.cu:147-418)
+
+    def _build_coarse(self, Asp):
+        from amgx_tpu_torch.amg.aggregation import build_aggregation_level
+
+        return build_aggregation_level(Asp, self.cfg, self.scope)
+
+    def _make_smoother(self, A: SparseMatrix) -> Solver:
+        name, sscope = self.cfg.get_scoped("smoother", self.scope)
+        sm = make_nested(
+            SolverRegistry.get(name)(self.cfg, sscope, device=self.device)
+        )
+        sm.setup(A)
+        return sm
+
+    def _make_coarse_solver(self, A: SparseMatrix):
+        """Coarse solver for the coarsest operator, or None (NOSOLVER /
+        dense size gate: the coarsest level then smooths)."""
+        name, cscope = self.cfg.get_scoped("coarse_solver", self.scope)
+        if name == "NOSOLVER":
+            return None
+        if name in ("DENSE_LU_SOLVER", "DENSE_LU"):
+            # reference amg.cu:211: the max-rows cap applies only when
+            # dense_lu_max_rows != 0
+            if 0 < self.dense_lu_max_rows < A.n_rows:
+                return None
+        cs = make_nested(
+            SolverRegistry.get(name)(self.cfg, cscope, device=self.device)
+        )
+        cs.setup(A)
+        return cs
+
+    def _setup_impl(self, A: SparseMatrix):
+        from amgx_tpu_torch.ops.diagonal import scalarized
+
+        A = scalarized(A, "AMG")
+        given, self._given_levels = self._given_levels, None
+        if given is not None:
+            self._adopt_levels(A, given)
+        else:
+            self.levels = [AMGLevel(A, 0)]
+            self._coarsen_from(A.host_csr())
+        self._finalize_setup()
+
+    def _coarsen_from(self, Asp):
+        """Extend ``self.levels`` by coarsening from the last level
+        (whose host CSR is ``Asp``) until a stop condition hits.  The
+        JAX package's coarse RCM renumbering runs only on TPU backends
+        and has no counterpart here."""
+        coarse_name, _ = self.cfg.get_scoped("coarse_solver", self.scope)
+        stop_rows = self.min_coarse_rows
+        if coarse_name in ("DENSE_LU_SOLVER", "DENSE_LU"):
+            # reference amg.cu:207-230: with a dense-LU coarse solver,
+            # coarsening stops once the level fits the dense trigger
+            stop_rows = max(stop_rows, self.dense_lu_num_rows)
+        while True:
+            lvl = self.levels[-1]
+            n = lvl.n_rows
+            if (
+                len(self.levels) >= self.max_levels
+                or n <= stop_rows
+                or n <= self.min_fine_rows
+            ):
+                break
+            P, R, Ac = self._build_coarse(Asp)
+            nc = Ac.shape[0]
+            # stall: empty, non-shrinking, or shrinking slower than
+            # coarsen_threshold allows (reference amg.cu:365-370)
+            if nc >= n or nc == 0 or nc > self.coarsen_threshold * n:
+                break
+            dtype = Asp.dtype
+            lvl.P = SparseMatrix.from_scipy(
+                P.astype(dtype, copy=False), device=self.device
+            )
+            lvl.R = SparseMatrix.from_scipy(
+                R.astype(dtype, copy=False), device=self.device
+            )
+            Ac = Ac.astype(dtype, copy=False)
+            self.levels.append(
+                AMGLevel(
+                    SparseMatrix.from_scipy(Ac, device=self.device),
+                    len(self.levels),
+                )
+            )
+            Asp = Ac
+
+    def _adopt_levels(self, A, given):
+        """Levels from :func:`hierarchy_from_numpy`: the finest operator
+        is ``A``; P, R and the coarse operators are the given ones."""
+        if given[0]["A"].shape != A.shape:
+            raise ValueError(
+                f"hierarchy finest operator {given[0]['A'].shape} does "
+                f"not match the setup matrix {A.shape}"
+            )
+        self.levels = [AMGLevel(A, 0)]
+        for i, lv in enumerate(given[:-1]):
+            self.levels[-1].P = lv["P"]
+            self.levels[-1].R = lv["R"]
+            self.levels.append(AMGLevel(given[i + 1]["A"], i + 1))
+
+    def _finalize_setup(self):
+        for lvl in self.levels[:-1]:
+            lvl.smoother = self._make_smoother(lvl.A)
+        coarsest = self.levels[-1]
+        self.coarse_solver = self._make_coarse_solver(coarsest.A)
+        if self.coarse_solver is None:
+            # coarsest-level smoothing fallback (coarse_solver=NOSOLVER)
+            coarsest.smoother = self._make_smoother(coarsest.A)
+        self._params = self._collect_params()
+        if self.print_grid_stats and self.verbosity > 2:
+            print(self.grid_stats())
+
+    def _collect_params(self):
+        per_level = tuple(
+            (
+                lvl.A,
+                lvl.P,
+                lvl.R,
+                lvl.smoother.apply_params() if lvl.smoother else None,
+            )
+            for lvl in self.levels
+        )
+        coarse = (
+            self.coarse_solver.apply_params() if self.coarse_solver else None
+        )
+        return (per_level, coarse)
+
+    # ------------------------------------------------------------------
+    # cycles (reference fixed_cycle.cu FixedCycle::cycle)
+
+    def _level_sweeps(self, lvl_id):
+        pre, post = self.presweeps, self.postsweeps
+        if lvl_id == 0 and self.finest_sweeps >= 0:
+            # reference fixed_cycle.cu:197-201: finest_sweeps overrides
+            # both sweep counts on the finest level
+            pre = 0 if pre == 0 else self.finest_sweeps
+            post = 0 if post == 0 else self.finest_sweeps
+        return pre, post
+
+    def make_cycle(self):
+        """fn(params, b, x) -> x : one multigrid cycle (V, W or F).
+        W and F branch only on the top ``W_MAX_BRANCH_LEVELS`` levels,
+        as in the JAX package."""
+        n_levels = len(self.levels)
+        smooth_fns = [
+            lvl.smoother.make_smooth() if lvl.smoother else None
+            for lvl in self.levels
+        ]
+        coarse_apply = (
+            self.coarse_solver.make_apply() if self.coarse_solver else None
+        )
+        cycle_type = self.cycle_type
+
+        def visit(params, b, x, lvl_id, kind):
+            level_params, coarse_params = params
+            A, P, R, smp = level_params[lvl_id]
+            if lvl_id == n_levels - 1:
+                if coarse_apply is not None:
+                    # error-correction form (reference launchCoarseSolver)
+                    return x + coarse_apply(coarse_params, b - spmv(A, x))
+                return smooth_fns[lvl_id](smp, b, x, self.coarsest_sweeps)
+            pre, post = self._level_sweeps(lvl_id)
+            if pre > 0:
+                x = smooth_fns[lvl_id](smp, b, x, pre)
+            r = b - spmv(A, x)
+            bc = spmv(R, r)
+            xc = torch.zeros(R.n_rows, dtype=bc.dtype, device=bc.device)
+            branch = lvl_id < min(n_levels - 2, W_MAX_BRANCH_LEVELS)
+            if kind == "W" and branch:
+                xc = visit(params, bc, xc, lvl_id + 1, "W")
+                xc = visit(params, bc, xc, lvl_id + 1, "W")
+            elif kind == "F" and branch:
+                xc = visit(params, bc, xc, lvl_id + 1, "F")
+                xc = visit(params, bc, xc, lvl_id + 1, "V")
+            else:
+                xc = visit(params, bc, xc, lvl_id + 1, kind)
+            x = x + spmv(P, xc)
+            if post > 0:
+                x = smooth_fns[lvl_id](smp, b, x, post)
+            return x
+
+        def cycle(params, b, x):
+            return visit(params, b, x, 0, cycle_type)
+
+        return cycle
+
+    # ------------------------------------------------------------------
+    # Solver interface: one cycle per iteration (reference
+    # AlgebraicMultigrid_Solver::solve_iteration, amg.cu:1102-1117)
+
+    def operator_of(self, params):
+        level_params, _ = params
+        return level_params[0][0]
+
+    def make_step(self):
+        cycle = self.make_cycle()
+
+        def step(params, b, x):
+            return cycle(params, b, x)
+
+        return step
+
+    def cycle_passes_per_iteration(self):
+        """Square-operator SpMVs one cycle makes, counted by running one
+        cycle on zero vectors under ``op_pass_counter`` (the JAX
+        package counts the same sites at trace time).  Cached per
+        setup."""
+        key = "cycle_passes"
+        if key not in self._cache:
+            A0 = self.levels[0].A
+            z = torch.zeros(A0.n_rows, dtype=A0.dtype, device=A0.device)
+            with op_pass_counter() as c:
+                self.make_cycle()(self.apply_params(), z, z)
+            self._cache[key] = c.count
+        return self._cache[key]
+
+    def level_summary(self):
+        """[(rows, nnz, format), ...] of each level's operator, and the
+        formats of its P and R."""
+        return [
+            {
+                "rows": lvl.n_rows,
+                "nnz": lvl.nnz,
+                "format": lvl.A.format,
+                "P": None if lvl.P is None else lvl.P.format,
+                "R": None if lvl.R is None else lvl.R.format,
+            }
+            for lvl in self.levels
+        ]
+
+    def grid_stats(self) -> str:
+        """Grid statistics table (reference AMG::printGridStatistics)."""
+        rows = []
+        total_rows = total_nnz = 0
+        for lvl in self.levels:
+            n, nnz = lvl.n_rows, lvl.nnz
+            total_rows += n
+            total_nnz += nnz
+            sp = nnz / (n * n) if n else 0.0
+            rows.append(
+                f"         {lvl.level_id:>5}(D)"
+                f" {n:>10} {nnz:>12} {sp:>10.3g}  {lvl.A.format}"
+            )
+        fine = self.levels[0]
+        head = (
+            "         Number of Levels: %d\n" % len(self.levels)
+            + "            LVL         ROWS          NNZ    SPRSTY  FORMAT\n"
+            + "         " + "-" * 56
+        )
+        tail = (
+            "         " + "-" * 56 + "\n"
+            f"         Grid Complexity: {total_rows / fine.n_rows:.5g}\n"
+            f"         Operator Complexity: {total_nnz / fine.nnz:.5g}"
+        )
+        return "\n".join([head] + rows + [tail])
+
+
+def hierarchy_from_numpy(levels, cfg, device="cuda", scope="default"):
+    """Set up the solver ``cfg`` names on a given AMG hierarchy, without
+    coarsening.
+
+    ``levels`` is a list, finest first, of dicts with ``"A"`` and (all
+    but the last) ``"P"`` and ``"R"``, each a CSR tuple
+    ``(row_offsets, col_indices, values, shape)`` of numpy arrays.  The
+    AMG solver is the config's top-level solver or its preconditioner.
+    Smoothers and the coarse solver are set up on the given operators
+    as a normal setup would.  Returns the set-up solver."""
+    solver = create_solver(cfg, scope, device=device)
+    amg = solver if isinstance(solver, AMGSolver) \
+        else getattr(solver, "precond", None)
+    if not isinstance(amg, AMGSolver):
+        raise ValueError("the config names no AMG solver or preconditioner")
+
+    def mat(t):
+        ro, ci, v, shape = t
+        return SparseMatrix.from_csr(
+            np.asarray(ro), np.asarray(ci), np.asarray(v),
+            n_cols=int(shape[1]), device=device,
+        )
+
+    given = []
+    for i, lv in enumerate(levels):
+        given.append({
+            "A": mat(lv["A"]),
+            "P": mat(lv["P"]) if i + 1 < len(levels) else None,
+            "R": mat(lv["R"]) if i + 1 < len(levels) else None,
+        })
+    amg._given_levels = given
+    solver.setup(given[0]["A"])
+    return solver

@@ -1,0 +1,62 @@
+"""BLAS-1 vector ops (reference src/blas.cu) and call-site counters.
+
+``make_site_counter`` is the JAX package's counter pattern: ``record``
+adds into the active context's count, ``counter()`` yields a
+:class:`SiteCount` for the duration of a ``with`` block (thread-local,
+nesting-safe).  The JAX package counts at trace time; here the code
+runs eagerly, so a counter counts the calls made while it is active.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import torch
+
+_TLS = threading.local()
+
+
+class SiteCount:
+    """Mutable counter yielded by a site counter's context manager."""
+
+    def __init__(self):
+        self.count = 0
+
+
+def make_site_counter(slot: str):
+    """``(record, counter)`` pair on its own thread-local slot."""
+
+    def record(n: int = 1) -> None:
+        c = getattr(_TLS, slot, None)
+        if c is not None:
+            c.count += n
+
+    @contextlib.contextmanager
+    def counter():
+        prev = getattr(_TLS, slot, None)
+        c = SiteCount()
+        setattr(_TLS, slot, c)
+        try:
+            yield c
+        finally:
+            setattr(_TLS, slot, prev)
+
+    return record, counter
+
+
+def dot(x, y):
+    """<x, y> with complex conjugation on the first argument, as a
+    0-dim tensor on the device (no host sync)."""
+    if x.is_complex():
+        return torch.vdot(x, y)
+    return torch.dot(x, y)
+
+
+def fused_dots(pairs):
+    """k dot products as one stacked reduction -> (k,) tensor."""
+    xs = torch.stack([p[0] for p in pairs])
+    ys = torch.stack([p[1] for p in pairs])
+    if xs.is_complex():
+        xs = xs.conj()
+    return torch.sum(xs * ys, dim=1)

@@ -1,0 +1,34 @@
+"""Diagonal helpers for smoothers (scalar matrices).
+
+Zero-pivot policy, as in the JAX package: a zero diagonal entry gets
+reciprocal 1.0 (the reference's zero_in_diagonal_handling behaviour).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def scalarized(A, solver_name: str):
+    """The scalar operator of ``A``.  Scalar matrices pass through;
+    block matrices are not ported yet."""
+    if A.block_size == 1:
+        return A
+    raise NotImplementedError(
+        f"{solver_name}: block matrices are not ported yet "
+        "(ROADMAP.md, queue A: block matrices and reduced precision)"
+    )
+
+
+def invert_diag(A):
+    """1 / diag(A) on A's device, computed on the host at setup."""
+    d = A.diag.cpu().numpy()
+    with np.errstate(divide="ignore"):
+        inv = np.where(d != 0, 1.0 / d, 1.0)
+    return torch.from_numpy(inv.astype(d.dtype, copy=False)).to(A.device)
+
+
+def apply_dinv(dinv, r):
+    """z = D^{-1} r."""
+    return dinv * r

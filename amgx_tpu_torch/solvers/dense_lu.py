@@ -1,0 +1,114 @@
+"""Dense LU coarse solver (reference dense_lu_solver.cu: getrf/getrs on
+the densified coarse matrix).
+
+Densify at setup on the host, factorize once with
+``torch.linalg.lu_factor`` on the solver's device; the apply is
+``torch.linalg.lu_solve``.  Zero-pivot guard as in the JAX package: the
+host reads the U diagonal of the factorization, and a singular matrix
+either raises :class:`SingularDiagonalError` (``dense_lu_zero_pivot=
+RAISE``) or switches the apply to the pseudoinverse (REGULARIZE, the
+default).
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from amgx_tpu_torch.core.errors import SingularDiagonalError
+from amgx_tpu_torch.solvers.base import Solver
+from amgx_tpu_torch.solvers.registry import register_solver
+
+
+def _bad_pivots(lu) -> bool:
+    """Host check of the factorization's U diagonal: exact zeros, NaNs,
+    or pivots tiny enough that back-substitution overflows."""
+    lu = lu.cpu().numpy()
+    d = np.abs(np.diag(lu))
+    if d.size == 0:
+        return False
+    if not np.all(np.isfinite(lu)):
+        return True
+    dmax = float(d.max())
+    if dmax == 0.0:
+        return True
+    tiny = np.finfo(d.dtype).eps * d.shape[0] * dmax
+    return bool(np.any(d <= tiny))
+
+
+@register_solver("DENSE_LU_SOLVER")
+class DenseLUSolver(Solver):
+    def __init__(self, cfg, scope="default", device="cuda"):
+        super().__init__(cfg, scope, device=device)
+        self.zero_pivot_policy = str(
+            cfg.get("dense_lu_zero_pivot", scope)
+        ).upper()
+        self._pinv_mode = False
+
+    def _setup_impl(self, A):
+        dense = np.asarray(A.to_dense())
+        self._pinv_mode = False
+        # the _ex form: lu_factor itself raises on an exact zero pivot,
+        # before the policy below can choose between RAISE and REGULARIZE
+        lu, piv, _ = torch.linalg.lu_factor_ex(
+            torch.from_numpy(dense).to(self.device)
+        )
+        if _bad_pivots(lu):
+            if self.zero_pivot_policy == "RAISE":
+                raise SingularDiagonalError(
+                    f"DENSE_LU: singular coarse matrix "
+                    f"({A.n_rows} rows): zero/tiny pivot in LU"
+                )
+            warnings.warn(
+                f"DENSE_LU: singular coarse matrix ({A.n_rows} rows); "
+                "switching to pseudoinverse coarse solve "
+                "(dense_lu_zero_pivot=REGULARIZE)"
+            )
+            self._pinv_mode = True
+            pinv = np.linalg.pinv(dense)
+            if not np.all(np.isfinite(pinv)):
+                raise SingularDiagonalError(
+                    f"DENSE_LU: pseudoinverse of the coarse matrix "
+                    f"({A.n_rows} rows) is non-finite"
+                )
+            self._params = (A, torch.from_numpy(pinv).to(self.device), piv)
+            return
+        self._params = (A, lu, piv)
+
+    def make_apply(self):
+        if self._pinv_mode:
+            def apply_pinv(params, r):
+                _, pinv, _ = params
+                return torch.matmul(pinv, r)
+
+            return apply_pinv
+
+        def apply(params, r):
+            _, lu, piv = params
+            return torch.linalg.lu_solve(lu, piv, r.unsqueeze(-1)).squeeze(-1)
+
+        return apply
+
+    def make_smooth(self):
+        apply = self.make_apply()
+
+        def smooth(params, b, x, sweeps):
+            # direct solve: the result does not depend on x or sweeps
+            return apply(params, b)
+
+        return smooth
+
+    def make_solve(self):
+        apply = self.make_apply()
+
+        def solve(params, b, x0):
+            return self._fixed_result(apply(params, b), b, 1)
+
+        return solve
+
+
+@register_solver("DENSE_LU")
+class DenseLUAlias(DenseLUSolver):
+    pass

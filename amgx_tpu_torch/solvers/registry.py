@@ -1,0 +1,77 @@
+"""Factory registry (reference SolverFactory, solver.h:281-310).
+
+Maps the solver names of config files to solver classes.  Names the
+JAX package registers but this port does not yet raise
+``NotImplementedError`` naming the ROADMAP queue that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+_SOLVERS: Dict[str, Callable] = {}
+
+# registered by the JAX package, not ported yet (ROADMAP.md, queue A,
+# items "remaining solvers")
+UNPORTED = frozenset({
+    "BICGSTAB", "CF_JACOBI", "CHEBYSHEV", "CHEBYSHEV_POLY", "FGMRES",
+    "FIXCOLOR_GS", "GMRES", "GS", "IDR", "IDRMSYNC", "INEXACT",
+    "ITERATIVE_REFINEMENT", "JACOBI_L1", "KACZMARZ", "KPZ_POLYNOMIAL",
+    "MULTICOLOR_DILU", "MULTICOLOR_GS", "MULTICOLOR_ILU", "NOSOLVER",
+    "OPT_POLYNOMIAL", "PBICGSTAB", "PCGF", "POLYNOMIAL", "SSTEP_PCG",
+})
+
+
+class SolverRegistry:
+    @staticmethod
+    def register(name: str, cls):
+        _SOLVERS[name] = cls
+
+    @staticmethod
+    def get(name: str):
+        cls = _SOLVERS.get(name)
+        if cls is not None:
+            return cls
+        if name in UNPORTED:
+            raise NotImplementedError(
+                f"solver {name!r} is not ported to PyTorch yet "
+                "(ROADMAP.md, queue A: remaining solvers)"
+            )
+        raise KeyError(
+            f"unregistered solver {name!r}; known: {sorted(_SOLVERS)}"
+        )
+
+
+def register_solver(name: str):
+    """Class decorator: @register_solver("PCG")."""
+
+    def deco(cls):
+        SolverRegistry.register(name, cls)
+        cls.registry_name = name
+        return cls
+
+    return deco
+
+
+def create_solver(cfg, scope: str = "default", param: str = "solver",
+                  device="cuda"):
+    """Allocate the solver named by ``param`` in ``scope`` on
+    ``device`` (default the card)."""
+    if param == "solver" and scope == "default" \
+            and bool(cfg.get("print_config", scope)):
+        lines = ["         AMG Configuration:"]
+        for (sc, name_), v in sorted(cfg.items().items()):
+            lines.append(f"           {sc}:{name_} = {v!r}")
+        print("\n".join(lines))
+    name, new_scope = cfg.get_scoped(param, scope)
+    cls = SolverRegistry.get(name)
+    return cls(cfg, new_scope, device=device)
+
+
+def make_nested(solver):
+    """Mark a solver as nested (preconditioner / smoother / coarse
+    solver): nested solvers never scale or reorder; only the outer
+    solve() boundary may."""
+    solver.scaling = "NONE"
+    solver.reordering = "NONE"
+    return solver
