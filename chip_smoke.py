@@ -75,7 +75,7 @@ SLICE_N = 128
 
 # Data-sheet peaks (NVIDIA, dense, without sparsity): memory bytes/s,
 # float32 and float64 FLOP/s outside the tensor cores.  Matched on the
-# card's name; the H100 SXM row is the on-chip-measurement table's.
+# card's name.
 PEAKS = (
     ("H100 PCIe", {"bw": 2.0e12, "f32": 51.2e12, "f64": 25.6e12}),
     ("H100 NVL", {"bw": 3.9e12, "f32": 60.0e12, "f64": 30.0e12}),
