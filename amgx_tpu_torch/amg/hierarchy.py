@@ -6,11 +6,16 @@ same host-side loop: coarsen with scipy level by level until a stop
 condition hits (``_coarsen_from``), then ship the levels to the device,
 set up a smoother per level and the coarse solver on the last.  The
 cycle is a Python recursion over the levels, run eagerly; its SpMVs go
-through ``ops/spmv.py`` (DIA and ELL kernels on the card).
+through ``ops/spmv.py`` (stencil, DIA and ELL kernels on the card).
 
-Cycles V, W and F are ported.  Not ported yet, and raising
-``NotImplementedError`` when a config asks for them (ROADMAP.md, queue
-A): K-cycles (CG/CGF), ``matrix_free`` / fused cycle legs,
+Cycles V, W and F are ported, and ``matrix_free`` with ``fused_cycle``:
+under ``matrix_free=1`` every square operator (the finest one rebuilt
+from its host CSR, each coarse one as it is formed) takes the
+MATRIX_FREE format where stencil detection verifies it, and
+``fused_cycle=1`` runs the descent leg of each such level through
+``ops/stencil.py:fused_cycle_leg``: the same launches, counted as one
+operator pass.  Not ported yet, and raising ``NotImplementedError``
+when a config asks for them (ROADMAP.md, queue A): K-cycles (CG/CGF),
 ``structure_reuse_levels``, ``hierarchy_dtype``, ``error_scaling``,
 CLASSICAL / ENERGYMIN coarsening and the setup store.
 
@@ -26,6 +31,7 @@ import torch
 
 from amgx_tpu_torch.core.matrix import SparseMatrix
 from amgx_tpu_torch.ops.spmv import op_pass_counter, spmv
+from amgx_tpu_torch.ops.stencil import fused_cycle_leg
 from amgx_tpu_torch.solvers.base import Solver
 from amgx_tpu_torch.solvers.registry import (
     SolverRegistry,
@@ -91,6 +97,7 @@ class AMGSolver(Solver):
         )
         self.structure_reuse = int(g("structure_reuse_levels"))
         self.matrix_free = bool(g("matrix_free"))
+        self.fused_cycle = bool(g("fused_cycle"))
         self.hierarchy_dtype = str(g("hierarchy_dtype")).upper()
         if self.intensive_smoothing:
             self.presweeps = max(self.presweeps, 4)
@@ -111,9 +118,6 @@ class AMGSolver(Solver):
         if self.cycle_type not in ("V", "W", "F"):
             raise _unported(f"cycle={self.cycle_type} (K-cycle)",
                             "aggregation AMG extras")
-        if self.matrix_free:
-            raise _unported("matrix_free=1 (stencil kernel, fused legs)",
-                            "matrix-free stencils")
         if self.structure_reuse != 0:
             raise _unported("structure_reuse_levels",
                             "aggregation AMG extras")
@@ -157,10 +161,32 @@ class AMGSolver(Solver):
         cs.setup(A)
         return cs
 
+    def _accel_formats(self):
+        """Formats hierarchy operators build with: ``matrix_free``
+        puts the MATRIX_FREE format first (each format still behind its
+        own gate, so non-stencil operators build as before)."""
+        if self.matrix_free:
+            return ("matrix_free", "dia", "dense", "ell")
+        return ("dia", "dense", "ell")
+
+    def _maybe_matrix_free(self, A: SparseMatrix) -> SparseMatrix:
+        """The finest operator rebuilt from its host CSR triple with
+        the MATRIX_FREE format, on the same device, when the knob is on
+        and detection succeeds; ``A`` itself otherwise."""
+        if not self.matrix_free or not A.is_square or A.has_matrix_free:
+            return A
+        ro, ci, v = A._host
+        new = SparseMatrix.from_csr(
+            ro, ci, v, n_cols=A.n_cols,
+            accel_formats=self._accel_formats(), validate=False,
+            device=A.device,
+        )
+        return new if new.has_matrix_free else A
+
     def _setup_impl(self, A: SparseMatrix):
         from amgx_tpu_torch.ops.diagonal import scalarized
 
-        A = scalarized(A, "AMG")
+        A = self._maybe_matrix_free(scalarized(A, "AMG"))
         given, self._given_levels = self._given_levels, None
         if given is not None:
             self._adopt_levels(A, given)
@@ -205,7 +231,13 @@ class AMGSolver(Solver):
             Ac = Ac.astype(dtype, copy=False)
             self.levels.append(
                 AMGLevel(
-                    SparseMatrix.from_scipy(Ac, device=self.device),
+                    # Galerkin products of constant stencils on
+                    # divisible grids stay constant stencils; each level
+                    # is verified on its own
+                    SparseMatrix.from_scipy(
+                        Ac, device=self.device,
+                        accel_formats=self._accel_formats(),
+                    ),
                     len(self.levels),
                 )
             )
@@ -269,6 +301,12 @@ class AMGSolver(Solver):
         W and F branch only on the top ``W_MAX_BRANCH_LEVELS`` levels,
         as in the JAX package."""
         n_levels = len(self.levels)
+        # fused descent legs: static per level, MATRIX_FREE operators
+        # only (as in the JAX package)
+        fused_lvls = [
+            self.fused_cycle and lvl.A.has_matrix_free
+            for lvl in self.levels
+        ]
         smooth_fns = [
             lvl.smoother.make_smooth() if lvl.smoother else None
             for lvl in self.levels
@@ -287,10 +325,16 @@ class AMGSolver(Solver):
                     return x + coarse_apply(coarse_params, b - spmv(A, x))
                 return smooth_fns[lvl_id](smp, b, x, self.coarsest_sweeps)
             pre, post = self._level_sweeps(lvl_id)
-            if pre > 0:
-                x = smooth_fns[lvl_id](smp, b, x, pre)
-            r = b - spmv(A, x)
-            bc = spmv(R, r)
+            if fused_lvls[lvl_id]:
+                # the unfused sequence below, counted as one pass
+                x, r, bc = fused_cycle_leg(
+                    A, R, smooth_fns[lvl_id], smp, b, x, pre
+                )
+            else:
+                if pre > 0:
+                    x = smooth_fns[lvl_id](smp, b, x, pre)
+                r = b - spmv(A, x)
+                bc = spmv(R, r)
             xc = torch.zeros(R.n_rows, dtype=bc.dtype, device=bc.device)
             branch = lvl_id < min(n_levels - 2, W_MAX_BRANCH_LEVELS)
             if kind == "W" and branch:
@@ -391,7 +435,10 @@ def hierarchy_from_numpy(levels, cfg, device="cuda", scope="default"):
     ``(row_offsets, col_indices, values, shape)`` of numpy arrays.  The
     AMG solver is the config's top-level solver or its preconditioner.
     Smoothers and the coarse solver are set up on the given operators
-    as a normal setup would.  Returns the set-up solver."""
+    as a normal setup would.  Every operator builds with the formats a
+    normal setup would give it (``AMGSolver._accel_formats``), so under
+    ``matrix_free=1`` the stencil levels are MATRIX_FREE.  Returns the
+    set-up solver."""
     solver = create_solver(cfg, scope, device=device)
     amg = solver if isinstance(solver, AMGSolver) \
         else getattr(solver, "precond", None)
@@ -403,6 +450,7 @@ def hierarchy_from_numpy(levels, cfg, device="cuda", scope="default"):
         return SparseMatrix.from_csr(
             np.asarray(ro), np.asarray(ci), np.asarray(v),
             n_cols=int(shape[1]), device=device,
+            accel_formats=amg._accel_formats(),
         )
 
     given = []

@@ -1,14 +1,17 @@
-"""CSR sparse matrix with DIA / dense / ELL acceleration structures,
-held as torch tensors on one device.
+"""CSR sparse matrix with MATRIX_FREE / DIA / dense / ELL acceleration
+structures, held as torch tensors on one device.
 
 Counterpart of the JAX package's ``core/matrix.py`` (reference
 Matrix<TConfig>, include/matrix.h:65).  The host-side constructors
 are copies of the JAX package's numpy code, so both packages pick the same
 format for the same matrix and fill it with the same values:
 
+  * MATRIX_FREE when ``"matrix_free"`` is requested and the matrix is a
+    verified constant or axis-separable stencil (``ops/stencil.py``):
+    ``nd`` (or ``nd x L``) coefficients replace the DIA value planes;
   * DIA when the matrix has few distinct diagonals with acceptable
     padding (``_DIA_MAX_DIAGS``, ``_DIA_MAX_OVERHEAD``);
-  * dense for small matrices that are not DIA (4096 rows and columns
+  * dense for small matrices that are neither (4096 rows and columns
     or fewer);
   * ELL when the padded width stays within ``_ELL_MAX_WIDTH`` and
     ``_ELL_MAX_OVERHEAD``.
@@ -19,8 +22,9 @@ Differences from the JAX package:
     threads (one per row) read neighbouring addresses for each slot.
     The JAX package stores ``(n_rows, w)``.
   * No TPU windowed-ELL layout (the CUDA kernel gathers per thread), no
-    MATRIX_FREE stencil state, no partitions and no ``replace_values``
-    (ROADMAP.md, queue A).
+    partitions and no ``replace_values``, so the source maps into the
+    CSR values (``dia_src``, the stencil's) are built on the host for
+    stencil detection and then dropped (ROADMAP.md, queue A).
   * Block matrices (``block_size > 1``) and bf16 values are not ported
     yet.
   * ``device`` defaults to ``"cuda"``; without a card the constructors
@@ -78,6 +82,9 @@ class SparseMatrix:
       dia_vals (nd, n): dia_vals[k, i] = A[i, i + dia_offsets[k]], with
       dia_offsets a sorted tuple and dia_offsets_dev the same offsets as
       an int32 tensor on the device (built once, read by the kernel).
+      mf_meta (host ``StencilMeta``), mf_coefs (nd,) or (nd, L) in the
+      values' dtype and mf_steps_dev (nd, 3) int32 grid steps on the
+      device: the MATRIX_FREE state (``ops/stencil.py``).
       dense (n_rows, n_cols).
       ell_cols / ell_vals (w, n_rows), slot-major; padding slots hold
       column 0 and value 0.
@@ -93,6 +100,9 @@ class SparseMatrix:
     dia_offsets: Optional[tuple] = None
     dia_offsets_dev: Optional[torch.Tensor] = None
     dia_vals: Optional[torch.Tensor] = None
+    mf_meta: Optional[object] = None
+    mf_coefs: Optional[torch.Tensor] = None
+    mf_steps_dev: Optional[torch.Tensor] = None
     dense: Optional[torch.Tensor] = None
     ell_cols: Optional[torch.Tensor] = None
     ell_vals: Optional[torch.Tensor] = None
@@ -122,6 +132,10 @@ class SparseMatrix:
         return self.n_rows == self.n_cols
 
     @property
+    def has_matrix_free(self) -> bool:
+        return self.mf_meta is not None
+
+    @property
     def has_dia(self) -> bool:
         return self.dia_offsets is not None
 
@@ -136,6 +150,8 @@ class SparseMatrix:
     @property
     def format(self) -> str:
         """The format SpMV dispatches to (ops/spmv.py order)."""
+        if self.has_matrix_free:
+            return "MATRIX_FREE"
         if self.has_dia:
             return "DIA"
         if self.has_dense:
@@ -161,8 +177,10 @@ class SparseMatrix:
         """Build from host CSR arrays (reference AMGX_matrix_upload_all).
 
         Formats are built in the JAX package's order (its
-        ``core/matrix.py:404-491``): DIA, then dense if not DIA, then
-        ELL if neither; ``accel_formats`` restricts which may build."""
+        ``core/matrix.py:404-491``): DIA, then MATRIX_FREE (which
+        replaces the DIA planes when detection succeeds), then dense if
+        neither, then ELL if none; ``accel_formats`` restricts which
+        may build (MATRIX_FREE only when asked for)."""
         if block_size != 1:
             raise NotImplementedError(
                 "block matrices (block_size > 1) are not ported yet "
@@ -198,17 +216,36 @@ class SparseMatrix:
         row_ids = np.repeat(np.arange(n_rows, dtype=np.int32), row_lens)
         diag = _extract_diag_np(row_offsets, col_indices, values, n_rows)
 
-        dia_offsets = dia_vals = None
+        dia_offsets = dia_vals = dia_src = None
         if "dia" in accel_formats and n_rows == n_cols and nnz:
-            dia_offsets, dia_vals = _try_build_dia_np(
+            dia_offsets, dia_vals, dia_src = _try_build_dia_np(
                 row_offsets, col_indices, values, row_ids, n_rows
             )
+
+        mf_meta = mf_coefs = None
+        if "matrix_free" in accel_formats and n_rows == n_cols and nnz:
+            # detection reads DIA planes; build them transiently when
+            # "dia" was not requested
+            trio = (dia_offsets, dia_vals, dia_src)
+            if trio[0] is None:
+                trio = _try_build_dia_np(
+                    row_offsets, col_indices, values, row_ids, n_rows
+                )
+            if trio[0] is not None:
+                from amgx_tpu_torch.ops.stencil import detect_stencil_np
+
+                det = detect_stencil_np(trio[0], trio[1], trio[2], n_rows)
+                if det is not None:
+                    # the compact state replaces the O(nnz) DIA planes
+                    mf_meta, mf_coefs, _ = det
+                    dia_offsets = dia_vals = None
 
         dense = None
         dense_bytes = n_rows * n_cols * values.dtype.itemsize
         if (
             "dense" in accel_formats
             and dia_offsets is None
+            and mf_meta is None
             and 0 < n_rows <= _DENSE_MAX_ROWS
             and n_cols <= _DENSE_MAX_ROWS
             and dense_bytes <= 64 * 1024 * 1024
@@ -221,6 +258,7 @@ class SparseMatrix:
             "ell" in accel_formats
             and n_rows > 0
             and dia_offsets is None
+            and mf_meta is None
             and dense is None
         ):
             w = int(row_lens.max()) if nnz else 0
@@ -248,6 +286,12 @@ class SparseMatrix:
                 else put(np.asarray(dia_offsets, dtype=np.int32))
             ),
             dia_vals=put(dia_vals),
+            mf_meta=mf_meta,
+            mf_coefs=put(mf_coefs),
+            mf_steps_dev=(
+                None if mf_meta is None
+                else put(np.asarray(mf_meta.steps, dtype=np.int32))
+            ),
             dense=put(dense),
             # slot-major for coalesced kernel loads
             ell_cols=None if ell_cols is None else put(ell_cols.T),
@@ -331,14 +375,23 @@ def dia_gate(num_diags: int, n: int, nnz: int) -> bool:
 
 
 def _try_build_dia_np(row_offsets, col_indices, values, row_ids, n):
-    """(offsets tuple, dia_vals (nd, n)) or (None, None)."""
+    """(offsets tuple, dia_vals (nd, n), dia_src (nd, n)) or
+    (None, None, None).  ``dia_src[k, i]`` is the index into the CSR
+    arrays of the first entry stored at (i, i + offsets[k]), -1 where
+    none is; stencil detection picks its witness rows by it."""
     offs = col_indices.astype(np.int64) - row_ids.astype(np.int64)
     uniq = np.unique(offs)
     if not dia_gate(uniq.shape[0], n, col_indices.shape[0]):
-        return None, None
+        return None, None, None
     dia_vals = np.zeros((uniq.shape[0], n), dtype=values.dtype)
     k = np.searchsorted(uniq, offs)
     # add (not assign): duplicate (row,col) entries must sum, matching
     # the ELL/CSR SpMV paths
     np.add.at(dia_vals, (k, row_ids), values)
-    return tuple(int(o) for o in uniq), dia_vals
+    # unbuffered minimum: FIRST occurrence wins
+    sentinel = np.iinfo(np.int32).max
+    dia_src = np.full((uniq.shape[0], n), sentinel, dtype=np.int32)
+    idx = np.arange(col_indices.shape[0], dtype=np.int32)
+    np.minimum.at(dia_src, (k, row_ids), idx)
+    dia_src[dia_src == sentinel] = -1
+    return tuple(int(o) for o in uniq), dia_vals, dia_src

@@ -25,7 +25,9 @@
 //   * out-of-range columns are masked with an explicit bounds check
 //     instead of padding x (no copy of x);
 //   * the sum starts from +0.0 and runs in offset order, as the plain
-//     version (ops/dia.py:dia_spmv_plain) does;
+//     version (ops/dia.py:dia_spmv_plain) does, with one explicit fma
+//     per diagonal, so it agrees bit for bit with the stencil kernel
+//     (stencil_spmv.cu) on a matrix both formats hold;
 //   * k * n + i is computed in 64-bit.
 //
 // Plain C interface, loaded with ctypes (amgx_tpu_torch/ops/kernels.py).
@@ -41,6 +43,13 @@ constexpr int kThreads = 256;
 // grid-stride beyond this many blocks (64 per SM on 132 SMs)
 constexpr long long kMaxBlocks = 132LL * 64;
 
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dia_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ offsets,
@@ -54,7 +63,7 @@ dia_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ offsets,
     for (int k = 0; k < nd; ++k) {
       const int64_t j = i + static_cast<int64_t>(__ldg(offsets + k));
       const T xj = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
-      acc += __ldg(vals + static_cast<int64_t>(k) * n + i) * xj;
+      acc = fma_rn(__ldg(vals + static_cast<int64_t>(k) * n + i), xj, acc);
     }
     y[i] = acc;
   }

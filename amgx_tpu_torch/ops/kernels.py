@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("dia_spmv", "ell_spmv")
+SOURCES = ("dia_spmv", "ell_spmv", "stencil_spmv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -35,9 +35,9 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# (pointer, pointer, int, pointer, pointer, rows, stream) for both
-# kernels: every pointer and the stream as c_void_p so ctypes passes
-# 64 bits
+# every pointer and the stream as c_void_p so ctypes passes 64 bits.
+# DIA and ELL: (pointer, pointer, int, x, y, rows, stream); stencil:
+# (coefs, steps, nd, x, y, nx, ny, nz, stream)
 _SIGNATURES = {
     "dia_spmv": {
         "dia_spmv_f32": (_P, _P, _I, _P, _P, _LL, _P),
@@ -46,6 +46,10 @@ _SIGNATURES = {
     "ell_spmv": {
         "ell_spmv_f32": (_P, _P, _I, _P, _P, _LL, _P),
         "ell_spmv_f64": (_P, _P, _I, _P, _P, _LL, _P),
+    },
+    "stencil_spmv": {
+        "stencil_spmv_f32": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
+        "stencil_spmv_f64": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
     },
 }
 

@@ -12,13 +12,16 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (one ``nvcc`` per source, in parallel) and prints the build time and
    the ``ptxas`` register report.
 2. Kernels: each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it (the 128^3 Poisson level 0, its
+   at the shapes the main paths give it (the 128^3 Poisson level 0, its
    prolongation P and restriction R) and on edge cases.  One JSON line
    per case: max errors, kernel / plain / library (``torch.sparse`` CSR
    product, a yardstick the port never calls) times in ms from CUDA
    events (median of 25 launches, L2 flushed before each), and the
-   roofline bound from this run's bytes and operations.
-3. Slice: the bench solve (PCG + aggregation-AMG V-cycle, SIZE_8,
+   roofline bound from this run's bytes and operations.  Each stencil
+   case is also held against the DIA kernel on the same matrix, which
+   it must equal bit for bit, and the DIA kernel's time is printed
+   beside it.
+3. DIA slice: the bench solve (PCG + aggregation-AMG V-cycle, SIZE_8,
    BLOCK_JACOBI, DENSE_LU) on ``poisson_3d_7pt(128)`` in f32 through
    the port's entry points.  Kernel launch counts are zeroed just
    before setup and read just after the solve.  Checks status 0, the
@@ -26,7 +29,14 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the solve through the port on the CPU (plain versions) and compares
    iterations and x.  Then 64^3 in f64 (iterations equal, x to rtol
    1e-9) and the 16^3 SIZE_2 ``entry()`` config.
-4. Prints the per-kernel summary line, then the device line last.
+4. MATRIX_FREE slice: the same bench solve with ``"matrix_free": 1``
+   on a matrix uploaded with the MATRIX_FREE format, counts zeroed
+   just before setup and read just after the solve.  Checks every level
+   MATRIX_FREE, the launch counts (stencil kernel on every A-SpMV, no
+   DIA launch), the fused pass count, and x bit for bit equal to the
+   DIA slice's x on the card; then the CPU run, 64^3 f64 on both, and a
+   trace of the warm solve.
+5. Prints the per-kernel summary line, then the device line last.
 
 Exits non-zero without a result when CUDA is unavailable.  Imports
 nothing of JAX or of the JAX package ``amgx_tpu``.
@@ -71,6 +81,11 @@ ENTRY_CFG = (
     ' "monitor_residual": 0}}}'
 )
 
+# the bench config with the MATRIX_FREE format and (by default) fused
+# descent legs
+MF_CFG = BENCH_CFG.replace('"cycle": "V",', '"cycle": "V", "matrix_free": 1,')
+MF_FORMATS = ("matrix_free", "dia", "dense", "ell")
+
 SLICE_N = 128
 
 # Data-sheet peaks (NVIDIA, dense, without sparsity): memory bytes/s,
@@ -113,7 +128,9 @@ class Timer:
     """Device time of one call from CUDA events: the device is kept busy
     by a sleep kernel while the host enqueues, so host overhead between
     launches does not show; a 128 MiB write before each launch evicts
-    the 50 MB L2, as the main path finds these operands cold."""
+    the 50 MB L2, as the main path finds these operands cold
+    (``flush=False`` leaves the operands of the previous launch in
+    L2)."""
 
     def __init__(self, torch, reps=25):
         self.torch = torch
@@ -121,7 +138,7 @@ class Timer:
         self.flush = torch.empty(32 << 20, dtype=torch.float32,
                                  device="cuda")
 
-    def __call__(self, fn):
+    def __call__(self, fn, flush=True):
         torch = self.torch
         fn()
         torch.cuda.synchronize()
@@ -130,7 +147,8 @@ class Timer:
               for _ in range(self.reps)]
         torch.cuda._sleep(200_000_000)
         for s, e in ev:
-            self.flush.zero_()
+            if flush:
+                self.flush.zero_()
             s.record()
             fn()
             e.record()
@@ -139,10 +157,10 @@ class Timer:
 
 
 def kernel_case(torch, timer, peaks, name, label, run, plain, csr, nbytes,
-                nops, dtype):
+                nops, dtype, extra=None):
     """Compare one kernel with its plain version on the card, time the
     kernel, the plain version and the library CSR product, and return
-    the case's record."""
+    the case's record (``extra`` adds fields to it)."""
     y = run()
     yp = plain()
     torch.cuda.synchronize()
@@ -174,6 +192,7 @@ def kernel_case(torch, timer, peaks, name, label, run, plain, csr, nbytes,
         "bytes": int(nbytes), "ops": int(nops),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **(extra or {}),
     }
     print(json.dumps(rec), flush=True)
     return rec
@@ -195,7 +214,7 @@ def kernel_phase(torch, peaks):
     from amgx_tpu_torch.amg.aggregation import geo_aggregate
     from amgx_tpu_torch.core.matrix import SparseMatrix
     from amgx_tpu_torch.io.poisson import poisson_scipy
-    from amgx_tpu_torch.ops import dia, ell
+    from amgx_tpu_torch.ops import dia, ell, stencil
 
     timer = Timer(torch)
     rng = np.random.default_rng(0)
@@ -237,11 +256,66 @@ def kernel_phase(torch, peaks):
             nops=2 * w * n, dtype=A.ell_vals.dtype,
         ))
 
+    def stencil_case(label, sp, dtype):
+        """The stencil kernel against its plain version and, bit for
+        bit, against the DIA kernel on the same matrix."""
+        sp = sp.astype(dtype)
+        A = SparseMatrix.from_scipy(sp, device="cuda",
+                                    accel_formats=("matrix_free",))
+        check(A.has_matrix_free and A.mf_meta.kind == "const",
+              f"{label}: not a constant stencil")
+        D = SparseMatrix.from_scipy(sp, device="cuda",
+                                    accel_formats=("dia",))
+        check(D.has_dia, f"{label}: not DIA")
+        x = torch.from_numpy(rng.standard_normal(A.n_rows).astype(dtype))
+        x = x.cuda()
+        nd, n = len(A.mf_meta.steps), A.n_rows
+        isz = A.mf_coefs.element_size()
+
+        def run_dia():
+            return dia.dia_spmv(D.dia_vals, D.dia_offsets_dev, x)
+
+        y_st, y_dia = stencil.stencil_spmv(A, x), run_dia()
+        torch.cuda.synchronize()
+        vs_dia = float((y_st - y_dia).abs().max())
+        check(vs_dia == 0.0 and torch.equal(y_st, y_dia),
+              f"{label}: stencil vs DIA kernel max diff {vs_dia:.3e}")
+        ro, ci, vals, shape = csr_of(torch, sp, dtype)
+        recs.append(kernel_case(
+            torch, timer, peaks, "stencil_spmv", label,
+            lambda: stencil.stencil_spmv(A, x),
+            lambda: stencil.stencil_spmv_plain(A.mf_meta, A.mf_coefs, x),
+            (ro, ci, vals, shape, x),
+            nbytes=isz * 2 * n + 16 * nd, nops=2 * nd * n,
+            dtype=A.mf_coefs.dtype,
+            extra={"grid": list(A.mf_meta.grid), "diagonals": nd,
+                   "max_abs_diff_vs_dia_kernel": vs_dia,
+                   "dia_kernel_ms": timer(run_dia),
+                   # x and y (2 x 8 MB at 128^3 f32) stay in L2: what
+                   # is left is the kernel's own instruction time
+                   "kernel_ms_warm_l2": timer(
+                       lambda: stencil.stencil_spmv(A, x), flush=False)},
+        ))
+
     N = SLICE_N
     A0 = poisson_scipy((N, N, N))
     dia_case(f"level0 A {N}^3 f32", A0, np.float32)
     dia_case(f"level0 A {N}^3 f64", A0, np.float64)
+    stencil_case(f"level0 A {N}^3 f32", A0, np.float32)
+    stencil_case(f"level0 A {N}^3 f64", A0, np.float64)
     del A0
+    # poisson_scipy's last axis is the grid's fastest (x)
+    stencil_case("level4 A 8^3 (512 rows) f32", poisson_scipy((8, 8, 8)),
+                 np.float32)
+    stencil_case("unaligned grid 17x23x31 f32",
+                 poisson_scipy((31, 23, 17)), np.float32)
+    stencil_case("multi-block grid 64x32x16 f32",
+                 poisson_scipy((16, 32, 64)), np.float32)
+    ones3 = sps.diags_array([np.ones(63), np.ones(64), np.ones(63)],
+                            offsets=[-1, 0, 1], format="csr")
+    stencil_case("27-point grid 64^3 f32",
+                 sps.kron(sps.kron(ones3, ones3), ones3, format="csr"),
+                 np.float32)
 
     n = 5000
     offs = (-301, -7, 0, 7, 301)
@@ -280,13 +354,18 @@ def kernel_phase(torch, peaks):
     return recs
 
 
-def solve_on(device, cfg_str, n, dtype):
-    """Setup + solve through the port's entry points; returns
-    (solver, result, setup_s)."""
+def solve_on(device, cfg_str, n, dtype, accel_formats=None):
+    """Upload + setup + solve through the port's entry points; returns
+    (solver, result, setup_s, b, upload_s).  ``accel_formats``
+    (default: the matrix's default formats) is the uploaded matrix's;
+    the upload time includes its DIA build or stencil detection."""
     import amgx_tpu_torch as T
     from amgx_tpu_torch.io.poisson import poisson_3d_7pt, poisson_rhs
 
-    A = poisson_3d_7pt(n, dtype=dtype, device=device)
+    kw = {} if accel_formats is None else {"accel_formats": accel_formats}
+    t0 = time.perf_counter()
+    A = poisson_3d_7pt(n, dtype=dtype, device=device, **kw)
+    upload_s = time.perf_counter() - t0
     b = poisson_rhs(A.n_rows, dtype=dtype)
     t0 = time.perf_counter()
     s = T.create_solver(T.AMGConfig.from_string(cfg_str), "default",
@@ -294,7 +373,7 @@ def solve_on(device, cfg_str, n, dtype):
     s.setup(A)
     setup_s = time.perf_counter() - t0
     res = s.solve(b)
-    return s, res, setup_s, b
+    return s, res, setup_s, b, upload_s
 
 
 def true_rel_residual(n, b, x):
@@ -351,7 +430,8 @@ def slice_phase(torch):
     # ---- the main path: counts zeroed just before, read just after
     dia.launches = 0
     ell.launches = 0
-    s, res, setup_s, b = solve_on("cuda", BENCH_CFG, N, np.float32)
+    s, res, setup_s, b, upload_s = solve_on("cuda", BENCH_CFG, N,
+                                            np.float32)
     launches = {"dia_spmv": dia.launches, "ell_spmv": ell.launches}
     iters, status = int(res.iters), int(res.status)
     x = res.x.cpu().numpy()
@@ -362,17 +442,19 @@ def slice_phase(torch):
     res2 = s.solve(b)
     check(int(res2.iters) == iters, "repeat solve changed the iterations")
     warm_s = s.solve_time
+    repeat_bitwise = bool(torch.equal(res.x, res2.x))
     trace_solve(torch, s, b, iters)
     rel = true_rel_residual(N, b, x)
     rec = {
         "slice": f"poisson7 {N}^3 f32 PCG+AMG(SIZE_8,V,BLOCK_JACOBI,"
                  "DENSE_LU) on the card",
         "levels": levels, "iterations": iters, "status": status,
-        "setup_s": setup_s, "solve_s": solve_s,
+        "upload_s": upload_s, "setup_s": setup_s, "solve_s": solve_s,
         "per_iteration_s": solve_s / max(iters, 1), "solve_warm_s": warm_s,
         "per_iteration_warm_s": warm_s / max(iters, 1),
         "true_rel_residual_f64": rel, "launches": launches,
         "cycle_passes_per_iteration": s.precond.cycle_passes_per_iteration(),
+        "repeat_solve_x_bitwise": repeat_bitwise,
     }
     print(json.dumps(rec), flush=True)
     check(status == 0, f"status {status}")
@@ -383,7 +465,7 @@ def slice_phase(torch):
           f"ell_spmv launches {launches['ell_spmv']} < 6 x {iters}")
 
     # ---- the same solve through the port on the CPU (plain versions)
-    sc, rc, setup_c, _ = solve_on("cpu", BENCH_CFG, N, np.float32)
+    sc, rc, setup_c, _, _ = solve_on("cpu", BENCH_CFG, N, np.float32)
     xc = rc.x.numpy()
     xinf = float(np.abs(xc).max())
     diff = float(np.abs(x - xc).max())
@@ -399,8 +481,8 @@ def slice_phase(torch):
           f"f32 x card vs cpu: max abs diff {diff:.3e}, |x|inf {xinf:.3e}")
 
     # ---- 64^3 in f64: iterations equal, x to rtol 1e-9
-    _, r64, _, _ = solve_on("cuda", BENCH_CFG, 64, np.float64)
-    _, c64, _, _ = solve_on("cpu", BENCH_CFG, 64, np.float64)
+    _, r64, _, _, _ = solve_on("cuda", BENCH_CFG, 64, np.float64)
+    _, c64, _, _, _ = solve_on("cpu", BENCH_CFG, 64, np.float64)
     x64, xc64 = r64.x.cpu().numpy(), c64.x.numpy()
     d64 = float(np.abs(x64 - xc64).max())
     print(json.dumps({
@@ -416,8 +498,8 @@ def slice_phase(torch):
           f"f64 x card vs cpu: max abs diff {d64:.3e}")
 
     # ---- the entry() config: 16^3, SIZE_2, max_iters 20, f32
-    se, re_, _, be = solve_on("cuda", ENTRY_CFG, 16, np.float32)
-    _, ce, _, _ = solve_on("cpu", ENTRY_CFG, 16, np.float32)
+    se, re_, _, be, _ = solve_on("cuda", ENTRY_CFG, 16, np.float32)
+    _, ce, _, _, _ = solve_on("cpu", ENTRY_CFG, 16, np.float32)
     xe = re_.x.cpu().numpy()
     entry = {"entry_16^3": {
         "iterations": int(re_.iters), "cpu_iterations": int(ce.iters),
@@ -428,6 +510,107 @@ def slice_phase(torch):
     check(int(re_.status) == 0, f"entry config status {re_.status}")
     check(abs(int(re_.iters) - int(ce.iters)) <= 1,
           f"entry config iterations card {re_.iters} vs cpu {ce.iters}")
+    return launches, {"x": x, "iters": iters, "x_cpu": xc,
+                      "x64": x64, "x64_cpu": xc64}
+
+
+def mf_slice_phase(torch, ref):
+    """The bench solve with ``matrix_free=1`` on the card, held to the
+    DIA slice's results ``ref`` (from :func:`slice_phase`)."""
+    from amgx_tpu_torch.ops import dia, ell, stencil
+
+    N = SLICE_N
+    # ---- the main path: counts zeroed just before, read just after
+    dia.launches = ell.launches = stencil.launches = 0
+    s, res, setup_s, b, upload_s = solve_on("cuda", MF_CFG, N, np.float32,
+                                            accel_formats=MF_FORMATS)
+    launches = {"stencil_spmv": stencil.launches, "dia_spmv": dia.launches,
+                "ell_spmv": ell.launches}
+    iters, status = int(res.iters), int(res.status)
+    x = res.x.cpu().numpy()
+    levels = s.precond.level_summary()
+    solve_s = s.solve_time
+    res2 = s.solve(b)
+    check(int(res2.iters) == iters, "repeat MF solve changed the iterations")
+    warm_s = s.solve_time
+    trace_solve(torch, s, b, iters)
+    rel = true_rel_residual(N, b, x)
+    passes = s.precond.cycle_passes_per_iteration()
+    n_lv = len(levels)
+    diff_dia = float(np.abs(x - ref["x"]).max())
+    rec = {
+        "slice": f"poisson7 {N}^3 f32 PCG+AMG(SIZE_8,V,BLOCK_JACOBI,"
+                 "DENSE_LU) matrix_free=1 fused_cycle=1 on the card",
+        "levels": levels, "iterations": iters, "status": status,
+        "upload_s": upload_s, "setup_s": setup_s, "solve_s": solve_s,
+        "per_iteration_s": solve_s / max(iters, 1), "solve_warm_s": warm_s,
+        "per_iteration_warm_s": warm_s / max(iters, 1),
+        "true_rel_residual_f64": rel, "launches": launches,
+        "cycle_passes_per_iteration": passes,
+        "dia_slice_iterations": ref["iters"],
+        "max_abs_diff_vs_dia_slice": diff_dia,
+        "x_bitwise_equal_dia_slice": x.tobytes() == ref["x"].tobytes(),
+    }
+    print(json.dumps(rec), flush=True)
+    check(status == 0, f"MF status {status}")
+    check(rel <= 1e-5, f"MF true relative residual {rel:.3e} > 1e-5")
+    check(all(lv["format"] == "MATRIX_FREE" for lv in levels),
+          f"MF levels {[lv['format'] for lv in levels]}")
+    check(launches["stencil_spmv"] >= 14 * iters,
+          f"stencil_spmv launches {launches['stencil_spmv']} < 14 x {iters}")
+    check(launches["dia_spmv"] == 0,
+          f"dia_spmv launched {launches['dia_spmv']} times on the MF path")
+    check(launches["ell_spmv"] >= 6 * iters,
+          f"ell_spmv launches {launches['ell_spmv']} < 6 x {iters}")
+    check(passes == 2 * (n_lv - 1) + 1,
+          f"fused cycle passes {passes} != 2({n_lv}-1)+1")
+    check(iters == ref["iters"],
+          f"MF iterations {iters} vs DIA slice {ref['iters']}")
+    check(x.tobytes() == ref["x"].tobytes(),
+          f"MF x differs from the DIA slice's x: max {diff_dia:.3e}")
+
+    # ---- the same MF solve through the port on the CPU
+    sc, rc, setup_c, _, _ = solve_on("cpu", MF_CFG, N, np.float32,
+                                     accel_formats=MF_FORMATS)
+    xc = rc.x.numpy()
+    xinf = float(np.abs(xc).max())
+    diff = float(np.abs(x - xc).max())
+    print(json.dumps({
+        "mf_cpu_iterations": int(rc.iters), "mf_cpu_status": int(rc.status),
+        "mf_cpu_setup_s": setup_c, "mf_cpu_solve_s": sc.solve_time,
+        "max_abs_diff_vs_cpu": diff, "x_inf": xinf,
+        "cpu_x_bitwise_equal_dia_cpu": xc.tobytes() == ref["x_cpu"].tobytes(),
+    }), flush=True)
+    check(abs(int(rc.iters) - iters) <= 1,
+          f"MF f32 iterations card {iters} vs cpu {rc.iters}")
+    check(np.allclose(x, xc, rtol=1e-3, atol=1e-5 * xinf),
+          f"MF f32 x card vs cpu: max abs diff {diff:.3e}")
+    check(xc.tobytes() == ref["x_cpu"].tobytes(),
+          "MF x on the CPU differs from the DIA x on the CPU")
+
+    # ---- 64^3 in f64 on the card and the CPU (the f64 kernel)
+    s64, r64, _, _, _ = solve_on("cuda", MF_CFG, 64, np.float64,
+                                 accel_formats=MF_FORMATS)
+    _, c64, _, _, _ = solve_on("cpu", MF_CFG, 64, np.float64,
+                               accel_formats=MF_FORMATS)
+    x64, xc64 = r64.x.cpu().numpy(), c64.x.numpy()
+    d64 = float(np.abs(x64 - xc64).max())
+    print(json.dumps({
+        "mf_f64_64^3": {"iterations": int(r64.iters),
+                        "cpu_iterations": int(c64.iters),
+                        "status": int(r64.status),
+                        "max_abs_diff_vs_cpu": d64,
+                        "x_bitwise_equal_dia_slice":
+                            x64.tobytes() == ref["x64"].tobytes()}}),
+          flush=True)
+    check(int(r64.status) == 0, f"MF 64^3 f64 status {r64.status}")
+    check(all(lv.A.has_matrix_free for lv in s64.precond.levels),
+          "MF 64^3 f64: a level is not MATRIX_FREE")
+    check(int(r64.iters) == int(c64.iters),
+          f"MF f64 iterations card {r64.iters} vs cpu {c64.iters}")
+    check(np.allclose(x64, xc64, rtol=1e-9,
+                      atol=1e-9 * float(np.abs(xc64).max())),
+          f"MF f64 x card vs cpu: max abs diff {d64:.3e}")
     return launches
 
 
@@ -460,7 +643,10 @@ def main():
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     recs = kernel_phase(torch, peaks)
-    launches = slice_phase(torch)
+    launches, ref = slice_phase(torch)
+    # each path's counts come from its own run: DIA and ELL from the
+    # matrix_free=0 slice, the stencil kernel's from the MF slice
+    launches["stencil_spmv"] = mf_slice_phase(torch, ref)["stencil_spmv"]
 
     main_case = {
         "dia_spmv": (f"level0 A {SLICE_N}^3 f32",
@@ -470,10 +656,14 @@ def main():
                      "w=8 f32",
                      "amgx_tpu_torch/csrc/ell_spmv.cu",
                      "amgx_tpu/ops/pallas_well.py:160"),
+        "stencil_spmv": (f"level0 A {SLICE_N}^3 f32",
+                         "amgx_tpu_torch/csrc/stencil_spmv.cu",
+                         "amgx_tpu/ops/pallas_stencil.py:64"),
     }
     summary = []
     for name, (case, source, replaces) in main_case.items():
-        rec = next(r for r in recs if r["case"] == case)
+        rec = next(r for r in recs
+                   if r["kernel"] == name and r["case"] == case)
         check(launches[name] > 0, f"{name} never launched on the main path")
         summary.append({
             "name": name, "route": "cuda", "source": source,

@@ -59,6 +59,8 @@ ENTRY = _amg_cfg("SIZE_2", min_coarse=32, max_iters=20, tol=1e-5,
 
 
 def _jformat(A):
+    if A.has_matrix_free:
+        return "MATRIX_FREE"
     if A.has_dia:
         return "DIA"
     if A.has_dense:
@@ -207,7 +209,7 @@ def test_matching_aggregation_matches_jax():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (', "matrix_free": 1', "matrix_free"),
+    (', "error_scaling": 2', "error_scaling"),
     (', "structure_reuse_levels": 1', "structure_reuse_levels"),
     (', "hierarchy_dtype": "BFLOAT16"', "hierarchy_dtype"),
     (', "algorithm": "CLASSICAL"', "CLASSICAL"),
