@@ -82,9 +82,8 @@ class SparseMatrix:
       dia_vals (nd, n): dia_vals[k, i] = A[i, i + dia_offsets[k]], with
       dia_offsets a sorted tuple and dia_offsets_dev the same offsets as
       an int32 tensor on the device (built once, read by the kernel).
-      mf_meta (host ``StencilMeta``), mf_coefs (nd,) or (nd, L) in the
-      values' dtype and mf_steps_dev (nd, 3) int32 grid steps on the
-      device: the MATRIX_FREE state (``ops/stencil.py``).
+      mf_meta (host ``StencilMeta``) and mf_coefs (nd,) or (nd, L) in
+      the values' dtype: the MATRIX_FREE state (``ops/stencil.py``).
       dense (n_rows, n_cols).
       ell_cols / ell_vals (w, n_rows), slot-major; padding slots hold
       column 0 and value 0.
@@ -102,7 +101,6 @@ class SparseMatrix:
     dia_vals: Optional[torch.Tensor] = None
     mf_meta: Optional[object] = None
     mf_coefs: Optional[torch.Tensor] = None
-    mf_steps_dev: Optional[torch.Tensor] = None
     dense: Optional[torch.Tensor] = None
     ell_cols: Optional[torch.Tensor] = None
     ell_vals: Optional[torch.Tensor] = None
@@ -288,10 +286,6 @@ class SparseMatrix:
             dia_vals=put(dia_vals),
             mf_meta=mf_meta,
             mf_coefs=put(mf_coefs),
-            mf_steps_dev=(
-                None if mf_meta is None
-                else put(np.asarray(mf_meta.steps, dtype=np.int32))
-            ),
             dense=put(dense),
             # slot-major for coalesced kernel loads
             ell_cols=None if ell_cols is None else put(ell_cols.T),

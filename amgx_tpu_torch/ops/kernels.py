@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # every pointer and the stream as c_void_p so ctypes passes 64 bits.
 # DIA and ELL: (pointer, pointer, int, x, y, rows, stream); stencil:
-# (coefs, steps, nd, x, y, nx, ny, nz, stream)
+# (coefs, x, y, host int array of the grid, the launch plan and the
+# steps, stream)
 _SIGNATURES = {
     "dia_spmv": {
         "dia_spmv_f32": (_P, _P, _I, _P, _P, _LL, _P),
@@ -48,8 +49,8 @@ _SIGNATURES = {
         "ell_spmv_f64": (_P, _P, _I, _P, _P, _LL, _P),
     },
     "stencil_spmv": {
-        "stencil_spmv_f32": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
-        "stencil_spmv_f64": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
+        "stencil_spmv_f32": (_P, _P, _P, _P, _P),
+        "stencil_spmv_f64": (_P, _P, _P, _P, _P),
     },
 }
 

@@ -23,7 +23,7 @@ Dispatch of :func:`stencil_spmv`, chosen by the static ``meta.kind``:
   * a CPU tensor takes the plain version;
   * ``kind == "const"`` on a CUDA tensor launches the kernel or raises
     (f32 and f64; the TPU gates ``_MIN_ROWS`` and ``_HALO_MAX`` are not
-    carried over);
+    carried over), with the geometry :func:`stencil_launch_plan` gives;
   * ``kind == "axis"`` takes the plain version's stock torch ops on
     any device, as the JAX package sends it to XLA (its Pallas kernel
     computes only the constant case).
@@ -40,6 +40,8 @@ place of 3(L-1)+1.  A kernel that fuses the leg is not written yet.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -51,9 +53,29 @@ from amgx_tpu_torch.ops import kernels
 launches = 0
 
 _FN = {torch.float32: "stencil_spmv_f32", torch.float64: "stencil_spmv_f64"}
-# the kernel stages the coefficients and steps of at most this many
-# diagonals in shared memory; detection yields at most 27 (a 3x3x3 box)
+# the kernel takes the steps of at most this many diagonals by value;
+# detection yields at most 27 (a 3x3x3 box)
 MAX_DIAGS = 27
+# threads per block (the kernels' __launch_bounds__), the tile kernel's
+# largest tile (x by y) and the largest y and z grid dimensions CUDA
+# launches
+PLAN_THREADS = 256
+TILE = (32, 8)
+_MAX_GRID_YZ = 65535
+# the stencils the tile kernel takes, steps in offsets order ((dz, dy,
+# dx) lexicographic): the 7-point star (nd_inst 7) and any other subset
+# of the 3x3x3 box in the box's order with a z step (nd_inst 27); any
+# other stencil takes the runtime-count kernel (nd_inst 0)
+_STAR = ((0, 0, -1), (0, -1, 0), (-1, 0, 0), (0, 0, 0), (1, 0, 0),
+         (0, 1, 0), (0, 0, 1))
+# blocks of PLAN_THREADS the plan aims at per SM, by kernel: the tile
+# kernels run best with two long blocks per SM, which re-read fewer z
+# halo planes than more, shorter ones; the runtime-count kernel, one
+# __ldg chain per point, with the most its 64 registers a thread leave
+# room for (ci/torch_stencil_geometry.py times the alternatives); and
+# the SMs of an H100 SXM (the wrapper reads the card's)
+BLOCKS_PER_SM = {7: 2, 27: 2, 0: 4}
+H100_SMS = 132
 
 
 class StencilMeta(NamedTuple):
@@ -248,11 +270,102 @@ def stencil_spmv_plain(meta: StencilMeta, coefs, x):
     return y.reshape(x.shape)
 
 
+class StencilPlan(NamedTuple):
+    """Launch geometry of the stencil kernel.
+
+    The kernel runs on ``grid`` (nx, ny, nz) with ``steps``: the
+    stencil's own, or for a grid of one plane (nz == 1) the same rows
+    with y walked as z, i.e. grid (nx, 1, ny) and (dx, 0, dy) steps,
+    which keep every flat offset, so that each thread walks rows.
+    ``blocks`` (gx, gy, gz) of ``threads`` (bx, by): thread (tx, ty) of
+    block (kx, ky, kz) computes the rows at ix = (kx*bx + tx)*vec + j
+    for j < vec and iy = ky*by + ty (none when ix >= nx or iy >= ny),
+    for iz in [kz*zchunk, min((kz+1)*zchunk, nz)).  ``nd_inst`` names
+    the kernel: 7 (the star, its steps compiled in) or 27 (any subset
+    of the 3x3x3 box with a z step, which diagonals are present read at
+    run time) on the tile kernel; 0 the kernel for any stencil, its
+    count read at run time."""
+
+    grid: Tuple[int, int, int]
+    steps: Tuple[Tuple[int, int, int], ...]
+    blocks: Tuple[int, int, int]
+    threads: Tuple[int, int]
+    zchunk: int
+    nd_inst: int
+    vec: int
+
+
+def stencil_launch_plan(grid, steps, vec=1, sms=H100_SMS):
+    """The kernels' :class:`StencilPlan` for the stencil of ``steps``
+    ((dx, dy, dz) per diagonal, in offsets order) on ``grid``
+    (nx, ny, nz).
+
+    The star, and every other stencil with a z step whose steps are
+    diagonals of the 3x3x3 box in the box's order, take the tile
+    kernel; any other stencil the runtime-count kernel, a 2D one walking
+    its grid along y (:class:`StencilPlan`).  For the star each thread
+    computes ``vec`` consecutive x points (one 16-byte vector: 4 in f32,
+    2 in f64, for x and y on 16-byte boundaries) when nx is a multiple
+    of ``vec``, else one; every other stencil one.  A block spans up to 32 threads along
+    x (one coalesced warp row; PLAN_THREADS on the runtime-count kernel
+    where the grid is one row wide) and as many y rows as the kernel
+    takes (8 on the tile kernel, PLAN_THREADS in all on the other); each
+    thread walks ``zchunk`` planes, the fewest that keep the threads
+    within the kernel's BLOCKS_PER_SM blocks of PLAN_THREADS on each of
+    the card's ``sms`` SMs."""
+    nx, ny, nz = (int(g) for g in grid)
+    steps = tuple(tuple(int(d) for d in st) for st in steps)
+    nd = len(steps)
+    if min(nx, ny, nz) < 1 or not 1 <= nd <= MAX_DIAGS:
+        raise ValueError(f"stencil_launch_plan: grid {grid}, {nd} diagonals")
+    box = [9 * (dz + 1) + 3 * (dy + 1) + dx + 1 for dx, dy, dz in steps]
+    in_box = (max(abs(d) for st in steps for d in st) <= 1
+              and all(a < b for a, b in zip(box, box[1:]))
+              and any(st[2] for st in steps))
+    nd_inst = 7 if steps == _STAR else 27 if in_box else 0
+    vec = vec if steps == _STAR and nx % vec == 0 else 1
+    if nz == 1:  # every dz is 0: walk y as z
+        ny, nz = 1, ny
+        steps = tuple((dx, 0, dy) for dx, dy, _ in steps)
+    bx = min(PLAN_THREADS if ny == 1 and not nd_inst else TILE[0],
+             -(-nx // vec))
+    by = min(ny, TILE[1] if nd_inst else PLAN_THREADS // bx)
+    gx, gy = -(-nx // (bx * vec)), -(-ny // by)
+    if gy > _MAX_GRID_YZ:
+        raise ValueError(f"stencil_launch_plan: grid {grid} needs {gy} > "
+                         f"{_MAX_GRID_YZ} blocks along y")
+    resident = BLOCKS_PER_SM[nd_inst] * PLAN_THREADS * sms
+    gz = min(nz, _MAX_GRID_YZ, max(1, resident // (gx * gy * bx * by)))
+    zchunk = -(-nz // gz)
+    return StencilPlan(
+        grid=(nx, ny, nz), steps=steps, blocks=(gx, gy, -(-nz // zchunk)),
+        threads=(bx, by), zchunk=zchunk, nd_inst=nd_inst, vec=vec,
+    )
+
+
+def pack_plan(plan: StencilPlan):
+    """The launcher's host int array for ``plan``: nd, the grid, the
+    geometry and the (dx, dy, dz) steps (``csrc/stencil_spmv.cu``)."""
+    vals = (len(plan.steps), *plan.grid, *plan.blocks, *plan.threads,
+            plan.zchunk, plan.nd_inst, plan.vec,
+            *(s for st in plan.steps for s in st))
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(grid, steps, vec, device_index):
+    """:func:`pack_plan` of :func:`stencil_launch_plan` for the card's
+    SMs, and the array's address; the cache keeps the array alive."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    arr = pack_plan(stencil_launch_plan(grid, steps, vec, sms))
+    return arr, ctypes.addressof(arr)
+
+
 def stencil_spmv(A, x):
     """y = A @ x for a MATRIX_FREE matrix ``A`` (``mf_meta``,
-    ``mf_coefs``, ``mf_steps_dev``) and ``x`` (n,)."""
+    ``mf_coefs``) and ``x`` (n,)."""
     global launches
-    meta, coefs, steps = A.mf_meta, A.mf_coefs, A.mf_steps_dev
+    meta, coefs = A.mf_meta, A.mf_coefs
     if x.device.type == "cpu" or meta.kind == "axis":
         return stencil_spmv_plain(meta, coefs, x)
     nx, ny, nz = meta.grid
@@ -264,9 +377,7 @@ def stencil_spmv(A, x):
             f"{tuple(x.shape)} do not fit a {nd}-point stencil on grid "
             f"{meta.grid}"
         )
-    if x.device.type != "cuda" or any(
-        t.device != x.device for t in (coefs, steps)
-    ):
+    if x.device.type != "cuda" or coefs.device != x.device:
         raise ValueError(
             "stencil_spmv: all tensors must be on one CUDA device"
         )
@@ -281,25 +392,23 @@ def stencil_spmv(A, x):
             "takes float32 or float64 (bf16: ROADMAP.md, queue A: block "
             "matrices and reduced precision)"
         )
-    if steps.dtype != torch.int32 or steps.shape != (nd, 3):
-        raise ValueError(
-            f"stencil_spmv: steps must be int32 of shape ({nd}, 3), got "
-            f"{steps.dtype} {tuple(steps.shape)}"
-        )
     if nd > MAX_DIAGS:
         raise ValueError(
             f"stencil_spmv: {nd} diagonals; the kernel takes at most "
             f"{MAX_DIAGS}"
         )
-    if not (coefs.is_contiguous() and x.is_contiguous()
-            and steps.is_contiguous()):
+    if not (coefs.is_contiguous() and x.is_contiguous()):
         raise ValueError("stencil_spmv: inputs must be contiguous")
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
+    # 16-byte vectors where x starts on a 16-byte boundary (y, just
+    # allocated, does)
+    vec = 16 // x.element_size() if x.data_ptr() % 16 == 0 else 1
+    _, args = _launch_args(meta.grid, meta.steps, vec, x.device.index)
     fn = getattr(kernels.library("stencil_spmv"), _FN[x.dtype])
-    rc = fn(coefs.data_ptr(), steps.data_ptr(), nd, x.data_ptr(),
-            y.data_ptr(), nx, ny, nz, kernels.stream_handle(x.device))
+    rc = fn(coefs.data_ptr(), x.data_ptr(), y.data_ptr(), args,
+            kernels.stream_handle(x.device))
     kernels.check_launch("stencil_spmv", rc)
     launches += 1
     return y

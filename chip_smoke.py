@@ -12,15 +12,22 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (one ``nvcc`` per source, in parallel) and prints the build time and
    the ``ptxas`` register report.
 2. Kernels: each kernel against its plain PyTorch version on the card,
-   at the shapes the main paths give it (the 128^3 Poisson level 0, its
-   prolongation P and restriction R) and on edge cases.  One JSON line
-   per case: max errors, kernel / plain / library (``torch.sparse`` CSR
-   product, a yardstick the port never calls) times in ms from CUDA
-   events (median of 25 launches, L2 flushed before each), and the
-   roofline bound from this run's bytes and operations.  Each stencil
-   case is also held against the DIA kernel on the same matrix, which
-   it must equal bit for bit, and the DIA kernel's time is printed
-   beside it.
+   at the shapes the main paths give it (the 128^3 Poisson level 0 and
+   the coarser levels of the bench hierarchy, the level-0 prolongation
+   P and restriction R) and on edge cases.  One JSON line per case: max
+   errors, kernel / plain / library (``torch.sparse`` CSR product, a
+   yardstick the port never calls) times in ms from CUDA events (median
+   of 25 launches, L2 flushed before each by a read of 128 MiB), the
+   kernel's time with L2 left warm, its device time without the launch
+   (profiler), and the roofline bound from this run's bytes and
+   operations.  First, the floor of one event-bracketed launch (an
+   empty kernel).  Each stencil case prints its launch plan, checks
+   that the plan takes the kernel meant for the stencil (the star's,
+   the box-subset one or the runtime-count one) and is held bit for bit
+   against the DIA kernel on the same matrix, whose times are printed
+   beside it with those of a copy of x (the bytes of the bound moved by
+   the copy engine).  A line before the summary lists every device
+   time the profiler did not record.
 3. DIA slice: the bench solve (PCG + aggregation-AMG V-cycle, SIZE_8,
    BLOCK_JACOBI, DENSE_LU) on ``poisson_3d_7pt(128)`` in f32 through
    the port's entry points.  Kernel launch counts are zeroed just
@@ -48,6 +55,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
@@ -97,6 +105,10 @@ PEAKS = (
     ("H100", {"bw": 3.35e12, "f32": 67.0e12, "f64": 34.0e12}),
 )
 
+# what the profiler names each kernel's launches
+ACTIVITY = {"dia_spmv": "dia_spmv_kernel", "ell_spmv": "ell_spmv_kernel",
+            "stencil_spmv": "stencil_"}
+
 # kernel-vs-plain tolerance on max|y_kernel - y_plain| / max|y_plain|:
 # both sum in the same order from +0.0; the kernel contracts each
 # multiply-add into one FMA, the plain version rounds twice
@@ -127,15 +139,17 @@ def peaks_for(name):
 class Timer:
     """Device time of one call from CUDA events: the device is kept busy
     by a sleep kernel while the host enqueues, so host overhead between
-    launches does not show; a 128 MiB write before each launch evicts
-    the 50 MB L2, as the main path finds these operands cold
-    (``flush=False`` leaves the operands of the previous launch in
-    L2)."""
+    launches does not show.  Before each launch a read of a 128 MiB
+    buffer (a sum of it) evicts the 50 MB L2, as the main path finds
+    these operands cold; being a read, it leaves only clean lines, so no
+    write-back of an earlier launch's output falls inside the timed
+    window (``flush=False`` leaves the operands of the previous launch
+    in L2)."""
 
     def __init__(self, torch, reps=25):
         self.torch = torch
         self.reps = reps
-        self.flush = torch.empty(32 << 20, dtype=torch.float32,
+        self.flush = torch.zeros(32 << 20, dtype=torch.float32,
                                  device="cuda")
 
     def __call__(self, fn, flush=True):
@@ -148,12 +162,43 @@ class Timer:
         torch.cuda._sleep(200_000_000)
         for s, e in ev:
             if flush:
-                self.flush.zero_()
+                self.flush.sum()
             s.record()
             fn()
             e.record()
         torch.cuda.synchronize()
         return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+    def device(self, fn, activity, attempts=3):
+        """Device time of one call without its launch: the median over
+        ``reps`` calls, each after the L2 flush, of the duration the
+        profiler (CUPTI) records for the one kernel or copy ``fn`` runs,
+        whose name holds ``activity``.  A profile that does not hold one
+        such activity per call is taken again, up to ``attempts`` in
+        all; then None: CUPTI at times records no activity at all for
+        a whole process (PERF.md, section 7); a line before the kernel
+        summary lists every device time that was not measured."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(attempts):
+            with warnings.catch_warnings():
+                # the profiler's notice that it keeps one cycle of events
+                warnings.simplefilter("ignore", UserWarning)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(self.reps):
+                        self.flush.sum()
+                        fn()
+                    torch.cuda.synchronize()
+            durs = [e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and activity in e.name]
+            if len(durs) == self.reps:
+                return float(np.median(durs)) / 1e3
+        return None
 
 
 def kernel_case(torch, timer, peaks, name, label, run, plain, csr, nbytes,
@@ -187,7 +232,9 @@ def kernel_case(torch, timer, peaks, name, label, run, plain, csr, nbytes,
         "case": label, "kernel": name, "dtype": kind,
         "max_abs_err": err, "max_rel_err": rel, "tol": tol,
         "library_max_abs_err": lib_err,
-        "kernel_ms": timer(run), "plain_ms": timer(plain),
+        "kernel_ms": timer(run), "kernel_ms_warm_l2": timer(run, flush=False),
+        "kernel_device_ms": timer.device(run, ACTIVITY[name]),
+        "plain_ms": timer(plain),
         "library_ms": timer(lambda: torch.mv(A, x)),
         "bytes": int(nbytes), "ops": int(nops),
         "bound_ms": max(t_bytes, t_ops),
@@ -206,6 +253,29 @@ def csr_of(torch, sp, dtype):
         torch.from_numpy(sp.data.astype(dtype)).cuda(),
         sp.shape,
     )
+
+
+def stencil_scipy(grid, steps, coefs):
+    """CSR matrix of a constant stencil on ``grid`` (nx, ny, nz), x
+    fastest: row i holds ``coefs[k]`` at column i + dx + nx dy + nx ny
+    dz for each ``steps[k]`` = (dx, dy, dz) whose neighbour lies inside
+    the grid."""
+    import scipy.sparse as sps
+
+    nx, ny, nz = grid
+    n = nx * ny * nz
+    i = np.arange(n, dtype=np.int64)
+    ix, iy, iz = i % nx, (i // nx) % ny, i // (nx * ny)
+    rows, cols, vals = [], [], []
+    for (dx, dy, dz), c in zip(steps, coefs):
+        r = i[(ix + dx >= 0) & (ix + dx < nx) & (iy + dy >= 0)
+              & (iy + dy < ny) & (iz + dz >= 0) & (iz + dz < nz)]
+        rows.append(r)
+        cols.append(r + dx + nx * dy + nx * ny * dz)
+        vals.append(np.full(r.shape[0], c))
+    return sps.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(n, n))
 
 
 def kernel_phase(torch, peaks):
@@ -256,17 +326,31 @@ def kernel_phase(torch, peaks):
             nops=2 * w * n, dtype=A.ell_vals.dtype,
         ))
 
-    def stencil_case(label, sp, dtype):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def stencil_case(label, sp, dtype, nd_inst=7, meta=None):
         """The stencil kernel against its plain version and, bit for
-        bit, against the DIA kernel on the same matrix."""
+        bit, against the DIA kernel on the same matrix; the default
+        plan must take kernel ``nd_inst``.  ``meta`` (a ``StencilMeta``
+        with its coefficients) gives the MATRIX_FREE state of a stencil
+        detection does not yield; else it is detected from ``sp``."""
         sp = sp.astype(dtype)
-        A = SparseMatrix.from_scipy(sp, device="cuda",
-                                    accel_formats=("matrix_free",))
-        check(A.has_matrix_free and A.mf_meta.kind == "const",
-              f"{label}: not a constant stencil")
+        if meta is None:
+            A = SparseMatrix.from_scipy(sp, device="cuda",
+                                        accel_formats=("matrix_free",))
+            check(A.has_matrix_free and A.mf_meta.kind == "const",
+                  f"{label}: not a constant stencil")
+        else:
+            A = types.SimpleNamespace(
+                mf_meta=meta[0], n_rows=sp.shape[0],
+                mf_coefs=torch.tensor(meta[1], dtype=getattr(
+                    torch, np.dtype(dtype).name), device="cuda"))
         D = SparseMatrix.from_scipy(sp, device="cuda",
                                     accel_formats=("dia",))
         check(D.has_dia, f"{label}: not DIA")
+        check(D.dia_offsets == A.mf_meta.offsets,
+              f"{label}: DIA offsets {D.dia_offsets} vs stencil "
+              f"{A.mf_meta.offsets}")
         x = torch.from_numpy(rng.standard_normal(A.n_rows).astype(dtype))
         x = x.cuda()
         nd, n = len(A.mf_meta.steps), A.n_rows
@@ -275,11 +359,23 @@ def kernel_phase(torch, peaks):
         def run_dia():
             return dia.dia_spmv(D.dia_vals, D.dia_offsets_dev, x)
 
-        y_st, y_dia = stencil.stencil_spmv(A, x), run_dia()
+        y_dia = run_dia()
+        y_st = stencil.stencil_spmv(A, x)
         torch.cuda.synchronize()
-        vs_dia = float((y_st - y_dia).abs().max())
-        check(vs_dia == 0.0 and torch.equal(y_st, y_dia),
-              f"{label}: stencil vs DIA kernel max diff {vs_dia:.3e}")
+        d = float((y_st - y_dia).abs().max())
+        check(d == 0.0 and torch.equal(y_st, y_dia),
+              f"{label}: stencil vs DIA kernel max diff {d:.3e}")
+        # the plan the wrapper launched with (x is 16-byte aligned)
+        plan = stencil.stencil_launch_plan(A.mf_meta.grid, A.mf_meta.steps,
+                                           16 // isz, sms)
+        check(plan.nd_inst == nd_inst,
+              f"{label}: plan takes kernel {plan.nd_inst}, not {nd_inst}")
+        # a copy of x: the bytes of the bound, moved by a stock kernel
+        xc = torch.empty_like(x)
+
+        def copy():
+            return xc.copy_(x)
+
         ro, ci, vals, shape = csr_of(torch, sp, dtype)
         recs.append(kernel_case(
             torch, timer, peaks, "stencil_spmv", label,
@@ -289,13 +385,24 @@ def kernel_phase(torch, peaks):
             nbytes=isz * 2 * n + 16 * nd, nops=2 * nd * n,
             dtype=A.mf_coefs.dtype,
             extra={"grid": list(A.mf_meta.grid), "diagonals": nd,
-                   "max_abs_diff_vs_dia_kernel": vs_dia,
+                   "plan": plan._asdict(),
+                   "max_abs_diff_vs_dia_kernel": d,
                    "dia_kernel_ms": timer(run_dia),
-                   # x and y (2 x 8 MB at 128^3 f32) stay in L2: what
-                   # is left is the kernel's own instruction time
-                   "kernel_ms_warm_l2": timer(
-                       lambda: stencil.stencil_spmv(A, x), flush=False)},
+                   "dia_kernel_ms_warm_l2": timer(run_dia, flush=False),
+                   "dia_kernel_device_ms": timer.device(
+                       run_dia, ACTIVITY["dia_spmv"]),
+                   "copy_ms": timer(copy),
+                   "copy_ms_warm_l2": timer(copy, flush=False),
+                   "copy_device_ms": timer.device(copy, "Memcpy DtoD")},
         ))
+
+    # the floor of one event-bracketed launch: a kernel that does nothing
+    print(json.dumps({"timer_floor": {
+        "ms": timer(lambda: torch.cuda._sleep(0)),
+        "ms_warm_l2": timer(lambda: torch.cuda._sleep(0), flush=False),
+        "device_ms": timer.device(lambda: torch.cuda._sleep(0),
+                                  "spin_kernel")}}),
+        flush=True)
 
     N = SLICE_N
     A0 = poisson_scipy((N, N, N))
@@ -304,9 +411,15 @@ def kernel_phase(torch, peaks):
     stencil_case(f"level0 A {N}^3 f32", A0, np.float32)
     stencil_case(f"level0 A {N}^3 f64", A0, np.float64)
     del A0
-    # poisson_scipy's last axis is the grid's fastest (x)
-    stencil_case("level4 A 8^3 (512 rows) f32", poisson_scipy((8, 8, 8)),
+    # poisson_scipy's last axis is the grid's fastest (x); levels 1-4 of
+    # the bench hierarchy are the 64^3 ... 8^3 grids
+    for lv, m in ((1, 64), (2, 32), (3, 16), (4, 8)):
+        stencil_case(f"level{lv} A {m}^3 ({m ** 3} rows) f32",
+                     poisson_scipy((m, m, m)), np.float32)
+    stencil_case("thin grid 5x3x40 f32", poisson_scipy((40, 3, 5)),
                  np.float32)
+    stencil_case("one plane 40x30x1 (5-point, runtime count) f32",
+                 poisson_scipy((30, 40)), np.float32, nd_inst=0)
     stencil_case("unaligned grid 17x23x31 f32",
                  poisson_scipy((31, 23, 17)), np.float32)
     stencil_case("multi-block grid 64x32x16 f32",
@@ -315,7 +428,30 @@ def kernel_phase(torch, peaks):
                             offsets=[-1, 0, 1], format="csr")
     stencil_case("27-point grid 64^3 f32",
                  sps.kron(sps.kron(ones3, ones3), ones3, format="csr"),
-                 np.float32)
+                 np.float32, nd_inst=27)
+    # realistic stencils other than the star: the 19-point Laplacian at
+    # 128^3 on the box-subset tile kernel; the 2D 5-point one on
+    # 2,097,152 rows and a 7-point stencil two points wide along x at
+    # 128^3 (no detected grid has it) on the runtime-count kernel
+    stencil_case("2D 5-point 2048x1024 (runtime count) f32",
+                 poisson_scipy((1024, 2048)), np.float32, nd_inst=0)
+    box = [(dx, dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+           for dx in (-1, 0, 1)]
+    nineteen = [st for st in box if sum(map(abs, st)) <= 2]
+    stencil_case(f"19-point {N}^3 f32",
+                 stencil_scipy((N, N, N), nineteen,
+                               [-1.0] * 9 + [18.0] + [-1.0] * 9),
+                 np.float32, nd_inst=27)
+    wide = [(0, 0, -1), (-2, 0, 0), (-1, 0, 0), (0, 0, 0), (1, 0, 0),
+            (2, 0, 0), (0, 0, 1)]
+    coefs = [-1.0, 0.0625, -1.25, 4.375, -1.25, 0.0625, -1.0]
+    offsets = tuple(dx + N * dy + N * N * dz for dx, dy, dz in wide)
+    stencil_case(f"wide-x 7-point {N}^3 (runtime count) f32",
+                 stencil_scipy((N, N, N), wide, coefs), np.float32,
+                 nd_inst=0,
+                 meta=(stencil.StencilMeta("const", (N, N, N),
+                                           tuple(wide), offsets),
+                       np.asarray(coefs, dtype=np.float32)))
 
     n = 5000
     offs = (-301, -7, 0, 7, 301)
@@ -639,7 +775,8 @@ def main():
     for name in sorted(paths):
         report = (kernels.BUILD_DIR / f"{name}.ptxas.txt").read_text()
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     recs = kernel_phase(torch, peaks)
@@ -660,6 +797,11 @@ def main():
                          "amgx_tpu_torch/csrc/stencil_spmv.cu",
                          "amgx_tpu/ops/pallas_stencil.py:64"),
     }
+    # the device times the profiler did not record (null in the cases)
+    print(json.dumps({"device_time_not_measured": [
+        f"{r['case']} ({r['kernel']}): {k}" for r in recs
+        for k, v in r.items() if k.endswith("device_ms") and v is None]}),
+        flush=True)
     summary = []
     for name, (case, source, replaces) in main_case.items():
         rec = next(r for r in recs

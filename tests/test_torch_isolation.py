@@ -30,8 +30,13 @@ _FORBIDDEN_IMPORT = re.compile(
 )
 
 
+_CI_SCRIPTS = [ROOT / "ci" / "torch_port_compare.py",
+               ROOT / "ci" / "torch_stencil_geometry.py"]
+
+
 def _port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", *_CI_SCRIPTS]
     assert len(files) > 20
     return files
 
@@ -120,3 +125,16 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
         )
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("script", _CI_SCRIPTS, ids=lambda p: p.stem)
+def test_ci_script_fails_without_cuda(script):
+    """The port's measurement scripts under ci/ exit non-zero and print
+    nothing without a card."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, str(script)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0 and out.stdout == ""
+    assert "CUDA is not available" in out.stderr

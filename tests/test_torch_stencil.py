@@ -12,7 +12,10 @@
   * the slice: the bench config plus ``matrix_free`` at 24^3 builds the
     JAX package's hierarchy (every level MATRIX_FREE, same rows and
     nnz), counts the same cycle passes (3(L-1)+1 unfused, 2(L-1)+1
-    fused) and solves within the ROADMAP tolerances.
+    fused) and solves within the ROADMAP tolerances;
+  * the CUDA kernel's launch plan: its block/thread/plane map covers
+    every row exactly once (enumerated in numpy as the kernel maps
+    them), and it picks the kernel and the vector width per stencil.
 
 The CUDA kernel runs only on the card (``chip_smoke.py``).
 """
@@ -145,10 +148,8 @@ def test_format_choice_matches_jax(case):
         # the compact state replaces the planes; nothing else is built
         assert Tm.format == "MATRIX_FREE" and Tm.dia_vals is None
         assert not (Tm.has_dense or Tm.has_ell)
-        assert tuple(Tm.mf_steps_dev.shape) == (7, 3)
-        assert Tm.mf_steps_dev.dtype == torch.int32
-        np.testing.assert_array_equal(Tm.mf_steps_dev.numpy(),
-                                      np.asarray(J.mf_meta.steps))
+        assert len(Tm.mf_meta.steps) == 7
+        assert Tm.mf_meta.steps == J.mf_meta.steps
 
 
 # ---------------------------------------------------------------- SpMV
@@ -220,13 +221,131 @@ def test_non_cpu_tensors_never_take_plain_version():
     A = types.SimpleNamespace(
         mf_meta=M.mf_meta,
         mf_coefs=torch.empty((7,), dtype=torch.float32, device="meta"),
-        mf_steps_dev=torch.empty((7, 3), dtype=torch.int32, device="meta"),
     )
     x = torch.empty((512,), dtype=torch.float32, device="meta")
     s0 = tst.launches
     with pytest.raises(ValueError, match="CUDA"):
         tst.stencil_spmv(A, x)
     assert tst.launches == s0
+
+
+# ---------------------------------------------------------- launch plan
+
+
+def _plan_rows(plan, grid):
+    """Every flat row the kernel computes under ``plan``, once per
+    (block, thread, plane) that computes it, mapped as
+    csrc/stencil_spmv.cu maps them."""
+    nx, ny, nz = plan.grid
+    (gx, gy, gz), (bx, by) = plan.blocks, plan.threads
+    ix = ((np.arange(gx)[:, None] * bx + np.arange(bx)).ravel()[:, None]
+          * plan.vec + np.arange(plan.vec)).ravel()
+    iy = (np.arange(gy)[:, None] * by + np.arange(by)).ravel()
+    ix, iy = ix[ix < nx], iy[iy < ny]  # threads past the edge exit
+    iz = np.concatenate([
+        np.arange(kz * plan.zchunk, min((kz + 1) * plan.zchunk, nz))
+        for kz in range(gz)
+    ])
+    return (ix[None, None, :] + nx * iy[None, :, None]
+            + nx * ny * iz[:, None, None]).ravel()
+
+
+_FIVE = ((0, -1, 0), (-1, 0, 0), (0, 0, 0), (1, 0, 0), (0, 1, 0))
+# the 3x3x3 box and the 19-point stencil (no corners), in offsets order
+_BOX = tuple((dx, dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+             for dx in (-1, 0, 1))
+_NINETEEN = tuple(st for st in _BOX if sum(map(abs, st)) <= 2)
+# a 7-diagonal stencil that is not the star: two points along x
+_WIDE7 = ((0, 0, -1), (-2, 0, 0), (-1, 0, 0), (0, 0, 0), (1, 0, 0),
+          (2, 0, 0), (0, 0, 1))
+_PLAN_GRIDS = {
+    "bench_128": ((128, 128, 128), tst._STAR),
+    "bench_64": ((64, 64, 64), tst._STAR),
+    "bench_32": ((32, 32, 32), tst._STAR),
+    "bench_16": ((16, 16, 16), tst._STAR),
+    "bench_8": ((8, 8, 8), tst._STAR),
+    "unaligned_17x23x31": ((17, 23, 31), tst._STAR),
+    "thin_5x3x40": ((5, 3, 40), tst._STAR),
+    "one_plane_40x30x1": ((40, 30, 1), _FIVE),
+    "ones27_64": ((64, 64, 64), _BOX),
+    "nineteen_20x9x33": ((20, 9, 33), _NINETEEN),
+    "five_point_2048x1024x1": ((2048, 1024, 1), _FIVE),
+    "nine_point_33x70000x1": ((33, 70000, 1), _BOX[9:18]),
+    "wide7_20x9x33": ((20, 9, 33), _WIDE7),
+    "tall_2x2x200000": ((2, 2, 200000), tst._STAR),
+}
+
+
+@pytest.mark.parametrize("vec", [1, 2, 4])
+@pytest.mark.parametrize("sms", [tst.H100_SMS, 16])
+@pytest.mark.parametrize("case", sorted(_PLAN_GRIDS))
+def test_stencil_launch_plan_covers_every_row_once(case, sms, vec):
+    grid, steps = _PLAN_GRIDS[case]
+    plan = tst.stencil_launch_plan(grid, steps, vec, sms)
+    (gx, gy, gz), (bx, by) = plan.blocks, plan.threads
+    assert bx * by <= tst.PLAN_THREADS
+    assert bx <= (tst.PLAN_THREADS if plan.grid[1] == 1 and not plan.nd_inst
+                  else 32)
+    if plan.nd_inst:  # the tile kernel's shared-memory tile
+        assert by <= tst.TILE[1]
+    # vectors for the star wherever nx allows them
+    assert plan.vec == (vec if steps == tst._STAR and grid[0] % vec == 0
+                        else 1)
+    assert max(gy, gz) <= 65535 and min(gx, gy, gz, plan.zchunk) >= 1
+    # a grid of one plane walked along y, every flat offset kept
+    nx, ny, nz = grid
+    if nz == 1:
+        assert plan.grid == (nx, 1, ny)
+        assert plan.steps == tuple((dx, 0, dy) for dx, dy, _ in steps)
+    else:
+        assert plan.grid == grid and plan.steps == steps
+    assert [dx + nx * dy + nx * ny * dz for dx, dy, dz in steps] == [
+        dx + plan.grid[0] * (dy + plan.grid[1] * dz)
+        for dx, dy, dz in plan.steps]
+    # BLOCKS_PER_SM blocks of PLAN_THREADS on each SM where the z axis
+    # has room for them
+    resident = tst.BLOCKS_PER_SM[plan.nd_inst] * tst.PLAN_THREADS * sms
+    if gx * gy * bx * by <= resident and gz < plan.grid[2]:
+        assert gx * gy * gz * bx * by <= resident
+    n = grid[0] * grid[1] * grid[2]
+    counts = np.bincount(_plan_rows(plan, grid), minlength=n)
+    assert counts.shape == (n,) and (counts == 1).all()
+
+
+@pytest.mark.parametrize("nz,steps,want", [
+    (16, tst._STAR, 7), (16, _BOX, 27), (16, _NINETEEN, 27),
+    (16, _BOX[:19], 27), (16, _BOX[4:23], 27),
+    (16, ((0, 0, 0), (0, 0, 1)), 27), (16, _FIVE, 0), (16, ((0, 0, 0),), 0),
+    (16, _BOX[9:18], 0), (16, _WIDE7, 0), (16, tst._STAR[::-1], 0),
+    (16, _BOX[::-1], 0),
+    # one plane: no z step, so no tile kernel (the grid is walked along
+    # y by the runtime-count kernel)
+    (1, _FIVE, 0), (1, _BOX[9:18], 0), (1, ((0, 0, 0),), 0),
+    (1, ((-2, 0, 0), (0, 0, 0), (0, 1, 0)), 0),
+])
+def test_stencil_launch_plan_instantiation(nz, steps, want):
+    assert tst.stencil_launch_plan((16, 16, nz), steps).nd_inst == want
+
+
+@pytest.mark.parametrize("case,want", [("const_16", 7), ("ones27_6", 27),
+                                       ("grid_17x23x31", 7),
+                                       ("poisson2d_30x40", 0)])
+def test_stencil_launch_plan_instantiation_of_detected_stencils(case, want):
+    sp = (poisson_scipy((30, 40)) if case == "poisson2d_30x40"
+          else _CASES[case]())
+    M = TMatrix.from_scipy(sp, accel_formats=("matrix_free",), device="cpu")
+    assert M.mf_meta.kind == "const"
+    plan = tst.stencil_launch_plan(M.mf_meta.grid, M.mf_meta.steps)
+    assert plan.nd_inst == want
+
+
+def test_stencil_launch_plan_rejects_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        tst.stencil_launch_plan((8, 8, 8), _BOX + ((2, 0, 0),))
+    with pytest.raises(ValueError):
+        tst.stencil_launch_plan((8, 0, 8), tst._STAR)
+    with pytest.raises(ValueError, match="along y"):
+        tst.stencil_launch_plan((1, 70000 * 256, 2), _FIVE[1:4])
 
 
 # ---------------------------------------------------------------- solves
