@@ -21,12 +21,18 @@ def scalarized(A, solver_name: str):
     )
 
 
-def invert_diag(A):
-    """1 / diag(A) on A's device, computed on the host at setup."""
-    d = A.diag.cpu().numpy()
+def reciprocal_np(d):
+    """1 / d on the host, 1.0 where d == 0, in d's dtype."""
     with np.errstate(divide="ignore"):
         inv = np.where(d != 0, 1.0 / d, 1.0)
-    return torch.from_numpy(inv.astype(d.dtype, copy=False)).to(A.device)
+    return inv.astype(d.dtype, copy=False)
+
+
+def invert_diag(A):
+    """1 / diag(A) on A's device, computed on the host at setup."""
+    return torch.from_numpy(reciprocal_np(A.diag.cpu().numpy())).to(
+        A.device
+    )
 
 
 def apply_dinv(dinv, r):

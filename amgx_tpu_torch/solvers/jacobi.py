@@ -1,21 +1,30 @@
-"""Block-Jacobi smoother for scalar matrices (reference
-block_jacobi_solver.cu, the default smoother): x += omega * D^-1 (b - A x).
-Each sweep is one SpMV and an elementwise update."""
+"""Jacobi-family smoothers for scalar matrices (reference
+block_jacobi_solver.cu, the default smoother; jacobi_l1_solver.cu):
+x += omega * D^-1 (b - A x).  Each sweep is one SpMV and an elementwise
+update."""
 
 from __future__ import annotations
 
-from amgx_tpu_torch.ops.diagonal import apply_dinv, invert_diag, scalarized
+import numpy as np
+
+from amgx_tpu_torch.core.matrix import (
+    _extract_diag_np,
+    _row_ids_np,
+    to_tensor,
+)
+from amgx_tpu_torch.ops.diagonal import (
+    apply_dinv,
+    invert_diag,
+    reciprocal_np,
+    scalarized,
+)
 from amgx_tpu_torch.solvers.base import Solver
 from amgx_tpu_torch.solvers.registry import register_solver
 
 
-@register_solver("BLOCK_JACOBI")
-class BlockJacobiSolver(Solver):
-    """x += omega * D^{-1} (b - A x); D = diagonal."""
-
-    def _setup_impl(self, A):
-        A = scalarized(A, "BLOCK_JACOBI")
-        self._params = (A, invert_diag(A))
+class _DiagSmootherBase(Solver):
+    """Shared x += omega * Dinv r machinery; subclasses set params to
+    (A, Dinv)."""
 
     def make_residual_step(self):
         omega = self.relaxation_factor
@@ -41,3 +50,30 @@ class BlockJacobiSolver(Solver):
             return z
 
         return apply
+
+
+@register_solver("BLOCK_JACOBI")
+class BlockJacobiSolver(_DiagSmootherBase):
+    """x += omega * D^{-1} (b - A x); D = diagonal."""
+
+    def _setup_impl(self, A):
+        A = scalarized(A, "BLOCK_JACOBI")
+        self._params = (A, invert_diag(A))
+
+
+@register_solver("JACOBI_L1")
+class JacobiL1Solver(_DiagSmootherBase):
+    """L1-Jacobi: d_i = |a_ii| + sum_{j != i} |a_ij| guarantees convergence
+    for any symmetric A (reference jacobi_l1_solver.cu)."""
+
+    def _setup_impl(self, A):
+        A = scalarized(A, "JACOBI_L1")
+        indptr, cols, vals = A._host
+        row_ids = _row_ids_np(indptr, A.n_rows)
+        offdiag = np.zeros(A.n_rows, dtype=np.abs(vals).dtype)
+        np.add.at(offdiag, row_ids, np.abs(vals) * (cols != row_ids))
+        diag = _extract_diag_np(indptr, cols, vals, A.n_rows)
+        d = np.abs(diag) + offdiag
+        self._params = (
+            A, to_tensor(reciprocal_np(d).astype(vals.dtype), A.device)
+        )

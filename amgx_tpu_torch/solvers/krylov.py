@@ -1,4 +1,6 @@
-"""Krylov solvers: PCG and CG (reference pcg_solver.cu, cg_solver.cu).
+"""Krylov solvers: PCG, CG, PCGF, PBICGSTAB and BICGSTAB (reference
+pcg_solver.cu, cg_solver.cu, pcgf_solver.cu, pbicgstab_solver.cu,
+bicgstab_solver.cu).
 
 Each iteration is a function over (params, b, x, extra) with
 ``extra[0]`` the current residual; scalars (rho, alpha, beta) stay
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from amgx_tpu_torch.ops.blas import dot
+from amgx_tpu_torch.ops.blas import dot, fused_dots
 from amgx_tpu_torch.ops.spmv import spmv
 from amgx_tpu_torch.solvers.base import Solver
 from amgx_tpu_torch.solvers.registry import (
@@ -154,5 +156,104 @@ class PCGSolver(KrylovSolver):
 @register_solver("CG")
 class CGSolver(PCGSolver):
     """Unpreconditioned CG (reference cg_solver.cu)."""
+
+    uses_preconditioner = False
+
+
+def _safe_ratio(num, den):
+    """num / den, 0 where den == 0 (a breakdown step is a no-op, not
+    0/0 = NaN)."""
+    zero = torch.zeros((), dtype=num.dtype, device=num.device)
+    return torch.where(
+        den != 0, num / torch.where(den != 0, den, torch.ones_like(den)),
+        zero,
+    )
+
+
+@register_solver("PCGF")
+class PCGFSolver(KrylovSolver):
+    """Flexible PCG (reference pcgf_solver.cu): Polak-Ribiere beta
+    <z_new, r_new - r_old> / rho tolerates a changing preconditioner."""
+
+    def _make_init(self):
+        M = self._make_M()
+
+        def init(params, b, x):
+            A, Mp = params
+            r = b - spmv(A, x)
+            z = M(Mp, r)
+            return (r, z, dot(r, z))
+
+        return init
+
+    def _make_iter(self):
+        M = self._make_M()
+
+        def iterate(params, b, x, extra):
+            A, Mp = params
+            r, p, rho = extra
+            q = spmv(A, p)
+            alpha = _safe_ratio(rho, dot(p, q))
+            x = x + alpha * p
+            r_new = r - alpha * q
+            z = M(Mp, r_new)
+            # <r_new, z> and <z, r_new - r> in one stacked reduction
+            rho_new, zdr = fused_dots(((r_new, z), (z, r_new - r)))
+            beta = _safe_ratio(zdr, rho)
+            p = z + beta * p
+            return x, (r_new, p, rho_new)
+
+        return iterate
+
+
+@register_solver("PBICGSTAB")
+class PBiCGStabSolver(KrylovSolver):
+    """Preconditioned BiCGStab (reference pbicgstab_solver.cu)."""
+
+    def _make_init(self):
+        def init(params, b, x):
+            A, _ = params
+            r = b - spmv(A, x)
+            one = torch.ones((), dtype=r.dtype, device=r.device)
+            zeros = torch.zeros_like(r)
+            # (r, r0hat, p, v, rho, alpha, omega)
+            return (r, r, zeros, zeros, one, one, one)
+
+        return init
+
+    def _make_iter(self):
+        M = self._make_M()
+
+        def iterate(params, b, x, extra):
+            A, Mp = params
+            r, r0, p, v, rho, alpha, omega = extra
+            rho1 = dot(r0, r)
+            # guard each factor separately: the product rho*omega can
+            # underflow while both ratios remain well-defined
+            ok = (rho != 0) & (omega != 0)
+            zero = torch.zeros((), dtype=r.dtype, device=r.device)
+            beta = torch.where(
+                ok, _safe_ratio(rho1, rho) * _safe_ratio(alpha, omega), zero
+            )
+            p = r + beta * (p - omega * v)
+            phat = M(Mp, p)
+            v = spmv(A, phat)
+            alpha = _safe_ratio(rho1, dot(r0, v))
+            s = r - alpha * v
+            shat = M(Mp, s)
+            t = spmv(A, shat)
+            # <t, t> and <t, s> share t: one stacked reduction
+            tt, ts = fused_dots(((t, t), (t, s)))
+            omega = _safe_ratio(ts, tt)
+            x = x + alpha * phat + omega * shat
+            r = s - omega * t
+            return x, (r, r0, p, v, rho1, alpha, omega)
+
+        return iterate
+
+
+@register_solver("BICGSTAB")
+class BiCGStabSolver(PBiCGStabSolver):
+    """Unpreconditioned BiCGStab (reference bicgstab_solver.cu)."""
 
     uses_preconditioner = False

@@ -14,11 +14,10 @@ _SOLVERS: Dict[str, Callable] = {}
 # registered by the JAX package, not ported yet (ROADMAP.md, queue A,
 # items "remaining solvers")
 UNPORTED = frozenset({
-    "BICGSTAB", "CF_JACOBI", "CHEBYSHEV", "CHEBYSHEV_POLY", "FGMRES",
-    "FIXCOLOR_GS", "GMRES", "GS", "IDR", "IDRMSYNC", "INEXACT",
-    "ITERATIVE_REFINEMENT", "JACOBI_L1", "KACZMARZ", "KPZ_POLYNOMIAL",
-    "MULTICOLOR_DILU", "MULTICOLOR_GS", "MULTICOLOR_ILU", "NOSOLVER",
-    "OPT_POLYNOMIAL", "PBICGSTAB", "PCGF", "POLYNOMIAL", "SSTEP_PCG",
+    "CF_JACOBI", "CHEBYSHEV", "CHEBYSHEV_POLY", "IDR", "IDRMSYNC",
+    "INEXACT", "ITERATIVE_REFINEMENT", "KACZMARZ", "KPZ_POLYNOMIAL",
+    "MULTICOLOR_ILU", "NOSOLVER", "OPT_POLYNOMIAL", "POLYNOMIAL",
+    "SSTEP_PCG",
 })
 
 

@@ -43,7 +43,19 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    DIA launch), the fused pass count, and x bit for bit equal to the
    DIA slice's x on the card; then the CPU run, 64^3 f64 on both, and a
    trace of the warm solve.
-5. Prints the per-kernel summary line, then the device line last.
+5. FGMRES_AGGREGATION slice: AmgX's FGMRES + SIZE_2 aggregation AMG +
+   MULTICOLOR_DILU config (``FGMRES_CFG``) on ``poisson_3d_7pt(128)``
+   in f32, counts zeroed just before setup and read just after the
+   solve.  Checks status 0, the true residual, every level DIA, and
+   the ``dia_spmv`` and ``ell_spmv`` counts against the count derived
+   from the hierarchy and the iterations; traces one warm solve (device
+   ops per iteration, busy share, time in the SpMV kernels and in the
+   colour stages' gathers, reductions and index copies); repeats it on
+   the CPU (same colours per level, iterations within one, x to rtol
+   1e-4); 64^3 f64 on both (iterations equal, x to rtol 1e-9); and a
+   32^3 f32 matrix of every solver and smoother the slice ported, card
+   against CPU (iterations within one).
+6. Prints the per-kernel summary line, then the device line last.
 
 Exits non-zero without a result when CUDA is unavailable.  Imports
 nothing of JAX or of the JAX package ``amgx_tpu``.
@@ -93,6 +105,21 @@ ENTRY_CFG = (
 # descent legs
 MF_CFG = BENCH_CFG.replace('"cycle": "V",', '"cycle": "V", "matrix_free": 1,')
 MF_FORMATS = ("matrix_free", "dia", "dense", "ell")
+
+# AmgX's FGMRES_AGGREGATION config (tests/test_config.py's FGMRES_AGG)
+# with "monitor_residual": 1, as AmgX ships it: FGMRES around an
+# aggregation-AMG V-cycle, SIZE_2, MULTICOLOR_DILU post-smoothing
+FGMRES_CFG = (
+    '{"config_version": 2, "solver": {"preconditioner": {'
+    ' "algorithm": "AGGREGATION", "solver": "AMG",'
+    ' "smoother": "MULTICOLOR_DILU", "presweeps": 0, "selector": "SIZE_2",'
+    ' "coarse_solver": "DENSE_LU_SOLVER", "max_iters": 1, "postsweeps": 3,'
+    ' "min_coarse_rows": 32, "relaxation_factor": 0.75, "scope": "amg",'
+    ' "max_levels": 50, "cycle": "V"}, "use_scalar_norm": 1,'
+    ' "monitor_residual": 1, "solver": "FGMRES", "max_iters": 100,'
+    ' "gmres_n_restart": 10, "convergence": "RELATIVE_INI", "scope": "main",'
+    ' "tolerance": 1e-06, "norm": "L2"}}'
+)
 
 SLICE_N = 128
 
@@ -476,6 +503,12 @@ def kernel_phase(torch, peaks):
     P = sps.csr_matrix((np.ones(nf), (np.arange(nf), agg)), shape=(nf, nc))
     ell_case(f"level0 P {nf}x{nc} w=1 f32", P, np.float32)
     ell_case(f"level0 R {nc}x{nf} w=8 f32", P.T.tocsr(), np.float32)
+    # and of the FGMRES_AGGREGATION hierarchy: SIZE_2, 2x1x1 aggregates
+    agg = geo_aggregate(N, N, N, 1)
+    nc = int(agg.max()) + 1
+    P = sps.csr_matrix((np.ones(nf), (np.arange(nf), agg)), shape=(nf, nc))
+    ell_case(f"level0 SIZE_2 P {nf}x{nc} w=1 f32", P, np.float32)
+    ell_case(f"level0 SIZE_2 R {nc}x{nf} w=2 f32", P.T.tocsr(), np.float32)
     del P, agg
 
     m, k = 30000, 7000
@@ -521,11 +554,14 @@ def true_rel_residual(n, b, x):
     return float(np.linalg.norm(r) / np.linalg.norm(b64))
 
 
-def trace_solve(torch, s, b, iters):
+def trace_solve(torch, s, b, iters, groups=None):
     """Where a warm solve's time goes: one solve under torch.profiler;
     device busy time is the sum of the kernel and copy intervals on the
-    card, its share is taken of the profiled solve's wall time.  Prints
-    "not measured" when the profiler records no device activity."""
+    card, its share is taken of the profiled solve's wall time.
+    ``groups`` maps a label to name fragments: each device op counts
+    under the first label one of whose fragments its name holds, the
+    others under "rest".  Prints "not measured" when the profiler
+    records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -547,8 +583,8 @@ def trace_solve(torch, s, b, iters):
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     busy_us = sum(t for t, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    print(json.dumps({"trace": {
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    rec = {
         "profiled_wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / wall_us,
@@ -556,7 +592,17 @@ def trace_solve(torch, s, b, iters):
         "device_ops_per_iteration": len(dev) / max(iters, 1),
         "top": [{"name": n[:80], "ms": t / 1e3, "count": c,
                  "share_of_busy": t / busy_us} for n, (t, c) in top],
-    }}), flush=True)
+    }
+    if groups:
+        split = {label: [0.0, 0] for label in [*groups, "rest"]}
+        for name, (t, c) in by_name.items():
+            label = next((k for k, frags in groups.items()
+                          if any(f in name for f in frags)), "rest")
+            split[label][0] += t / 1e3
+            split[label][1] += c
+        rec["groups"] = {k: {"ms": t, "count": c}
+                         for k, (t, c) in split.items()}
+    print(json.dumps({"trace": rec}), flush=True)
 
 
 def slice_phase(torch):
@@ -750,6 +796,165 @@ def mf_slice_phase(torch, ref):
     return launches
 
 
+def solver_matrix():
+    """(label, config) of the 32^3 card-against-CPU cases: each outer
+    solver ported with FGMRES around the bench config's SIZE_8 /
+    BLOCK_JACOBI AMG (BICGSTAB takes no preconditioner), each smoother
+    ported with it in a PCG + SIZE_2 AMG solve, and FGMRES_AGGREGATION
+    colored by PARALLEL_GREEDY."""
+    cases = [(f"{name}+AMG(SIZE_8)",
+              BENCH_CFG.replace('"solver": "PCG", "max_iters": 100',
+                                f'"solver": "{name}", "max_iters": 200'))
+             for name in ("GMRES", "PCGF", "PBICGSTAB", "BICGSTAB")]
+    pcg_size2 = ENTRY_CFG.replace('"max_iters": 20', '"max_iters": 100')
+    for name, extra in (("MULTICOLOR_DILU", ""), ("MULTICOLOR_GS", ""),
+                        ("MULTICOLOR_GS", ', "symmetric_GS": 1'),
+                        ("GS", ""), ("FIXCOLOR_GS", ""), ("JACOBI_L1", "")):
+        label = f"PCG+AMG(SIZE_2,{name}{' symmetric' if extra else ''})"
+        cases.append((label, pcg_size2.replace(
+            '"solver": "BLOCK_JACOBI",', f'"solver": "{name}"{extra},')))
+    cases.append(("FGMRES_AGGREGATION PARALLEL_GREEDY", FGMRES_CFG.replace(
+        '"max_levels": 50,',
+        '"max_levels": 50, "matrix_coloring_scheme": "PARALLEL_GREEDY",')))
+    return cases
+
+
+def fgmres_derived_launches(s, iters):
+    """``dia_spmv`` and ``ell_spmv`` launches of an FGMRES solve of
+    ``iters`` iterations around an AMG V-cycle, from its hierarchy:
+    r0 = b - A x0 once, one more residual per restart, one A z per
+    iteration, and per cycle on each level above the coarsest its
+    presweeps, its residual and its postsweeps (one A-SpMV each), then
+    P and R; the coarsest level one residual before the dense-LU
+    solve."""
+    amg = s.precond
+    lv = amg.levels
+    dia_cycle = ell_cycle = 0
+    for i, lvl in enumerate(lv[:-1]):
+        pre, post = amg._level_sweeps(i)
+        dia_cycle += (pre + 1 + post) * (lvl.A.format == "DIA")
+        ell_cycle += (lvl.P.format == "ELL") + (lvl.R.format == "ELL")
+    coarsest = 1 if amg.coarse_solver is not None else amg.coarsest_sweeps
+    dia_cycle += coarsest * (lv[-1].A.format == "DIA")
+    restarts = -(-iters // s.restart)
+    top = lv[0].A.format == "DIA"
+    return {"dia_spmv": top * (restarts + iters) + iters * dia_cycle,
+            "ell_spmv": iters * ell_cycle}
+
+
+def fgmres_phase(torch):
+    """FGMRES_AGGREGATION (FGMRES + aggregation AMG + MULTICOLOR_DILU)
+    at 128^3 f32 on the card, its CPU run, 64^3 f64 on both, a trace
+    of one warm solve, and the 32^3 solver matrix."""
+    from amgx_tpu_torch.ops import dia, ell, stencil
+
+    N = SLICE_N
+    # ---- A. the main path: counts zeroed just before, read just after
+    dia.launches = ell.launches = stencil.launches = 0
+    s, res, setup_s, b, upload_s = solve_on("cuda", FGMRES_CFG, N,
+                                            np.float32)
+    launches = {"dia_spmv": dia.launches, "ell_spmv": ell.launches,
+                "stencil_spmv": stencil.launches}
+    iters, status = int(res.iters), int(res.status)
+    x = res.x.cpu().numpy()
+    levels = s.precond.level_summary()
+    colors = [lv.smoother.num_colors if lv.smoother else None
+              for lv in s.precond.levels]
+    solve_s = s.solve_time
+    res2 = s.solve(b)
+    check(int(res2.iters) == iters, "repeat FGMRES solve changed iterations")
+    warm_s = s.solve_time
+    derived = fgmres_derived_launches(s, iters)
+    rel = true_rel_residual(N, b, x)
+    rec = {
+        "slice": f"poisson7 {N}^3 f32 FGMRES(10)+AMG(SIZE_2,V,"
+                 "MULTICOLOR_DILU x3,DENSE_LU) on the card",
+        "levels": [{**lv, "colors": c} for lv, c in zip(levels, colors)],
+        "n_levels": len(levels), "iterations": iters, "status": status,
+        "upload_s": upload_s, "setup_s": setup_s, "solve_s": solve_s,
+        "ms_per_iteration": solve_s / max(iters, 1) * 1e3,
+        "solve_warm_s": warm_s,
+        "ms_per_iteration_warm": warm_s / max(iters, 1) * 1e3,
+        "true_rel_residual_f64": rel, "launches": launches,
+        "derived_launches": derived,
+    }
+    print(json.dumps(rec), flush=True)
+    check(status == 0, f"FGMRES status {status}")
+    check(rel <= 1e-5, f"FGMRES true relative residual {rel:.3e} > 1e-5")
+    check(all(lv["format"] == "DIA" for lv in levels),
+          f"FGMRES levels {[lv['format'] for lv in levels]}")
+    for k in ("dia_spmv", "ell_spmv"):
+        check(launches[k] == derived[k],
+              f"FGMRES {k} launches {launches[k]} != derived {derived[k]}")
+
+    # ---- D. a trace of one warm solve
+    # index_copy_ runs as an index_elementwise_kernel too: its own
+    # fragment is tried before the gathers'
+    trace_solve(torch, s, b, iters, groups={
+        "dia_spmv": ["dia_spmv"], "ell_spmv": ["ell_spmv"],
+        "index_copy": ["index_copy"],
+        "gather": ["index_elementwise", "gather", "index_select"],
+        "reduction": ["reduce_kernel"],
+    })
+    del s, res, res2
+
+    # ---- B. the same solve through the port on the CPU
+    sc, rc, setup_c, _, _ = solve_on("cpu", FGMRES_CFG, N, np.float32)
+    xc = rc.x.numpy()
+    xinf = float(np.abs(xc).max())
+    diff = float(np.abs(x - xc).max())
+    colors_c = [lv.smoother.num_colors if lv.smoother else None
+                for lv in sc.precond.levels]
+    print(json.dumps({
+        "fgmres_cpu_iterations": int(rc.iters),
+        "fgmres_cpu_status": int(rc.status),
+        "fgmres_cpu_setup_s": setup_c, "fgmres_cpu_solve_s": sc.solve_time,
+        "max_abs_diff_vs_cpu": diff, "x_inf": xinf,
+        "colors_equal_cpu": colors_c == colors}), flush=True)
+    check(colors_c == colors, f"colours card {colors} vs cpu {colors_c}")
+    check(abs(int(rc.iters) - iters) <= 1,
+          f"FGMRES f32 iterations card {iters} vs cpu {rc.iters}")
+    check(np.allclose(x, xc, rtol=1e-4, atol=1e-4 * xinf),
+          f"FGMRES f32 x card vs cpu: max abs diff {diff:.3e}")
+    del sc, rc
+
+    # ---- C. 64^3 in f64 on the card and the CPU
+    _, r64, _, _, _ = solve_on("cuda", FGMRES_CFG, 64, np.float64)
+    _, c64, _, _, _ = solve_on("cpu", FGMRES_CFG, 64, np.float64)
+    x64, xc64 = r64.x.cpu().numpy(), c64.x.numpy()
+    d64 = float(np.abs(x64 - xc64).max())
+    print(json.dumps({
+        "fgmres_f64_64^3": {"iterations": int(r64.iters),
+                            "cpu_iterations": int(c64.iters),
+                            "status": int(r64.status),
+                            "max_abs_diff_vs_cpu": d64}}), flush=True)
+    check(int(r64.status) == 0, f"FGMRES 64^3 f64 status {r64.status}")
+    check(int(r64.iters) == int(c64.iters),
+          f"FGMRES f64 iterations card {r64.iters} vs cpu {c64.iters}")
+    check(np.allclose(x64, xc64, rtol=1e-9,
+                      atol=1e-9 * float(np.abs(xc64).max())),
+          f"FGMRES f64 x card vs cpu: max abs diff {d64:.3e}")
+
+    # ---- E. the 32^3 solver matrix, card against CPU
+    for label, cfg in solver_matrix():
+        t0 = time.perf_counter()
+        _, rg, _, bg, _ = solve_on("cuda", cfg, 32, np.float32)
+        card_s = time.perf_counter() - t0
+        _, rcpu, _, _, _ = solve_on("cpu", cfg, 32, np.float32)
+        xg = rg.x.cpu().numpy()
+        print(json.dumps({"solver_32^3": {
+            "case": label, "iterations": int(rg.iters),
+            "cpu_iterations": int(rcpu.iters), "status": int(rg.status),
+            "cpu_status": int(rcpu.status), "card_s": card_s,
+            "true_rel_residual_f64": true_rel_residual(32, bg, xg)}}),
+            flush=True)
+        check(int(rg.status) == 0 and int(rcpu.status) == 0,
+              f"{label}: status card {rg.status} cpu {rcpu.status}")
+        check(abs(int(rg.iters) - int(rcpu.iters)) <= 1,
+              f"{label}: iterations card {rg.iters} vs cpu {rcpu.iters}")
+    return launches
+
+
 def main():
     import torch
 
@@ -784,6 +989,7 @@ def main():
     # each path's counts come from its own run: DIA and ELL from the
     # matrix_free=0 slice, the stencil kernel's from the MF slice
     launches["stencil_spmv"] = mf_slice_phase(torch, ref)["stencil_spmv"]
+    fg = fgmres_phase(torch)
 
     main_case = {
         "dia_spmv": (f"level0 A {SLICE_N}^3 f32",
@@ -814,6 +1020,7 @@ def main():
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            "launches_fgmres_aggregation": fg[name],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

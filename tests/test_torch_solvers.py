@@ -174,7 +174,7 @@ def test_fault_injection_unported(monkeypatch):
         s.setup(TMatrix.from_scipy(poisson_scipy((4, 4)), device="cpu"))
 
 
-@pytest.mark.parametrize("name", ["FGMRES", "GS", "CHEBYSHEV"])
+@pytest.mark.parametrize("name", ["IDR", "MULTICOLOR_ILU", "CHEBYSHEV"])
 def test_unported_solvers_raise(name):
     cfg = T.AMGConfig.from_string(_cfg(name))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
