@@ -2,11 +2,15 @@
 (reference src/amg.cu setup loop :201-418, src/cycles/).
 
 Counterpart of the JAX package's ``amg/hierarchy.py``.  Setup is the
-same host-side loop: coarsen with scipy level by level until a stop
-condition hits (``_coarsen_from``), then ship the levels to the device,
-set up a smoother per level and the coarse solver on the last.  The
-cycle is a Python recursion over the levels, run eagerly; its SpMVs go
-through ``ops/spmv.py`` (stencil, DIA and ELL kernels on the card).
+same loop: coarsen level by level until a stop condition hits
+(``_coarsen_from``), then ship the levels to the device, set up a
+smoother per level and the coarse solver on the last.  A coarse level
+is built as the JAX package builds it (``_build_coarse``): AGGREGATION
+and ENERGYMIN with numpy/scipy on the host, CLASSICAL on the host or
+with torch ops on the solver's device (``amg/device_setup.py``) by
+``setup_location``.  The cycle is a Python recursion over the levels,
+run eagerly; its SpMVs go through ``ops/spmv.py`` (stencil, DIA and ELL
+kernels on the card).
 
 Cycles V, W and F are ported, and ``matrix_free`` with ``fused_cycle``:
 under ``matrix_free=1`` every square operator (the finest one rebuilt
@@ -16,8 +20,8 @@ MATRIX_FREE format where stencil detection verifies it, and
 ``ops/stencil.py:fused_cycle_leg``: the same launches, counted as one
 operator pass.  Not ported yet, and raising ``NotImplementedError``
 when a config asks for them (ROADMAP.md, queue A): K-cycles (CG/CGF),
-``structure_reuse_levels``, ``hierarchy_dtype``, ``error_scaling``,
-CLASSICAL / ENERGYMIN coarsening and the setup store.
+``structure_reuse_levels``, ``hierarchy_dtype``, ``error_scaling``
+and the setup store.
 
 :func:`hierarchy_from_numpy` builds a solver on a given hierarchy
 (per-level CSR arrays of A, P and R) without coarsening — the way the
@@ -26,10 +30,13 @@ tests carry a hierarchy set up by the JAX package across.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
 from amgx_tpu_torch.core.matrix import SparseMatrix
+from amgx_tpu_torch.core.profiling import setup_profile_scope
 from amgx_tpu_torch.ops.spmv import op_pass_counter, spmv
 from amgx_tpu_torch.ops.stencil import fused_cycle_leg
 from amgx_tpu_torch.solvers.base import Solver
@@ -108,13 +115,18 @@ class AMGSolver(Solver):
         # per-level (A, P, R) given by hierarchy_from_numpy; consumed
         # by the next setup in place of coarsening
         self._given_levels = None
+        # setup-phase seconds (core/profiling.py) and, where the
+        # classical device pipeline ran, its host_s / device_s / syncs
+        # (and jax_syncs, the JAX package's tally of those reads)
+        self.setup_profile: dict = {}
+        # coarsen_calls and levels_built as in the JAX package;
+        # device_levels counts the classical levels the device pipeline
+        # built, host_fallback_levels those it handed to the host
+        # builder on DeviceSetupOverflow
+        self.setup_stats: dict = {}
 
     def _check_unported(self):
         super()._check_unported()
-        if self.algorithm != "AGGREGATION":
-            raise _unported(
-                f"algorithm={self.algorithm}", "classical AMG"
-            )
         if self.cycle_type not in ("V", "W", "F"):
             raise _unported(f"cycle={self.cycle_type} (K-cycle)",
                             "aggregation AMG extras")
@@ -131,10 +143,53 @@ class AMGSolver(Solver):
     # ------------------------------------------------------------------
     # setup (reference AMG_Setup::setup, amg.cu:147-418)
 
-    def _build_coarse(self, Asp):
-        from amgx_tpu_torch.amg.aggregation import build_aggregation_level
+    def _build_coarse(self, Asp, level_id: int):
+        if self.algorithm == "AGGREGATION":
+            from amgx_tpu_torch.amg.aggregation import (
+                build_aggregation_level,
+            )
 
-        return build_aggregation_level(Asp, self.cfg, self.scope)
+            return build_aggregation_level(Asp, self.cfg, self.scope)
+        if self.algorithm == "ENERGYMIN":
+            from amgx_tpu_torch.amg.energymin import build_energymin_level
+
+            return build_energymin_level(Asp, self.cfg, self.scope)
+        from amgx_tpu_torch.amg import device_setup
+        from amgx_tpu_torch.amg.classical import build_classical_level
+
+        # AUTO: the device pipeline on the card, the host builder on
+        # the CPU (the JAX package's rule, keyed on the solver's device)
+        loc = str(self.cfg.get("setup_location", self.scope)).upper()
+        explicit_device = loc == "DEVICE"
+        if loc == "AUTO":
+            loc = "DEVICE" if self.device.type == "cuda" else "HOST"
+        if loc != "HOST":
+            if device_setup.device_setup_eligible(self.cfg, self.scope,
+                                                  level_id):
+                try:
+                    out = device_setup.build_classical_level_device(
+                        Asp, self.cfg, self.scope, level_id,
+                        profile=self.setup_profile, device=self.device,
+                    )
+                except device_setup.DeviceSetupOverflow as e:
+                    # only the int32 addressing limit falls back: any
+                    # other error (a launch failure, an illegal access)
+                    # is a fault of the device pipeline and raises
+                    warnings.warn(
+                        f"device setup level {level_id}: "
+                        f"{type(e).__name__}: {e}; falling back to "
+                        "the host builder"
+                    )
+                    self.setup_stats["host_fallback_levels"] += 1
+                else:
+                    self.setup_stats["device_levels"] += 1
+                    return out
+            elif explicit_device:
+                warnings.warn(
+                    "setup_location=DEVICE but the config is not "
+                    "covered by the device pipeline; using HOST"
+                )
+        return build_classical_level(Asp, self.cfg, self.scope, level_id)
 
     def _make_smoother(self, A: SparseMatrix) -> Solver:
         name, sscope = self.cfg.get_scoped("smoother", self.scope)
@@ -188,18 +243,23 @@ class AMGSolver(Solver):
 
         A = self._maybe_matrix_free(scalarized(A, "AMG"))
         given, self._given_levels = self._given_levels, None
-        if given is not None:
-            self._adopt_levels(A, given)
-        else:
-            self.levels = [AMGLevel(A, 0)]
-            self._coarsen_from(A.host_csr())
-        self._finalize_setup()
+        self.setup_profile = {}
+        self.setup_stats = {"coarsen_calls": 0, "levels_built": 0,
+                            "device_levels": 0, "host_fallback_levels": 0}
+        with setup_profile_scope(self.setup_profile):
+            if given is not None:
+                self._adopt_levels(A, given)
+            else:
+                self.levels = [AMGLevel(A, 0)]
+                self._coarsen_from(A.host_csr())
+            self._finalize_setup()
 
     def _coarsen_from(self, Asp):
         """Extend ``self.levels`` by coarsening from the last level
         (whose host CSR is ``Asp``) until a stop condition hits.  The
         JAX package's coarse RCM renumbering runs only on TPU backends
         and has no counterpart here."""
+        self.setup_stats["coarsen_calls"] += 1
         coarse_name, _ = self.cfg.get_scoped("coarse_solver", self.scope)
         stop_rows = self.min_coarse_rows
         if coarse_name in ("DENSE_LU_SOLVER", "DENSE_LU"):
@@ -215,7 +275,7 @@ class AMGSolver(Solver):
                 or n <= self.min_fine_rows
             ):
                 break
-            P, R, Ac = self._build_coarse(Asp)
+            P, R, Ac = self._build_coarse(Asp, lvl.level_id)
             nc = Ac.shape[0]
             # stall: empty, non-shrinking, or shrinking slower than
             # coarsen_threshold allows (reference amg.cu:365-370)
@@ -241,6 +301,7 @@ class AMGSolver(Solver):
                     len(self.levels),
                 )
             )
+            self.setup_stats["levels_built"] += 1
             Asp = Ac
 
     def _adopt_levels(self, A, given):

@@ -3,7 +3,8 @@
 Same classes and AMGX_RC codes as the JAX package (reference
 amgx_c.h:52-69): :class:`SetupError` and its subclasses for operators
 that cannot be set up, with input validation at the upload and setup
-boundaries.  ``AMGX_TPU_VALIDATE=0`` disables validation in both
+boundaries, and :class:`ResourceError` for overflow-class failures
+(the classical device setup's ``DeviceSetupOverflow``).  ``AMGX_TPU_VALIDATE=0`` disables validation in both
 packages.
 """
 
@@ -16,6 +17,7 @@ import numpy as np
 RC_OK = 0
 RC_BAD_PARAMETERS = 1
 RC_UNKNOWN = 2
+RC_NO_MEMORY = 7
 RC_CORE = 10
 RC_NOT_IMPLEMENTED = 13
 RC_INTERNAL = 15
@@ -36,6 +38,13 @@ class SetupError(AMGXTPUError):
     """Operator setup cannot proceed (bad coefficients / structure)."""
 
     rc = RC_CORE
+
+
+class ResourceError(AMGXTPUError):
+    """Overflow/OOM-class failure: addressing limits, compile
+    failures, exhausted deadlines."""
+
+    rc = RC_NO_MEMORY
 
 
 class SingularDiagonalError(SetupError):

@@ -294,6 +294,34 @@ class SparseMatrix:
         )
 
     @staticmethod
+    def from_coo(rows, cols, vals, n_rows=None, n_cols=None,
+                 **kw) -> "SparseMatrix":
+        """Build from COO triples: sorted by (row, col), duplicates
+        summed (the JAX package's ``from_coo``, scalar blocks only)."""
+        rows = np.asarray(rows)
+        cols = np.asarray(cols)
+        vals = np.asarray(vals)
+        if n_rows is None:
+            n_rows = int(rows.max()) + 1 if rows.size else 0
+        if n_cols is None:
+            n_cols = int(cols.max()) + 1 if cols.size else 0
+        order = np.lexsort((cols, rows))
+        rows, cols, vals = rows[order], cols[order], vals[order]
+        key = rows.astype(np.int64) * n_cols + cols
+        uniq, inv = np.unique(key, return_inverse=True)
+        if uniq.shape[0] != key.shape[0]:
+            summed = np.zeros(uniq.shape[0], vals.dtype)
+            np.add.at(summed, inv, vals)
+            vals = summed
+            rows = (uniq // n_cols).astype(np.int32)
+            cols = (uniq % n_cols).astype(np.int32)
+        row_offsets = np.zeros(n_rows + 1, np.int32)
+        np.add.at(row_offsets[1:], rows, 1)
+        row_offsets = np.cumsum(row_offsets, dtype=np.int32)
+        return SparseMatrix.from_csr(row_offsets, cols, vals,
+                                     n_cols=n_cols, **kw)
+
+    @staticmethod
     def from_scipy(sp, **kw) -> "SparseMatrix":
         sp = sp.tocsr()
         sp.sort_indices()

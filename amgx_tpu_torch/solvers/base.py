@@ -15,12 +15,13 @@ Counterpart of the JAX package's ``solvers/base.py``, in eager PyTorch:
       ``make_apply()``  -> fn(params, r) -> z        (zero initial guess)
       ``make_smooth()`` -> fn(params, b, x, sweeps) -> x
 
-Not ported (ROADMAP.md, queue A) and raising ``NotImplementedError``
-when a config asks for them: scalers, RCM reordering, solve retries
-and fault injection (``AMGX_TPU_FAULTS``).  The setup store and
-telemetry have no entry point in this package yet.  ``matrix_reordering
-=AUTO`` is accepted: like the JAX package on any non-TPU backend, it
-never reorders.
+``matrix_reordering=RCM`` permutes the system once at setup and the
+vectors at the ``solve`` boundary (``ops/reorder.py``); AUTO, like the
+JAX package on any non-TPU backend, never reorders.  Not ported
+(ROADMAP.md, queue A) and raising ``NotImplementedError`` when a config
+asks for them: scalers, solve retries and fault injection
+(``AMGX_TPU_FAULTS``).  The setup store and telemetry have no entry
+point in this package yet.
 """
 
 from __future__ import annotations
@@ -92,6 +93,8 @@ class Solver:
             self.conv_type, self.tolerance, self.alt_rel_tolerance
         )
         self.A = None
+        # (perm, iperm) tensors when the system was reordered at setup
+        self._reorder = None
         self._params: Any = None
         self._cache: dict = {}
         self.setup_time = 0.0
@@ -274,11 +277,6 @@ class Solver:
                 f"scaling={self.scaling} is not ported yet "
                 "(ROADMAP.md, queue A: remaining solvers and scalers)"
             )
-        if self.reordering.upper() not in ("NONE", "AUTO"):
-            raise NotImplementedError(
-                f"matrix_reordering={self.reordering} is not ported yet "
-                "(ROADMAP.md, queue A: classical AMG and setup extras)"
-            )
         if self.solve_retries > 0:
             raise NotImplementedError(
                 "solve_retries is not ported yet (ROADMAP.md, queue A: "
@@ -304,6 +302,18 @@ class Solver:
             _errors.validate_operator(
                 A, where=f"{self.registry_name} setup"
             )
+        self._reorder = None
+        if self.reordering.upper() != "NONE":
+            # RCM renumbering at the solve boundary (reference Scaler
+            # hook, solver.cu:667-676): the operator is built once,
+            # permuted
+            from amgx_tpu_torch.ops.reorder import maybe_reorder
+
+            A2, perm = maybe_reorder(A, self.reordering)
+            if perm is not None:
+                perm_t = torch.from_numpy(perm).to(self.device)
+                self._reorder = (perm_t, torch.argsort(perm_t))
+                A = A2
         self.A = A
         self._setup_impl(A)
         self._cache.clear()
@@ -337,8 +347,13 @@ class Solver:
         fn = self._cache.get("solve")
         if fn is None:
             fn = self._cache["solve"] = self.make_solve()
+        if self._reorder is not None:
+            perm, _ = self._reorder
+            b, x0 = b[perm], x0[perm]
         t0 = time.perf_counter()
         res = fn(self.apply_params(), b, x0)
+        if self._reorder is not None:
+            res = dataclasses.replace(res, x=res.x[self._reorder[1]])
         if res.x.device.type == "cuda":
             torch.cuda.synchronize(res.x.device)
         self.solve_time = time.perf_counter() - t0

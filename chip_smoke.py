@@ -20,7 +20,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    of 25 launches, L2 flushed before each by a read of 128 MiB), the
    kernel's time with L2 left warm, its device time without the launch
    (profiler), and the roofline bound from this run's bytes and
-   operations.  First, the floor of one event-bracketed launch (an
+   operations (counted from the operator's nonzeros, not from padded
+   slots).  First, the floor of one event-bracketed launch (an
    empty kernel).  Each stencil case prints its launch plan, checks
    that the plan takes the kernel meant for the stencil (the star's,
    the box-subset one or the runtime-count one) and is held bit for bit
@@ -55,7 +56,25 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    1e-4); 64^3 f64 on both (iterations equal, x to rtol 1e-9); and a
    32^3 f32 matrix of every solver and smoother the slice ported, card
    against CPU (iterations within one).
-6. Prints the per-kernel summary line, then the device line last.
+6. PCG_CLASSICAL_V_JACOBI slice: AmgX's default-algorithm config
+   (``PCG_CLASSICAL``: PCG + classical AMG, AHAT / PMIS / D1, BLOCK_JACOBI,
+   DENSE_LU) on ``poisson_3d_7pt(128)`` in f32 with the classical setup
+   on the card (``setup_location`` AUTO), counts zeroed just before
+   setup and read just after the solve.  Per level rows, nnz, format
+   and ELL widths; upload, setup (host / device split, scalar reads,
+   peak device memory) and solve times; the true residual; no level
+   handed to the host builder; the ``dia_spmv`` / ``ell_spmv`` launches
+   and CSR products equal to the count derived from the hierarchy; the
+   ELL kernel at the level-1 A and level-0 P and R shapes; a trace of a
+   warm solve.  Then a second setup and solve (hierarchy and x bit for
+   bit equal), the CPU port (host setup, iterations within one), the
+   48^3 f64 hierarchy against the host builder (C/F splits, rows and
+   nonzeros equal, P and R to 1e-12, the coarse operators to 1e-11),
+   64^3 f64 against the CPU (iterations equal, x to rtol 1e-9), and,
+   card against CPU, the D2 + aggressive + interp_max_elements 4 and
+   MULTIPASS variants at 128^3, ENERGYMIN and RCM reordering (of a
+   shuffled Poisson matrix) at 32^3.
+7. Prints the per-kernel summary line, then the device line last.
 
 Exits non-zero without a result when CUDA is unavailable.  Imports
 nothing of JAX or of the JAX package ``amgx_tpu``.
@@ -120,6 +139,30 @@ FGMRES_CFG = (
     ' "gmres_n_restart": 10, "convergence": "RELATIVE_INI", "scope": "main",'
     ' "tolerance": 1e-06, "norm": "L2"}}'
 )
+
+# AmgX's PCG_CLASSICAL_V_JACOBI.json.  It has no algorithm, selector,
+# interpolator or coarse_solver key: classical AMG (AHAT strength, PMIS,
+# D1), DENSE_LU below 128 rows and setup_location AUTO (the device
+# pipeline on the card, the host builder on the CPU) apply
+PCG_CLASSICAL = (
+    '{"config_version": 2, "solver": {"scope": "main", "solver": "PCG",'
+    ' "max_iters": 100, "tolerance": 1e-6, "convergence": "RELATIVE_INI",'
+    ' "monitor_residual": 1, "norm": "L2",'
+    ' "preconditioner": {"scope": "amg", "solver": "AMG", "cycle": "V",'
+    ' "max_iters": 1, "presweeps": 1, "postsweeps": 1, "max_levels": 100,'
+    ' "monitor_residual": 0,'
+    ' "smoother": {"scope": "jacobi", "solver": "BLOCK_JACOBI",'
+    ' "monitor_residual": 0}}}}'
+)
+
+
+def classical_cfg(amg_extra="", main_extra=""):
+    """PCG_CLASSICAL with ``amg_extra`` keys in its AMG scope and
+    ``main_extra`` in the outer one."""
+    return PCG_CLASSICAL.replace(
+        '"monitor_residual": 0,', f'"monitor_residual": 0{amg_extra},', 1
+    ).replace('"norm": "L2",', f'"norm": "L2"{main_extra},', 1)
+
 
 SLICE_N = 128
 
@@ -305,13 +348,45 @@ def stencil_scipy(grid, steps, coefs):
         shape=(n, n))
 
 
+def ell_kernel_case(torch, timer, peaks, rng, label, sp, dtype,
+                    extra=None):
+    """The ELL kernel on the scipy matrix ``sp`` against its plain
+    version, with a random x from ``rng``; returns the case record.
+    The bound counts the operator's nonzeros (a column index and a
+    value each, x and y once), not the padded slots the kernel reads:
+    ``padded_bytes`` gives those."""
+    from amgx_tpu_torch.core.matrix import SparseMatrix
+    from amgx_tpu_torch.ops import ell
+
+    A = SparseMatrix.from_scipy(sp.astype(dtype), device="cuda",
+                                accel_formats=("ell",))
+    check(A.has_ell, f"{label}: not ELL")
+    x = torch.from_numpy(rng.standard_normal(A.n_cols).astype(dtype))
+    x = x.cuda()
+    w, n = A.ell_vals.shape
+    isz = A.ell_vals.element_size()
+    nz = int(sp.count_nonzero())
+    ro, ci, vals, shape = csr_of(torch, sp, dtype)
+    return kernel_case(
+        torch, timer, peaks, "ell_spmv", label,
+        lambda: ell.ell_spmv(A.ell_cols, A.ell_vals, x),
+        lambda: ell.ell_spmv_plain(A.ell_cols, A.ell_vals, x),
+        (ro, ci, vals, shape, x),
+        nbytes=(4 + isz) * nz + isz * (n + A.n_cols),
+        nops=2 * nz, dtype=A.ell_vals.dtype,
+        extra={"nonzeros": nz, "width": w,
+               "padded_bytes": (4 + isz) * w * n + isz * (n + A.n_cols),
+               **(extra or {})},
+    )
+
+
 def kernel_phase(torch, peaks):
     import scipy.sparse as sps
 
     from amgx_tpu_torch.amg.aggregation import geo_aggregate
     from amgx_tpu_torch.core.matrix import SparseMatrix
     from amgx_tpu_torch.io.poisson import poisson_scipy
-    from amgx_tpu_torch.ops import dia, ell, stencil
+    from amgx_tpu_torch.ops import dia, stencil
 
     timer = Timer(torch)
     rng = np.random.default_rng(0)
@@ -325,33 +400,20 @@ def kernel_phase(torch, peaks):
         x = x.cuda()
         nd, n = A.dia_vals.shape
         isz = A.dia_vals.element_size()
+        nz = int(sp.count_nonzero())
         ro, ci, vals, shape = csr_of(torch, sp, dtype)
         recs.append(kernel_case(
             torch, timer, peaks, "dia_spmv", label,
             lambda: dia.dia_spmv(A.dia_vals, A.dia_offsets_dev, x),
             lambda: dia.dia_spmv_plain(A.dia_vals, A.dia_offsets, x),
             (ro, ci, vals, shape, x),
-            nbytes=isz * n * (nd + 2) + 4 * nd, nops=2 * nd * n,
-            dtype=A.dia_vals.dtype,
+            nbytes=isz * (nz + 2 * n) + 4 * nd, nops=2 * nz,
+            dtype=A.dia_vals.dtype, extra={"nonzeros": nz},
         ))
 
     def ell_case(label, sp, dtype):
-        A = SparseMatrix.from_scipy(sp.astype(dtype), device="cuda",
-                                    accel_formats=("ell",))
-        check(A.has_ell, f"{label}: not ELL")
-        x = torch.from_numpy(rng.standard_normal(A.n_cols).astype(dtype))
-        x = x.cuda()
-        w, n = A.ell_vals.shape
-        isz = A.ell_vals.element_size()
-        ro, ci, vals, shape = csr_of(torch, sp, dtype)
-        recs.append(kernel_case(
-            torch, timer, peaks, "ell_spmv", label,
-            lambda: ell.ell_spmv(A.ell_cols, A.ell_vals, x),
-            lambda: ell.ell_spmv_plain(A.ell_cols, A.ell_vals, x),
-            (ro, ci, vals, shape, x),
-            nbytes=(4 + isz) * w * n + isz * (n + A.n_cols),
-            nops=2 * w * n, dtype=A.ell_vals.dtype,
-        ))
+        recs.append(ell_kernel_case(torch, timer, peaks, rng, label, sp,
+                                    dtype))
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -409,7 +471,8 @@ def kernel_phase(torch, peaks):
             lambda: stencil.stencil_spmv(A, x),
             lambda: stencil.stencil_spmv_plain(A.mf_meta, A.mf_coefs, x),
             (ro, ci, vals, shape, x),
-            nbytes=isz * 2 * n + 16 * nd, nops=2 * nd * n,
+            nbytes=isz * 2 * n + 16 * nd,
+            nops=2 * int(sp.count_nonzero()),
             dtype=A.mf_coefs.dtype,
             extra={"grid": list(A.mf_meta.grid), "diagonals": nd,
                    "plan": plan._asdict(),
@@ -523,11 +586,13 @@ def kernel_phase(torch, peaks):
     return recs
 
 
-def solve_on(device, cfg_str, n, dtype, accel_formats=None):
+def solve_on(device, cfg_str, n, dtype, accel_formats=None, info=None):
     """Upload + setup + solve through the port's entry points; returns
     (solver, result, setup_s, b, upload_s).  ``accel_formats``
     (default: the matrix's default formats) is the uploaded matrix's;
-    the upload time includes its DIA build or stencil detection."""
+    the upload time includes its DIA build or stencil detection.  On
+    the card, ``info`` (a dict) receives ``setup_peak_bytes``, the
+    peak device memory allocated during setup."""
     import amgx_tpu_torch as T
     from amgx_tpu_torch.io.poisson import poisson_3d_7pt, poisson_rhs
 
@@ -536,11 +601,17 @@ def solve_on(device, cfg_str, n, dtype, accel_formats=None):
     A = poisson_3d_7pt(n, dtype=dtype, device=device, **kw)
     upload_s = time.perf_counter() - t0
     b = poisson_rhs(A.n_rows, dtype=dtype)
+    if info is not None and device == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s = T.create_solver(T.AMGConfig.from_string(cfg_str), "default",
                         device=device)
     s.setup(A)
     setup_s = time.perf_counter() - t0
+    if info is not None and device == "cuda":
+        info["setup_peak_bytes"] = torch.cuda.max_memory_allocated()
     res = s.solve(b)
     return s, res, setup_s, b, upload_s
 
@@ -819,27 +890,50 @@ def solver_matrix():
     return cases
 
 
-def fgmres_derived_launches(s, iters):
-    """``dia_spmv`` and ``ell_spmv`` launches of an FGMRES solve of
-    ``iters`` iterations around an AMG V-cycle, from its hierarchy:
-    r0 = b - A x0 once, one more residual per restart, one A z per
-    iteration, and per cycle on each level above the coarsest its
-    presweeps, its residual and its postsweeps (one A-SpMV each), then
-    P and R; the coarsest level one residual before the dense-LU
-    solve."""
-    amg = s.precond
+# the counter each operator format's SpMV adds to (dense: a matmul)
+FORMAT_COUNTER = {"DIA": "dia_spmv", "ELL": "ell_spmv",
+                  "MATRIX_FREE": "stencil_spmv", "CSR": "csr"}
+
+
+def derived_launches(amg, cycles, top):
+    """``dia_spmv``, ``ell_spmv``, ``stencil_spmv`` launches and CSR
+    products of a solve from its AMG hierarchy (unfused cycles): ``top``
+    level-0 A-SpMVs outside the preconditioner, and per V-cycle on each
+    level above the coarsest its presweeps, its residual and its
+    postsweeps (one A-SpMV each), then P and R; on the coarsest level
+    one residual before the dense-LU solve (or its smoothing
+    sweeps)."""
+    counts = dict.fromkeys(FORMAT_COUNTER.values(), 0)
+
+    def add(fmt, k):
+        if fmt in FORMAT_COUNTER:
+            counts[FORMAT_COUNTER[fmt]] += k
+
     lv = amg.levels
-    dia_cycle = ell_cycle = 0
+    add(lv[0].A.format, top)
     for i, lvl in enumerate(lv[:-1]):
         pre, post = amg._level_sweeps(i)
-        dia_cycle += (pre + 1 + post) * (lvl.A.format == "DIA")
-        ell_cycle += (lvl.P.format == "ELL") + (lvl.R.format == "ELL")
+        add(lvl.A.format, cycles * (pre + 1 + post))
+        add(lvl.P.format, cycles)
+        add(lvl.R.format, cycles)
     coarsest = 1 if amg.coarse_solver is not None else amg.coarsest_sweeps
-    dia_cycle += coarsest * (lv[-1].A.format == "DIA")
+    add(lv[-1].A.format, cycles * coarsest)
+    return counts
+
+
+def fgmres_derived_launches(s, iters):
+    """Launches of an FGMRES solve of ``iters`` iterations: r0 = b - A
+    x0 once and one more residual per restart, one A z and one V-cycle
+    per iteration."""
     restarts = -(-iters // s.restart)
-    top = lv[0].A.format == "DIA"
-    return {"dia_spmv": top * (restarts + iters) + iters * dia_cycle,
-            "ell_spmv": iters * ell_cycle}
+    return derived_launches(s.precond, iters, restarts + iters)
+
+
+def pcg_derived_launches(s, iters):
+    """Launches of a PCG solve of ``iters`` iterations: r0 = b - A x0
+    and one V-cycle before the loop, one A p and one V-cycle per
+    iteration."""
+    return derived_launches(s.precond, iters + 1, iters + 1)
 
 
 def fgmres_phase(torch):
@@ -955,6 +1049,399 @@ def fgmres_phase(torch):
     return launches
 
 
+def _width(m):
+    return None if m is None or not m.has_ell else int(m.ell_cols.shape[0])
+
+
+def classical_levels(amg):
+    """Per level: rows, nnz, format and ELL width of A; format, nnz,
+    ELL width and longest row of P and R."""
+    out = []
+    for lvl in amg.levels:
+        rec = {"rows": lvl.n_rows, "nnz": lvl.nnz, "format": lvl.A.format,
+               "ell_width": _width(lvl.A),
+               "max_row": int(np.diff(lvl.A._host[0]).max())}
+        for f in ("P", "R"):
+            m = getattr(lvl, f)
+            if m is not None:
+                rec[f] = {"format": m.format, "nnz": m.nnz,
+                          "ell_width": _width(m),
+                          "max_row": int(np.diff(m._host[0]).max())}
+        out.append(rec)
+    return out
+
+
+def levels_bitwise(a, b):
+    """None when the hierarchies ``a`` and ``b`` (AMG solvers) hold the
+    same A, P and R on every level bit for bit, else where they
+    differ."""
+    if len(a.levels) != len(b.levels):
+        return f"level count {len(a.levels)} vs {len(b.levels)}"
+    for la, lb in zip(a.levels, b.levels):
+        for f in ("A", "P", "R"):
+            ma, mb = getattr(la, f), getattr(lb, f)
+            if (ma is None) != (mb is None):
+                return f"level {la.level_id} {f} presence"
+            if ma is not None and any(
+                    x.tobytes() != y.tobytes()
+                    for x, y in zip(ma._host, mb._host)):
+                return f"level {la.level_id} {f}"
+    return None
+
+
+def card_cf_split(torch, Asp, device):
+    """The C/F split of the device pipeline (AHAT strength with the
+    config's defaults theta 0.25 and max_row_sum 1.1, PMIS) of the host
+    CSR ``Asp``, run on ``device``."""
+    from amgx_tpu_torch.amg import device_setup as ds
+
+    A = Asp.tocsr()
+    n = A.shape[0]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    rows = put(np.repeat(np.arange(n, dtype=np.int64), np.diff(A.indptr)))
+    cols, vals = put(A.indices.astype(np.int64)), put(A.data)
+    offsets = put(A.indptr.astype(np.int64))
+    strong = ds._strength_ahat_dev(rows, cols, vals, offsets, n, 0.25, 1.1)
+    w = ds._pmis_weights(strong, cols, n, vals.dtype, 0, [0.0])
+    return ds._pmis_dev(rows, cols, strong, n, w).cpu().numpy()
+
+
+def shuffled_poisson(m, seed=0):
+    """Poisson on an m^3 grid with its unknowns shuffled (no DIA, so
+    RCM has a bandwidth to win back)."""
+    from amgx_tpu_torch.io.poisson import poisson_scipy
+
+    A = poisson_scipy((m, m, m))
+    p = np.random.default_rng(seed).permutation(A.shape[0])
+    A = A[p][:, p].tocsr()
+    A.sort_indices()
+    return A
+
+
+def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
+                    n_cmp=48, n_f64=64, n_small=32):
+    """PCG_CLASSICAL at ``n``^3 f32 with its setup on ``device`` (the
+    main path of this slice), the ELL kernel at its shapes, a trace,
+    determinism, the CPU port, the hierarchy against the host builder
+    at ``n_cmp``^3 f64, ``n_f64``^3 f64 against the CPU, and the other
+    selector / interpolator / reordering paths.  ``peaks`` None (a
+    rehearsal on the CPU) skips the kernel cases and the trace."""
+    from amgx_tpu_torch.amg import classical, device_setup
+    from amgx_tpu_torch.core.matrix import SparseMatrix
+    from amgx_tpu_torch.io.poisson import poisson_rhs
+    from amgx_tpu_torch.ops import dia, ell, spmv, stencil
+
+    def counts():
+        return {"dia_spmv": dia.launches, "ell_spmv": ell.launches,
+                "stencil_spmv": stencil.launches, "csr": spmv.csr_products}
+
+    def device_built(amg, label):
+        stats = amg.setup_stats
+        check(stats["host_fallback_levels"] == 0,
+              f"{label}: {stats['host_fallback_levels']} host fallbacks")
+        if device == "cuda":
+            check(stats["device_levels"] == len(amg.levels) - 1,
+                  f"{label}: {stats['device_levels']} device-built levels "
+                  f"of {len(amg.levels) - 1}")
+
+    # ---- 1. the main path: counts zeroed just before, read just after
+    info = {}
+    dia.launches = ell.launches = stencil.launches = 0
+    spmv.csr_products = 0
+    s, res, setup_s, b, upload_s = solve_on(device, PCG_CLASSICAL, n,
+                                            np.float32, info=info)
+    launches = counts()
+    iters, status = int(res.iters), int(res.status)
+    x = res.x.cpu().numpy()
+    amg = s.precond
+    levels = classical_levels(amg)
+    solve_s = s.solve_time
+    res2 = s.solve(b)
+    check(int(res2.iters) == iters, "repeat classical solve changed iters")
+    warm_s = s.solve_time
+    derived = pcg_derived_launches(s, iters)
+    rel = true_rel_residual(n, b, x)
+    print(json.dumps({
+        "slice": f"poisson7 {n}^3 f32 PCG_CLASSICAL_V_JACOBI (PCG + "
+                 "classical AMG AHAT/PMIS/D1, V, BLOCK_JACOBI, DENSE_LU) "
+                 f"setup and solve on {device}",
+        "levels": levels, "n_levels": len(levels), "iterations": iters,
+        "status": status, "upload_s": upload_s, "setup_s": setup_s,
+        "setup_profile": amg.setup_profile, "setup_stats": amg.setup_stats,
+        "setup_peak_bytes": info.get("setup_peak_bytes"),
+        "solve_s": solve_s, "ms_per_iteration": solve_s / max(iters, 1) * 1e3,
+        "solve_warm_s": warm_s,
+        "ms_per_iteration_warm": warm_s / max(iters, 1) * 1e3,
+        "true_rel_residual_f64": rel, "launches": launches,
+        "derived_launches": derived,
+        "repeat_solve_x_bitwise": bool(torch.equal(res.x, res2.x)),
+    }), flush=True)
+    check(status == 0, f"classical status {status}")
+    check(rel <= 1e-5, f"classical true relative residual {rel:.3e} > 1e-5")
+    device_built(amg, "PCG_CLASSICAL")
+    for k in launches:
+        # (the wrappers count only launches on the card)
+        check(launches[k] == derived[k] or device != "cuda",
+              f"classical {k} launches {launches[k]} != derived {derived[k]}")
+    check(torch.equal(res.x, res2.x), "repeat classical solve changed x")
+
+    recs = []
+    if peaks is not None:
+        # ---- the ELL kernel at this hierarchy's shapes, with the
+        # launches one solve gives each operator
+        timer = Timer(torch)
+        rng = np.random.default_rng(1)
+        cycles = iters + 1
+        pre, post = amg._level_sweeps(1)
+        l0, l1 = amg.levels[0], amg.levels[1]
+        for label, m, per_solve in (
+                ("level1 A", l1.A, cycles * (pre + 1 + post)),
+                ("level0 P", l0.P, cycles), ("level0 R", l0.R, cycles)):
+            if m.format != "ELL":
+                print(json.dumps({"classical_kernel_case_skipped": {
+                    "operator": label, "format": m.format}}), flush=True)
+                continue
+            recs.append(ell_kernel_case(
+                torch, timer, peaks, rng,
+                f"classical {label} {m.n_rows}x{m.n_cols} "
+                f"w={_width(m)} f32", m.host_csr(), np.float32,
+                extra={"launches_per_solve": per_solve}))
+        # the CSR products (P on the levels whose rows are too uneven
+        # for the ELL gate): the port's segment sum (torch.segment_reduce
+        # on one column) against segment_reduce on 1-D data (CUB),
+        # index_add_ (atomics: the sum order changes from run to run)
+        # and torch.mv on CSR
+        P1 = amg.levels[1].P
+        if P1.format == "CSR":
+            xr = torch.from_numpy(
+                rng.standard_normal(P1.n_cols).astype(np.float32)).cuda()
+
+            def seg():
+                return spmv._spmv_scalar(P1, xr)
+
+            def seg_1d():
+                c = P1.values * xr[P1.col_indices]
+                return torch.segment_reduce(c, "sum", offsets=P1.row_offsets,
+                                            unsafe=True)
+
+            def atomics():
+                c = P1.values * xr[P1.col_indices]
+                y = torch.zeros(P1.n_rows, dtype=c.dtype, device=c.device)
+                return y.index_add_(0, P1.row_ids, c)
+
+            ys = [seg() for _ in range(10)]
+            ya = [atomics() for _ in range(10)]
+            with warnings.catch_warnings():
+                # torch.sparse's beta notice
+                warnings.simplefilter("ignore", UserWarning)
+                lib = torch.sparse_csr_tensor(
+                    P1.row_offsets, P1.col_indices, P1.values,
+                    size=P1.shape)
+            nbytes = 8 * P1.nnz + 4 * (2 * P1.n_rows + 1 + P1.n_cols)
+            print(json.dumps({"classical_csr_case": {
+                "operator": f"level1 P {P1.n_rows}x{P1.n_cols} "
+                            f"nnz={P1.nnz} f32",
+                "segment_sum_ms": timer(seg),
+                "segment_reduce_1d_ms": timer(seg_1d),
+                "index_add_ms": timer(atomics),
+                "library_ms": timer(lambda: torch.mv(lib, xr)),
+                "bound_ms": nbytes / peaks["bw"] * 1e3,
+                "segment_sum_repeats_bitwise": all(
+                    torch.equal(ys[0], y) for y in ys),
+                "segment_sum_equals_1d": bool(torch.equal(ys[0], seg_1d())),
+                "index_add_distinct_results_of_10": len(
+                    {y.cpu().numpy().tobytes() for y in ya}),
+                "max_abs_diff_vs_index_add": float(
+                    (ys[0] - ya[0]).abs().max())}}), flush=True)
+            check(all(torch.equal(ys[0], y) for y in ys),
+                  "CSR product not bit for bit repeatable")
+            del P1, xr, ys, ya, lib
+        del timer
+        # ---- 7. a traced warm solve
+        trace_solve(torch, s, b, iters, groups={
+            "dia_spmv": ["dia_spmv"], "ell_spmv": ["ell_spmv"],
+            "csr": ["egment"], "dense": ["gemv", "gemm", "dot_kernel"],
+            "reduction": ["reduce_kernel"],
+        })
+
+    # ---- 3. determinism: a second setup and solve on the same device
+    s2, r3, _, _, _ = solve_on(device, PCG_CLASSICAL, n, np.float32)
+    where = levels_bitwise(amg, s2.precond)
+    print(json.dumps({"classical_repeat_setup": {
+        "hierarchy_bitwise": where is None, "first_difference": where,
+        "x_bitwise": bool(torch.equal(res.x, r3.x))}}), flush=True)
+    check(where is None, f"two classical setups differ at {where}")
+    check(torch.equal(res.x, r3.x), "two classical setups gave another x")
+    del s, s2, res, res2, r3, amg
+
+    # ---- 2. the CPU port (AUTO: the host builder there)
+    sc, rc, setup_c, _, _ = solve_on("cpu", PCG_CLASSICAL, n, np.float32)
+    xc = rc.x.numpy()
+    print(json.dumps({"classical_cpu": {
+        "iterations": int(rc.iters), "status": int(rc.status),
+        "setup_s": setup_c, "solve_s": sc.solve_time,
+        "levels": [(lv.n_rows, lv.nnz) for lv in sc.precond.levels],
+        "true_rel_residual_f64": true_rel_residual(n, b, xc),
+        "max_abs_diff_vs_card": float(np.abs(x - xc).max()),
+        "x_inf": float(np.abs(xc).max())}}), flush=True)
+    check(int(rc.status) == 0, f"classical cpu status {rc.status}")
+    check(abs(int(rc.iters) - iters) <= 1,
+          f"classical f32 iterations card {iters} vs cpu {rc.iters}")
+    del sc, rc
+
+    # ---- 4. the device pipeline against the host builder, f64: each
+    # coarse level of the card's hierarchy built again from the same
+    # operator by both.  (The two hierarchies as wholes part from level
+    # 2 on: Ac agrees to roundoff, and entries that sit exactly at
+    # theta times the row's largest, as -1/3 against 4/3, fall on
+    # either side of the strength test; tests/test_torch_device_setup.py
+    # shows the JAX package's two builders part the same way at 20^3.)
+    import amgx_tpu_torch as T
+
+    sd, _, _, _, _ = solve_on(device, PCG_CLASSICAL, n_cmp, np.float64)
+    sh, _, _, _, _ = solve_on("cpu", PCG_CLASSICAL, n_cmp, np.float64)
+    device_built(sd.precond, f"{n_cmp}^3 f64")
+    cfg = T.AMGConfig.from_string(PCG_CLASSICAL)
+    cmp = []
+    for lvl in sd.precond.levels[:-1]:
+        Asp = lvl.A.host_csr()
+        built = device_setup.build_classical_level_device(
+            Asp, cfg, "amg", lvl.level_id, device=device)
+        ref = classical.build_classical_level(Asp, cfg, "amg", lvl.level_id)
+        rec = {"level": lvl.level_id, "rows": lvl.n_rows,
+               "cf_equal": bool(np.array_equal(
+                   card_cf_split(torch, Asp, device),
+                   classical.pmis_select(
+                       classical.strength_ahat(Asp, 0.25, 1.1))))}
+        for name, md, mh in zip(("P", "R", "Ac"), built, ref):
+            md, mh = md.copy(), mh.copy()
+            rec[f"{name}_nnz"], rec[f"{name}_host_nnz"] = md.nnz, mh.nnz
+            md.eliminate_zeros()
+            mh.eliminate_zeros()
+            rec[f"{name}_nonzeros_equal"] = md.shape == mh.shape and (
+                (md != 0) != (mh != 0)).nnz == 0
+            rec[f"{name}_max_abs_diff"] = (
+                float(abs(md - mh).max()) if md.shape == mh.shape
+                else None)
+        cmp.append(rec)
+    print(json.dumps({f"classical_levels_{n_cmp}^3_f64_vs_host": cmp,
+                      "card_hierarchy": [(lv.n_rows, lv.nnz)
+                                         for lv in sd.precond.levels],
+                      "host_hierarchy": [(lv.n_rows, lv.nnz)
+                                         for lv in sh.precond.levels]}),
+          flush=True)
+    for rec in cmp:
+        lv = rec["level"]
+        check(rec["cf_equal"], f"{n_cmp}^3 level {lv}: C/F split differs")
+        for name, tol in (("P", 1e-12), ("R", 1e-12), ("Ac", 1e-11)):
+            check(rec[f"{name}_nonzeros_equal"]
+                  and rec[f"{name}_max_abs_diff"] <= tol,
+                  f"{n_cmp}^3 level {lv}: {name} differs from the host's "
+                  f"({rec[f'{name}_max_abs_diff']})")
+    del sd, sh
+
+    # ---- n_f64^3 f64 on the device against the CPU port: the port on
+    # the CPU solving with the card's hierarchy (carried across with
+    # hierarchy_from_numpy) takes the same iterations to x within rtol
+    # 1e-9; with its own host-built hierarchy, which parts from the
+    # card's at threshold ties (section 4), within one iteration
+    from amgx_tpu_torch.amg.hierarchy import hierarchy_from_numpy
+
+    s64, r64, _, b64, _ = solve_on(device, PCG_CLASSICAL, n_f64, np.float64)
+    device_built(s64.precond, f"{n_f64}^3 f64")
+    given = [{k: (*getattr(lv, k)._host, getattr(lv, k).shape)
+              for k in ("A", "P", "R") if getattr(lv, k) is not None}
+             for lv in s64.precond.levels]
+    sg64 = hierarchy_from_numpy(given, T.AMGConfig.from_string(PCG_CLASSICAL),
+                                device="cpu")
+    g64 = sg64.solve(b64)
+    _, c64, _, _, _ = solve_on("cpu", PCG_CLASSICAL, n_f64, np.float64)
+    x64, xg64 = r64.x.cpu().numpy(), g64.x.numpy()
+    d64 = float(np.abs(x64 - xg64).max())
+    print(json.dumps({f"classical_f64_{n_f64}^3": {
+        "iterations": int(r64.iters), "status": int(r64.status),
+        "cpu_on_card_hierarchy_iterations": int(g64.iters),
+        "max_abs_diff_vs_cpu_on_card_hierarchy": d64,
+        "cpu_own_setup_iterations": int(c64.iters),
+        "max_abs_diff_vs_cpu_own_setup":
+            float(np.abs(x64 - c64.x.numpy()).max()),
+        "x_inf": float(np.abs(x64).max())}}), flush=True)
+    check(int(r64.status) == 0, f"classical f64 status {r64.status}")
+    check(int(r64.iters) == int(g64.iters),
+          f"classical f64 iterations card {r64.iters} vs cpu {g64.iters}")
+    check(np.allclose(x64, xg64, rtol=1e-9,
+                      atol=1e-9 * float(np.abs(xg64).max())),
+          f"classical f64 x card vs cpu: max abs diff {d64:.3e}")
+    check(abs(int(r64.iters) - int(c64.iters)) <= 1,
+          f"classical f64 iterations card {r64.iters} vs cpu's own "
+          f"setup {c64.iters}")
+    del s64, sg64
+
+    # ---- 5. the other selector / interpolator / reordering paths
+    def card_and_cpu(label, run):
+        t0 = time.perf_counter()
+        sg, rg, xres = run(device)
+        card_s = time.perf_counter() - t0
+        _, rcpu, _ = run("cpu")
+        print(json.dumps({"classical_path": {
+            "case": label, "iterations": int(rg.iters),
+            "cpu_iterations": int(rcpu.iters), "status": int(rg.status),
+            "cpu_status": int(rcpu.status), "card_s": card_s,
+            "levels": [(lv.n_rows, lv.nnz, lv.A.format)
+                       for lv in sg.precond.levels],
+            "setup_profile": sg.precond.setup_profile,
+            "true_rel_residual_f64": xres}}), flush=True)
+        check(int(rg.status) == 0 and int(rcpu.status) == 0,
+              f"{label}: status card {rg.status} cpu {rcpu.status}")
+        check(abs(int(rg.iters) - int(rcpu.iters)) <= 1,
+              f"{label}: iterations card {rg.iters} vs cpu {rcpu.iters}")
+        return sg
+
+    def poisson_run(cfg, m):
+        def run(dev):
+            sg, rg, _, bg, _ = solve_on(dev, cfg, m, np.float32)
+            return sg, rg, true_rel_residual(m, bg, rg.x.cpu().numpy())
+        return run
+
+    for label, extra in (
+            ("D2 aggressive_levels 1 interp_max_elements 4",
+             ', "interpolator": "D2", "aggressive_levels": 1,'
+             ' "interp_max_elements": 4'),
+            ("MULTIPASS", ', "interpolator": "MULTIPASS"')):
+        sg = card_and_cpu(f"{n}^3 f32 PCG_CLASSICAL {label}",
+                          poisson_run(classical_cfg(extra), n))
+        device_built(sg.precond, label)
+        del sg
+    card_and_cpu(f"{n_small}^3 f32 ENERGYMIN",
+                 poisson_run(classical_cfg(', "algorithm": "ENERGYMIN"'),
+                             n_small))
+    shuffled = shuffled_poisson(n_small).astype(np.float32)
+    rcm_cfg = classical_cfg(main_extra=', "matrix_reordering": "RCM"')
+
+    def rcm_run(dev):
+        import amgx_tpu_torch as T
+
+        A = SparseMatrix.from_scipy(shuffled, device=dev)
+        sg = T.create_solver(T.AMGConfig.from_string(rcm_cfg), "default",
+                             device=dev)
+        sg.setup(A)
+        check(sg._reorder is not None, "RCM: the system was not reordered")
+        bg = poisson_rhs(A.n_rows, dtype=np.float32)
+        rg = sg.solve(bg)
+        xg = rg.x.cpu().numpy().astype(np.float64)
+        b64 = bg.astype(np.float64)
+        xres = float(np.linalg.norm(b64 - shuffled.astype(np.float64) @ xg)
+                     / np.linalg.norm(b64))
+        return sg, rg, xres
+
+    sg = card_and_cpu(f"{n_small}^3 shuffled f32 PCG_CLASSICAL RCM", rcm_run)
+    device_built(sg.precond, "RCM")
+    return launches, recs
+
+
 def main():
     import torch
 
@@ -990,6 +1477,8 @@ def main():
     # matrix_free=0 slice, the stencil kernel's from the MF slice
     launches["stencil_spmv"] = mf_slice_phase(torch, ref)["stencil_spmv"]
     fg = fgmres_phase(torch)
+    cl, cl_recs = classical_phase(torch, peaks)
+    recs += cl_recs
 
     main_case = {
         "dia_spmv": (f"level0 A {SLICE_N}^3 f32",
@@ -1013,6 +1502,9 @@ def main():
         rec = next(r for r in recs
                    if r["kernel"] == name and r["case"] == case)
         check(launches[name] > 0, f"{name} never launched on the main path")
+        if name != "stencil_spmv":
+            check(cl[name] > 0,
+                  f"{name} never launched on the PCG_CLASSICAL path")
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -1021,6 +1513,7 @@ def main():
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
             "launches_fgmres_aggregation": fg[name],
+            "launches_pcg_classical": cl[name],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

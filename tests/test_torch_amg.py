@@ -212,7 +212,8 @@ def test_matching_aggregation_matches_jax():
     (', "error_scaling": 2', "error_scaling"),
     (', "structure_reuse_levels": 1', "structure_reuse_levels"),
     (', "hierarchy_dtype": "BFLOAT16"', "hierarchy_dtype"),
-    (', "algorithm": "CLASSICAL"', "CLASSICAL"),
+    (', "algorithm": "CLASSICAL", "structure_reuse_levels": 1',
+     "structure_reuse_levels"),
 ])
 def test_unported_amg_options_raise(extra, match):
     cfg_text = _amg_cfg(extra=extra)

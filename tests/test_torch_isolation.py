@@ -60,6 +60,8 @@ def test_pattern_matches_whole_module_names_only():
 def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys, amgx_tpu_torch, amgx_tpu_torch.amg.aggregation\n"
+        "import amgx_tpu_torch.amg.device_setup, amgx_tpu_torch.amg.energymin\n"
+        "import amgx_tpu_torch.io.matrix_market, amgx_tpu_torch.ops.reorder\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'amgx_tpu'\n"
         "             or m.startswith('amgx_tpu.'))\n"

@@ -155,7 +155,7 @@ def test_dense_lu_zero_pivot_regularize_matches_jax():
 
 @pytest.mark.parametrize("extra,match", [
     (', "scaling": "DIAGONAL_SYMMETRIC"', "scaling"),
-    (', "matrix_reordering": "RCM"', "matrix_reordering"),
+    (', "scaling": "BINORMALIZATION"', "scaling"),
     (', "solve_retries": 2', "solve_retries"),
 ])
 def test_unported_options_raise(extra, match):
