@@ -20,7 +20,12 @@ Differences from the JAX package:
 
   * ELL is stored slot-major, ``(w, n_rows)``, so that the CUDA kernel's
     threads (one per row) read neighbouring addresses for each slot.
-    The JAX package stores ``(n_rows, w)``.
+    The JAX package stores ``(n_rows, w)``.  Beside it, from the same
+    host CSR, a sliced, row-sorted ELL (``sell``, ``ops/ell.py``) where
+    that moves fewer bytes than the slot-major arrays: rows whose
+    lengths vary (the classical operators) stop being padded to the
+    longest row.  SpMV takes ``sell`` when it is there; the format is
+    still "ELL".
   * No TPU windowed-ELL layout (the CUDA kernel gathers per thread), no
     partitions and no ``replace_values``, so the source maps into the
     CSR values (``dia_src``, the stencil's) are built on the host for
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from amgx_tpu_torch.core.device import resolve_device
+from amgx_tpu_torch.ops.ell import SELL_C, SlicedEll
 
 _ELL_MAX_OVERHEAD = 4.0
 _ELL_MAX_WIDTH = 128
@@ -87,6 +93,9 @@ class SparseMatrix:
       dense (n_rows, n_cols).
       ell_cols / ell_vals (w, n_rows), slot-major; padding slots hold
       column 0 and value 0.
+      sell: the same matrix in sliced ELL (``ops/ell.SlicedEll``), or
+      None where the slot-major arrays move no more bytes (every slice
+      as wide as the widest row).
     """
 
     row_offsets: torch.Tensor
@@ -104,6 +113,7 @@ class SparseMatrix:
     dense: Optional[torch.Tensor] = None
     ell_cols: Optional[torch.Tensor] = None
     ell_vals: Optional[torch.Tensor] = None
+    sell: Optional[SlicedEll] = None
     block_size: int = 1
     # host CSR triple (numpy) the matrix was built from; the AMG setup
     # reads it back instead of copying from the device
@@ -251,7 +261,7 @@ class SparseMatrix:
             dense = np.zeros((n_rows, n_cols), dtype=values.dtype)
             np.add.at(dense, (row_ids, col_indices), values)
 
-        ell_cols = ell_vals = None
+        ell_cols = ell_vals = sell = None
         if (
             "ell" in accel_formats
             and n_rows > 0
@@ -266,6 +276,8 @@ class SparseMatrix:
                 ell_cols, ell_vals = _build_ell_np(
                     row_offsets, col_indices, values, n_rows, w
                 )
+                sell = _build_sell_np(row_offsets, col_indices, values,
+                                      n_rows, w)
 
         def put(a):
             return None if a is None else to_tensor(a, dev)
@@ -290,6 +302,7 @@ class SparseMatrix:
             # slot-major for coalesced kernel loads
             ell_cols=None if ell_cols is None else put(ell_cols.T),
             ell_vals=None if ell_vals is None else put(ell_vals.T),
+            sell=sliced_ell(sell, dev),
             _host=(row_offsets, col_indices, values),
         )
 
@@ -386,6 +399,131 @@ def _build_ell_np(row_offsets, col_indices, values, n_rows, w):
     ell_cols[row_ids, pos] = col_indices
     ell_vals[row_ids, pos] = values
     return ell_cols, ell_vals
+
+
+# the windows sliced ELL may sort rows in (1: no sorting)
+SELL_SIGMAS = (1, 128, 1024)
+
+
+def sell_order_np(row_lens, sigma):
+    """Sorted position -> row: rows ordered by length, longest first,
+    within consecutive windows of ``sigma`` rows (stable, so rows of one
+    length keep their order); None for ``sigma`` 1."""
+    if sigma == 1:
+        return None
+    n = row_lens.shape[0]
+    window = np.arange(n, dtype=np.int64) // sigma
+    return np.lexsort((-row_lens.astype(np.int64), window)).astype(np.int32)
+
+
+def sell_widths_np(row_lens, order):
+    """Width of each 32-row slice of the rows in sorted ``order``."""
+    lens = row_lens if order is None else row_lens[order]
+    n_slices = -(-lens.shape[0] // SELL_C)
+    padded = np.zeros(n_slices * SELL_C, dtype=np.int64)
+    padded[:lens.shape[0]] = lens
+    return padded.reshape(n_slices, SELL_C).max(axis=1)
+
+
+def sell_stream_bytes(widths, n_rows, itemsize, sigma):
+    """Bytes the sliced kernel streams besides x and y: a column index
+    and a value for every stored slot, each slice's offset and width,
+    and the row permutation when rows are sorted."""
+    return (int(widths.sum()) * SELL_C * (4 + itemsize)
+            + 12 * widths.shape[0] + (4 * n_rows if sigma > 1 else 0))
+
+
+# warps that keep the card's memory system busy on a gather kernel
+# (132 SMs x 32); a matrix with fewer slices gives each row more lanes
+_SELL_FILL_WARPS = 4096
+
+
+def sell_lanes(widths):
+    """Lanes the kernel gives each row: 1 where the slices alone give
+    ``_SELL_FILL_WARPS`` warps, else doubled (to 8 at most) until they
+    do, as long as each lane keeps a slot of the mean slice width."""
+    n = widths.shape[0]
+    mean = float(widths.mean()) if n else 0.0
+    lanes = 1
+    while lanes < 8 and n * lanes < _SELL_FILL_WARPS \
+            and mean >= 2 * lanes:
+        lanes *= 2
+    return lanes
+
+
+# a wider window scatters the rows of a slice over more of the matrix,
+# so their x gathers and y writes touch more lines: it is taken only
+# where it streams this many times fewer bytes than the narrower one
+SELL_WINDOW_GAIN = 1.25
+
+
+def sell_plan_np(row_lens, itemsize, limit=None, sigmas=SELL_SIGMAS):
+    """The sliced layout's window: of ``sigmas`` whose layouts stream
+    fewer bytes than ``limit`` (None: no limit), the smallest that
+    streams at most ``SELL_WINDOW_GAIN`` times the fewest bytes of any.
+    Returns ``(bytes, sigma, order, widths)``, or None where no window
+    is under ``limit``."""
+    n = row_lens.shape[0]
+    plans = []
+    for sigma in sorted(sigmas):
+        order = sell_order_np(row_lens, sigma)
+        widths = sell_widths_np(row_lens, order)
+        nbytes = sell_stream_bytes(widths, n, itemsize, sigma)
+        if limit is None or nbytes < limit:
+            plans.append((nbytes, sigma, order, widths))
+    if not plans:
+        return None
+    least = min(p[0] for p in plans)
+    return next(p for p in plans if p[0] <= SELL_WINDOW_GAIN * least)
+
+
+def _build_sell_np(row_offsets, col_indices, values, n_rows, w,
+                   sigmas=SELL_SIGMAS, always=False):
+    """Sliced ELL arrays of a CSR matrix (``ops/ell.SlicedEll``'s
+    layout) as numpy arrays in a dict, with the plan (sigma, lanes).
+    None where every window would stream as many bytes as the
+    slot-major arrays' ``n_rows * w`` slots or more (every slice as wide
+    as the widest row), unless ``always``."""
+    row_lens = np.diff(row_offsets).astype(np.int64)
+    itemsize = values.dtype.itemsize
+    plan = sell_plan_np(
+        row_lens, itemsize,
+        None if always else n_rows * w * (4 + itemsize), sigmas)
+    if plan is None:
+        return None
+    _, sigma, order, widths = plan
+    offsets = np.zeros(widths.shape[0] + 1, dtype=np.int64)
+    np.cumsum(widths * SELL_C, out=offsets[1:])
+    # sorted position of every row, then the slot of every entry
+    pos = np.arange(n_rows, dtype=np.int64)
+    if order is not None:
+        pos[order] = np.arange(n_rows, dtype=np.int64)
+    row_ids = _row_ids_np(row_offsets, n_rows)
+    slot = np.arange(col_indices.shape[0], dtype=np.int64) - row_offsets[
+        row_ids
+    ].astype(np.int64)
+    p = pos[row_ids]
+    at = offsets[p // SELL_C] + slot * SELL_C + p % SELL_C
+    cols = np.zeros(offsets[-1], dtype=np.int32)
+    vals = np.zeros(offsets[-1], dtype=values.dtype)
+    cols[at] = col_indices
+    vals[at] = values
+    return {"cols": cols, "vals": vals, "offsets": offsets,
+            "widths": widths.astype(np.int32), "rows": order,
+            "n_rows": int(n_rows), "sigma": sigma,
+            "lanes": sell_lanes(widths)}
+
+
+def sliced_ell(host, device):
+    """:class:`SlicedEll` on ``device`` from a dict of
+    :func:`_build_sell_np`, or None for None."""
+    if host is None:
+        return None
+    return SlicedEll(
+        **{k: None if host[k] is None else to_tensor(host[k], device)
+           for k in ("cols", "vals", "offsets", "widths", "rows")},
+        n_rows=host["n_rows"], sigma=host["sigma"], lanes=host["lanes"],
+    )
 
 
 def dia_gate(num_diags: int, n: int, nnz: int) -> bool:

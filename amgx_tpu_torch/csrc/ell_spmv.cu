@@ -1,33 +1,73 @@
-// ELL sparse matrix-vector product for Hopper (sm_90a), slot-major:
+// ELL sparse matrix-vector products for Hopper (sm_90a), y = A x for a
+// square or rectangular matrix of n rows, f32 and f64, in two layouts.
 //
-//     y[i] = sum_s vals[s * n + i] * x[cols[s * n + i]]     (0 <= i < n)
+// Both replace the Pallas TPU kernel
+// amgx_tpu/ops/pallas_well.py::_well_kernel.  That kernel cut rows into
+// 1024-row tiles, interleaved the slots across the (8, 128) lanes and
+// gathered from one x window per tile, only to bound the cost of a TPU
+// lane gather.  A GPU gathers per thread, so none of that is carried
+// over.
 //
-// for a square or rectangular matrix of n rows stored as w slots of n
-// entries each (padding slots hold column 0 and value 0).
+// What bounds both on an H100: bytes.  A call must read the stored
+// column ids and values once, x once and write y once; it does 2 flops
+// per stored entry.
 //
-// Replaces the Pallas TPU kernel amgx_tpu/ops/pallas_well.py::_well_kernel.
-// That kernel cut rows into 1024-row tiles, interleaved the slots across
-// the (8, 128) lanes and gathered from one x window per tile, only to
-// bound the cost of a TPU lane gather.  A GPU gathers per thread, so
-// none of that is carried over.
+// 1. ell_spmv: slot-major ELL,
 //
-// What bounds it on an H100: bytes.  A call must read the w slots of
-// column ids and values once, x once and write y once:
-// n * w * 8 + 4 * n + 4 * n_cols bytes in f32 (about 26 MB for each of
-// the prolongation P, w = 1, and restriction R, w = 8, of the
-// 2,097,152-row Poisson level, 7.8 us at 3.35 TB/s).  It does 2 * w
-// flops per row.
+//        y[i] = sum_s vals[s * n + i] * x[cols[s * n + i]]  (0 <= i < n)
 //
-// Design:
-//   * one thread per row (grid-stride); with the slot-major layout a
-//     warp's loads of cols and vals for one slot are coalesced;
-//   * x[cols[...]] is a gather through the read-only path (__ldg); the
-//     aggregation transfers number coarse unknowns lexicographically,
-//     so neighbouring rows gather from neighbouring columns and the
-//     gathered lines are mostly reused from L1/L2;
-//   * the sum starts from +0.0 and runs in slot order, as the plain
-//     version (ops/ell.py:ell_spmv_plain) does;
-//   * s * n + i is computed in 64-bit.
+//    with every row padded to the matrix-wide width w (padding slots
+//    hold column 0 and value 0).  It serves matrices whose rows all
+//    need that width, the aggregation transfers (P at w = 1, R at w = 2
+//    and 8): n * w * 8 + 4 * n + 4 * n_cols bytes in f32, about 26 MB
+//    (7.8 us at 3.35 TB/s) for the SIZE_8 P or R of a 2,097,152-row
+//    level.  One thread per row (grid-stride); a warp's loads of one
+//    slot are coalesced; x is gathered through the read-only path
+//    (__ldg); the sum starts from +0.0 and runs in slot order, as the
+//    plain version (ops/ell.py:ell_spmv_plain) does; s * n + i is
+//    computed in 64-bit.
+//
+// 2. sell_spmv: sliced, row-sorted ELL (SELL-C-sigma, C = 32), for
+//    matrices whose row lengths vary (the classical AMG operators: the
+//    level-1 A of a 128^3 Poisson hierarchy has 37 slots for 18.4
+//    stored entries a row, the level-0 P 6 for 2.15).  Rows are sorted
+//    by length within windows of sigma rows and cut into slices of 32;
+//    slice k stores widths[k] slots slot-major from offsets[k], so the
+//    entry of slot s of lane l lies at offsets[k] + 32 s + l.  Its bound
+//    is the stored entries (8 bytes each in f32, 12 in f64) plus x, y,
+//    the 4-byte row permutation (when sigma > 1) and 12 bytes of slice
+//    header per 32 rows.  What each design choice does about that:
+//      * a slice is padded only to its own longest row, and sorting
+//        puts rows of like length in one slice, so the bytes read
+//        approach the stored entries';
+//      * a warp walks one slice (lanes = rows) up to the slice's width
+//        only: each load of one slot is one 128-byte line (f32 values);
+//      * small levels: with `lanes` L > 1 (fixed per matrix at upload
+//        from its slice count), L lanes share a row, each summing a
+//        fixed contiguous range of ceil(width / L) slots, and a fixed
+//        xor-shuffle tree adds the L parts.  This splits each row's
+//        serial chain of gathers and gives a level of a few hundred
+//        slices (the level-3 A has 739) L times the warps.  A warp then
+//        covers 32 / L rows, so one load reads 32 / L neighbouring
+//        entries: on a large level that costs more than it gains, and
+//        the plan keeps L = 1 there;
+//      * column ids and values are used once: loaded with __ldcs
+//        (evict-first), so they do not push x out of L1 and L2; x is
+//        gathered through the read-only path (__ldg);
+//      * eight slots are loaded (predicated past the row part's end)
+//        before their eight gathers are issued, so a warp keeps sixteen
+//        streaming loads, then eight gathers, in flight, and a slice up
+//        to eight wide takes one step;
+//      * a warp walks (slice, part group) items grid-stride over a grid
+//        of at most as many blocks as are resident on the card at once
+//        (fewer on a small level: every item gets its own warp), and
+//        loads the next item's offset, width and output row while it
+//        works on the current one, so those loads add no latency;
+//      * each y is written once, at y[rows[p]], with no atomics: a part
+//        sums its slots in slot order from +0.0 (one FMA each) and the
+//        tree's order is fixed, so results repeat bit for bit; with
+//        L = 1 the sum is the slot-major kernel's, bit for bit;
+//      * offsets are 64-bit.
 //
 // Plain C interface, loaded with ctypes (amgx_tpu_torch/ops/kernels.py).
 
@@ -57,6 +97,81 @@ ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
   }
 }
 
+// one warp per (slice, group) item; lane = r * L + p holds row r of the
+// group's 32 / L rows and part p of the slice's slots.  A warp walks
+// items grid-stride and loads the next item's header (offset, width)
+// and output row while it works on the current one, so a narrow slice
+// costs two dependent loads (entries, then x), not four.
+template <typename T, int L>
+__global__ void __launch_bounds__(kThreads)
+sell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
+                 const int64_t* __restrict__ offsets,
+                 const int* __restrict__ widths,
+                 const int* __restrict__ rows, int64_t n_items,
+                 const T* __restrict__ x, T* __restrict__ y, int64_t n) {
+  constexpr int kRows = 32 / L;
+  constexpr int kBatch = 8;
+  const int lane = threadIdx.x & 31;
+  const int part = lane % L;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  int64_t item = (static_cast<int64_t>(blockIdx.x) * kThreads +
+                  threadIdx.x) >> 5;
+  if (item >= n_items) return;  // the whole warp
+  // header of an item: entry offset of this lane's row, slice width and
+  // the y index it writes (-1: a padding row past n)
+  int64_t at, at_next = 0, dst, dst_next = -1;
+  int w, w_next = 0;
+  auto header = [&](int64_t it, int64_t& a, int& wd, int64_t& d) {
+    const int64_t k = it / L;
+    const int in_slice = static_cast<int>(it % L) * kRows + lane / L;
+    const int64_t p = k * 32 + in_slice;
+    a = offsets[k] + in_slice;
+    wd = widths[k];
+    d = p < n ? (rows != nullptr ? static_cast<int64_t>(rows[p]) : p) : -1;
+  };
+  header(item, at, w, dst);
+  for (;;) {
+    const int64_t next = item + warps;
+    if (next < n_items) header(next, at_next, w_next, dst_next);
+    const int chunk = (w + L - 1) / L;
+    const int s_end = min(w, (part + 1) * chunk);
+    T acc = T(0);
+    if (dst >= 0) {
+      // kBatch slots a step: all their entries are loaded (slots past
+      // the part's end as column -1, value 0) before their gathers; the
+      // FMAs run in slot order, and a slot past the end adds +0.0
+      for (int s = part * chunk; s < s_end; s += kBatch) {
+        int c[kBatch];
+        T v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int64_t e = at + static_cast<int64_t>(s + u) * 32;
+          const bool live = s + u < s_end;
+          c[u] = live ? __ldcs(cols + e) : -1;
+          v[u] = live ? __ldcs(vals + e) : T(0);
+        }
+        T xv[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          xv[u] = c[u] >= 0 ? __ldg(x + c[u]) : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) acc = fma(v[u], xv[u], acc);
+      }
+    }
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    }
+    if (part == 0 && dst >= 0) y[dst] = acc;
+    if (next >= n_items) break;
+    item = next;
+    at = at_next;
+    w = w_next;
+    dst = dst_next;
+  }
+}
+
 template <typename T>
 int launch(const void* cols, const void* vals, int w, const void* x,
            void* y, long long n, void* stream) {
@@ -68,6 +183,55 @@ int launch(const void* cols, const void* vals, int w, const void* x,
       static_cast<const int*>(cols), static_cast<const T*>(vals), w,
       static_cast<const T*>(x), static_cast<T*>(y),
       static_cast<int64_t>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// enough blocks to cover every item, at most as many as fit on the card
+// at once (the rest are walked grid-stride)
+template <typename T, int L>
+void launch_sell_l(const void* cols, const void* vals, const void* offsets,
+                   const void* widths, const void* rows, long long n_slices,
+                   const void* x, void* y, long long n, cudaStream_t stream) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sell_spmv_kernel<T, L>, kThreads, 0);
+    if (per_sm < 1) per_sm = 1;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long items = n_slices * L;
+  long long blocks = (items + kThreads / 32 - 1) / (kThreads / 32);
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  if (resident > 0 && blocks > resident) blocks = resident;
+  sell_spmv_kernel<T, L><<<static_cast<unsigned>(blocks), kThreads, 0,
+                           stream>>>(
+      static_cast<const int*>(cols), static_cast<const T*>(vals),
+      static_cast<const int64_t*>(offsets), static_cast<const int*>(widths),
+      static_cast<const int*>(rows), static_cast<int64_t>(items),
+      static_cast<const T*>(x), static_cast<T*>(y),
+      static_cast<int64_t>(n));
+}
+
+template <typename T>
+int launch_sell(const void* cols, const void* vals, const void* offsets,
+                const void* widths, const void* rows, long long n_slices,
+                int lanes, const void* x, void* y, long long n,
+                void* stream) {
+  if (n <= 0 || n_slices <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 1: launch_sell_l<T, 1>(cols, vals, offsets, widths, rows, n_slices,
+                                x, y, n, s); break;
+    case 2: launch_sell_l<T, 2>(cols, vals, offsets, widths, rows, n_slices,
+                                x, y, n, s); break;
+    case 4: launch_sell_l<T, 4>(cols, vals, offsets, widths, rows, n_slices,
+                                x, y, n, s); break;
+    case 8: launch_sell_l<T, 8>(cols, vals, offsets, widths, rows, n_slices,
+                                x, y, n, s); break;
+    default: return cudaErrorInvalidValue;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -83,4 +247,22 @@ extern "C" int ell_spmv_f64(const void* cols, const void* vals, int w,
                             const void* x, void* y, long long n,
                             void* stream) {
   return launch<double>(cols, vals, w, x, y, n, stream);
+}
+
+extern "C" int sell_spmv_f32(const void* cols, const void* vals,
+                             const void* offsets, const void* widths,
+                             const void* rows, long long n_slices,
+                             int lanes, const void* x, void* y, long long n,
+                             void* stream) {
+  return launch_sell<float>(cols, vals, offsets, widths, rows, n_slices,
+                            lanes, x, y, n, stream);
+}
+
+extern "C" int sell_spmv_f64(const void* cols, const void* vals,
+                             const void* offsets, const void* widths,
+                             const void* rows, long long n_slices,
+                             int lanes, const void* x, void* y, long long n,
+                             void* stream) {
+  return launch_sell<double>(cols, vals, offsets, widths, rows, n_slices,
+                             lanes, x, y, n, stream);
 }

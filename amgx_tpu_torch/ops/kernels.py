@@ -36,7 +36,9 @@ NVCC_FLAGS = (
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # every pointer and the stream as c_void_p so ctypes passes 64 bits.
-# DIA and ELL: (pointer, pointer, int, x, y, rows, stream); stencil:
+# DIA and ELL: (pointer, pointer, int, x, y, rows, stream); sliced ELL:
+# (cols, vals, offsets, widths, row permutation or None, slices, lanes,
+# x, y, rows, stream); stencil:
 # (coefs, x, y, host int array of the grid, the launch plan and the
 # steps, stream)
 _SIGNATURES = {
@@ -47,6 +49,8 @@ _SIGNATURES = {
     "ell_spmv": {
         "ell_spmv_f32": (_P, _P, _I, _P, _P, _LL, _P),
         "ell_spmv_f64": (_P, _P, _I, _P, _P, _LL, _P),
+        "sell_spmv_f32": (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _P),
+        "sell_spmv_f64": (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _P),
     },
     "stencil_spmv": {
         "stencil_spmv_f32": (_P, _P, _P, _P, _P),

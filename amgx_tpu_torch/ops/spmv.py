@@ -8,14 +8,16 @@ Dispatch order, as in the JAX package's ``ops/spmv.py``: MATRIX_FREE
     (``ops/stencil.py``);
   * DIA: the ``dia_spmv`` CUDA kernel on the card (``ops/dia.py``);
   * dense: ``torch.matmul`` (the JAX package leaves it to XLA);
-  * ELL: the ``ell_spmv`` CUDA kernel on the card (``ops/ell.py``);
+  * ELL: the ``sell_spmv`` CUDA kernel on the card where the matrix
+    has its sliced layout, else the slot-major ``ell_spmv`` one
+    (``ops/ell.py``);
   * CSR: gather per entry + :func:`segment_sum` over the row offsets,
     which sums each row in entry order on both devices, so repeated
     products on the card agree bit for bit (``index_add_`` would sum
     with atomics there, in an order that changes from run to run).
 
 On CPU tensors the stencil, DIA and ELL wrappers take their plain
-versions.
+versions (an ELL matrix with a sliced layout takes the sliced one).
 
 ``op_pass_counter`` mirrors the JAX package's counter of the same name:
 every SpMV with a square operator records one pass while a counter is
@@ -31,7 +33,7 @@ import torch
 
 from amgx_tpu_torch.ops.blas import make_site_counter
 from amgx_tpu_torch.ops.dia import dia_spmv
-from amgx_tpu_torch.ops.ell import ell_spmv
+from amgx_tpu_torch.ops.ell import ell_spmv, sell_spmv
 from amgx_tpu_torch.ops.stencil import stencil_spmv
 
 record_op_pass, op_pass_counter = make_site_counter("op_pass")
@@ -58,6 +60,8 @@ def _spmv_scalar(A, x):
     if A.has_dense:
         return torch.matmul(A.dense, x)
     if A.has_ell:
+        if A.sell is not None:
+            return sell_spmv(A.sell, x)
         return ell_spmv(A.ell_cols, A.ell_vals, x)
     if x.device.type == "cuda":
         csr_products += 1

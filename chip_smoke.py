@@ -27,8 +27,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the box-subset one or the runtime-count one) and is held bit for bit
    against the DIA kernel on the same matrix, whose times are printed
    beside it with those of a copy of x (the bytes of the bound moved by
-   the copy engine).  A line before the summary lists every device
-   time the profiler did not record.
+   the copy engine).  Each ELL case runs the slot-major ``ell_spmv`` and,
+   where the upload builds the sliced layout, ``sell_spmv``, each held
+   to the plain versions of both layouts; the sliced kernel is also
+   held, untimed, to both on edge layouts at every window and lane
+   count (one lane a row bit for bit equal to ``ell_spmv``).  Speed
+   targets print on ``targets`` lines and fail nothing.  A line before
+   the summary lists every device time the profiler did not record.
 3. DIA slice: the bench solve (PCG + aggregation-AMG V-cycle, SIZE_8,
    BLOCK_JACOBI, DENSE_LU) on ``poisson_3d_7pt(128)`` in f32 through
    the port's entry points.  Kernel launch counts are zeroed just
@@ -63,18 +68,26 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    setup and read just after the solve.  Per level rows, nnz, format
    and ELL widths; upload, setup (host / device split, scalar reads,
    peak device memory) and solve times; the true residual; no level
-   handed to the host builder; the ``dia_spmv`` / ``ell_spmv`` launches
-   and CSR products equal to the count derived from the hierarchy; the
-   ELL kernel at the level-1 A and level-0 P and R shapes; a trace of a
-   warm solve.  Then a second setup and solve (hierarchy and x bit for
-   bit equal), the CPU port (host setup, iterations within one), the
-   48^3 f64 hierarchy against the host builder (C/F splits, rows and
-   nonzeros equal, P and R to 1e-12, the coarse operators to 1e-11),
-   64^3 f64 against the CPU (iterations equal, x to rtol 1e-9), and,
+   handed to the host builder; the ``dia_spmv`` / ``ell_spmv`` /
+   ``sell_spmv`` launches and CSR products equal to the count derived
+   from the hierarchy; each ELL operator's sliced layout (window, lanes
+   a row, stored slots per CSR entry, device bytes); both ELL kernels at
+   every ELL operator (the sliced one also at every lane count and
+   window), the level-1 A in f64 and renumbered by RCM (a measurement
+   only); a trace of a warm solve.  Then a second setup and solve
+   (hierarchy and x bit for bit equal), the CPU port (host setup,
+   iterations within one), the 48^3 f64 hierarchy against the host
+   builder (C/F splits, rows and nonzeros equal, P and R to 1e-12, the
+   coarse operators to 1e-11), 64^3 f64 against the CPU (iterations
+   equal, x to rtol 1e-9), and,
    card against CPU, the D2 + aggressive + interp_max_elements 4 and
    MULTIPASS variants at 128^3, ENERGYMIN and RCM reordering (of a
    shuffled Poisson matrix) at 32^3.
-7. Prints the per-kernel summary line, then the device line last.
+7. Prints the per-kernel summary line (each kernel's launches on every
+   path; ``launches`` is those on its own path: the bench PCG slice for
+   ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
+   ``stencil_spmv``, the classical slice for ``sell_spmv``), then the
+   device line last.
 
 Exits non-zero without a result when CUDA is unavailable.  Imports
 nothing of JAX or of the JAX package ``amgx_tpu``.
@@ -177,7 +190,7 @@ PEAKS = (
 
 # what the profiler names each kernel's launches
 ACTIVITY = {"dia_spmv": "dia_spmv_kernel", "ell_spmv": "ell_spmv_kernel",
-            "stencil_spmv": "stencil_"}
+            "sell_spmv": "sell_spmv_kernel", "stencil_spmv": "stencil_"}
 
 # kernel-vs-plain tolerance on max|y_kernel - y_plain| / max|y_plain|:
 # both sum in the same order from +0.0; the kernel contracts each
@@ -271,21 +284,34 @@ class Timer:
         return None
 
 
+def rel_err(y, yp):
+    """(max |y - yp|, that over max |yp|)."""
+    err = float((y - yp).abs().max()) if y.numel() else 0.0
+    scale = float(yp.abs().max()) if y.numel() else 0.0
+    return err, (err / scale if scale > 0 else err)
+
+
 def kernel_case(torch, timer, peaks, name, label, run, plain, csr, nbytes,
-                nops, dtype, extra=None):
-    """Compare one kernel with its plain version on the card, time the
-    kernel, the plain version and the library CSR product, and return
-    the case's record (``extra`` adds fields to it)."""
+                nops, dtype, extra=None, others=()):
+    """Compare one kernel with its plain version on the card (and with
+    each ``(name, fn)`` of ``others``, the plain versions of other
+    layouts of the same matrix), time the kernel, the plain version and
+    the library CSR product, and return the case's record (``extra``
+    adds fields to it)."""
     y = run()
     yp = plain()
     torch.cuda.synchronize()
     check(y.shape == yp.shape, f"{label}: shape {y.shape} vs {yp.shape}")
     check(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
-    err = float((y - yp).abs().max()) if y.numel() else 0.0
-    scale = float(yp.abs().max()) if y.numel() else 0.0
-    rel = err / scale if scale > 0 else err
+    err, rel = rel_err(y, yp)
     tol = TOL[str(dtype).replace("torch.", "")]
     check(rel <= tol, f"{label}: kernel vs plain rel err {rel:.3e} > {tol}")
+    vs_others = {}
+    for oname, fn in others:
+        _, orel = rel_err(y, fn())
+        vs_others[f"max_rel_err_vs_{oname}"] = orel
+        check(orel <= tol,
+              f"{label}: kernel vs {oname} rel err {orel:.3e} > {tol}")
     ro, ci, vals, shape, x = csr
     with warnings.catch_warnings():
         # torch.sparse's beta and invariant-check notices
@@ -309,7 +335,7 @@ def kernel_case(torch, timer, peaks, name, label, run, plain, csr, nbytes,
         "bytes": int(nbytes), "ops": int(nops),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        **(extra or {}),
+        **vs_others, **(extra or {}),
     }
     print(json.dumps(rec), flush=True)
     return rec
@@ -348,36 +374,99 @@ def stencil_scipy(grid, steps, coefs):
         shape=(n, n))
 
 
+def sell_info(S, entries):
+    """The sliced layout's plan and size: window, lanes, slices, stored
+    slots (slice padding included) and their ratio to the matrix's
+    stored CSR entries, device bytes (beside the slot-major arrays)."""
+    return {"sigma": S.sigma, "lanes": S.lanes, "slices": S.n_slices,
+            "stored": S.stored,
+            "stored_per_entry": S.stored / max(entries, 1),
+            "bytes": S.nbytes()}
+
+
 def ell_kernel_case(torch, timer, peaks, rng, label, sp, dtype,
-                    extra=None):
-    """The ELL kernel on the scipy matrix ``sp`` against its plain
-    version, with a random x from ``rng``; returns the case record.
-    The bound counts the operator's nonzeros (a column index and a
-    value each, x and y once), not the padded slots the kernel reads:
-    ``padded_bytes`` gives those."""
-    from amgx_tpu_torch.core.matrix import SparseMatrix
+                    extra=None, sweep=False):
+    """The ELL kernels on the scipy matrix ``sp`` with a random x from
+    ``rng``: the slot-major ``ell_spmv``, and where the upload builds
+    the sliced layout ``sell_spmv`` too, each against the plain
+    versions of both layouts.  Returns the case records.  The bound
+    counts the operator's nonzeros (a column index and a value each, x
+    and y once), not the slots a kernel reads: ``padded_bytes`` gives
+    those.  ``sweep`` adds the sliced kernel's time at every lane count
+    and at every window the layout may take."""
+    import dataclasses
+
+    from amgx_tpu_torch.core import matrix as cm
     from amgx_tpu_torch.ops import ell
 
-    A = SparseMatrix.from_scipy(sp.astype(dtype), device="cuda",
-                                accel_formats=("ell",))
+    A = cm.SparseMatrix.from_scipy(sp.astype(dtype), device="cuda",
+                                   accel_formats=("ell",))
     check(A.has_ell, f"{label}: not ELL")
     x = torch.from_numpy(rng.standard_normal(A.n_cols).astype(dtype))
     x = x.cuda()
     w, n = A.ell_vals.shape
     isz = A.ell_vals.element_size()
     nz = int(sp.count_nonzero())
-    ro, ci, vals, shape = csr_of(torch, sp, dtype)
-    return kernel_case(
+    csr = (*csr_of(torch, sp, dtype), x)
+    nbytes = (4 + isz) * nz + isz * (n + A.n_cols)
+    S = A.sell
+
+    def slot_plain():
+        return ell.ell_spmv_plain(A.ell_cols, A.ell_vals, x)
+
+    def sell_plain():
+        return ell.sell_spmv_plain(S, x)
+
+    recs = [kernel_case(
         torch, timer, peaks, "ell_spmv", label,
-        lambda: ell.ell_spmv(A.ell_cols, A.ell_vals, x),
-        lambda: ell.ell_spmv_plain(A.ell_cols, A.ell_vals, x),
-        (ro, ci, vals, shape, x),
-        nbytes=(4 + isz) * nz + isz * (n + A.n_cols),
-        nops=2 * nz, dtype=A.ell_vals.dtype,
+        lambda: ell.ell_spmv(A.ell_cols, A.ell_vals, x), slot_plain, csr,
+        nbytes=nbytes, nops=2 * nz, dtype=A.ell_vals.dtype,
         extra={"nonzeros": nz, "width": w,
                "padded_bytes": (4 + isz) * w * n + isz * (n + A.n_cols),
                **(extra or {})},
+        others=() if S is None else (("sell_spmv_plain", sell_plain),),
+    )]
+    if S is None:
+        return recs
+    info = sell_info(S, A.nnz)
+    more = {}
+    if sweep:
+        lanes = {f"lanes={k}": timer(lambda k=k: ell.sell_spmv(
+            dataclasses.replace(S, lanes=k), x)) for k in (1, 2, 4, 8)}
+        windows = {}
+        ro, ci, vals = A._host
+        for sigma in cm.SELL_SIGMAS:
+            Ss = cm.sliced_ell(cm._build_sell_np(
+                ro, ci, vals, n, w, sigmas=(sigma,), always=True), "cuda")
+            Ss.lanes = S.lanes
+            windows[f"sigma={sigma}"] = {
+                "stored_per_entry": Ss.stored / max(A.nnz, 1),
+                "ms": timer(lambda Ss=Ss: ell.sell_spmv(Ss, x))}
+            del Ss
+        more["sweep"] = {"lanes_at_own_sigma": lanes,
+                         "sigma_at_own_lanes": windows}
+    slot_ms = recs[0]["kernel_ms"]
+    rec = kernel_case(
+        torch, timer, peaks, "sell_spmv", label,
+        lambda: ell.sell_spmv(S, x), sell_plain, csr,
+        nbytes=nbytes, nops=2 * nz, dtype=A.ell_vals.dtype,
+        extra={"nonzeros": nz, "width": w,
+               "padded_bytes": cm.sell_stream_bytes(
+                   S.widths.cpu().numpy(), n, isz, S.sigma)
+               + isz * (n + A.n_cols),
+               "sell": info, "slot_major_ms": slot_ms, **more,
+               **(extra or {})},
+        others=(("ell_spmv_plain", slot_plain),),
     )
+    # speed targets, printed and not checked
+    print(json.dumps({"targets": {
+        "case": label, "sell_ms": rec["kernel_ms"],
+        "ahead_of_slot_major": rec["kernel_ms"] <= slot_ms,
+        "ahead_of_library": rec["kernel_ms"] < rec["library_ms"],
+        "half_bound": rec["kernel_ms"] <= 2 * rec["bound_ms"]}}),
+        flush=True)
+    recs.append(rec)
+    return recs
 
 
 def kernel_phase(torch, peaks):
@@ -411,9 +500,16 @@ def kernel_phase(torch, peaks):
             dtype=A.dia_vals.dtype, extra={"nonzeros": nz},
         ))
 
-    def ell_case(label, sp, dtype):
-        recs.append(ell_kernel_case(torch, timer, peaks, rng, label, sp,
-                                    dtype))
+    def ell_case(label, sp, dtype, ref_ms=None):
+        out = ell_kernel_case(torch, timer, peaks, rng, label, sp, dtype)
+        if ref_ms is not None:
+            # an aggregation shape: no slower than the slot-major time
+            # PERF.md records by more than 3 % (printed, not checked)
+            ms = out[0]["kernel_ms"]
+            print(json.dumps({"targets": {
+                "case": label, "ms": ms, "perf_md_ms": ref_ms,
+                "within_3_percent": ms <= 1.03 * ref_ms}}), flush=True)
+        recs.extend(out)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -564,14 +660,16 @@ def kernel_phase(torch, peaks):
     agg = geo_aggregate(N, N, N, 3)
     nf, nc = agg.shape[0], int(agg.max()) + 1
     P = sps.csr_matrix((np.ones(nf), (np.arange(nf), agg)), shape=(nf, nc))
-    ell_case(f"level0 P {nf}x{nc} w=1 f32", P, np.float32)
-    ell_case(f"level0 R {nc}x{nf} w=8 f32", P.T.tocsr(), np.float32)
+    ell_case(f"level0 P {nf}x{nc} w=1 f32", P, np.float32, 0.014752)
+    ell_case(f"level0 R {nc}x{nf} w=8 f32", P.T.tocsr(), np.float32,
+             0.013600)
     # and of the FGMRES_AGGREGATION hierarchy: SIZE_2, 2x1x1 aggregates
     agg = geo_aggregate(N, N, N, 1)
     nc = int(agg.max()) + 1
     P = sps.csr_matrix((np.ones(nf), (np.arange(nf), agg)), shape=(nf, nc))
-    ell_case(f"level0 SIZE_2 P {nf}x{nc} w=1 f32", P, np.float32)
-    ell_case(f"level0 SIZE_2 R {nc}x{nf} w=2 f32", P.T.tocsr(), np.float32)
+    ell_case(f"level0 SIZE_2 P {nf}x{nc} w=1 f32", P, np.float32, 0.015552)
+    ell_case(f"level0 SIZE_2 R {nc}x{nf} w=2 f32", P.T.tocsr(), np.float32,
+             0.014560)
     del P, agg
 
     m, k = 30000, 7000
@@ -583,7 +681,81 @@ def kernel_phase(torch, peaks):
                           shape=(m, k))
     rect.sum_duplicates()
     ell_case(f"random rect {m}x{k} empty rows f32", rect, np.float32)
+    sell_edge_cases(torch, rng)
     return recs
+
+
+def sell_edge_cases(torch, rng):
+    """The sliced kernel on layouts built whether or not the upload
+    would take them, at every window and lane count, against the plain
+    versions of both layouts (untimed): n not a multiple of 32 with
+    empty rows and rows up to 128 entries, a single row of width 128,
+    uniform widths 1, 2 and 8, rectangular, f32 and f64."""
+    import scipy.sparse as sps
+
+    from amgx_tpu_torch.amg.aggregation import geo_aggregate
+    from amgx_tpu_torch.core import matrix as cm
+    from amgx_tpu_torch.ops import ell
+
+    def rand(m, k, top):
+        lens = rng.integers(0, top + 1, m)
+        lens[rng.random(m) < 0.2] = 0
+        r = np.repeat(np.arange(m), lens)
+        c = rng.integers(0, k, r.shape[0])
+        sp = sps.csr_matrix((rng.standard_normal(r.shape[0]), (r, c)),
+                            shape=(m, k))
+        sp.sum_duplicates()
+        return sp
+
+    def transfer(mode):
+        agg = geo_aggregate(16, 16, 16, mode)
+        return sps.csr_matrix((np.ones(agg.shape[0]),
+                               (np.arange(agg.shape[0]), agg)))
+
+    P = transfer(3)
+    cases = [("1007 rows, widths 0-128, empty rows", rand(1007, 1007, 128)),
+             ("rect 3001x700, widths 0-40", rand(3001, 700, 40)),
+             ("one row of width 128", sps.csr_matrix(
+                 (rng.standard_normal(128), (np.zeros(128, int),
+                                             np.arange(128))),
+                 shape=(1, 500))),
+             ("uniform w=1 (P 16^3)", P), ("uniform w=8 (R 16^3)",
+                                           P.T.tocsr()),
+             ("uniform w=2 (SIZE_2 R 16^3)", transfer(1).T.tocsr())]
+    out = []
+    for label, sp in cases:
+        for dtype in (np.float32, np.float64):
+            sp = sp.astype(dtype)
+            sp.sort_indices()
+            A = cm.SparseMatrix.from_scipy(sp, device="cuda",
+                                           accel_formats=("ell",))
+            check(A.has_ell, f"{label}: not ELL")
+            w, n = A.ell_vals.shape
+            x = torch.from_numpy(rng.standard_normal(A.n_cols).astype(dtype))
+            x = x.cuda()
+            yp = ell.ell_spmv_plain(A.ell_cols, A.ell_vals, x)
+            tol = TOL[np.dtype(dtype).name]
+            for sigma in cm.SELL_SIGMAS:
+                S = cm.sliced_ell(cm._build_sell_np(
+                    *A._host, n, w, sigmas=(sigma,), always=True), "cuda")
+                ys = ell.sell_spmv_plain(S, x)
+                check(torch.equal(ys, yp),
+                      f"{label} sigma {sigma}: sliced plain != slot-major")
+                for lanes in (1, 2, 4, 8):
+                    S.lanes = lanes
+                    y = ell.sell_spmv(S, x)
+                    torch.cuda.synchronize()
+                    _, rel = rel_err(y, yp)
+                    out.append(rel)
+                    check(rel <= tol, f"{label} {np.dtype(dtype).name} "
+                          f"sigma {sigma} lanes {lanes}: rel err {rel:.3e}")
+                    if lanes == 1:
+                        # one lane a row sums as the slot-major kernel
+                        yk = ell.ell_spmv(A.ell_cols, A.ell_vals, x)
+                        check(torch.equal(y, yk), f"{label} sigma {sigma}: "
+                              "one lane a row differs from ell_spmv")
+    print(json.dumps({"sell_edge_cases": {
+        "checked": len(out), "max_rel_err": max(out)}}), flush=True)
 
 
 def solve_on(device, cfg_str, n, dtype, accel_formats=None, info=None):
@@ -630,8 +802,9 @@ def trace_solve(torch, s, b, iters, groups=None):
     device busy time is the sum of the kernel and copy intervals on the
     card, its share is taken of the profiled solve's wall time.
     ``groups`` maps a label to name fragments: each device op counts
-    under the first label one of whose fragments its name holds, the
-    others under "rest".  Prints "not measured" when the profiler
+    under the first label one of whose fragments its name holds (so
+    "sell_spmv" goes before "ell_spmv", which it contains), the others
+    under "rest".  Prints "not measured" when the profiler
     records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -677,15 +850,12 @@ def trace_solve(torch, s, b, iters, groups=None):
 
 
 def slice_phase(torch):
-    from amgx_tpu_torch.ops import dia, ell
-
     N = SLICE_N
     # ---- the main path: counts zeroed just before, read just after
-    dia.launches = 0
-    ell.launches = 0
+    zero_counts()
     s, res, setup_s, b, upload_s = solve_on("cuda", BENCH_CFG, N,
                                             np.float32)
-    launches = {"dia_spmv": dia.launches, "ell_spmv": ell.launches}
+    launches = kernel_counts()
     iters, status = int(res.iters), int(res.status)
     x = res.x.cpu().numpy()
     levels = s.precond.level_summary()
@@ -716,6 +886,9 @@ def slice_phase(torch):
           f"dia_spmv launches {launches['dia_spmv']} < 14 x {iters}")
     check(launches["ell_spmv"] >= 6 * iters,
           f"ell_spmv launches {launches['ell_spmv']} < 6 x {iters}")
+    # the aggregation transfers keep the slot-major layout
+    check(launches["sell_spmv"] == 0,
+          f"sell_spmv launched {launches['sell_spmv']} times")
 
     # ---- the same solve through the port on the CPU (plain versions)
     sc, rc, setup_c, _, _ = solve_on("cpu", BENCH_CFG, N, np.float32)
@@ -770,15 +943,12 @@ def slice_phase(torch):
 def mf_slice_phase(torch, ref):
     """The bench solve with ``matrix_free=1`` on the card, held to the
     DIA slice's results ``ref`` (from :func:`slice_phase`)."""
-    from amgx_tpu_torch.ops import dia, ell, stencil
-
     N = SLICE_N
     # ---- the main path: counts zeroed just before, read just after
-    dia.launches = ell.launches = stencil.launches = 0
+    zero_counts()
     s, res, setup_s, b, upload_s = solve_on("cuda", MF_CFG, N, np.float32,
                                             accel_formats=MF_FORMATS)
-    launches = {"stencil_spmv": stencil.launches, "dia_spmv": dia.launches,
-                "ell_spmv": ell.launches}
+    launches = kernel_counts()
     iters, status = int(res.iters), int(res.status)
     x = res.x.cpu().numpy()
     levels = s.precond.level_summary()
@@ -890,34 +1060,60 @@ def solver_matrix():
     return cases
 
 
-# the counter each operator format's SpMV adds to (dense: a matmul)
+# the counter each operator format's SpMV adds to (dense: a matmul; an
+# ELL operator with its sliced layout: sell_spmv)
 FORMAT_COUNTER = {"DIA": "dia_spmv", "ELL": "ell_spmv",
                   "MATRIX_FREE": "stencil_spmv", "CSR": "csr"}
+COUNTERS = ("dia_spmv", "ell_spmv", "sell_spmv", "stencil_spmv", "csr")
+
+
+def kernel_counts():
+    """Every kernel wrapper's launch count, and the CSR products."""
+    from amgx_tpu_torch.ops import dia, ell, spmv, stencil
+
+    return {"dia_spmv": dia.launches, "ell_spmv": ell.launches,
+            "sell_spmv": ell.sell_launches,
+            "stencil_spmv": stencil.launches, "csr": spmv.csr_products}
+
+
+def zero_counts():
+    from amgx_tpu_torch.ops import dia, ell, spmv, stencil
+
+    dia.launches = ell.launches = ell.sell_launches = 0
+    stencil.launches = spmv.csr_products = 0
+
+
+def counter_of(m):
+    """The counter an operator's SpMV adds to, or None (dense)."""
+    if m.format == "ELL" and m.sell is not None:
+        return "sell_spmv"
+    return FORMAT_COUNTER.get(m.format)
 
 
 def derived_launches(amg, cycles, top):
-    """``dia_spmv``, ``ell_spmv``, ``stencil_spmv`` launches and CSR
-    products of a solve from its AMG hierarchy (unfused cycles): ``top``
-    level-0 A-SpMVs outside the preconditioner, and per V-cycle on each
-    level above the coarsest its presweeps, its residual and its
-    postsweeps (one A-SpMV each), then P and R; on the coarsest level
-    one residual before the dense-LU solve (or its smoothing
-    sweeps)."""
-    counts = dict.fromkeys(FORMAT_COUNTER.values(), 0)
+    """``dia_spmv``, ``ell_spmv``, ``sell_spmv``, ``stencil_spmv``
+    launches and CSR products of a solve from its AMG hierarchy
+    (unfused cycles): ``top`` level-0 A-SpMVs outside the
+    preconditioner, and per V-cycle on each level above the coarsest
+    its presweeps, its residual and its postsweeps (one A-SpMV each),
+    then P and R; on the coarsest level one residual before the
+    dense-LU solve (or its smoothing sweeps)."""
+    counts = dict.fromkeys(COUNTERS, 0)
 
-    def add(fmt, k):
-        if fmt in FORMAT_COUNTER:
-            counts[FORMAT_COUNTER[fmt]] += k
+    def add(m, k):
+        c = counter_of(m)
+        if c is not None:
+            counts[c] += k
 
     lv = amg.levels
-    add(lv[0].A.format, top)
+    add(lv[0].A, top)
     for i, lvl in enumerate(lv[:-1]):
         pre, post = amg._level_sweeps(i)
-        add(lvl.A.format, cycles * (pre + 1 + post))
-        add(lvl.P.format, cycles)
-        add(lvl.R.format, cycles)
+        add(lvl.A, cycles * (pre + 1 + post))
+        add(lvl.P, cycles)
+        add(lvl.R, cycles)
     coarsest = 1 if amg.coarse_solver is not None else amg.coarsest_sweeps
-    add(lv[-1].A.format, cycles * coarsest)
+    add(lv[-1].A, cycles * coarsest)
     return counts
 
 
@@ -940,15 +1136,12 @@ def fgmres_phase(torch):
     """FGMRES_AGGREGATION (FGMRES + aggregation AMG + MULTICOLOR_DILU)
     at 128^3 f32 on the card, its CPU run, 64^3 f64 on both, a trace
     of one warm solve, and the 32^3 solver matrix."""
-    from amgx_tpu_torch.ops import dia, ell, stencil
-
     N = SLICE_N
     # ---- A. the main path: counts zeroed just before, read just after
-    dia.launches = ell.launches = stencil.launches = 0
+    zero_counts()
     s, res, setup_s, b, upload_s = solve_on("cuda", FGMRES_CFG, N,
                                             np.float32)
-    launches = {"dia_spmv": dia.launches, "ell_spmv": ell.launches,
-                "stencil_spmv": stencil.launches}
+    launches = kernel_counts()
     iters, status = int(res.iters), int(res.status)
     x = res.x.cpu().numpy()
     levels = s.precond.level_summary()
@@ -977,7 +1170,7 @@ def fgmres_phase(torch):
     check(rel <= 1e-5, f"FGMRES true relative residual {rel:.3e} > 1e-5")
     check(all(lv["format"] == "DIA" for lv in levels),
           f"FGMRES levels {[lv['format'] for lv in levels]}")
-    for k in ("dia_spmv", "ell_spmv"):
+    for k in ("dia_spmv", "ell_spmv", "sell_spmv"):
         check(launches[k] == derived[k],
               f"FGMRES {k} launches {launches[k]} != derived {derived[k]}")
 
@@ -985,8 +1178,8 @@ def fgmres_phase(torch):
     # index_copy_ runs as an index_elementwise_kernel too: its own
     # fragment is tried before the gathers'
     trace_solve(torch, s, b, iters, groups={
-        "dia_spmv": ["dia_spmv"], "ell_spmv": ["ell_spmv"],
-        "index_copy": ["index_copy"],
+        "dia_spmv": ["dia_spmv"], "sell_spmv": ["sell_spmv"],
+        "ell_spmv": ["ell_spmv"], "index_copy": ["index_copy"],
         "gather": ["index_elementwise", "gather", "index_select"],
         "reduction": ["reduce_kernel"],
     })
@@ -1053,19 +1246,28 @@ def _width(m):
     return None if m is None or not m.has_ell else int(m.ell_cols.shape[0])
 
 
+def _sell(m):
+    """The sliced layout's plan and size (its device bytes are the
+    extra memory it takes beside the slot-major arrays)."""
+    if m is None or m.sell is None:
+        return None
+    return sell_info(m.sell, m.nnz)
+
+
 def classical_levels(amg):
-    """Per level: rows, nnz, format and ELL width of A; format, nnz,
-    ELL width and longest row of P and R."""
+    """Per level: rows, nnz, format, ELL width and sliced layout of A;
+    format, nnz, ELL width, sliced layout and longest row of P and
+    R."""
     out = []
     for lvl in amg.levels:
         rec = {"rows": lvl.n_rows, "nnz": lvl.nnz, "format": lvl.A.format,
-               "ell_width": _width(lvl.A),
+               "ell_width": _width(lvl.A), "sell": _sell(lvl.A),
                "max_row": int(np.diff(lvl.A._host[0]).max())}
         for f in ("P", "R"):
             m = getattr(lvl, f)
             if m is not None:
                 rec[f] = {"format": m.format, "nnz": m.nnz,
-                          "ell_width": _width(m),
+                          "ell_width": _width(m), "sell": _sell(m),
                           "max_row": int(np.diff(m._host[0]).max())}
         out.append(rec)
     return out
@@ -1121,6 +1323,75 @@ def shuffled_poisson(m, seed=0):
     return A
 
 
+def ell_operators(amg, iters):
+    """(label, matrix, launches per PCG solve of ``iters`` iterations)
+    of every ELL operator of the AMG hierarchy ``amg``, as
+    :func:`pcg_derived_launches` counts them."""
+    cycles = iters + 1
+    out = []
+    last = len(amg.levels) - 1
+    for lvl in amg.levels:
+        i = lvl.level_id
+        if i < last:
+            pre, post = amg._level_sweeps(i)
+            a_per = cycles * (pre + 1 + post)
+        else:
+            a_per = cycles * (1 if amg.coarse_solver is not None
+                              else amg.coarsest_sweeps)
+        if i == 0:
+            a_per += cycles
+        for f, per in (("A", a_per), ("P", cycles), ("R", cycles)):
+            m = getattr(lvl, f)
+            if m is not None and m.format == "ELL":
+                out.append((f"level{i} {f}", m, per))
+    return out
+
+
+def classical_kernel_cases(torch, timer, peaks, rng, amg, iters):
+    """The ELL kernel cases of the classical hierarchy ``amg``: every
+    ELL operator in f32 (both kernels, the sliced one also at every
+    lane count and window), the level-1 A in f64, and the level-1 A
+    renumbered by RCM (``ops/reorder.py``), a measurement only: no
+    path renumbers coarse levels."""
+    import scipy.sparse as sps
+
+    from amgx_tpu_torch.ops.reorder import rcm_permutation
+
+    recs = []
+    ops = ell_operators(amg, iters)
+    for label, m, per_solve in ops:
+        recs += ell_kernel_case(
+            torch, timer, peaks, rng,
+            f"classical {label} {m.n_rows}x{m.n_cols} w={_width(m)} f32",
+            m.host_csr(), np.float32, sweep=True,
+            extra={"launches_per_solve": per_solve})
+    for label, m, per_solve in ops:
+        if label != "level1 A":
+            continue
+        sp = m.host_csr()
+        recs += ell_kernel_case(
+            torch, timer, peaks, rng,
+            f"classical {label} {m.n_rows}x{m.n_cols} w={_width(m)} f64",
+            sp.astype(np.float64), np.float64,
+            extra={"launches_per_solve": "f64 cells"})
+        perm = rcm_permutation(sp)
+        rcm = sps.csr_matrix(sp[perm][:, perm])
+        rcm.sort_indices()
+        lens = np.diff(sp.indptr)
+        recs += ell_kernel_case(
+            torch, timer, peaks, rng,
+            f"classical {label} RCM {m.n_rows}x{m.n_cols} f32", rcm,
+            np.float32,
+            extra={"launches_per_solve": "measurement only",
+                   "bandwidth": int(np.abs(
+                       rcm.indices - np.repeat(np.arange(rcm.shape[0]),
+                                               np.diff(rcm.indptr))).max()),
+                   "bandwidth_before": int(np.abs(
+                       sp.indices - np.repeat(np.arange(sp.shape[0]),
+                                              lens)).max())})
+    return recs
+
+
 def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
                     n_cmp=48, n_f64=64, n_small=32):
     """PCG_CLASSICAL at ``n``^3 f32 with its setup on ``device`` (the
@@ -1132,11 +1403,7 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
     from amgx_tpu_torch.amg import classical, device_setup
     from amgx_tpu_torch.core.matrix import SparseMatrix
     from amgx_tpu_torch.io.poisson import poisson_rhs
-    from amgx_tpu_torch.ops import dia, ell, spmv, stencil
-
-    def counts():
-        return {"dia_spmv": dia.launches, "ell_spmv": ell.launches,
-                "stencil_spmv": stencil.launches, "csr": spmv.csr_products}
+    from amgx_tpu_torch.ops import spmv
 
     def device_built(amg, label):
         stats = amg.setup_stats
@@ -1149,11 +1416,10 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
 
     # ---- 1. the main path: counts zeroed just before, read just after
     info = {}
-    dia.launches = ell.launches = stencil.launches = 0
-    spmv.csr_products = 0
+    zero_counts()
     s, res, setup_s, b, upload_s = solve_on(device, PCG_CLASSICAL, n,
                                             np.float32, info=info)
-    launches = counts()
+    launches = kernel_counts()
     iters, status = int(res.iters), int(res.status)
     x = res.x.cpu().numpy()
     amg = s.precond
@@ -1190,25 +1456,11 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
 
     recs = []
     if peaks is not None:
-        # ---- the ELL kernel at this hierarchy's shapes, with the
-        # launches one solve gives each operator
+        # ---- the ELL kernels at every ELL operator of this hierarchy,
+        # with the launches one solve gives each
         timer = Timer(torch)
         rng = np.random.default_rng(1)
-        cycles = iters + 1
-        pre, post = amg._level_sweeps(1)
-        l0, l1 = amg.levels[0], amg.levels[1]
-        for label, m, per_solve in (
-                ("level1 A", l1.A, cycles * (pre + 1 + post)),
-                ("level0 P", l0.P, cycles), ("level0 R", l0.R, cycles)):
-            if m.format != "ELL":
-                print(json.dumps({"classical_kernel_case_skipped": {
-                    "operator": label, "format": m.format}}), flush=True)
-                continue
-            recs.append(ell_kernel_case(
-                torch, timer, peaks, rng,
-                f"classical {label} {m.n_rows}x{m.n_cols} "
-                f"w={_width(m)} f32", m.host_csr(), np.float32,
-                extra={"launches_per_solve": per_solve}))
+        recs += classical_kernel_cases(torch, timer, peaks, rng, amg, iters)
         # the CSR products (P on the levels whose rows are too uneven
         # for the ELL gate): the port's segment sum (torch.segment_reduce
         # on one column) against segment_reduce on 1-D data (CUB),
@@ -1262,8 +1514,8 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
         del timer
         # ---- 7. a traced warm solve
         trace_solve(torch, s, b, iters, groups={
-            "dia_spmv": ["dia_spmv"], "ell_spmv": ["ell_spmv"],
-            "csr": ["egment"], "dense": ["gemv", "gemm", "dot_kernel"],
+            "dia_spmv": ["dia_spmv"], "sell_spmv": ["sell_spmv"],
+            "ell_spmv": ["ell_spmv"], "csr": ["egment"], "dense": ["gemv", "gemm", "dot_kernel"],
             "reduction": ["reduce_kernel"],
         })
 
@@ -1472,23 +1724,27 @@ def main():
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     recs = kernel_phase(torch, peaks)
-    launches, ref = slice_phase(torch)
-    # each path's counts come from its own run: DIA and ELL from the
-    # matrix_free=0 slice, the stencil kernel's from the MF slice
-    launches["stencil_spmv"] = mf_slice_phase(torch, ref)["stencil_spmv"]
-    fg = fgmres_phase(torch)
-    cl, cl_recs = classical_phase(torch, peaks)
+    bench, ref = slice_phase(torch)
+    by_path = {"bench_pcg": bench,
+               "bench_pcg_matrix_free": mf_slice_phase(torch, ref),
+               "fgmres_aggregation": fgmres_phase(torch)}
+    by_path["pcg_classical"], cl_recs = classical_phase(torch, peaks)
     recs += cl_recs
 
+    # each kernel: the path whose count is its ``launches``, the case
+    # whose times the summary gives, its source and the TPU kernel
+    well = "amgx_tpu/ops/pallas_well.py:160"
     main_case = {
-        "dia_spmv": (f"level0 A {SLICE_N}^3 f32",
+        "dia_spmv": ("bench_pcg", f"level0 A {SLICE_N}^3 f32",
                      "amgx_tpu_torch/csrc/dia_spmv.cu",
                      "amgx_tpu/ops/pallas_dia.py:76"),
-        "ell_spmv": (f"level0 R {(SLICE_N // 2) ** 3}x{SLICE_N ** 3} "
-                     "w=8 f32",
-                     "amgx_tpu_torch/csrc/ell_spmv.cu",
-                     "amgx_tpu/ops/pallas_well.py:160"),
-        "stencil_spmv": (f"level0 A {SLICE_N}^3 f32",
+        "ell_spmv": ("bench_pcg", f"level0 R {(SLICE_N // 2) ** 3}x"
+                     f"{SLICE_N ** 3} w=8 f32",
+                     "amgx_tpu_torch/csrc/ell_spmv.cu", well),
+        "sell_spmv": ("pcg_classical", "classical level1 A ",
+                      "amgx_tpu_torch/csrc/ell_spmv.cu", well),
+        "stencil_spmv": ("bench_pcg_matrix_free",
+                         f"level0 A {SLICE_N}^3 f32",
                          "amgx_tpu_torch/csrc/stencil_spmv.cu",
                          "amgx_tpu/ops/pallas_stencil.py:64"),
     }
@@ -1497,23 +1753,28 @@ def main():
         f"{r['case']} ({r['kernel']}): {k}" for r in recs
         for k, v in r.items() if k.endswith("device_ms") and v is None]}),
         flush=True)
+    for path, kernels_of in (("bench_pcg", ("dia_spmv", "ell_spmv")),
+                             ("pcg_classical", ("dia_spmv", "sell_spmv"))):
+        for name in kernels_of:
+            check(by_path[path][name] > 0,
+                  f"{name} never launched on the {path} path")
     summary = []
-    for name, (case, source, replaces) in main_case.items():
-        rec = next(r for r in recs
-                   if r["kernel"] == name and r["case"] == case)
-        check(launches[name] > 0, f"{name} never launched on the main path")
-        if name != "stencil_spmv":
-            check(cl[name] > 0,
-                  f"{name} never launched on the PCG_CLASSICAL path")
+    for name, (path, case, source, replaces) in main_case.items():
+        rec = next(r for r in recs if r["kernel"] == name and (
+            r["case"] == case or (case.endswith(" ") and r["case"]
+                                  .startswith(case) and r["dtype"] == "f32"
+                                  and "RCM" not in r["case"])))
+        check(by_path[path][name] > 0,
+              f"{name} never launched on its main path ({path})")
         summary.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": by_path[path][name],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"],
-            "launches_fgmres_aggregation": fg[name],
-            "launches_pcg_classical": cl[name],
+            "library_ms": rec["library_ms"], "case": rec["case"],
+            "launches_path": path,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
