@@ -213,6 +213,11 @@ class AMGSolver(Solver):
         cs = make_nested(
             SolverRegistry.get(name)(self.cfg, cscope, device=self.device)
         )
+        from amgx_tpu_torch.solvers.inexact import InexactCoarseSolver
+
+        if isinstance(cs, InexactCoarseSolver):
+            # the inexact sweep budget is linked to the cycle depth
+            cs.cycle_depth = len(self.levels)
         cs.setup(A)
         return cs
 

@@ -15,13 +15,15 @@ Counterpart of the JAX package's ``solvers/base.py``, in eager PyTorch:
       ``make_apply()``  -> fn(params, r) -> z        (zero initial guess)
       ``make_smooth()`` -> fn(params, b, x, sweeps) -> x
 
-``matrix_reordering=RCM`` permutes the system once at setup and the
-vectors at the ``solve`` boundary (``ops/reorder.py``); AUTO, like the
+``scaling`` (``solvers/scalers.py``) scales the system once at setup,
+re-uploading the scaled matrix so that it gets its own formats, and the
+vectors at the ``solve`` boundary (b -> Dr b, x0 -> x0 / Dc, x -> Dc
+x).  ``matrix_reordering=RCM`` permutes the system once at setup and
+the vectors at the same boundary (``ops/reorder.py``); AUTO, like the
 JAX package on any non-TPU backend, never reorders.  Not ported
 (ROADMAP.md, queue A) and raising ``NotImplementedError`` when a config
-asks for them: scalers, solve retries and fault injection
-(``AMGX_TPU_FAULTS``).  The setup store and telemetry have no entry
-point in this package yet.
+asks for them: solve retries and fault injection (``AMGX_TPU_FAULTS``).
+The setup store and telemetry have no entry point in this package yet.
 """
 
 from __future__ import annotations
@@ -66,6 +68,9 @@ class Solver:
     """Base solver. Subclasses register via @register_solver(NAME)."""
 
     registry_name = "?"
+    # inner steps per reported iteration (SSTEP_PCG: one outer
+    # iteration is s CG steps)
+    iterations_scale = 1
 
     def __init__(self, cfg, scope: str = "default", device="cuda"):
         self.cfg = cfg
@@ -93,7 +98,9 @@ class Solver:
             self.conv_type, self.tolerance, self.alt_rel_tolerance
         )
         self.A = None
-        # (perm, iperm) tensors when the system was reordered at setup
+        # (row, column) scaling tensors when the system was scaled at
+        # setup, and (perm, iperm) tensors when it was reordered
+        self._scale_vecs = None
         self._reorder = None
         self._params: Any = None
         self._cache: dict = {}
@@ -272,11 +279,6 @@ class Solver:
     # public API (reference Solver::setup / solve, solver.cu:333,586)
 
     def _check_unported(self):
-        if self.scaling.upper() not in ("", "NONE"):
-            raise NotImplementedError(
-                f"scaling={self.scaling} is not ported yet "
-                "(ROADMAP.md, queue A: remaining solvers and scalers)"
-            )
         if self.solve_retries > 0:
             raise NotImplementedError(
                 "solve_retries is not ported yet (ROADMAP.md, queue A: "
@@ -302,7 +304,27 @@ class Solver:
             _errors.validate_operator(
                 A, where=f"{self.registry_name} setup"
             )
+        self._scale_vecs = None
         self._reorder = None
+        if self.scaling.upper() not in ("", "NONE"):
+            # scale the system at setup (reference Scaler::setup hook,
+            # solver.cu:667-676): work on As = Dr A Dc, uploaded anew
+            import scipy.sparse as sps
+
+            from amgx_tpu_torch.core.matrix import SparseMatrix
+            from amgx_tpu_torch.solvers.scalers import create_scaler
+
+            sp = A.host_csr()
+            r, c = create_scaler(self.scaling).compute(sp)
+            dt = sp.dtype
+            sp = sps.diags_array(r) @ sp @ sps.diags_array(c)
+            A = SparseMatrix.from_scipy(sp.tocsr().astype(dt),
+                                        device=self.device)
+            # in the matrix's dtype: the vectors of an f32 solve stay f32
+            self._scale_vecs = (
+                torch.from_numpy(r.astype(dt)).to(self.device),
+                torch.from_numpy(c.astype(dt)).to(self.device),
+            )
         if self.reordering.upper() != "NONE":
             # RCM renumbering at the solve boundary (reference Scaler
             # hook, solver.cu:667-676): the operator is built once,
@@ -347,6 +369,10 @@ class Solver:
         fn = self._cache.get("solve")
         if fn is None:
             fn = self._cache["solve"] = self.make_solve()
+        if self._scale_vecs is not None:
+            r_s, c_s = self._scale_vecs
+            b = r_s * b
+            x0 = x0 / torch.where(c_s != 0, c_s, torch.ones_like(c_s))
         if self._reorder is not None:
             perm, _ = self._reorder
             b, x0 = b[perm], x0[perm]
@@ -354,6 +380,8 @@ class Solver:
         res = fn(self.apply_params(), b, x0)
         if self._reorder is not None:
             res = dataclasses.replace(res, x=res.x[self._reorder[1]])
+        if self._scale_vecs is not None:
+            res = dataclasses.replace(res, x=self._scale_vecs[1] * res.x)
         if res.x.device.type == "cuda":
             torch.cuda.synchronize(res.x.device)
         self.solve_time = time.perf_counter() - t0

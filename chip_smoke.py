@@ -60,7 +60,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the CPU (same colours per level, iterations within one, x to rtol
    1e-4); 64^3 f64 on both (iterations equal, x to rtol 1e-9); and a
    32^3 f32 matrix of every solver and smoother the slice ported, card
-   against CPU (iterations within one).
+   against CPU (iterations within one), with the solvers, smoothers,
+   coarse solver and scalers of the seventh slice.
 6. PCG_CLASSICAL_V_JACOBI slice: AmgX's default-algorithm config
    (``PCG_CLASSICAL``: PCG + classical AMG, AHAT / PMIS / D1, BLOCK_JACOBI,
    DENSE_LU) on ``poisson_3d_7pt(128)`` in f32 with the classical setup
@@ -80,10 +81,34 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    builder (C/F splits, rows and nonzeros equal, P and R to 1e-12, the
    coarse operators to 1e-11), 64^3 f64 against the CPU (iterations
    equal, x to rtol 1e-9), and,
-   card against CPU, the D2 + aggressive + interp_max_elements 4 and
-   MULTIPASS variants at 128^3, ENERGYMIN and RCM reordering (of a
-   shuffled Poisson matrix) at 32^3.
-7. Prints the per-kernel summary line (each kernel's launches on every
+   card against CPU, the MULTIPASS variant at 128^3, ENERGYMIN and RCM
+   reordering (of a shuffled Poisson matrix) at 32^3 (the D2 +
+   aggressive + interp_max_elements 4 hierarchy is phase 7's).
+7. pcg_classical_cheby: ``PCG_CLASSICAL_CHEB`` (PCG_CLASSICAL with D2
+   interpolation, aggressive coarsening of level 0, 4 interpolation
+   elements, and CHEBYSHEV of order 2 over JACOBI_L1 as smoother) on
+   ``poisson_3d_7pt(128)`` in f32, setup on the card; lmax per level,
+   the launch counts (each Chebyshev sweep of order k is k A-SpMVs, each
+   smoothed level's power iteration 20 at setup) and a trace; the CPU
+   port at 128^3 (iterations within one); 64^3 f64 with the card's
+   hierarchy carried to the CPU (iterations equal, x to rtol 1e-9,
+   lmax to rtol 1e-9, the true residual at the tolerance).
+8. idr_dilu: ``IDR_DILU_CFG`` (IDR(8) + one MULTICOLOR_DILU sweep) on
+   ``poisson_3d_7pt(128)`` in f32: colours, the ``dia_spmv`` count (s + 1
+   an iteration and the initial residual), a trace; the CPU port at
+   128^3 f32 (status and monitored residual: in f32 IDR(8)'s recurred
+   residual parts from the true one and its iterations move by several
+   with the summation order); 128^3 f64 on the card (the true residual
+   at the tolerance); 64^3 f64 against the CPU (iterations equal, x to
+   rtol 1e-9, the true residual at the tolerance).
+9. gmres_ilu0: ``GMRES_ILU0_CFG`` (BASELINE.md acceptance config 4:
+   GMRES(30) + ILU(0)) on the 108^3 upwind convection-diffusion operator
+   (``convection_diffusion_3d``, the size and stencil of atmosmodd) in
+   f64: colours, the ILU factorization's host time, the ``dia_spmv``
+   count (one an iteration and one a restart cycle), a trace; the CPU
+   port at 108^3; 64^3 against the CPU; ILU(0) and ILU(1) at 64^3
+   (colours of each fill pattern, factorization time, iterations).
+10. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``), then the
@@ -167,6 +192,73 @@ PCG_CLASSICAL = (
     ' "smoother": {"scope": "jacobi", "solver": "BLOCK_JACOBI",'
     ' "monitor_residual": 0}}}}'
 )
+
+# PCG_CLASSICAL with the BLOCK_JACOBI smoother replaced by CHEBYSHEV
+# (order 2, lambda by power iteration) over JACOBI_L1, and the D2 +
+# aggressive coarsening truncated to 4 interpolation elements: the
+# shape of AmgX's AMG_CLASSICAL_AGGRESSIVE_CHEB_L1_TRUNC
+PCG_CLASSICAL_CHEB = PCG_CLASSICAL.replace(
+    '"monitor_residual": 0,',
+    '"monitor_residual": 0, "interpolator": "D2", "aggressive_levels": 1,'
+    ' "interp_max_elements": 4,', 1,
+).replace(
+    '"smoother": {"scope": "jacobi", "solver": "BLOCK_JACOBI",'
+    ' "monitor_residual": 0}',
+    '"smoother": {"scope": "cheb", "solver": "CHEBYSHEV",'
+    ' "chebyshev_polynomial_order": 2, "chebyshev_lambda_estimate_mode": 2,'
+    ' "max_iters": 1, "monitor_residual": 0,'
+    ' "preconditioner": {"scope": "l1", "solver": "JACOBI_L1",'
+    ' "max_iters": 1, "monitor_residual": 0}}',
+)
+
+# IDR(8) preconditioned by one MULTICOLOR_DILU sweep: the shape of
+# AmgX's IDR_DILU
+IDR_DILU_CFG = (
+    '{"config_version": 2, "solver": {"scope": "main", "solver": "IDR",'
+    ' "subspace_dim_s": 8, "max_iters": 200, "tolerance": 1e-6,'
+    ' "convergence": "RELATIVE_INI", "norm": "L2", "monitor_residual": 1,'
+    ' "preconditioner": {"scope": "dilu", "solver": "MULTICOLOR_DILU",'
+    ' "max_iters": 1, "monitor_residual": 0}}}'
+)
+
+# BASELINE.md acceptance config 4 (ci/acceptance.py, tests/
+# test_nonsymmetric.py): GMRES(30) preconditioned by one ILU(0) sweep
+GMRES_ILU0_CFG = (
+    '{"config_version": 2, "solver": {"scope": "main",'
+    ' "solver": "GMRES", "gmres_n_restart": 30,'
+    ' "monitor_residual": 1, "convergence": "RELATIVE_INI",'
+    ' "tolerance": 1e-08, "max_iters": 200,'
+    ' "preconditioner": {"scope": "ilu",'
+    ' "solver": "MULTICOLOR_ILU", "ilu_sparsity_level": 0,'
+    ' "max_iters": 1, "monitor_residual": 0}}}'
+)
+
+
+def convection_diffusion_3d(n, peclet=20.0, velocity=(1.0, 0.5, 0.25)):
+    """-Lap(u) + c . grad(u) on an n^3 grid, first-order upwind, 7
+    points (the 3D form of tests/test_nonsymmetric.py's operator), with
+    c = velocity x peclet: nonsymmetric, x fastest.  At n = 108 it has
+    the size and stencil of SuiteSparse's atmosmodd (1,270,432 rows)."""
+    import scipy.sparse as sps
+
+    h = 1.0 / (n + 1)
+    c = [peclet * v for v in velocity]
+    main = 6.0 + h * sum(abs(v) for v in c)
+    one = np.ones(n)
+    eye = sps.eye_array(n, format="csr")
+
+    def axis(v, diag):
+        lo = -1.0 - h * max(v, 0.0)
+        hi = -1.0 + h * min(v, 0.0)
+        return sps.diags_array([lo * one[1:], diag * one, hi * one[1:]],
+                               offsets=[-1, 0, 1], format="csr")
+
+    A = (sps.kron(eye, sps.kron(eye, axis(c[0], main)))
+         + sps.kron(eye, sps.kron(axis(c[1], 0.0), eye))
+         + sps.kron(axis(c[2], 0.0), sps.kron(eye, eye))).tocsr()
+    A.eliminate_zeros()
+    A.sort_indices()
+    return A
 
 
 def classical_cfg(amg_extra="", main_extra=""):
@@ -594,6 +686,9 @@ def kernel_phase(torch, peaks):
     A0 = poisson_scipy((N, N, N))
     dia_case(f"level0 A {N}^3 f32", A0, np.float32)
     dia_case(f"level0 A {N}^3 f64", A0, np.float64)
+    # the gmres_ilu0 path's operator: nonsymmetric, 7 diagonals, f64
+    dia_case("convection-diffusion 108^3 f64", convection_diffusion_3d(108),
+             np.float64)
     stencil_case(f"level0 A {N}^3 f32", A0, np.float32)
     stencil_case(f"level0 A {N}^3 f64", A0, np.float64)
     del A0
@@ -1057,6 +1152,31 @@ def solver_matrix():
     cases.append(("FGMRES_AGGREGATION PARALLEL_GREEDY", FGMRES_CFG.replace(
         '"max_levels": 50,',
         '"max_levels": 50, "matrix_coloring_scheme": "PARALLEL_GREEDY",')))
+    # the solvers the seventh slice ported: IDRMSYNC as the outer
+    # solver around the SIZE_8 AMG (as a smoother, a one-cycle Krylov
+    # method inside FGMRES, its iteration count moves with the summation
+    # order even in f64: 14-17 on the CPU with 1-8 threads), the other
+    # smoothers in the PCG + SIZE_2 AMG, SSTEP_PCG around the SIZE_8
+    # AMG, the INEXACT coarse solver and the three scalers
+    cases.append(("IDRMSYNC+AMG(SIZE_8)", BENCH_CFG.replace(
+        '"solver": "PCG", "max_iters": 100',
+        '"solver": "IDRMSYNC", "max_iters": 200')))
+    for name, extra in (
+            ("CHEBYSHEV_POLY", ""), ("POLYNOMIAL", ""),
+            ("KPZ_POLYNOMIAL", ""), ("OPT_POLYNOMIAL", ""),
+            ("CF_JACOBI", ""), ("KACZMARZ", "")):
+        cases.append((f"PCG+AMG(SIZE_2,{name})", pcg_size2.replace(
+            '"solver": "BLOCK_JACOBI",', f'"solver": "{name}"{extra},')))
+    cases.append(("SSTEP_PCG(s=4)+AMG(SIZE_8)", BENCH_CFG.replace(
+        '"solver": "PCG", "max_iters": 100',
+        '"solver": "SSTEP_PCG", "s_step": 4, "max_iters": 200')))
+    cases.append(("PCG+AMG(SIZE_8,INEXACT coarse)", BENCH_CFG.replace(
+        '"coarse_solver": "DENSE_LU_SOLVER"', '"coarse_solver": "INEXACT"')))
+    for scaling in ("DIAGONAL_SYMMETRIC", "BINORMALIZATION",
+                    "NBINORMALIZATION"):
+        cases.append((f"PCG+AMG(SIZE_8) scaling {scaling}", BENCH_CFG.replace(
+            '"monitor_residual": 1,',
+            f'"monitor_residual": 1, "scaling": "{scaling}",', 1)))
     return cases
 
 
@@ -1090,14 +1210,16 @@ def counter_of(m):
     return FORMAT_COUNTER.get(m.format)
 
 
-def derived_launches(amg, cycles, top):
+def derived_launches(amg, cycles, top, sweep_spmvs=1, setup_spmvs=0):
     """``dia_spmv``, ``ell_spmv``, ``sell_spmv``, ``stencil_spmv``
-    launches and CSR products of a solve from its AMG hierarchy
-    (unfused cycles): ``top`` level-0 A-SpMVs outside the
+    launches and CSR products of a setup and solve from its AMG
+    hierarchy (unfused cycles): ``top`` level-0 A-SpMVs outside the
     preconditioner, and per V-cycle on each level above the coarsest
-    its presweeps, its residual and its postsweeps (one A-SpMV each),
-    then P and R; on the coarsest level one residual before the
-    dense-LU solve (or its smoothing sweeps)."""
+    its presweeps and postsweeps (``sweep_spmvs`` A-SpMVs each) and its
+    residual, then P and R; on the coarsest level one residual before
+    the dense-LU solve (or its smoothing sweeps).  Each level with a
+    smoother adds ``setup_spmvs`` A-SpMVs made by the smoother's setup
+    (a power iteration)."""
     counts = dict.fromkeys(COUNTERS, 0)
 
     def add(m, k):
@@ -1109,11 +1231,14 @@ def derived_launches(amg, cycles, top):
     add(lv[0].A, top)
     for i, lvl in enumerate(lv[:-1]):
         pre, post = amg._level_sweeps(i)
-        add(lvl.A, cycles * (pre + 1 + post))
+        add(lvl.A, cycles * ((pre + post) * sweep_spmvs + 1) + setup_spmvs)
         add(lvl.P, cycles)
         add(lvl.R, cycles)
-    coarsest = 1 if amg.coarse_solver is not None else amg.coarsest_sweeps
-    add(lv[-1].A, cycles * coarsest)
+    if amg.coarse_solver is not None:
+        add(lv[-1].A, cycles)
+    else:
+        add(lv[-1].A, cycles * amg.coarsest_sweeps * sweep_spmvs
+            + setup_spmvs)
     return counts
 
 
@@ -1125,11 +1250,11 @@ def fgmres_derived_launches(s, iters):
     return derived_launches(s.precond, iters, restarts + iters)
 
 
-def pcg_derived_launches(s, iters):
+def pcg_derived_launches(s, iters, **kw):
     """Launches of a PCG solve of ``iters`` iterations: r0 = b - A x0
     and one V-cycle before the loop, one A p and one V-cycle per
-    iteration."""
-    return derived_launches(s.precond, iters + 1, iters + 1)
+    iteration (``kw``: :func:`derived_launches`'s smoother costs)."""
+    return derived_launches(s.precond, iters + 1, iters + 1, **kw)
 
 
 def fgmres_phase(torch):
@@ -1323,9 +1448,9 @@ def shuffled_poisson(m, seed=0):
     return A
 
 
-def ell_operators(amg, iters):
-    """(label, matrix, launches per PCG solve of ``iters`` iterations)
-    of every ELL operator of the AMG hierarchy ``amg``, as
+def ell_operators(amg, iters, sweep_spmvs=1, setup_spmvs=0):
+    """(label, matrix, launches per PCG setup and solve of ``iters``
+    iterations) of every ELL operator of the AMG hierarchy ``amg``, as
     :func:`pcg_derived_launches` counts them."""
     cycles = iters + 1
     out = []
@@ -1334,7 +1459,7 @@ def ell_operators(amg, iters):
         i = lvl.level_id
         if i < last:
             pre, post = amg._level_sweeps(i)
-            a_per = cycles * (pre + 1 + post)
+            a_per = cycles * ((pre + post) * sweep_spmvs + 1) + setup_spmvs
         else:
             a_per = cycles * (1 if amg.coarse_solver is not None
                               else amg.coarsest_sweeps)
@@ -1658,15 +1783,12 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
             return sg, rg, true_rel_residual(m, bg, rg.x.cpu().numpy())
         return run
 
-    for label, extra in (
-            ("D2 aggressive_levels 1 interp_max_elements 4",
-             ', "interpolator": "D2", "aggressive_levels": 1,'
-             ' "interp_max_elements": 4'),
-            ("MULTIPASS", ', "interpolator": "MULTIPASS"')):
-        sg = card_and_cpu(f"{n}^3 f32 PCG_CLASSICAL {label}",
-                          poisson_run(classical_cfg(extra), n))
-        device_built(sg.precond, label)
-        del sg
+    # (D2 + aggressive coarsening + 4 interpolation elements at n^3, on
+    # the card and the CPU: the pcg_classical_cheby path, cheby_phase)
+    sg = card_and_cpu(f"{n}^3 f32 PCG_CLASSICAL MULTIPASS", poisson_run(
+        classical_cfg(', "interpolator": "MULTIPASS"'), n))
+    device_built(sg.precond, "MULTIPASS")
+    del sg
     card_and_cpu(f"{n_small}^3 f32 ENERGYMIN",
                  poisson_run(classical_cfg(', "algorithm": "ENERGYMIN"'),
                              n_small))
@@ -1692,6 +1814,372 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
     sg = card_and_cpu(f"{n_small}^3 shuffled f32 PCG_CLASSICAL RCM", rcm_run)
     device_built(sg.precond, "RCM")
     return launches, recs
+
+
+def monitored_ratio(res):
+    """The monitored residual at the end over the one at the start:
+    what the config's tolerance (RELATIVE_INI) bounds."""
+    return float(np.max(res.final_norm) / np.max(res.initial_norm))
+
+
+def check_launches(label, launches, derived, device):
+    """Each counter equal to its derived count (the wrappers count only
+    launches on the card)."""
+    for k in launches:
+        check(launches[k] == derived[k] or device != "cuda",
+              f"{label} {k} launches {launches[k]} != derived {derived[k]}")
+
+
+def f64_vs_cpu(label, run, device):
+    """``run(dev) -> (solver, result, true residual)`` on ``device`` and
+    on the CPU in f64: iterations equal, x to rtol 1e-9, status 0 and
+    the true residual at the config's tolerance on both."""
+    sg, rg, resg = run(device)
+    sc, rc, resc = run("cpu")
+    xg, xc = rg.x.cpu().numpy(), rc.x.numpy()
+    d = float(np.abs(xg - xc).max())
+    tol = sg.tolerance
+    print(json.dumps({f"{label}_f64": {
+        "iterations": int(rg.iters), "cpu_iterations": int(rc.iters),
+        "status": int(rg.status), "cpu_status": int(rc.status),
+        "true_rel_residual_f64": resg, "cpu_true_rel_residual_f64": resc,
+        "max_abs_diff_vs_cpu": d, "x_inf": float(np.abs(xc).max())}}),
+        flush=True)
+    check(int(rg.status) == 0 and int(rc.status) == 0,
+          f"{label} f64: status card {rg.status} cpu {rc.status}")
+    check(int(rg.iters) == int(rc.iters),
+          f"{label} f64: iterations card {rg.iters} vs cpu {rc.iters}")
+    check(np.allclose(xg, xc, rtol=1e-9,
+                      atol=1e-9 * float(np.abs(xc).max())),
+          f"{label} f64: x card vs cpu, max abs diff {d:.3e}")
+    check(resg <= tol and resc <= tol,
+          f"{label} f64: true residual {resg:.3e} / {resc:.3e} > {tol}")
+    return sg, sc
+
+
+def cheby_phase(torch, peaks=None, device="cuda", n=SLICE_N, n_cmp=SLICE_N,
+                n_f64=64):
+    """pcg_classical_cheby: PCG + classical AMG (D2, aggressive level 0,
+    4 interpolation elements) smoothed by CHEBYSHEV of order 2 over
+    JACOBI_L1 (``PCG_CLASSICAL_CHEB``) at ``n``^3 f32 with its setup on
+    ``device``: levels, lmax per level, launches (each Chebyshev sweep
+    of order k is k A-SpMVs, each level's power iteration at setup 20),
+    a trace of a warm solve and (given ``peaks``) the ELL kernels at each
+    ELL operator; the CPU port at ``n_cmp``^3 (iterations within one);
+    ``n_f64``^3 f64 with the card's hierarchy carried to the CPU
+    (iterations equal, x to rtol 1e-9, lmax to rtol 1e-9).  Returns the
+    launches and the kernel case records."""
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.amg.hierarchy import hierarchy_from_numpy
+    from amgx_tpu_torch.solvers.chebyshev import POWER_STEPS
+
+    cfg = PCG_CLASSICAL_CHEB
+    # ---- the main path: counts zeroed just before, read just after
+    zero_counts()
+    s, res, setup_s, b, upload_s = solve_on(device, cfg, n, np.float32)
+    launches = kernel_counts()
+    iters, status = int(res.iters), int(res.status)
+    x = res.x.cpu().numpy()
+    amg = s.precond
+    solve_s = s.solve_time
+    res2 = s.solve(b)
+    check(int(res2.iters) == iters, "repeat Chebyshev solve changed iters")
+    warm_s = s.solve_time
+    order = amg.levels[0].smoother.order
+    derived = pcg_derived_launches(s, iters, sweep_spmvs=order,
+                                   setup_spmvs=POWER_STEPS)
+    rel = true_rel_residual(n, b, x)
+    lam = [(lv.smoother.lmax, lv.smoother.lmin) if lv.smoother else None
+           for lv in amg.levels]
+    print(json.dumps({
+        "slice": f"poisson7 {n}^3 f32 pcg_classical_cheby (PCG + classical "
+                 "AMG D2 aggressive 1 interp_max_elements 4, CHEBYSHEV "
+                 f"order {order} / JACOBI_L1, DENSE_LU) setup and solve on "
+                 f"{device}",
+        "levels": classical_levels(amg), "n_levels": len(amg.levels),
+        "lmax_lmin": lam, "iterations": iters, "status": status,
+        "upload_s": upload_s, "setup_s": setup_s,
+        "setup_profile": amg.setup_profile, "setup_stats": amg.setup_stats,
+        "solve_s": solve_s, "ms_per_iteration": solve_s / max(iters, 1) * 1e3,
+        "solve_warm_s": warm_s,
+        "ms_per_iteration_warm": warm_s / max(iters, 1) * 1e3,
+        "monitored_rel_residual": monitored_ratio(res),
+        "true_rel_residual_f64": rel, "launches": launches,
+        "derived_launches": derived,
+        "repeat_solve_x_bitwise": bool(torch.equal(res.x, res2.x)),
+    }), flush=True)
+    check(status == 0, f"Chebyshev status {status}")
+    check(monitored_ratio(res) <= s.tolerance,
+          f"Chebyshev monitored residual {monitored_ratio(res):.3e}")
+    check(rel <= 1e-5, f"Chebyshev true relative residual {rel:.3e} > 1e-5")
+    stats = amg.setup_stats
+    check(stats["host_fallback_levels"] == 0,
+          "Chebyshev: a level fell back to the host builder")
+    check(stats["device_levels"] == len(amg.levels) - 1 or device != "cuda",
+          f"Chebyshev: {stats['device_levels']} device-built levels of "
+          f"{len(amg.levels) - 1}")
+    check_launches("Chebyshev", launches, derived, device)
+    recs = []
+    if peaks is not None:
+        timer = Timer(torch)
+        rng = np.random.default_rng(2)
+        for label, m, per in ell_operators(amg, iters, sweep_spmvs=order,
+                                           setup_spmvs=POWER_STEPS):
+            recs += ell_kernel_case(
+                torch, timer, peaks, rng,
+                f"cheby {label} {m.n_rows}x{m.n_cols} w={_width(m)} f32",
+                m.host_csr(), np.float32,
+                extra={"launches_per_solve": per})
+        del timer
+        trace_solve(torch, s, b, iters, groups={
+            "dia_spmv": ["dia_spmv"], "sell_spmv": ["sell_spmv"],
+            "ell_spmv": ["ell_spmv"], "csr": ["egment"],
+            "dense": ["gemv", "gemm", "dot_kernel"],
+            "reduction": ["reduce_kernel"]})
+    del s, res, res2, amg
+
+    # ---- the CPU port (AUTO: the host builder there)
+    sc, rc, setup_c, bc, _ = solve_on("cpu", cfg, n_cmp, np.float32)
+    print(json.dumps({"cheby_cpu": {
+        "n": n_cmp, "iterations": int(rc.iters), "status": int(rc.status),
+        "setup_s": setup_c, "solve_s": sc.solve_time,
+        "levels": [(lv.n_rows, lv.nnz) for lv in sc.precond.levels],
+        "lmax_lmin": [(lv.smoother.lmax, lv.smoother.lmin) if lv.smoother
+                      else None for lv in sc.precond.levels],
+        "true_rel_residual_f64": true_rel_residual(
+            n_cmp, bc, rc.x.numpy())}}), flush=True)
+    check(int(rc.status) == 0, f"Chebyshev cpu status {rc.status}")
+    check(abs(int(rc.iters) - iters) <= 1,
+          f"Chebyshev f32 iterations card {iters} vs cpu {rc.iters}")
+    del sc, rc
+
+    # ---- n_f64^3 f64: the card's hierarchy carried to the CPU (the
+    # host builder parts from the device pipeline at threshold ties)
+    carried = {}
+
+    def run(dev):
+        # the first call sets up on ``device``, the second on the CPU
+        if carried:
+            sg = hierarchy_from_numpy(carried["levels"],
+                                      T.AMGConfig.from_string(cfg),
+                                      device="cpu")
+            bg = carried["b"]
+            rg = sg.solve(bg)
+        else:
+            sg, rg, _, bg, _ = solve_on(dev, cfg, n_f64, np.float64)
+            carried["b"] = bg
+            carried["levels"] = [
+                {k: (*getattr(lv, k)._host, getattr(lv, k).shape)
+                 for k in ("A", "P", "R") if getattr(lv, k) is not None}
+                for lv in sg.precond.levels]
+        return sg, rg, true_rel_residual(n_f64, bg, rg.x.cpu().numpy())
+
+    sg, sc = f64_vs_cpu(f"cheby_{n_f64}^3", run, device)
+    lg = [lv.smoother.lmax for lv in sg.precond.levels if lv.smoother]
+    lc = [lv.smoother.lmax for lv in sc.precond.levels if lv.smoother]
+    print(json.dumps({f"cheby_{n_f64}^3_f64_lmax": {"card": lg, "cpu": lc}}),
+          flush=True)
+    check(np.allclose(lg, lc, rtol=1e-9), f"lmax card {lg} vs cpu {lc}")
+    return launches, recs
+
+
+def idr_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N, n_f64=64):
+    """idr_dilu: IDR(8) preconditioned by one MULTICOLOR_DILU sweep
+    (``IDR_DILU_CFG``) on ``n``^3 f32: colours, launches (s + 1 A-SpMVs
+    an iteration and the initial residual), a trace of a warm solve;
+    the CPU port at ``n_cmp``^3 f32; ``n``^3 f64 on the device (the
+    true residual); ``n_f64``^3 f64 against the CPU.  In f32 the
+    recurred residual of IDR(8) parts from the true one (the solve stops
+    on the recurred residual, which meets the tolerance, with a true
+    residual orders above it, in the JAX package too) and last-bit
+    differences move the iteration count by several: the f32 runs are
+    held to their status and monitored residual, the f64 runs to the
+    true residual and, at ``n_f64``^3, to the CPU's iterations and x."""
+    cfg = IDR_DILU_CFG
+    zero_counts()
+    s, res, setup_s, b, upload_s = solve_on(device, cfg, n, np.float32)
+    launches = kernel_counts()
+    iters, status = int(res.iters), int(res.status)
+    x = res.x.cpu().numpy()
+    solve_s = s.solve_time
+    res2 = s.solve(b)
+    check(int(res2.iters) == iters, "repeat IDR solve changed iters")
+    warm_s = s.solve_time
+    shadow = int(s._shadow.shape[0])
+    derived = dict.fromkeys(COUNTERS, 0)
+    derived[counter_of(s.A)] = 1 + (shadow + 1) * iters
+    rel = true_rel_residual(n, b, x)
+    print(json.dumps({
+        "slice": f"poisson7 {n}^3 f32 idr_dilu (IDR({shadow}) + "
+                 f"MULTICOLOR_DILU) on {device}",
+        "format": s.A.format, "colors": s.precond.num_colors,
+        "iterations": iters, "status": status, "upload_s": upload_s,
+        "setup_s": setup_s, "dilu_setup_s": s.precond.setup_time,
+        "solve_s": solve_s, "ms_per_iteration": solve_s / max(iters, 1) * 1e3,
+        "solve_warm_s": warm_s,
+        "ms_per_iteration_warm": warm_s / max(iters, 1) * 1e3,
+        "monitored_rel_residual": monitored_ratio(res),
+        "true_rel_residual_f64": rel, "launches": launches,
+        "derived_launches": derived,
+        "repeat_solve_x_bitwise": bool(torch.equal(res.x, res2.x)),
+    }), flush=True)
+    check(status == 0, f"IDR status {status}")
+    check(monitored_ratio(res) <= s.tolerance,
+          f"IDR monitored residual {monitored_ratio(res):.3e}")
+    check(bool(np.isfinite(x).all()), "IDR: non-finite x")
+    check_launches("IDR", launches, derived, device)
+    if device == "cuda":
+        trace_solve(torch, s, b, iters, groups={
+            "dia_spmv": ["dia_spmv"], "index_copy": ["index_copy"],
+            "gather": ["index_elementwise", "gather", "index_select"],
+            "reduction": ["reduce_kernel"],
+            "small_dense": ["trsm", "trsv", "gemv", "gemm", "dot_kernel"]})
+    del s, res, res2
+
+    sc, rc, setup_c, bc, _ = solve_on("cpu", cfg, n_cmp, np.float32)
+    print(json.dumps({"idr_cpu_f32": {
+        "n": n_cmp, "iterations": int(rc.iters), "status": int(rc.status),
+        "card_iterations": iters if n_cmp == n else None,
+        "setup_s": setup_c, "solve_s": sc.solve_time,
+        "colors": sc.precond.num_colors,
+        "monitored_rel_residual": monitored_ratio(rc),
+        "true_rel_residual_f64": true_rel_residual(
+            n_cmp, bc, rc.x.numpy())}}), flush=True)
+    check(int(rc.status) == 0, f"IDR cpu status {rc.status}")
+    check(monitored_ratio(rc) <= sc.tolerance,
+          f"IDR cpu monitored residual {monitored_ratio(rc):.3e}")
+    del sc, rc
+
+    # n^3 in f64 on the device: the true residual at the tolerance.  (At
+    # this size even f64 IDR(8) amplifies the order of its sums: on the
+    # CPU at 96^3 the torch thread count moves the residual history in
+    # its fourth digit, so the count is printed, not held to the CPU's.)
+    sg, rg, _, bg, _ = solve_on(device, cfg, n, np.float64)
+    relg = true_rel_residual(n, bg, rg.x.cpu().numpy())
+    print(json.dumps({f"idr_{n}^3_f64": {
+        "iterations": int(rg.iters), "status": int(rg.status),
+        "monitored_rel_residual": monitored_ratio(rg),
+        "true_rel_residual_f64": relg, "solve_s": sg.solve_time}}),
+        flush=True)
+    check(int(rg.status) == 0, f"IDR {n}^3 f64 status {rg.status}")
+    check(relg <= sg.tolerance,
+          f"IDR {n}^3 f64 true residual {relg:.3e} > {sg.tolerance}")
+    del sg, rg
+
+    def run(dev):
+        sg, rg, _, bg, _ = solve_on(dev, cfg, n_f64, np.float64)
+        return sg, rg, true_rel_residual(n_f64, bg, rg.x.cpu().numpy())
+
+    f64_vs_cpu(f"idr_{n_f64}^3", run, device)
+    return launches
+
+
+def gmres_ilu_phase(torch, device="cuda", n=108, n_cmp=108, n_f64=64,
+                    n_ilu1=64):
+    """gmres_ilu0: GMRES(30) + ILU(0) (``GMRES_ILU0_CFG``, BASELINE.md
+    acceptance config 4) on the ``n``^3 upwind convection-diffusion
+    operator in f64: colours, the ILU factorization's host time,
+    launches (one A-SpMV an iteration and one residual a restart
+    cycle), a trace of a warm solve; the CPU port at ``n_cmp``^3;
+    ``n_f64``^3 against the CPU; ILU(1) at ``n_ilu1``^3."""
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.core.matrix import SparseMatrix
+
+    def system(m):
+        A = convection_diffusion_3d(m)
+        return A, A @ np.random.default_rng(7).standard_normal(A.shape[0])
+
+    def setup_solve(dev, m, text=GMRES_ILU0_CFG):
+        Asp, bb = system(m)
+        t0 = time.perf_counter()
+        A = SparseMatrix.from_scipy(Asp, device=dev)
+        up = time.perf_counter() - t0
+        sg = T.create_solver(T.AMGConfig.from_string(text), "default",
+                             device=dev)
+        t0 = time.perf_counter()
+        sg.setup(A)
+        st = time.perf_counter() - t0
+        return sg, sg.solve(bb), Asp, bb, up, st
+
+    def rel_of(Asp, bb, xx):
+        return float(np.linalg.norm(bb - Asp @ xx) / np.linalg.norm(bb))
+
+    zero_counts()
+    s, res, Asp, b, upload_s, setup_s = setup_solve(device, n)
+    launches = kernel_counts()
+    iters, status = int(res.iters), int(res.status)
+    x = res.x.cpu().numpy()
+    solve_s = s.solve_time
+    res2 = s.solve(b)
+    check(int(res2.iters) == iters, "repeat GMRES solve changed iters")
+    warm_s = s.solve_time
+    derived = dict.fromkeys(COUNTERS, 0)
+    derived[counter_of(s.A)] = -(-iters // s.restart) + iters
+    rel = rel_of(Asp, b, x)
+    print(json.dumps({
+        "slice": f"convection-diffusion {n}^3 ({Asp.shape[0]} rows, "
+                 f"{Asp.nnz} nonzeros) f64 gmres_ilu0 (GMRES(30) + "
+                 f"MULTICOLOR_ILU level 0) on {device}",
+        "format": s.A.format, "colors": s.precond.num_colors,
+        "pattern_nnz": s.precond.pattern_nnz,
+        "ilu_setup_s": s.precond.setup_time,
+        "iterations": iters, "status": status, "upload_s": upload_s,
+        "setup_s": setup_s, "solve_s": solve_s,
+        "ms_per_iteration": solve_s / max(iters, 1) * 1e3,
+        "solve_warm_s": warm_s,
+        "ms_per_iteration_warm": warm_s / max(iters, 1) * 1e3,
+        "monitored_rel_residual": monitored_ratio(res),
+        "true_rel_residual_f64": rel, "launches": launches,
+        "derived_launches": derived,
+        "repeat_solve_x_bitwise": bool(torch.equal(res.x, res2.x)),
+    }), flush=True)
+    check(status == 0, f"GMRES status {status}")
+    check(s.A.format == "DIA", f"GMRES operator format {s.A.format}")
+    check(rel <= s.tolerance, f"GMRES true residual {rel:.3e}")
+    check_launches("GMRES", launches, derived, device)
+    if device == "cuda":
+        trace_solve(torch, s, b, iters, groups={
+            "dia_spmv": ["dia_spmv"], "index_copy": ["index_copy"],
+            "gather": ["index_elementwise", "gather", "index_select"],
+            "reduction": ["reduce_kernel"]})
+    del s, res, res2
+
+    sc, rc, _, _, _, setup_c = setup_solve("cpu", n_cmp)
+    print(json.dumps({"gmres_cpu": {
+        "n": n_cmp, "iterations": int(rc.iters), "status": int(rc.status),
+        "setup_s": setup_c, "ilu_setup_s": sc.precond.setup_time,
+        "solve_s": sc.solve_time, "colors": sc.precond.num_colors,
+        "max_abs_diff_vs_card": (float(np.abs(x - rc.x.numpy()).max())
+                                 if n_cmp == n else None)}}), flush=True)
+    check(int(rc.status) == 0, f"GMRES cpu status {rc.status}")
+    check(abs(int(rc.iters) - iters) <= 1,
+          f"GMRES iterations card {iters} vs cpu {rc.iters}")
+    del sc, rc
+
+    def run(dev):
+        sg, rg, Ag, bg, _, _ = setup_solve(dev, n_f64)
+        return sg, rg, rel_of(Ag, bg, rg.x.cpu().numpy())
+
+    f64_vs_cpu(f"gmres_ilu0_{n_f64}^3", run, device)
+
+    ilu = []
+    for level in (0, 1):
+        text = GMRES_ILU0_CFG.replace('"ilu_sparsity_level": 0',
+                                      f'"ilu_sparsity_level": {level}')
+        sg, rg, Ag, bg, _, _ = setup_solve(device, n_ilu1, text)
+        ilu.append({"ilu_sparsity_level": level,
+                    "colors": sg.precond.num_colors,
+                    "pattern_nnz": sg.precond.pattern_nnz,
+                    "ilu_setup_s": sg.precond.setup_time,
+                    "iterations": int(rg.iters), "status": int(rg.status),
+                    "solve_s": sg.solve_time,
+                    "true_rel_residual_f64": rel_of(
+                        Ag, bg, rg.x.cpu().numpy())})
+        check(int(rg.status) == 0, f"ILU({level}) {n_ilu1}^3 status")
+    print(json.dumps({f"gmres_ilu_levels_{n_ilu1}^3": ilu}), flush=True)
+    check(ilu[1]["iterations"] < ilu[0]["iterations"],
+          "ILU(1) took no fewer iterations than ILU(0)")
+    return launches
 
 
 def main():
@@ -1730,6 +2218,10 @@ def main():
                "fgmres_aggregation": fgmres_phase(torch)}
     by_path["pcg_classical"], cl_recs = classical_phase(torch, peaks)
     recs += cl_recs
+    by_path["pcg_classical_cheby"], ch_recs = cheby_phase(torch, peaks)
+    recs += ch_recs
+    by_path["idr_dilu"] = idr_phase(torch)
+    by_path["gmres_ilu0"] = gmres_ilu_phase(torch)
 
     # each kernel: the path whose count is its ``launches``, the case
     # whose times the summary gives, its source and the TPU kernel
@@ -1754,7 +2246,11 @@ def main():
         for k, v in r.items() if k.endswith("device_ms") and v is None]}),
         flush=True)
     for path, kernels_of in (("bench_pcg", ("dia_spmv", "ell_spmv")),
-                             ("pcg_classical", ("dia_spmv", "sell_spmv"))):
+                             ("pcg_classical", ("dia_spmv", "sell_spmv")),
+                             ("pcg_classical_cheby",
+                              ("dia_spmv", "sell_spmv")),
+                             ("idr_dilu", ("dia_spmv",)),
+                             ("gmres_ilu0", ("dia_spmv",))):
         for name in kernels_of:
             check(by_path[path][name] > 0,
                   f"{name} never launched on the {path} path")

@@ -15,7 +15,9 @@ Krylov family with the JAX package (CPU).
     iterations, SUCCESS), a rel_div_tolerance DIVERGED case and FGMRES
     nested as the preconditioner of PCGF.
   * complex128 FGMRES, GMRES, PBICGSTAB and PCGF solves.
-  * The ten names are registered and no longer in ``UNPORTED``.
+  * The ten names are registered and no longer in ``UNPORTED``; every
+    name the JAX package registers resolves in the port but
+    ITERATIVE_REFINEMENT.
 """
 
 import dataclasses
@@ -292,3 +294,37 @@ def test_ported_solvers_registered(name):
 
     assert name not in UNPORTED
     assert SolverRegistry.get(name).registry_name == name
+
+
+# every name the JAX package registers (held to its registry below)
+JAX_NAMES = (
+    "AMG", "BICGSTAB", "BLOCK_JACOBI", "CF_JACOBI", "CG", "CHEBYSHEV",
+    "CHEBYSHEV_POLY", "DENSE_LU", "DENSE_LU_SOLVER", "FGMRES",
+    "FIXCOLOR_GS", "GMRES", "GS", "IDR", "IDRMSYNC", "INEXACT",
+    "ITERATIVE_REFINEMENT", "JACOBI_L1", "KACZMARZ", "KPZ_POLYNOMIAL",
+    "MULTICOLOR_DILU", "MULTICOLOR_GS", "MULTICOLOR_ILU", "NOSOLVER",
+    "OPT_POLYNOMIAL", "PBICGSTAB", "PCG", "PCGF", "POLYNOMIAL", "SSTEP_PCG",
+)
+
+
+def test_name_list_is_the_jax_registry():
+    from amgx_tpu.solvers.registry import _SOLVERS as JAX_SOLVERS
+
+    assert sorted(JAX_SOLVERS) == list(JAX_NAMES)
+
+
+@pytest.mark.parametrize("name", JAX_NAMES)
+def test_every_jax_solver_name_resolves(name):
+    """Every name the JAX package registers resolves in the port, but
+    ITERATIVE_REFINEMENT, which raises naming ROADMAP.md queue A4."""
+    from amgx_tpu_torch.solvers.registry import UNPORTED, SolverRegistry
+
+    if name == "ITERATIVE_REFINEMENT":
+        assert UNPORTED == {name}
+        with pytest.raises(NotImplementedError, match="queue A4"):
+            SolverRegistry.get(name)
+        return
+    cls = SolverRegistry.get(name)
+    # DENSE_LU is an alias of DENSE_LU_SOLVER in both packages
+    assert cls.registry_name == name or (
+        name == "DENSE_LU" and cls.registry_name == "DENSE_LU_SOLVER")
