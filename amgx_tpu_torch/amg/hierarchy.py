@@ -12,16 +12,25 @@ with torch ops on the solver's device (``amg/device_setup.py``) by
 run eagerly; its SpMVs go through ``ops/spmv.py`` (stencil, DIA and ELL
 kernels on the card).
 
-Cycles V, W and F are ported, and ``matrix_free`` with ``fused_cycle``:
-under ``matrix_free=1`` every square operator (the finest one rebuilt
-from its host CSR, each coarse one as it is formed) takes the
-MATRIX_FREE format where stencil detection verifies it, and
-``fused_cycle=1`` runs the descent leg of each such level through
-``ops/stencil.py:fused_cycle_leg``: the same launches, counted as one
-operator pass.  Not ported yet, and raising ``NotImplementedError``
-when a config asks for them (ROADMAP.md, queue A): K-cycles (CG/CGF),
-``structure_reuse_levels``, ``hierarchy_dtype``, ``error_scaling``
-and the setup store.
+Cycles V, W, F and the K-cycles CG and CGF are ported, and
+``matrix_free`` with ``fused_cycle``: under ``matrix_free=1`` every
+square operator (the finest one rebuilt from its host CSR, each coarse
+one as it is formed) takes the MATRIX_FREE format where stencil
+detection verifies it, and ``fused_cycle=1`` runs the descent leg of
+each such level through ``ops/stencil.py:fused_cycle_leg``: the same
+launches, counted as one operator pass.  On aggregation levels
+``error_scaling`` 2-5 scales each coarse correction by a lambda kept on
+the device (no host read per level).
+
+``structure_reuse_levels`` != 0 plans each Galerkin product at setup
+(``amg/spgemm.py``, under the ``rap_plan`` setup phase); ``resetup``
+then refills the finest operator with ``replace_values`` and re-forms
+the coarse operators on the device from the plans (``rap_execute``)
+down to that depth (-1: every level), re-coarsens any tail below it
+from the host CSR, resetups the surviving smoothers (CHEBYSHEV keeps its
+cached bounds) and rebuilds the coarse solver.  Not ported yet, and
+raising ``NotImplementedError`` when a config asks for it (ROADMAP.md,
+queue A): ``hierarchy_dtype``; the setup store has no entry point.
 
 :func:`hierarchy_from_numpy` builds a solver on a given hierarchy
 (per-level CSR arrays of A, P and R) without coarsening — the way the
@@ -36,7 +45,8 @@ import numpy as np
 import torch
 
 from amgx_tpu_torch.core.matrix import SparseMatrix
-from amgx_tpu_torch.core.profiling import setup_profile_scope
+from amgx_tpu_torch.core.profiling import setup_phase, setup_profile_scope
+from amgx_tpu_torch.ops.blas import dot
 from amgx_tpu_torch.ops.spmv import op_pass_counter, spmv
 from amgx_tpu_torch.ops.stencil import fused_cycle_leg
 from amgx_tpu_torch.solvers.base import Solver
@@ -47,7 +57,8 @@ from amgx_tpu_torch.solvers.registry import (
     register_solver,
 )
 
-# gamma-cycle branch-depth cap (the JAX package's W_MAX_BRANCH_LEVELS)
+# gamma-cycle branch-depth cap (the JAX package's W_MAX_BRANCH_LEVELS):
+# W, F and the K-cycles branch only on the levels above it
 W_MAX_BRANCH_LEVELS = 6
 
 
@@ -66,6 +77,9 @@ class AMGLevel:
         self.P: SparseMatrix | None = None
         self.R: SparseMatrix | None = None
         self.smoother: Solver | None = None
+        # numeric Galerkin plan R A P -> the next level's A
+        # (structure_reuse_levels), or None
+        self.rap_plan = None
 
     @property
     def n_rows(self):
@@ -93,15 +107,23 @@ class AMGSolver(Solver):
         self.postsweeps = int(g("postsweeps"))
         self.finest_sweeps = int(g("finest_sweeps"))
         self.coarsest_sweeps = int(g("coarsest_sweeps"))
+        self.cycle_iters = int(g("cycle_iters"))
         self.dense_lu_num_rows = int(g("dense_lu_num_rows"))
         self.dense_lu_max_rows = int(g("dense_lu_max_rows"))
         self.print_grid_stats = bool(g("print_grid_stats"))
         self.intensive_smoothing = bool(g("intensive_smoothing"))
         self.coarsen_threshold = float(g("coarsen_threshold"))
+        # scaled coarse correction (reference
+        # aggregation_amg_level.cu:696-805): 2/4 lambda = (r, Ae)/(Ae, Ae),
+        # 3/5 lambda = (r, e)/(e, Ae); 4/5 also smooth e (Vanek).
+        # Aggregation levels only, as in the reference
         self.error_scaling = (
             int(g("error_scaling"))
             if self.algorithm == "AGGREGATION" else 0
         )
+        self.scaling_smoother_steps = int(g("scaling_smoother_steps"))
+        # 0: resetup rebuilds everything; k > 0: the top k Galerkin
+        # products re-form on the device from plans; < 0: every level
         self.structure_reuse = int(g("structure_reuse_levels"))
         self.matrix_free = bool(g("matrix_free"))
         self.fused_cycle = bool(g("fused_cycle"))
@@ -127,18 +149,9 @@ class AMGSolver(Solver):
 
     def _check_unported(self):
         super()._check_unported()
-        if self.cycle_type not in ("V", "W", "F"):
-            raise _unported(f"cycle={self.cycle_type} (K-cycle)",
-                            "aggregation AMG extras")
-        if self.structure_reuse != 0:
-            raise _unported("structure_reuse_levels",
-                            "aggregation AMG extras")
         if self.hierarchy_dtype != "SAME":
             raise _unported(f"hierarchy_dtype={self.hierarchy_dtype}",
                             "block matrices and reduced precision")
-        if self.error_scaling >= 2:
-            raise _unported(f"error_scaling={self.error_scaling}",
-                            "aggregation AMG extras")
 
     # ------------------------------------------------------------------
     # setup (reference AMG_Setup::setup, amg.cu:147-418)
@@ -306,8 +319,27 @@ class AMGSolver(Solver):
                     len(self.levels),
                 )
             )
+            if self.structure_reuse != 0:
+                with setup_phase("rap_plan"):
+                    lvl.rap_plan = self._try_plan_rap(
+                        lvl.R.host_csr(), Asp, lvl.P.host_csr(),
+                        self.levels[-1].A.host_csr(), self.device)
             self.setup_stats["levels_built"] += 1
             Asp = Ac
+
+    @staticmethod
+    def _try_plan_rap(R, Asp, P, Ac, device):
+        """The numeric Galerkin plan of ``R Asp P`` into ``Ac``'s
+        pattern, or None where that pattern does not cover the product
+        (the JAX package's ``_try_plan_rap``).  The host CSR of the
+        uploaded R, P and Ac give the plan the value order their device
+        tensors hold."""
+        from amgx_tpu_torch.amg.spgemm import plan_rap
+
+        try:
+            return plan_rap(R, Asp, P, Ac, device=device)
+        except ValueError:
+            return None
 
     def _adopt_levels(self, A, given):
         """Levels from :func:`hierarchy_from_numpy`: the finest operator
@@ -323,17 +355,71 @@ class AMGSolver(Solver):
             self.levels[-1].R = lv["R"]
             self.levels.append(AMGLevel(given[i + 1]["A"], i + 1))
 
+    def _refresh_smoother(self, lvl: AMGLevel):
+        """A level's smoother: a new one on a new level, a resetup of
+        the one a values-only resetup kept (so CHEBYSHEV keeps its
+        cached spectral bounds)."""
+        if lvl.smoother is None:
+            lvl.smoother = self._make_smoother(lvl.A)
+        else:
+            lvl.smoother.resetup(lvl.A)
+
     def _finalize_setup(self):
         for lvl in self.levels[:-1]:
-            lvl.smoother = self._make_smoother(lvl.A)
+            self._refresh_smoother(lvl)
         coarsest = self.levels[-1]
+        # the coarse solver is rebuilt (DENSE_LU factors anew)
         self.coarse_solver = self._make_coarse_solver(coarsest.A)
         if self.coarse_solver is None:
             # coarsest-level smoothing fallback (coarse_solver=NOSOLVER)
-            coarsest.smoother = self._make_smoother(coarsest.A)
+            self._refresh_smoother(coarsest)
+        else:
+            coarsest.smoother = None
         self._params = self._collect_params()
         if self.print_grid_stats and self.verbosity > 2:
             print(self.grid_stats())
+
+    def _resetup_impl(self, A: SparseMatrix) -> bool:
+        """Values-only refresh (the JAX package's ``_resetup_impl``,
+        reference ``structure_reuse_levels``): the finest operator takes
+        the new values, the coarse operators re-form on the device from
+        the stored plans down to the reuse depth, a tail no plan reaches
+        is re-coarsened from the host CSR, then smoothers and the coarse
+        solver refresh.  The transfers P and R of the planned levels stay
+        as set up.  False (a full setup) without reuse or for another
+        matrix size."""
+        from amgx_tpu_torch.ops.diagonal import scalarized
+
+        if self.structure_reuse == 0 or not self.levels:
+            return False
+        A = scalarized(A, "AMG")
+        lvl0 = self.levels[0]
+        if A.n_rows != lvl0.A.n_rows or A.nnz != lvl0.A.nnz:
+            return False
+        self.setup_profile = {}
+        self.setup_stats = {"coarsen_calls": 0, "levels_built": 0,
+                            "device_levels": 0, "host_fallback_levels": 0}
+        with setup_profile_scope(self.setup_profile):
+            lvl0.A = lvl0.A.replace_values(A.values)
+            depth = len(self.levels) - 1
+            if self.structure_reuse > 0:
+                depth = min(self.structure_reuse, depth)
+            i = 0
+            with setup_phase("rap_execute"):
+                while i < depth and self.levels[i].rap_plan is not None:
+                    lvl = self.levels[i]
+                    nxt = self.levels[i + 1]
+                    nxt.A = nxt.A.replace_values(lvl.rap_plan.apply(
+                        lvl.R.values, lvl.A.values, lvl.P.values))
+                    i += 1
+            if i < len(self.levels) - 1:
+                # the tail no plan refreshes: re-coarsen from level i
+                del self.levels[i + 1:]
+                self.levels[i].P = self.levels[i].R = None
+                self.levels[i].rap_plan = None
+                self._coarsen_from(self.levels[i].A.host_csr())
+            self._finalize_setup()
+        return True
 
     def _collect_params(self):
         per_level = tuple(
@@ -363,9 +449,10 @@ class AMGSolver(Solver):
         return pre, post
 
     def make_cycle(self):
-        """fn(params, b, x) -> x : one multigrid cycle (V, W or F).
-        W and F branch only on the top ``W_MAX_BRANCH_LEVELS`` levels,
-        as in the JAX package."""
+        """fn(params, b, x) -> x : one multigrid cycle (V, W, F, CG or
+        CGF).  W, F and the K-cycles branch only on the top
+        ``W_MAX_BRANCH_LEVELS`` levels, as in the JAX package; below
+        them every cycle is a V-cycle."""
         n_levels = len(self.levels)
         # fused descent legs: static per level, MATRIX_FREE operators
         # only (as in the JAX package)
@@ -381,6 +468,63 @@ class AMGSolver(Solver):
             self.coarse_solver.make_apply() if self.coarse_solver else None
         )
         cycle_type = self.cycle_type
+        error_scaling = self.error_scaling
+        scaling_steps = max(self.scaling_smoother_steps, 0)
+        vanek_steps = max(self.postsweeps, 1)
+        cycle_iters = self.cycle_iters
+
+        def scaled_correction(A, smooth_fn, smp, b, x, r, e):
+            """x + lambda e with the ``error_scaling`` lambda (the JAX
+            package's ``_scaled_correction``); lambda stays a 0-dim
+            tensor on the device, 1 where its denominator is 0."""
+            if error_scaling > 3 and smooth_fn is not None:
+                # Vanek: smooth e against rhs 0 and x against b, then
+                # refresh the residual
+                e = smooth_fn(smp, torch.zeros_like(e), e, vanek_steps)
+                x = smooth_fn(smp, b, x, vanek_steps)
+                r = b - spmv(A, x)
+            elif scaling_steps > 0 and smooth_fn is not None:
+                e = smooth_fn(smp, r, e, scaling_steps)
+            Ae = spmv(A, e)
+            if error_scaling in (2, 4):
+                num, den = dot(r, Ae), dot(Ae, Ae)
+            else:  # 3, 5
+                num, den = dot(r, e), dot(e, Ae)
+            nz = den != 0
+            lam = torch.where(nz, num / torch.where(nz, den, 1.0), 1.0)
+            return x + lam * e
+
+        def kcycle_solve(params, b, lvl_id):
+            """K-cycle (reference cycles/cg_[flex_]cycle.cu, Notay):
+            ``cycle_iters`` (F)CG iterations on level ``lvl_id``,
+            preconditioned by the cycle from that level; the scalars stay
+            on the device."""
+            A = params[0][lvl_id][0]
+            flexible = cycle_type == "CGF"
+            x = torch.zeros_like(b)
+            r = b
+            z = visit(params, r, torch.zeros_like(r), lvl_id, cycle_type)
+            p = z
+            rho = dot(r, z)
+            for j in range(cycle_iters):
+                q = spmv(A, p)
+                pq = dot(p, q)
+                alpha = torch.where(pq != 0, rho / pq, 0.0)
+                x = x + alpha * p
+                r_new = r - alpha * q
+                if j + 1 == cycle_iters:
+                    break
+                z = visit(params, r_new, torch.zeros_like(r_new), lvl_id,
+                          cycle_type)
+                rho_new = dot(r_new, z)
+                safe = torch.where(rho != 0, rho, 1.0)
+                if flexible:
+                    beta = dot(z, r_new - r) / safe
+                else:
+                    beta = rho_new / safe
+                p = z + beta * p
+                r, rho = r_new, rho_new
+            return x
 
         def visit(params, b, x, lvl_id, kind):
             level_params, coarse_params = params
@@ -409,9 +553,15 @@ class AMGSolver(Solver):
             elif kind == "F" and branch:
                 xc = visit(params, bc, xc, lvl_id + 1, "F")
                 xc = visit(params, bc, xc, lvl_id + 1, "V")
+            elif kind in ("CG", "CGF") and branch:
+                xc = kcycle_solve(params, bc, lvl_id + 1)
             else:
                 xc = visit(params, bc, xc, lvl_id + 1, kind)
-            x = x + spmv(P, xc)
+            if error_scaling >= 2:
+                x = scaled_correction(A, smooth_fns[lvl_id], smp, b, x, r,
+                                      spmv(P, xc))
+            else:
+                x = x + spmv(P, xc)
             if post > 0:
                 x = smooth_fns[lvl_id](smp, b, x, post)
             return x

@@ -26,10 +26,19 @@ Differences from the JAX package:
     lengths vary (the classical operators) stop being padded to the
     longest row.  SpMV takes ``sell`` when it is there; the format is
     still "ELL".
-  * No TPU windowed-ELL layout (the CUDA kernel gathers per thread), no
-    partitions and no ``replace_values``, so the source maps into the
-    CSR values (``dia_src``, the stencil's) are built on the host for
-    stencil detection and then dropped (ROADMAP.md, queue A).
+  * No TPU windowed-ELL layout (the CUDA kernel gathers per thread) and
+    no partitions.
+  * ``replace_values`` (AmgX's ``AMGX_matrix_replace_coefficients``)
+    refills every format on the device by gathers from first-occurrence
+    source maps into the CSR values, as the JAX package's does.  The
+    JAX package keeps its ``diag_src`` / ``dia_src`` / ``ell_src`` maps
+    from upload on; here they are derived on the device from the index
+    arrays at the first ``replace_values`` and shared by every matrix
+    derived from it (``_src``), so a matrix whose values never change
+    holds none.  Only the stencil's map (``mf_src``, at most ``nd x L``
+    entries) is kept from detection.  The host triple of a derived
+    matrix reads its values back from the device once, when first
+    asked for (``host_csr``, ``to_scipy``, the smoothers' setups).
   * Block matrices (``block_size > 1``) and bf16 values are not ported
     yet.
   * ``device`` defaults to ``"cuda"``; without a card the constructors
@@ -96,6 +105,8 @@ class SparseMatrix:
       sell: the same matrix in sliced ELL (``ops/ell.SlicedEll``), or
       None where the slot-major arrays move no more bytes (every slice
       as wide as the widest row).
+      mf_src: the CSR index each of ``mf_coefs`` was read from (-1: no
+      entry), on the device.
     """
 
     row_offsets: torch.Tensor
@@ -114,10 +125,15 @@ class SparseMatrix:
     ell_cols: Optional[torch.Tensor] = None
     ell_vals: Optional[torch.Tensor] = None
     sell: Optional[SlicedEll] = None
+    mf_src: Optional[torch.Tensor] = None
     block_size: int = 1
-    # host CSR triple (numpy) the matrix was built from; the AMG setup
-    # reads it back instead of copying from the device
-    _host: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    # host CSR triple (numpy) the matrix was built from, the values None
+    # until read back (a matrix made by replace_values); read it through
+    # ``_host``
+    _host_csr: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    # replace_values' source maps (``_src_maps``), shared by every
+    # matrix of one structure
+    _src: Optional[dict] = dataclasses.field(default=None, repr=False)
 
     @property
     def nnz(self) -> int:
@@ -154,6 +170,21 @@ class SparseMatrix:
     @property
     def has_ell(self) -> bool:
         return self.ell_cols is not None
+
+    @property
+    def _host(self) -> tuple:
+        """The host CSR triple ``(row_offsets, col_indices, values)``;
+        the values of a matrix made by :meth:`replace_values` are read
+        back from the device the first time (one read, counted as a
+        setup sync inside a setup)."""
+        ro, ci, v = self._host_csr
+        if v is None:
+            from amgx_tpu_torch.core.profiling import count_setup_sync
+
+            count_setup_sync()
+            v = self.values.detach().cpu().numpy()
+            self._host_csr = (ro, ci, v)
+        return self._host_csr
 
     @property
     def format(self) -> str:
@@ -230,7 +261,7 @@ class SparseMatrix:
                 row_offsets, col_indices, values, row_ids, n_rows
             )
 
-        mf_meta = mf_coefs = None
+        mf_meta = mf_coefs = mf_src = None
         if "matrix_free" in accel_formats and n_rows == n_cols and nnz:
             # detection reads DIA planes; build them transiently when
             # "dia" was not requested
@@ -245,7 +276,7 @@ class SparseMatrix:
                 det = detect_stencil_np(trio[0], trio[1], trio[2], n_rows)
                 if det is not None:
                     # the compact state replaces the O(nnz) DIA planes
-                    mf_meta, mf_coefs, _ = det
+                    mf_meta, mf_coefs, mf_src = det
                     dia_offsets = dia_vals = None
 
         dense = None
@@ -303,7 +334,8 @@ class SparseMatrix:
             ell_cols=None if ell_cols is None else put(ell_cols.T),
             ell_vals=None if ell_vals is None else put(ell_vals.T),
             sell=sliced_ell(sell, dev),
-            _host=(row_offsets, col_indices, values),
+            mf_src=put(mf_src),
+            _host_csr=(row_offsets, col_indices, values),
         )
 
     @staticmethod
@@ -342,6 +374,94 @@ class SparseMatrix:
             sp.indptr, sp.indices, sp.data, n_cols=sp.shape[1], **kw
         )
 
+    # ---- value updates (structure reuse) -------------------------------
+
+    def replace_values(self, values) -> "SparseMatrix":
+        """A matrix of the same structure and formats with new CSR
+        ``values`` (the JAX package's ``replace_values``, reference
+        ``AMGX_matrix_replace_coefficients``).  ``values`` is a tensor
+        or array of ``nnz`` entries in CSR order; it is taken to this
+        matrix's device and dtype.  Every format is refilled on the
+        device: ``diag``, the DIA planes, the slot-major and sliced ELL
+        values and the stencil coefficients by gathers from
+        first-occurrence source maps (padding stays 0), the dense block
+        by a scatter.  A MATRIX_FREE matrix keeps its stencil class:
+        the caller swaps the values of the operator detection verified,
+        as in the JAX package."""
+        if isinstance(values, torch.Tensor):
+            v = values.to(device=self.device, dtype=self.dtype)
+        else:
+            v = to_tensor(np.asarray(values), self.device).to(self.dtype)
+        if v.dim() > 1 and v.numel() != self.nnz:
+            raise NotImplementedError(
+                "replace_values: block values are not ported yet "
+                "(ROADMAP.md, queue A: block matrices and reduced "
+                "precision)"
+            )
+        v = v.reshape(-1).contiguous()
+        if v.shape[0] != self.nnz:
+            raise ValueError(
+                f"replace_values: {v.shape[0]} values for {self.nnz} "
+                "stored entries"
+            )
+        maps = self._src_maps()
+        rep = {"values": v, "diag": _gather_src(maps["diag"], v),
+               "_host_csr": (self._host_csr[0], self._host_csr[1], None)}
+        if self.has_dia:
+            rep["dia_vals"] = _gather_src(maps["dia"], v)
+        if self.has_matrix_free:
+            rep["mf_coefs"] = _gather_src(self.mf_src, v)
+        if self.has_dense:
+            rep["dense"] = torch.zeros_like(self.dense).index_put_(
+                (self.row_ids.long(), self.col_indices.long()), v,
+                accumulate=True)
+        if self.has_ell:
+            rep["ell_vals"] = _gather_src(maps["ell"], v)
+            if self.sell is not None:
+                rep["sell"] = dataclasses.replace(
+                    self.sell, vals=_gather_src(maps["sell"], v))
+        return dataclasses.replace(self, **rep)
+
+    def _src_maps(self) -> dict:
+        """Source maps of :meth:`replace_values` on the device: for each
+        slot of ``diag``, the DIA planes and the slot-major and sliced
+        ELL arrays, the CSR index of the first entry stored there (-1:
+        none).  Derived from the index arrays on the first call and
+        shared with every matrix ``replace_values`` derives."""
+        if self._src is not None:
+            return self._src
+        n, nnz, dev = self.n_rows, self.nnz, self.device
+        rows = self.row_ids.long()
+        cols = self.col_indices.long()
+        maps = {}
+        on_diag = cols == rows
+        maps["diag"] = _first_src(n, rows[on_diag],
+                                  torch.nonzero(on_diag).reshape(-1))
+        entries = torch.arange(nnz, dtype=torch.int64, device=dev)
+        if self.has_dia:
+            k = torch.searchsorted(self.dia_offsets_dev.long(), cols - rows)
+            maps["dia"] = _first_src(
+                len(self.dia_offsets) * n, k * n + rows, entries
+            ).reshape(len(self.dia_offsets), n)
+        if self.has_ell:
+            w = int(self.ell_cols.shape[0])
+            slot = entries - self.row_offsets.long()[rows]
+            maps["ell"] = _first_src(w * n, slot * n + rows,
+                                     entries).reshape(w, n)
+            S = self.sell
+            if S is not None:
+                pos = rows
+                if S.rows is not None:
+                    inv = torch.empty(n, dtype=torch.int64, device=dev)
+                    inv[S.rows.long()] = torch.arange(
+                        n, dtype=torch.int64, device=dev)
+                    pos = inv[rows]
+                at = (S.offsets[pos // SELL_C] + slot * SELL_C
+                      + pos % SELL_C)
+                maps["sell"] = _first_src(S.stored, at, entries)
+        self._src = maps
+        return maps
+
     # ---- host conversions -----------------------------------------------
 
     def host_csr(self):
@@ -370,6 +490,26 @@ class SparseMatrix:
 
 # ---------------------------------------------------------------------------
 # host helpers (copies of the JAX package's numpy code)
+
+
+def _first_src(n_slots, slot, entry):
+    """(n_slots,) int32 map: the least of the CSR indices ``entry``
+    whose slot is ``slot``, -1 for a slot no entry fills (the JAX
+    package's first-occurrence rule, which its host builders apply with
+    ``np.minimum.at``)."""
+    nnz_end = torch.iinfo(torch.int64).max
+    src = torch.full((n_slots,), nnz_end, dtype=torch.int64,
+                     device=slot.device)
+    src.scatter_reduce_(0, slot, entry, "amin")
+    return torch.where(src == nnz_end, -1, src).to(torch.int32)
+
+
+def _gather_src(src, values):
+    """``values`` gathered into a layout through a source map, 0 where
+    the map holds -1 (the JAX package's ``_gather_src``)."""
+    v = values[src.clamp(min=0)]
+    return torch.where(src >= 0, v, torch.zeros((), dtype=v.dtype,
+                                                device=v.device))
 
 
 def _row_ids_np(row_offsets, n_rows):

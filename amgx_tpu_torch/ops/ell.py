@@ -107,7 +107,10 @@ class SlicedEll:
     int64, widths (n_slices,) int32, rows (n_rows,) int32 or None.
     ``sigma`` is the window rows were sorted in, ``lanes`` the lanes
     the kernel gives each row (1, 2, 4 or 8): the launch plan, fixed at
-    upload.
+    upload.  ``SparseMatrix.replace_values`` refills ``vals`` through a
+    source map over the stored slots (the CSR index of each, -1 for a
+    padding slot, which stays 0), derived on the device from the index
+    arrays and this layout on its first call; the plan is kept.
     """
 
     cols: torch.Tensor

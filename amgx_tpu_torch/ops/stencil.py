@@ -156,7 +156,9 @@ def detect_stencil_np(dia_offsets, dia_vals, dia_src, n, tol: float = 0.0):
     Returns ``(StencilMeta, coefs, src)`` host arrays, or None when the
     matrix is not a verified constant or axis-separable stencil.
     ``src`` maps each coefficient to the CSR index of the entry it was
-    read from (-1: zero, no entry)."""
+    read from (-1: zero, no entry); the matrix keeps it beside the
+    coefficients (``mf_src``) so that ``replace_values`` re-reads them
+    from new values by a gather."""
     from amgx_tpu_torch.amg.aggregation import infer_grid
 
     grid = infer_grid(dia_offsets, n)

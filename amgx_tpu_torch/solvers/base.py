@@ -3,7 +3,10 @@
 Counterpart of the JAX package's ``solvers/base.py``, in eager PyTorch:
 
   * ``setup(A)`` builds preconditioner state on the host and ships it
-    to the solver's device.
+    to the solver's device; ``resetup(A)`` refreshes it for new values
+    of the same structure (``A.replace_values``), by a values-only path
+    where the solver has one (Krylov solvers, CHEBYSHEV, INEXACT, AMG
+    with ``structure_reuse_levels``) and by a full setup elsewhere.
   * ``solve(b, x0)`` runs the monitored loop (reference
     solver.cu:586-860) as a Python loop in place of ``lax.while_loop``.
     Each iteration reads the residual norm to the host once — the one
@@ -290,12 +293,15 @@ class Solver:
                 "(ROADMAP.md, queue A: serving tier and fault injection)"
             )
 
-    def setup(self, A):
+    def _check_device(self, A):
         if A.device != self.device:
             raise ValueError(
                 f"{self.registry_name}: matrix on {A.device}, solver on "
                 f"{self.device}"
             )
+
+    def setup(self, A):
+        self._check_device(A)
         t0 = time.perf_counter()
         from amgx_tpu_torch.core import errors as _errors
 
@@ -341,6 +347,36 @@ class Solver:
         self._cache.clear()
         self.setup_time = time.perf_counter() - t0
         return self
+
+    def resetup(self, A):
+        """Refresh for a matrix whose values changed and whose structure
+        did not (reference ``AMGX_solver_resetup``; the JAX package's
+        ``resetup``).  Solvers with a values-only path take it in
+        ``_resetup_impl``; anything else, and any solver that has not
+        been set up, was set up on a scaled or renumbered system, or is
+        given a matrix of other rows, nonzeros or block size, runs a
+        full ``setup``."""
+        self._check_device(A)
+        if (
+            self.A is None
+            or self._scale_vecs is not None
+            or self._reorder is not None
+            or A.n_rows != self.A.n_rows
+            or A.nnz != self.A.nnz
+            or A.block_size != self.A.block_size
+        ):
+            return self.setup(A)
+        t0 = time.perf_counter()
+        if not self._resetup_impl(A):
+            return self.setup(A)
+        self.A = A
+        self._cache.clear()
+        self.setup_time = time.perf_counter() - t0
+        return self
+
+    def _resetup_impl(self, A) -> bool:
+        """Values-only refresh; False makes ``resetup`` run ``setup``."""
+        return False
 
     def apply_params(self):
         return self._params

@@ -14,9 +14,13 @@ package's start vector (``default_rng(0)`` in the real dtype), and take
 lmax = 1.1 x the estimate, lmin = ``cheby_min_lambda`` x lmax.  The 20
 steps run on the device and the estimate is read once, after the last.
 
-Not ported (ROADMAP.md, queue A6/A7): the spectral-bound cache of a
-values-only resetup (``reestimate_eigs``), export/import and the
-batched rebuild.
+Spectral-bound cache (the JAX package's): a values-only ``resetup``
+keeps the cached lmax / lmin and rebuilds only the preconditioner state,
+counting the resetups served off the cache in ``bound_staleness``; the
+``reestimate_eigs`` knob re-runs the power iteration every Nth resetup
+(0: never).  AMG resetups its surviving level smoothers, so the cache
+rides a hierarchy's values-only resetup too.  Not ported (ROADMAP.md,
+queue A6/A7): export/import and the batched rebuild.
 """
 
 from __future__ import annotations
@@ -44,6 +48,11 @@ class ChebyshevSolver(Solver):
         )
         self.user_max = float(cfg.get("cheby_max_lambda", scope))
         self.user_min = float(cfg.get("cheby_min_lambda", scope))
+        # resetups served off the cached window since the last power
+        # iteration, and the knob forcing one every Nth (0: never)
+        self.reestimate_eigs = int(cfg.get("reestimate_eigs", scope))
+        self.bound_staleness = 0
+        self._resetups_since_estimate = 0
         from amgx_tpu_torch.solvers.krylov import resolve_preconditioner
 
         # NOSOLVER (or nothing configured in scope) -> Jacobi default
@@ -74,7 +83,38 @@ class ChebyshevSolver(Solver):
             lmax = 1.1 * self._estimate_lambda_max(A, self._make_M(), Mp)
             lmin = self.user_min * lmax  # ratio semantics, default 0.125
         self.lmax, self.lmin = float(lmax), float(lmin)
+        self.bound_staleness = 0
+        self._resetups_since_estimate = 0
         self._params = (A, Mp)
+
+    def _resetup_impl(self, A):
+        """Values-only refresh with the cached spectral window: the
+        preconditioner state is rebuilt, the power iteration re-runs
+        only on the ``reestimate_eigs`` cadence."""
+        if self.precond is not None:
+            self.precond.resetup(A)
+            Mp = self.precond.apply_params()
+        else:
+            A = scalarized(A, self.registry_name)
+            A0 = self._params[0]
+            if A.n_rows != A0.n_rows or A.nnz != A0.nnz:
+                return False
+            Mp = invert_diag(A)
+        if self.lambda_mode != 3:
+            self._resetups_since_estimate += 1
+            if (
+                self.reestimate_eigs > 0
+                and self._resetups_since_estimate >= self.reestimate_eigs
+            ):
+                lmax = 1.1 * self._estimate_lambda_max(A, self._make_M(), Mp)
+                self.lmax = float(lmax)
+                self.lmin = float(self.user_min * lmax)
+                self.bound_staleness = 0
+                self._resetups_since_estimate = 0
+            else:
+                self.bound_staleness += 1
+        self._params = (A, Mp)
+        return True
 
     def _estimate_lambda_max(self, A, M, Mp, iters=POWER_STEPS, seed=0):
         """Power iteration on M^{-1}A: ``iters`` steps on the device,

@@ -10,7 +10,7 @@ sweep budget grows with the cycle depth and is capped by
 
 (the AMG setup sets ``cycle_depth`` to the level count before the
 coarse solver's setup).  The class delegates everything to the inner
-solver.
+solver, its resetup included.
 """
 
 from __future__ import annotations
@@ -67,6 +67,11 @@ class InexactCoarseSolver(Solver):
         self.inner.max_iters = max(-(-self.sweep_budget() // scale), 1)
         self.inner.setup(A)
         self._params = self.inner.apply_params()
+
+    def _resetup_impl(self, A) -> bool:
+        self.inner.resetup(A)
+        self._params = self.inner.apply_params()
+        return True
 
     def operator_of(self, params):
         return self.inner.operator_of(params)

@@ -51,6 +51,16 @@ class KrylovSolver(Solver):
         else:
             self._params = (A, None)
 
+    def _resetup_impl(self, A):
+        """Values-only refresh: the preconditioner resetups (falling
+        back to its own full setup where it has no values-only path)."""
+        if self.precond is not None:
+            self.precond.resetup(A)
+            self._params = (A, self.precond.apply_params())
+        else:
+            self._params = (A, None)
+        return True
+
     def _make_M(self):
         """fn(Mp, r) -> z; identity when unpreconditioned."""
         if self.precond is None:

@@ -76,12 +76,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    every ELL operator (the sliced one also at every lane count and
    window), the level-1 A in f64 and renumbered by RCM (a measurement
    only); a trace of a warm solve.  Then a second setup and solve
-   (hierarchy and x bit for bit equal), the CPU port (host setup,
-   iterations within one), the 48^3 f64 hierarchy against the host
-   builder (C/F splits, rows and nonzeros equal, P and R to 1e-12, the
+   (hierarchy and x bit for bit equal), the CPU port at 96^3 beside the
+   card's run at 96^3 (host setup, iterations within one), the 48^3 f64
+   hierarchy against the host builder (C/F splits, rows and nonzeros equal, P and R to 1e-12, the
    coarse operators to 1e-11), 64^3 f64 against the CPU (iterations
    equal, x to rtol 1e-9), and,
-   card against CPU, the MULTIPASS variant at 128^3, ENERGYMIN and RCM
+   card against CPU, the MULTIPASS variant at 96^3, ENERGYMIN and RCM
    reordering (of a shuffled Poisson matrix) at 32^3 (the D2 +
    aggressive + interp_max_elements 4 hierarchy is phase 7's).
 7. pcg_classical_cheby: ``PCG_CLASSICAL_CHEB`` (PCG_CLASSICAL with D2
@@ -96,7 +96,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 8. idr_dilu: ``IDR_DILU_CFG`` (IDR(8) + one MULTICOLOR_DILU sweep) on
    ``poisson_3d_7pt(128)`` in f32: colours, the ``dia_spmv`` count (s + 1
    an iteration and the initial residual), a trace; the CPU port at
-   128^3 f32 (status and monitored residual: in f32 IDR(8)'s recurred
+   96^3 f32 (status and monitored residual: in f32 IDR(8)'s recurred
    residual parts from the true one and its iterations move by several
    with the summation order); 128^3 f64 on the card (the true residual
    at the tolerance); 64^3 f64 against the CPU (iterations equal, x to
@@ -108,11 +108,33 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    count (one an iteration and one a restart cycle), a trace; the CPU
    port at 108^3; 64^3 against the CPU; ILU(0) and ILU(1) at 64^3
    (colours of each fill pattern, factorization time, iterations).
-10. Prints the per-kernel summary line (each kernel's launches on every
+10. pbicgstab_agg_w: ``PBICGSTAB_AGG_W_CFG`` (PBICGSTAB + aggregation
+   AMG W-cycle, ``error_scaling`` 2, BLOCK_JACOBI 2+2, DENSE_LU) on
+   ``poisson_3d_7pt(128)`` in f32: levels, visits a cycle, launches
+   against :func:`cycle_walk` (a dry walk of the cycle, itself held to
+   the cycle's counted A-SpMVs), a trace; the CPU port at 128^3
+   (iterations within one); 64^3 f64 against the CPU.  The 32^3 solver
+   matrix (phase 5) runs ``error_scaling`` 3-5, an F-cycle and CGF.
+11. amg_classical_kcycle: ``AMG_CLASSICAL_CG_CFG`` (AMG as the outer
+   solver, classical, a CG K-cycle of 2 iterations) at 128^3 f32, setup
+   on the card: levels, visits, launches as walked, a trace; the CPU
+   port at 128^3; 64^3 f64 with the device setup on both.
+12. pcg_agg_resetup: the bench config with ``structure_reuse_levels``
+   -1 set up once, then ``replace_values`` (timed by CUDA events),
+   ``resetup`` and ``solve`` three times, on variable-coefficient
+   diffusion (DIA, beside a fresh setup without plans on each A_k) and
+   on MATRIX_FREE heat steps (x bit for bit the DIA hierarchy's): plans
+   and their
+   device bytes, ``rap_plan`` / ``rap_execute`` seconds, the coarse
+   operators against scipy's R A P, launches as derived, two resetups
+   bit for bit, the CPU port's sequence; 64^3 f64 against the CPU;
+   classical reuse at 64^3 f64 (plans per level, iterations).
+13. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``), then the
-   device line last.
+   device line last.  Each phase's seconds print on a ``phase_s``
+   line.
 
 Exits non-zero without a result when CUDA is unavailable.  Imports
 nothing of JAX or of the JAX package ``amgx_tpu``.
@@ -234,6 +256,41 @@ GMRES_ILU0_CFG = (
 )
 
 
+# PBICGSTAB around an aggregation-AMG W-cycle with scaled coarse
+# correction (error_scaling 2), SIZE_8, BLOCK_JACOBI 2+2, DENSE_LU: the
+# shape of AmgX's PBICGSTAB_AGGREGATION_W_JACOBI
+PBICGSTAB_AGG_W_CFG = (
+    '{"config_version": 2, "solver": {"scope": "main", "solver": "PBICGSTAB",'
+    ' "max_iters": 100, "tolerance": 1e-6, "convergence": "RELATIVE_INI",'
+    ' "monitor_residual": 1, "norm": "L2", "use_scalar_norm": 1,'
+    ' "preconditioner": {"scope": "amg", "solver": "AMG",'
+    ' "algorithm": "AGGREGATION", "selector": "SIZE_8", "cycle": "W",'
+    ' "error_scaling": 2, "max_iters": 1, "presweeps": 2, "postsweeps": 2,'
+    ' "min_coarse_rows": 32, "max_levels": 50,'
+    ' "coarse_solver": "DENSE_LU_SOLVER", "monitor_residual": 0,'
+    ' "smoother": {"scope": "jacobi", "solver": "BLOCK_JACOBI",'
+    ' "monitor_residual": 0}}}}'
+)
+
+# AMG as the outer solver, classical (AHAT / PMIS / D1), a CG K-cycle of
+# 2 iterations, BLOCK_JACOBI 1+1: the shape of AmgX's AMG_CLASSICAL_CG
+AMG_CLASSICAL_CG_CFG = (
+    '{"config_version": 2, "solver": {"scope": "main", "solver": "AMG",'
+    ' "algorithm": "CLASSICAL", "cycle": "CG", "cycle_iters": 2,'
+    ' "max_iters": 100, "tolerance": 1e-6, "convergence": "RELATIVE_INI",'
+    ' "monitor_residual": 1, "norm": "L2", "max_levels": 100,'
+    ' "presweeps": 1, "postsweeps": 1,'
+    ' "smoother": {"scope": "jacobi", "solver": "BLOCK_JACOBI",'
+    ' "monitor_residual": 0}}}'
+)
+
+# the bench config and its MATRIX_FREE form with every Galerkin product
+# planned for a values-only resetup
+REUSE = '"cycle": "V", "structure_reuse_levels": -1,'
+REUSE_CFG = BENCH_CFG.replace('"cycle": "V",', REUSE)
+MF_REUSE_CFG = MF_CFG.replace('"cycle": "V",', REUSE)
+
+
 def convection_diffusion_3d(n, peclet=20.0, velocity=(1.0, 0.5, 0.25)):
     """-Lap(u) + c . grad(u) on an n^3 grid, first-order upwind, 7
     points (the 3D form of tests/test_nonsymmetric.py's operator), with
@@ -288,6 +345,15 @@ ACTIVITY = {"dia_spmv": "dia_spmv_kernel", "ell_spmv": "ell_spmv_kernel",
 # both sum in the same order from +0.0; the kernel contracts each
 # multiply-add into one FMA, the plain version rounds twice
 TOL = {"float32": 1e-5, "float64": 1e-13}
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, printing its seconds on a ``phase_s`` line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(json.dumps({"phase_s": {name: time.perf_counter() - t0}}),
+          flush=True)
+    return out
 
 
 def check(cond, msg):
@@ -1177,6 +1243,16 @@ def solver_matrix():
         cases.append((f"PCG+AMG(SIZE_8) scaling {scaling}", BENCH_CFG.replace(
             '"monitor_residual": 1,',
             f'"monitor_residual": 1, "scaling": "{scaling}",', 1)))
+    # the eighth slice: error_scaling 3-5 on the W-cycle path, 2 on an
+    # F-cycle, and the flexible K-cycle on the classical path
+    for scaling in (3, 4, 5):
+        cases.append((f"PBICGSTAB+AMG(SIZE_8,W,error_scaling {scaling})",
+                      PBICGSTAB_AGG_W_CFG.replace(
+                          '"error_scaling": 2', f'"error_scaling": {scaling}')))
+    cases.append(("PBICGSTAB+AMG(SIZE_8,F,error_scaling 2)",
+                  PBICGSTAB_AGG_W_CFG.replace('"cycle": "W"', '"cycle": "F"')))
+    cases.append(("AMG(CLASSICAL,CGF)", AMG_CLASSICAL_CG_CFG.replace(
+        '"cycle": "CG"', '"cycle": "CGF"')))
     return cases
 
 
@@ -1210,16 +1286,69 @@ def counter_of(m):
     return FORMAT_COUNTER.get(m.format)
 
 
+def cycle_walk(amg, sweep_spmvs=1):
+    """SpMVs of one cycle of the AMG solver ``amg`` per operator, as
+    ``{(level, "A" | "P" | "R"): count}``, from a dry walk of the
+    cycle's structure in Python (``amg/hierarchy.py:make_cycle``; no
+    wrapper's counter is read).  A visit of a level above the coarsest
+    makes its presweeps and postsweeps (``sweep_spmvs`` A-SpMVs each),
+    its residual, R and P; with ``error_scaling`` 2-3 also
+    ``scaling_smoother_steps`` sweeps and one A e, with 4-5 twice
+    ``max(postsweeps, 1)`` sweeps, a residual and one A e.  On the
+    branch levels (above ``W_MAX_BRANCH_LEVELS`` and the last two) W
+    visits the next level twice, F an F then a V visit, and a K-cycle
+    runs ``cycle_iters`` (F)CG steps there: one visit and one A-SpMV a
+    step (one visit at least).  The coarsest level makes one residual
+    before its coarse solve, or its smoothing sweeps."""
+    from amgx_tpu_torch.amg.hierarchy import W_MAX_BRANCH_LEVELS
+
+    counts = {}
+    lv = amg.levels
+    last = len(lv) - 1
+    es = amg.error_scaling
+
+    def add(i, f, k):
+        counts[(i, f)] = counts.get((i, f), 0) + k
+
+    def visit(i, kind):
+        if i == last:
+            add(i, "A", 1 if amg.coarse_solver is not None
+                else amg.coarsest_sweeps * sweep_spmvs)
+            return
+        pre, post = amg._level_sweeps(i)
+        add(i, "A", (pre + post) * sweep_spmvs + 1)
+        add(i, "R", 1)
+        branch = i < min(last - 1, W_MAX_BRANCH_LEVELS)
+        if kind == "W" and branch:
+            visit(i + 1, "W")
+            visit(i + 1, "W")
+        elif kind == "F" and branch:
+            visit(i + 1, "F")
+            visit(i + 1, "V")
+        elif kind in ("CG", "CGF") and branch:
+            for _ in range(max(amg.cycle_iters, 1)):
+                visit(i + 1, kind)
+            add(i + 1, "A", amg.cycle_iters)
+        else:
+            visit(i + 1, kind)
+        add(i, "P", 1)
+        if es > 3:
+            add(i, "A", 2 * max(amg.postsweeps, 1) * sweep_spmvs + 2)
+        elif es >= 2:
+            add(i, "A", max(amg.scaling_smoother_steps, 0) * sweep_spmvs
+                + 1)
+
+    visit(0, amg.cycle_type)
+    return counts
+
+
 def derived_launches(amg, cycles, top, sweep_spmvs=1, setup_spmvs=0):
     """``dia_spmv``, ``ell_spmv``, ``sell_spmv``, ``stencil_spmv``
     launches and CSR products of a setup and solve from its AMG
-    hierarchy (unfused cycles): ``top`` level-0 A-SpMVs outside the
-    preconditioner, and per V-cycle on each level above the coarsest
-    its presweeps and postsweeps (``sweep_spmvs`` A-SpMVs each) and its
-    residual, then P and R; on the coarsest level one residual before
-    the dense-LU solve (or its smoothing sweeps).  Each level with a
-    smoother adds ``setup_spmvs`` A-SpMVs made by the smoother's setup
-    (a power iteration)."""
+    hierarchy: ``top`` level-0 A-SpMVs outside the preconditioner and
+    ``cycles`` cycles (:func:`cycle_walk`).  Each level with a smoother
+    adds ``setup_spmvs`` A-SpMVs made by the smoother's setup (a power
+    iteration)."""
     counts = dict.fromkeys(COUNTERS, 0)
 
     def add(m, k):
@@ -1229,16 +1358,11 @@ def derived_launches(amg, cycles, top, sweep_spmvs=1, setup_spmvs=0):
 
     lv = amg.levels
     add(lv[0].A, top)
-    for i, lvl in enumerate(lv[:-1]):
-        pre, post = amg._level_sweeps(i)
-        add(lvl.A, cycles * ((pre + post) * sweep_spmvs + 1) + setup_spmvs)
-        add(lvl.P, cycles)
-        add(lvl.R, cycles)
-    if amg.coarse_solver is not None:
-        add(lv[-1].A, cycles)
-    else:
-        add(lv[-1].A, cycles * amg.coarsest_sweeps * sweep_spmvs
-            + setup_spmvs)
+    for (i, f), k in cycle_walk(amg, sweep_spmvs).items():
+        add(getattr(lv[i], f), cycles * k)
+    for lvl in lv:
+        if lvl.smoother is not None:
+            add(lvl.A, setup_spmvs)
     return counts
 
 
@@ -1453,22 +1577,19 @@ def ell_operators(amg, iters, sweep_spmvs=1, setup_spmvs=0):
     iterations) of every ELL operator of the AMG hierarchy ``amg``, as
     :func:`pcg_derived_launches` counts them."""
     cycles = iters + 1
+    walk = cycle_walk(amg, sweep_spmvs)
     out = []
-    last = len(amg.levels) - 1
     for lvl in amg.levels:
         i = lvl.level_id
-        if i < last:
-            pre, post = amg._level_sweeps(i)
-            a_per = cycles * ((pre + post) * sweep_spmvs + 1) + setup_spmvs
-        else:
-            a_per = cycles * (1 if amg.coarse_solver is not None
-                              else amg.coarsest_sweeps)
-        if i == 0:
-            a_per += cycles
-        for f, per in (("A", a_per), ("P", cycles), ("R", cycles)):
+        for f in ("A", "P", "R"):
             m = getattr(lvl, f)
-            if m is not None and m.format == "ELL":
-                out.append((f"level{i} {f}", m, per))
+            if m is None or m.format != "ELL":
+                continue
+            per = cycles * walk.get((i, f), 0)
+            if f == "A":
+                per += (cycles if i == 0 else 0) + (
+                    setup_spmvs if lvl.smoother is not None else 0)
+            out.append((f"level{i} {f}", m, per))
     return out
 
 
@@ -1518,13 +1639,15 @@ def classical_kernel_cases(torch, timer, peaks, rng, amg, iters):
 
 
 def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
-                    n_cmp=48, n_f64=64, n_small=32):
+                    n_cmp=48, n_f64=64, n_small=32, n_cpu=96):
     """PCG_CLASSICAL at ``n``^3 f32 with its setup on ``device`` (the
     main path of this slice), the ELL kernel at its shapes, a trace,
-    determinism, the CPU port, the hierarchy against the host builder
-    at ``n_cmp``^3 f64, ``n_f64``^3 f64 against the CPU, and the other
-    selector / interpolator / reordering paths.  ``peaks`` None (a
-    rehearsal on the CPU) skips the kernel cases and the trace."""
+    determinism, the CPU port at ``n_cpu``^3 (against the device's run
+    at that size), the hierarchy against the host builder at
+    ``n_cmp``^3 f64, ``n_f64``^3 f64 against the CPU, and the other
+    selector / interpolator / reordering paths (MULTIPASS at
+    ``n_cpu``^3).  ``peaks`` None (a rehearsal on the CPU) skips the
+    kernel cases and the trace."""
     from amgx_tpu_torch.amg import classical, device_setup
     from amgx_tpu_torch.core.matrix import SparseMatrix
     from amgx_tpu_torch.io.poisson import poisson_rhs
@@ -1654,14 +1777,19 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
     check(torch.equal(res.x, r3.x), "two classical setups gave another x")
     del s, s2, res, res2, r3, amg
 
-    # ---- 2. the CPU port (AUTO: the host builder there)
-    sc, rc, setup_c, _, _ = solve_on("cpu", PCG_CLASSICAL, n, np.float32)
+    # ---- 2. the CPU port (AUTO: the host builder there) at n_cpu^3,
+    # beside the device's run at that size
+    if n_cpu != n:
+        _, res, _, b, _ = solve_on(device, PCG_CLASSICAL, n_cpu, np.float32)
+        iters, x = int(res.iters), res.x.cpu().numpy()
+    sc, rc, setup_c, _, _ = solve_on("cpu", PCG_CLASSICAL, n_cpu, np.float32)
     xc = rc.x.numpy()
     print(json.dumps({"classical_cpu": {
-        "iterations": int(rc.iters), "status": int(rc.status),
-        "setup_s": setup_c, "solve_s": sc.solve_time,
+        "n": n_cpu, "iterations": int(rc.iters), "card_iterations": iters,
+        "status": int(rc.status), "setup_s": setup_c,
+        "solve_s": sc.solve_time,
         "levels": [(lv.n_rows, lv.nnz) for lv in sc.precond.levels],
-        "true_rel_residual_f64": true_rel_residual(n, b, xc),
+        "true_rel_residual_f64": true_rel_residual(n_cpu, b, xc),
         "max_abs_diff_vs_card": float(np.abs(x - xc).max()),
         "x_inf": float(np.abs(xc).max())}}), flush=True)
     check(int(rc.status) == 0, f"classical cpu status {rc.status}")
@@ -1785,8 +1913,8 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
 
     # (D2 + aggressive coarsening + 4 interpolation elements at n^3, on
     # the card and the CPU: the pcg_classical_cheby path, cheby_phase)
-    sg = card_and_cpu(f"{n}^3 f32 PCG_CLASSICAL MULTIPASS", poisson_run(
-        classical_cfg(', "interpolator": "MULTIPASS"'), n))
+    sg = card_and_cpu(f"{n_cpu}^3 f32 PCG_CLASSICAL MULTIPASS", poisson_run(
+        classical_cfg(', "interpolator": "MULTIPASS"'), n_cpu))
     device_built(sg.precond, "MULTIPASS")
     del sg
     card_and_cpu(f"{n_small}^3 f32 ENERGYMIN",
@@ -1983,7 +2111,7 @@ def cheby_phase(torch, peaks=None, device="cuda", n=SLICE_N, n_cmp=SLICE_N,
     return launches, recs
 
 
-def idr_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N, n_f64=64):
+def idr_phase(torch, device="cuda", n=SLICE_N, n_cmp=96, n_f64=64):
     """idr_dilu: IDR(8) preconditioned by one MULTICOLOR_DILU sweep
     (``IDR_DILU_CFG``) on ``n``^3 f32: colours, launches (s + 1 A-SpMVs
     an iteration and the initial residual), a trace of a warm solve;
@@ -2182,6 +2310,467 @@ def gmres_ilu_phase(torch, device="cuda", n=108, n_cmp=108, n_f64=64,
     return launches
 
 
+def scaled_cycle_derived(s, iters, outer):
+    """Launches of a solve of ``iters`` iterations by solver ``s``:
+    PBICGSTAB (one residual, then two A-SpMVs and two cycles an
+    iteration), PCG (one residual and cycle, then one of each an
+    iteration) or a monitored AMG (one residual, then a cycle and a
+    residual an iteration); the cycles by :func:`cycle_walk`."""
+    amg = s.precond if outer != "AMG" else s
+    top, cycles = {"PBICGSTAB": (1 + 2 * iters, 2 * iters),
+                   "PCG": (iters + 1, iters + 1),
+                   "AMG": (iters + 1, iters)}[outer]
+    return derived_launches(amg, cycles, top)
+
+
+def visits_per_cycle(amg):
+    """Visits of each level in one cycle (the dry walk's R and coarse
+    counts)."""
+    walk = cycle_walk(amg)
+    last = len(amg.levels) - 1
+    return [walk.get((i, "R"), 0) for i in range(last)] + [
+        walk[(last, "A")] if amg.coarse_solver is not None else None]
+
+
+def path_record(label, s, res, b, n, launches, derived, setup_s, upload_s,
+                amg):
+    """The JSON record and the common checks of one card path: status
+    0, the true residual at 1e-5 and every counter at its derived
+    count."""
+    iters, status = int(res.iters), int(res.status)
+    x = res.x.cpu().numpy()
+    solve_s = s.solve_time
+    res2 = s.solve(b)
+    check(int(res2.iters) == iters, f"repeat {label} solve changed iters")
+    rel = true_rel_residual(n, b, x)
+    rec = {
+        "levels": amg.level_summary(), "n_levels": len(amg.levels),
+        "visits_per_cycle": visits_per_cycle(amg),
+        "cycle_passes_per_iteration": amg.cycle_passes_per_iteration(),
+        "iterations": iters, "status": status, "upload_s": upload_s,
+        "setup_s": setup_s, "setup_profile": amg.setup_profile,
+        "setup_stats": amg.setup_stats, "solve_s": solve_s,
+        "ms_per_iteration": solve_s / max(iters, 1) * 1e3,
+        "solve_warm_s": s.solve_time,
+        "ms_per_iteration_warm": s.solve_time / max(iters, 1) * 1e3,
+        "monitored_rel_residual": monitored_ratio(res),
+        "true_rel_residual_f64": rel, "launches": launches,
+        "derived_launches": derived,
+        "repeat_solve_x_bitwise": bool(res.x.equal(res2.x)),
+    }
+    check(status == 0, f"{label} status {status}")
+    check(rel <= 1e-5, f"{label} true relative residual {rel:.3e} > 1e-5")
+    # the walk's square-operator SpMVs against those the cycle made
+    walk_a = sum(k for (_, f), k in cycle_walk(amg).items() if f == "A")
+    check(walk_a == rec["cycle_passes_per_iteration"],
+          f"{label}: the dry walk counts {walk_a} A-SpMVs a cycle, the "
+          f"cycle made {rec['cycle_passes_per_iteration']}")
+    return rec, x
+
+
+TRACE_GROUPS = {"dia_spmv": ["dia_spmv"], "sell_spmv": ["sell_spmv"],
+                "ell_spmv": ["ell_spmv"], "stencil_spmv": ["stencil_"],
+                "csr": ["egment"], "dense": ["gemv", "gemm", "dot_kernel",
+                                             "trsm", "trsv"],
+                "reduction": ["reduce_kernel"]}
+
+
+def pbicgstab_w_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N,
+                      n_f64=64):
+    """pbicgstab_agg_w: PBICGSTAB + aggregation-AMG W-cycle with
+    error_scaling 2 (``PBICGSTAB_AGG_W_CFG``) at ``n``^3 f32 on
+    ``device``: levels, W visits per cycle, launches against the dry
+    walk (the extra A e and the scaling sweeps of each prolongation
+    among them), a trace of a warm solve; the CPU port at ``n_cmp``^3
+    (iterations within one); ``n_f64``^3 f64 against the CPU.  Returns
+    the launches."""
+    cfg = PBICGSTAB_AGG_W_CFG
+    zero_counts()
+    s, res, setup_s, b, upload_s = solve_on(device, cfg, n, np.float32)
+    launches = kernel_counts()
+    iters = int(res.iters)
+    derived = scaled_cycle_derived(s, iters, "PBICGSTAB")
+    rec, x = path_record("PBICGSTAB W", s, res, b, n, launches, derived,
+                         setup_s, upload_s, s.precond)
+    print(json.dumps({
+        "slice": f"poisson7 {n}^3 f32 pbicgstab_agg_w (PBICGSTAB + AMG "
+                 "SIZE_8 W-cycle error_scaling 2, BLOCK_JACOBI 2+2, "
+                 f"DENSE_LU) on {device}", **rec}), flush=True)
+    check_launches("PBICGSTAB W", launches, derived, device)
+    if device == "cuda":
+        trace_solve(torch, s, b, iters, groups=TRACE_GROUPS)
+    del s, res
+
+    sc, rc, setup_c, bc, _ = solve_on("cpu", cfg, n_cmp, np.float32)
+    print(json.dumps({"pbicgstab_w_cpu": {
+        "n": n_cmp, "iterations": int(rc.iters), "status": int(rc.status),
+        "setup_s": setup_c, "solve_s": sc.solve_time,
+        "true_rel_residual_f64": true_rel_residual(
+            n_cmp, bc, rc.x.numpy())}}), flush=True)
+    check(int(rc.status) == 0, f"PBICGSTAB W cpu status {rc.status}")
+    check(abs(int(rc.iters) - iters) <= 1 or n_cmp != n,
+          f"PBICGSTAB W f32 iterations card {iters} vs cpu {rc.iters}")
+    del sc, rc
+
+    def run(dev):
+        sg, rg, _, bg, _ = solve_on(dev, cfg, n_f64, np.float64)
+        return sg, rg, true_rel_residual(n_f64, bg, rg.x.cpu().numpy())
+
+    f64_vs_cpu(f"pbicgstab_w_{n_f64}^3", run, device)
+    return launches
+
+
+def kcycle_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N, n_f64=64):
+    """amg_classical_kcycle: AMG as the outer solver with classical
+    levels and a CG K-cycle (``AMG_CLASSICAL_CG_CFG``) at ``n``^3 f32,
+    the setup on ``device`` (AUTO: the device pipeline on the card):
+    levels, visits per cycle, launches against the dry walk, a trace;
+    the CPU port at ``n_cmp``^3 (host setup, iterations within one);
+    ``n_f64``^3 f64 with ``setup_location`` DEVICE on both (iterations
+    equal, x to rtol 1e-9).  Returns the launches."""
+    cfg = AMG_CLASSICAL_CG_CFG
+    zero_counts()
+    s, res, setup_s, b, upload_s = solve_on(device, cfg, n, np.float32)
+    launches = kernel_counts()
+    iters = int(res.iters)
+    derived = scaled_cycle_derived(s, iters, "AMG")
+    rec, x = path_record("K-cycle", s, res, b, n, launches, derived,
+                         setup_s, upload_s, s)
+    print(json.dumps({
+        "slice": f"poisson7 {n}^3 f32 amg_classical_kcycle (AMG classical "
+                 f"AHAT/PMIS/D1, cycle CG x{s.cycle_iters}, BLOCK_JACOBI "
+                 f"1+1, DENSE_LU) setup and solve on {device}",
+        "classical_levels": classical_levels(s), **rec}), flush=True)
+    check(s.setup_stats["host_fallback_levels"] == 0,
+          "K-cycle: a level fell back to the host builder")
+    check(s.setup_stats["device_levels"] == len(s.levels) - 1
+          or device != "cuda",
+          f"K-cycle: {s.setup_stats['device_levels']} device-built levels")
+    check_launches("K-cycle", launches, derived, device)
+    if device == "cuda":
+        trace_solve(torch, s, b, iters, groups=TRACE_GROUPS)
+    del s, res
+
+    sc, rc, setup_c, bc, _ = solve_on("cpu", cfg, n_cmp, np.float32)
+    print(json.dumps({"kcycle_cpu": {
+        "n": n_cmp, "iterations": int(rc.iters), "status": int(rc.status),
+        "setup_s": setup_c, "solve_s": sc.solve_time,
+        "levels": [(lv.n_rows, lv.nnz) for lv in sc.levels],
+        "true_rel_residual_f64": true_rel_residual(
+            n_cmp, bc, rc.x.numpy())}}), flush=True)
+    check(int(rc.status) == 0, f"K-cycle cpu status {rc.status}")
+    check(abs(int(rc.iters) - iters) <= 1 or n_cmp != n,
+          f"K-cycle f32 iterations card {iters} vs cpu {rc.iters}")
+    del sc, rc
+
+    dev_cfg = cfg.replace('"algorithm": "CLASSICAL",',
+                          '"algorithm": "CLASSICAL", '
+                          '"setup_location": "DEVICE",')
+
+    def run(dev):
+        sg, rg, _, bg, _ = solve_on(dev, dev_cfg, n_f64, np.float64)
+        return sg, rg, true_rel_residual(n_f64, bg, rg.x.cpu().numpy())
+
+    f64_vs_cpu(f"kcycle_{n_f64}^3", run, device)
+    return launches
+
+
+def variable_diffusion_3d(n, seed):
+    """-div(kappa grad u) on an n^3 grid, 7 points, x fastest: kappa =
+    exp(0.5 xi) with xi i.i.d. N(0, 1) per cell from
+    ``default_rng(seed)``, each face coefficient the harmonic mean of
+    its two cells', a wall face the cell's own (Dirichlet walls as
+    ``poisson_3d_7pt``, which is kappa = 1).  Scipy CSR, float64."""
+    import scipy.sparse as sps
+
+    kappa = np.exp(0.5 * np.random.default_rng(seed).standard_normal(
+        (n, n, n)))
+    N = n ** 3
+    diag = np.zeros((n, n, n))
+    diags, offsets = [], []
+    for axis, stride in ((2, 1), (1, n), (0, n * n)):
+        k = np.moveaxis(kappa, axis, -1)
+        face = 2.0 * k[..., :-1] * k[..., 1:] / (k[..., :-1] + k[..., 1:])
+        d = np.zeros_like(k)
+        d[..., :-1] += face
+        d[..., 1:] += face
+        d[..., 0] += k[..., 0]
+        d[..., -1] += k[..., -1]
+        diag += np.moveaxis(d, -1, axis)
+        # coupling of each cell to its upper neighbour (0 on the last
+        # plane of the axis: no neighbour)
+        up = np.zeros_like(k)
+        up[..., :-1] = face
+        up = np.moveaxis(up, -1, axis).reshape(-1)[:N - stride]
+        diags += [-up, -up]
+        offsets += [stride, -stride]
+    A = sps.diags_array([diag.reshape(-1)] + diags, offsets=[0] + offsets,
+                        format="csr")
+    A.eliminate_zeros()
+    A.sort_indices()
+    return A
+
+
+def heat_step_3d(n, dt):
+    """A backward-Euler step of the heat equation, L + I / dt with L the
+    7-point Laplacian of ``poisson_3d_7pt`` (scipy CSR, float64)."""
+    import scipy.sparse as sps
+    from amgx_tpu_torch.io.poisson import poisson_scipy
+
+    A = (poisson_scipy((n, n, n)) + sps.eye_array(n ** 3) / dt).tocsr()
+    A.sort_indices()
+    return A
+
+
+def rap_error(amg):
+    """Largest |A_{i+1} - R_i A_i P_i| / max|R_i A_i P_i| over the
+    levels, the product formed by scipy in float64 from the stored
+    transfers and the level's operator, all read from the device."""
+    worst = 0.0
+    for i in range(len(amg.levels) - 1):
+        lv, nxt = amg.levels[i], amg.levels[i + 1]
+        f = lambda m: m.to_scipy().astype(np.float64)  # noqa: E731
+        ref = (f(lv.R) @ f(lv.A) @ f(lv.P)).tocsr()
+        d = abs(f(nxt.A) - ref)
+        scale = float(abs(ref).max()) or 1.0
+        worst = max(worst, float(d.max()) / scale if d.nnz else 0.0)
+    return worst
+
+
+def reuse_sequence(torch, device, cfg, n, dtype, systems, formats=None,
+                   fresh=None, rap=True):
+    """Set up ``cfg`` once on ``systems[0]`` (scipy CSR), then for each
+    later system: ``A_k = A_0.replace_values(v_k)`` (the values uploaded
+    as one tensor), ``resetup(A_k)``, ``solve(b)``.  Returns (solver,
+    per-step records, the x of each step, the launches of the setup and
+    every solve).  Each step checks the level count and formats, the
+    coarse operators against scipy's R A P (1e-5 x max in f32, 1e-12
+    in f64; unless ``rap`` is False), status 0 and the true residual.
+    ``fresh`` (a config) also sets up a new solver of that config on
+    each A_k (after the counts are read) for its upload, setup and
+    iterations."""
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.core.matrix import SparseMatrix
+    from amgx_tpu_torch.io.poisson import poisson_rhs
+
+    kw = {} if formats is None else {"accel_formats": formats}
+    cuda = device == "cuda"
+    b = poisson_rhs(n ** 3, dtype=dtype)
+    zero_counts()
+    A0 = SparseMatrix.from_scipy(systems[0].astype(dtype), device=device,
+                                 **kw)
+    s = T.create_solver(T.AMGConfig.from_string(cfg), "default",
+                        device=device)
+    t0 = time.perf_counter()
+    s.setup(A0)
+    setup_s = time.perf_counter() - t0
+    amg = s.precond
+    shape = [(lv["rows"], lv["format"]) for lv in amg.level_summary()]
+    plan = {"setup_s": setup_s,
+            "plan_bytes": sum(lv.rap_plan.nbytes() for lv in amg.levels
+                              if lv.rap_plan is not None),
+            "planned": [lv.rap_plan is not None for lv in amg.levels],
+            "rap_plan_s": amg.setup_profile.get("rap_plan"),
+            "levels": shape}
+    steps, xs, Ak = [], [], None
+    for k, sp in enumerate(systems[1:], 1):
+        v = torch.from_numpy(sp.data.astype(dtype)).to(device)
+        if cuda:
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        Ak = A0.replace_values(v)
+        if cuda:
+            ev[1].record()
+            torch.cuda.synchronize()
+        rv_ms = ev[0].elapsed_time(ev[1]) if cuda else None
+        t0 = time.perf_counter()
+        s.resetup(Ak)
+        resetup_s = time.perf_counter() - t0
+        res = s.solve(b)
+        x = res.x.cpu().numpy()
+        xs.append(x)
+        rel = float(np.linalg.norm(b - sp @ x.astype(np.float64))
+                    / np.linalg.norm(b.astype(np.float64)))
+        steps.append({
+            "k": k, "replace_values_ms": rv_ms, "resetup_s": resetup_s,
+            "rap_execute_s": amg.setup_profile.get("rap_execute"),
+            "setup_profile": amg.setup_profile,
+            "coarsen_calls": amg.setup_stats["coarsen_calls"],
+            "iterations": int(res.iters), "status": int(res.status),
+            "solve_s": s.solve_time, "true_rel_residual_f64": rel,
+            "rap_rel_err": rap_error(amg) if rap else None})
+    launches = kernel_counts()
+    iters = [st["iterations"] for st in steps]
+    derived = dict.fromkeys(COUNTERS, 0)
+    for it in iters:
+        for c, v in pcg_derived_launches(s, it).items():
+            derived[c] += v
+    label = f"resetup {n}^3 {np.dtype(dtype).name}"
+    tol_rap = 1e-5 if dtype == np.float32 else 1e-12
+    for st in steps:
+        check(st["status"] == 0, f"{label} k={st['k']} status")
+        check(st["coarsen_calls"] == 0,
+              f"{label} k={st['k']}: the hierarchy was re-coarsened")
+        if rap:
+            check(st["rap_rel_err"] <= tol_rap,
+                  f"{label} k={st['k']}: coarse A vs R A P "
+                  f"{st['rap_rel_err']:.3e}")
+        check(st["true_rel_residual_f64"] <= (
+            1e-5 if dtype == np.float32 else s.tolerance),
+            f"{label} k={st['k']}: true residual "
+            f"{st['true_rel_residual_f64']:.3e}")
+    check([(lv["rows"], lv["format"]) for lv in amg.level_summary()]
+          == shape, f"{label}: levels or formats changed")
+    if fresh is not None:
+        for st, sp in zip(steps, systems[1:]):
+            t0 = time.perf_counter()
+            Af = SparseMatrix.from_scipy(sp.astype(dtype), device=device,
+                                         **kw)
+            st["fresh_upload_s"] = time.perf_counter() - t0
+            sf = T.create_solver(T.AMGConfig.from_string(fresh), "default",
+                                 device=device)
+            t0 = time.perf_counter()
+            sf.setup(Af)
+            st["fresh_setup_s"] = time.perf_counter() - t0
+            st["fresh_iterations"] = int(sf.solve(b).iters)
+            del sf, Af
+    return s, {"setup": plan, "steps": steps, "launches": launches,
+               "derived_launches": derived}, xs, Ak
+
+
+def levels_values(amg):
+    """Clones of every level's A, P and R values on the device."""
+    return [[getattr(lv, f).values.clone() for f in ("A", "P", "R")
+             if getattr(lv, f) is not None] for lv in amg.levels]
+
+
+def resetup_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N, n_f64=64,
+                  n_cl=64):
+    """pcg_agg_resetup: the bench config with ``structure_reuse_levels``
+    -1 set up once, then for k = 1, 2, 3 ``replace_values``,
+    ``resetup`` and ``solve``.  DIA half: -div(kappa_k grad u) with
+    kappa_k from ``default_rng(k)`` (the pattern of
+    ``poisson_3d_7pt``), beside a fresh upload and setup of the bench
+    config (no plans) on each A_k: what a step costs without reuse.
+    MATRIX_FREE half: backward-Euler heat steps L + I/dt, dt = 1, 0.5,
+    0.25, 0.125, on a MATRIX_FREE upload (every level stays
+    MATRIX_FREE, x bit for bit the DIA hierarchy's on the same values).
+    Both: launches as derived, two resetups with the same values equal
+    bit for bit, the CPU port's sequence at ``n_cmp``^3 (iterations
+    within one); the DIA half at ``n_f64``^3 f64 against the CPU
+    (iterations equal, x to rtol 1e-9, coarse A to 1e-12), and
+    classical reuse at ``n_cl``^3 f64 with the device setup on both
+    (each level planned or not alike, resetup iterations equal).
+    Returns the launches of the two halves, summed."""
+    from amgx_tpu_torch.io.poisson import poisson_scipy
+
+    def diffusion(m):
+        systems = [poisson_scipy((m, m, m)).tocsr()] + [
+            variable_diffusion_3d(m, k) for k in (1, 2, 3)]
+        for sp in systems[1:]:
+            check(np.array_equal(sp.indptr, systems[0].indptr)
+                  and np.array_equal(sp.indices, systems[0].indices),
+                  "variable diffusion: pattern differs from poisson_3d_7pt")
+        return systems
+
+    def heat(m):
+        return [heat_step_3d(m, dt) for dt in (1.0, 0.5, 0.25, 0.125)]
+
+    total = dict.fromkeys(COUNTERS, 0)
+    for half, cfg, make, formats in (
+            ("DIA", REUSE_CFG, diffusion, None),
+            ("MATRIX_FREE", MF_REUSE_CFG, heat, MF_FORMATS)):
+        systems = make(n)
+        s, rec, xs, Ak = reuse_sequence(
+            torch, device, cfg, n, np.float32, systems, formats,
+            fresh=BENCH_CFG if half == "DIA" else None)
+        amg = s.precond
+        # two resetups with the same values: the same hierarchy bits
+        first = levels_values(amg)
+        s.resetup(Ak.replace_values(Ak.values.clone()))
+        again = levels_values(amg)
+        bitwise = all(a.equal(b) for la, lb in zip(first, again)
+                      for a, b in zip(la, lb))
+        check(len(first) == len(again) and bitwise,
+              f"{half}: two resetups with the same values differ")
+        for c, v in rec["launches"].items():
+            total[c] += v
+        formats_now = [lv["format"] for lv in amg.level_summary()]
+        if half == "MATRIX_FREE":
+            check(all(f == "MATRIX_FREE" for f in formats_now),
+                  f"MF resetup levels {formats_now}")
+            _, _, xd, _ = reuse_sequence(torch, device, REUSE_CFG, n,
+                                         np.float32, systems, rap=False)
+            rec["x_bitwise_equal_dia"] = [
+                a.tobytes() == b.tobytes() for a, b in zip(xs, xd)]
+            check(all(rec["x_bitwise_equal_dia"]),
+                  "MF resetup x differs from the DIA hierarchy's x")
+        del s, amg
+        _, crec, _, _ = reuse_sequence(torch, "cpu", cfg, n_cmp, np.float32,
+                                       make(n_cmp), formats, rap=False)
+        rec["cpu_iterations"] = [st["iterations"] for st in crec["steps"]]
+        rec["cpu_resetup_s"] = [st["resetup_s"] for st in crec["steps"]]
+        rec["repeat_resetup_bitwise"] = bitwise
+        print(json.dumps({"slice": f"poisson-pattern {n}^3 f32 "
+                          f"pcg_agg_resetup {half} half (PCG + AMG SIZE_8 "
+                          "V, structure_reuse_levels -1) on "
+                          f"{device}", **rec}), flush=True)
+        check_launches(f"resetup {half}", rec["launches"],
+                       rec["derived_launches"], device)
+        for st, ci in zip(rec["steps"], rec["cpu_iterations"]):
+            check(abs(st["iterations"] - ci) <= 1 or n_cmp != n,
+                  f"{half} k={st['k']}: iterations card {st['iterations']} "
+                  f"vs cpu {ci}")
+
+    # ---- n_f64^3 f64, DIA half: card against CPU
+    out = {}
+    for dev in (device, "cpu"):
+        s, rec, xs, _ = reuse_sequence(torch, dev, REUSE_CFG, n_f64,
+                                       np.float64, diffusion(n_f64))
+        out[dev] = (rec, xs, [lv.A.to_scipy() for lv in s.precond.levels])
+        del s
+    (rg, xg, ag), (rc, xc, ac) = out[device], out["cpu"]
+    dx = max(float(np.abs(a - b).max()) for a, b in zip(xg, xc))
+    dA = max(float(abs(a - b).max()) / float(abs(b).max())
+             for a, b in zip(ag, ac))
+    print(json.dumps({f"resetup_{n_f64}^3_f64": {
+        "iterations": [st["iterations"] for st in rg["steps"]],
+        "cpu_iterations": [st["iterations"] for st in rc["steps"]],
+        "max_abs_diff_vs_cpu": dx, "coarse_A_rel_diff_vs_cpu": dA}}),
+        flush=True)
+    for sg_, sc_ in zip(rg["steps"], rc["steps"]):
+        check(sg_["iterations"] == sc_["iterations"],
+              f"resetup f64 iterations card {sg_['iterations']} vs cpu "
+              f"{sc_['iterations']}")
+    for a, b in zip(xg, xc):
+        check(np.allclose(a, b, rtol=1e-9, atol=1e-9 * np.abs(b).max()),
+              "resetup f64 x card vs cpu")
+    check(dA <= 1e-12, f"resetup f64 coarse A card vs cpu {dA:.3e}")
+
+    # ---- classical reuse at n_cl^3 f64, the device setup on both
+    cl_cfg = classical_cfg(', "structure_reuse_levels": -1, '
+                           '"setup_location": "DEVICE"')
+    cl = {}
+    for dev in (device, "cpu"):
+        s, rec, _, _ = reuse_sequence(torch, dev, cl_cfg, n_cl, np.float64,
+                                      diffusion(n_cl))
+        cl[dev] = rec
+        del s
+    planned = {d: r["setup"]["planned"] for d, r in cl.items()}
+    its = {d: [st["iterations"] for st in r["steps"]] for d, r in cl.items()}
+    print(json.dumps({f"classical_resetup_{n_cl}^3_f64": {
+        "planned": planned[device], "cpu_planned": planned["cpu"],
+        "iterations": its[device], "cpu_iterations": its["cpu"],
+        "plan_bytes": cl[device]["setup"]["plan_bytes"]}}), flush=True)
+    check(planned[device] == planned["cpu"],
+          f"classical plans card {planned[device]} vs cpu {planned['cpu']}")
+    check(its[device] == its["cpu"],
+          f"classical resetup iterations card {its[device]} vs cpu "
+          f"{its['cpu']}")
+    return total
+
+
 def main():
     import torch
 
@@ -2211,17 +2800,25 @@ def main():
                     or "entry function" in line):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    recs = kernel_phase(torch, peaks)
-    bench, ref = slice_phase(torch)
-    by_path = {"bench_pcg": bench,
-               "bench_pcg_matrix_free": mf_slice_phase(torch, ref),
-               "fgmres_aggregation": fgmres_phase(torch)}
-    by_path["pcg_classical"], cl_recs = classical_phase(torch, peaks)
+    recs = timed("kernels", kernel_phase, torch, peaks)
+    bench, ref = timed("bench_pcg", slice_phase, torch)
+    by_path = {"bench_pcg": bench}
+    by_path["bench_pcg_matrix_free"] = timed(
+        "bench_pcg_matrix_free", mf_slice_phase, torch, ref)
+    by_path["fgmres_aggregation"] = timed("fgmres_aggregation",
+                                          fgmres_phase, torch)
+    by_path["pcg_classical"], cl_recs = timed(
+        "pcg_classical", classical_phase, torch, peaks)
     recs += cl_recs
-    by_path["pcg_classical_cheby"], ch_recs = cheby_phase(torch, peaks)
+    by_path["pcg_classical_cheby"], ch_recs = timed(
+        "pcg_classical_cheby", cheby_phase, torch, peaks)
     recs += ch_recs
-    by_path["idr_dilu"] = idr_phase(torch)
-    by_path["gmres_ilu0"] = gmres_ilu_phase(torch)
+    for name, phase in (("idr_dilu", idr_phase),
+                        ("gmres_ilu0", gmres_ilu_phase),
+                        ("pbicgstab_agg_w", pbicgstab_w_phase),
+                        ("amg_classical_kcycle", kcycle_phase),
+                        ("pcg_agg_resetup", resetup_phase)):
+        by_path[name] = timed(name, phase, torch)
 
     # each kernel: the path whose count is its ``launches``, the case
     # whose times the summary gives, its source and the TPU kernel
@@ -2250,7 +2847,12 @@ def main():
                              ("pcg_classical_cheby",
                               ("dia_spmv", "sell_spmv")),
                              ("idr_dilu", ("dia_spmv",)),
-                             ("gmres_ilu0", ("dia_spmv",))):
+                             ("gmres_ilu0", ("dia_spmv",)),
+                             ("pbicgstab_agg_w", ("dia_spmv", "ell_spmv")),
+                             ("amg_classical_kcycle",
+                              ("dia_spmv", "sell_spmv", "ell_spmv")),
+                             ("pcg_agg_resetup",
+                              ("dia_spmv", "ell_spmv", "stencil_spmv"))):
         for name in kernels_of:
             check(by_path[path][name] > 0,
                   f"{name} never launched on the {path} path")

@@ -209,24 +209,18 @@ def test_matching_aggregation_matches_jax():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (', "error_scaling": 2', "error_scaling"),
-    (', "structure_reuse_levels": 1', "structure_reuse_levels"),
     (', "hierarchy_dtype": "BFLOAT16"', "hierarchy_dtype"),
-    (', "algorithm": "CLASSICAL", "structure_reuse_levels": 1',
-     "structure_reuse_levels"),
+    (', "hierarchy_dtype": "FLOAT32"', "hierarchy_dtype"),
+    (', "algorithm": "CLASSICAL", "hierarchy_dtype": "BF16"',
+     "hierarchy_dtype"),
+    (', "error_scaling": 2, "structure_reuse_levels": -1,'
+     ' "hierarchy_dtype": "FLOAT32"', "hierarchy_dtype"),
 ])
 def test_unported_amg_options_raise(extra, match):
     cfg_text = _amg_cfg(extra=extra)
     s = T.create_solver(T.AMGConfig.from_string(cfg_text), "default",
                         device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        s.setup(t_poisson(6, device="cpu"))
-
-
-def test_k_cycle_raises():
-    s = T.create_solver(T.AMGConfig.from_string(_amg_cfg(cycle="CG")),
-                        "default", device="cpu")
-    with pytest.raises(NotImplementedError, match="K-cycle"):
         s.setup(t_poisson(6, device="cpu"))
 
 
