@@ -2,7 +2,8 @@
 
 Host-side numpy/scipy, copied from the JAX package's
 ``amg/aggregation.py`` so both packages build the same aggregates and
-the same Galerkin operators:
+the same Galerkin operators, with its two large-grid stages on the
+solver's device as torch operations:
 
   * the structured path (the default, ``structured_aggregation=1``):
     a matrix whose diagonals form a <=27-point stencil on an inferred
@@ -11,20 +12,28 @@ the same Galerkin operators:
     stencil (DIA) and numbers coarse unknowns lexicographically, so the
     transfer operators P and R have column locality;
   * the matching path (SIZE_2/4/8, MULTI_PAIRWISE): deterministic
-    pairwise matching on the host (:func:`pairwise_match`).
-
-Not ported yet (ROADMAP.md, queue A: large-grid setup): the on-device
-matcher
-(``_device_match_rounds``) and the dense-reduction Galerkin
-``geo_galerkin_dia`` the JAX package uses above 4 M rows; above that
-size this port forms ``R @ A @ P`` with scipy, the same operator up to
-rounding.
+    pairwise matching (:func:`pairwise_match`), whose handshake rounds
+    run on the device (:func:`pairwise_match_device`, the same
+    aggregates bit for bit) for graphs of at least
+    ``_DEVICE_MATCH_MIN_ROWS`` rows and at most
+    ``_DEVICE_MATCH_MAX_WIDTH`` neighbours a row when the solver is on
+    the card (``AMGX_TPU_TORCH_DEVICE_MATCH`` overrides: ``0`` never,
+    anything else also on CPU tensors);
+  * the Galerkin product: for geometric aggregates above
+    ``_GEO_RAP_MIN_ROWS`` rows, windowed sums of the DIA diagonals on
+    the device (:func:`geo_galerkin_dia`), which never forms the ``A P``
+    intermediate; else ``R @ A @ P`` with scipy.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import scipy.sparse as sps
+import torch
+
+from amgx_tpu_torch.core.profiling import count_setup_sync, setup_phase
 
 def edge_weights(Asp: sps.csr_matrix, formula: int = 0) -> sps.csr_matrix:
     """Symmetric positive weight graph (zero diagonal)."""
@@ -131,15 +140,140 @@ def pairwise_match(W: sps.csr_matrix, merge_singletons: bool = True,
     return agg.astype(np.int32)
 
 
+_DEVICE_MATCH_MAX_WIDTH = 32  # bounded-degree gate for the ELL matcher
+_DEVICE_MATCH_MIN_ROWS = 16384  # below this, host numpy rounds win
+
+
+def _device_matching_wanted(device) -> bool:
+    """Whether the handshake rounds run on the device: on the card,
+    not on the CPU, whose numpy rounds cost less than torch operations
+    on the same cores (the JAX package's backend gate).
+    ``AMGX_TPU_TORCH_DEVICE_MATCH`` overrides (``0`` disables, anything
+    else enables, on CPU tensors too: how the tests drive the torch
+    rounds)."""
+    env = os.environ.get("AMGX_TPU_TORCH_DEVICE_MATCH")
+    if env is not None:
+        return env != "0"
+    return device is not None and torch.device(device).type == "cuda"
+
+
 def _edge_jitter(r, c, n):
     """Symmetric per-edge tie-break hash — the ONE definition both the
-    host and device matchers key on (bit-parity contract)."""
+    host and device matchers key on (bit-parity contract).  Host numpy,
+    also for the device matcher, which sees only the ranks it orders."""
     lo = np.minimum(r, c).astype(np.uint64)
     hi = np.maximum(r, c).astype(np.uint64)
     z = lo * np.uint64(n) + hi + np.uint64(0x9E3779B9)
     z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
     z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
     return (z ^ (z >> np.uint64(31))).astype(np.float64)
+
+
+def _match_ell_arrays(W: sps.csr_matrix):
+    """CSR -> padded ELL (cols, preference ranks) for the device
+    matcher, or None when the row degree exceeds the ELL gate.
+
+    Every edge gets, on the host, its position in the (weight desc,
+    jitter asc) order the host matcher sorts by, as an int32: the
+    device rounds compare integers, so their picks are the host
+    matcher's at any device precision.  Padding slots hold column n and
+    rank INT32_MAX."""
+    n = W.shape[0]
+    lens = np.diff(W.indptr)
+    w = int(lens.max()) if lens.size else 0
+    if w == 0 or w > _DEVICE_MATCH_MAX_WIDTH:
+        return None
+    if len(W.indices) > np.iinfo(np.int32).max:
+        # int32 ranks would wrap; the host matcher takes giant graphs
+        return None
+    r = np.repeat(np.arange(n, dtype=np.int64), lens)
+    c = W.indices.astype(np.int64)
+    jitter = _edge_jitter(r, c, n)
+    order = np.lexsort((jitter, -W.data))
+    rank = np.empty(len(c), dtype=np.int32)
+    rank[order] = np.arange(len(c), dtype=np.int32)
+    cols = np.full((n, w), n, dtype=np.int32)
+    ranks = np.full((n, w), np.iinfo(np.int32).max, dtype=np.int32)
+    pos = np.arange(len(c)) - W.indptr[r].astype(np.int64)
+    cols[r, pos] = c
+    ranks[r, pos] = rank
+    return cols, ranks
+
+
+def _device_match_rounds(cols, ranks, max_rounds):
+    """Mutual-strongest-neighbour handshake rounds as torch operations
+    on the tensors' device (the JAX package's ``_device_match_rounds``;
+    reference size2_selector.cu).  A vertex picks the available
+    neighbour of least rank (integer compares: the host matcher's
+    pick); mutual picks pair up.  The JAX ``while_loop`` is a loop that
+    reads the round's "any new pair" flag once (counted as a setup
+    sync) and stops after a round that pairs none, or after
+    ``max_rounds``.  Returns (partner, best_all): int64 tensors, -1
+    where none."""
+    n, w = cols.shape
+    dev = cols.device
+    iota = torch.arange(n, device=dev)
+    rmax = torch.iinfo(torch.int32).max
+    idx = cols.long()
+    spill = torch.zeros(1, dtype=torch.bool, device=dev)
+    none = torch.full((1,), -1, dtype=torch.int64, device=dev)
+
+    def best_neighbour(valid):
+        # ranks are distinct per edge: the least is unique, unless none
+        # is valid (all rmax)
+        rv = torch.where(valid, ranks, rmax)
+        br, k = torch.min(rv, dim=1)
+        bc = torch.gather(idx, 1, k.unsqueeze(1)).squeeze(1)
+        return torch.where(br < rmax, bc, -1)
+
+    best_all = best_neighbour(torch.ones_like(cols, dtype=torch.bool))
+    partner = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for _ in range(max_rounds):
+        un_ext = torch.cat([partner < 0, spill])
+        valid = un_ext[idx] & un_ext[:n].unsqueeze(1)
+        cand = best_neighbour(valid)
+        ci = torch.where(cand >= 0, cand, n)
+        mutual = (cand >= 0) & (torch.cat([cand, none])[ci] == iota)
+        a = mutual & (iota < cand)
+        # the b side of each new pair: a row's partner written at
+        # partner[cand]; rows of no new pair write to the spill slot n
+        pext = torch.cat([partner, none])
+        pext[torch.where(a, cand, n)] = torch.where(a, iota, -1)
+        partner = torch.where(a, cand, pext[:n])
+        count_setup_sync()
+        if not bool(a.any()):
+            break
+    return partner, best_all
+
+
+def pairwise_match_device(W: sps.csr_matrix, merge_singletons: bool = True,
+                          max_rounds: int = 15, device="cuda"):
+    """:func:`pairwise_match` with the handshake rounds on ``device``
+    (:func:`_device_match_rounds`): the same aggregates bit for bit,
+    the selection keys being the same.  A graph wider than the ELL gate
+    takes the host matcher."""
+    ell = _match_ell_arrays(W)
+    if ell is None:
+        return pairwise_match(W, merge_singletons, max_rounds)
+    cols, ranks = (torch.from_numpy(a).to(device) for a in ell)
+    partner, best_all = _device_match_rounds(cols, ranks, max_rounds)
+    count_setup_sync()
+    partner = partner.cpu().numpy()
+    best_all = best_all.cpu().numpy()
+    n = W.shape[0]
+    root = np.where(
+        partner >= 0, np.minimum(np.arange(n), partner), np.arange(n)
+    )
+    uniq, agg = np.unique(root, return_inverse=True)
+    if merge_singletons:
+        sizes = np.bincount(agg)
+        is_single = sizes[agg] == 1
+        if is_single.any():
+            move = is_single & (best_all >= 0)
+            agg = agg.copy()
+            agg[move] = agg[best_all[move]]
+            uniq2, agg = np.unique(agg, return_inverse=True)
+    return agg.astype(np.int32)
 
 def filter_edge_weights(W: sps.csr_matrix,
                         alpha: float) -> sps.csr_matrix:
@@ -164,22 +298,32 @@ def filter_edge_weights(W: sps.csr_matrix,
 def aggregate(Asp: sps.csr_matrix, passes: int, formula: int = 0,
               merge_singletons: bool = True, max_rounds: int = 15,
               filter_alpha: float = 0.0,
-              max_unassigned: float = 0.0) -> np.ndarray:
+              serial_matching: bool = False,
+              max_unassigned: float = 0.0, device=None) -> np.ndarray:
     """Compose `passes` pairwise matchings -> aggregates of size ~2^passes
     (reference SIZE_2=1, SIZE_4=2, SIZE_8=3 passes).  ``max_rounds``
     mirrors max_matching_iterations (size2_selector.cu:621);
-    ``filter_alpha`` > 0 applies the filter_weights weak-edge filter.
-    Matching runs on the host (the JAX package's on-device matcher is
-    bit-identical to it and is not ported yet)."""
+    ``filter_alpha`` > 0 applies the filter_weights weak-edge filter;
+    ``serial_matching`` keeps every pass on the host matcher
+    (multi_pairwise.cu serial_matching).  A pass over a graph of at
+    least ``_DEVICE_MATCH_MIN_ROWS`` rows matches on ``device`` where
+    :func:`_device_matching_wanted` says so."""
     n = Asp.shape[0]
     agg = np.arange(n, dtype=np.int32)
     W = edge_weights(Asp, formula)
     if filter_alpha > 0:
         W = filter_edge_weights(W, filter_alpha)
     for p in range(passes):
-        sub = pairwise_match(W, merge_singletons,
-                             max_rounds=max_rounds,
-                             max_unassigned=max_unassigned)
+        if (not serial_matching and max_unassigned <= 0
+                and W.shape[0] >= _DEVICE_MATCH_MIN_ROWS
+                and _device_matching_wanted(device)):
+            sub = pairwise_match_device(
+                W, merge_singletons, max_rounds=max_rounds,
+                device="cpu" if device is None else device)
+        else:
+            sub = pairwise_match(W, merge_singletons,
+                                 max_rounds=max_rounds,
+                                 max_unassigned=max_unassigned)
         agg = sub[agg]
         if p + 1 < passes:
             nc = int(sub.max()) + 1
@@ -366,11 +510,12 @@ def geo_aggregate(
     return agg.astype(np.int32)
 
 
-def select_aggregates(Asp, cfg, scope):
+def select_aggregates(Asp, cfg, scope, device=None):
     """The selector decision shared by the serial and distributed
     setup paths: geometric blocks when the matrix is stencil-structured
     (and structured_aggregation allows it, or selector is GEO),
-    matching-based aggregation otherwise.
+    matching-based aggregation otherwise (on ``device`` where
+    :func:`aggregate` matches there).
 
     Returns (agg, geo_info): geo_info is (grid, block) when the
     geometric path was taken (enables the dense-reduction Galerkin in
@@ -411,6 +556,7 @@ def select_aggregates(Asp, cfg, scope):
         float(cfg.get("filter_weights_alpha", scope))
         if bool(cfg.get("filter_weights", scope)) else 0.0
     )
+    serial = bool(cfg.get("serial_matching", scope))
     # max_unassigned_percentage early exit is honored only when the
     # config sets it (the registry default is a reference-GPU tuning)
     max_un = (
@@ -418,7 +564,8 @@ def select_aggregates(Asp, cfg, scope):
         if cfg.has("max_unassigned_percentage", scope) else 0.0
     )
     agg = aggregate(Asp, passes, formula, merge, max_rounds=max_rounds,
-                    filter_alpha=filter_alpha, max_unassigned=max_un)
+                    filter_alpha=filter_alpha, serial_matching=serial,
+                    max_unassigned=max_un, device=device)
     return _maybe_print_agg_info(cfg, scope, selector, agg), None
 
 def _maybe_print_agg_info(cfg, scope, selector, agg):
@@ -436,10 +583,192 @@ def _maybe_print_agg_info(cfg, scope, selector, agg):
     return agg
 
 
-def build_aggregation_level(Asp, cfg, scope):
+# above this row count the dense-reduction Galerkin replaces the
+# sparse product (memory: no A@P intermediate)
+_GEO_RAP_MIN_ROWS = 4_000_000
+
+
+def _decompose_offset(off, nx, ny, nz, reach=3):
+    """Linear DIA offset -> (dx, dy, dz) stencil displacement with
+    |d*| <= reach, or None when absent or AMBIGUOUS (thin grids make
+    several displacements share a linear offset; guessing would build a
+    wrong coarse operator, so the caller must fall back)."""
+    found = []
+    for dz in range(-reach, reach + 1):
+        rem_z = off - dz * nx * ny
+        for dy in range(-reach, reach + 1):
+            dx = rem_z - dy * nx
+            if -reach <= dx <= reach:
+                found.append((dx, dy, dz))
+    if len(found) != 1:
+        return None
+    return found[0]
+
+
+def _geo_rap_keys(block, decs):
+    """Coarse-displacement keys of the geometric Galerkin reduction, in
+    the order :func:`_geo_rap_device` stacks them."""
+    bx, by, bz = block
+    keys = set()
+    for dx, dy, dz in decs:
+        for w in range(bz):
+            for v in range(by):
+                for u in range(bx):
+                    keys.add(
+                        ((u + dx) // bx, (v + dy) // by, (w + dz) // bz)
+                    )
+    return sorted(keys)
+
+
+def _geo_rap_device(dia, grid, block, decs):
+    """Wrap check and windowed block reductions of the DIA diagonals
+    ``dia`` (nd, n), a tensor, as torch operations on its device (the
+    JAX package's jitted ``_geo_rap_device``).  The wrap flag is read
+    to the host once (a setup sync).  Returns (wrap_bad, stacked
+    [n_keys, cz, cy, cx] tensor, or None when wrap_bad), keys ordered
+    by :func:`_geo_rap_keys`.  Each coarse value sums its fine
+    contributions in the order of the JAX package's host twin, so the
+    two agree bit for bit."""
+    nx, ny, nz = grid
+    bx, by, bz = block
+    cx, cy, cz = nx // bx, ny // by, nz // bz
+    dev = dia.device
+    fz = torch.arange(nz, device=dev).view(nz, 1, 1)
+    fy = torch.arange(ny, device=dev).view(1, ny, 1)
+    fx = torch.arange(nx, device=dev).view(1, 1, nx)
+    wrap = torch.zeros((), dtype=torch.bool, device=dev)
+    keys = _geo_rap_keys(block, decs)
+    accs = {k: torch.zeros((cz, cy, cx), dtype=dia.dtype, device=dev)
+            for k in keys}
+    for ki, (dx, dy, dz) in enumerate(decs):
+        d3 = dia[ki].reshape(nz, ny, nx)
+        valid = (
+            (fx + dx >= 0) & (fx + dx < nx)
+            & (fy + dy >= 0) & (fy + dy < ny)
+            & (fz + dz >= 0) & (fz + dz < nz)
+        )
+        wrap = wrap | ((d3 != 0) & ~valid).any()
+        V = dia[ki].reshape(cz, bz, cy, by, cx, bx)
+        for w in range(bz):
+            DZ = (w + dz) // bz
+            for v in range(by):
+                DY = (v + dy) // by
+                for u in range(bx):
+                    DX = (u + dx) // bx
+                    accs[(DX, DY, DZ)] = (
+                        accs[(DX, DY, DZ)] + V[:, w, :, v, :, u]
+                    )
+    count_setup_sync()
+    if bool(wrap):
+        return True, None
+    return False, torch.stack([accs[k] for k in keys])
+
+
+def geo_galerkin_dia(Asp, grid, block, device="cpu", dia=None):
+    """Galerkin product R A P for piecewise-constant geometric
+    aggregates of a stencil matrix, as windowed sums over its DIA
+    diagonals: no sparse-sparse product (the JAX package's
+    ``geo_galerkin_dia``).  With P binary over (bx, by, bz) blocks,
+    Ac[P, Q] = sum_{i in P, j in Q} A[i, j], and a fine entry on
+    displacement (dx, dy, dz) at intra-block position (u, v, w) lands
+    on coarse displacement ((u+dx)//bx, (v+dy)//by, (w+dz)//bz).
+
+    The reductions run as torch operations on ``device``
+    (:func:`_geo_rap_device`).  The JAX package keeps a host twin for
+    an f64 operator where its device would round f64 to f32 (x64 off);
+    torch computes f64 on every device, so the coarse operator never
+    loses precision and one route serves both.  ``dia``
+    (``(offsets, planes)``: the sorted distinct offsets of ``Asp`` and
+    its (nd, n) planes on ``device``, as ``SparseMatrix`` holds them)
+    saves building the planes from the CSR arrays; it must be the DIA
+    form of ``Asp`` itself.
+
+    Returns the coarse operator as scipy CSR, or None where the
+    decomposition does not apply (ragged blocks, an ambiguous offset,
+    or a wrap diagonal with entries outside the grid): the caller forms
+    the sparse product."""
+    nx, ny, nz = grid
+    bx, by, bz = block
+    if nx % bx or ny % by or nz % bz:
+        return None  # ragged blocks: fall back
+    cx, cy, cz = nx // bx, ny // by, nz // bz
+    n = nx * ny * nz
+    if dia is not None:
+        offs_arr = np.asarray(dia[0], dtype=np.int64)
+        planes = dia[1]
+    else:
+        rows_all = np.repeat(
+            np.arange(n, dtype=np.int64), np.diff(Asp.indptr)
+        )
+        d_all = Asp.indices.astype(np.int64) - rows_all
+        offs_arr = np.unique(d_all)
+    reach = max(bx, by, bz)
+    dec = {}
+    for off in offs_arr:
+        d = _decompose_offset(int(off), nx, ny, nz, reach)
+        if d is None:
+            return None
+        dec[int(off)] = d
+    if dia is None:
+        # all dense diagonals in one pass over the entries (CSR has no
+        # duplicates, so plain fancy assignment suffices)
+        k_all = np.searchsorted(offs_arr, d_all)
+        planes = np.zeros((offs_arr.shape[0], n), dtype=Asp.dtype)
+        planes[k_all, rows_all] = Asp.data
+        planes = torch.from_numpy(planes).to(device)
+    decs = tuple(dec[int(off)] for off in offs_arr)
+    wrap_bad, stacked = _geo_rap_device(planes, grid, (bx, by, bz), decs)
+    if not wrap_bad:
+        count_setup_sync()
+        stacked = stacked.cpu().numpy()
+    if wrap_bad:
+        # periodic/wrap diagonals (e.g. +-(nx-1)) carry nonzeros at
+        # out-of-window rows: geometric attribution would be wrong
+        return None
+    keys = _geo_rap_keys((bx, by, bz), decs)
+    coarse = {k: stacked[i] for i, k in enumerate(keys)}
+
+    nc = cx * cy * cz
+    Z, Y, X = np.meshgrid(
+        np.arange(cz), np.arange(cy), np.arange(cx), indexing="ij"
+    )
+    r_full = X + cx * (Y + cy * Z)
+    rows_l, cols_l, vals_l = [], [], []
+    for (DX, DY, DZ), acc in coarse.items():
+        # valid coarse rows: the displaced coarse cell stays in-grid
+        ok = (
+            (X + DX >= 0) & (X + DX < cx)
+            & (Y + DY >= 0) & (Y + DY < cy)
+            & (Z + DZ >= 0) & (Z + DZ < cz)
+        )
+        c_off = DX + cx * (DY + cy * DZ)
+        r = r_full[ok].ravel()
+        rows_l.append(r)
+        cols_l.append(r + c_off)
+        vals_l.append(acc[ok].ravel())
+    Ac = sps.csr_matrix(
+        (
+            np.concatenate(vals_l),
+            (np.concatenate(rows_l), np.concatenate(cols_l)),
+        ),
+        shape=(nc, nc),
+    )
+    Ac.sum_duplicates()
+    Ac.eliminate_zeros()
+    Ac.sort_indices()
+    return Ac
+
+
+def build_aggregation_level(Asp, cfg, scope, device=None, dia=None):
     """Returns (P, R, A_coarse) scipy matrices for one aggregation level
     (reference aggregation_amg_level.cu:238-371): P is the binary
-    aggregate map, R = P^T and A_coarse = R A P (scipy product)."""
+    aggregate map, R = P^T and A_coarse = R A P, from
+    :func:`geo_galerkin_dia` on ``device`` for geometric aggregates of
+    at least ``_GEO_RAP_MIN_ROWS`` rows (``dia``: the level's DIA
+    planes there, or None), else scipy's product.  Matching runs on
+    ``device`` where :func:`aggregate` says so.  Setup phases
+    ``aggregation``, ``interp`` and ``rap_execute``, as in the JAX
+    package."""
     gen = str(cfg.get("coarseAgenerator", scope)).upper()
     if gen not in ("", "LOW_DEG", "GALERKIN", "THRUST", "DEFAULT"):
         raise KeyError(
@@ -450,16 +779,28 @@ def build_aggregation_level(Asp, cfg, scope):
         Asp = Asp.copy()
         Asp.sum_duplicates()
         Asp.sort_indices()
-    agg, _ = select_aggregates(Asp, cfg, scope)
+    with setup_phase("aggregation"):
+        agg, geo_info = select_aggregates(Asp, cfg, scope, device=device)
     n = Asp.shape[0]
     nc = int(agg.max()) + 1
-    P = sps.csr_matrix(
-        (np.ones(n, dtype=Asp.dtype), (np.arange(n), agg)),
-        shape=(n, nc),
-    )
-    R = P.T.tocsr()
-    Ac = (R @ Asp @ P).tocsr()
-    Ac.sum_duplicates()
-    Ac.eliminate_zeros()
-    Ac.sort_indices()
+    with setup_phase("interp"):
+        P = sps.csr_matrix(
+            (np.ones(n, dtype=Asp.dtype), (np.arange(n), agg)),
+            shape=(n, nc),
+        )
+        R = P.T.tocsr()
+    with setup_phase("rap_execute"):
+        Ac = None
+        # the dense-reduction Galerkin avoids the A@P sparse
+        # intermediate (about 8x the fine operator's memory); below this
+        # size scipy's product is faster on the host
+        if geo_info is not None and n >= _GEO_RAP_MIN_ROWS:
+            Ac = geo_galerkin_dia(
+                Asp, *geo_info, device="cpu" if device is None else device,
+                dia=dia)
+        if Ac is None:
+            Ac = (R @ Asp @ P).tocsr()
+            Ac.sum_duplicates()
+            Ac.eliminate_zeros()
+            Ac.sort_indices()
     return P, R, Ac

@@ -28,9 +28,24 @@ then refills the finest operator with ``replace_values`` and re-forms
 the coarse operators on the device from the plans (``rap_execute``)
 down to that depth (-1: every level), re-coarsens any tail below it
 from the host CSR, resetups the surviving smoothers (CHEBYSHEV keeps its
-cached bounds) and rebuilds the coarse solver.  Not ported yet, and
-raising ``NotImplementedError`` when a config asks for it (ROADMAP.md,
-queue A): ``hierarchy_dtype``; the setup store has no entry point.
+cached bounds) and rebuilds the coarse solver.  Each level keeps its
+dtype through a resetup.
+
+Per-level precision (``hierarchy_dtype``, ``level_dtype_policy``; the
+JAX package's cheap-preconditioner policy): at the top of
+``_finalize_setup`` every P and R, and every level's A (COARSE: all but
+the finest; ALL: the finest too), is cast on the device to
+``hierarchy_dtype`` (bf16, f32 or f64; SAME: none) by
+``SparseMatrix.astype``, before the smoothers and the coarse solver set
+up on the cast operators.  The cycle then runs each level's work in
+that level's dtype: the restricted residual casts down entering a
+level, the prolonged correction casts back up to the finer level's
+dtype, a coarse solve's correction (DENSE_LU factors a bf16 level in
+f32) to the coarsest level's, and the step casts b and x to the finest
+level's dtype and the result back (``_to_dtype``; no-ops on a
+hierarchy of one dtype).  Every cast is explicit: torch's in-place
+operations do not promote, and none is used on these vectors.  The
+setup store has no entry point in this package.
 
 :func:`hierarchy_from_numpy` builds a solver on a given hierarchy
 (per-level CSR arrays of A, P and R) without coarsening — the way the
@@ -46,6 +61,7 @@ import torch
 
 from amgx_tpu_torch.core.matrix import SparseMatrix
 from amgx_tpu_torch.core.profiling import setup_phase, setup_profile_scope
+from amgx_tpu_torch.core.types import host_dtype
 from amgx_tpu_torch.ops.blas import dot
 from amgx_tpu_torch.ops.spmv import op_pass_counter, spmv
 from amgx_tpu_torch.ops.stencil import fused_cycle_leg
@@ -61,11 +77,18 @@ from amgx_tpu_torch.solvers.registry import (
 # W, F and the K-cycles branch only on the levels above it
 W_MAX_BRANCH_LEVELS = 6
 
+# hierarchy_dtype spellings -> torch dtype (SAME and anything else: no
+# cast)
+_HIERARCHY_DTYPES = {
+    "FLOAT64": torch.float64, "F64": torch.float64, "DOUBLE": torch.float64,
+    "FLOAT32": torch.float32, "F32": torch.float32, "FLOAT": torch.float32,
+    "BFLOAT16": torch.bfloat16, "BF16": torch.bfloat16,
+}
 
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, queue A: {item})"
-    )
+
+def _to_dtype(v, dt):
+    """``v`` in ``dt``; ``v`` itself where it already is."""
+    return v if v.dtype == dt else v.to(dt)
 
 
 class AMGLevel:
@@ -128,6 +151,7 @@ class AMGSolver(Solver):
         self.matrix_free = bool(g("matrix_free"))
         self.fused_cycle = bool(g("fused_cycle"))
         self.hierarchy_dtype = str(g("hierarchy_dtype")).upper()
+        self.level_dtype_policy = str(g("level_dtype_policy")).upper()
         if self.intensive_smoothing:
             self.presweeps = max(self.presweeps, 4)
             self.postsweeps = max(self.postsweeps, 4)
@@ -147,12 +171,6 @@ class AMGSolver(Solver):
         # builder on DeviceSetupOverflow
         self.setup_stats: dict = {}
 
-    def _check_unported(self):
-        super()._check_unported()
-        if self.hierarchy_dtype != "SAME":
-            raise _unported(f"hierarchy_dtype={self.hierarchy_dtype}",
-                            "block matrices and reduced precision")
-
     # ------------------------------------------------------------------
     # setup (reference AMG_Setup::setup, amg.cu:147-418)
 
@@ -162,7 +180,15 @@ class AMGSolver(Solver):
                 build_aggregation_level,
             )
 
-            return build_aggregation_level(Asp, self.cfg, self.scope)
+            # the level's DIA planes on the device, where they hold
+            # Asp's values, for the geometric Galerkin product
+            A = self.levels[level_id].A
+            dia = None
+            if A.has_dia and host_dtype(A.dtype) == Asp.dtype \
+                    and A.dtype != torch.bfloat16:
+                dia = (A.dia_offsets, A.dia_vals)
+            return build_aggregation_level(Asp, self.cfg, self.scope,
+                                           device=self.device, dia=dia)
         if self.algorithm == "ENERGYMIN":
             from amgx_tpu_torch.amg.energymin import build_energymin_level
 
@@ -364,7 +390,46 @@ class AMGSolver(Solver):
         else:
             lvl.smoother.resetup(lvl.A)
 
+    # ------------------------------------------------------------------
+    # per-level precision policy (the JAX package's cheap preconditioner)
+
+    def _hierarchy_dtype(self):
+        """The dtype ``hierarchy_dtype`` names, or None (SAME, or a
+        complex hierarchy, which has no reduced-precision twin).  A
+        target equal to a level's dtype leaves it as it is."""
+        dt = _HIERARCHY_DTYPES.get(self.hierarchy_dtype)
+        if dt is None or (self.levels and self.levels[0].A.dtype.is_complex):
+            return None
+        return dt
+
+    def _cast_level_ids(self, dt):
+        """Ids of the levels whose operator the policy casts (every P
+        and R is cast once a dtype is set)."""
+        if dt is None:
+            return set()
+        first = 0 if self.level_dtype_policy == "ALL" else 1
+        return {lvl.level_id for lvl in self.levels[first:]}
+
+    def _cast_hierarchy(self):
+        """Apply the precision policy in place, on the device.
+        Idempotent (``astype`` returns a matrix of the target dtype
+        itself), so resetups leave the cast levels as they are."""
+        dt = self._hierarchy_dtype()
+        if dt is None:
+            return
+        cast_ids = self._cast_level_ids(dt)
+        for lvl in self.levels:
+            if lvl.level_id in cast_ids:
+                lvl.A = lvl.A.astype(dt)
+            for name in ("P", "R"):
+                m = getattr(lvl, name)
+                if m is not None:
+                    setattr(lvl, name, m.astype(dt))
+
     def _finalize_setup(self):
+        # the precision policy first: smoothers and the coarse solver
+        # set up on the cast operators
+        self._cast_hierarchy()
         for lvl in self.levels[:-1]:
             self._refresh_smoother(lvl)
         coarsest = self.levels[-1]
@@ -452,8 +517,10 @@ class AMGSolver(Solver):
         """fn(params, b, x) -> x : one multigrid cycle (V, W, F, CG or
         CGF).  W, F and the K-cycles branch only on the top
         ``W_MAX_BRANCH_LEVELS`` levels, as in the JAX package; below
-        them every cycle is a V-cycle."""
+        them every cycle is a V-cycle.  Each level works in its own
+        dtype (the module docstring's casts)."""
         n_levels = len(self.levels)
+        lvl_dts = [lvl.A.dtype for lvl in self.levels]
         # fused descent legs: static per level, MATRIX_FREE operators
         # only (as in the JAX package)
         fused_lvls = [
@@ -531,8 +598,10 @@ class AMGSolver(Solver):
             A, P, R, smp = level_params[lvl_id]
             if lvl_id == n_levels - 1:
                 if coarse_apply is not None:
-                    # error-correction form (reference launchCoarseSolver)
-                    return x + coarse_apply(coarse_params, b - spmv(A, x))
+                    # error-correction form (reference launchCoarseSolver);
+                    # a bf16 level's DENSE_LU correction comes back in f32
+                    return x + _to_dtype(
+                        coarse_apply(coarse_params, b - spmv(A, x)), x.dtype)
                 return smooth_fns[lvl_id](smp, b, x, self.coarsest_sweeps)
             pre, post = self._level_sweeps(lvl_id)
             if fused_lvls[lvl_id]:
@@ -545,6 +614,9 @@ class AMGSolver(Solver):
                     x = smooth_fns[lvl_id](smp, b, x, pre)
                 r = b - spmv(A, x)
                 bc = spmv(R, r)
+            # R's product has the promoted dtype of R and r: down to the
+            # coarser level's
+            bc = _to_dtype(bc, lvl_dts[lvl_id + 1])
             xc = torch.zeros(R.n_rows, dtype=bc.dtype, device=bc.device)
             branch = lvl_id < min(n_levels - 2, W_MAX_BRANCH_LEVELS)
             if kind == "W" and branch:
@@ -557,11 +629,12 @@ class AMGSolver(Solver):
                 xc = kcycle_solve(params, bc, lvl_id + 1)
             else:
                 xc = visit(params, bc, xc, lvl_id + 1, kind)
+            # the prolonged correction back up to this level's dtype
+            e = _to_dtype(spmv(P, xc), x.dtype)
             if error_scaling >= 2:
-                x = scaled_correction(A, smooth_fns[lvl_id], smp, b, x, r,
-                                      spmv(P, xc))
+                x = scaled_correction(A, smooth_fns[lvl_id], smp, b, x, r, e)
             else:
-                x = x + spmv(P, xc)
+                x = x + e
             if post > 0:
                 x = smooth_fns[lvl_id](smp, b, x, post)
             return x
@@ -581,9 +654,17 @@ class AMGSolver(Solver):
 
     def make_step(self):
         cycle = self.make_cycle()
+        fine_dt = self.levels[0].A.dtype
 
         def step(params, b, x):
-            return cycle(params, b, x)
+            # the preconditioner boundary: under level_dtype_policy ALL
+            # the whole cycle runs in the hierarchy dtype and the
+            # correction returns in the caller's
+            if b.dtype == fine_dt:
+                return cycle(params, b, x)
+            return _to_dtype(
+                cycle(params, _to_dtype(b, fine_dt), _to_dtype(x, fine_dt)),
+                b.dtype)
 
         return step
 
@@ -602,13 +683,14 @@ class AMGSolver(Solver):
         return self._cache[key]
 
     def level_summary(self):
-        """[(rows, nnz, format), ...] of each level's operator, and the
-        formats of its P and R."""
+        """[(rows, nnz, format, dtype), ...] of each level's operator,
+        and the formats of its P and R."""
         return [
             {
                 "rows": lvl.n_rows,
                 "nnz": lvl.nnz,
                 "format": lvl.A.format,
+                "dtype": str(lvl.A.dtype).replace("torch.", ""),
                 "P": None if lvl.P is None else lvl.P.format,
                 "R": None if lvl.R is None else lvl.R.format,
             }

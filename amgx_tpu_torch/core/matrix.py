@@ -39,8 +39,12 @@ Differences from the JAX package:
     entries) is kept from detection.  The host triple of a derived
     matrix reads its values back from the device once, when first
     asked for (``host_csr``, ``to_scipy``, the smoothers' setups).
-  * Block matrices (``block_size > 1``) and bf16 values are not ported
-    yet.
+  * ``astype`` casts every format on the device, bf16 included (the
+    reduced-precision hierarchies of ``amg/hierarchy.py``).  numpy has
+    no bf16: the host triple of a bf16 matrix reads its values back as
+    float32 (exact), and an upload from host arrays takes float32,
+    float64 and the complex dtypes only.
+  * Block matrices (``block_size > 1``) are not ported yet.
   * ``device`` defaults to ``"cuda"``; without a card the constructors
     raise unless the caller passes ``device="cpu"``.
 """
@@ -54,6 +58,7 @@ import numpy as np
 import torch
 
 from amgx_tpu_torch.core.device import resolve_device
+from amgx_tpu_torch.core.types import host_array, host_dtype, torch_dtype
 from amgx_tpu_torch.ops.ell import SELL_C, SlicedEll
 
 _ELL_MAX_OVERHEAD = 4.0
@@ -73,15 +78,18 @@ _TORCH_DTYPES = {
 
 
 def to_tensor(a, device) -> torch.Tensor:
-    """Host numpy array -> tensor on ``device`` (dtype preserved)."""
+    """Host numpy array -> tensor on ``device`` (dtype preserved).
+    Reduced precision is never uploaded from the host: a bf16 tensor is
+    cast on the device (``SparseMatrix.astype``)."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         # torch.from_numpy shares memory and cannot mark it read-only
         a = a.copy()
     if a.dtype not in _TORCH_DTYPES:
         raise NotImplementedError(
-            f"dtype {a.dtype} is not supported by the PyTorch port yet "
-            "(ROADMAP.md, queue A: block matrices and reduced precision)"
+            f"dtype {a.dtype} is not uploaded from the host by the "
+            "PyTorch port: float32, float64 and the complex dtypes are "
+            "(bf16: SparseMatrix.astype on the device)"
         )
     return torch.from_numpy(a).to(device)
 
@@ -174,15 +182,16 @@ class SparseMatrix:
     @property
     def _host(self) -> tuple:
         """The host CSR triple ``(row_offsets, col_indices, values)``;
-        the values of a matrix made by :meth:`replace_values` are read
-        back from the device the first time (one read, counted as a
-        setup sync inside a setup)."""
+        the values of a matrix made by :meth:`replace_values` or by a
+        bf16 :meth:`astype` are read back from the device the first time
+        (one read, counted as a setup sync inside a setup; bf16 values
+        as float32)."""
         ro, ci, v = self._host_csr
         if v is None:
             from amgx_tpu_torch.core.profiling import count_setup_sync
 
             count_setup_sync()
-            v = self.values.detach().cpu().numpy()
+            v = host_array(self.values)
             self._host_csr = (ro, ci, v)
         return self._host_csr
 
@@ -223,8 +232,7 @@ class SparseMatrix:
         if block_size != 1:
             raise NotImplementedError(
                 "block matrices (block_size > 1) are not ported yet "
-                "(ROADMAP.md, queue A: block matrices and reduced "
-                "precision)"
+                "(ROADMAP.md, queue A4b: block matrices)"
             )
         dev = resolve_device(device)
         row_offsets = np.asarray(row_offsets, dtype=np.int32)
@@ -395,8 +403,7 @@ class SparseMatrix:
         if v.dim() > 1 and v.numel() != self.nnz:
             raise NotImplementedError(
                 "replace_values: block values are not ported yet "
-                "(ROADMAP.md, queue A: block matrices and reduced "
-                "precision)"
+                "(ROADMAP.md, queue A4b: block matrices)"
             )
         v = v.reshape(-1).contiguous()
         if v.shape[0] != self.nnz:
@@ -420,6 +427,39 @@ class SparseMatrix:
             if self.sell is not None:
                 rep["sell"] = dataclasses.replace(
                     self.sell, vals=_gather_src(maps["sell"], v))
+        return dataclasses.replace(self, **rep)
+
+    def astype(self, dtype) -> "SparseMatrix":
+        """The same matrix with values of ``dtype`` (torch.bfloat16,
+        float32 or float64, or a numpy dtype or name of one), every
+        format cast on the device: the CSR values, ``diag``, the DIA
+        planes, the slot-major and sliced ELL values (the sliced
+        layout's permutation and offsets kept, its plan too but for
+        bf16, which takes one lane a row: ``ops/ell.py``), ``dense`` and
+        the MATRIX_FREE coefficients (the JAX package's ``astype``).
+        Returns ``self`` where the dtype already matches.  The index
+        arrays, the stencil class and ``replace_values``' source maps
+        (``_src``) are shared, so a cast matrix still takes new
+        values.  Its host triple casts on the host where numpy has the
+        dtype and reads back from the device (as float32) for bf16."""
+        dt = torch_dtype(dtype)
+        if dt == self.dtype:
+            return self
+        ro, ci, v = self._host_csr
+        if v is not None and dt != torch.bfloat16:
+            v = v.astype(host_dtype(dt))
+        else:
+            v = None
+        rep = {"values": self.values.to(dt), "diag": self.diag.to(dt),
+               "_host_csr": (ro, ci, v)}
+        for name in ("dia_vals", "mf_coefs", "dense", "ell_vals"):
+            t = getattr(self, name)
+            if t is not None:
+                rep[name] = t.to(dt)
+        if self.sell is not None:
+            rep["sell"] = dataclasses.replace(
+                self.sell, vals=self.sell.vals.to(dt),
+                lanes=1 if dt == torch.bfloat16 else self.sell.lanes)
         return dataclasses.replace(self, **rep)
 
     def _src_maps(self) -> dict:

@@ -28,7 +28,15 @@
 //     version (ops/dia.py:dia_spmv_plain) does, with one explicit fma
 //     per diagonal, so it agrees bit for bit with the stencil kernel
 //     (stencil_spmv.cu) on a matrix both formats hold;
-//   * k * n + i is computed in 64-bit.
+//   * k * n + i is computed in 64-bit;
+//   * bf16 (dtypes.cuh): the planes and x in bf16, y in bf16, each
+//     product and each sum rounded to bf16 in offset order, as the plain
+//     version's torch operations and the Pallas kernel's bf16
+//     accumulator round, so the kernel returns the plain version's bits
+//     (and the stencil kernel's on a matrix both formats hold).  The
+//     bytes are half those of f32: 2 * n * (nd + 2) (37.7 MB for the
+//     2,097,152-row level).  Only (bf16, bf16) is instantiated: every DIA
+//     operator the cycle reaches multiplies a vector of its own dtype.
 //
 // Plain C interface, loaded with ctypes (amgx_tpu_torch/ops/kernels.py).
 // Each entry point launches on the given stream and returns
@@ -37,48 +45,48 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dtypes.cuh"
+
 namespace {
+
+using namespace spmv_types;
 
 constexpr int kThreads = 256;
 // grid-stride beyond this many blocks (64 per SM on 132 SMs)
 constexpr long long kMaxBlocks = 132LL * 64;
 
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-
-template <typename T>
+// V: plane values, X: x, Y: y, K: how a term rounds (dtypes.cuh)
+template <typename V, typename X, typename Y, int K>
 __global__ void __launch_bounds__(kThreads)
-dia_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ offsets,
-                int nd, const T* __restrict__ x, T* __restrict__ y,
+dia_spmv_kernel(const V* __restrict__ vals, const int* __restrict__ offsets,
+                int nd, const X* __restrict__ x, Y* __restrict__ y,
                 int64_t n) {
+  using C = typename Compute<Y>::type;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < n; i += stride) {
-    T acc = T(0);
+    C acc = C(0);
     for (int k = 0; k < nd; ++k) {
       const int64_t j = i + static_cast<int64_t>(__ldg(offsets + k));
-      const T xj = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
-      acc = fma_rn(__ldg(vals + static_cast<int64_t>(k) * n + i), xj, acc);
+      const C xj = (j >= 0 && j < n) ? C(ldg_c(x + j)) : C(0);
+      acc = Term<K>::f(acc, C(ldg_c(vals + static_cast<int64_t>(k) * n + i)),
+                       xj);
     }
-    y[i] = acc;
+    store_y(y + i, acc);
   }
 }
 
-template <typename T>
+template <typename V, typename X, typename Y, int K>
 int launch(const void* vals, const void* offsets, int nd, const void* x,
            void* y, long long n, void* stream) {
   if (n <= 0) return 0;
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  dia_spmv_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vals), static_cast<const int*>(offsets), nd,
-      static_cast<const T*>(x), static_cast<T*>(y),
+  dia_spmv_kernel<V, X, Y, K><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(vals), static_cast<const int*>(offsets), nd,
+      static_cast<const X*>(x), static_cast<Y*>(y),
       static_cast<int64_t>(n));
   return static_cast<int>(cudaGetLastError());
 }
@@ -88,11 +96,17 @@ int launch(const void* vals, const void* offsets, int nd, const void* x,
 extern "C" int dia_spmv_f32(const void* vals, const void* offsets, int nd,
                             const void* x, void* y, long long n,
                             void* stream) {
-  return launch<float>(vals, offsets, nd, x, y, n, stream);
+  return launch<float, float, float, 0>(vals, offsets, nd, x, y, n, stream);
 }
 
 extern "C" int dia_spmv_f64(const void* vals, const void* offsets, int nd,
                             const void* x, void* y, long long n,
                             void* stream) {
-  return launch<double>(vals, offsets, nd, x, y, n, stream);
+  return launch<double, double, double, 0>(vals, offsets, nd, x, y, n, stream);
+}
+
+extern "C" int dia_spmv_bf16(const void* vals, const void* offsets, int nd,
+                             const void* x, void* y, long long n,
+                             void* stream) {
+  return launch<bf16, bf16, bf16, 2>(vals, offsets, nd, x, y, n, stream);
 }

@@ -69,31 +69,52 @@
 //        L = 1 the sum is the slot-major kernel's, bit for bit;
 //      * offsets are 64-bit.
 //
+// Dtypes (dtypes.cuh): f32 and f64 with one FMA a slot, as above; and
+// the pairs a reduced-precision hierarchy (hierarchy_dtype) feeds them,
+// each term rounded as the plain version's torch operations round, so
+// that a kernel summing in the plain order returns its bits:
+//   * ell_spmv (bf16, bf16) -> bf16: the transfers of a bf16 hierarchy;
+//     (bf16, f32) -> f32: a bf16 restriction of an f32 residual (level 0
+//     under level_dtype_policy COARSE); (f32, f64) -> f64: the same with
+//     hierarchy_dtype FLOAT32 on an f64 operator;
+//   * sell_spmv (bf16, bf16) -> bf16: the classical operators of a bf16
+//     hierarchy, with one lane a row only (SparseMatrix.astype sets the
+//     plan): the tree of L > 1 lanes would add the parts, each sum
+//     rounded to bf16, in another order than the plain version's.
+// A bf16 value moves 2 bytes (a slot 6, column id included).
+//
 // Plain C interface, loaded with ctypes (amgx_tpu_torch/ops/kernels.py).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dtypes.cuh"
+
 namespace {
+
+using namespace spmv_types;
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132LL * 64;
 
-template <typename T>
+// V: values, X: x, Y: y, K: how a term rounds (dtypes.cuh)
+template <typename V, typename X, typename Y, int K>
 __global__ void __launch_bounds__(kThreads)
-ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
-                int w, const T* __restrict__ x, T* __restrict__ y,
+ell_spmv_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
+                int w, const X* __restrict__ x, Y* __restrict__ y,
                 int64_t n) {
+  using C = typename Compute<Y>::type;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < n; i += stride) {
-    T acc = T(0);
+    C acc = C(0);
     for (int s = 0; s < w; ++s) {
       const int64_t e = static_cast<int64_t>(s) * n + i;
-      acc += __ldg(vals + e) * __ldg(x + __ldg(cols + e));
+      acc = Term<K>::f(acc, C(ldg_c(vals + e)),
+                       C(ldg_c(x + __ldg(cols + e))));
     }
-    y[i] = acc;
+    store_y(y + i, acc);
   }
 }
 
@@ -102,13 +123,14 @@ ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
 // items grid-stride and loads the next item's header (offset, width)
 // and output row while it works on the current one, so a narrow slice
 // costs two dependent loads (entries, then x), not four.
-template <typename T, int L>
+template <typename T, int K, int L>
 __global__ void __launch_bounds__(kThreads)
 sell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
                  const int64_t* __restrict__ offsets,
                  const int* __restrict__ widths,
                  const int* __restrict__ rows, int64_t n_items,
                  const T* __restrict__ x, T* __restrict__ y, int64_t n) {
+  using C = typename Compute<T>::type;
   constexpr int kRows = 32 / L;
   constexpr int kBatch = 8;
   const int lane = threadIdx.x & 31;
@@ -135,35 +157,35 @@ sell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
     if (next < n_items) header(next, at_next, w_next, dst_next);
     const int chunk = (w + L - 1) / L;
     const int s_end = min(w, (part + 1) * chunk);
-    T acc = T(0);
+    C acc = C(0);
     if (dst >= 0) {
       // kBatch slots a step: all their entries are loaded (slots past
       // the part's end as column -1, value 0) before their gathers; the
       // FMAs run in slot order, and a slot past the end adds +0.0
       for (int s = part * chunk; s < s_end; s += kBatch) {
         int c[kBatch];
-        T v[kBatch];
+        C v[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           const int64_t e = at + static_cast<int64_t>(s + u) * 32;
           const bool live = s + u < s_end;
           c[u] = live ? __ldcs(cols + e) : -1;
-          v[u] = live ? __ldcs(vals + e) : T(0);
+          v[u] = live ? ldcs_c(vals + e) : C(0);
         }
-        T xv[kBatch];
+        C xv[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
-          xv[u] = c[u] >= 0 ? __ldg(x + c[u]) : T(0);
+          xv[u] = c[u] >= 0 ? ldg_c(x + c[u]) : C(0);
         }
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) acc = fma(v[u], xv[u], acc);
+        for (int u = 0; u < kBatch; ++u) acc = Term<K>::f(acc, v[u], xv[u]);
       }
     }
 #pragma unroll
     for (int o = L / 2; o > 0; o >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      acc = Term<K>::add(acc, __shfl_xor_sync(0xffffffffu, acc, o));
     }
-    if (part == 0 && dst >= 0) y[dst] = acc;
+    if (part == 0 && dst >= 0) store_y(y + dst, acc);
     if (next >= n_items) break;
     item = next;
     at = at_next;
@@ -172,30 +194,31 @@ sell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
   }
 }
 
-template <typename T>
+template <typename V, typename X, typename Y, int K>
 int launch(const void* cols, const void* vals, int w, const void* x,
            void* y, long long n, void* stream) {
   if (n <= 0) return 0;
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  ell_spmv_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cols), static_cast<const T*>(vals), w,
-      static_cast<const T*>(x), static_cast<T*>(y),
+  ell_spmv_kernel<V, X, Y, K><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(cols), static_cast<const V*>(vals), w,
+      static_cast<const X*>(x), static_cast<Y*>(y),
       static_cast<int64_t>(n));
   return static_cast<int>(cudaGetLastError());
 }
 
 // enough blocks to cover every item, at most as many as fit on the card
 // at once (the rest are walked grid-stride)
-template <typename T, int L>
-void launch_sell_l(const void* cols, const void* vals, const void* offsets,
-                   const void* widths, const void* rows, long long n_slices,
-                   const void* x, void* y, long long n, cudaStream_t stream) {
+template <typename T, int K, int L>
+int launch_sell_l(const void* cols, const void* vals, const void* offsets,
+                  const void* widths, const void* rows, long long n_slices,
+                  const void* x, void* y, long long n, void* stream) {
+  if (n <= 0 || n_slices <= 0) return 0;
   static int per_sm = 0;
   if (per_sm == 0) {
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sell_spmv_kernel<T, L>, kThreads, 0);
+        &per_sm, sell_spmv_kernel<T, K, L>, kThreads, 0);
     if (per_sm < 1) per_sm = 1;
   }
   int dev = 0, sms = 0;
@@ -205,34 +228,32 @@ void launch_sell_l(const void* cols, const void* vals, const void* offsets,
   long long blocks = (items + kThreads / 32 - 1) / (kThreads / 32);
   const long long resident = static_cast<long long>(sms) * per_sm;
   if (resident > 0 && blocks > resident) blocks = resident;
-  sell_spmv_kernel<T, L><<<static_cast<unsigned>(blocks), kThreads, 0,
-                           stream>>>(
+  sell_spmv_kernel<T, K, L><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(cols), static_cast<const T*>(vals),
       static_cast<const int64_t*>(offsets), static_cast<const int*>(widths),
       static_cast<const int*>(rows), static_cast<int64_t>(items),
       static_cast<const T*>(x), static_cast<T*>(y),
       static_cast<int64_t>(n));
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int K>
 int launch_sell(const void* cols, const void* vals, const void* offsets,
                 const void* widths, const void* rows, long long n_slices,
                 int lanes, const void* x, void* y, long long n,
                 void* stream) {
-  if (n <= 0 || n_slices <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
   switch (lanes) {
-    case 1: launch_sell_l<T, 1>(cols, vals, offsets, widths, rows, n_slices,
-                                x, y, n, s); break;
-    case 2: launch_sell_l<T, 2>(cols, vals, offsets, widths, rows, n_slices,
-                                x, y, n, s); break;
-    case 4: launch_sell_l<T, 4>(cols, vals, offsets, widths, rows, n_slices,
-                                x, y, n, s); break;
-    case 8: launch_sell_l<T, 8>(cols, vals, offsets, widths, rows, n_slices,
-                                x, y, n, s); break;
+    case 1: return launch_sell_l<T, K, 1>(cols, vals, offsets, widths, rows,
+                                          n_slices, x, y, n, stream);
+    case 2: return launch_sell_l<T, K, 2>(cols, vals, offsets, widths, rows,
+                                          n_slices, x, y, n, stream);
+    case 4: return launch_sell_l<T, K, 4>(cols, vals, offsets, widths, rows,
+                                          n_slices, x, y, n, stream);
+    case 8: return launch_sell_l<T, K, 8>(cols, vals, offsets, widths, rows,
+                                          n_slices, x, y, n, stream);
     default: return cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -240,13 +261,13 @@ int launch_sell(const void* cols, const void* vals, const void* offsets,
 extern "C" int ell_spmv_f32(const void* cols, const void* vals, int w,
                             const void* x, void* y, long long n,
                             void* stream) {
-  return launch<float>(cols, vals, w, x, y, n, stream);
+  return launch<float, float, float, 0>(cols, vals, w, x, y, n, stream);
 }
 
 extern "C" int ell_spmv_f64(const void* cols, const void* vals, int w,
                             const void* x, void* y, long long n,
                             void* stream) {
-  return launch<double>(cols, vals, w, x, y, n, stream);
+  return launch<double, double, double, 0>(cols, vals, w, x, y, n, stream);
 }
 
 extern "C" int sell_spmv_f32(const void* cols, const void* vals,
@@ -254,7 +275,7 @@ extern "C" int sell_spmv_f32(const void* cols, const void* vals,
                              const void* rows, long long n_slices,
                              int lanes, const void* x, void* y, long long n,
                              void* stream) {
-  return launch_sell<float>(cols, vals, offsets, widths, rows, n_slices,
+  return launch_sell<float, 0>(cols, vals, offsets, widths, rows, n_slices,
                             lanes, x, y, n, stream);
 }
 
@@ -263,6 +284,35 @@ extern "C" int sell_spmv_f64(const void* cols, const void* vals,
                              const void* rows, long long n_slices,
                              int lanes, const void* x, void* y, long long n,
                              void* stream) {
-  return launch_sell<double>(cols, vals, offsets, widths, rows, n_slices,
+  return launch_sell<double, 0>(cols, vals, offsets, widths, rows, n_slices,
                              lanes, x, y, n, stream);
+}
+
+extern "C" int ell_spmv_bf16(const void* cols, const void* vals, int w,
+                             const void* x, void* y, long long n,
+                             void* stream) {
+  return launch<bf16, bf16, bf16, 2>(cols, vals, w, x, y, n, stream);
+}
+
+extern "C" int ell_spmv_bf16_f32(const void* cols, const void* vals, int w,
+                                 const void* x, void* y, long long n,
+                                 void* stream) {
+  return launch<bf16, float, float, 1>(cols, vals, w, x, y, n, stream);
+}
+
+extern "C" int ell_spmv_f32_f64(const void* cols, const void* vals, int w,
+                                const void* x, void* y, long long n,
+                                void* stream) {
+  return launch<float, double, double, 1>(cols, vals, w, x, y, n, stream);
+}
+
+extern "C" int sell_spmv_bf16(const void* cols, const void* vals,
+                              const void* offsets, const void* widths,
+                              const void* rows, long long n_slices,
+                              int lanes, const void* x, void* y, long long n,
+                              void* stream) {
+  // one lane a row: the bf16 sums in the plain version's order
+  if (lanes != 1) return cudaErrorInvalidValue;
+  return launch_sell_l<bf16, 2, 1>(cols, vals, offsets, widths, rows,
+                                   n_slices, x, y, n, stream);
 }

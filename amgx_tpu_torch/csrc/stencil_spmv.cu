@@ -71,6 +71,17 @@
 // loop unrolled to 27 under a runtime count, each neighbour a
 // predicated __ldg of x.
 //
+// bf16 (dtypes.cuh): coefficients, x and y in bf16, the arithmetic in
+// f32 registers with each product and each sum rounded to bf16 in
+// offsets order, as the plain version's torch operations (and the DIA
+// kernel's bf16 instantiation) round, so the kernel keeps the bitwise
+// contract in bf16 too.  A 16-byte vector holds 8 bf16 points (the plan
+// takes VEC 8); cp.async copies 4, 8 or 16 bytes, so a lone bf16 point
+// (a tile's halo, or a point of a VEC 1 plan) is copied with a load and
+// a shared-memory store, which the barrier of the step that reads it
+// orders as it does the asynchronous copies.  Its bound is 2 * 2 * n
+// bytes (8.4 MB at 2,097,152 rows).
+//
 // Plain C interface, loaded with ctypes (amgx_tpu_torch/ops/kernels.py).
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
@@ -79,7 +90,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dtypes.cuh"
+
 namespace {
+
+using namespace spmv_types;
 
 constexpr int kMaxThreads = 256;
 constexpr int kMaxDiags = 27;
@@ -140,13 +155,6 @@ __host__ __device__ constexpr unsigned row_bits(int nd) {
   return m;
 }
 
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -168,7 +176,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// VEC values from shared memory at a 16-byte boundary (VEC > 1)
+// VEC values from shared memory at a 16-byte boundary (VEC > 1), in the
+// compute type
+template <int VEC>
+__device__ __forceinline__ void load_vec(const bf16* p, float* v) {
+  if constexpr (VEC == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      v[2 * j] = f.x, v[2 * j + 1] = f.y;
+    }
+  } else {
+    v[0] = __bfloat162float(p[0]);
+  }
+}
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* p, float* v) {
   if constexpr (VEC == 4) {
@@ -188,6 +211,20 @@ __device__ __forceinline__ void load_vec(const double* p, double* v) {
   }
 }
 template <int VEC>
+__device__ __forceinline__ void store_vec(bf16* p, const float* v) {
+  if constexpr (VEC == 8) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    }
+    *reinterpret_cast<uint4*>(p) = u;
+  } else {
+    p[0] = __float2bfloat16_rn(v[0]);
+  }
+}
+template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float* v) {
   if constexpr (VEC == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -201,6 +238,17 @@ __device__ __forceinline__ void store_vec(double* p, const double* v) {
     *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
   } else {
     p[0] = v[0];
+  }
+}
+
+// BYTES bytes from global to shared memory: cp.async for 4, 8 or 16; a
+// load and a store for a lone bf16 point (2 bytes)
+template <int BYTES, typename T>
+__device__ __forceinline__ void copy_to_shared(T* dst, const T* src) {
+  if constexpr (BYTES >= 4) {
+    cp_async<BYTES>(dst, src);
+  } else {
+    *dst = __ldg(src);
   }
 }
 
@@ -220,13 +268,13 @@ __device__ __forceinline__ void copy_plane(T (*slots)[kSlotH][kSlotW<VEC>],
 #pragma unroll
     for (int sy = -1; sy <= 1; ++sy) {
       if ((copies >> (3 * (sy + 1))) & 1u) {  // the point before
-        cp_async<sizeof(T)>(dst + sy * kW - 1, src + sy * nx - 1);
+        copy_to_shared<sizeof(T)>(dst + sy * kW - 1, src + sy * nx - 1);
       }
       if ((copies >> (3 * (sy + 1) + 1)) & 1u) {  // the VEC points
-        cp_async<VEC * sizeof(T)>(dst + sy * kW, src + sy * nx);
+        copy_to_shared<VEC * sizeof(T)>(dst + sy * kW, src + sy * nx);
       }
       if ((copies >> (3 * (sy + 1) + 2)) & 1u) {  // the point after
-        cp_async<sizeof(T)>(dst + sy * kW + VEC, src + sy * nx + VEC);
+        copy_to_shared<sizeof(T)>(dst + sy * kW + VEC, src + sy * nx + VEC);
       }
     }
   }
@@ -236,12 +284,14 @@ __device__ __forceinline__ void copy_plane(T (*slots)[kSlotH][kSlotW<VEC>],
 // present: bit k set when the stencil has the box's diagonal k (ND =
 // 27); the star has all of its 7.  A diagonal the stencil lacks gets
 // coefficient 0 and a mask bit that is never set, so its term is
-// fma(0, 0, acc) == acc: the sum of the diagonals present, in order
-template <typename T, int ND, int VEC>
+// fma(0, 0, acc) == acc: the sum of the diagonals present, in order.
+// K: how a term rounds (dtypes.cuh)
+template <typename T, int ND, int VEC, int K>
 __global__ void __launch_bounds__(kMaxThreads)
 stencil_tile_kernel(const T* __restrict__ coefs, const T* __restrict__ x,
                     T* __restrict__ y, int nx, int ny, int nz, int zchunk,
                     unsigned present) {
+  using C = typename Compute<T>::type;
   constexpr int kW = kSlotW<VEC>;
   __shared__ __align__(16) T slots[kRing][kSlotH][kW];
   constexpr unsigned kAll = (1u << ND) - 1u;
@@ -258,22 +308,22 @@ stencil_tile_kernel(const T* __restrict__ coefs, const T* __restrict__ x,
   // the box's coefficients, those of the diagonals present in order
   // and 0 elsewhere, staged once per block so that each is read at a
   // fixed address, as the star reads coefs[k]
-  __shared__ T box_coefs[ND == 27 ? ND : 1];
+  __shared__ C box_coefs[ND == 27 ? ND : 1];
   if constexpr (ND == 27) {
     for (int k = ty * blockDim.x + tx; k < ND; k += blockDim.x * blockDim.y) {
       box_coefs[k] =
-          (pm >> k) & 1u ? __ldg(coefs + __popc(pm & ((1u << k) - 1u))) : T(0);
+          (pm >> k) & 1u ? ldg_c(coefs + __popc(pm & ((1u << k) - 1u))) : C(0);
     }
     __syncthreads();
   }
-  T c[ND];
+  C c[ND];
   unsigned mxy[VEC];  // bit k: point j's neighbour k inside on x and y
 #pragma unroll
   for (int j = 0; j < VEC; ++j) mxy[j] = 0;
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
     const bool has = (pm >> k) & 1u;
-    c[k] = ND == 27 ? box_coefs[k] : __ldg(coefs + k);
+    c[k] = ND == 27 ? box_coefs[k] : ldg_c(coefs + k);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       const bool in = has &&
@@ -328,7 +378,7 @@ stencil_tile_kernel(const T* __restrict__ coefs, const T* __restrict__ x,
     if (iz == nz - 1) zm &= ~kHi;
     // the slot rows (iz + dz, iy + dy) this thread reads: the point
     // before its VEC points, the VEC points, the point after
-    T r[3][3][VEC + 2];
+    C r[3][3][VEC + 2];
 #pragma unroll
     for (int dz = -1; dz <= 1; ++dz) {
 #pragma unroll
@@ -338,23 +388,23 @@ stencil_tile_kernel(const T* __restrict__ coefs, const T* __restrict__ x,
         const T* row = &slots[(iz - z0 + 1 + dz) & (kRing - 1)][ty + 1 + dy]
                              [VEC * (tx + 1)];
         load_vec<VEC>(row, &r[dz + 1][dy + 1][1]);
-        if (use & 1u) r[dz + 1][dy + 1][0] = row[-1];
-        if (use & 4u) r[dz + 1][dy + 1][VEC + 1] = row[VEC];
+        if (use & 1u) r[dz + 1][dy + 1][0] = to_c(row[-1]);
+        if (use & 4u) r[dz + 1][dy + 1][VEC + 1] = to_c(row[VEC]);
       }
     }
     bool all = true;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) all = all && (mxy[j] & zm) == kAll;
-    T out[VEC];
+    C out[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       const unsigned m = mxy[j] & zm;
-      T acc = T(0);
+      C acc = C(0);
 #pragma unroll
       for (int k = 0; k < ND; ++k) {
-        const T v = r[step_z(ND, k) + 1][step_y(ND, k) + 1]
+        const C v = r[step_z(ND, k) + 1][step_y(ND, k) + 1]
                      [j + 1 + step_x(ND, k)];
-        acc = fma_rn(c[k], all || ((m >> k) & 1u) ? v : T(0), acc);
+        acc = Term<K>::f(acc, c[k], all || ((m >> k) & 1u) ? v : C(0));
       }
       out[j] = acc;
     }
@@ -365,22 +415,23 @@ stencil_tile_kernel(const T* __restrict__ coefs, const T* __restrict__ x,
 
 // nd (<= 27) diagonals with any steps; planes outside [zlo, zhi) have
 // a z neighbour outside the grid
-template <typename T>
+template <typename T, int K>
 __global__ void __launch_bounds__(kMaxThreads)
 stencil_spmv_kernel(const T* __restrict__ coefs, const Steps st, int nd,
                     const T* __restrict__ x, T* __restrict__ y, int nx,
                     int ny, int nz, int zchunk, int zlo, int zhi) {
+  using C = typename Compute<T>::type;
   const int ix = blockIdx.x * blockDim.x + threadIdx.x;
   const int iy = blockIdx.y * blockDim.y + threadIdx.y;
   if (ix >= nx || iy >= ny) return;
 
-  T c[kMaxDiags];
+  C c[kMaxDiags];
   unsigned mxy = 0;  // bit k: neighbour k inside the grid on x and y
 #pragma unroll
   for (int k = 0; k < kMaxDiags; ++k) {
-    c[k] = T(0);
+    c[k] = C(0);
     if (k < nd) {
-      c[k] = __ldg(coefs + k);
+      c[k] = ldg_c(coefs + k);
       const bool in = static_cast<unsigned>(ix + st.dx[k]) <
                           static_cast<unsigned>(nx) &&
                       static_cast<unsigned>(iy + st.dy[k]) <
@@ -406,15 +457,15 @@ stencil_spmv_kernel(const T* __restrict__ coefs, const Steps st, int nd,
         }
       }
     }
-    T acc = T(0);
+    C acc = C(0);
 #pragma unroll
     for (int k = 0; k < kMaxDiags; ++k) {
       if (k < nd) {
-        const T xj = (m >> k) & 1u ? __ldg(xi + st.off[k]) : T(0);
-        acc = fma_rn(c[k], xj, acc);
+        const C xj = (m >> k) & 1u ? ldg_c(xi + st.off[k]) : C(0);
+        acc = Term<K>::f(acc, c[k], xj);
       }
     }
-    *yi = acc;
+    store_y(yi, acc);
   }
 }
 
@@ -424,18 +475,18 @@ using TileKernel = void (*)(const T*, const T*, T*, int, int, int, int,
 
 // the tile kernel for the star (nd_inst 7, vec 1 or 16 / sizeof(T)
 // points per thread) or a subset of the box (27, vec 1), or null
-template <typename T>
+template <typename T, int K>
 TileKernel<T> tile_kernel(int nd_inst, int vec) {
   constexpr int kV = 16 / static_cast<int>(sizeof(T));
-  if (nd_inst == 7 && vec == 1) return stencil_tile_kernel<T, 7, 1>;
-  if (nd_inst == 7 && vec == kV) return stencil_tile_kernel<T, 7, kV>;
-  if (nd_inst == 27 && vec == 1) return stencil_tile_kernel<T, 27, 1>;
+  if (nd_inst == 7 && vec == 1) return stencil_tile_kernel<T, 7, 1, K>;
+  if (nd_inst == 7 && vec == kV) return stencil_tile_kernel<T, 7, kV, K>;
+  if (nd_inst == 27 && vec == 1) return stencil_tile_kernel<T, 27, 1, K>;
   return nullptr;
 }
 
 // a: nd, nx, ny, nz, gx, gy, gz, bx, by, zchunk, nd_inst, vec, then
 // (dx, dy, dz) per diagonal (see stencil_spmv_f32)
-template <typename T>
+template <typename T, int K>
 int launch(const void* coefs, const void* x, void* y, const int* a,
            void* stream) {
   const int nd = a[0], nx = a[1], ny = a[2], nz = a[3], gx = a[4],
@@ -451,7 +502,7 @@ int launch(const void* coefs, const void* x, void* y, const int* a,
       static_cast<long long>(gx) * bx * vec >= nx &&
       static_cast<long long>(gy) * by >= ny &&
       static_cast<long long>(gz) * zchunk >= nz;
-  const TileKernel<T> tile = tile_kernel<T>(nd_inst, vec);
+  const TileKernel<T> tile = tile_kernel<T, K>(nd_inst, vec);
   unsigned present = 0;
   if (nd_inst == 0) {
     ok = ok && vec == 1;
@@ -502,8 +553,8 @@ int launch(const void* coefs, const void* x, void* y, const int* a,
     if (-dz > zlo) zlo = -dz;
     if (nz - dz < zhi) zhi = nz - dz;
   }
-  stencil_spmv_kernel<T><<<grid, block, 0, s>>>(c, st, nd, xx, yy, nx, ny,
-                                                nz, zchunk, zlo, zhi);
+  stencil_spmv_kernel<T, K><<<grid, block, 0, s>>>(c, st, nd, xx, yy, nx,
+                                                   ny, nz, zchunk, zlo, zhi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,10 +568,15 @@ int launch(const void* coefs, const void* x, void* y, const int* a,
 // then (dx, dy, dz) per diagonal in offsets order
 extern "C" int stencil_spmv_f32(const void* coefs, const void* x, void* y,
                                 const int* args, void* stream) {
-  return launch<float>(coefs, x, y, args, stream);
+  return launch<float, 0>(coefs, x, y, args, stream);
 }
 
 extern "C" int stencil_spmv_f64(const void* coefs, const void* x, void* y,
                                 const int* args, void* stream) {
-  return launch<double>(coefs, x, y, args, stream);
+  return launch<double, 0>(coefs, x, y, args, stream);
+}
+
+extern "C" int stencil_spmv_bf16(const void* coefs, const void* x, void* y,
+                                 const int* args, void* stream) {
+  return launch<bf16, 2>(coefs, x, y, args, stream);
 }

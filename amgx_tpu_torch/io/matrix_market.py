@@ -342,7 +342,7 @@ def read_mtx(path, dtype=None, device="cuda", **kw) -> SparseMatrix:
     if bx != 1 or by != 1:
         raise MatrixIOError(
             f"{bx}x{by} blocks: block matrices are not ported yet "
-            "(ROADMAP.md, queue A: block matrices and reduced precision)"
+            "(ROADMAP.md, queue A4b: block matrices)"
         )
     vals = A["vals"]
     if np.iscomplexobj(vals):

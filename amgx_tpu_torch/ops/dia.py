@@ -4,11 +4,20 @@ Counterpart of the JAX package's ``ops/pallas_dia.py`` (Pallas kernel)
 and ``ops/spmv.py:_spmv_dia`` (its XLA version).  A CPU tensor takes
 the plain version; a CUDA tensor takes the kernel or raises — there is
 no fallback between the two.  The TPU gates (``_MIN_ROWS``,
-``_HALO_MAX``) are not carried over: every f32/f64 DIA matrix on the
-card goes through the kernel.
+``_HALO_MAX``) are not carried over: every f32, f64 and bf16 DIA
+matrix on the card goes through the kernel.
 
-``launches`` counts kernel launches (never plain-version calls); reset
-it by assigning 0.
+Dtypes: y has JAX's promoted dtype of the planes and x
+(``torch.promote_types``, which agrees with ``jnp.result_type`` on
+these); the plain version computes in it with torch's own promotion,
+one rounding per product and per sum, and bf16 in bf16 as the JAX
+package's XLA path and its Pallas kernel do.  The kernel is built for
+(f32, f32), (f64, f64) and (bf16, bf16), the pairs a hierarchy's DIA
+operators meet (``csrc/dtypes.cuh``); another pair on the card raises.
+
+``launches`` counts kernel launches (never plain-version calls) and
+``variant_launches`` the same per entry point; reset them by assigning
+0 and an empty dict.
 """
 
 from __future__ import annotations
@@ -19,8 +28,7 @@ import torch.nn.functional as F
 from amgx_tpu_torch.ops import kernels
 
 launches = 0
-
-_FN = {torch.float32: "dia_spmv_f32", torch.float64: "dia_spmv_f64"}
+variant_launches: dict = {}
 
 
 def dia_spmv_plain(dia_vals, offsets, x):
@@ -32,7 +40,8 @@ def dia_spmv_plain(dia_vals, offsets, x):
     pneg = max(0, -min(offs))
     ppos = max(0, max(offs))
     xpad = F.pad(x, (pneg, ppos))
-    y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    y = torch.zeros(n, dtype=torch.promote_types(dia_vals.dtype, x.dtype),
+                    device=x.device)
     for k, off in enumerate(offs):
         y = y + dia_vals[k] * xpad[off + pneg:off + pneg + n]
     return y
@@ -61,11 +70,12 @@ def dia_spmv(dia_vals, offsets, x):
             f"dia_spmv: tensors on {x.device} but the current device is "
             f"cuda:{torch.cuda.current_device()}"
         )
-    if dia_vals.dtype != x.dtype or x.dtype not in _FN:
+    entry = kernels.entry_point("dia_spmv", dia_vals.dtype, x.dtype)
+    if entry is None:
         raise NotImplementedError(
             f"dia_spmv: dtypes {dia_vals.dtype}/{x.dtype}; the kernel "
-            "takes float32 or float64 (bf16: ROADMAP.md, queue A: block "
-            "matrices and reduced precision)"
+            "takes float32, float64 or bfloat16 planes with x of their "
+            "dtype"
         )
     if offsets.dtype != torch.int32 or offsets.shape != (nd,):
         raise ValueError(
@@ -75,12 +85,14 @@ def dia_spmv(dia_vals, offsets, x):
     if not (dia_vals.is_contiguous() and x.is_contiguous()
             and offsets.is_contiguous()):
         raise ValueError("dia_spmv: inputs must be contiguous")
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    y = torch.empty(n, dtype=torch.promote_types(dia_vals.dtype, x.dtype),
+                    device=x.device)
     if n == 0:
         return y
-    fn = getattr(kernels.library("dia_spmv"), _FN[x.dtype])
+    fn = getattr(kernels.library("dia_spmv"), entry)
     rc = fn(dia_vals.data_ptr(), offsets.data_ptr(), nd, x.data_ptr(),
             y.data_ptr(), n, kernels.stream_handle(x.device))
     kernels.check_launch("dia_spmv", rc)
     launches += 1
+    variant_launches[entry] = variant_launches.get(entry, 0) + 1
     return y

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from amgx_tpu_torch.core.types import host_array
+
 
 def scalarized(A, solver_name: str):
     """The scalar operator of ``A``.  Scalar matrices pass through;
@@ -17,7 +19,7 @@ def scalarized(A, solver_name: str):
         return A
     raise NotImplementedError(
         f"{solver_name}: block matrices are not ported yet "
-        "(ROADMAP.md, queue A: block matrices and reduced precision)"
+        "(ROADMAP.md, queue A4b: block matrices)"
     )
 
 
@@ -29,10 +31,13 @@ def reciprocal_np(d):
 
 
 def invert_diag(A):
-    """1 / diag(A) on A's device, computed on the host at setup."""
-    return torch.from_numpy(reciprocal_np(A.diag.cpu().numpy())).to(
-        A.device
-    )
+    """1 / diag(A) on A's device, computed on the host at setup, in
+    A's dtype: a bf16 diagonal is inverted in f32 and rounded once to
+    bf16, the correctly rounded bf16 reciprocal, as the JAX package's
+    numpy computes it."""
+    d = host_array(A.diag)
+    return torch.from_numpy(reciprocal_np(d)).to(device=A.device,
+                                                 dtype=A.dtype)
 
 
 def apply_dinv(dinv, r):

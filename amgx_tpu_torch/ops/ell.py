@@ -19,9 +19,19 @@ over.  Two layouts, two kernels:
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises.
 
+Dtypes, as in ``ops/dia.py``: y has the promoted dtype of the values
+and x, and the plain versions compute in it with torch's promotion
+(bf16 in bf16).  ``ell_spmv`` is built for (f32, f32), (f64, f64),
+(bf16, bf16), (bf16, f32) and (f32, f64): the transfers of a
+reduced-precision hierarchy, whose level-0 restriction meets the
+finer residual under ``level_dtype_policy`` COARSE; ``sell_spmv`` for
+(f32, f32), (f64, f64) and (bf16, bf16), the last with one lane a row
+only, so that its bf16 sums run in the plain version's order
+(``csrc/dtypes.cuh``).
+
 ``launches`` counts ``ell_spmv`` kernel launches and ``sell_launches``
-those of ``sell_spmv`` (never plain-version calls); reset them by
-assigning 0.
+those of ``sell_spmv`` (never plain-version calls), ``variant_launches``
+both per entry point; reset them by assigning 0 and an empty dict.
 """
 
 from __future__ import annotations
@@ -35,20 +45,20 @@ from amgx_tpu_torch.ops import kernels
 
 launches = 0
 sell_launches = 0
+variant_launches: dict = {}
 
 # rows per slice: one warp's worth, so one warp's loads of one slot are
 # 32 neighbouring entries
 SELL_C = 32
 
-_FN = {torch.float32: "ell_spmv_f32", torch.float64: "ell_spmv_f64"}
-_SELL_FN = {torch.float32: "sell_spmv_f32", torch.float64: "sell_spmv_f64"}
 
 
 def ell_spmv_plain(ell_cols, ell_vals, x):
     """y_i = sum_s ell_vals[s, i] * x[ell_cols[s, i]] in slot order from
     +0.0; square or rectangular."""
     w, n = ell_vals.shape
-    y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    y = torch.zeros(n, dtype=torch.promote_types(ell_vals.dtype, x.dtype),
+                    device=x.device)
     for s in range(w):
         y = y + ell_vals[s] * x[ell_cols[s]]
     return y
@@ -70,24 +80,29 @@ def ell_spmv(ell_cols, ell_vals, x):
     if w > 0 and x.shape[0] == 0:
         raise ValueError("ell_spmv: stored entries but an empty x")
     _check_cuda("ell_spmv", x, (ell_cols, ell_vals))
-    if ell_vals.dtype != x.dtype or x.dtype not in _FN:
+    entry = kernels.entry_point("ell_spmv", ell_vals.dtype, x.dtype)
+    if entry is None:
         raise NotImplementedError(
             f"ell_spmv: dtypes {ell_vals.dtype}/{x.dtype}; the kernel "
-            "takes float32 or float64"
+            "takes float32, float64 or bfloat16 values with x of their "
+            "dtype, bfloat16 values with float32 x, or float32 values "
+            "with float64 x"
         )
     if ell_cols.dtype != torch.int32:
         raise ValueError(f"ell_spmv: cols must be int32, got {ell_cols.dtype}")
     if not (ell_cols.is_contiguous() and ell_vals.is_contiguous()
             and x.is_contiguous()):
         raise ValueError("ell_spmv: inputs must be contiguous")
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    y = torch.empty(n, dtype=torch.promote_types(ell_vals.dtype, x.dtype),
+                    device=x.device)
     if n == 0:
         return y
-    fn = getattr(kernels.library("ell_spmv"), _FN[x.dtype])
+    fn = getattr(kernels.library("ell_spmv"), entry)
     rc = fn(ell_cols.data_ptr(), ell_vals.data_ptr(), w, x.data_ptr(),
             y.data_ptr(), n, kernels.stream_handle(x.device))
     kernels.check_launch("ell_spmv", rc)
     launches += 1
+    variant_launches[entry] = variant_launches.get(entry, 0) + 1
     return y
 
 
@@ -152,9 +167,10 @@ def sell_spmv_plain(S: SlicedEll, x):
         SELL_C)
     base = S.offsets[:-1][k] + lane.repeat(ns)
     wk = S.widths[k]
-    acc = torch.zeros(ns * SELL_C, dtype=x.dtype, device=dev)
+    dt = torch.promote_types(S.vals.dtype, x.dtype)
+    acc = torch.zeros(ns * SELL_C, dtype=dt, device=dev)
     width = int(S.widths.max()) if ns else 0
-    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
     for s in range(width):
         live = wk > s
         idx = torch.where(live, base + SELL_C * s, 0)
@@ -162,7 +178,7 @@ def sell_spmv_plain(S: SlicedEll, x):
     acc = acc[:S.n_rows]
     if S.rows is None:
         return acc
-    y = torch.empty(S.n_rows, dtype=x.dtype, device=dev)
+    y = torch.empty(S.n_rows, dtype=dt, device=dev)
     y[S.rows.long()] = acc
     return y
 
@@ -188,24 +204,28 @@ def sell_spmv(S: SlicedEll, x):
     if S.rows is not None:
         ts.append(S.rows)
     _check_cuda("sell_spmv", x, ts)
-    if S.vals.dtype != x.dtype or x.dtype not in _SELL_FN:
+    entry = kernels.entry_point("sell_spmv", S.vals.dtype, x.dtype)
+    if entry is None:
         raise NotImplementedError(
             f"sell_spmv: dtypes {S.vals.dtype}/{x.dtype}; the kernel "
-            "takes float32 or float64"
+            "takes float32, float64 or bfloat16 values with x of their "
+            "dtype"
         )
     if (S.cols.dtype, S.offsets.dtype, S.widths.dtype) != (
             torch.int32, torch.int64, torch.int32) or (
             S.rows is not None and S.rows.dtype != torch.int32):
         raise ValueError("sell_spmv: cols, widths and rows must be int32, "
                          "offsets int64")
-    if S.lanes not in (1, 2, 4, 8):
-        raise ValueError(f"sell_spmv: {S.lanes} lanes a row")
+    if S.lanes not in (1, 2, 4, 8) or (
+            S.lanes != 1 and S.vals.dtype == torch.bfloat16):
+        raise ValueError(f"sell_spmv: {S.lanes} lanes a row for "
+                         f"{S.vals.dtype} (bfloat16 takes 1)")
     if not all(t.is_contiguous() for t in [*ts, x]):
         raise ValueError("sell_spmv: inputs must be contiguous")
     y = torch.empty(S.n_rows, dtype=x.dtype, device=x.device)
     if S.n_rows == 0:
         return y
-    fn = getattr(kernels.library("ell_spmv"), _SELL_FN[x.dtype])
+    fn = getattr(kernels.library("ell_spmv"), entry)
     rc = fn(S.cols.data_ptr(), S.vals.data_ptr(), S.offsets.data_ptr(),
             S.widths.data_ptr(),
             None if S.rows is None else S.rows.data_ptr(),
@@ -213,6 +233,7 @@ def sell_spmv(S: SlicedEll, x):
             kernels.stream_handle(x.device))
     kernels.check_launch("sell_spmv", rc)
     sell_launches += 1
+    variant_launches[entry] = variant_launches.get(entry, 0) + 1
     return y
 
 

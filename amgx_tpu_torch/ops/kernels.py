@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  The build
 runs at first use, never at import (the CPU tests import every module
 on machines without ``nvcc``), into ``amgx_tpu_torch/_build/``, which
-git ignores.  Libraries are keyed by a hash of their source and flags,
-so an edited source rebuilds.  :func:`build` starts one ``nvcc`` per
+git ignores.  Libraries are keyed by a hash of their source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds.  :func:`build` starts one ``nvcc`` per
 source, all at once, and waits for all of them.
 
 ``NVCC`` overrides the compiler path; otherwise ``nvcc`` on ``PATH``,
@@ -40,23 +40,36 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (cols, vals, offsets, widths, row permutation or None, slices, lanes,
 # x, y, rows, stream); stencil:
 # (coefs, x, y, host int array of the grid, the launch plan and the
-# steps, stream)
+# steps, stream).  An entry point is named for its value dtype, then
+# for x's where that differs (``ell_spmv_bf16_f32``: bf16 values, f32
+# x, f32 y)
+_DIA = (_P, _P, _I, _P, _P, _LL, _P)
+_SELL = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _P)
+_STENCIL = (_P, _P, _P, _P, _P)
 _SIGNATURES = {
-    "dia_spmv": {
-        "dia_spmv_f32": (_P, _P, _I, _P, _P, _LL, _P),
-        "dia_spmv_f64": (_P, _P, _I, _P, _P, _LL, _P),
-    },
+    "dia_spmv": {f"dia_spmv_{t}": _DIA for t in ("f32", "f64", "bf16")},
     "ell_spmv": {
-        "ell_spmv_f32": (_P, _P, _I, _P, _P, _LL, _P),
-        "ell_spmv_f64": (_P, _P, _I, _P, _P, _LL, _P),
-        "sell_spmv_f32": (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _P),
-        "sell_spmv_f64": (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _P),
+        **{f"ell_spmv_{t}": _DIA
+           for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
+        **{f"sell_spmv_{t}": _SELL for t in ("f32", "f64", "bf16")},
     },
-    "stencil_spmv": {
-        "stencil_spmv_f32": (_P, _P, _P, _P, _P),
-        "stencil_spmv_f64": (_P, _P, _P, _P, _P),
-    },
+    "stencil_spmv": {f"stencil_spmv_{t}": _STENCIL
+                     for t in ("f32", "f64", "bf16")},
 }
+
+_SHORT = {torch.float32: "f32", torch.float64: "f64",
+          torch.bfloat16: "bf16"}
+
+
+def entry_point(kernel: str, vals_dtype, x_dtype):
+    """The entry point of ``kernel`` for values of ``vals_dtype`` and x
+    of ``x_dtype`` (``_SIGNATURES``), or None where none is built."""
+    v, x = _SHORT.get(vals_dtype), _SHORT.get(x_dtype)
+    if v is None or x is None:
+        return None
+    name = f"{kernel}_{v}" if v == x else f"{kernel}_{v}_{x}"
+    lib = "ell_spmv" if kernel == "sell_spmv" else kernel
+    return name if name in _SIGNATURES[lib] else None
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -78,6 +91,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

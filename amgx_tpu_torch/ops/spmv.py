@@ -7,7 +7,9 @@ Dispatch order, as in the JAX package's ``ops/spmv.py``: MATRIX_FREE
     constant stencil, stock torch ops for an axis-separable one
     (``ops/stencil.py``);
   * DIA: the ``dia_spmv`` CUDA kernel on the card (``ops/dia.py``);
-  * dense: ``torch.matmul`` (the JAX package leaves it to XLA);
+  * dense: ``torch.matmul`` (the JAX package leaves it to XLA), both
+    operands taken to their promoted dtype first: ``torch.matmul`` does
+    not promote;
   * ELL: the ``sell_spmv`` CUDA kernel on the card where the matrix
     has its sliced layout, else the slot-major ``ell_spmv`` one
     (``ops/ell.py``);
@@ -18,6 +20,9 @@ Dispatch order, as in the JAX package's ``ops/spmv.py``: MATRIX_FREE
 
 On CPU tensors the stencil, DIA and ELL wrappers take their plain
 versions (an ELL matrix with a sliced layout takes the sliced one).
+Every branch returns the dtype the JAX package's returns: the
+promoted dtype of the matrix values and x (bf16 with bf16 x, f32 with
+bf16 values and f32 x, ...).
 
 ``op_pass_counter`` mirrors the JAX package's counter of the same name:
 every SpMV with a square operator records one pass while a counter is
@@ -58,7 +63,8 @@ def _spmv_scalar(A, x):
     if A.has_dia:
         return dia_spmv(A.dia_vals, A.dia_offsets_dev, x)
     if A.has_dense:
-        return torch.matmul(A.dense, x)
+        dt = torch.promote_types(A.dense.dtype, x.dtype)
+        return torch.matmul(A.dense.to(dt), x.to(dt))
     if A.has_ell:
         if A.sell is not None:
             return sell_spmv(A.sell, x)

@@ -22,14 +22,20 @@ Dispatch of :func:`stencil_spmv`, chosen by the static ``meta.kind``:
 
   * a CPU tensor takes the plain version;
   * ``kind == "const"`` on a CUDA tensor launches the kernel or raises
-    (f32 and f64; the TPU gates ``_MIN_ROWS`` and ``_HALO_MAX`` are not
-    carried over), with the geometry :func:`stencil_launch_plan` gives;
+    (f32, f64 and bf16 coefficients with x of their dtype; the TPU gates
+    ``_MIN_ROWS`` and ``_HALO_MAX`` are not carried over), with the
+    geometry :func:`stencil_launch_plan` gives;
   * ``kind == "axis"`` takes the plain version's stock torch ops on
     any device, as the JAX package sends it to XLA (its Pallas kernel
     computes only the constant case).
 
-``launches`` counts kernel launches (never plain-version calls); reset
-it by assigning 0.
+y has the promoted dtype of the coefficients and x; in bf16 every
+product and sum rounds to bf16, in the plain version and the kernel
+alike, as in ``ops/dia.py``, so the bitwise contract holds in bf16 too.
+
+``launches`` counts kernel launches (never plain-version calls) and
+``variant_launches`` the same per entry point; reset them by assigning
+0 and an empty dict.
 
 :func:`fused_cycle_leg` runs a descent leg (smooth, residual,
 restrict) as one counted operator pass.  In eager PyTorch it issues
@@ -51,8 +57,7 @@ import torch.nn.functional as F
 from amgx_tpu_torch.ops import kernels
 
 launches = 0
-
-_FN = {torch.float32: "stencil_spmv_f32", torch.float64: "stencil_spmv_f64"}
+variant_launches: dict = {}
 # the kernel takes the steps of at most this many diagonals by value;
 # detection yields at most 27 (a 3x3x3 box)
 MAX_DIAGS = 27
@@ -255,13 +260,14 @@ def stencil_spmv_plain(meta: StencilMeta, coefs, x):
     add, as in ``dia_spmv_plain``, so the two agree bit for bit."""
     nx, ny, nz = meta.grid
     (pxl, pxh), (pyl, pyh), (pzl, pzh) = _pad_widths(meta.steps)
-    x3 = x.reshape(nz, ny, nx)
+    dt = torch.promote_types(coefs.dtype, x.dtype)
+    x3 = x.reshape(nz, ny, nx).to(dt)
     xp = F.pad(x3, (pxl, pxh, pyl, pyh, pzl, pzh))
     y = torch.zeros_like(x3)
     for k, (dx, dy, dz) in enumerate(meta.steps):
         s = xp[pzl + dz:pzl + dz + nz, pyl + dy:pyl + dy + ny,
                pxl + dx:pxl + dx + nx]
-        c = coefs[k]
+        c = coefs[k].to(dt)
         if meta.kind == "axis":
             # broadcast the per-coordinate coefficient along the row's
             # position on the varying axis (x is the last dim of x3)
@@ -308,7 +314,8 @@ def stencil_launch_plan(grid, steps, vec=1, sms=H100_SMS):
     its grid along y (:class:`StencilPlan`).  For the star each thread
     computes ``vec`` consecutive x points (one 16-byte vector: 4 in f32,
     2 in f64, for x and y on 16-byte boundaries) when nx is a multiple
-    of ``vec``, else one; every other stencil one.  A block spans up to 32 threads along
+    of ``vec``, else one; every other stencil one (``vec`` is 16 bytes
+    over the dtype's size: 4 in f32, 2 in f64, 8 in bf16).  A block spans up to 32 threads along
     x (one coalesced warp row; PLAN_THREADS on the runtime-count kernel
     where the grid is one row wide) and as many y rows as the kernel
     takes (8 on the tile kernel, PLAN_THREADS in all on the other); each
@@ -388,11 +395,12 @@ def stencil_spmv(A, x):
             f"stencil_spmv: tensors on {x.device} but the current device "
             f"is cuda:{torch.cuda.current_device()}"
         )
-    if coefs.dtype != x.dtype or x.dtype not in _FN:
+    entry = kernels.entry_point("stencil_spmv", coefs.dtype, x.dtype)
+    if entry is None:
         raise NotImplementedError(
             f"stencil_spmv: dtypes {coefs.dtype}/{x.dtype}; the kernel "
-            "takes float32 or float64 (bf16: ROADMAP.md, queue A: block "
-            "matrices and reduced precision)"
+            "takes float32, float64 or bfloat16 coefficients with x of "
+            "their dtype"
         )
     if nd > MAX_DIAGS:
         raise ValueError(
@@ -408,11 +416,12 @@ def stencil_spmv(A, x):
     # allocated, does)
     vec = 16 // x.element_size() if x.data_ptr() % 16 == 0 else 1
     _, args = _launch_args(meta.grid, meta.steps, vec, x.device.index)
-    fn = getattr(kernels.library("stencil_spmv"), _FN[x.dtype])
+    fn = getattr(kernels.library("stencil_spmv"), entry)
     rc = fn(coefs.data_ptr(), x.data_ptr(), y.data_ptr(), args,
             kernels.stream_handle(x.device))
     kernels.check_launch("stencil_spmv", rc)
     launches += 1
+    variant_launches[entry] = variant_launches.get(entry, 0) + 1
     return y
 
 

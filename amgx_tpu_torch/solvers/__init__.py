@@ -5,8 +5,8 @@ PBICGSTAB, BICGSTAB, FGMRES, GMRES, IDR, IDRMSYNC, SSTEP_PCG,
 BLOCK_JACOBI, JACOBI_L1, CF_JACOBI, MULTICOLOR_DILU, MULTICOLOR_ILU,
 MULTICOLOR_GS, GS, FIXCOLOR_GS, KACZMARZ, CHEBYSHEV, CHEBYSHEV_POLY,
 POLYNOMIAL, KPZ_POLYNOMIAL, OPT_POLYNOMIAL, DENSE_LU_SOLVER (and its
-alias DENSE_LU), INEXACT, NOSOLVER and AMG.  Every name the JAX package
-registers resolves but ITERATIVE_REFINEMENT (``registry.UNPORTED``).
+alias DENSE_LU), INEXACT, NOSOLVER, ITERATIVE_REFINEMENT and AMG: every
+name the JAX package registers.
 """
 
 from amgx_tpu_torch.solvers.base import Solver, SolveResult
@@ -31,6 +31,7 @@ from amgx_tpu_torch.solvers import (  # noqa: F401,E402
     kaczmarz,
     krylov,
     polynomial,
+    refinement,
     sstep,
 )
 from amgx_tpu_torch.amg import hierarchy  # noqa: F401,E402

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from amgx_tpu_torch.core.device import resolve_device
-from amgx_tpu_torch.core.types import NormType
+from amgx_tpu_torch.core.types import NormType, host_array, host_dtype
 from amgx_tpu_torch.ops.norms import norm as _norm
 from amgx_tpu_torch.ops.spmv import spmv
 from amgx_tpu_torch.solvers.convergence import make_convergence_check
@@ -63,8 +63,9 @@ class SolveResult:
 
 
 def host_norm(t) -> np.ndarray:
-    """A norm tensor read to the host as a (ncomp,) numpy array."""
-    return np.atleast_1d(t.detach().cpu().numpy())
+    """A norm tensor read to the host as a (ncomp,) numpy array (a
+    bf16 norm as float32)."""
+    return np.atleast_1d(host_array(t))
 
 
 class Solver:
@@ -501,4 +502,5 @@ class Solver:
 
 
 def _real_np_dtype(b):
-    return np.dtype(str(b.real.dtype).replace("torch.", ""))
+    """The host dtype of b's norms (float32 for a bf16 b)."""
+    return host_dtype(b.real.dtype)

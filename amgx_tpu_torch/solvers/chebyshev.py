@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from amgx_tpu_torch.core.matrix import to_tensor
+from amgx_tpu_torch.core.types import host_dtype
 from amgx_tpu_torch.ops.diagonal import invert_diag, scalarized
 from amgx_tpu_torch.ops.spmv import spmv
 from amgx_tpu_torch.solvers.base import Solver
@@ -120,7 +121,9 @@ class ChebyshevSolver(Solver):
         """Power iteration on M^{-1}A: ``iters`` steps on the device,
         one read of the last norm."""
         rng = np.random.default_rng(seed)
-        rdt = np.zeros((), str(A.dtype).replace("torch.", "")).real.dtype
+        # the start vector in the real dtype (a bf16 operator's through
+        # float32, as the JAX package's numpy casts it)
+        rdt = host_dtype(A.values.real.dtype)
         v = to_tensor(rng.standard_normal(A.n_rows).astype(rdt),
                       A.device).to(A.dtype)
         lam = None

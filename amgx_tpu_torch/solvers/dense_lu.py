@@ -3,7 +3,11 @@ the densified coarse matrix).
 
 Densify at setup on the host, factorize once with
 ``torch.linalg.lu_factor`` on the solver's device; the apply is
-``torch.linalg.lu_solve``.  Zero-pivot guard as in the JAX package: the
+``torch.linalg.lu_solve``.  A bf16 level (``hierarchy_dtype``) is
+factored in f32, as the JAX package does (LAPACK has no sub-f32
+factorization; its host triple reads back as f32): the apply takes r
+to f32 and returns an f32 correction, which the cycle casts back to
+the level's dtype.  Zero-pivot guard as in the JAX package: the
 host reads the U diagonal of the factorization, and a singular matrix
 either raises :class:`SingularDiagonalError` (``dense_lu_zero_pivot=
 RAISE``) or switches the apply to the pseudoinverse (REGULARIZE, the
@@ -81,13 +85,14 @@ class DenseLUSolver(Solver):
         if self._pinv_mode:
             def apply_pinv(params, r):
                 _, pinv, _ = params
-                return torch.matmul(pinv, r)
+                return torch.matmul(pinv, r.to(pinv.dtype))
 
             return apply_pinv
 
         def apply(params, r):
             _, lu, piv = params
-            return torch.linalg.lu_solve(lu, piv, r.unsqueeze(-1)).squeeze(-1)
+            return torch.linalg.lu_solve(
+                lu, piv, r.to(lu.dtype).unsqueeze(-1)).squeeze(-1)
 
         return apply
 

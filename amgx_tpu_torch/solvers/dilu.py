@@ -29,7 +29,7 @@ JAX package's stacked, spill-padded ``fori_loop`` layout exists only to
 bound XLA's compile time and is not carried over (with zero padding it
 gives the same values).
 
-Not ported: block matrices (``block_size > 1``, ROADMAP.md queue A4).
+Not ported: block matrices (``block_size > 1``, ROADMAP.md queue A4b).
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ def color_stages(rows_by_color, scale, Ls, Us, device):
 def _unported_block(name):
     return NotImplementedError(
         f"{name}: block matrices (block_size > 1) are not ported yet "
-        "(ROADMAP.md, queue A4: block matrices and reduced precision)"
+        "(ROADMAP.md, queue A4b: block matrices)"
     )
 
 

@@ -75,5 +75,6 @@ class JacobiL1Solver(_DiagSmootherBase):
         diag = _extract_diag_np(indptr, cols, vals, A.n_rows)
         d = np.abs(diag) + offdiag
         self._params = (
-            A, to_tensor(reciprocal_np(d).astype(vals.dtype), A.device)
+            A, to_tensor(reciprocal_np(d).astype(vals.dtype),
+                         A.device).to(A.dtype)
         )

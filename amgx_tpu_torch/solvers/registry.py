@@ -1,8 +1,7 @@
 """Factory registry (reference SolverFactory, solver.h:281-310).
 
-Maps the solver names of config files to solver classes.  Names the
-JAX package registers but this port does not yet raise
-``NotImplementedError`` naming the ROADMAP queue that ports them.
+Maps the solver names of config files to solver classes.  Every name
+the JAX package registers is ported.
 """
 
 from __future__ import annotations
@@ -11,10 +10,8 @@ from typing import Callable, Dict
 
 _SOLVERS: Dict[str, Callable] = {}
 
-# registered by the JAX package, not ported yet: the float-float
-# refinement exists for hierarchies in reduced precision (ROADMAP.md,
-# queue A4), which the port does not build yet
-UNPORTED = frozenset({"ITERATIVE_REFINEMENT"})
+# names the JAX package registers that the port lacks: none
+UNPORTED = frozenset()
 
 
 class SolverRegistry:
@@ -27,12 +24,6 @@ class SolverRegistry:
         cls = _SOLVERS.get(name)
         if cls is not None:
             return cls
-        if name in UNPORTED:
-            raise NotImplementedError(
-                f"solver {name!r} is not ported to PyTorch yet "
-                "(ROADMAP.md, queue A4: block matrices and reduced "
-                "precision)"
-            )
         raise KeyError(
             f"unregistered solver {name!r}; known: {sorted(_SOLVERS)}"
         )

@@ -118,7 +118,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 11. amg_classical_kcycle: ``AMG_CLASSICAL_CG_CFG`` (AMG as the outer
    solver, classical, a CG K-cycle of 2 iterations) at 128^3 f32, setup
    on the card: levels, visits, launches as walked, a trace; the CPU
-   port at 128^3; 64^3 f64 with the device setup on both.
+   port at 96^3 (not 128^3, to keep the whole run in its time limit);
+   64^3 f64 with the device setup on both.
 12. pcg_agg_resetup: the bench config with ``structure_reuse_levels``
    -1 set up once, then ``replace_values`` (timed by CUDA events),
    ``resetup`` and ``solve`` three times, on variable-coefficient
@@ -129,12 +130,38 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    operators against scipy's R A P, launches as derived, two resetups
    bit for bit, the CPU port's sequence; 64^3 f64 against the CPU;
    classical reuse at 64^3 f64 (plans per level, iterations).
-13. Prints the per-kernel summary line (each kernel's launches on every
+13. refine_bf16_256, the reduced-precision large-grid path:
+   ``REFINE_BF16_CFG`` (the JAX package's CHEAP_PRECONDITIONER_CONFIG:
+   ITERATIVE_REFINEMENT + PCG(8) + SIZE_8 AMG, OPT_POLYNOMIAL, INEXACT,
+   with a bf16 hierarchy and no Galerkin plans) on ``poisson_3d_7pt
+   (256)`` in f32, 16,777,216 rows: levels with dtypes, level 0's
+   Galerkin product through ``geo_galerkin_dia`` on the card (against
+   scipy's R A P), setup phases, bytes by dtype, corrections, inner
+   iterations and fallbacks (none allowed), the true residual at 1e-8, launches per
+   kernel entry point against the walk, first and warm solve, a trace,
+   the bf16 DIA and transfer kernels at their shapes; the same solve
+   on an f32 hierarchy and plain f32 PCG on it (where its true residual
+   stalls); card against the CPU port at 64^3: the path's config in
+   f32, CHEAP_PRECONDITIONER_CONFIG verbatim in f64, and under COARSE
+   in f64 (the f32 restriction of an f64 residual).
+14. mf_bf16: the bench config with a bf16 hierarchy (ALL) at 128^3,
+   ``matrix_free`` 0 then 1: the DIA and stencil kernels in bf16,
+   launches as derived, x bit for bit between the two.
+15. classical_bf16: PCG_CLASSICAL with a bf16 hierarchy (COARSE) at
+   96^3: the sliced kernel in bf16 (every sliced operator bit for bit
+   its plain version), the level-0 R in (bf16, f32), the CSR products
+   of the bf16 P; the CPU port at 96^3.
+16. device_match: the device matcher bit for bit with the host one on
+   the 128^3 Poisson graph and a shuffled one (both timed); PCG +
+   SIZE_2 aggregation by matching at 128^3 (every pass over 16,384
+   rows on the card); 64^3 f64 against the CPU port's host matcher.
+17. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
-   ``stencil_spmv``, the classical slice for ``sell_spmv``), then the
-   device line last.  Each phase's seconds print on a ``phase_s``
-   line.
+   ``stencil_spmv``, the classical slice for ``sell_spmv``; one entry
+   for each bf16 and mixed-dtype entry point, its launches from its
+   path in ``VARIANTS``), then the device line last.  Each phase's
+   seconds print on a ``phase_s`` line.
 
 Exits non-zero without a result when CUDA is unavailable.  Imports
 nothing of JAX or of the JAX package ``amgx_tpu``.
@@ -1277,6 +1304,17 @@ def zero_counts():
 
     dia.launches = ell.launches = ell.sell_launches = 0
     stencil.launches = spmv.csr_products = 0
+    for m in (dia, ell, stencil):
+        m.variant_launches.clear()
+
+
+def variant_counts():
+    """Launches of every kernel entry point (``dia_spmv_bf16``,
+    ``ell_spmv_bf16_f32``, ...) and the CSR products."""
+    from amgx_tpu_torch.ops import dia, ell, spmv, stencil
+
+    return {**dia.variant_launches, **ell.variant_launches,
+            **stencil.variant_launches, "csr": spmv.csr_products}
 
 
 def counter_of(m):
@@ -1286,7 +1324,7 @@ def counter_of(m):
     return FORMAT_COUNTER.get(m.format)
 
 
-def cycle_walk(amg, sweep_spmvs=1):
+def cycle_walk(amg, sweep_spmvs=1, coarse_spmvs=1):
     """SpMVs of one cycle of the AMG solver ``amg`` per operator, as
     ``{(level, "A" | "P" | "R"): count}``, from a dry walk of the
     cycle's structure in Python (``amg/hierarchy.py:make_cycle``; no
@@ -1299,7 +1337,9 @@ def cycle_walk(amg, sweep_spmvs=1):
     visits the next level twice, F an F then a V visit, and a K-cycle
     runs ``cycle_iters`` (F)CG steps there: one visit and one A-SpMV a
     step (one visit at least).  The coarsest level makes one residual
-    before its coarse solve, or its smoothing sweeps."""
+    before its coarse solve (and ``coarse_spmvs`` - 1 more inside an
+    iterative one: :func:`coarse_solve_spmvs`), or its smoothing
+    sweeps."""
     from amgx_tpu_torch.amg.hierarchy import W_MAX_BRANCH_LEVELS
 
     counts = {}
@@ -1312,7 +1352,7 @@ def cycle_walk(amg, sweep_spmvs=1):
 
     def visit(i, kind):
         if i == last:
-            add(i, "A", 1 if amg.coarse_solver is not None
+            add(i, "A", coarse_spmvs if amg.coarse_solver is not None
                 else amg.coarsest_sweeps * sweep_spmvs)
             return
         pre, post = amg._level_sweeps(i)
@@ -2333,10 +2373,11 @@ def visits_per_cycle(amg):
 
 
 def path_record(label, s, res, b, n, launches, derived, setup_s, upload_s,
-                amg):
+                amg, walk_check=True):
     """The JSON record and the common checks of one card path: status
-    0, the true residual at 1e-5 and every counter at its derived
-    count."""
+    0, the true residual at 1e-5 and the dry walk's A-SpMVs at the
+    cycle's passes (``walk_check``: False where fused legs count a
+    leg's SpMVs as one pass)."""
     iters, status = int(res.iters), int(res.status)
     x = res.x.cpu().numpy()
     solve_s = s.solve_time
@@ -2362,7 +2403,7 @@ def path_record(label, s, res, b, n, launches, derived, setup_s, upload_s,
     check(rel <= 1e-5, f"{label} true relative residual {rel:.3e} > 1e-5")
     # the walk's square-operator SpMVs against those the cycle made
     walk_a = sum(k for (_, f), k in cycle_walk(amg).items() if f == "A")
-    check(walk_a == rec["cycle_passes_per_iteration"],
+    check(not walk_check or walk_a == rec["cycle_passes_per_iteration"],
           f"{label}: the dry walk counts {walk_a} A-SpMVs a cycle, the "
           f"cycle made {rec['cycle_passes_per_iteration']}")
     return rec, x
@@ -2771,6 +2812,796 @@ def resetup_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N, n_f64=64,
     return total
 
 
+# ---------------------------------------------------------------------------
+# reduced-precision hierarchies, float-float refinement and the
+# large-grid setup (phases 13-16)
+
+# the JAX package's serve.CHEAP_PRECONDITIONER_CONFIG, key for key:
+# ITERATIVE_REFINEMENT around PCG(8) around SIZE_8 aggregation AMG, an
+# f32 hierarchy (ALL), OPT_POLYNOMIAL smoothing, an INEXACT coarse solve
+CHEAP_CFG = (
+    '{"config_version": 2, "solver": {"scope": "main",'
+    ' "solver": "ITERATIVE_REFINEMENT", "max_iters": 40,'
+    ' "tolerance": 1e-8, "monitor_residual": 1,'
+    ' "convergence": "RELATIVE_INI", "precision_fallback": 1,'
+    ' "preconditioner": {"scope": "inner", "solver": "PCG",'
+    ' "max_iters": 8, "monitor_residual": 0,'
+    ' "preconditioner": {"scope": "amg", "solver": "AMG",'
+    ' "algorithm": "AGGREGATION", "selector": "SIZE_8",'
+    ' "hierarchy_dtype": "FLOAT32", "level_dtype_policy": "ALL",'
+    ' "smoother": {"scope": "sm", "solver": "OPT_POLYNOMIAL",'
+    ' "chebyshev_polynomial_order": 2, "monitor_residual": 0},'
+    ' "presweeps": 1, "postsweeps": 1, "max_iters": 1,'
+    ' "min_coarse_rows": 32, "max_levels": 10,'
+    ' "structure_reuse_levels": -1,'
+    ' "coarse_solver": "INEXACT",'
+    ' "inexact_coarse_solver": "OPT_POLYNOMIAL", "cycle": "V",'
+    ' "monitor_residual": 0}}}}'
+)
+# the refine path: a bf16 hierarchy (FLOAT32 casts nothing on an f32
+# operator) and no Galerkin plans (nothing is reset up)
+REFINE_BF16_CFG = CHEAP_CFG.replace(
+    '"hierarchy_dtype": "FLOAT32"', '"hierarchy_dtype": "BFLOAT16"'
+).replace('"structure_reuse_levels": -1', '"structure_reuse_levels": 0')
+REFINE_SAME_CFG = REFINE_BF16_CFG.replace('"BFLOAT16"', '"SAME"')
+# FLOAT32 under COARSE on an f64 operator: the level-0 R in f32 meets
+# the f64 residual
+CHEAP_COARSE_CFG = CHEAP_CFG.replace('"level_dtype_policy": "ALL"',
+                                     '"level_dtype_policy": "COARSE"')
+# plain f32 PCG to 1e-8 (monitored), preconditioned by the AMG of
+# REFINE_SAME_CFG's hierarchy
+PLAIN_PCG_CFG = (
+    '{"config_version": 2, "solver": {"scope": "main", "solver": "PCG",'
+    ' "max_iters": 100, "tolerance": 1e-8, "monitor_residual": 1,'
+    ' "convergence": "RELATIVE_INI", "preconditioner": "NOSOLVER"}}'
+)
+REFINE_N = 256
+# the bench config with a bf16 hierarchy, the finest level included
+MF_BF16_CFG = BENCH_CFG.replace(
+    '"cycle": "V",', '"cycle": "V", "hierarchy_dtype": "BFLOAT16",'
+    ' "level_dtype_policy": "ALL",')
+# PCG_CLASSICAL with a bf16 hierarchy under COARSE
+CLASSICAL_BF16_CFG = classical_cfg(', "hierarchy_dtype": "BFLOAT16"')
+# PCG + SIZE_2 aggregation by matching (no geometric blocks)
+SIZE2_MATCH_CFG = BENCH_CFG.replace(
+    '"selector": "SIZE_8",',
+    '"selector": "SIZE_2", "structured_aggregation": 0,').replace(
+    '"min_coarse_rows": 512,', '"min_coarse_rows": 32,')
+
+# the kernel entry points of the reduced-precision hierarchies: their
+# source, the TPU kernel, the path whose launches are counted and the
+# start of the name of the kernel case (at that path's shapes) whose
+# times the summary gives
+_DIA_SRC, _ELL_SRC = ("amgx_tpu_torch/csrc/dia_spmv.cu",
+                      "amgx_tpu_torch/csrc/ell_spmv.cu")
+_WELL = "amgx_tpu/ops/pallas_well.py:160"
+VARIANTS = {
+    "dia_spmv_bf16": (_DIA_SRC, "amgx_tpu/ops/pallas_dia.py:76",
+                      "refine_bf16_256", "refine level1 A"),
+    "ell_spmv_bf16": (_ELL_SRC, _WELL, "refine_bf16_256",
+                      "refine level0 R"),
+    "ell_spmv_bf16_f32": (_ELL_SRC, _WELL, "classical_bf16",
+                          "classical_bf16 level0 R"),
+    "ell_spmv_f32_f64": (_ELL_SRC, _WELL, "refine_f32_coarse_f64",
+                         "cheap_coarse"),
+    "sell_spmv_bf16": (_ELL_SRC, _WELL, "classical_bf16",
+                       "classical_bf16 level1 A"),
+    "stencil_spmv_bf16": ("amgx_tpu_torch/csrc/stencil_spmv.cu",
+                          "amgx_tpu/ops/pallas_stencil.py:64", "mf_bf16_1",
+                          "mf_bf16 level0 A"),
+}
+
+
+def sweep_spmvs(sm):
+    """A-SpMVs of one sweep of smoother ``sm``: the order of CHEBYSHEV
+    and OPT_POLYNOMIAL (a residual and order - 1 products), one for
+    the Jacobi smoothers."""
+    from amgx_tpu_torch.solvers.chebyshev import ChebyshevSolver
+
+    return max(sm.order, 1) if isinstance(sm, ChebyshevSolver) else 1
+
+
+def coarse_solve_spmvs(amg):
+    """A-SpMVs of one coarse solve: the residual, and for INEXACT its
+    sweeps (``sweep_budget``) of its smoother."""
+    from amgx_tpu_torch.solvers.inexact import InexactCoarseSolver
+
+    cs = amg.coarse_solver
+    if isinstance(cs, InexactCoarseSolver):
+        return 1 + cs.inner.max_iters * sweep_spmvs(cs.inner)
+    return 1
+
+
+def variant_of(m, x_dtype):
+    """The entry point an SpMV of ``m`` on an x of ``x_dtype`` launches,
+    "csr" for a CSR product, None for a dense one."""
+    from amgx_tpu_torch.ops import kernels
+
+    c = counter_of(m)
+    if c in (None, "csr"):
+        return c
+    return kernels.entry_point(c, m.dtype, x_dtype)
+
+
+def derived_variant_launches(amg, cycles, top=(), setup_spmvs=0,
+                             coarse_setup_spmvs=0):
+    """Launches per entry point (and CSR products) of ``cycles`` cycles
+    of ``amg`` by :func:`cycle_walk`, each operand in the dtype the
+    cycle gives it (A and R meet their level's vectors, P the coarser
+    level's correction), and the ``top`` SpMVs ``(matrix, x dtype,
+    count)`` outside the cycle; each smoothed level's setup makes
+    ``setup_spmvs`` A-SpMVs (a power iteration), the coarsest level's
+    coarse solver ``coarse_setup_spmvs``."""
+    counts = {}
+
+    def add(m, xdt, k):
+        v = variant_of(m, xdt)
+        if v is not None and k:
+            counts[v] = counts.get(v, 0) + k
+
+    for m, xdt, k in top:
+        add(m, xdt, k)
+    lv = amg.levels
+    sm = next((lvl.smoother for lvl in lv if lvl.smoother is not None),
+              None)
+    walk = cycle_walk(amg, sweep_spmvs(sm) if sm is not None else 1,
+                      coarse_solve_spmvs(amg))
+    for (i, f), k in walk.items():
+        xdt = lv[i + 1].A.dtype if f == "P" else lv[i].A.dtype
+        add(getattr(lv[i], f), xdt, cycles * k)
+    for lvl in lv:
+        if lvl.smoother is not None:
+            add(lvl.A, lvl.A.dtype, setup_spmvs)
+    add(lv[-1].A, lv[-1].A.dtype, coarse_setup_spmvs)
+    return counts
+
+
+def check_variants(label, launches, derived, device):
+    """Every entry point's launches (and the CSR products) equal to
+    the derived count (the wrappers count only launches on the
+    card)."""
+    if device != "cuda":
+        return
+    keys = sorted(set(launches) | set(derived))
+    got = {k: launches.get(k, 0) for k in keys}
+    want = {k: derived.get(k, 0) for k in keys}
+    check(got == want, f"{label}: launches {got} != derived {want}")
+
+
+def bytes_by_dtype(mats):
+    """Device bytes of the tensors of the SparseMatrix objects
+    ``mats`` (every format and the sliced layout), by dtype."""
+    import dataclasses
+
+    import torch
+
+    out, seen = {}, set()
+
+    def add(t):
+        if isinstance(t, torch.Tensor) and id(t) not in seen:
+            seen.add(id(t))
+            k = str(t.dtype).replace("torch.", "")
+            out[k] = out.get(k, 0) + t.numel() * t.element_size()
+
+    for m in mats:
+        if m is None:
+            continue
+        for f in dataclasses.fields(m):
+            add(getattr(m, f.name))
+        if m.sell is not None:
+            for f in dataclasses.fields(m.sell):
+                add(getattr(m.sell, f.name))
+    return out
+
+
+def hierarchy_bytes(amg):
+    return bytes_by_dtype(
+        [m for lvl in amg.levels for m in (lvl.A, lvl.P, lvl.R)])
+
+
+def rel_residual_sp(Asp, b, x):
+    b64 = np.asarray(b, np.float64)
+    r = b64 - Asp @ np.asarray(x, np.float64)
+    return float(np.linalg.norm(r) / np.linalg.norm(b64))
+
+
+def variant_case(torch, timer, peaks, name, label, m, x, run, plain,
+                 nbytes):
+    """One bf16 or mixed-dtype entry point ``name`` on operator ``m``
+    (a SparseMatrix on the card) and ``x``: held to its plain version
+    on the same inputs bit for bit (each sums in the plain version's
+    order, rounding as it does); CUDA-event times cold and warm,
+    profiler device time, the bound (``nbytes``, bf16 at 2 bytes; the
+    f32 or f64 rate the arithmetic runs at) and torch's CSR product on
+    the same values, or None where torch has none for the dtypes."""
+    import scipy.sparse as sps
+
+    from amgx_tpu_torch.core.types import host_array
+
+    y, yp = run(), plain()
+    torch.cuda.synchronize()
+    check(y.shape == yp.shape and y.dtype == yp.dtype,
+          f"{label}: {y.dtype} {tuple(y.shape)} vs plain {yp.dtype} "
+          f"{tuple(yp.shape)}")
+    check(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
+    ro, ci, _ = m._host
+    vals = host_array(m.values).astype(np.float64)
+    sp = sps.csr_matrix((np.abs(vals), ci, ro), shape=m.shape)
+    xh = host_array(x).astype(np.float64)
+    scale = sp @ np.abs(xh)
+    d = np.abs(host_array(y).astype(np.float64)
+               - host_array(yp).astype(np.float64))
+    same = bool(torch.equal(y, yp))
+    check(same, f"{label}: kernel vs plain max abs diff "
+          f"{float(d.max()):.3e}, not bit for bit")
+    lib = None
+    try:
+        dt = y.dtype
+        A = torch.sparse_csr_tensor(
+            torch.from_numpy(ro.astype(np.int32)).cuda(),
+            torch.from_numpy(ci.astype(np.int32)).cuda(),
+            m.values.to(dt), size=m.shape)
+        xl = x.to(dt)
+        torch.mv(A, xl)
+        torch.cuda.synchronize()
+        lib = timer(lambda: torch.mv(A, xl))
+    except (RuntimeError, NotImplementedError) as e:
+        print(json.dumps({"library_none": {"case": label,
+                                           "error": str(e)[:200]}}),
+              flush=True)
+    nz = m.nnz
+    kind = "f64" if y.dtype == torch.float64 else "f32"
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    t_ops = 2 * nz / peaks[kind] * 1e3
+    rec = {
+        "case": label, "kernel": name,
+        "dtypes": [str(m.dtype)[6:], str(x.dtype)[6:], str(y.dtype)[6:]],
+        "bitwise": same, "max_abs_err": float(d.max()) if d.size else 0.0,
+        "max_rel_err_of_row_abs": float(np.max(d / np.maximum(scale,
+                                                              1e-300))),
+        "kernel_ms": timer(run), "kernel_ms_warm_l2": timer(run,
+                                                          flush=False),
+        "kernel_device_ms": timer.device(run, ACTIVITY[name.split("_")[0]
+                                                       + "_spmv"]),
+        "plain_ms": timer(plain), "library_ms": lib,
+        "bytes": int(nbytes), "ops": 2 * nz,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def transfer_cases(torch, timer, peaks, rng, amg, label, ops):
+    """The slot-major ELL kernel at the level-0 transfers of ``amg``
+    against its plain version: ``ops`` is ``(("R" | "P", x dtype),
+    ...)``."""
+    from amgx_tpu_torch.ops import ell
+
+    recs = []
+    for f, xdt in ops:
+        m = getattr(amg.levels[0], f)
+        check(m.format == "ELL" and m.sell is None,
+              f"{label} level-0 {f}: {m.format}, sliced "
+              f"{m.sell is not None}")
+        x = torch.from_numpy(rng.standard_normal(m.n_cols)).cuda().to(xdt)
+        ydt = torch.promote_types(m.dtype, xdt)
+        isz = {torch.bfloat16: 2, torch.float32: 4, torch.float64: 8}
+        w = int(m.ell_cols.shape[0])
+        recs.append(variant_case(
+            torch, timer, peaks, variant_of(m, xdt),
+            f"{label} level0 {f} {m.n_rows}x{m.n_cols} w={w} "
+            f"{str(m.dtype)[6:]}/{str(xdt)[6:]}", m, x,
+            lambda m=m, x=x: ell.ell_spmv(m.ell_cols, m.ell_vals, x),
+            lambda m=m, x=x: ell.ell_spmv_plain(m.ell_cols, m.ell_vals, x),
+            nbytes=m.nnz * (4 + isz[m.dtype]) + m.n_cols * isz[xdt]
+            + m.n_rows * isz[ydt]))
+    return recs
+
+
+def refine_phase(torch, peaks=None, device="cuda", n=REFINE_N, n_cmp=64,
+                 same=True):
+    """refine_bf16_256, the reduced-precision path: ``REFINE_BF16_CFG``
+    (ITERATIVE_REFINEMENT + PCG(8) + SIZE_8 AMG in bf16, OPT_POLYNOMIAL,
+    INEXACT) on ``poisson_3d_7pt(n)`` in f32, counts zeroed just before
+    setup and read just after the solve: levels with rows, nnz, format
+    and dtype, level 0's Galerkin product through ``geo_galerkin_dia``
+    (against scipy's R A P), setup phases, bytes by dtype, corrections,
+    inner iterations and fallbacks (the first attempt's status before
+    any), the true residual in f64 (<= 1e-8), launches per entry point
+    as derived, first and warm solve time, a trace, the kernel cases of
+    its bf16 operators.  Beside it on the same grid: the solve with
+    ``hierarchy_dtype`` SAME (``same``), and plain f32 PCG on that
+    hierarchy to 1e-8.  Then, card against the CPU port: the path's
+    config at ``n_cmp``^3 f32, CHEAP_CFG verbatim on an ``n_cmp``^3 f64
+    operator, and (counted as the path ``refine_f32_coarse_f64``)
+    CHEAP_CFG under COARSE at ``n_cmp``^3 f64.  ``peaks`` None (a
+    rehearsal on the CPU) skips the kernel cases and the trace.  Returns
+    ({path: launches}, kernel records)."""
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.amg import aggregation as agg_mod
+    from amgx_tpu_torch.core.matrix import SparseMatrix
+    from amgx_tpu_torch.io.poisson import poisson_rhs, poisson_scipy
+    from amgx_tpu_torch.ops import dia
+
+    rng = np.random.default_rng(9)
+    t0 = time.perf_counter()
+    Asp = poisson_scipy((n, n, n))
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = SparseMatrix.from_scipy(Asp.astype(np.float32), device=device)
+    upload_s = time.perf_counter() - t0
+    b = poisson_rhs(A.n_rows, dtype=np.float32)
+    geo_calls = []
+    real_geo = agg_mod.geo_galerkin_dia
+
+    def geo_spy(Asp_, grid, block, device="cpu", dia=None):
+        out = real_geo(Asp_, grid, block, device=device, dia=dia)
+        geo_calls.append((Asp_.shape[0], grid, block, out))
+        return out
+
+    agg_mod.geo_galerkin_dia = geo_spy
+    try:
+        # ---- the main path: counts zeroed just before, read just after
+        zero_counts()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = T.create_solver(T.AMGConfig.from_string(REFINE_BF16_CFG),
+                            "default", device=device)
+        s.setup(A)
+        setup_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" \
+            else None
+        res = s.solve(b)
+        launches = variant_counts()
+    finally:
+        agg_mod.geo_galerkin_dia = real_geo
+    amg = s.inner.precond
+    corr, inner = int(res.iters), s.last_inner_iters
+    first = s.first_attempt
+    solve_s = s.solve_time
+    x = res.x.numpy()
+    rel = rel_residual_sp(Asp, b, x)
+    res2 = s.solve(b)
+    warm_s = s.solve_time
+    # inner PCG(8), unmonitored: r0 and 8 A p a solve, a cycle each
+    per = 9
+    derived = derived_variant_launches(
+        amg, per * corr, top=((A, A.dtype, per * corr),),
+        setup_spmvs=20, coarse_setup_spmvs=20)
+    # level 0's Galerkin product: geometric, on the device, against
+    # scipy's R A P in f64
+    g0 = next((c for c in geo_calls if c[0] == A.n_rows), None)
+    lvl0 = amg.levels[0]
+    geo = {"geo_calls": [(c[0], list(c[1]), list(c[2]), c[3] is not None)
+                         for c in geo_calls]}
+    if g0 is not None and g0[3] is not None:
+        Pm = lvl0.P.host_csr().astype(np.float64)
+        t0 = time.perf_counter()
+        ref = (Pm.T.tocsr() @ Asp @ Pm).tocsr()
+        geo["scipy_rap_s"] = time.perf_counter() - t0
+        Ac = g0[3]
+        err = float(abs(Ac.astype(np.float64) - ref).max())
+        geo["coarse_vs_scipy_rap_over_max"] = err / float(
+            abs(ref).max())
+        from amgx_tpu_torch.core.types import host_array
+
+        Ab = torch.from_numpy(Ac.data).to(torch.bfloat16)
+        geo["level1_bf16_equals_cast"] = bool(np.array_equal(
+            host_array(Ab), host_array(amg.levels[1].A.values)))
+        del ref, Pm
+    rec = {
+        "slice": f"refine_bf16_256: poisson7 {n}^3 f32 "
+                 "ITERATIVE_REFINEMENT + PCG(8) + AMG SIZE_8 bf16 (ALL), "
+                 f"OPT_POLYNOMIAL, INEXACT on {device}",
+        "rows": A.n_rows, "nnz": A.nnz, "levels": amg.level_summary(),
+        "transfer_dtypes": [(None if lv.P is None else str(lv.P.dtype)[6:],
+                             None if lv.R is None else str(lv.R.dtype)[6:])
+                            for lv in amg.levels],
+        "poisson_scipy_s": gen_s, "upload_s": upload_s,
+        "setup_s": setup_s, "setup_profile": amg.setup_profile,
+        "setup_peak_bytes": peak,
+        "operator_bytes": bytes_by_dtype([A]),
+        "hierarchy_bytes": hierarchy_bytes(amg),
+        "first_attempt": {"status": first[0], "corrections": first[1]},
+        "corrections": corr, "status": int(res.status),
+        "last_inner_iters": inner,
+        "precision_fallbacks": s.precision_fallbacks,
+        "true_rel_residual_f64": rel, "solve_s": solve_s,
+        "solve_warm_s": warm_s,
+        "cycle_passes_per_iteration": amg.cycle_passes_per_iteration(),
+        "launches": launches, "derived_launches": derived,
+        "repeat_solve_x_bitwise": bool(np.array_equal(x,
+                                                      res2.x.numpy())),
+        **geo,
+    }
+    print(json.dumps(rec), flush=True)
+    # the bf16 hierarchy itself must reach 1e-8: a guardrail trip (a
+    # re-solve at SAME) fails the path
+    check(s.precision_fallbacks == 0 and first[0] == 0,
+          f"refine: the bf16 solve fell back (first attempt status "
+          f"{first[0]}, {s.precision_fallbacks} fallbacks)")
+    check(int(res.status) == 0, f"refine status {res.status}")
+    check(rel <= 1e-8, f"refine true relative residual {rel:.3e} > 1e-8")
+    check(inner == 8 * corr,
+          f"refine inner iterations {inner} for {corr} corrections")
+    check(all(lv.A.dtype == torch.bfloat16 for lv in amg.levels),
+          "refine: a level is not bf16")
+    check(g0 is not None and g0[3] is not None,
+          f"refine: level 0's Galerkin product did not take "
+          f"geo_galerkin_dia ({geo['geo_calls']})")
+    check(geo["coarse_vs_scipy_rap_over_max"] <= 1e-6,
+          f"refine: coarse A vs scipy RAP "
+          f"{geo['coarse_vs_scipy_rap_over_max']:.3e} x max")
+    check(geo["level1_bf16_equals_cast"],
+          "refine: level 1 is not the bf16 cast of the Galerkin product")
+    walk_a = sum(k for (_, f), k in cycle_walk(
+        amg, sweep_spmvs(amg.levels[0].smoother),
+        coarse_solve_spmvs(amg)).items() if f == "A")
+    check(walk_a == rec["cycle_passes_per_iteration"],
+          f"refine: the walk counts {walk_a} A-SpMVs a cycle, the cycle "
+          f"made {rec['cycle_passes_per_iteration']}")
+    check_variants("refine", launches, derived, device)
+    by_path = {"refine_bf16_256": launches}
+    recs = []
+    if peaks is not None:
+        trace_solve(torch, s, b, corr * per, groups=TRACE_GROUPS)
+        timer = Timer(torch)
+        l1 = amg.levels[1].A
+        x1 = torch.from_numpy(rng.standard_normal(l1.n_rows)).cuda().to(
+            torch.bfloat16)
+        recs.append(variant_case(
+            torch, timer, peaks, "dia_spmv_bf16",
+            f"refine level1 A {l1.n_rows} rows bf16", l1, x1,
+            lambda: dia.dia_spmv(l1.dia_vals, l1.dia_offsets_dev, x1),
+            lambda: dia.dia_spmv_plain(l1.dia_vals, l1.dia_offsets, x1),
+            nbytes=2 * (l1.nnz + 2 * l1.n_rows) + 4 * len(l1.dia_offsets)))
+        recs += transfer_cases(torch, timer, peaks, rng, amg, "refine",
+                               (("R", torch.bfloat16), ("R", torch.float32),
+                                ("P", torch.bfloat16)))
+    del s, res, res2, amg
+
+    if same:
+        # ---- the same solve on an f32 hierarchy; plain f32 PCG on it
+        t0 = time.perf_counter()
+        s2 = T.create_solver(T.AMGConfig.from_string(REFINE_SAME_CFG),
+                             "default", device=device)
+        s2.setup(A)
+        setup2_s = time.perf_counter() - t0
+        r2 = s2.solve(b)
+        s2.solve(b)
+        amg2 = s2.inner.precond
+        pcg = T.create_solver(T.AMGConfig.from_string(PLAIN_PCG_CFG),
+                              "default", device=device)
+        pcg.precond = amg2  # the same hierarchy, set up once
+        pcg.A, pcg._params = A, (A, amg2.apply_params())
+        rp = pcg.solve(b)
+        print(json.dumps({"refine_same_256": {
+            "setup_s": setup2_s, "solve_warm_s": s2.solve_time,
+            "corrections": int(r2.iters), "status": int(r2.status),
+            "last_inner_iters": s2.last_inner_iters,
+            "hierarchy_bytes": hierarchy_bytes(amg2),
+            "true_rel_residual_f64": rel_residual_sp(Asp, b,
+                                                     r2.x.numpy()),
+            "plain_f32_pcg": {
+                "iterations": int(rp.iters), "status": int(rp.status),
+                "monitored_rel_residual": monitored_ratio(rp),
+                "true_rel_residual_f64": rel_residual_sp(
+                    Asp, b, rp.x.cpu().numpy()),
+                "solve_s": pcg.solve_time}}}), flush=True)
+        check(int(r2.status) == 0, f"refine SAME status {r2.status}")
+        del s2, r2, amg2, pcg, rp
+    del A, Asp
+
+    # ---- card against the CPU port
+    def run(cfg, dev, m, dtype):
+        Am = SparseMatrix.from_scipy(poisson_scipy((m, m, m)).astype(dtype),
+                                     device=dev)
+        bm = poisson_rhs(Am.n_rows, dtype=dtype)
+        sm = T.create_solver(T.AMGConfig.from_string(cfg), "default",
+                             device=dev)
+        sm.setup(Am)
+        return sm, sm.solve(bm), bm
+
+    def card_cpu(label, cfg, dtype, x_tol=None, count=False):
+        if count:
+            zero_counts()
+        sg, rg, bg = run(cfg, device, n_cmp, dtype)
+        got = variant_counts()
+        sc, rc, _ = run(cfg, "cpu", n_cmp, dtype)
+        Am = poisson_scipy((n_cmp,) * 3)
+        xg, xc = rg.x.numpy(), rc.x.numpy()
+        d = float(np.abs(xg - xc).max())
+        out = {"n": n_cmp, "corrections": int(rg.iters),
+               "cpu_corrections": int(rc.iters), "status": int(rg.status),
+               "cpu_status": int(rc.status),
+               "true_rel_residual_f64": rel_residual_sp(Am, bg, xg),
+               "cpu_true_rel_residual_f64": rel_residual_sp(Am, bg, xc),
+               "max_abs_diff_vs_cpu": d, "x_inf": float(np.abs(xc).max()),
+               "levels": [(lv.n_rows, str(lv.A.dtype)[6:],
+                           None if lv.R is None else str(lv.R.dtype)[6:])
+                          for lv in sg.inner.precond.levels],
+               "precision_fallbacks": sg.precision_fallbacks}
+        print(json.dumps({label: out}), flush=True)
+        check(out["status"] == 0 and out["cpu_status"] == 0,
+              f"{label}: status card {rg.status} cpu {rc.status}")
+        check(sg.precision_fallbacks == 0 and sc.precision_fallbacks == 0,
+              f"{label}: fallbacks card {sg.precision_fallbacks} cpu "
+              f"{sc.precision_fallbacks}")
+        check(abs(out["corrections"] - out["cpu_corrections"]) <= 1,
+              f"{label}: corrections card {rg.iters} cpu {rc.iters}")
+        check(max(out["true_rel_residual_f64"],
+                  out["cpu_true_rel_residual_f64"]) <= 1e-8,
+              f"{label}: true residual above 1e-8 ({out})")
+        if x_tol is not None:
+            check(d <= x_tol * out["x_inf"],
+                  f"{label}: x card vs cpu max abs diff {d:.3e}")
+        if count:
+            corr_g = int(rg.iters)
+            der = derived_variant_launches(
+                sg.inner.precond, 9 * corr_g,
+                top=((sg.A, sg.A.dtype, 9 * corr_g),), setup_spmvs=20,
+                coarse_setup_spmvs=20)
+            check_variants(label, got, der, device)
+        return got, sg
+
+    card_cpu(f"refine_bf16_{n_cmp}^3_f32_vs_cpu", REFINE_BF16_CFG,
+             np.float32)
+    card_cpu(f"cheap_{n_cmp}^3_f64_vs_cpu", CHEAP_CFG, np.float64,
+             x_tol=1e-7)
+    got, sg = card_cpu(f"cheap_coarse_{n_cmp}^3_f64_vs_cpu",
+                       CHEAP_COARSE_CFG, np.float64, x_tol=1e-7,
+                       count=True)
+    by_path["refine_f32_coarse_f64"] = got
+    if peaks is not None:
+        recs += transfer_cases(torch, Timer(torch), peaks, rng,
+                               sg.inner.precond, f"cheap_coarse {n_cmp}^3",
+                               (("R", torch.float64),))
+    return by_path, recs
+
+
+def mf_bf16_phase(torch, peaks=None, device="cuda", n=SLICE_N):
+    """mf_bf16: the bench config with a bf16 hierarchy (ALL) at ``n``^3
+    f32, ``matrix_free`` 0 then 1 (the operator uploaded with the
+    MATRIX_FREE format): every coarse A-SpMV on the DIA kernel's bf16
+    instantiation, then the stencil kernel's; launches per entry point
+    as derived; x bit for bit between the two; the level-0 stencil in
+    bf16 against its plain version and the DIA kernel.  Returns
+    ({path: launches}, kernel records)."""
+    from amgx_tpu_torch.ops import dia, stencil
+
+    out, xs, recs = {}, [], []
+    for mf in (0, 1):
+        cfg = MF_BF16_CFG.replace('"cycle": "V",',
+                                  f'"cycle": "V", "matrix_free": {mf},')
+        zero_counts()
+        s, res, setup_s, b, upload_s = solve_on(
+            device, cfg, n, np.float32,
+            accel_formats=MF_FORMATS if mf else None)
+        launches = variant_counts()
+        amg = s.precond
+        iters = int(res.iters)
+        derived = derived_variant_launches(
+            amg, iters + 1, top=((s.A, s.A.dtype, iters + 1),))
+        rec, x = path_record(f"mf_bf16 matrix_free={mf}", s, res, b, n,
+                             launches, derived, setup_s, upload_s, amg,
+                             walk_check=not mf)
+        rec["hierarchy_bytes"] = hierarchy_bytes(amg)
+        print(json.dumps({"slice": f"mf_bf16: poisson7 {n}^3 f32 bench "
+                          f"PCG + AMG bf16 (ALL) matrix_free={mf} on "
+                          f"{device}", **rec}), flush=True)
+        check(all(lv.A.dtype == torch.bfloat16 for lv in amg.levels),
+              "mf_bf16: a level is not bf16")
+        check_variants(f"mf_bf16 matrix_free={mf}", launches, derived,
+                       device)
+        out[f"mf_bf16_{mf}"] = launches
+        xs.append(x)
+        if mf and peaks is not None:
+            A0 = amg.levels[0].A
+            check(A0.has_matrix_free, "mf_bf16: level 0 not MATRIX_FREE")
+            D0 = A0.__class__.from_scipy(
+                A0.host_csr(), device="cuda",
+                accel_formats=("dia",)).astype(torch.bfloat16)
+            rng = np.random.default_rng(12)
+            x0 = torch.from_numpy(rng.standard_normal(A0.n_rows)).cuda(
+            ).to(torch.bfloat16)
+            y_st = stencil.stencil_spmv(A0, x0)
+            y_dia = dia.dia_spmv(D0.dia_vals, D0.dia_offsets_dev, x0)
+            torch.cuda.synchronize()
+            check(torch.equal(y_st, y_dia),
+                  "mf_bf16: stencil vs DIA kernel in bf16 not bit for bit")
+            recs.append(variant_case(
+                torch, Timer(torch), peaks, "stencil_spmv_bf16",
+                f"mf_bf16 level0 A {n}^3 bf16", A0, x0,
+                lambda: stencil.stencil_spmv(A0, x0),
+                lambda: stencil.stencil_spmv_plain(A0.mf_meta, A0.mf_coefs,
+                                                   x0),
+                nbytes=2 * 2 * A0.n_rows + 2 * len(A0.mf_meta.steps)))
+        del s, res
+    check(np.array_equal(xs[0], xs[1]),
+          "mf_bf16: matrix_free=1 x is not the matrix_free=0 x bit for "
+          f"bit (max abs diff {float(np.abs(xs[0] - xs[1]).max()):.3e})")
+    return out, recs
+
+
+def classical_bf16_phase(torch, peaks=None, device="cuda", n=96,
+                         n_cpu=96):
+    """classical_bf16: PCG_CLASSICAL with a bf16 hierarchy (COARSE) at
+    ``n``^3 f32, setup on ``device``: the sliced ELL kernel's bf16
+    instantiation on the coarse A, the level-0 R's (bf16, f32) one, the
+    CSR products of the bf16 P; launches per entry point as derived;
+    the CPU port at ``n_cpu``^3 (iterations within one); every sliced
+    bf16 operator of the hierarchy (one lane a row) and the level-0 R
+    against their plain versions, bit for bit.  Returns
+    ({path: launches}, kernel records)."""
+    from amgx_tpu_torch.ops import ell
+
+    cfg = CLASSICAL_BF16_CFG
+    zero_counts()
+    s, res, setup_s, b, upload_s = solve_on(device, cfg, n, np.float32)
+    launches = variant_counts()
+    amg = s.precond
+    iters = int(res.iters)
+    derived = derived_variant_launches(
+        amg, iters + 1, top=((s.A, s.A.dtype, iters + 1),))
+    rec, _ = path_record("classical_bf16", s, res, b, n, launches, derived,
+                         setup_s, upload_s, amg)
+    rec["hierarchy_bytes"] = hierarchy_bytes(amg)
+    rec["transfer_formats"] = [
+        (None if lv.P is None else (lv.P.format, str(lv.P.dtype)[6:],
+                                    lv.P.sell is not None),
+         None if lv.R is None else (lv.R.format, str(lv.R.dtype)[6:],
+                                    lv.R.sell is not None))
+        for lv in amg.levels]
+    print(json.dumps({"slice": f"classical_bf16: poisson7 {n}^3 f32 "
+                      "PCG_CLASSICAL + bf16 hierarchy (COARSE) on "
+                      f"{device}", **rec}), flush=True)
+    check_variants("classical_bf16", launches, derived, device)
+    recs = []
+    if peaks is not None:
+        check(launches.get("sell_spmv_bf16", 0) > 0
+              and launches.get("ell_spmv_bf16_f32", 0) > 0,
+              f"classical_bf16: launches {launches}")
+        timer = Timer(torch)
+        rng = np.random.default_rng(13)
+        # every sliced bf16 operator of the hierarchy, at its own plan
+        # (one lane a row), bit for bit its plain version
+        sliced = []
+        for i, lv in enumerate(amg.levels):
+            for f in ("A", "P", "R"):
+                m = getattr(lv, f)
+                if m is None or m.sell is None \
+                        or m.dtype != torch.bfloat16:
+                    continue
+                xm = torch.from_numpy(rng.standard_normal(
+                    m.n_cols)).cuda().to(torch.bfloat16)
+                y = ell.sell_spmv(m.sell, xm)
+                yp = ell.sell_spmv_plain(m.sell, xm)
+                torch.cuda.synchronize()
+                sliced.append((i, f, m.n_rows, m.sell.lanes,
+                               bool(torch.equal(y, yp))))
+        print(json.dumps({"classical_bf16_sliced_vs_plain": sliced}),
+              flush=True)
+        check(len(sliced) >= 1 and all(c[4] for c in sliced),
+              f"classical_bf16: sliced bf16 kernel vs plain {sliced}")
+        l1 = amg.levels[1].A
+        check(l1.sell is not None and l1.dtype == torch.bfloat16,
+              "classical_bf16: level-1 A not sliced bf16")
+        x1 = torch.from_numpy(rng.standard_normal(l1.n_rows)).cuda().to(
+            torch.bfloat16)
+        recs.append(variant_case(
+            torch, timer, peaks, "sell_spmv_bf16",
+            f"classical_bf16 level1 A {l1.n_rows} rows bf16 "
+            f"(lanes {l1.sell.lanes})", l1, x1,
+            lambda: ell.sell_spmv(l1.sell, x1),
+            lambda: ell.sell_spmv_plain(l1.sell, x1),
+            nbytes=6 * l1.nnz + 2 * 2 * l1.n_rows))
+        recs += transfer_cases(torch, timer, peaks, rng, amg,
+                               "classical_bf16", (("R", torch.float32),))
+    del s, res
+    sc, rc, setup_c, bc, _ = solve_on("cpu", cfg, n_cpu, np.float32)
+    print(json.dumps({"classical_bf16_cpu": {
+        "n": n_cpu, "iterations": int(rc.iters), "status": int(rc.status),
+        "setup_s": setup_c, "solve_s": sc.solve_time,
+        "true_rel_residual_f64": true_rel_residual(n_cpu, bc,
+                                                   rc.x.numpy())}}),
+          flush=True)
+    check(int(rc.status) == 0, f"classical_bf16 cpu status {rc.status}")
+    check(abs(int(rc.iters) - iters) <= 1 or n_cpu != n,
+          f"classical_bf16 iterations card {iters} vs cpu {rc.iters}")
+    return {"classical_bf16": launches}, recs
+
+
+def device_match_phase(torch, device="cuda", n=SLICE_N, n_f64=64):
+    """device_match: the device matcher against the host one on the
+    ``n``^3 Poisson weight graph and a shuffled Poisson (aggregates
+    bit for bit, both timed); PCG + SIZE_2 aggregation by matching at
+    ``n``^3 f32 on ``device`` (every pass over 16,384 rows or more on
+    the device, launches as derived); ``n_f64``^3 f64 against the CPU
+    port and its host matcher (the same aggregates per level,
+    iterations equal, x to rtol 1e-9).  Returns {path: launches}."""
+    from amgx_tpu_torch.amg import aggregation as ag
+    from amgx_tpu_torch.io.poisson import poisson_scipy
+
+    for label, Asp in (("poisson", poisson_scipy((n, n, n))),
+                       ("shuffled", shuffled_poisson(n))):
+        W = ag.edge_weights(Asp.tocsr())
+        t0 = time.perf_counter()
+        h = ag.pairwise_match(W)
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d = ag.pairwise_match_device(W, device=device)
+        device_s = time.perf_counter() - t0
+        print(json.dumps({"device_match": {
+            "graph": f"{label} {n}^3", "rows": W.shape[0], "edges": W.nnz,
+            "aggregates": int(h.max()) + 1, "host_s": host_s,
+            "device_s": device_s, "bitwise": bool(np.array_equal(h, d))}}),
+            flush=True)
+        check(np.array_equal(h, d),
+              f"device_match {label}: aggregates differ from the host's")
+        del W, h, d, Asp
+
+    calls = []
+    real = ag.pairwise_match_device
+    real_host = ag.pairwise_match
+
+    def spy(W, *a, **kw):
+        calls.append(("device", W.shape[0]))
+        return real(W, *a, **kw)
+
+    def spy_host(W, *a, **kw):
+        calls.append(("host", W.shape[0]))
+        return real_host(W, *a, **kw)
+
+    ag.pairwise_match_device, ag.pairwise_match = spy, spy_host
+    try:
+        zero_counts()
+        s, res, setup_s, b, upload_s = solve_on(device, SIZE2_MATCH_CFG, n,
+                                                np.float32)
+        launches = variant_counts()
+    finally:
+        ag.pairwise_match_device, ag.pairwise_match = real, real_host
+    # the device matcher's own fallback calls the host one: count the
+    # outermost call of each pass only
+    outer = [c for i, c in enumerate(calls)
+             if not (c[0] == "host" and i and calls[i - 1] == ("device",
+                                                               c[1]))]
+    amg = s.precond
+    iters = int(res.iters)
+    derived = derived_variant_launches(
+        amg, iters + 1, top=((s.A, s.A.dtype, iters + 1),))
+    rec, _ = path_record("device_match SIZE_2", s, res, b, n, launches,
+                         derived, setup_s, upload_s, amg)
+    rec["matching_calls"] = outer
+    print(json.dumps({"slice": f"device_match: poisson7 {n}^3 f32 PCG + "
+                      "AMG SIZE_2 by matching, BLOCK_JACOBI, DENSE_LU on "
+                      f"{device}", **rec}), flush=True)
+    big = [c for c in outer if c[1] >= ag._DEVICE_MATCH_MIN_ROWS]
+    check(big and all(c[0] == ("device" if device == "cuda" else "host")
+                      for c in big),
+          f"device_match: passes over 16,384 rows not all on the device: "
+          f"{outer}")
+    check_variants("device_match", launches, derived, device)
+    del s, res
+
+    def run(dev):
+        sg, rg, _, bg, _ = solve_on(dev, SIZE2_MATCH_CFG, n_f64,
+                                    np.float64)
+        return sg, rg, true_rel_residual(n_f64, bg, rg.x.cpu().numpy())
+
+    sg, sc = f64_vs_cpu(f"device_match_{n_f64}^3", run, device)
+    lg, lc = sg.precond.levels, sc.precond.levels
+    check(len(lg) == len(lc), f"device_match f64: {len(lg)} levels vs "
+          f"{len(lc)}")
+    for a, c in zip(lg[:-1], lc[:-1]):
+        pa, pc = a.P.host_csr(), c.P.host_csr()
+        check(np.array_equal(pa.indices, pc.indices)
+              and np.array_equal(pa.indptr, pc.indptr),
+              f"device_match f64: level {a.level_id} aggregates differ")
+    return {"device_match": launches}
+
+
 def main():
     import torch
 
@@ -2819,6 +3650,16 @@ def main():
                         ("amg_classical_kcycle", kcycle_phase),
                         ("pcg_agg_resetup", resetup_phase)):
         by_path[name] = timed(name, phase, torch)
+    # the reduced-precision paths: launches per entry point
+    variants_by_path = {}
+    for name, phase in (("refine_bf16_256", refine_phase),
+                        ("mf_bf16", mf_bf16_phase),
+                        ("classical_bf16", classical_bf16_phase)):
+        got, v_recs = timed(name, phase, torch, peaks)
+        variants_by_path.update(got)
+        recs += v_recs
+    variants_by_path.update(timed("device_match", device_match_phase,
+                                  torch))
 
     # each kernel: the path whose count is its ``launches``, the case
     # whose times the summary gives, its source and the TPU kernel
@@ -2873,6 +3714,23 @@ def main():
             "library_ms": rec["library_ms"], "case": rec["case"],
             "launches_path": path,
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
+        })
+    for name, (source, replaces, path, case) in VARIANTS.items():
+        rec = next((r for r in recs if r["kernel"] == name
+                    and r["case"].startswith(case)), None)
+        check(rec is not None, f"no kernel case of {name}")
+        got = variants_by_path[path].get(name, 0)
+        check(got > 0, f"{name} never launched on its main path ({path})")
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": got,
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "case": rec["case"],
+            "launches_path": path,
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in variants_by_path.items()},
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -217,11 +217,25 @@ def test_matching_aggregation_matches_jax():
      ' "hierarchy_dtype": "FLOAT32"', "hierarchy_dtype"),
 ])
 def test_unported_amg_options_raise(extra, match):
-    cfg_text = _amg_cfg(extra=extra)
-    s = T.create_solver(T.AMGConfig.from_string(cfg_text), "default",
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        s.setup(t_poisson(6, device="cpu"))
+    """These configs raised NotImplementedError until the
+    reduced-precision slice ported ``hierarchy_dtype``: each now sets
+    up and solves, with every coarse level (``level_dtype_policy``
+    COARSE, the default) and every transfer in the dtype ``match``
+    names, and the finest level in the operator's."""
+    cfg = T.AMGConfig.from_string(_amg_cfg(extra=extra))
+    s = T.create_solver(cfg, "default", device="cpu")
+    A = t_poisson(6, device="cpu")
+    s.setup(A)
+    want = {"BFLOAT16": torch.bfloat16, "BF16": torch.bfloat16,
+            "FLOAT32": torch.float32}[cfg.get(match, "amg")]
+    amg = s.precond
+    assert amg.levels[0].A.dtype == A.dtype
+    for lvl in amg.levels[1:]:
+        assert lvl.A.dtype == want
+    for lvl in amg.levels[:-1]:
+        assert (lvl.P.dtype, lvl.R.dtype) == (want, want)
+    res = s.solve(poisson_rhs(A.n_rows, dtype=np.float64))
+    assert res.status == 0 and res.x.dtype == A.dtype
 
 
 def test_printed_stats_match_jax(capsys):

@@ -63,6 +63,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sys, amgx_tpu_torch, amgx_tpu_torch.amg.aggregation\n"
         "import amgx_tpu_torch.amg.device_setup, amgx_tpu_torch.amg.energymin\n"
         "import amgx_tpu_torch.io.matrix_market, amgx_tpu_torch.ops.reorder\n"
+        "import amgx_tpu_torch.ops.ff, amgx_tpu_torch.solvers.refinement\n"
+        "import amgx_tpu_torch.amg.spgemm, amgx_tpu_torch.core.types\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'amgx_tpu'\n"
         "             or m.startswith('amgx_tpu.'))\n"

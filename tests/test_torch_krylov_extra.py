@@ -315,15 +315,12 @@ def test_name_list_is_the_jax_registry():
 
 @pytest.mark.parametrize("name", JAX_NAMES)
 def test_every_jax_solver_name_resolves(name):
-    """Every name the JAX package registers resolves in the port, but
-    ITERATIVE_REFINEMENT, which raises naming ROADMAP.md queue A4."""
+    """Every name the JAX package registers resolves in the port,
+    ITERATIVE_REFINEMENT included since the reduced-precision slice:
+    nothing is left in ``UNPORTED``."""
     from amgx_tpu_torch.solvers.registry import UNPORTED, SolverRegistry
 
-    if name == "ITERATIVE_REFINEMENT":
-        assert UNPORTED == {name}
-        with pytest.raises(NotImplementedError, match="queue A4"):
-            SolverRegistry.get(name)
-        return
+    assert not UNPORTED
     cls = SolverRegistry.get(name)
     # DENSE_LU is an alias of DENSE_LU_SOLVER in both packages
     assert cls.registry_name == name or (

@@ -174,11 +174,20 @@ def test_fault_injection_unported(monkeypatch):
 
 
 def test_iterative_refinement_still_raises():
-    """The one JAX-registered name the port lacks: its message names the
-    queue that ports it with reduced-precision hierarchies."""
+    """ITERATIVE_REFINEMENT is ported with the reduced-precision slice:
+    around a Jacobi inner solver it now builds and solves; what still
+    raises is a refinement without an inner solver, as in the JAX
+    package."""
     cfg = T.AMGConfig.from_string(_cfg("ITERATIVE_REFINEMENT", JACOBI_PREC))
-    with pytest.raises(NotImplementedError, match="queue A4"):
-        T.create_solver(cfg, "default", device="cpu")
+    s = T.create_solver(cfg, "default", device="cpu")
+    A = TMatrix.from_scipy(poisson_scipy((4, 4)), device="cpu")
+    s.setup(A)
+    b = np.ones(16)
+    res = s.solve(b)
+    assert res.x.dtype == torch.float64 and res.iters >= 1
+    with pytest.raises(ValueError, match="inner solver"):
+        T.create_solver(T.AMGConfig.from_string(_cfg(
+            "ITERATIVE_REFINEMENT")), "default", device="cpu")
 
 
 @pytest.mark.parametrize("name", ["MULTICOLOR_ILU", "MULTICOLOR_DILU"])

@@ -276,7 +276,8 @@ _PLAN_GRIDS = {
 }
 
 
-@pytest.mark.parametrize("vec", [1, 2, 4])
+# 16-byte vectors: 2 points in f64, 4 in f32, 8 in bf16
+@pytest.mark.parametrize("vec", [1, 2, 4, 8])
 @pytest.mark.parametrize("sms", [tst.H100_SMS, 16])
 @pytest.mark.parametrize("case", sorted(_PLAN_GRIDS))
 def test_stencil_launch_plan_covers_every_row_once(case, sms, vec):
