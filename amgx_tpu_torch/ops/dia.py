@@ -1,4 +1,5 @@
-"""DIA SpMV: the CUDA kernel ``csrc/dia_spmv.cu`` and its plain version.
+"""DIA SpMV: the CUDA kernel ``csrc/dia_spmv.cu``, its launch plan and
+its plain version.
 
 Counterpart of the JAX package's ``ops/pallas_dia.py`` (Pallas kernel)
 and ``ops/spmv.py:_spmv_dia`` (its XLA version).  A CPU tensor takes
@@ -6,6 +7,11 @@ the plain version; a CUDA tensor takes the kernel or raises — there is
 no fallback between the two.  The TPU gates (``_MIN_ROWS``,
 ``_HALO_MAX``) are not carried over: every f32, f64 and bf16 DIA
 matrix on the card goes through the kernel.
+
+The wrapper takes the offsets as host ints (``A.dia_offsets``) and
+hands them to the kernel by value, in the packed
+:func:`dia_launch_plan` (cached per shape), so that a launch reads
+nothing back from the card and the kernel loads no offset.
 
 Dtypes: y has JAX's promoted dtype of the planes and x
 (``torch.promote_types``, which agrees with ``jnp.result_type`` on
@@ -22,6 +28,10 @@ operators meet (``csrc/dtypes.cuh``); another pair on the card raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple, Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -29,6 +39,97 @@ from amgx_tpu_torch.ops import kernels
 
 launches = 0
 variant_launches: dict = {}
+# the kernel takes at most this many offsets by value (the format's own
+# limit, core/matrix.py _DIA_MAX_DIAGS)
+MAX_DIAGS = 48
+# threads per block (the kernel's __launch_bounds__) and the SMs of an
+# H100 SXM (the wrapper reads the card's)
+PLAN_THREADS = 256
+H100_SMS = 132
+# bytes of each plane a thread loads as one vector.  The kernel takes
+# up to 16; 8 measured faster on the H100 (ci/torch_dia_compare.py
+# --sweep, PERF.md): at 16 the bf16 kernel holds 96 registers a thread
+# and two blocks an SM, at 8 it holds 63 and four, and hides more of
+# the loads' latency
+VEC_BYTES = 8
+
+
+class DiaPlan(NamedTuple):
+    """Launch geometry of the DIA kernel.
+
+    Thread t of block b computes rows i0 .. i0 + vec - 1 with i0 =
+    (b * threads + t) * vec (none where i0 >= n): ``vec`` rows, one
+    vector of every plane.  ``nd_inst`` names the kernel: 7 has the
+    diagonal count compiled in, 0 reads it at run time (up to
+    MAX_DIAGS).  ``offsets`` go to the kernel by value."""
+
+    n: int
+    offsets: Tuple[int, ...]
+    vec: int
+    nd_inst: int
+    threads: int
+    blocks: int
+
+
+def dia_launch_plan(n, offsets, dtype, sms=H100_SMS, align=16):
+    """The kernel's :class:`DiaPlan` for ``n`` rows, the sorted host
+    ``offsets`` and values of ``dtype``, on a card of ``sms`` SMs, for
+    pointers aligned to ``align`` bytes.
+
+    ``vec`` starts at one VEC_BYTES vector of every plane (4 rows in
+    bf16, 2 in f32, 1 in f64): plane k starts k * n values in, so every
+    plane is aligned where n is a multiple; else it is the largest
+    power of two that divides n (and the pointers' alignment).  Then it
+    halves while the grid would give some SM no block, so that a small
+    level keeps every SM loading.  The 7-diagonal operators take the
+    kernel with that count compiled in; any other count up to MAX_DIAGS
+    the runtime one."""
+    n = int(n)
+    offsets = tuple(int(o) for o in offsets)
+    nd = len(offsets)
+    if n < 1 or not 1 <= nd <= MAX_DIAGS:
+        raise ValueError(f"dia_launch_plan: {n} rows, {nd} diagonals; the "
+                         f"kernel takes 1 to {MAX_DIAGS}")
+    if any(not -n < o < n for o in offsets):
+        raise ValueError(f"dia_launch_plan: offsets {offsets} reach past "
+                         f"{n} rows")
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = max(1, VEC_BYTES // size)
+    while vec > 1 and (n % vec or align % (vec * size)):
+        vec //= 2
+    while vec > 1 and -(-n // (vec * PLAN_THREADS)) < sms:
+        vec //= 2
+    return DiaPlan(n=n, offsets=offsets, vec=vec,
+                   nd_inst=7 if nd == 7 else 0, threads=PLAN_THREADS,
+                   blocks=-(-n // (vec * PLAN_THREADS)))
+
+
+def pack_plan(plan: DiaPlan):
+    """The launcher's host int array for ``plan``: nd, nd_inst, vec,
+    threads, blocks, then the offsets (``csrc/dia_spmv.cu``)."""
+    vals = (len(plan.offsets), plan.nd_inst, plan.vec, plan.threads,
+            plan.blocks, *plan.offsets)
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(n, offsets, dtype, align, device_index):
+    """:func:`pack_plan` of :func:`dia_launch_plan` for the card's SMs,
+    and the array's address; the cache keeps the array alive."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    arr = pack_plan(dia_launch_plan(n, offsets, dtype, sms, align))
+    return arr, ctypes.addressof(arr)
+
+
+def _host_offsets(offsets):
+    """The offsets as a tuple of ints; a tensor off the CPU raises
+    rather than being read back from the card."""
+    if isinstance(offsets, torch.Tensor) and offsets.device.type != "cpu":
+        raise ValueError(
+            f"dia_spmv: offsets on {offsets.device}; pass the host ints "
+            "(A.dia_offsets)"
+        )
+    return tuple(int(o) for o in offsets)
 
 
 def dia_spmv_plain(dia_vals, offsets, x):
@@ -50,20 +151,23 @@ def dia_spmv_plain(dia_vals, offsets, x):
 def dia_spmv(dia_vals, offsets, x):
     """y = A @ x for a square DIA matrix.
 
-    ``dia_vals`` (nd, n), ``offsets`` an int32 tensor of nd sorted
-    offsets on the same device, ``x`` (n,)."""
+    ``dia_vals`` (nd, n), ``offsets`` its nd sorted offsets as host ints
+    (``A.dia_offsets``; a CPU tensor is read, one on the card raises),
+    ``x`` (n,)."""
     global launches
-    if x.device.type == "cpu":
-        return dia_spmv_plain(dia_vals, offsets.tolist(), x)
     nd, n = dia_vals.shape if dia_vals.dim() == 2 else (None, None)
     if nd is None or x.shape != (n,):
         raise ValueError(
             f"dia_spmv: dia_vals {tuple(dia_vals.shape)} and x "
             f"{tuple(x.shape)} do not form a square DIA product"
         )
-    if x.device.type != "cuda" or any(
-        t.device != x.device for t in (dia_vals, offsets)
-    ):
+    if len(offsets) != nd:
+        raise ValueError(
+            f"dia_spmv: {len(offsets)} offsets for {nd} diagonal planes"
+        )
+    if x.device.type == "cpu":
+        return dia_spmv_plain(dia_vals, _host_offsets(offsets), x)
+    if x.device.type != "cuda" or dia_vals.device != x.device:
         raise ValueError("dia_spmv: all tensors must be on one CUDA device")
     if x.device.index != torch.cuda.current_device():
         raise ValueError(
@@ -77,21 +181,18 @@ def dia_spmv(dia_vals, offsets, x):
             "takes float32, float64 or bfloat16 planes with x of their "
             "dtype"
         )
-    if offsets.dtype != torch.int32 or offsets.shape != (nd,):
-        raise ValueError(
-            f"dia_spmv: offsets must be int32 of shape ({nd},), got "
-            f"{offsets.dtype} {tuple(offsets.shape)}"
-        )
-    if not (dia_vals.is_contiguous() and x.is_contiguous()
-            and offsets.is_contiguous()):
+    if not (dia_vals.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_spmv: inputs must be contiguous")
-    y = torch.empty(n, dtype=torch.promote_types(dia_vals.dtype, x.dtype),
-                    device=x.device)
+    offs = _host_offsets(offsets)
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
+    ptrs = dia_vals.data_ptr() | x.data_ptr() | y.data_ptr()
+    _, args = _launch_args(n, offs, x.dtype, min(16, ptrs & -ptrs),
+                           x.device.index)
     fn = getattr(kernels.library("dia_spmv"), entry)
-    rc = fn(dia_vals.data_ptr(), offsets.data_ptr(), nd, x.data_ptr(),
-            y.data_ptr(), n, kernels.stream_handle(x.device))
+    rc = fn(dia_vals.data_ptr(), x.data_ptr(), y.data_ptr(), n, args,
+            kernels.stream_handle(x.device))
     kernels.check_launch("dia_spmv", rc)
     launches += 1
     variant_launches[entry] = variant_launches.get(entry, 0) + 1

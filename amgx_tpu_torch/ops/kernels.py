@@ -36,20 +36,21 @@ NVCC_FLAGS = (
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # every pointer and the stream as c_void_p so ctypes passes 64 bits.
-# DIA and ELL: (pointer, pointer, int, x, y, rows, stream); sliced ELL:
-# (cols, vals, offsets, widths, row permutation or None, slices, lanes,
-# x, y, rows, stream); stencil:
-# (coefs, x, y, host int array of the grid, the launch plan and the
-# steps, stream).  An entry point is named for its value dtype, then
-# for x's where that differs (``ell_spmv_bf16_f32``: bf16 values, f32
-# x, f32 y)
-_DIA = (_P, _P, _I, _P, _P, _LL, _P)
+# DIA: (vals, x, y, rows, host int array of the launch plan and the
+# offsets, stream); ELL: (cols, vals, width, x, y, rows, stream); sliced
+# ELL: (cols, vals, offsets, widths, row permutation or None, slices,
+# lanes, x, y, rows, stream); stencil: (coefs, x, y, host int array of
+# the grid, the launch plan and the steps, stream).  An entry point is
+# named for its value dtype, then for x's where that differs
+# (``ell_spmv_bf16_f32``: bf16 values, f32 x, f32 y)
+_DIA = (_P, _P, _P, _LL, _P, _P)
+_ELL = (_P, _P, _I, _P, _P, _LL, _P)
 _SELL = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _P)
 _STENCIL = (_P, _P, _P, _P, _P)
 _SIGNATURES = {
     "dia_spmv": {f"dia_spmv_{t}": _DIA for t in ("f32", "f64", "bf16")},
     "ell_spmv": {
-        **{f"ell_spmv_{t}": _DIA
+        **{f"ell_spmv_{t}": _ELL
            for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
         **{f"sell_spmv_{t}": _SELL for t in ("f32", "f64", "bf16")},
     },

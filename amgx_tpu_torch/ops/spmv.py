@@ -61,7 +61,7 @@ def _spmv_scalar(A, x):
     if A.has_matrix_free:
         return stencil_spmv(A, x)
     if A.has_dia:
-        return dia_spmv(A.dia_vals, A.dia_offsets_dev, x)
+        return dia_spmv(A.dia_vals, A.dia_offsets, x)
     if A.has_dense:
         dt = torch.promote_types(A.dense.dtype, x.dtype)
         return torch.matmul(A.dense.to(dt), x.to(dt))

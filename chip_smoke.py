@@ -22,7 +22,14 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (profiler), and the roofline bound from this run's bytes and
    operations (counted from the operator's nonzeros, not from padded
    slots).  First, the floor of one event-bracketed launch (an
-   empty kernel).  Each stencil case prints its launch plan, checks
+   empty kernel).  Each DIA case prints the kernel's launch plan
+   (``ops/dia.py:dia_launch_plan``) and checks the instantiation it
+   names; the DIA cases sit where the launches fall: the bench
+   hierarchy's levels 0-2 and 8^3, a SIZE_2 level of
+   FGMRES_AGGREGATION, the f64 operators, rows not a multiple of 8 (odd,
+   and 2 mod 4 in bf16), the runtime-count kernel at 27 and 48
+   diagonals, and bf16 edge inputs (subnormals, -0.0, inf in x) held
+   bit for bit.  Each stencil case prints its launch plan, checks
    that the plan takes the kernel meant for the stencil (the star's,
    the box-subset one or the runtime-count one) and is held bit for bit
    against the DIA kernel on the same matrix, whose times are printed
@@ -139,7 +146,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    scipy's R A P), setup phases, bytes by dtype, corrections, inner
    iterations and fallbacks (none allowed), the true residual at 1e-8, launches per
    kernel entry point against the walk, first and warm solve, a trace,
-   the bf16 DIA and transfer kernels at their shapes; the same solve
+   the bf16 DIA kernel at the level-1 and level-0 A (with their plans)
+   and the transfer kernels at their shapes; the same solve
    on an f32 hierarchy and plain f32 PCG on it (where its true residual
    stalls); card against the CPU port at 64^3: the path's config in
    f32, CHEAP_PRECONDITIONER_CONFIG verbatim in f64, and under COARSE
@@ -666,7 +674,34 @@ def kernel_phase(torch, peaks):
     rng = np.random.default_rng(0)
     recs = []
 
-    def dia_case(label, sp, dtype):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def dia_plan(A, nd_inst=None):
+        """The launch plan the wrapper takes for A (x and y 16-byte
+        aligned), printed with the case; ``nd_inst`` the kernel it must
+        name."""
+        plan = dia.dia_launch_plan(A.n_rows, A.dia_offsets, A.dtype, sms)
+        want = 7 if len(A.dia_offsets) == 7 else 0
+        check(plan.nd_inst == want and (nd_inst is None
+                                        or plan.nd_inst == nd_inst),
+              f"DIA plan takes kernel {plan.nd_inst}, not {want}")
+        return {k: v for k, v in plan._asdict().items() if k != "offsets"}
+
+    def dia_case(label, sp, dtype, nd_inst=None):
+        if dtype == "bfloat16":
+            A = SparseMatrix.from_scipy(
+                sp.astype(np.float32), device="cuda",
+                accel_formats=("dia",)).astype(torch.bfloat16)
+            check(A.has_dia, f"{label}: not DIA")
+            x = torch.from_numpy(rng.standard_normal(A.n_rows)).cuda().to(
+                torch.bfloat16)
+            recs.append(variant_case(
+                torch, timer, peaks, "dia_spmv_bf16", label, A, x,
+                lambda: dia.dia_spmv(A.dia_vals, A.dia_offsets, x),
+                lambda: dia.dia_spmv_plain(A.dia_vals, A.dia_offsets, x),
+                nbytes=2 * (A.nnz + 2 * A.n_rows) + 4 * len(A.dia_offsets),
+                extra={"plan": dia_plan(A, nd_inst)}))
+            return
         A = SparseMatrix.from_scipy(sp.astype(dtype), device="cuda",
                                     accel_formats=("dia",))
         check(A.has_dia, f"{label}: not DIA")
@@ -678,11 +713,13 @@ def kernel_phase(torch, peaks):
         ro, ci, vals, shape = csr_of(torch, sp, dtype)
         recs.append(kernel_case(
             torch, timer, peaks, "dia_spmv", label,
-            lambda: dia.dia_spmv(A.dia_vals, A.dia_offsets_dev, x),
+            lambda: dia.dia_spmv(A.dia_vals, A.dia_offsets, x),
             lambda: dia.dia_spmv_plain(A.dia_vals, A.dia_offsets, x),
             (ro, ci, vals, shape, x),
             nbytes=isz * (nz + 2 * n) + 4 * nd, nops=2 * nz,
-            dtype=A.dia_vals.dtype, extra={"nonzeros": nz},
+            dtype=A.dia_vals.dtype,
+            extra={"nonzeros": nz, "diagonals": nd,
+                   "plan": dia_plan(A, nd_inst)},
         ))
 
     def ell_case(label, sp, dtype, ref_ms=None):
@@ -695,8 +732,6 @@ def kernel_phase(torch, peaks):
                 "case": label, "ms": ms, "perf_md_ms": ref_ms,
                 "within_3_percent": ms <= 1.03 * ref_ms}}), flush=True)
         recs.extend(out)
-
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def stencil_case(label, sp, dtype, nd_inst=7, meta=None):
         """The stencil kernel against its plain version and, bit for
@@ -727,7 +762,7 @@ def kernel_phase(torch, peaks):
         isz = A.mf_coefs.element_size()
 
         def run_dia():
-            return dia.dia_spmv(D.dia_vals, D.dia_offsets_dev, x)
+            return dia.dia_spmv(D.dia_vals, D.dia_offsets, x)
 
         y_dia = run_dia()
         y_st = stencil.stencil_spmv(A, x)
@@ -784,7 +819,21 @@ def kernel_phase(torch, peaks):
              np.float64)
     stencil_case(f"level0 A {N}^3 f32", A0, np.float32)
     stencil_case(f"level0 A {N}^3 f64", A0, np.float64)
-    del A0
+    # the bf16 stencil kernel here too, early in the process: after a
+    # large trace the profiler at times records no kernel (PERF.md)
+    S = SparseMatrix.from_scipy(
+        A0.astype(np.float32), device="cuda",
+        accel_formats=("matrix_free",)).astype(torch.bfloat16)
+    check(S.has_matrix_free, "bf16 level 0 not MATRIX_FREE")
+    xs = torch.from_numpy(rng.standard_normal(S.n_rows)).cuda().to(
+        torch.bfloat16)
+    recs.append(variant_case(
+        torch, timer, peaks, "stencil_spmv_bf16",
+        f"level0 A {N}^3 bf16 (MATRIX_FREE)", S, xs,
+        lambda: stencil.stencil_spmv(S, xs),
+        lambda: stencil.stencil_spmv_plain(S.mf_meta, S.mf_coefs, xs),
+        nbytes=2 * 2 * S.n_rows + 2 * len(S.mf_meta.steps)))
+    del A0, S, xs
     # poisson_scipy's last axis is the grid's fastest (x); levels 1-4 of
     # the bench hierarchy are the 64^3 ... 8^3 grids
     for lv, m in ((1, 64), (2, 32), (3, 16), (4, 8)):
@@ -842,6 +891,33 @@ def kernel_phase(torch, peaks):
     dia_case("unaligned offsets n=5000 f32", unaligned, np.float32)
     dia_case("level4 A 8^3 (512 rows) f32", poisson_scipy((8, 8, 8)),
              np.float32)
+    # where the launches fall: the bench hierarchy's levels 1-2, a
+    # SIZE_2 level of FGMRES_AGGREGATION (2x1x1 aggregates halve x
+    # first), rows not a multiple of 8 (odd: one row a thread; 2 mod 4:
+    # two), the runtime-count kernel at 27 and 48 diagonals
+    for lv, m in ((1, 64), (2, 32)):
+        dia_case(f"level{lv} A {m}^3 ({m ** 3} rows) f32",
+                 poisson_scipy((m, m, m)), np.float32, nd_inst=7)
+    dia_case("SIZE_2 level1 A 64x128x128 (1048576 rows) f32",
+             poisson_scipy((128, 128, 64)), np.float32, nd_inst=7)
+    dia_case("odd rows 127^3 (2048383) f32", poisson_scipy((127,) * 3),
+             np.float32)
+    dia_case("rows 2 mod 4 130x127x127 (2096770) bf16",
+             poisson_scipy((127, 127, 130)), "bfloat16")
+    dia_case("27 diagonals 64^3 (runtime count) f32",
+             sps.kron(sps.kron(ones3, ones3), ones3, format="csr"),
+             np.float32, nd_inst=0)
+    pool = np.setdiff1d(np.arange(-3000, 3001), [0])
+    offs48 = np.sort(np.append(rng.choice(pool, 47, replace=False), 0))
+    dia_case("48 diagonals 262144 rows (runtime count) f32",
+             sps.diags_array([rng.uniform(0.5, 1.5, 262144 - abs(o))
+                              for o in offs48], offsets=list(offs48),
+                             shape=(262144, 262144), format="csr"),
+             np.float32, nd_inst=0)
+    for n, offs in ((1 << 21, (-16384, -128, -1, 0, 1, 128, 16384)),
+                    (2096770, (-16385, -131, -9, -1, 0, 1, 5, 130, 16384)),
+                    (4097, (-129, -7, -1, 0, 1, 3, 130))):
+        recs.append(dia_bf16_edge_case(torch, rng, n, offs, sms))
 
     # level-0 transfers of the bench hierarchy: geometric 2x2x2
     # aggregates numbered lexicographically (amg/aggregation.py)
@@ -3005,8 +3081,59 @@ def rel_residual_sp(Asp, b, x):
     return float(np.linalg.norm(r) / np.linalg.norm(b64))
 
 
+def dia_bf16_edge_case(torch, rng, n, offsets, sms):
+    """The bf16 DIA kernel bit for bit with its plain version on edge
+    inputs: x holds bf16 subnormals of both signs, -0.0 and one +inf
+    and one -inf (further apart than any two diagonals reach, so no row
+    meets both and no NaN arises), the planes random normals with
+    subnormal entries and no zero.  Prints and returns the record."""
+    from amgx_tpu_torch.ops import dia
+
+    nd = len(offsets)
+    vals = rng.standard_normal((nd, n))
+    sub = rng.random((nd, n)) < 0.05
+    vals[sub] = rng.choice([-1.0, 1.0], int(sub.sum())) * rng.uniform(
+        1e-40, 1e-38, int(sub.sum()))
+    x = rng.standard_normal(n)
+    pick = rng.random(n)
+    x[pick < 0.1] = rng.choice([-1.0, 1.0], int((pick < 0.1).sum())) * \
+        rng.uniform(1e-40, 1e-38, int((pick < 0.1).sum()))
+    x[(pick >= 0.1) & (pick < 0.2)] = -0.0
+    reach = max(abs(o) for o in offsets)
+    x[n // 4] = np.inf
+    if n // 4 + 2 * reach + 1 < n:
+        x[n // 4 + 2 * reach + 1] = -np.inf
+    V = torch.from_numpy(vals).cuda().to(torch.bfloat16)
+    X = torch.from_numpy(x).cuda().to(torch.bfloat16)
+    y = dia.dia_spmv(V, offsets, X)
+    yp = dia.dia_spmv_plain(V, offsets, X)
+    torch.cuda.synchronize()
+    nan = int(torch.isnan(y).sum()) + int(torch.isnan(yp).sum())
+    same = bool(torch.equal(y.view(torch.int16), yp.view(torch.int16)))
+    plan = dia.dia_launch_plan(n, offsets, torch.bfloat16, sms)
+    rec = {"case": f"bf16 edge inputs n={n} {nd} diagonals",
+           "kernel": "dia_spmv_bf16", "offsets": list(offsets),
+           "plan": {k: v for k, v in plan._asdict().items()
+                    if k != "offsets"},
+           "bitwise": same, "nan_outputs": nan,
+           "inf_outputs": int(torch.isinf(y).sum()),
+           "subnormal_x": int((X != 0).logical_and(
+               X.abs() < torch.finfo(torch.bfloat16).tiny).sum()),
+           "subnormal_outputs": int((y != 0).logical_and(
+               y.abs() < torch.finfo(torch.bfloat16).tiny).sum()),
+           "negative_zero_x": int((X == 0).logical_and(
+               torch.signbit(X)).sum())}
+    print(json.dumps(rec), flush=True)
+    check(nan == 0, f"{rec['case']}: {nan} NaN outputs")
+    check(same, f"{rec['case']}: kernel vs plain not bit for bit")
+    check(rec["inf_outputs"] > 0 and rec["subnormal_x"] > 0
+          and rec["negative_zero_x"] > 0,
+          f"{rec['case']}: the edge inputs did not reach the kernel")
+    return rec
+
+
 def variant_case(torch, timer, peaks, name, label, m, x, run, plain,
-                 nbytes):
+                 nbytes, extra=None):
     """One bf16 or mixed-dtype entry point ``name`` on operator ``m``
     (a SparseMatrix on the card) and ``x``: held to its plain version
     on the same inputs bit for bit (each sums in the plain version's
@@ -3067,6 +3194,7 @@ def variant_case(torch, timer, peaks, name, label, m, x, run, plain,
         "bytes": int(nbytes), "ops": 2 * nz,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **(extra or {}),
     }
     print(json.dumps(rec), flush=True)
     return rec
@@ -3248,15 +3376,24 @@ def refine_phase(torch, peaks=None, device="cuda", n=REFINE_N, n_cmp=64,
     if peaks is not None:
         trace_solve(torch, s, b, corr * per, groups=TRACE_GROUPS)
         timer = Timer(torch)
-        l1 = amg.levels[1].A
-        x1 = torch.from_numpy(rng.standard_normal(l1.n_rows)).cuda().to(
-            torch.bfloat16)
-        recs.append(variant_case(
-            torch, timer, peaks, "dia_spmv_bf16",
-            f"refine level1 A {l1.n_rows} rows bf16", l1, x1,
-            lambda: dia.dia_spmv(l1.dia_vals, l1.dia_offsets_dev, x1),
-            lambda: dia.dia_spmv_plain(l1.dia_vals, l1.dia_offsets, x1),
-            nbytes=2 * (l1.nnz + 2 * l1.n_rows) + 4 * len(l1.dia_offsets)))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for lv in (1, 0):
+            m = amg.levels[lv].A
+            xm = torch.from_numpy(rng.standard_normal(m.n_rows)).cuda().to(
+                torch.bfloat16)
+            plan = dia.dia_launch_plan(m.n_rows, m.dia_offsets, m.dtype,
+                                       sms)
+            recs.append(variant_case(
+                torch, timer, peaks, "dia_spmv_bf16",
+                f"refine level{lv} A {m.n_rows} rows bf16", m, xm,
+                lambda m=m, xm=xm: dia.dia_spmv(m.dia_vals, m.dia_offsets,
+                                                xm),
+                lambda m=m, xm=xm: dia.dia_spmv_plain(m.dia_vals,
+                                                      m.dia_offsets, xm),
+                nbytes=2 * (m.nnz + 2 * m.n_rows) + 4 * len(m.dia_offsets),
+                extra={"plan": {k: v for k, v in plan._asdict().items()
+                                if k != "offsets"}}))
+            del xm
         recs += transfer_cases(torch, timer, peaks, rng, amg, "refine",
                                (("R", torch.bfloat16), ("R", torch.float32),
                                 ("P", torch.bfloat16)))
@@ -3407,7 +3544,7 @@ def mf_bf16_phase(torch, peaks=None, device="cuda", n=SLICE_N):
             x0 = torch.from_numpy(rng.standard_normal(A0.n_rows)).cuda(
             ).to(torch.bfloat16)
             y_st = stencil.stencil_spmv(A0, x0)
-            y_dia = dia.dia_spmv(D0.dia_vals, D0.dia_offsets_dev, x0)
+            y_dia = dia.dia_spmv(D0.dia_vals, D0.dia_offsets, x0)
             torch.cuda.synchronize()
             check(torch.equal(y_st, y_dia),
                   "mf_bf16: stencil vs DIA kernel in bf16 not bit for bit")

@@ -60,6 +60,16 @@ def _smoke():
     return mod
 
 
+def dia_offsets(A):
+    """The offsets the tree's ``dia_spmv`` takes: host ints since the
+    kernel takes them by value in its launch plan, a device tensor in
+    earlier trees."""
+    from amgx_tpu_torch.ops import dia
+
+    return (A.dia_offsets if hasattr(dia, "dia_launch_plan")
+            else A.dia_offsets_dev)
+
+
 def host_us(torch, fn, calls):
     """Mean host time of one ``fn()`` in µs over ``calls`` calls,
     enqueued while a sleep kernel keeps the card busy."""
@@ -137,7 +147,7 @@ def stencil_cases(torch, smoke, n):
             return stencil.stencil_spmv(A, x)
 
         def run_dia():
-            return dia.dia_spmv(D.dia_vals, D.dia_offsets_dev, x)
+            return dia.dia_spmv(D.dia_vals, dia_offsets(D), x)
 
         equal = bool(torch.equal(run_st(), run_dia()))
         if not equal:
@@ -192,7 +202,7 @@ def main(argv=None):
             torch, lambda: stencil.stencil_spmv(A_mf, x), args.calls),
         "dia_spmv": host_us(
             torch, lambda: dia.dia_spmv(A_dia.dia_vals,
-                                        A_dia.dia_offsets_dev, x),
+                                        dia_offsets(A_dia), x),
             args.calls),
         "spmv_matrix_free": host_us(
             torch, lambda: spmv.spmv(A_mf, x), args.calls),

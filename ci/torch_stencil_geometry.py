@@ -109,7 +109,7 @@ def main():
         x = torch.from_numpy(
             rng.standard_normal(sp.shape[0]).astype(dtype)).cuda()
         y = torch.empty_like(x)
-        y_dia = dia.dia_spmv(D.dia_vals, D.dia_offsets_dev, x)
+        y_dia = dia.dia_spmv(D.dia_vals, D.dia_offsets, x)
         fn = getattr(lib, stencil._FN[x.dtype])
         plan = stencil.stencil_launch_plan(meta.grid, meta.steps,
                                            16 // x.element_size(), sms)
