@@ -16,9 +16,10 @@ solver's device as torch operations:
     run on the device (:func:`pairwise_match_device`, the same
     aggregates bit for bit) for graphs of at least
     ``_DEVICE_MATCH_MIN_ROWS`` rows and at most
-    ``_DEVICE_MATCH_MAX_WIDTH`` neighbours a row when the solver is on
+    ``_DEVICE_ROUNDS_MAX_WIDTH`` neighbours a row when the solver is on
     the card (``AMGX_TPU_TORCH_DEVICE_MATCH`` overrides: ``0`` never,
-    anything else also on CPU tensors);
+    anything else also on CPU tensors), the edges' preference ranks
+    sorted on the device too;
   * the Galerkin product: for geometric aggregates above
     ``_GEO_RAP_MIN_ROWS`` rows, windowed sums of the DIA diagonals on
     the device (:func:`geo_galerkin_dia`), which never forms the ``A P``
@@ -140,7 +141,11 @@ def pairwise_match(W: sps.csr_matrix, merge_singletons: bool = True,
     return agg.astype(np.int32)
 
 
-_DEVICE_MATCH_MAX_WIDTH = 32  # bounded-degree gate for the ELL matcher
+_DEVICE_MATCH_MAX_WIDTH = 32  # the JAX package's gate for its ELL matcher
+# the torch rounds' gate: wider than the JAX package's, so that the
+# Galerkin levels of a block system's scalar expansion (30-60
+# neighbours a row) match on the card too
+_DEVICE_ROUNDS_MAX_WIDTH = 128
 _DEVICE_MATCH_MIN_ROWS = 16384  # below this, host numpy rounds win
 
 
@@ -169,19 +174,25 @@ def _edge_jitter(r, c, n):
     return (z ^ (z >> np.uint64(31))).astype(np.float64)
 
 
-def _match_ell_arrays(W: sps.csr_matrix):
+def _match_ell_arrays(W: sps.csr_matrix, max_width=_DEVICE_MATCH_MAX_WIDTH,
+                      device=None):
     """CSR -> padded ELL (cols, preference ranks) for the device
-    matcher, or None when the row degree exceeds the ELL gate.
+    matcher, or None when the row degree exceeds ``max_width``.
 
-    Every edge gets, on the host, its position in the (weight desc,
-    jitter asc) order the host matcher sorts by, as an int32: the
-    device rounds compare integers, so their picks are the host
-    matcher's at any device precision.  Padding slots hold column n and
-    rank INT32_MAX."""
+    Every edge gets its position in the (weight desc, jitter asc) order
+    the host matcher sorts by, as an int32: the device rounds compare
+    integers, so their picks are the host matcher's at any device
+    precision.  Padding slots hold column n and rank INT32_MAX.  With
+    ``device`` (as :func:`pairwise_match_device` calls it): int32
+    tensors on ``device``, the order taken by two stable sorts there
+    (jitter, then weight: ``np.lexsort``'s order, ties by position).
+    Without it: host numpy arrays ranked by ``np.lexsort``, the JAX
+    package's arrays, which the tests hold both the device ranks and
+    the JAX package's to."""
     n = W.shape[0]
     lens = np.diff(W.indptr)
     w = int(lens.max()) if lens.size else 0
-    if w == 0 or w > _DEVICE_MATCH_MAX_WIDTH:
+    if w == 0 or w > max_width:
         return None
     if len(W.indices) > np.iinfo(np.int32).max:
         # int32 ranks would wrap; the host matcher takes giant graphs
@@ -189,15 +200,29 @@ def _match_ell_arrays(W: sps.csr_matrix):
     r = np.repeat(np.arange(n, dtype=np.int64), lens)
     c = W.indices.astype(np.int64)
     jitter = _edge_jitter(r, c, n)
-    order = np.lexsort((jitter, -W.data))
-    rank = np.empty(len(c), dtype=np.int32)
-    rank[order] = np.arange(len(c), dtype=np.int32)
     cols = np.full((n, w), n, dtype=np.int32)
-    ranks = np.full((n, w), np.iinfo(np.int32).max, dtype=np.int32)
     pos = np.arange(len(c)) - W.indptr[r].astype(np.int64)
     cols[r, pos] = c
-    ranks[r, pos] = rank
-    return cols, ranks
+    imax = np.iinfo(np.int32).max
+    if device is None:
+        order = np.lexsort((jitter, -W.data))
+        rank = np.empty(len(c), dtype=np.int32)
+        rank[order] = np.arange(len(c), dtype=np.int32)
+        ranks = np.full((n, w), imax, dtype=np.int32)
+        ranks[r, pos] = rank
+        return cols, ranks
+    # + 0.0: -0.0 becomes +0.0, which a radix sort would otherwise
+    # order apart from it, where np.lexsort sees a tie
+    _, by_jitter = torch.sort(torch.from_numpy(jitter).to(device),
+                              stable=True)
+    key = torch.from_numpy(-W.data + 0.0).to(device)
+    _, by_weight = torch.sort(key[by_jitter], stable=True)
+    order = by_jitter[by_weight]
+    rank = torch.empty(len(c), dtype=torch.int32, device=device)
+    rank[order] = torch.arange(len(c), dtype=torch.int32, device=device)
+    ranks = torch.full((n * w,), imax, dtype=torch.int32, device=device)
+    ranks[torch.from_numpy(r * w + pos).to(device)] = rank
+    return torch.from_numpy(cols).to(device), ranks.reshape(n, w)
 
 
 def _device_match_rounds(cols, ranks, max_rounds):
@@ -250,12 +275,12 @@ def pairwise_match_device(W: sps.csr_matrix, merge_singletons: bool = True,
                           max_rounds: int = 15, device="cuda"):
     """:func:`pairwise_match` with the handshake rounds on ``device``
     (:func:`_device_match_rounds`): the same aggregates bit for bit,
-    the selection keys being the same.  A graph wider than the ELL gate
-    takes the host matcher."""
-    ell = _match_ell_arrays(W)
+    the selection keys being the same.  A graph of rows wider than
+    ``_DEVICE_ROUNDS_MAX_WIDTH`` takes the host matcher."""
+    ell = _match_ell_arrays(W, _DEVICE_ROUNDS_MAX_WIDTH, device=device)
     if ell is None:
         return pairwise_match(W, merge_singletons, max_rounds)
-    cols, ranks = (torch.from_numpy(a).to(device) for a in ell)
+    cols, ranks = ell
     partner, best_all = _device_match_rounds(cols, ranks, max_rounds)
     count_setup_sync()
     partner = partner.cpu().numpy()

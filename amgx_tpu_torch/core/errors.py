@@ -69,10 +69,13 @@ def validation_enabled() -> bool:
 
 
 def validate_csr(row_offsets, col_indices, values, n_rows, n_cols,
-                 where="matrix upload"):
+                 block_size=1, where="matrix upload"):
     """Structural + numeric sanity of host CSR arrays: malformed
     structure raises :class:`PatternDegeneracyError`, NaN/Inf
-    coefficients :class:`NonFiniteValuesError`."""
+    coefficients :class:`NonFiniteValuesError`.  ``row_offsets`` and
+    ``col_indices`` index block rows and columns of ``block_size``:
+    ``values`` must hold ``block_size``^2 entries a column index, and
+    the NaN/Inf check covers every entry of every block."""
     ro = np.asarray(row_offsets)
     ci = np.asarray(col_indices)
     nnz = ci.shape[0]
@@ -98,6 +101,11 @@ def validate_csr(row_offsets, col_indices, values, n_rows, n_cols,
                 f"[0, {n_cols})"
             )
     vals = np.asarray(values)
+    if vals.size != nnz * block_size * block_size:
+        raise PatternDegeneracyError(
+            f"{where}: {vals.size} values for {nnz} column indices of "
+            f"{block_size} x {block_size} blocks"
+        )
     if vals.size and np.issubdtype(vals.dtype, np.inexact) \
             and not np.all(np.isfinite(vals)):
         raise NonFiniteValuesError(

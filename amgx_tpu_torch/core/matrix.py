@@ -1,5 +1,5 @@
-"""CSR sparse matrix with MATRIX_FREE / DIA / dense / ELL acceleration
-structures, held as torch tensors on one device.
+"""Block-CSR sparse matrix with MATRIX_FREE / DIA / dense / ELL
+acceleration structures, held as torch tensors on one device.
 
 Counterpart of the JAX package's ``core/matrix.py`` (reference
 Matrix<TConfig>, include/matrix.h:65).  The host-side constructors
@@ -44,7 +44,12 @@ Differences from the JAX package:
     no bf16: the host triple of a bf16 matrix reads its values back as
     float32 (exact), and an upload from host arrays takes float32,
     float64 and the complex dtypes only.
-  * Block matrices (``block_size > 1``) are not ported yet.
+  * Block matrices (``block_size`` b > 1) store ``values`` as
+    (nnz, b, b) and ``diag`` as (n_rows, b, b), as in the JAX package,
+    and build block ELL where its width gate allows, with ``ell_vals``
+    slot-major (w, n_rows, b, b); no DIA, MATRIX_FREE, dense or sliced
+    ELL (the JAX package builds none of the first three for b > 1).
+    ``host_csr`` and ``to_scipy`` give the scalar expansion.
   * ``device`` defaults to ``"cuda"``; without a card the constructors
     raise unless the caller passes ``device="cpu"``.
 """
@@ -96,20 +101,23 @@ def to_tensor(a, device) -> torch.Tensor:
 
 @dataclasses.dataclass(eq=False)
 class SparseMatrix:
-    """Square-or-rectangular scalar CSR matrix on one device.
+    """Square-or-rectangular block-CSR matrix on one device.  Rows,
+    columns and entries count blocks of ``block_size`` b; vectors are
+    flat, (n_rows * b,).
 
     Tensors:
       row_offsets (n_rows+1,) int32, col_indices (nnz,) int32,
-      values (nnz,), row_ids (nnz,) int32 row of each entry, and
-      diag (n_rows,) the summed diagonal entries.
+      values (nnz,) or (nnz, b, b), row_ids (nnz,) int32 row of each
+      entry, and diag (n_rows,) or (n_rows, b, b) the summed diagonal
+      entries.
       dia_vals (nd, n): dia_vals[k, i] = A[i, i + dia_offsets[k]], with
       dia_offsets a sorted tuple and dia_offsets_dev the same offsets as
       an int32 tensor on the device (built once, read by the kernel).
       mf_meta (host ``StencilMeta``) and mf_coefs (nd,) or (nd, L) in
       the values' dtype: the MATRIX_FREE state (``ops/stencil.py``).
       dense (n_rows, n_cols).
-      ell_cols / ell_vals (w, n_rows), slot-major; padding slots hold
-      column 0 and value 0.
+      ell_cols / ell_vals (w, n_rows) (ell_vals (w, n_rows, b, b) for
+      blocks), slot-major; padding slots hold column 0 and value 0.
       sell: the same matrix in sliced ELL (``ops/ell.SlicedEll``), or
       None where the slot-major arrays move no more bytes (every slice
       as wide as the widest row).
@@ -223,24 +231,23 @@ class SparseMatrix:
         device="cuda",
     ) -> "SparseMatrix":
         """Build from host CSR arrays (reference AMGX_matrix_upload_all).
+        With ``block_size`` b > 1 the arrays are block CSR: ``n_cols``
+        counts block columns and ``values`` holds b x b row-major
+        blocks, (nnz, b, b) or any shape of as many entries.
 
         Formats are built in the JAX package's order (its
         ``core/matrix.py:404-491``): DIA, then MATRIX_FREE (which
         replaces the DIA planes when detection succeeds), then dense if
         neither, then ELL if none; ``accel_formats`` restricts which
-        may build (MATRIX_FREE only when asked for)."""
-        if block_size != 1:
-            raise NotImplementedError(
-                "block matrices (block_size > 1) are not ported yet "
-                "(ROADMAP.md, queue A4b: block matrices)"
-            )
+        may build (MATRIX_FREE only when asked for).  A block matrix
+        builds ELL only."""
         dev = resolve_device(device)
+        b = int(block_size)
         row_offsets = np.asarray(row_offsets, dtype=np.int32)
         col_indices = np.asarray(col_indices, dtype=np.int32)
         values = np.asarray(values)
         if dtype is not None:
             values = values.astype(dtype)
-        values = values.reshape(-1)
         n_rows = row_offsets.shape[0] - 1
         if n_cols is None:
             n_cols = n_rows
@@ -248,29 +255,33 @@ class SparseMatrix:
 
         if validate is None:
             validate = _errors.validation_enabled()
+        nnz = col_indices.shape[0]
         if validate:
             _errors.validate_csr(
-                row_offsets, col_indices, values, n_rows, n_cols
+                row_offsets, col_indices, values, n_rows, n_cols,
+                block_size=b,
             )
-        nnz = col_indices.shape[0]
-        if values.shape[0] != nnz:
+        elif values.size != nnz * b * b:
+            # the one check the reshape below needs
             raise _errors.PatternDegeneracyError(
-                f"matrix upload: {values.shape[0]} values for {nnz} "
-                "column indices"
+                f"matrix upload: {values.size} values for {nnz} "
+                f"column indices of {b} x {b} blocks"
             )
+        values = values.reshape(-1) if b == 1 else values.reshape(-1, b, b)
 
         row_lens = np.diff(row_offsets)
         row_ids = np.repeat(np.arange(n_rows, dtype=np.int32), row_lens)
         diag = _extract_diag_np(row_offsets, col_indices, values, n_rows)
 
         dia_offsets = dia_vals = dia_src = None
-        if "dia" in accel_formats and n_rows == n_cols and nnz:
+        if "dia" in accel_formats and b == 1 and n_rows == n_cols and nnz:
             dia_offsets, dia_vals, dia_src = _try_build_dia_np(
                 row_offsets, col_indices, values, row_ids, n_rows
             )
 
         mf_meta = mf_coefs = mf_src = None
-        if "matrix_free" in accel_formats and n_rows == n_cols and nnz:
+        if ("matrix_free" in accel_formats and b == 1 and n_rows == n_cols
+                and nnz):
             # detection reads DIA planes; build them transiently when
             # "dia" was not requested
             trio = (dia_offsets, dia_vals, dia_src)
@@ -291,6 +302,7 @@ class SparseMatrix:
         dense_bytes = n_rows * n_cols * values.dtype.itemsize
         if (
             "dense" in accel_formats
+            and b == 1
             and dia_offsets is None
             and mf_meta is None
             and 0 < n_rows <= _DENSE_MAX_ROWS
@@ -315,8 +327,9 @@ class SparseMatrix:
                 ell_cols, ell_vals = _build_ell_np(
                     row_offsets, col_indices, values, n_rows, w
                 )
-                sell = _build_sell_np(row_offsets, col_indices, values,
-                                      n_rows, w)
+                if b == 1:
+                    sell = _build_sell_np(row_offsets, col_indices,
+                                          values, n_rows, w)
 
         def put(a):
             return None if a is None else to_tensor(a, dev)
@@ -340,17 +353,20 @@ class SparseMatrix:
             dense=put(dense),
             # slot-major for coalesced kernel loads
             ell_cols=None if ell_cols is None else put(ell_cols.T),
-            ell_vals=None if ell_vals is None else put(ell_vals.T),
+            ell_vals=(None if ell_vals is None
+                      else put(np.swapaxes(ell_vals, 0, 1))),
             sell=sliced_ell(sell, dev),
             mf_src=put(mf_src),
+            block_size=b,
             _host_csr=(row_offsets, col_indices, values),
         )
 
     @staticmethod
-    def from_coo(rows, cols, vals, n_rows=None, n_cols=None,
+    def from_coo(rows, cols, vals, n_rows=None, n_cols=None, block_size=1,
                  **kw) -> "SparseMatrix":
-        """Build from COO triples: sorted by (row, col), duplicates
-        summed (the JAX package's ``from_coo``, scalar blocks only)."""
+        """Build from COO triples of (block) rows and columns: sorted by
+        (row, col), duplicates summed (the JAX package's ``from_coo``);
+        ``vals`` holds one b x b block an entry for ``block_size`` b."""
         rows = np.asarray(rows)
         cols = np.asarray(cols)
         vals = np.asarray(vals)
@@ -358,12 +374,14 @@ class SparseMatrix:
             n_rows = int(rows.max()) + 1 if rows.size else 0
         if n_cols is None:
             n_cols = int(cols.max()) + 1 if cols.size else 0
+        b = block_size
         order = np.lexsort((cols, rows))
-        rows, cols, vals = rows[order], cols[order], vals[order]
+        rows, cols = rows[order], cols[order]
+        vals = vals.reshape(-1, b, b)[order] if b > 1 else vals[order]
         key = rows.astype(np.int64) * n_cols + cols
         uniq, inv = np.unique(key, return_inverse=True)
         if uniq.shape[0] != key.shape[0]:
-            summed = np.zeros(uniq.shape[0], vals.dtype)
+            summed = np.zeros((uniq.shape[0],) + vals.shape[1:], vals.dtype)
             np.add.at(summed, inv, vals)
             vals = summed
             rows = (uniq // n_cols).astype(np.int32)
@@ -372,14 +390,27 @@ class SparseMatrix:
         np.add.at(row_offsets[1:], rows, 1)
         row_offsets = np.cumsum(row_offsets, dtype=np.int32)
         return SparseMatrix.from_csr(row_offsets, cols, vals,
-                                     n_cols=n_cols, **kw)
+                                     n_cols=n_cols, block_size=b, **kw)
 
     @staticmethod
-    def from_scipy(sp, **kw) -> "SparseMatrix":
+    def from_scipy(sp, block_size=1, **kw) -> "SparseMatrix":
+        """Build from a scipy sparse matrix; with ``block_size`` b > 1
+        its b x b blocks become the entries (through scipy's BSR, every
+        block holding a nonzero stored whole), as in the JAX
+        package."""
         sp = sp.tocsr()
         sp.sort_indices()
+        if block_size == 1:
+            return SparseMatrix.from_csr(
+                sp.indptr, sp.indices, sp.data, n_cols=sp.shape[1], **kw
+            )
+        import scipy.sparse as sps
+
+        bsr = sps.bsr_matrix(sp, blocksize=(block_size, block_size))
+        bsr.sort_indices()
         return SparseMatrix.from_csr(
-            sp.indptr, sp.indices, sp.data, n_cols=sp.shape[1], **kw
+            bsr.indptr, bsr.indices, bsr.data,
+            n_cols=sp.shape[1] // block_size, block_size=block_size, **kw
         )
 
     # ---- value updates (structure reuse) -------------------------------
@@ -388,8 +419,9 @@ class SparseMatrix:
         """A matrix of the same structure and formats with new CSR
         ``values`` (the JAX package's ``replace_values``, reference
         ``AMGX_matrix_replace_coefficients``).  ``values`` is a tensor
-        or array of ``nnz`` entries in CSR order; it is taken to this
-        matrix's device and dtype.  Every format is refilled on the
+        or array of ``nnz`` entries (b x b blocks for a block matrix,
+        any shape of ``nnz * b * b`` entries) in CSR order; it is taken
+        to this matrix's device and dtype.  Every format is refilled on the
         device: ``diag``, the DIA planes, the slot-major and sliced ELL
         values and the stencil coefficients by gathers from
         first-occurrence source maps (padding stays 0), the dense block
@@ -400,17 +432,12 @@ class SparseMatrix:
             v = values.to(device=self.device, dtype=self.dtype)
         else:
             v = to_tensor(np.asarray(values), self.device).to(self.dtype)
-        if v.dim() > 1 and v.numel() != self.nnz:
-            raise NotImplementedError(
-                "replace_values: block values are not ported yet "
-                "(ROADMAP.md, queue A4b: block matrices)"
-            )
-        v = v.reshape(-1).contiguous()
-        if v.shape[0] != self.nnz:
+        if v.numel() != self.values.numel():
             raise ValueError(
-                f"replace_values: {v.shape[0]} values for {self.nnz} "
-                "stored entries"
+                f"replace_values: {v.numel()} values for {self.nnz} "
+                f"stored entries of shape {tuple(self.values.shape[1:])}"
             )
+        v = v.reshape(self.values.shape).contiguous()
         maps = self._src_maps()
         rep = {"values": v, "diag": _gather_src(maps["diag"], v),
                "_host_csr": (self._host_csr[0], self._host_csr[1], None)}
@@ -506,18 +533,29 @@ class SparseMatrix:
 
     def host_csr(self):
         """Read-only scipy CSR view of the host triple the matrix was
-        built from (no device copy).  Callers must not mutate it."""
+        built from (no device copy).  Callers must not mutate it.  A
+        block matrix gives its scalar expansion (a new CSR, every entry
+        of every block stored, through scipy's BSR), as the JAX
+        package's does."""
         import scipy.sparse as sps
 
         ro, ci, v = self._host
-        return sps.csr_matrix(
-            (v, ci, ro), shape=(self.n_rows, self.n_cols), copy=False
-        )
+        b = self.block_size
+        if b == 1:
+            return sps.csr_matrix(
+                (v, ci, ro), shape=(self.n_rows, self.n_cols), copy=False
+            )
+        return sps.bsr_matrix(
+            (v, ci, ro), shape=(self.n_rows * b, self.n_cols * b)
+        ).tocsr()
 
     def to_scipy(self):
-        """Mutable scipy CSR copy."""
+        """Mutable scipy CSR copy (the scalar expansion of a block
+        matrix, which :meth:`host_csr` builds anew)."""
         import scipy.sparse as sps
 
+        if self.block_size != 1:
+            return self.host_csr()
         ro, ci, v = self._host
         return sps.csr_matrix(
             (v.copy(), ci.copy(), ro.copy()),
@@ -548,8 +586,9 @@ def _gather_src(src, values):
     """``values`` gathered into a layout through a source map, 0 where
     the map holds -1 (the JAX package's ``_gather_src``)."""
     v = values[src.clamp(min=0)]
-    return torch.where(src >= 0, v, torch.zeros((), dtype=v.dtype,
-                                                device=v.device))
+    mask = (src >= 0).reshape(src.shape + (1,) * (values.dim() - 1))
+    return torch.where(mask, v, torch.zeros((), dtype=v.dtype,
+                                            device=v.device))
 
 
 def _row_ids_np(row_offsets, n_rows):
@@ -559,7 +598,8 @@ def _row_ids_np(row_offsets, n_rows):
 
 
 def _extract_diag_np(row_offsets, col_indices, values, n_rows):
-    diag = np.zeros((n_rows,), dtype=values.dtype)
+    """(n_rows,) or, for (nnz, b, b) block values, (n_rows, b, b)."""
+    diag = np.zeros((n_rows,) + values.shape[1:], dtype=values.dtype)
     row_ids = _row_ids_np(row_offsets, n_rows)
     hit = col_indices == row_ids
     # sum duplicates, matching the DIA/ELL/CSR SpMV paths
@@ -568,10 +608,11 @@ def _extract_diag_np(row_offsets, col_indices, values, n_rows):
 
 
 def _build_ell_np(row_offsets, col_indices, values, n_rows, w):
-    """Row-major (n_rows, w) ELL arrays, as the JAX package builds them;
-    the caller transposes to the port's slot-major layout."""
+    """Row-major (n_rows, w) ELL arrays ((n_rows, w, b, b) values for
+    blocks), as the JAX package builds them; the caller transposes to
+    the port's slot-major layout."""
     ell_cols = np.zeros((n_rows, w), dtype=np.int32)
-    ell_vals = np.zeros((n_rows, w), dtype=values.dtype)
+    ell_vals = np.zeros((n_rows, w) + values.shape[1:], dtype=values.dtype)
     row_ids = _row_ids_np(row_offsets, n_rows)
     pos = np.arange(col_indices.shape[0], dtype=np.int64) - row_offsets[
         row_ids

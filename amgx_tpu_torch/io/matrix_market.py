@@ -16,11 +16,9 @@ handle SuiteSparse-scale files (tens of millions of nnz).
 ``read_system`` returns host numpy; ``read_mtx`` builds a SparseMatrix
 on the card unless the caller passes ``device="cpu"``.
 
-A copy of the JAX package's ``io/matrix_market.py``.  The port has no
-complex dtype or block matrices yet: ``read_system`` and
-``complex_to_real_system`` read complex files as there, ``read_mtx``
-builds real scalar matrices only (convert a complex system with
-``complex_to_real_system`` first).
+A copy of the JAX package's ``io/matrix_market.py``: ``read_mtx``
+builds block matrices (square blocks) and complex ones as there, and
+``write_system`` / ``write_system_binary`` write block values.
 """
 
 from __future__ import annotations
@@ -335,21 +333,17 @@ def read_system(path):
 
 def read_mtx(path, dtype=None, device="cuda", **kw) -> SparseMatrix:
     """Read a MatrixMarket or %%NVAMGBinary file into a SparseMatrix on
-    ``device``; ``kw`` goes to ``SparseMatrix.from_csr``
-    (``accel_formats``, ``validate``)."""
+    ``device``: a block matrix of ``block_dimx`` for a file with square
+    blocks (rectangular ones raise), a complex one for a complex file;
+    ``kw`` goes to ``SparseMatrix.from_csr`` (``accel_formats``,
+    ``validate``)."""
     A, _, _ = read_system(path)
     bx, by = A["block_dims"]
-    if bx != 1 or by != 1:
+    if bx != by:
         raise MatrixIOError(
-            f"{bx}x{by} blocks: block matrices are not ported yet "
-            "(ROADMAP.md, queue A4b: block matrices)"
+            f"rectangular blocks {bx}x{by} are not supported"
         )
     vals = A["vals"]
-    if np.iscomplexobj(vals):
-        raise MatrixIOError(
-            "complex system: convert it with complex_to_real_system "
-            "(the port has no complex dtype yet)"
-        )
     if dtype is not None:
         vals = vals.astype(dtype)
     return SparseMatrix.from_coo(
@@ -358,6 +352,7 @@ def read_mtx(path, dtype=None, device="cuda", **kw) -> SparseMatrix:
         vals,
         n_rows=A["n_rows"],
         n_cols=A["n_cols"],
+        block_size=bx,
         device=device,
         **kw,
     )
@@ -370,6 +365,9 @@ def write_system(path, A: SparseMatrix, rhs=None, sol=None):
         flags.append("rhs")
     if sol is not None:
         flags.append("solution")
+    b = A.block_size
+    if b > 1:
+        flags += ["block_dimx", str(b), "block_dimy", str(b)]
     indptr, indices, data = A._host
     field = "complex" if np.iscomplexobj(data) else "real"
     with open(path, "w") as f:
@@ -378,11 +376,12 @@ def write_system(path, A: SparseMatrix, rhs=None, sol=None):
         f.write(f"{A.n_rows} {A.n_cols} {A.nnz}\n")
         for i in range(A.n_rows):
             for p in range(indptr[i], indptr[i + 1]):
-                c = data[p]
+                v = data[p].reshape(-1) if b > 1 else [data[p]]
                 if field == "complex":
-                    vtxt = f"{c.real:.17g} {c.imag:.17g}"
+                    vtxt = " ".join(f"{c.real:.17g} {c.imag:.17g}"
+                                    for c in v)
                 else:
-                    vtxt = f"{c:.17g}"
+                    vtxt = " ".join(f"{c:.17g}" for c in v)
                 f.write(f"{i + 1} {indices[p] + 1} {vtxt}\n")
         for vec in (rhs, sol):
             if vec is not None:

@@ -3,8 +3,11 @@
 A copy of the JAX package's ``ops/coloring.py`` (pure numpy on the
 host), so both packages give the same colours for the same matrix.
 The only changes: :func:`color_matrix` reads the port's host CSR
-triple (``SparseMatrix._host``) instead of device arrays, and
-``print_coloring_info`` prints directly.
+triple (``SparseMatrix._host``) instead of device arrays,
+``print_coloring_info`` prints directly, and :func:`min_max_coloring`
+scans in each round only the edges the last round left between
+uncoloured vertices (the same colours: without ``weakness_bound`` no
+colour is taken back, so no edge rejoins that set).
 
 The reference ships ten coloring schemes (core.cu:669-678) because CUDA
 smoother kernels launch one kernel per color; the port's colour sweeps
@@ -126,14 +129,20 @@ def min_max_coloring(indptr, indices, n, max_rounds=64, seed=0,
     relaxed = (
         weakness_bound is not None and 0 < weakness_bound < 2 ** 30
     )
+    # the edges still between uncolored vertices: without the relaxed
+    # test a colour is never taken back, so an edge that leaves this
+    # set never returns, and each round scans only the last one's
+    r, c = rows, cols
     for _ in range(max_rounds):
         un = colors < 0
         if not un.any():
             break
         # for each uncolored vertex, max/min hashed weight among uncolored
         # neighbours
-        active_edge = un[rows] & un[cols] & (cols < n)
-        r, c = rows[active_edge], cols[active_edge]
+        if relaxed:
+            r, c = rows, cols
+        active_edge = un[r] & un[c] & (c < n)
+        r, c = r[active_edge], c[active_edge]
         if relaxed:
             gt = np.zeros(n, dtype=np.int64)
             lt = np.zeros(n, dtype=np.int64)

@@ -1,5 +1,6 @@
 """Vector norms (reference src/norm.cu, types.h:16): L1, L1_SCALED,
-L2, LMAX.  Return 0-dim tensors on the vector's device."""
+L2, LMAX.  Return tensors on the vector's device: 0-dim from
+:func:`norm`, (b,) per-component norms from :func:`block_norm`."""
 
 from __future__ import annotations
 
@@ -19,3 +20,27 @@ def norm(x, norm_type: NormType = NormType.L2):
     if norm_type == NormType.LMAX:
         return torch.max(a)
     raise ValueError(f"unknown norm {norm_type}")
+
+
+def block_norm(x, block_size: int, norm_type: NormType = NormType.L2):
+    """Per-block-component norms; x flat (n * b,) -> (b,)."""
+    xb = torch.abs(x.reshape(-1, block_size))
+    if norm_type == NormType.L1:
+        return torch.sum(xb, dim=0)
+    if norm_type == NormType.L1_SCALED:
+        return torch.sum(xb, dim=0) / xb.shape[0]
+    if norm_type == NormType.L2:
+        return torch.sqrt(torch.sum(xb * xb, dim=0))
+    if norm_type == NormType.LMAX:
+        return torch.amax(xb, dim=0)
+    raise ValueError(f"unknown norm {norm_type}")
+
+
+def get_norm(A, r, norm_type: NormType = NormType.L2,
+             use_scalar_norm=False):
+    """Reference get_norm (norm.h): per-component norms of a block
+    system unless ``use_scalar_norm`` (the registered default 0 gives
+    them), the scalar norm otherwise."""
+    if use_scalar_norm or A is None or A.block_size == 1:
+        return norm(r, norm_type)
+    return block_norm(r, A.block_size, norm_type)

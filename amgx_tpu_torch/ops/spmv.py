@@ -18,6 +18,14 @@ Dispatch order, as in the JAX package's ``ops/spmv.py``: MATRIX_FREE
     products on the card agree bit for bit (``index_add_`` would sum
     with atomics there, in an order that changes from run to run).
 
+Block matrices (``block_size`` b > 1) take :func:`_spmv_block`, stock
+torch ops as the JAX package's XLA ``einsum`` (no Pallas kernel there):
+a block-ELL matrix gathers x as (w, n, b), multiplies each of its
+(w, n, b, b) blocks with its slice of x in one batched b x b product
+(the blocks are read in place, no copy) and sums over the slots;
+otherwise each CSR block multiplies its gathered slice of x and
+:func:`segment_sum` sums the (nnz, b) products of each block row.
+
 On CPU tensors the stencil, DIA and ELL wrappers take their plain
 versions (an ELL matrix with a sliced layout takes the sliced one).
 Every branch returns the dtype the JAX package's returns: the
@@ -47,12 +55,17 @@ csr_products = 0
 
 
 def spmv(A, x, n_rows: int | None = None):
-    """y = A @ x; ``n_rows`` keeps a leading row window of y."""
+    """y = A @ x for flat x of ``n_cols * block_size``; ``n_rows``
+    keeps a leading window of that many (block) rows of y."""
     if A.is_square:
         record_op_pass()
-    y = _spmv_scalar(A, x)
+    b = A.block_size
+    if b == 1:
+        y = _spmv_scalar(A, x)
+    else:
+        y = _spmv_block(A, x.reshape(A.n_cols, b)).reshape(-1)
     if n_rows is not None and n_rows != A.n_rows:
-        y = y[:n_rows]
+        y = y[:n_rows * b]
     return y
 
 
@@ -74,6 +87,17 @@ def _spmv_scalar(A, x):
     return segment_sum(A.values * x[A.col_indices], A.row_offsets)
 
 
+def _spmv_block(A, x2d):
+    """(n_rows, b) product of a block matrix with x as (n_cols, b)."""
+    if A.has_ell:
+        w, n, b, _ = A.ell_vals.shape
+        prod = torch.bmm(A.ell_vals.reshape(w * n, b, b),
+                         x2d[A.ell_cols].reshape(w * n, b, 1))
+        return prod.reshape(w, n, b).sum(dim=0)
+    contrib = torch.bmm(A.values, x2d[A.col_indices].unsqueeze(2))
+    return segment_sum(contrib.squeeze(2), A.row_offsets)
+
+
 def segment_sum(x, offsets):
     """Sums of the segments ``x[offsets[i]:offsets[i + 1]]``, each
     summed in order from +0.0, so the result repeats bit for bit.  The
@@ -82,10 +106,13 @@ def segment_sum(x, offsets):
     segmented reduce, a block per segment, an order of magnitude slower
     on short rows (``PERF.md``).  Complex data goes in as its (real,
     imaginary) column pair, which ``segment_reduce`` takes where it
-    takes no complex dtype."""
+    takes no complex dtype.  A 2-D ``x`` sums its rows segment by
+    segment, column by column."""
     if x.is_complex():
-        return torch.view_as_complex(torch.segment_reduce(
-            torch.view_as_real(x), "sum", offsets=offsets, unsafe=True))
+        return torch.view_as_complex(segment_sum(torch.view_as_real(x),
+                                                 offsets))
+    if x.dim() > 1:
+        return torch.segment_reduce(x, "sum", offsets=offsets, unsafe=True)
     return torch.segment_reduce(x.unsqueeze(1), "sum", offsets=offsets,
                                 unsafe=True).squeeze(1)
 

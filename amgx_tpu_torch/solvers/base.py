@@ -41,7 +41,7 @@ import torch
 
 from amgx_tpu_torch.core.device import resolve_device
 from amgx_tpu_torch.core.types import NormType, host_array, host_dtype
-from amgx_tpu_torch.ops.norms import norm as _norm
+from amgx_tpu_torch.ops.norms import get_norm as _get_norm
 from amgx_tpu_torch.ops.spmv import spmv
 from amgx_tpu_torch.solvers.convergence import make_convergence_check
 
@@ -86,6 +86,7 @@ class Solver:
         self.conv_type = str(g("convergence"))
         self.norm_type = NormType(str(g("norm")))
         self.monitor_residual = bool(g("monitor_residual"))
+        self.use_scalar_norm = bool(g("use_scalar_norm"))
         self.relaxation_factor = float(g("relaxation_factor"))
         self.print_solve_stats = bool(g("print_solve_stats"))
         self.obtain_timings = bool(g("obtain_timings"))
@@ -215,9 +216,22 @@ class Solver:
         """By convention params is the matrix or a tuple starting with it."""
         return params[0] if isinstance(params, tuple) else params
 
+    @property
+    def norm_components(self) -> int:
+        """Components of the monitored norm: the block size of a block
+        system unless ``use_scalar_norm``, else 1."""
+        if (
+            self.A is not None
+            and self.A.block_size > 1
+            and not self.use_scalar_norm
+        ):
+            return self.A.block_size
+        return 1
+
     def make_norm(self):
-        nt = self.norm_type
-        return lambda r: _norm(r, nt).reshape(1)
+        """fn(r) -> (norm_components,) tensor."""
+        A, nt, scalar = self.A, self.norm_type, self.use_scalar_norm
+        return lambda r: _get_norm(A, r, nt, scalar).reshape(-1)
 
     def _monitor_update(self, it, nrm, nrm_ini, nrm_max, hist):
         """Record the norm, update the max norm and derive the status
@@ -247,12 +261,13 @@ class Solver:
         """Result of an unmonitored fixed-iteration solve: never NaN
         reported as SUCCESS."""
         rdt = _real_np_dtype(b)
-        zero = np.zeros((1,), rdt)
+        ncomp = self.norm_components
+        zero = np.zeros((ncomp,), rdt)
         status = SUCCESS if bool(torch.isfinite(x).all()) else FAILED
         return SolveResult(
             x=x, iters=int(iters), status=status, final_norm=zero,
             initial_norm=zero,
-            history=np.full((self.max_iters + 1, 1), np.nan, rdt),
+            history=np.full((self.max_iters + 1, ncomp), np.nan, rdt),
         )
 
     def _monitored_loop(self, nrm0, body, b, x0, extra0):
@@ -326,6 +341,7 @@ class Solver:
             dt = sp.dtype
             sp = sps.diags_array(r) @ sp @ sps.diags_array(c)
             A = SparseMatrix.from_scipy(sp.tocsr().astype(dt),
+                                        block_size=A.block_size,
                                         device=self.device)
             # in the matrix's dtype: the vectors of an f32 solve stay f32
             self._scale_vecs = (

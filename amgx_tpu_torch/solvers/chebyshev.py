@@ -124,8 +124,9 @@ class ChebyshevSolver(Solver):
         # the start vector in the real dtype (a bf16 operator's through
         # float32, as the JAX package's numpy casts it)
         rdt = host_dtype(A.values.real.dtype)
-        v = to_tensor(rng.standard_normal(A.n_rows).astype(rdt),
-                      A.device).to(A.dtype)
+        v = to_tensor(
+            rng.standard_normal(A.n_rows * A.block_size).astype(rdt),
+            A.device).to(A.dtype)
         lam = None
         for _ in range(iters):
             w = M(Mp, spmv(A, v))

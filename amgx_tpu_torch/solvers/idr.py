@@ -46,8 +46,9 @@ class IDRSolver(KrylovSolver):
     def _setup_impl(self, A):
         super()._setup_impl(A)
         # the shadow space cannot exceed the system size
-        s = min(self.s, A.n_rows)
-        self._shadow = shadow_space(A.n_rows, s, A.dtype, A.device)
+        n = A.n_rows * A.block_size
+        s = min(self.s, n)
+        self._shadow = shadow_space(n, s, A.dtype, A.device)
 
     def _make_cycle(self):
         """fn(params, x, state) -> (x, state): one outer cycle, with

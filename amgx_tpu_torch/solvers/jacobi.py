@@ -1,7 +1,9 @@
-"""Jacobi-family smoothers for scalar matrices (reference
-block_jacobi_solver.cu, the default smoother; jacobi_l1_solver.cu):
-x += omega * D^-1 (b - A x).  Each sweep is one SpMV and an elementwise
-update."""
+"""Jacobi-family smoothers (reference block_jacobi_solver.cu, the
+default smoother; jacobi_l1_solver.cu): x += omega * D^-1 (b - A x).
+Each sweep is one SpMV and an elementwise update; BLOCK_JACOBI on a
+block matrix inverts its b x b diagonal blocks at setup and applies
+them as a batched product, JACOBI_L1 runs on the scalar expansion (as
+in the JAX package)."""
 
 from __future__ import annotations
 
@@ -28,10 +30,13 @@ class _DiagSmootherBase(Solver):
 
     def make_residual_step(self):
         omega = self.relaxation_factor
+        # block size of the operator in params (JACOBI_L1 scalarizes at
+        # setup, so self.A.block_size may differ)
+        b_sz = self._params[0].block_size
 
         def rstep(params, b, x, r):
             _, dinv = params
-            return x + omega * apply_dinv(dinv, r)
+            return x + omega * apply_dinv(dinv, r, b_sz)
 
         return rstep
 
@@ -40,11 +45,12 @@ class _DiagSmootherBase(Solver):
         # sweeps are full steps (reference smooth_with_0_initial_guess)
         step = self.make_step()
         omega = self.relaxation_factor
+        b_sz = self._params[0].block_size
         iters = max(self.max_iters, 1)
 
         def apply(params, r):
             _, dinv = params
-            z = omega * apply_dinv(dinv, r)
+            z = omega * apply_dinv(dinv, r, b_sz)
             for _ in range(iters - 1):
                 z = step(params, r, z)
             return z
@@ -54,10 +60,9 @@ class _DiagSmootherBase(Solver):
 
 @register_solver("BLOCK_JACOBI")
 class BlockJacobiSolver(_DiagSmootherBase):
-    """x += omega * D^{-1} (b - A x); D = diagonal."""
+    """x += omega * D^{-1} (b - A x); D = (block) diagonal."""
 
     def _setup_impl(self, A):
-        A = scalarized(A, "BLOCK_JACOBI")
         self._params = (A, invert_diag(A))
 
 

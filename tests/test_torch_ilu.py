@@ -295,13 +295,23 @@ def test_chip_path_config_is_acceptance_config_4():
 
 
 def test_block_ilu_raises():
-    """Block matrices keep raising (ROADMAP.md, queue A4)."""
+    """Block matrices no longer raise: block ILU(0) (whole block columns
+    eliminated with the inverted pivot blocks) applies as the JAX
+    package's does, at rtol 1e-12."""
     from amgx_tpu_torch.solvers.dilu import MulticolorILUSolver
 
-    s = T.create_solver(T.AMGConfig.from_string(_smoother()), "default",
+    text = _smoother()
+    m = sps.kron(poisson_scipy((5, 5)), np.array([[3.0, 0.4], [0.2, 2.0]]),
+                 format="csr")
+    js = j_create(JConfig.from_string(text), "default")
+    js.setup(JMatrix.from_scipy(m, block_size=2))
+    s = T.create_solver(T.AMGConfig.from_string(text), "default",
                         device="cpu")
     assert isinstance(s, MulticolorILUSolver)
-    A = TMatrix.from_scipy(poisson_scipy((4, 4)), device="cpu")
-    A.block_size = 2
-    with pytest.raises(NotImplementedError, match="A4"):
-        s.setup(A)
+    s.setup(TMatrix.from_scipy(m, block_size=2, device="cpu"))
+    assert s.num_colors == js.num_colors
+    r = poisson_rhs(m.shape[0], seed=4)
+    zj = np.asarray(js.make_apply()(js._params, r))
+    zt = s.make_apply()(s._params, torch.from_numpy(r)).numpy()
+    np.testing.assert_allclose(zt, zj, rtol=1e-12,
+                               atol=1e-12 * np.abs(zj).max())

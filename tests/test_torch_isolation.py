@@ -33,7 +33,8 @@ _FORBIDDEN_IMPORT = re.compile(
 _CI_SCRIPTS = [ROOT / "ci" / "torch_port_compare.py",
                ROOT / "ci" / "torch_stencil_geometry.py",
                ROOT / "ci" / "torch_classical_compare.py",
-               ROOT / "ci" / "torch_dia_compare.py"]
+               ROOT / "ci" / "torch_dia_compare.py",
+               ROOT / "ci" / "torch_match_gate_compare.py"]
 
 
 def _port_sources():

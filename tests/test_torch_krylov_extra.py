@@ -20,8 +20,6 @@ Krylov family with the JAX package (CPU).
     ITERATIVE_REFINEMENT.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -136,11 +134,22 @@ def test_dilu_apply_matches_jax(shape, dtype):
 
 
 def test_dilu_block_matrix_raises_a4():
+    """A block matrix no longer raises: the block-native M^-1 (b x b E
+    factors) agrees with the JAX package's at rtol 1e-12."""
+    import scipy.sparse as sps
+
+    m = sps.kron(poisson_scipy((5, 5)), np.array([[3.0, 0.4], [0.2, 2.0]]),
+                 format="csr")
+    js = j_create(JConfig.from_string(DILU), "default")
+    js.setup(JMatrix.from_scipy(m, block_size=2))
     ts = T.create_solver(T.AMGConfig.from_string(DILU), "default",
                          device="cpu")
-    A = TMatrix.from_scipy(poisson_scipy((4, 4)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        ts.setup(dataclasses.replace(A, block_size=2))
+    ts.setup(TMatrix.from_scipy(m, block_size=2, device="cpu"))
+    assert ts.num_colors == js.num_colors
+    r = poisson_rhs(m.shape[0], seed=3)
+    zj = np.asarray(js._apply_M_inv(js._params, r))
+    zt = ts._apply_M_inv(ts._params, torch.from_numpy(r)).numpy()
+    _assert_close(zt, zj, 1e-12)
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +259,51 @@ def test_krylov_complex_matches_jax(solver):
     assert tr.status == int(jr.status) == SUCCESS
     assert tr.iters == int(jr.iters)
     assert tr.x.dtype == torch.complex128
+    _assert_close(tr.x.numpy(), np.asarray(jr.x), 1e-10)
+
+
+def test_complex_amg_gmres_matches_jax(tmp_path):
+    """GMRES + SIZE_2 aggregation AMG on the 400-row Hermitian system of
+    ``tests/test_complex.py::test_amg_preconditioned_complex_solve``,
+    written to a complex MatrixMarket file and read back by each
+    package's ``read_mtx``: the same hierarchy, iterations and x at
+    rtol 1e-10."""
+    import scipy.sparse as sps
+
+    from amgx_tpu.io import matrix_market as j_mm
+    from amgx_tpu_torch.io import matrix_market as t_mm
+
+    n = 400
+    rs = np.random.RandomState(5)
+    B = sps.random(n, n, density=0.05, random_state=rs) + 1j * sps.random(
+        n, n, density=0.05, random_state=rs)
+    m = (B @ B.conj().T + n * sps.eye(n)).tocsr().astype(np.complex128)
+    path = tmp_path / "hermitian.mtx"
+    j_mm.write_system(path, JMatrix.from_scipy(m))
+    rng = np.random.default_rng(0)
+    b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    text = (
+        '{"config_version": 2, "solver": {"scope": "main", '
+        '"solver": "GMRES", "max_iters": 100, "gmres_n_restart": 20, '
+        '"tolerance": 1e-8, "monitor_residual": 1, '
+        '"convergence": "RELATIVE_INI", '
+        '"preconditioner": {"scope": "amg", "solver": "AMG", '
+        '"algorithm": "AGGREGATION", "selector": "SIZE_2", '
+        '"smoother": {"scope": "j", "solver": "BLOCK_JACOBI", '
+        '"relaxation_factor": 0.7, "monitor_residual": 0}, '
+        '"max_iters": 1, "min_coarse_rows": 32, '
+        '"coarse_solver": "DENSE_LU_SOLVER", "monitor_residual": 0}}}')
+    js = j_create(JConfig.from_string(text), "default")
+    js.setup(j_mm.read_mtx(path))
+    ts = T.create_solver(T.AMGConfig.from_string(text), "default",
+                         device="cpu")
+    ts.setup(t_mm.read_mtx(path, device="cpu"))
+    assert ts.A.dtype == torch.complex128
+    assert [(lv.A.n_rows, lv.A.nnz) for lv in ts.precond.levels] == [
+        (lv.A.n_rows, lv.A.nnz) for lv in js.precond.levels]
+    jr, tr = js.solve(b), ts.solve(b)
+    assert tr.status == int(jr.status) == SUCCESS
+    assert tr.iters == int(jr.iters)
     _assert_close(tr.x.numpy(), np.asarray(jr.x), 1e-10)
 
 

@@ -219,12 +219,64 @@ def test_device_match_arrays_equal_jax():
     W = tagg.edge_weights(j_poisson(8).to_scipy().tocsr(), 0)
     for a, b in zip(tagg._match_ell_arrays(W), jagg._match_ell_arrays(W)):
         assert np.array_equal(a, b)
-    # wider than the gate: None, and the device matcher takes the host
-    # rounds
+    # wider than the JAX package's gate (32): None there and here; the
+    # torch rounds' gate (_DEVICE_ROUNDS_MAX_WIDTH) still takes 39
+    # neighbours a row on the device, the host matcher's aggregates
     wide = sps.csr_matrix(np.ones((40, 40)) - np.eye(40))
     assert tagg._match_ell_arrays(wide) is None
+    assert jagg._match_ell_arrays(wide) is None
+    assert tagg._match_ell_arrays(
+        wide, tagg._DEVICE_ROUNDS_MAX_WIDTH, device="cpu") is not None
     assert np.array_equal(tagg.pairwise_match_device(wide, device="cpu"),
                           tagg.pairwise_match(wide))
+
+
+def test_device_matcher_wider_than_its_gate_takes_host(monkeypatch):
+    """A graph of rows wider than the torch rounds' gate: no device
+    arrays, and :func:`pairwise_match_device` returns the host
+    matcher's aggregates without running the device rounds."""
+    n = tagg._DEVICE_ROUNDS_MAX_WIDTH + 12
+    wider = sps.csr_matrix(np.ones((n, n)) - np.eye(n))
+    assert tagg._match_ell_arrays(
+        wider, tagg._DEVICE_ROUNDS_MAX_WIDTH, device="cpu") is None
+
+    def no_rounds(*a, **kw):
+        raise AssertionError("device rounds on a graph wider than the gate")
+
+    monkeypatch.setattr(tagg, "_device_match_rounds", no_rounds)
+    assert np.array_equal(tagg.pairwise_match_device(wider, device="cpu"),
+                          tagg.pairwise_match(wider))
+
+
+def test_match_gate_compare_script_on_cpu(monkeypatch, capsys):
+    """``ci/torch_match_gate_compare.py`` at small sizes on CPU tensors
+    (the device rounds forced on): both gates give the same levels, and
+    the narrow gate sends the block expansion's wide graph to the host
+    rounds where the wide gate keeps it on the device rounds."""
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    monkeypatch.setenv("AMGX_TPU_TORCH_DEVICE_MATCH", "1")
+    # small graphs match through the device rounds too
+    monkeypatch.setattr(tagg, "_DEVICE_MATCH_MIN_ROWS", 1000)
+    path = Path(__file__).resolve().parent.parent / "ci" / \
+        "torch_match_gate_compare.py"
+    spec = importlib.util.spec_from_file_location("_gate_compare", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main(["--device", "cpu", "--n", "16",
+                     "--block-n", "12"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    block = {r["mode"]: r for r in recs
+             if r.get("path") == "block4_amg_pcg"}
+    wide = [p for p in block["wide"]["matcher_passes"]
+            if p["width"] > tagg._DEVICE_MATCH_MAX_WIDTH]
+    assert wide and all(p["card"] for p in wide)
+    assert not any(p["card"] for p in block["narrow"]["matcher_passes"]
+                   if p["width"] > tagg._DEVICE_MATCH_MAX_WIDTH)
+    assert set(recs[-1]["setup_s"]) == {"device_match", "block4_amg_pcg"}
 
 
 def test_device_matching_gate(monkeypatch):

@@ -201,9 +201,18 @@ def test_malformed_csr_raises():
 
 
 def test_block_and_bf16_unported():
+    """A block upload builds the JAX package's block CSR and block ELL;
+    float16 is still not uploaded from the host."""
     m = j_poisson_scipy((4, 4))
-    with pytest.raises(NotImplementedError, match="block"):
-        TMatrix.from_scipy(m, block_size=2, device="cpu")
+    t = TMatrix.from_scipy(m, block_size=2, device="cpu")
+    j = JMatrix.from_scipy(m, block_size=2)
+    assert t.block_size == j.block_size == 2
+    assert t.format == _jformat(j) == "ELL"
+    assert np.array_equal(t.values.numpy(), np.asarray(j.values))
+    assert np.array_equal(t.diag.numpy(), np.asarray(j.diag))
+    assert np.array_equal(t.ell_vals.numpy(),
+                          np.asarray(j.ell_vals).swapaxes(0, 1))
+    assert (t.to_scipy() != m).nnz == 0
     with pytest.raises(NotImplementedError, match="float16"):
         TMatrix.from_csr(m.indptr, m.indices, m.data.astype(np.float16),
                          device="cpu")

@@ -11,6 +11,7 @@ import warnings
 
 import numpy as np
 import pytest
+import scipy.sparse as sps
 import torch
 
 import amgx_tpu
@@ -192,18 +193,30 @@ def test_iterative_refinement_still_raises():
 
 @pytest.mark.parametrize("name", ["MULTICOLOR_ILU", "MULTICOLOR_DILU"])
 def test_block_colour_sweeps_raise(name):
-    """Block matrices keep raising in the colour-sweep smoothers and at
-    the upload (ROADMAP.md, queue A4)."""
-    cfg = T.AMGConfig.from_string(_cfg(name))
-    s = T.create_solver(cfg, "default", device="cpu")
-    A = TMatrix.from_scipy(poisson_scipy((4, 4)), device="cpu")
-    A.block_size = 2
-    with pytest.raises(NotImplementedError, match="A4"):
-        s.setup(A)
-    m = poisson_scipy((4, 4)).tocsr()
-    with pytest.raises(NotImplementedError, match="block"):
-        TMatrix.from_csr(m.indptr, m.indices, m.data, block_size=2,
+    """Block matrices no longer raise in the colour-sweep smoothers or
+    at the upload: a block Poisson system solved as the JAX package
+    solves it (native b x b factors)."""
+    m = poisson_scipy((6, 6))
+    sp = sps.kron(m, np.array([[2.0, 0.3], [0.1, 1.5]]), format="csr")
+    text = _cfg("PCG", ', "preconditioner": {"scope": "p", "solver": '
+                f'"{name}", "max_iters": 1, "monitor_residual": 0}}')
+    js = j_create(JConfig.from_string(text), "default")
+    js.setup(JMatrix.from_scipy(sp, block_size=2))
+    ts = T.create_solver(T.AMGConfig.from_string(text), "default",
                          device="cpu")
+    ts.setup(TMatrix.from_csr(*_bsr_arrays(sp, 2), block_size=2,
+                              device="cpu"))
+    assert ts.precond._params[0].block_size == 2
+    b = poisson_rhs(sp.shape[0], seed=3)
+    jr, tr = js.solve(b), ts.solve(b)
+    _assert_parity(jr, tr, np.float64)
+    assert tr.history.shape[1] == 2
+
+
+def _bsr_arrays(sp, b):
+    bsr = sps.bsr_matrix(sp, blocksize=(b, b))
+    bsr.sort_indices()
+    return bsr.indptr, bsr.indices, bsr.data
 
 
 @pytest.mark.parametrize("scaling", ["DIAGONAL_SYMMETRIC", "BINORMALIZATION",

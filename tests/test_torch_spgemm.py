@@ -282,8 +282,22 @@ def test_replace_values_rejects_wrong_length_and_block_values():
     A = SparseMatrix.from_scipy(sp, device="cpu", accel_formats=formats)
     with pytest.raises(ValueError, match="values for"):
         A.replace_values(np.ones(sp.nnz + 1))
-    with pytest.raises(NotImplementedError, match="block"):
+    # block values on a scalar matrix are a wrong length, in both
+    with pytest.raises(ValueError, match="values for"):
         A.replace_values(np.ones((sp.nnz, 2, 2)))
+    with pytest.raises(Exception):
+        JMatrix.from_scipy(sp).replace_values(np.ones((sp.nnz, 2, 2)))
+    # block values on a block matrix refill its block CSR and block ELL
+    # as the JAX package's do
+    bsp = sps.kron(sp, np.array([[2.0, 0.5], [0.25, 1.0]]), format="csr")
+    B = SparseMatrix.from_scipy(bsp, block_size=2, device="cpu")
+    JB = JMatrix.from_scipy(bsp, block_size=2)
+    v = np.random.default_rng(0).standard_normal((B.nnz, 2, 2))
+    B2, JB2 = B.replace_values(v), JB.replace_values(v)
+    assert B2.format == "ELL" and JB2.has_ell
+    for t, j in ((B2.values, JB2.values), (B2.diag, JB2.diag),
+                 (B2.ell_vals, np.asarray(JB2.ell_vals).swapaxes(0, 1))):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
 # ---------------------------------------------------------------------------
