@@ -15,18 +15,21 @@ every kernel wrapper takes its plain PyTorch version.
 from amgx_tpu_torch.config.amg_config import AMGConfig
 from amgx_tpu_torch.core.matrix import SparseMatrix
 from amgx_tpu_torch.solvers import create_solver
+from amgx_tpu_torch.eigensolvers import create_eigensolver
 
 
 def initialize():
-    """Register all solver factories (reference amgx::initialize).
-    Importing the package already registers them; kept so that code
-    written for the JAX package runs unchanged."""
+    """Register all solver and eigensolver factories (reference
+    amgx::initialize).  Importing the package already registers them;
+    kept so that code written for the JAX package runs unchanged."""
+    import amgx_tpu_torch.eigensolvers  # noqa: F401
     import amgx_tpu_torch.solvers  # noqa: F401
 
 
 __all__ = [
     "AMGConfig",
     "SparseMatrix",
+    "create_eigensolver",
     "create_solver",
     "initialize",
 ]

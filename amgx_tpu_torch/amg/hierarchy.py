@@ -31,6 +31,12 @@ from the host CSR, resetups the surviving smoothers (CHEBYSHEV keeps its
 cached bounds) and rebuilds the coarse solver.  Each level keeps its
 dtype through a resetup.
 
+``save_setup`` / ``load_setup`` (``amgx_tpu_torch/store``) persist the
+level chain with its plans, the smoothers' and the coarse solver's
+exportable state; a restore coarsens nothing (``setup_stats``
+``restored``) and refuses a stale payload (``_check_restored_dtypes``,
+``_check_restored_formats``).
+
 Per-level precision (``hierarchy_dtype``, ``level_dtype_policy``; the
 JAX package's cheap-preconditioner policy): at the top of
 ``_finalize_setup`` every P and R, and every level's A (COARSE: all but
@@ -44,8 +50,7 @@ dtype, a coarse solve's correction (DENSE_LU factors a bf16 level in
 f32) to the coarsest level's, and the step casts b and x to the finest
 level's dtype and the result back (``_to_dtype``; no-ops on a
 hierarchy of one dtype).  Every cast is explicit: torch's in-place
-operations do not promote, and none is used on these vectors.  The
-setup store has no entry point in this package.
+operations do not promote, and none is used on these vectors.
 
 :func:`hierarchy_from_numpy` builds a solver on a given hierarchy
 (per-level CSR arrays of A, P and R) without coarsening — the way the
@@ -158,6 +163,9 @@ class AMGSolver(Solver):
             self.coarsest_sweeps = max(self.coarsest_sweeps, 8)
         self.levels: list[AMGLevel] = []
         self.coarse_solver: Solver | None = None
+        # a coarse solver the store's restore imported, taken by the
+        # next _finalize_setup(reuse_smoothers=True)
+        self._restored_coarse = None
         # per-level (A, P, R) given by hierarchy_from_numpy; consumed
         # by the next setup in place of coarsening
         self._given_levels = None
@@ -230,17 +238,28 @@ class AMGSolver(Solver):
                 )
         return build_classical_level(Asp, self.cfg, self.scope, level_id)
 
-    def _make_smoother(self, A: SparseMatrix) -> Solver:
+    def _new_smoother(self) -> Solver:
+        """A smoother of this config, not set up (the restore imports
+        its state)."""
         name, sscope = self.cfg.get_scoped("smoother", self.scope)
-        sm = make_nested(
+        return make_nested(
             SolverRegistry.get(name)(self.cfg, sscope, device=self.device)
         )
+
+    def _make_smoother(self, A: SparseMatrix) -> Solver:
+        sm = self._new_smoother()
         sm.setup(A)
         return sm
 
     def _make_coarse_solver(self, A: SparseMatrix):
-        """Coarse solver for the coarsest operator, or None (NOSOLVER /
-        dense size gate: the coarsest level then smooths)."""
+        cs = self._new_coarse_solver(A)
+        if cs is not None:
+            cs.setup(A)
+        return cs
+
+    def _new_coarse_solver(self, A: SparseMatrix):
+        """Coarse solver for the coarsest operator, not set up, or None
+        (NOSOLVER / dense size gate: the coarsest level then smooths)."""
         name, cscope = self.cfg.get_scoped("coarse_solver", self.scope)
         if name == "NOSOLVER":
             return None
@@ -257,7 +276,6 @@ class AMGSolver(Solver):
         if isinstance(cs, InexactCoarseSolver):
             # the inexact sweep budget is linked to the cycle depth
             cs.cycle_depth = len(self.levels)
-        cs.setup(A)
         return cs
 
     def _accel_formats(self):
@@ -426,18 +444,94 @@ class AMGSolver(Solver):
                 if m is not None:
                     setattr(lvl, name, m.astype(dt))
 
-    def _finalize_setup(self):
+    def _check_restored_dtypes(self):
+        """Store guardrail (the JAX package's): a restored hierarchy
+        whose level dtypes contradict this config's precision policy is
+        a stale artifact; ``StoreError``, which the store counts as a
+        miss, before ``_cast_hierarchy`` could repair it into a warm
+        hit of the wrong provenance."""
+        from amgx_tpu_torch.core.errors import StoreError
+
+        dt = self._hierarchy_dtype()
+        if dt is None:
+            return
+        cast_ids = self._cast_level_ids(dt)
+        for lvl in self.levels:
+            got = [
+                (name, m.dtype)
+                for name, m in (
+                    ("A", lvl.A if lvl.level_id in cast_ids else None),
+                    ("P", lvl.P),
+                    ("R", lvl.R),
+                )
+                if m is not None and m.dtype != dt
+            ]
+            if got:
+                raise StoreError(
+                    f"persisted hierarchy level {lvl.level_id} carries "
+                    f"{got[0][0]} values of dtype {got[0][1]} but this "
+                    f"config's precision policy wants {dt}: stale "
+                    "artifact, counted as a miss"
+                )
+
+    def _check_restored_formats(self):
+        """Store guardrail (the JAX package's): a restored hierarchy
+        whose formats contradict ``matrix_free`` is a stale artifact:
+        MATRIX_FREE state under ``matrix_free`` 0, or DIA planes on a
+        finest operator that stencil detection verifies under
+        ``matrix_free`` 1 (detection re-run on the host)."""
+        from amgx_tpu_torch.core.errors import StoreError
+
+        if not self.matrix_free:
+            for lvl in self.levels:
+                if lvl.A.has_matrix_free:
+                    raise StoreError(
+                        f"persisted hierarchy level {lvl.level_id} "
+                        "carries MATRIX_FREE compact state but this "
+                        "config has matrix_free=0: stale artifact, "
+                        "counted as a miss"
+                    )
+            return
+        A = self.levels[0].A
+        if A.has_matrix_free or not A.has_dia or A.block_size != 1:
+            return
+        from amgx_tpu_torch.core.types import host_array
+        from amgx_tpu_torch.ops.stencil import detect_stencil_np
+
+        det = detect_stencil_np(
+            A.dia_offsets, host_array(A.dia_vals), host_array(A.dia_src),
+            A.n_rows,
+        )
+        if det is not None:
+            raise StoreError(
+                "persisted hierarchy finest level is a verified stencil "
+                "but stores DIA planes while this config has "
+                "matrix_free=1: stale artifact, counted as a miss"
+            )
+
+    def _finalize_setup(self, reuse_smoothers=False):
+        """Smoothers, the coarse solver and the cycle's parameters on
+        the levels.  ``reuse_smoothers`` (the store's restore only)
+        keeps the smoothers and the coarse solver the import restored;
+        a setup or resetup must not pass it, since its level values
+        changed."""
         # the precision policy first: smoothers and the coarse solver
         # set up on the cast operators
         self._cast_hierarchy()
         for lvl in self.levels[:-1]:
-            self._refresh_smoother(lvl)
+            if not (reuse_smoothers and lvl.smoother is not None):
+                self._refresh_smoother(lvl)
         coarsest = self.levels[-1]
-        # the coarse solver is rebuilt (DENSE_LU factors anew)
-        self.coarse_solver = self._make_coarse_solver(coarsest.A)
+        restored, self._restored_coarse = self._restored_coarse, None
+        if reuse_smoothers and restored is not None:
+            self.coarse_solver = restored
+        else:
+            # the coarse solver is rebuilt (DENSE_LU factors anew)
+            self.coarse_solver = self._make_coarse_solver(coarsest.A)
         if self.coarse_solver is None:
             # coarsest-level smoothing fallback (coarse_solver=NOSOLVER)
-            self._refresh_smoother(coarsest)
+            if not (reuse_smoothers and coarsest.smoother is not None):
+                self._refresh_smoother(coarsest)
         else:
             coarsest.smoother = None
         self._params = self._collect_params()
@@ -485,6 +579,74 @@ class AMGSolver(Solver):
                 self._coarsen_from(self.levels[i].A.host_csr())
             self._finalize_setup()
         return True
+
+    # ------------------------------------------------------------------
+    # setup persistence (``amgx_tpu_torch.store``): the level chain
+    # (operators, transfers, Galerkin plans) is the setup; smoothers and
+    # the coarse solver ride along where their state exports (Chebyshev
+    # bounds, DENSE_LU factors) and re-derive from the restored
+    # operators, bit for bit the set-up ones, where it does not
+
+    def _export_impl(self):
+        if not self.levels:
+            return None
+        levels = []
+        for lvl in self.levels:
+            sm = None
+            if lvl.smoother is not None:
+                try:
+                    sm = lvl.smoother._export_setup()
+                except Exception:  # noqa: BLE001 — re-derived at import
+                    sm = None
+            levels.append({"A": lvl.A, "P": lvl.P, "R": lvl.R,
+                           "plan": lvl.rap_plan, "smoother": sm})
+        coarse = None
+        if self.coarse_solver is not None:
+            try:
+                coarse = {"name": self.coarse_solver.registry_name,
+                          "state": self.coarse_solver._export_setup()}
+            except Exception:  # noqa: BLE001 — re-derived at import
+                coarse = None
+        return {"levels": levels, "coarse": coarse}
+
+    def _import_impl(self, impl):
+        if not impl or not impl.get("levels"):
+            return self._setup_impl(self.A)
+        self.levels = []
+        for state in impl["levels"]:
+            lvl = AMGLevel(state["A"], len(self.levels))
+            lvl.P = state.get("P")
+            lvl.R = state.get("R")
+            lvl.rap_plan = state.get("plan")
+            sm_state = state.get("smoother")
+            if sm_state is not None:
+                try:
+                    sm = self._new_smoother()
+                    sm._import_setup(sm_state)
+                    lvl.smoother = sm
+                except Exception:  # noqa: BLE001 — finalize re-derives
+                    lvl.smoother = None
+            self.levels.append(lvl)
+        # guardrails before finalize: _cast_hierarchy would repair a
+        # wrong-dtype level into a warm hit of the wrong provenance
+        self._check_restored_dtypes()
+        self._check_restored_formats()
+        self._restored_coarse = None
+        cs_state = impl.get("coarse")
+        if cs_state:
+            try:
+                cs = self._new_coarse_solver(self.levels[-1].A)
+                if cs is not None and cs.registry_name == cs_state.get(
+                        "name"):
+                    cs._import_setup(cs_state["state"])
+                    self._restored_coarse = cs
+            except Exception:  # noqa: BLE001 — finalize re-derives
+                self._restored_coarse = None
+        self.setup_profile = {}
+        self.setup_stats = {"coarsen_calls": 0, "levels_built": 0,
+                            "device_levels": 0, "host_fallback_levels": 0,
+                            "restored": True}
+        self._finalize_setup(reuse_smoothers=True)
 
     def _collect_params(self):
         per_level = tuple(

@@ -19,7 +19,9 @@ the same bits (``index_add_`` would sum with atomics on the card, in an
 order that changes from run to run).  No hand-written kernel is used.
 The offsets stand in for the JAX package's ``out_idx`` (the output
 position of each pair, which it hands to ``segment_sum``): ``out_idx``
-is ``repeat(arange(nnz_out), diff(offsets))``.
+is ``repeat(arange(nnz_out), diff(offsets))`` (``SpMMPlan.out_idx``,
+and ``SpMMPlan.from_out_idx`` back: the setup store writes the JAX
+package's form).
 
 RAP is planned in two stages (AP, then R(AP)), as in the JAX package:
 the three-factor pair list would be |paths(R)| x |paths(AP)| long.
@@ -78,6 +80,27 @@ class SpMMPlan:
         """Device bytes of the plan's index arrays."""
         return sum(t.numel() * t.element_size() for t in (
             self.left_idx, self.right_idx, self.offsets))
+
+    def out_idx(self) -> torch.Tensor:
+        """The JAX package's form of the runs: the output position of
+        each pair, (T,) int32, ascending (what the setup store
+        writes)."""
+        counts = self.offsets[1:] - self.offsets[:-1]
+        return torch.repeat_interleave(
+            torch.arange(self.nnz_out, dtype=torch.int32,
+                         device=self.offsets.device), counts)
+
+    @staticmethod
+    def from_out_idx(left_idx, right_idx, out_idx, nnz_out) -> "SpMMPlan":
+        """A plan from the JAX package's arrays (tensors on one
+        device): the runs' offsets from the ascending ``out_idx``."""
+        offsets = torch.zeros(nnz_out + 1, dtype=torch.int64,
+                              device=out_idx.device)
+        torch.cumsum(torch.bincount(out_idx.long(), minlength=nnz_out),
+                     dim=0, out=offsets[1:])
+        return SpMMPlan(left_idx=left_idx.to(torch.int32),
+                        right_idx=right_idx.to(torch.int32),
+                        offsets=offsets, nnz_out=int(nnz_out))
 
 
 def plan_spmm(Bsp, Csp, Outsp, device="cuda") -> SpMMPlan:

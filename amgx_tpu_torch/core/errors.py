@@ -3,9 +3,10 @@
 Same classes and AMGX_RC codes as the JAX package (reference
 amgx_c.h:52-69): :class:`SetupError` and its subclasses for operators
 that cannot be set up, with input validation at the upload and setup
-boundaries, and :class:`ResourceError` for overflow-class failures
-(the classical device setup's ``DeviceSetupOverflow``).  ``AMGX_TPU_VALIDATE=0`` disables validation in both
-packages.
+boundaries, :class:`ResourceError` for overflow-class failures (the
+classical device setup's ``DeviceSetupOverflow``) and
+:class:`StoreError` for the setup store.  ``AMGX_TPU_VALIDATE=0``
+disables validation in both packages.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ RC_OK = 0
 RC_BAD_PARAMETERS = 1
 RC_UNKNOWN = 2
 RC_NO_MEMORY = 7
+RC_IO_ERROR = 8
+RC_BAD_MODE = 9
 RC_CORE = 10
 RC_NOT_IMPLEMENTED = 13
 RC_INTERNAL = 15
@@ -61,6 +64,16 @@ class PatternDegeneracyError(SetupError):
     out-of-range column indices, value/index length mismatch."""
 
     rc = RC_BAD_PARAMETERS
+
+
+class StoreError(AMGXTPUError):
+    """Setup-artifact persistence failure (``amgx_tpu_torch.store``):
+    an unreadable or corrupt payload, a schema or configuration
+    mismatch, a stale artifact, or a setup holding state that cannot be
+    persisted.  The artifact store never raises it on reads (a defect
+    there is a miss); ``save_setup`` / ``load_setup`` raise it."""
+
+    rc = RC_IO_ERROR
 
 
 def validation_enabled() -> bool:

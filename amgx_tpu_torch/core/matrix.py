@@ -33,10 +33,12 @@ Differences from the JAX package:
     source maps into the CSR values, as the JAX package's does.  The
     JAX package keeps its ``diag_src`` / ``dia_src`` / ``ell_src`` maps
     from upload on; here they are derived on the device from the index
-    arrays at the first ``replace_values`` and shared by every matrix
-    derived from it (``_src``), so a matrix whose values never change
-    holds none.  Only the stencil's map (``mf_src``, at most ``nd x L``
-    entries) is kept from detection.  The host triple of a derived
+    arrays at the first ``replace_values`` (or the first read of the
+    ``diag_src`` / ``dia_src`` / ``ell_src`` properties, which the setup
+    store writes) and shared by every matrix derived from it (``_src``),
+    so a matrix whose values never change holds none.  Only the
+    stencil's map (``mf_src``, at most ``nd x L`` entries) is kept from
+    detection.  The host triple of a derived
     matrix reads its values back from the device once, when first
     asked for (``host_csr``, ``to_scipy``, the smoothers' setups).
   * ``astype`` casts every format on the device, bf16 included (the
@@ -202,6 +204,53 @@ class SparseMatrix:
             v = host_array(self.values)
             self._host_csr = (ro, ci, v)
         return self._host_csr
+
+    # ---- identity (the setup store's key) --------------------------------
+
+    def fingerprint(self) -> str:
+        """Hash of the sparsity structure (row offsets, column indices,
+        shape, block size; values excluded), equal to the JAX package's
+        for the same pattern: the setup store keys on it.  Read from the
+        host triple (no device read) and memoized; ``replace_values``
+        and ``astype`` carry the memo over."""
+        fp = getattr(self, "_fingerprint_cache", None)
+        if fp is None:
+            ro, ci, _ = self._host_csr
+            fp = sparsity_fingerprint(ro, ci, self.n_rows, self.n_cols,
+                                      self.block_size)
+            self._fingerprint_cache = fp
+        return fp
+
+    def setup_key(self) -> tuple:
+        """``(fingerprint, dtype name)``: the identity a set-up solver
+        is stored under.  The dtype is read from the values each time,
+        never memoized."""
+        return self.fingerprint(), str(self.dtype).replace("torch.", "")
+
+    def _propagate_structure_memo(self, new: "SparseMatrix"):
+        """``new`` with this matrix's memoized fingerprint, where there
+        is one: ``new`` must have the same index structure."""
+        fp = getattr(self, "_fingerprint_cache", None)
+        if fp is not None:
+            new._fingerprint_cache = fp
+        return new
+
+    # first-occurrence source maps (``_src_maps``) in this package's
+    # layouts: the JAX package's ``diag_src`` / ``dia_src`` /
+    # ``ell_src`` (the last transposed, (w, n_rows)), derived on the
+    # device at the first read; ``mf_src`` is a field
+
+    @property
+    def diag_src(self):
+        return self._src_maps()["diag"]
+
+    @property
+    def dia_src(self):
+        return self._src_maps()["dia"] if self.has_dia else None
+
+    @property
+    def ell_src(self):
+        return self._src_maps()["ell"] if self.has_ell else None
 
     @property
     def format(self) -> str:
@@ -454,7 +503,8 @@ class SparseMatrix:
             if self.sell is not None:
                 rep["sell"] = dataclasses.replace(
                     self.sell, vals=_gather_src(maps["sell"], v))
-        return dataclasses.replace(self, **rep)
+        return self._propagate_structure_memo(
+            dataclasses.replace(self, **rep))
 
     def astype(self, dtype) -> "SparseMatrix":
         """The same matrix with values of ``dtype`` (torch.bfloat16,
@@ -487,7 +537,8 @@ class SparseMatrix:
             rep["sell"] = dataclasses.replace(
                 self.sell, vals=self.sell.vals.to(dt),
                 lanes=1 if dt == torch.bfloat16 else self.sell.lanes)
-        return dataclasses.replace(self, **rep)
+        return self._propagate_structure_memo(
+            dataclasses.replace(self, **rep))
 
     def _src_maps(self) -> dict:
         """Source maps of :meth:`replace_values` on the device: for each
@@ -589,6 +640,25 @@ def _gather_src(src, values):
     mask = (src >= 0).reshape(src.shape + (1,) * (values.dim() - 1))
     return torch.where(mask, v, torch.zeros((), dtype=v.dtype,
                                             device=v.device))
+
+
+def sparsity_fingerprint(row_offsets, col_indices, n_rows, n_cols,
+                         block_size=1) -> str:
+    """Hash of a CSR sparsity pattern from host arrays (the JAX
+    package's ``sparsity_fingerprint``): blake2b over the shape, the
+    block size, nnz and the int32 index arrays, so an int64 and an
+    int32 upload of one pattern collide."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    h.update(
+        np.asarray(
+            [n_rows, n_cols, block_size, len(col_indices)], dtype=np.int64
+        ).tobytes()
+    )
+    h.update(np.ascontiguousarray(row_offsets, dtype=np.int32).tobytes())
+    h.update(np.ascontiguousarray(col_indices, dtype=np.int32).tobytes())
+    return h.hexdigest()
 
 
 def _row_ids_np(row_offsets, n_rows):

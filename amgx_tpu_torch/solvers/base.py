@@ -26,7 +26,9 @@ the vectors at the same boundary (``ops/reorder.py``); AUTO, like the
 JAX package on any non-TPU backend, never reorders.  Not ported
 (ROADMAP.md, queue A) and raising ``NotImplementedError`` when a config
 asks for them: solve retries and fault injection (``AMGX_TPU_FAULTS``).
-The setup store and telemetry have no entry point in this package yet.
+``save_setup`` / ``load_setup`` persist a set-up solver in the JAX
+package's payload format (``amgx_tpu_torch/store``); telemetry has no
+entry point in this package yet.
 """
 
 from __future__ import annotations
@@ -111,6 +113,8 @@ class Solver:
         self._cache: dict = {}
         self.setup_time = 0.0
         self.solve_time = 0.0
+        # seconds of the last load_setup import (0 for a set-up solver)
+        self.restore_time = 0.0
 
     # ------------------------------------------------------------------
     # overridables
@@ -395,6 +399,69 @@ class Solver:
         """Values-only refresh; False makes ``resetup`` run ``setup``."""
         return False
 
+    # ------------------------------------------------------------------
+    # setup persistence (``amgx_tpu_torch.store``)
+
+    def _export_setup(self) -> dict:
+        """The setup-state tree the store writes (the JAX package's
+        layout): the set-up operator, the solve boundary's scale and
+        reorder vectors, and a solver-specific ``impl``
+        (:meth:`_export_impl`)."""
+        from amgx_tpu_torch.core.errors import StoreError
+
+        if self.A is None:
+            raise StoreError(
+                f"{self.registry_name}: save_setup before setup()"
+            )
+        return {
+            "A": self.A,
+            "scale": self._scale_vecs,
+            "reorder": self._reorder,
+            "impl": self._export_impl(),
+        }
+
+    def _import_setup(self, state: dict):
+        """Restore from :meth:`_export_setup` without the setup: the
+        default (:meth:`_import_impl`) re-derives the parameters from
+        the restored operator, which is cheap for every solver that
+        holds no hierarchy, factors or spectral bounds."""
+        self.A = state["A"]
+        self._scale_vecs = _as_tensors(state.get("scale"), self.device)
+        self._reorder = _as_tensors(state.get("reorder"), self.device)
+        self._import_impl(state.get("impl"))
+        self._cache.clear()
+
+    def _export_impl(self):
+        """Solver state beyond the operator; None where the parameters
+        re-derive from A."""
+        return None
+
+    def _import_impl(self, impl):
+        self._setup_impl(self.A)
+
+    def save_setup(self, path) -> dict:
+        """Write this solver's completed setup to ``path`` (one ``.npz``
+        with its JSON manifest, the JAX package's format) so that a
+        later process, of either package, restores it without running
+        setup.  Returns the manifest."""
+        from amgx_tpu_torch.store import serialize
+
+        return serialize.save_setup(self, path)
+
+    @classmethod
+    def load_setup(cls, path, cfg=None, expect_dtype=None, device="cuda"):
+        """A solver restored on ``device`` from a payload of
+        :meth:`save_setup` (written by either package), without running
+        setup: ``setup_time`` stays 0 and ``restore_time`` holds the
+        import's seconds.  ``cfg`` asserts the payload's configuration
+        (its content hash); ``expect_dtype`` refuses a payload of
+        another operator dtype before anything reaches the device
+        (``StoreError`` with ``RC_BAD_MODE``)."""
+        from amgx_tpu_torch.store import serialize
+
+        return serialize.load_setup(path, cfg=cfg, expect_dtype=expect_dtype,
+                                    device=device)
+
     def apply_params(self):
         return self._params
 
@@ -515,6 +582,17 @@ class Solver:
             + "\n".join(rows)
             + f"\n           geometric-mean rate: {geo:10.4f}"
         )
+
+
+def _as_tensors(vecs, device):
+    """A tuple of vectors as tensors on ``device`` (None stays None)."""
+    if vecs is None:
+        return None
+    return tuple(
+        v if isinstance(v, torch.Tensor)
+        else torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        for v in vecs
+    )
 
 
 def _real_np_dtype(b):

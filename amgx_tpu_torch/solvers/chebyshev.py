@@ -19,8 +19,9 @@ keeps the cached lmax / lmin and rebuilds only the preconditioner state,
 counting the resetups served off the cache in ``bound_staleness``; the
 ``reestimate_eigs`` knob re-runs the power iteration every Nth resetup
 (0: never).  AMG resetups its surviving level smoothers, so the cache
-rides a hierarchy's values-only resetup too.  Not ported (ROADMAP.md,
-queue A6/A7): export/import and the batched rebuild.
+rides a hierarchy's values-only resetup too.  ``save_setup`` keeps
+lmax, lmin and the preconditioner's state, so a restore runs no power
+iteration.  Not ported (ROADMAP.md, queue A7): the batched rebuild.
 """
 
 from __future__ import annotations
@@ -116,6 +117,31 @@ class ChebyshevSolver(Solver):
                 self.bound_staleness += 1
         self._params = (A, Mp)
         return True
+
+    def _export_impl(self):
+        # the spectral bounds (the power iteration is this setup's
+        # costly part) and the preconditioner's state
+        state = {"lmax": float(self.lmax), "lmin": float(self.lmin)}
+        if self.precond is not None:
+            state["precond"] = self.precond._export_setup()
+        return state
+
+    def _import_impl(self, impl):
+        if not impl or "lmax" not in impl:
+            return self._setup_impl(self.A)
+        if self.precond is not None:
+            if impl.get("precond") is None:
+                return self._setup_impl(self.A)
+            self.precond._import_setup(impl["precond"])
+            A, Mp = self.A, self.precond.apply_params()
+        else:
+            A = scalarized(self.A, self.registry_name)
+            Mp = invert_diag(A)
+        self.lmax = float(impl["lmax"])
+        self.lmin = float(impl["lmin"])
+        self.bound_staleness = 0
+        self._resetups_since_estimate = 0
+        self._params = (A, Mp)
 
     def _estimate_lambda_max(self, A, M, Mp, iters=POWER_STEPS, seed=0):
         """Power iteration on M^{-1}A: ``iters`` steps on the device,

@@ -11,7 +11,8 @@ the level's dtype.  Zero-pivot guard as in the JAX package: the
 host reads the U diagonal of the factorization, and a singular matrix
 either raises :class:`SingularDiagonalError` (``dense_lu_zero_pivot=
 RAISE``) or switches the apply to the pseudoinverse (REGULARIZE, the
-default).
+default).  ``save_setup`` stores the factors and pivots (0-based in the
+payload, as the JAX package's).
 """
 
 from __future__ import annotations
@@ -80,6 +81,22 @@ class DenseLUSolver(Solver):
             self._params = (A, torch.from_numpy(pinv).to(self.device), piv)
             return
         self._params = (A, lu, piv)
+
+    # the factors are this solver's setup: a restore skips the O(n^3)
+    # factorization.  The payload holds LAPACK's pivots 0-based, as the
+    # JAX package's ``lu_factor`` gives them; torch's are 1-based
+
+    def _export_impl(self):
+        _, fac, piv = self._params
+        return {"fac": fac, "piv": piv - 1, "pinv": bool(self._pinv_mode)}
+
+    def _import_impl(self, impl):
+        if not impl or impl.get("fac") is None:
+            return self._setup_impl(self.A)
+        self._pinv_mode = bool(impl.get("pinv"))
+        piv = torch.as_tensor(impl["piv"]).to(self.device)
+        self._params = (self.A, torch.as_tensor(impl["fac"]).to(self.device),
+                        (piv + 1).to(torch.int32))
 
     def make_apply(self):
         if self._pinv_mode:

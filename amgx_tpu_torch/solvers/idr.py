@@ -50,6 +50,12 @@ class IDRSolver(KrylovSolver):
         s = min(self.s, n)
         self._shadow = shadow_space(n, s, A.dtype, A.device)
 
+    def _import_impl(self, impl):
+        super()._import_impl(impl)
+        A = self.A
+        n = A.n_rows * A.block_size
+        self._shadow = shadow_space(n, min(self.s, n), A.dtype, A.device)
+
     def _make_cycle(self):
         """fn(params, x, state) -> (x, state): one outer cycle, with
         state = (r, G, U, Mm, om)."""

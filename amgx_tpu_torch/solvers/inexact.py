@@ -10,7 +10,7 @@ sweep budget grows with the cycle depth and is capped by
 
 (the AMG setup sets ``cycle_depth`` to the level count before the
 coarse solver's setup).  The class delegates everything to the inner
-solver, its resetup included.
+solver, its resetup and its setup export included.
 """
 
 from __future__ import annotations
@@ -60,11 +60,7 @@ class InexactCoarseSolver(Solver):
         return min(self.max_coarse_iters, 4 + 2 * max(self.cycle_depth, 1))
 
     def _setup_impl(self, A):
-        # max_iters counts inner steps for every solver family (SSTEP_PCG
-        # counts outers of iterations_scale steps: round up to whole
-        # outers)
-        scale = max(int(self.inner.iterations_scale), 1)
-        self.inner.max_iters = max(-(-self.sweep_budget() // scale), 1)
+        self._apply_budget()
         self.inner.setup(A)
         self._params = self.inner.apply_params()
 
@@ -72,6 +68,28 @@ class InexactCoarseSolver(Solver):
         self.inner.resetup(A)
         self._params = self.inner.apply_params()
         return True
+
+    def _apply_budget(self):
+        # max_iters counts inner steps for every solver family (SSTEP_PCG
+        # counts outers of iterations_scale steps: round up to whole
+        # outers)
+        scale = max(int(self.inner.iterations_scale), 1)
+        self.inner.max_iters = max(-(-self.sweep_budget() // scale), 1)
+
+    def _export_impl(self):
+        # the inner's setup state (spectral bounds) rides along, so a
+        # restore re-derives nothing
+        try:
+            return {"inner": self.inner._export_setup()}
+        except Exception:  # noqa: BLE001 — re-derived at import
+            return None
+
+    def _import_impl(self, impl):
+        self._apply_budget()
+        if not impl or impl.get("inner") is None:
+            return self._setup_impl(self.A)
+        self.inner._import_setup(impl["inner"])
+        self._params = self.inner.apply_params()
 
     def operator_of(self, params):
         return self.inner.operator_of(params)

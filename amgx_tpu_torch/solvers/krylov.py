@@ -61,6 +61,20 @@ class KrylovSolver(Solver):
             self._params = (A, None)
         return True
 
+    def _export_impl(self):
+        # the preconditioner's setup (an AMG hierarchy) is the costly
+        # part: a restored PCG + AMG coarsens nothing
+        if self.precond is None:
+            return None
+        return {"precond": self.precond._export_setup()}
+
+    def _import_impl(self, impl):
+        if self.precond is None or not impl \
+                or impl.get("precond") is None:
+            return self._setup_impl(self.A)
+        self.precond._import_setup(impl["precond"])
+        self._params = (self.A, self.precond.apply_params())
+
     def _make_M(self):
         """fn(Mp, r) -> z; identity when unpreconditioned."""
         if self.precond is None:

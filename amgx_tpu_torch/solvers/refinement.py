@@ -32,8 +32,9 @@ corrections than ``refine_iteration_guard`` (> 0), is re-solved once on
 a twin set up with ``hierarchy_dtype`` SAME; ``precision_fallbacks``
 counts the trips.  ``last_inner_iters`` is the inner iterations of the
 last solve, ``first_attempt`` its own refinement's (status,
-corrections) before any fallback.  Not ported (ROADMAP.md, queue
-A6/A7): the batched serve protocol, export and import.
+corrections) before any fallback.  ``save_setup`` stores the inner
+solver's setup.  Not ported (ROADMAP.md, queue A7): the batched serve
+protocol.
 """
 
 from __future__ import annotations
@@ -93,6 +94,15 @@ class IterativeRefinementSolver(Solver):
         self.inner.resetup(A)
         self._params = (A, self.inner.apply_params())
         return True
+
+    def _export_impl(self):
+        return {"inner": self.inner._export_setup()}
+
+    def _import_impl(self, impl):
+        if not impl or impl.get("inner") is None:
+            return self._setup_impl(self.A)
+        self.inner._import_setup(impl["inner"])
+        self._params = (self.A, self.inner.apply_params())
 
     def _make_solve_pair(self):
         """fn(params, b, x0) -> (SolveResult with x = hi, lo, inner

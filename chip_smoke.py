@@ -86,12 +86,12 @@ printed before the result):
    every ELL operator (the sliced one also at every lane count and
    window), the level-1 A in f64 and renumbered by RCM (a measurement
    only); a trace of a warm solve.  Then a second setup and solve
-   (hierarchy and x bit for bit equal), the CPU port at 96^3 beside the
-   card's run at 96^3 (host setup, iterations within one), the 48^3 f64
+   (hierarchy and x bit for bit equal), the CPU port at 64^3 beside the
+   card's run at 64^3 (host setup, iterations within one), the 48^3 f64
    hierarchy against the host builder (C/F splits, rows and nonzeros equal, P and R to 1e-12, the
    coarse operators to 1e-11), 64^3 f64 against the CPU (iterations
    equal, x to rtol 1e-9), and,
-   card against CPU, the MULTIPASS variant at 96^3, ENERGYMIN and RCM
+   card against CPU, the MULTIPASS variant at 64^3, ENERGYMIN and RCM
    reordering (of a shuffled Poisson matrix) at 32^3 (the D2 +
    aggressive + interp_max_elements 4 hierarchy is phase 7's).
 7. pcg_classical_cheby: ``PCG_CLASSICAL_CHEB`` (PCG_CLASSICAL with D2
@@ -126,11 +126,11 @@ printed before the result):
    (iterations within one); 64^3 f64 against the CPU.  The 32^3 solver
    matrix (phase 5) runs ``error_scaling`` 3-5, an F-cycle and CGF.
 11. amg_classical_kcycle: ``AMG_CLASSICAL_CG_CFG`` (AMG as the outer
-   solver, classical, a CG K-cycle of 2 iterations) at 96^3 f32 (not
-   128^3, to keep the whole run in its time limit: its CPU solve at
-   128^3 took 85 s), setup on the card: levels, visits, launches as
-   walked, a trace; the CPU port at 96^3 (iterations within one); 64^3
-   f64 with the device setup on both.
+   solver, classical, a CG K-cycle of 2 iterations) at 64^3 f32 (not
+   128^3 or 96^3, to keep the whole run in its time limit: its CPU solve
+   took 85 s at 128^3 and 78 s at 96^3), setup on the card: levels,
+   visits, launches as walked, a trace; the CPU port at 64^3 (iterations
+   within one); 64^3 f64 with the device setup on both.
 12. pcg_agg_resetup: the bench config with ``structure_reuse_levels``
    -1 set up once, then ``replace_values`` (timed by CUDA events),
    ``resetup`` and ``solve`` three times, on variable-coefficient
@@ -179,7 +179,36 @@ printed before the result):
    kernel); both card against the CPU port at 32^3 x 4 f32 and, with
    BLOCK_JACOBI and MULTICOLOR_ILU, at 12^3 x 4 f64, the CPU's side in
    two child processes beside the card's work.
-18. Prints the per-kernel summary line (each kernel's launches on every
+18. eigensolvers (f64): INVERSE_ITERATION on ``poisson_3d_7pt(128)``
+   (2,097,152 rows) with PCG to 1e-10 around the bench AMG inside,
+   plain and with ``eig_shift`` 1.7e-3 (shift-invert on A - sigma I):
+   converged, lambda within 1e-6 of 6 - 6 cos(pi / 129), outer and inner
+   iterations, ||A v - lambda v|| / lambda, ``dia_spmv`` / ``ell_spmv``
+   launches equal to the walk (the inner solves' walks and one A w an
+   outer iteration); LANCZOS (60 steps, the two largest: each Ritz value
+   at most 6 + 6 cos(pi / 129), ``dia_spmv`` = 60 + the residual's);
+   PAGERANK on a seeded link graph of 1,048,576 nodes, 8 out-links, 5 %
+   dangling (converged at 1e-10, every entry > 0, sum 1 to 1e-12; the
+   Google matrix's format and kernel); then all nine names at 64^3
+   (PAGERANK on 65,536 nodes), each case's launches against its walk
+   (``eig_walk``: a column loop is one launch a column), held to the CPU
+   port (two child processes from the phase's start): iterations and
+   ``converged`` equal, eigenvalues to rtol 1e-10, vectors up to sign
+   to 1e-8 where their eigenvalue is simple, and INVERSE_ITERATION's
+   eigenvector post-pass (``eig_eigenvector_solver``) the same.
+19. setup_store (f32): the bench config, ``PCG_CLASSICAL``,
+   ``PCG_CLASSICAL_CHEB`` and the bench config with ``matrix_free`` 1 at
+   128^3, each set up on the card, saved (``save_setup``), restored
+   (``load_setup``) on the card and solved: payload MB, save / restore
+   / setup seconds; the restore launches no kernel and coarsens nothing
+   (Chebyshev bounds restored), the levels agree in rows, nnz, formats
+   and dtypes, the solve in iterations, x bit for bit and launches per
+   kernel.  Then a 64^3 f64 payload saved on the card restored on the
+   CPU (iterations equal, x to rtol 1e-9), and ``ArtifactStore`` at
+   64^3: a hit restores the solver, a corrupted, a truncated and a
+   stale-schema entry are each a counted miss.  Payloads go under
+   ``ci/artifacts`` and are deleted.
+20. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``; one entry
@@ -1521,11 +1550,23 @@ def pcg_derived_launches(s, iters, **kw):
     return derived_launches(s.precond, iters + 1, iters + 1, **kw)
 
 
+def fgmres_cpu_side(n):
+    """The CPU port's FGMRES_AGGREGATION solve at ``n``^3 f32: what the
+    phase holds the card's run to."""
+    sc, rc, setup_c, _, _ = solve_on("cpu", FGMRES_CFG, n, np.float32)
+    return {"iterations": int(rc.iters), "status": int(rc.status),
+            "setup_s": setup_c, "solve_s": sc.solve_time, "x": rc.x.numpy(),
+            "colors": [lv.smoother.num_colors if lv.smoother else None
+                       for lv in sc.precond.levels]}
+
+
 def fgmres_phase(torch):
     """FGMRES_AGGREGATION (FGMRES + aggregation AMG + MULTICOLOR_DILU)
-    at 128^3 f32 on the card, its CPU run, 64^3 f64 on both, a trace
-    of one warm solve, and the 32^3 solver matrix."""
+    at 128^3 f32 on the card, its CPU run (in a child process from the
+    phase's start), 64^3 f64 on both, a trace of one warm solve, and the
+    32^3 solver matrix."""
     N = SLICE_N
+    cpu = CpuJob("cuda", fgmres_cpu_side, N)
     # ---- A. the main path: counts zeroed just before, read just after
     zero_counts()
     s, res, setup_s, b, upload_s = solve_on("cuda", FGMRES_CFG, N,
@@ -1575,24 +1616,26 @@ def fgmres_phase(torch):
     del s, res, res2
 
     # ---- B. the same solve through the port on the CPU
-    sc, rc, setup_c, _, _ = solve_on("cpu", FGMRES_CFG, N, np.float32)
-    xc = rc.x.numpy()
+    t0 = time.perf_counter()
+    rc = cpu.get()
+    wait_s = time.perf_counter() - t0
+    xc = rc["x"]
     xinf = float(np.abs(xc).max())
     diff = float(np.abs(x - xc).max())
-    colors_c = [lv.smoother.num_colors if lv.smoother else None
-                for lv in sc.precond.levels]
+    colors_c = rc["colors"]
     print(json.dumps({
-        "fgmres_cpu_iterations": int(rc.iters),
-        "fgmres_cpu_status": int(rc.status),
-        "fgmres_cpu_setup_s": setup_c, "fgmres_cpu_solve_s": sc.solve_time,
+        "fgmres_cpu_iterations": rc["iterations"],
+        "fgmres_cpu_status": rc["status"],
+        "fgmres_cpu_setup_s": rc["setup_s"],
+        "fgmres_cpu_solve_s": rc["solve_s"], "cpu_side_wait_s": wait_s,
         "max_abs_diff_vs_cpu": diff, "x_inf": xinf,
         "colors_equal_cpu": colors_c == colors}), flush=True)
     check(colors_c == colors, f"colours card {colors} vs cpu {colors_c}")
-    check(abs(int(rc.iters) - iters) <= 1,
-          f"FGMRES f32 iterations card {iters} vs cpu {rc.iters}")
+    check(abs(rc["iterations"] - iters) <= 1,
+          f"FGMRES f32 iterations card {iters} vs cpu {rc['iterations']}")
     check(np.allclose(x, xc, rtol=1e-4, atol=1e-4 * xinf),
           f"FGMRES f32 x card vs cpu: max abs diff {diff:.3e}")
-    del sc, rc
+    del rc
 
     # ---- C. 64^3 in f64 on the card and the CPU
     _, r64, _, _, _ = solve_on("cuda", FGMRES_CFG, 64, np.float64)
@@ -1779,7 +1822,7 @@ def classical_kernel_cases(torch, timer, peaks, rng, amg, iters):
 
 
 def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
-                    n_cmp=48, n_f64=64, n_small=32, n_cpu=96):
+                    n_cmp=48, n_f64=64, n_small=32, n_cpu=64):
     """PCG_CLASSICAL at ``n``^3 f32 with its setup on ``device`` (the
     main path of this slice), the ELL kernel at its shapes, a trace,
     determinism, the CPU port at ``n_cpu``^3 (against the device's run
@@ -2342,13 +2385,34 @@ def idr_phase(torch, device="cuda", n=SLICE_N, n_cmp=96, n_f64=64):
     return launches
 
 
+def gmres_cpu_side(n):
+    """The CPU port's gmres_ilu0 solve on ``convection_diffusion_3d(n)``
+    (what the phase holds the card's run to)."""
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.core.matrix import SparseMatrix
+
+    Asp = convection_diffusion_3d(n)
+    b = Asp @ np.random.default_rng(7).standard_normal(Asp.shape[0])
+    s = T.create_solver(T.AMGConfig.from_string(GMRES_ILU0_CFG), "default",
+                        device="cpu")
+    t0 = time.perf_counter()
+    s.setup(SparseMatrix.from_scipy(Asp, device="cpu"))
+    setup_s = time.perf_counter() - t0
+    r = s.solve(b)
+    return {"iterations": int(r.iters), "status": int(r.status),
+            "setup_s": setup_s, "ilu_setup_s": s.precond.setup_time,
+            "solve_s": s.solve_time, "colors": s.precond.num_colors,
+            "x": r.x.numpy()}
+
+
 def gmres_ilu_phase(torch, device="cuda", n=108, n_cmp=108, n_f64=64,
                     n_ilu1=64):
     """gmres_ilu0: GMRES(30) + ILU(0) (``GMRES_ILU0_CFG``, BASELINE.md
     acceptance config 4) on the ``n``^3 upwind convection-diffusion
     operator in f64: colours, the ILU factorization's host time,
     launches (one A-SpMV an iteration and one residual a restart
-    cycle), a trace of a warm solve; the CPU port at ``n_cmp``^3;
+    cycle), a trace of a warm solve; the CPU port at ``n_cmp``^3 (in a
+    child process from the phase's start on the card);
     ``n_f64``^3 against the CPU; ILU(1) at ``n_ilu1``^3."""
     import amgx_tpu_torch as T
     from amgx_tpu_torch.core.matrix import SparseMatrix
@@ -2372,6 +2436,7 @@ def gmres_ilu_phase(torch, device="cuda", n=108, n_cmp=108, n_f64=64,
     def rel_of(Asp, bb, xx):
         return float(np.linalg.norm(bb - Asp @ xx) / np.linalg.norm(bb))
 
+    cpu = CpuJob(device, gmres_cpu_side, n_cmp)
     zero_counts()
     s, res, Asp, b, upload_s, setup_s = setup_solve(device, n)
     launches = kernel_counts()
@@ -2412,17 +2477,17 @@ def gmres_ilu_phase(torch, device="cuda", n=108, n_cmp=108, n_f64=64,
             "reduction": ["reduce_kernel"]})
     del s, res, res2
 
-    sc, rc, _, _, _, setup_c = setup_solve("cpu", n_cmp)
+    t0 = time.perf_counter()
+    rc = cpu.get()
     print(json.dumps({"gmres_cpu": {
-        "n": n_cmp, "iterations": int(rc.iters), "status": int(rc.status),
-        "setup_s": setup_c, "ilu_setup_s": sc.precond.setup_time,
-        "solve_s": sc.solve_time, "colors": sc.precond.num_colors,
-        "max_abs_diff_vs_card": (float(np.abs(x - rc.x.numpy()).max())
+        "n": n_cmp, **{k: v for k, v in rc.items() if k != "x"},
+        "cpu_side_wait_s": time.perf_counter() - t0,
+        "max_abs_diff_vs_card": (float(np.abs(x - rc["x"]).max())
                                  if n_cmp == n else None)}}), flush=True)
-    check(int(rc.status) == 0, f"GMRES cpu status {rc.status}")
-    check(abs(int(rc.iters) - iters) <= 1,
-          f"GMRES iterations card {iters} vs cpu {rc.iters}")
-    del sc, rc
+    check(rc["status"] == 0, f"GMRES cpu status {rc['status']}")
+    check(abs(rc["iterations"] - iters) <= 1,
+          f"GMRES iterations card {iters} vs cpu {rc['iterations']}")
+    del rc
 
     def run(dev):
         sg, rg, Ag, bg, _, _ = setup_solve(dev, n_f64)
@@ -2561,7 +2626,7 @@ def pbicgstab_w_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N,
     return launches
 
 
-def kcycle_phase(torch, device="cuda", n=96, n_cmp=96, n_f64=64):
+def kcycle_phase(torch, device="cuda", n=64, n_cmp=64, n_f64=64):
     """amg_classical_kcycle: AMG as the outer solver with classical
     levels and a CG K-cycle (``AMG_CLASSICAL_CG_CFG``) at ``n``^3 f32,
     the setup on ``device`` (AUTO: the device pipeline on the card):
@@ -4093,6 +4158,42 @@ def block4_cmp_f64(device, n):
     return out
 
 
+# pools of CpuJob children still running (main ends them on any exit)
+_POOLS = []
+
+
+class CpuJob:
+    """``fn(*args)`` on the CPU beside the card's work: on the card
+    (``device`` "cuda") it starts now in a spawned child process at the
+    lowest priority with ``BLOCK_CPU_THREADS`` torch threads; on a CPU
+    rehearsal it runs when asked for.  ``get()`` returns the result and
+    ends the child.  ``fn`` is a module-level function (the child imports
+    it) returning plain data."""
+
+    def __init__(self, device, fn, *args):
+        self.fn, self.args, self.pool, self.job = fn, args, None, None
+        if device == "cuda":
+            self.pool = multiprocessing.get_context("spawn").Pool(
+                1, initializer=_cpu_child, initargs=(BLOCK_CPU_THREADS,))
+            _POOLS.append(self.pool)
+            self.job = self.pool.apply_async(fn, args)
+
+    def get(self):
+        if self.job is None:
+            return self.fn(*self.args)
+        try:
+            return self.job.get(timeout=900)
+        finally:
+            end_pool(self.pool)
+
+
+def end_pool(pool):
+    pool.terminate()
+    pool.join()
+    if pool in _POOLS:
+        _POOLS.remove(pool)
+
+
 def _cpu_child(threads):
     """A child process of the block phase: ``threads`` torch threads, at
     the lowest priority, so that the card's work beside it keeps the
@@ -4159,13 +4260,677 @@ def block_ell_cases(torch, timer, peaks, amg, iters, launches):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# eigensolvers and the setup store (twelfth slice)
+
+EIG_N = SLICE_N
+EIG_CMP_N = 64
+PAGERANK_NODES = 1 << 20
+PAGERANK_CMP_NODES = 1 << 16
+
+
+def bench_amg(scope):
+    """The bench preconditioner (``bench.py:_solve_record``: aggregation
+    AMG, SIZE_8 V, BLOCK_JACOBI 0.8, DENSE_LU) as a config dict."""
+    return {"scope": scope, "solver": "AMG", "algorithm": "AGGREGATION",
+            "selector": "SIZE_8",
+            "smoother": {"scope": f"{scope}_j", "solver": "BLOCK_JACOBI",
+                         "relaxation_factor": 0.8, "monitor_residual": 0},
+            "presweeps": 1, "postsweeps": 1, "max_iters": 1,
+            "min_coarse_rows": 512, "max_levels": 20,
+            "coarse_solver": "DENSE_LU_SOLVER", "cycle": "V",
+            "monitor_residual": 0}
+
+
+# the inner solver of inverse iteration: PCG to 1e-10 around the bench AMG
+INNER_PCG = {"scope": "main", "solver": "PCG", "max_iters": 200,
+             "tolerance": 1e-10, "monitor_residual": 1,
+             "convergence": "RELATIVE_INI", "preconditioner": bench_amg("amg")}
+
+# the eigenvector post-pass: inverse iteration by PCG + the bench AMG on
+# each shifted matrix (the default scope's solver parameters)
+POST_PASS = {"eig_eigenvector": 1, "eig_eigenvector_solver": "PCG",
+             "max_iters": 200, "tolerance": 1e-10, "monitor_residual": 1,
+             "convergence": "RELATIVE_INI", "preconditioner": bench_amg("pp")}
+
+
+def eig_cfg(inner=False, extra=None, **eig):
+    """An eigensolver config: ``eig_<key>`` for each keyword, the inner
+    PCG when ``inner``, ``extra`` top-level keys."""
+    d = {"config_version": 2, **{f"eig_{k}": v for k, v in eig.items()},
+         **(extra or {})}
+    if inner:
+        d["solver"] = INNER_PCG
+    return json.dumps(d)
+
+
+def eig_cases():
+    """The nine names at the card-against-CPU size: (label, config,
+    matrix kind)."""
+    return (
+        ("POWER_ITERATION", eig_cfg(solver="POWER_ITERATION",
+                                    max_iters=300, tolerance=1e-8,
+                                    which="largest"), "poisson"),
+        ("SINGLE_ITERATION", eig_cfg(solver="SINGLE_ITERATION",
+                                     max_iters=300, tolerance=1e-8,
+                                     which="largest",
+                                     convergence_check_freq=5), "poisson"),
+        ("INVERSE_ITERATION", eig_cfg(
+            inner=True, extra=POST_PASS, solver="INVERSE_ITERATION",
+            max_iters=100, tolerance=1e-10), "poisson"),
+        ("PAGERANK", eig_cfg(solver="PAGERANK", max_iters=300,
+                             tolerance=1e-10, damping_factor=0.85),
+         "links"),
+        ("SUBSPACE_ITERATION", eig_cfg(solver="SUBSPACE_ITERATION",
+                                       max_iters=40, tolerance=1e-10,
+                                       which="largest", wanted_count=2,
+                                       subspace_size=8), "poisson"),
+        ("LANCZOS", eig_cfg(solver="LANCZOS", max_iters=200,
+                            tolerance=1e-8, which="largest",
+                            wanted_count=2, subspace_size=60), "poisson"),
+        ("ARNOLDI", eig_cfg(solver="ARNOLDI", max_iters=100,
+                            tolerance=1e-8, which="largest",
+                            wanted_count=1, subspace_size=40), "poisson"),
+        ("LOBPCG", eig_cfg(solver="LOBPCG", max_iters=40, tolerance=1e-8,
+                           which="smallest", wanted_count=2), "poisson"),
+        ("JACOBI_DAVIDSON", eig_cfg(solver="JACOBI_DAVIDSON", max_iters=40,
+                                    tolerance=1e-8, which="largest",
+                                    subspace_size=12), "poisson"),
+    )
+
+
+def link_graph(n, seed=5, out_links=8, dangling=0.05):
+    """A seeded synthetic link graph of ``n`` nodes as the scipy matrix
+    PAGERANK reads (entry (i, j): j links to i): ``out_links`` distinct
+    random targets a node (no self-link), none for a ``dangling`` share
+    of the nodes."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(n, dtype=np.int64), out_links)
+    dst = (src + rng.integers(1, n, src.shape[0])) % n
+    keep = ~np.isin(src, rng.choice(n, int(dangling * n), replace=False))
+    A = sps.coo_matrix((np.ones(int(keep.sum())), (dst[keep], src[keep])),
+                       shape=(n, n)).tocsr()
+    A.data[:] = 1.0
+    A.sort_indices()
+    return A
+
+
+def eig_matrix(kind, device, n=EIG_CMP_N, nodes=PAGERANK_CMP_NODES):
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.io.poisson import poisson_3d_7pt
+
+    if kind == "links":
+        return T.SparseMatrix.from_scipy(link_graph(nodes), device=device)
+    return poisson_3d_7pt(n, dtype=np.float64, device=device)
+
+
+def inverse_walk(es, inner_iters):
+    """``dia_spmv`` / ``ell_spmv`` launches of an inverse iteration:
+    each inner PCG solve of k iterations (:func:`pcg_derived_launches`)
+    and one ``A w`` an outer iteration."""
+    counts = dict.fromkeys(COUNTERS, 0)
+    for k in inner_iters:
+        for name, c in pcg_derived_launches(es._inner, k).items():
+            counts[name] += c
+    counts[counter_of(es.A)] += len(inner_iters)
+    return counts
+
+
+def eig_walk(label, es, res, inner_iters=None):
+    """The SpMVs (kernel launches on the card) a run of the eigensolver
+    ``es`` makes on its operator, from its iterations: one a column of
+    each block product (SUBSPACE_ITERATION, LOBPCG, JACOBI_DAVIDSON),
+    one a step of a Krylov method, one for each residual."""
+    it = res.iterations
+    if label == "INVERSE_ITERATION":
+        return inverse_walk(es, inner_iters)
+    if label in ("POWER_ITERATION", "SINGLE_ITERATION", "PAGERANK"):
+        n = it
+    elif label == "SUBSPACE_ITERATION":
+        m = max(es.subspace_size, max(es.wanted_count, 1) + 2)
+        n = it * (2 * m + 1)
+    elif label in ("LANCZOS", "ARNOLDI"):
+        n = it + 1
+    elif label == "LOBPCG":
+        k = max(es.wanted_count, 1)
+        done = res.converged
+        n = it * k + sum((2 if i == 1 else 3) * k
+                         for i in range(1, it + (0 if done else 1)))
+    else:  # JACOBI_DAVIDSON: the Ritz problem on the space, r, 8 CG steps
+        m_max = max(es.subspace_size, 8)
+        size, n = 1, 0
+        for i in range(1, it + 1):
+            n += size + 1
+            if i == it and res.converged:
+                break
+            if size >= m_max:
+                size = 1
+            n += 8
+            size += 1
+        n += size
+    op = es._google if label == "PAGERANK" else es.A
+    counts = dict.fromkeys(COUNTERS, 0)
+    if counter_of(op) is not None:
+        counts[counter_of(op)] += n
+    return counts
+
+
+def eig_record(res):
+    """A run's result as plain data (the vectors on the host)."""
+    vec = res.eigenvectors
+    return {
+        "iterations": int(res.iterations), "converged": bool(res.converged),
+        "eigenvalues": np.asarray(res.eigenvalues),
+        "residual": float(res.residual),
+        "vectors": None if vec is None else vec.cpu().numpy(),
+        "vector_converged": (None if res.vector_converged is None
+                             else res.vector_converged.tolist()),
+    }
+
+
+def eig_run(device, label, cfg, kind, n=EIG_CMP_N,
+            nodes=PAGERANK_CMP_NODES):
+    """One case of :func:`eig_cases` on ``device``: (record, launches
+    made, launches walked, inner iterations).  INVERSE_ITERATION also
+    runs the eigenvector post-pass on its eigenvalue (it produces its
+    own vector, so ``solve`` skips the post-pass: it is driven on the
+    result with the vector dropped)."""
+    import dataclasses
+
+    import amgx_tpu_torch as T
+
+    A = eig_matrix(kind, device, n, nodes)
+    es = T.create_eigensolver(T.AMGConfig.from_string(cfg), device=device)
+    es.setup(A)
+    inner_iters = []
+    if es.requested_name == "INVERSE_ITERATION":
+        solve = es._inner.solve
+
+        def counted(v):
+            r = solve(v)
+            inner_iters.append(int(r.iters))
+            return r
+
+        es._inner.solve = counted
+    zero_counts()
+    res = es.solve()
+    launches = kernel_counts()
+    walk = eig_walk(label, es, res, inner_iters)
+    rec = eig_record(res)
+    if label == "INVERSE_ITERATION":
+        post = es._maybe_extract_vectors(
+            dataclasses.replace(res, eigenvectors=None))
+        rec["post_pass"] = eig_record(post)
+    return rec, launches, walk, inner_iters
+
+
+def eig_cmp_cpu(n=EIG_CMP_N, nodes=PAGERANK_CMP_NODES, labels=None):
+    """The CPU's side of the card-against-CPU comparison: the cases of
+    :func:`eig_cases` named in ``labels`` (default: all) through the
+    port on the CPU."""
+    return {label: eig_run("cpu", label, cfg, kind, n, nodes)[0]
+            for label, cfg, kind in eig_cases()
+            if labels is None or label in labels}
+
+
+# the CPU side's two shares (two child processes): inverse iteration
+# with its post-pass, about as long as the other eight together
+EIG_CPU_SPLIT = (("INVERSE_ITERATION",),
+                 ("POWER_ITERATION", "SINGLE_ITERATION", "PAGERANK",
+                  "SUBSPACE_ITERATION", "LANCZOS", "ARNOLDI", "LOBPCG",
+                  "JACOBI_DAVIDSON"))
+
+
+def poisson_multiplicity(n):
+    """Counter of the eigenvalues of the n^3 7-point Poisson matrix near
+    a value: 6 - 2 sum cos(k_i pi / (n + 1)), k_i in 1..n."""
+    c = 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1))
+    lam = (6.0 - c[:, None, None] - c[None, :, None]
+           - c[None, None, :]).ravel()
+
+    def count(x):
+        return int((np.abs(lam - x) <= 1e-8 * max(abs(x), 1.0)).sum())
+
+    return count
+
+
+def hold_vectors(label, g, c, multiplicity):
+    """Card against CPU: each vector up to sign within 1e-8 of the
+    largest entry where its eigenvalue is simple (the Poisson matrix's
+    second eigenvalue is triple: any vector of its space), else both
+    vectors' residual ratios agree within 10 x.  Returns the largest
+    difference held."""
+    if g is None:
+        check(c is None, f"{label}: vectors on the CPU only")
+        return 0.0
+    worst = 0.0
+    for k in range(c.shape[1]):
+        x, xc = g[:, k], c[:, k]
+        i = int(np.argmax(np.abs(xc)))
+        s = x[i] / xc[i]
+        d = float(np.abs(x - s * xc).max() / np.abs(xc).max())
+        if multiplicity is None or multiplicity[k] <= 1:
+            check(d <= 1e-8 and abs(abs(s) - 1.0) <= 1e-8,
+                  f"{label}: vector {k} differs from the CPU's by {d:.3e}")
+            worst = max(worst, d)
+    return worst
+
+
+def eig_kernel_cases(torch, peaks, amg, inner_iters, G):
+    """The kernels at the eigensolvers path's f64 shapes, each held to
+    its plain version and timed as the kernel phase's cases: ``dia_spmv``
+    on the inner hierarchy's level-1 A (level 0's case is the kernel
+    phase's ``level0 A 128^3 f64``), ``ell_spmv`` on its level-0 P and R,
+    and the kernel the PAGERANK Google matrix takes (``G``: the matrix
+    and its iterations).  Each record carries its launches on the path
+    (inverse iteration's inner cycles: one a PCG iteration and one
+    before the loop)."""
+    from amgx_tpu_torch.ops import dia
+
+    timer = Timer(torch)
+    rng = np.random.default_rng(12)
+    walk = cycle_walk(amg)
+    cycles = sum(k + 1 for k in inner_iters)
+    recs = []
+    A1 = amg.levels[1].A
+    x = torch.from_numpy(rng.standard_normal(A1.n_rows)).cuda()
+    nd, n1 = A1.dia_vals.shape
+    recs.append(kernel_case(
+        torch, timer, peaks, "dia_spmv", f"eigen level1 A {n1} rows f64",
+        lambda: dia.dia_spmv(A1.dia_vals, A1.dia_offsets, x),
+        lambda: dia.dia_spmv_plain(A1.dia_vals, A1.dia_offsets, x),
+        (A1.row_offsets, A1.col_indices, A1.values, (n1, n1), x),
+        nbytes=8 * (A1.nnz + 2 * n1) + 4 * nd, nops=2 * A1.nnz,
+        dtype=A1.dia_vals.dtype,
+        extra={"launches_inverse_iteration": cycles * walk[(1, "A")]}))
+    for f in ("P", "R"):
+        m = getattr(amg.levels[0], f)
+        recs += ell_kernel_case(
+            torch, timer, peaks, rng,
+            f"eigen level0 {f} {m.n_rows}x{m.n_cols} w={_width(m)} f64",
+            m.host_csr(), np.float64, A=m, slot_major=False,
+            extra={"launches_inverse_iteration": cycles * walk[(0, f)]})
+    Gm, iters = G
+    recs += ell_kernel_case(
+        torch, timer, peaks, rng,
+        f"pagerank google {Gm.n_rows} rows w={_width(Gm)} f64",
+        Gm.host_csr(), np.float64, A=Gm, slot_major=False,
+        extra={"launches_pagerank": iters})
+    return recs
+
+
+def eigen_phase(torch, peaks=None, device="cuda", n=EIG_N, n_cmp=EIG_CMP_N,
+                nodes=PAGERANK_NODES, cmp_nodes=PAGERANK_CMP_NODES):
+    """The eigensolvers in f64 on ``device``: (a) INVERSE_ITERATION at
+    ``n``^3 (PCG to 1e-10 around the bench AMG inside), plain and
+    shift-inverted, held to 6 - 6 cos(pi / (n + 1)) within 1e-6 and its
+    ``dia_spmv`` / ``ell_spmv`` launches to the walk; (b) LANCZOS for
+    the two largest (60 steps), each at most 6 + 6 cos(pi / (n + 1));
+    (c) PAGERANK on a link graph of ``nodes`` nodes with dangling
+    nodes; (d) all nine names at ``n_cmp``^3 (PAGERANK on ``cmp_nodes``
+    nodes) against the CPU port, which runs in two child processes
+    (:class:`CpuJob`) from the phase's start.  On the card the kernels
+    are also held at the path's f64 shapes (:func:`eig_kernel_cases`)
+    while the CPU side runs.  Returns (the launches of (a), the kernel
+    records)."""
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.io.poisson import poisson_3d_7pt
+    from amgx_tpu_torch.ops.spmv import spmv
+
+    jobs = [CpuJob(device, eig_cmp_cpu, n_cmp, cmp_nodes, share)
+            for share in EIG_CPU_SPLIT]
+    lam_min = 6.0 - 6.0 * np.cos(np.pi / (n + 1))
+    lam_max = 6.0 + 6.0 * np.cos(np.pi / (n + 1))
+    t0 = time.perf_counter()
+    A = poisson_3d_7pt(n, dtype=np.float64, device=device)
+    upload_s = time.perf_counter() - t0
+    main_launches = None
+    # ---- (a) inverse iteration, then shift-invert
+    for shift in (0.0, 1.7e-3):
+        cfg = eig_cfg(inner=True, solver="INVERSE_ITERATION", max_iters=100,
+                      tolerance=1e-10, shift=shift)
+        zero_counts()
+        t0 = time.perf_counter()
+        es = T.create_eigensolver(T.AMGConfig.from_string(cfg),
+                                  device=device).setup(A)
+        setup_s = time.perf_counter() - t0
+        inner_iters = []
+        solve = es._inner.solve
+
+        def counted(v, solve=solve):
+            r = solve(v)
+            inner_iters.append(int(r.iters))
+            return r
+
+        es._inner.solve = counted
+        t0 = time.perf_counter()
+        res = es.solve()
+        solve_s = time.perf_counter() - t0
+        launches = kernel_counts()
+        walk = inverse_walk(es, inner_iters)
+        lam = float(res.eigenvalues[0])
+        v = res.eigenvectors[:, 0]
+        resid = float(torch.linalg.vector_norm(spmv(A, v) - lam * v)) / lam
+        label = "inverse_iteration" + ("_shift_invert" if shift else "")
+        rec = {
+            "eigen": f"{label} poisson7 {n}^3 f64, PCG 1e-10 + AMG(SIZE_8) "
+                     f"inner, eig_shift {shift} on {device}",
+            "rows": A.n_rows, "eigenvalue": lam, "analytic": lam_min,
+            "rel_err": abs(lam - lam_min) / lam_min,
+            "outer_iterations": int(res.iterations),
+            "converged": bool(res.converged),
+            "inner_iterations": inner_iters,
+            "inner_levels": es._inner.precond.level_summary(),
+            "residual_ratio": resid, "upload_s": upload_s,
+            "setup_s": setup_s, "solve_s": solve_s,
+            "launches": launches, "walked": walk,
+        }
+        print(json.dumps(rec), flush=True)
+        check(res.converged, f"{label}: not converged")
+        check(rec["rel_err"] <= 1e-6,
+              f"{label}: eigenvalue {lam!r} vs {lam_min!r}")
+        check_launches(label, launches, walk, device)
+        if shift == 0.0:
+            main_launches = launches
+            inner = (es._inner.precond, inner_iters)
+        del es, res, v
+
+    # ---- (b) Lanczos, the two largest
+    cfg = eig_cfg(solver="LANCZOS", max_iters=200, tolerance=1e-8,
+                  which="largest", wanted_count=2, subspace_size=60)
+    es = T.create_eigensolver(T.AMGConfig.from_string(cfg),
+                              device=device).setup(A)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = es.solve()
+    solve_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    walk = eig_walk("LANCZOS", es, res)
+    ritz = [float(v) for v in res.eigenvalues]
+    print(json.dumps({
+        "eigen": f"lanczos poisson7 {n}^3 f64, 60 steps, 2 largest on "
+                 f"{device}", "ritz": ritz, "analytic_max": lam_max,
+        "gap": lam_max - ritz[0], "steps": int(res.iterations),
+        "residual": float(res.residual), "solve_s": solve_s,
+        "launches": launches, "walked": walk}), flush=True)
+    check(all(r <= lam_max * (1 + 1e-12) for r in ritz),
+          f"lanczos: Ritz values {ritz} above {lam_max}")
+    check(int(res.iterations) == 60, f"lanczos: {res.iterations} steps")
+    check_launches("lanczos", launches, walk, device)
+    del es, res, A
+
+    # ---- (c) PageRank on a link graph with dangling nodes
+    t0 = time.perf_counter()
+    L = link_graph(nodes)
+    graph_s = time.perf_counter() - t0
+    G0 = T.SparseMatrix.from_scipy(L, device=device)
+    cfg = eig_cfg(solver="PAGERANK", max_iters=300, tolerance=1e-10,
+                  damping_factor=0.85)
+    t0 = time.perf_counter()
+    es = T.create_eigensolver(T.AMGConfig.from_string(cfg),
+                              device=device).setup(G0)
+    setup_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    res = es.solve()
+    solve_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    walk = eig_walk("PAGERANK", es, res)
+    pr = res.eigenvectors[:, 0]
+    G = es._google
+    total = float(pr.sum())
+    print(json.dumps({
+        "eigen": f"pagerank {nodes} nodes, 8 out-links, "
+                 f"{int((np.diff(L.tocsc().indptr) == 0).sum())} dangling, "
+                 f"damping 0.85 on {device}",
+        "google_format": G.format, "google_kernel": counter_of(G),
+        "google_nnz": G.nnz, "google_width": _width(G),
+        "sliced_layout": _sell(G), "iterations": int(res.iterations),
+        "converged": bool(res.converged), "residual": float(res.residual),
+        "sum": total, "min": float(pr.min()), "max": float(pr.max()),
+        "graph_s": graph_s, "setup_s": setup_s, "solve_s": solve_s,
+        "launches": launches, "walked": walk}), flush=True)
+    check(res.converged, "pagerank: not converged")
+    check(bool((pr > 0).all()), "pagerank: an entry <= 0")
+    check(abs(total - 1.0) <= 1e-12, f"pagerank: sum {total!r}")
+    check_launches("pagerank", launches, walk, device)
+    recs = (eig_kernel_cases(torch, peaks, *inner, (G, int(res.iterations)))
+            if device == "cuda" else [])
+    del es, res, G0, G, pr, L, inner
+
+    # ---- (d) the nine names, card against the CPU port
+    dev = {}
+    for label, cfg, kind in eig_cases():
+        rec, launches, walk, inner = eig_run(device, label, cfg, kind,
+                                             n_cmp, cmp_nodes)
+        check_launches(f"{label} {n_cmp}^3", launches, walk, device)
+        rec["launches"], rec["walked"] = launches, walk
+        dev[label] = rec
+    t0 = time.perf_counter()
+    cpu = {}
+    for job in jobs:
+        cpu.update(job.get())
+    print(json.dumps({"eigen_cpu_side_wait_s": time.perf_counter() - t0}),
+          flush=True)
+    mult = poisson_multiplicity(n_cmp)
+    for label, _, kind in eig_cases():
+        g, c = dev[label], cpu[label]
+        for part, (gg, cc) in (("", (g, c)),) + (
+                (("post_pass", (g["post_pass"], c["post_pass"])),)
+                if "post_pass" in g else ()):
+            name = f"{label}{' ' + part if part else ''}"
+            check(gg["iterations"] == cc["iterations"],
+                  f"{name}: iterations {gg['iterations']} vs cpu "
+                  f"{cc['iterations']}")
+            check(gg["converged"] == cc["converged"],
+                  f"{name}: converged {gg['converged']} vs cpu")
+            check(np.allclose(gg["eigenvalues"], cc["eigenvalues"],
+                              rtol=1e-10, atol=0),
+                  f"{name}: eigenvalues {gg['eigenvalues']} vs cpu "
+                  f"{cc['eigenvalues']}")
+            check(gg["vector_converged"] == cc["vector_converged"],
+                  f"{name}: vector_converged differs")
+            m = (None if kind == "links" else
+                 [mult(float(np.real(v))) for v in cc["eigenvalues"]])
+            d = hold_vectors(name, gg["vectors"], cc["vectors"], m)
+            print(json.dumps({f"eigen_{n_cmp}^3_vs_cpu": {
+                "case": name, "iterations": gg["iterations"],
+                "converged": gg["converged"],
+                "eigenvalues": [float(np.real(v)) for v in gg["eigenvalues"]],
+                "max_rel_diff_eigenvalues": float(np.max(np.abs(
+                    gg["eigenvalues"] - cc["eigenvalues"]) / np.abs(
+                    cc["eigenvalues"]))),
+                "max_vector_diff": d, "multiplicity": m,
+                "vector_converged": gg["vector_converged"],
+                "launches": g.get("launches") if not part else None,
+                "walked": g.get("walked") if not part else None,
+            }}, default=float), flush=True)
+        if "post_pass" in g:
+            check(all(g["post_pass"]["vector_converged"]),
+                  f"{label}: the post-pass did not converge")
+    return main_launches, recs
+
+
+STORE_CONFIGS = (("bench", BENCH_CFG, None),
+                 ("pcg_classical", PCG_CLASSICAL, None),
+                 ("pcg_classical_cheby", PCG_CLASSICAL_CHEB, None),
+                 ("bench_matrix_free", MF_CFG, MF_FORMATS))
+
+
+def store_dir():
+    """A new directory for payloads under the checkout's ignored
+    ``ci/artifacts`` (the caller removes it)."""
+    import os
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ci",
+                        "artifacts")
+    os.makedirs(root, exist_ok=True)
+    return tempfile.mkdtemp(prefix="store_smoke_", dir=root)
+
+
+def store_roundtrip(torch, label, cfg, formats, n, dtype, device, folder):
+    """Set up ``cfg`` on ``poisson_3d_7pt(n)`` on ``device``, save it,
+    restore it there and solve with both: the restore launches no
+    kernel and coarsens nothing, the levels agree in rows, nnz, formats
+    and dtypes, the solves in iterations, x (bit for bit) and launches
+    per kernel.  Returns the restored solve's launches."""
+    import os
+
+    from amgx_tpu_torch.solvers.base import Solver
+
+    s, res, setup_s, b, upload_s = solve_on(device, cfg, n, dtype,
+                                            accel_formats=formats)
+    zero_counts()
+    s.solve(b)
+    cold = kernel_counts()
+    path = os.path.join(folder, f"{label}.npz")
+    t0 = time.perf_counter()
+    s.save_setup(path)
+    save_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 2**20
+    zero_counts()
+    t0 = time.perf_counter()
+    s2 = Solver.load_setup(path, device=device)
+    load_s = time.perf_counter() - t0
+    at_restore = kernel_counts()
+    zero_counts()
+    r2 = s2.solve(b)
+    restored = kernel_counts()
+    amg, amg2 = s.precond, s2.precond
+    rec = {
+        "store": f"{label} poisson7 {n}^3 {np.dtype(dtype).name} on "
+                 f"{device}",
+        "payload_mb": mb, "save_s": save_s, "restore_s": load_s,
+        "restore_time_s": s2.restore_time, "setup_s": setup_s,
+        "upload_s": upload_s, "levels": len(amg2.levels),
+        "setup_stats": amg2.setup_stats, "iterations": int(r2.iters),
+        "cold_iterations": int(res.iters),
+        "x_bitwise": bool(torch.equal(r2.x, res.x)),
+        "launches_at_restore": at_restore, "launches": restored,
+        "cold_launches": cold,
+        "lmax": [lv.smoother.lmax for lv in amg2.levels
+                 if lv.smoother is not None and hasattr(lv.smoother, "lmax")],
+    }
+    print(json.dumps(rec), flush=True)
+    os.remove(path)
+    check(amg2.setup_stats.get("restored") is True
+          and amg2.setup_stats["coarsen_calls"] == 0,
+          f"{label}: the restore coarsened ({amg2.setup_stats})")
+    check(amg2.level_summary() == amg.level_summary(),
+          f"{label}: restored levels differ from the set-up ones")
+    check(not any(at_restore.values()),
+          f"{label}: the restore launched {at_restore}")
+    check(int(r2.iters) == int(res.iters) and int(r2.status) == 0,
+          f"{label}: restored iterations {r2.iters} vs {res.iters}")
+    check(rec["x_bitwise"], f"{label}: restored x differs from the cold x")
+    check(restored == cold, f"{label}: launches {restored} vs cold {cold}")
+    if "CHEBYSHEV" in cfg:
+        check(rec["lmax"] == [lv.smoother.lmax for lv in amg.levels
+                              if lv.smoother is not None],
+              f"{label}: restored lmax differs")
+    return restored
+
+
+def store_phase(torch, device="cuda", n=SLICE_N, n_f64=64, n_store=64):
+    """The setup store on ``device``: (a) the four configs of
+    ``STORE_CONFIGS`` at ``n``^3 f32 set up, saved and restored
+    (:func:`store_roundtrip`); (b) a ``n_f64``^3 f64 payload saved on
+    the card restored on the CPU (iterations equal, x to rtol 1e-9);
+    (c) ``ArtifactStore`` at ``n_store``^3: a hit restores the solver, a
+    corrupted, a truncated and a stale-schema entry are each a counted
+    miss.  Payloads go to a directory under ``ci/artifacts`` removed at
+    the end.  Returns the restored solves' launches, summed."""
+    import os
+    import shutil
+
+    from amgx_tpu_torch.solvers.base import Solver
+    from amgx_tpu_torch.store import ArtifactStore
+    from amgx_tpu_torch.store import serialize
+
+    folder = store_dir()
+    try:
+        total = dict.fromkeys(COUNTERS, 0)
+        for label, cfg, formats in STORE_CONFIGS:
+            got = store_roundtrip(torch, label, cfg, formats, n, np.float32,
+                                  device, folder)
+            for k in total:
+                total[k] += got[k]
+        # ---- (b) card to CPU, f64
+        s, res, _, b, _ = solve_on(device, BENCH_CFG, n_f64, np.float64)
+        path = os.path.join(folder, "f64.npz")
+        s.save_setup(path)
+        sc = Solver.load_setup(path, device="cpu")
+        rc = sc.solve(b)
+        x, xc = res.x.cpu().numpy(), rc.x.numpy()
+        d = float(np.abs(x - xc).max())
+        print(json.dumps({"store_card_to_cpu": {
+            "n": n_f64, "iterations": int(res.iters),
+            "cpu_iterations": int(rc.iters), "max_abs_diff": d,
+            "restore_s": sc.restore_time,
+            "coarsen_calls": sc.precond.setup_stats["coarsen_calls"]}}),
+            flush=True)
+        check(int(rc.iters) == int(res.iters),
+              f"card to cpu: iterations {rc.iters} vs {res.iters}")
+        check(np.allclose(xc, x, rtol=1e-9, atol=1e-9 * np.abs(x).max()),
+              f"card to cpu: x differs by {d:.3e}")
+        os.remove(path)
+        del s, sc
+        # ---- (c) ArtifactStore: a hit, then three defects, each a miss
+        s, res, _, b, _ = solve_on(device, BENCH_CFG, n_store, np.float32)
+        st = ArtifactStore(os.path.join(folder, "store"))
+        outcomes = {}
+        for defect in ("none", "corrupt", "truncated", "stale_schema"):
+            key = st.put_setup(s)
+            check(key is not None, "store: put_setup failed")
+            npz = os.path.join(st.root, key + ".npz")
+            side = os.path.join(st.root, key + ".json")
+            if defect == "corrupt":
+                blob = bytearray(open(npz, "rb").read())
+                blob[len(blob) // 2] ^= 0xFF
+                open(npz, "wb").write(bytes(blob))
+            elif defect == "truncated":
+                blob = open(npz, "rb").read()
+                open(npz, "wb").write(blob[:len(blob) // 3])
+            elif defect == "stale_schema":
+                meta = json.loads(open(side).read())
+                meta["schema_version"] = serialize.SCHEMA_VERSION + 1
+                open(side, "w").write(json.dumps(meta))
+            before = st.stats()
+            got = st.get_setup(key, device=device)
+            after = st.stats()
+            delta = {k: after.get(k, 0) - before.get(k, 0)
+                     for k in set(after) | set(before)}
+            outcomes[defect] = {k: v for k, v in delta.items() if v}
+            if defect == "none":
+                check(got is not None and delta.get("hits") == 1,
+                      f"store: no hit ({delta})")
+                r2 = got.solve(b)
+                check(int(r2.iters) == int(res.iters)
+                      and bool(torch.equal(r2.x, res.x)),
+                      "store: the hit solves differently")
+            else:
+                check(got is None and delta.get("misses") == 1
+                      and not delta.get("hits"),
+                      f"store: {defect} entry not a counted miss ({delta})")
+            st.delete(key)
+        print(json.dumps({"artifact_store": {
+            "n": n_store, "outcomes": outcomes, "stats": st.stats()}}),
+            flush=True)
+        return total
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 # every phase in the order a run takes them; a phase named on the
 # command line brings the phases it needs
 PHASES = ("kernels", "bench_pcg", "bench_pcg_matrix_free",
           "fgmres_aggregation", "pcg_classical", "pcg_classical_cheby",
           "idr_dilu", "gmres_ilu0", "pbicgstab_agg_w", "amg_classical_kcycle",
           "pcg_agg_resetup", "refine_bf16_256", "mf_bf16", "classical_bf16",
-          "device_match", "block4_amg_pcg")
+          "device_match", "block4_amg_pcg", "eigensolvers", "setup_store")
 NEEDS = {"bench_pcg_matrix_free": ("bench_pcg",)}
 
 
@@ -4192,6 +4957,14 @@ def selected_phases(argv):
 
 
 def main(argv=None):
+    try:
+        return _main(argv)
+    finally:
+        for pool in list(_POOLS):
+            end_pool(pool)
+
+
+def _main(argv=None):
     phases = selected_phases(sys.argv[1:] if argv is None else argv)
     import torch
 
@@ -4265,6 +5038,12 @@ def main(argv=None):
         by_path["block4_amg_pcg"], b_recs = timed(
             "block4_amg_pcg", block4_amg_phase, torch, peaks)
         recs += b_recs
+    if "eigensolvers" in phases:
+        by_path["eigensolvers"], e_recs = timed("eigensolvers", eigen_phase,
+                                                torch, peaks)
+        recs += e_recs
+    if "setup_store" in phases:
+        by_path["setup_store"] = timed("setup_store", store_phase, torch)
 
     # each kernel: the path whose count is its ``launches``, the case
     # whose times the summary gives, its source and the TPU kernel
@@ -4299,7 +5078,10 @@ def main(argv=None):
                      ("pcg_agg_resetup",
                       ("dia_spmv", "ell_spmv", "stencil_spmv")),
                      ("block4_amg_pcg", ("dia_spmv", "sell_spmv",
-                                         "ell_spmv")))
+                                         "ell_spmv")),
+                     ("eigensolvers", ("dia_spmv", "ell_spmv")),
+                     ("setup_store", ("dia_spmv", "ell_spmv", "sell_spmv",
+                                      "stencil_spmv")))
     not_checked = []
     for path, kernels_of in launch_checks:
         if path not in by_path:
