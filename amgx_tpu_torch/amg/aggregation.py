@@ -34,6 +34,7 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
+from amgx_tpu_torch.core.printing import emit
 from amgx_tpu_torch.core.profiling import count_setup_sync, setup_phase
 
 def edge_weights(Asp: sps.csr_matrix, formula: int = 0) -> sps.csr_matrix:
@@ -599,7 +600,7 @@ def _maybe_print_agg_info(cfg, scope, selector, agg):
     if bool(cfg.get("print_aggregation_info", scope)):
         nc = int(agg.max()) + 1 if agg.size else 0
         sizes = np.bincount(agg, minlength=max(nc, 1))
-        print(
+        emit(
             f"         Aggregation [{selector}]: {nc} aggregates over "
             f"{agg.shape[0]} rows; avg size "
             f"{agg.shape[0] / max(nc, 1):.2f}, max {int(sizes.max())}, "

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from amgx_tpu_torch.core.matrix import SparseMatrix
+from amgx_tpu_torch.core.printing import emit
 from amgx_tpu_torch.core.profiling import setup_phase, setup_profile_scope
 from amgx_tpu_torch.core.types import host_dtype
 from amgx_tpu_torch.ops.blas import dot
@@ -535,8 +536,13 @@ class AMGSolver(Solver):
         else:
             coarsest.smoother = None
         self._params = self._collect_params()
+        # grid stats and vis data print only at verbosity_level > 2
+        # (reference solver.cu:541-546)
         if self.print_grid_stats and self.verbosity > 2:
-            print(self.grid_stats())
+            emit(self.grid_stats())
+        if bool(self.cfg.get("print_vis_data", self.scope)) \
+                and self.verbosity > 2:
+            emit(self.vis_data())
 
     def _resetup_impl(self, A: SparseMatrix) -> bool:
         """Values-only refresh (the JAX package's ``_resetup_impl``,
@@ -858,6 +864,19 @@ class AMGSolver(Solver):
             }
             for lvl in self.levels
         ]
+
+    def vis_data(self) -> str:
+        """Per-level structure dump (reference print_vis_data / amg_level
+        printVisData; the JAX package's compact per-level summary)."""
+        lines = ["         AMG visualization data:"]
+        for lvl in self.levels:
+            pr = lvl.P.nnz if lvl.P is not None else 0
+            lines.append(
+                f"           level {lvl.level_id}: rows={lvl.n_rows} "
+                f"nnz={lvl.nnz} interp_nnz={pr} "
+                f"avg_row_nnz={lvl.nnz / max(lvl.n_rows, 1):.2f}"
+            )
+        return "\n".join(lines)
 
     def grid_stats(self) -> str:
         """Grid statistics table (reference AMG::printGridStatistics)."""

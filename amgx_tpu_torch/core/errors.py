@@ -18,11 +18,18 @@ import numpy as np
 RC_OK = 0
 RC_BAD_PARAMETERS = 1
 RC_UNKNOWN = 2
+RC_NOT_SUPPORTED_TARGET = 3
+RC_NOT_SUPPORTED_BLOCKSIZE = 4
+RC_CUDA_FAILURE = 5
+RC_THRUST_FAILURE = 6
 RC_NO_MEMORY = 7
 RC_IO_ERROR = 8
 RC_BAD_MODE = 9
 RC_CORE = 10
+RC_PLUGIN = 11
+RC_BAD_CONFIGURATION = 12
 RC_NOT_IMPLEMENTED = 13
+RC_LICENSE_NOT_FOUND = 14
 RC_INTERNAL = 15
 
 
@@ -74,6 +81,28 @@ class StoreError(AMGXTPUError):
     there is a miss); ``save_setup`` / ``load_setup`` raise it."""
 
     rc = RC_IO_ERROR
+
+
+def rc_for_exception(e: BaseException) -> int:
+    """AMGX_RC code of any exception, the catch-all of the C API
+    boundary (the JAX package's mapping): typed errors carry their own
+    code, common Python exception classes map to the nearest reference
+    code, anything else is RC_UNKNOWN."""
+    rc = getattr(e, "rc", None)
+    if isinstance(rc, int) and RC_OK <= rc <= RC_INTERNAL:
+        return rc
+    if isinstance(e, MemoryError):
+        return RC_NO_MEMORY
+    if isinstance(e, (OSError, EOFError)):
+        return RC_IO_ERROR
+    if isinstance(e, NotImplementedError):
+        return RC_NOT_IMPLEMENTED
+    if isinstance(e, KeyError):
+        # unregistered solver / parameter names surface as KeyError
+        return RC_BAD_CONFIGURATION
+    if isinstance(e, (ValueError, TypeError, IndexError, AssertionError)):
+        return RC_BAD_PARAMETERS
+    return RC_UNKNOWN
 
 
 def validation_enabled() -> bool:
@@ -135,3 +164,17 @@ def validate_operator(A, where="solver setup"):
             f"{where}: operator coefficients contain NaN/Inf "
             f"({A.n_rows}x{A.n_cols}, nnz={A.nnz})"
         )
+
+
+def validate_vector(v, n, where="vector upload"):
+    """Length and finite values of a right-hand side or initial guess."""
+    if v is None:
+        return
+    arr = np.asarray(v).reshape(-1)
+    if arr.shape[0] != n:
+        raise PatternDegeneracyError(
+            f"{where}: expected length-{n} vector, got {arr.shape[0]}"
+        )
+    if arr.size and np.issubdtype(arr.dtype, np.inexact) \
+            and not np.all(np.isfinite(arr)):
+        raise NonFiniteValuesError(f"{where}: vector contains NaN/Inf")

@@ -54,6 +54,12 @@
 //     Packed bf16x2 arithmetic would round a product once where torch
 //     rounds it to f32 first, which differs in the f32 subnormal range,
 //     so the f32 emulation stays.
+//   * the mixed pairs of the C API's mixed modes (dia_spmv_f32_f64 for
+//     dDFI / dIFI, dia_spmv_bf16_f32 for dFBI) take the same kernel with
+//     the plane type V and the x and y type X apart: plane vectors of VEC
+//     values of V, x one scalar load of X a row, y a vector of VEC values
+//     of X, each term rounded in X (Term<1>), so that they too return the
+//     plain version's bits.
 //
 // Plain C interface, loaded with ctypes (amgx_tpu_torch/ops/kernels.py).
 // Each entry point launches on the given stream and returns
@@ -242,20 +248,22 @@ __device__ __forceinline__ void shift_window(uint32_t* w, int off) {
 
 // acc[e] += the terms of diagonals o[0..cnt) for rows i0 + e, e < VEC,
 // in offset order; v points at row i0 of the first of those planes.  All
-// the chunk's loads are issued before its arithmetic.
-template <typename T, int K, int VEC, int CH>
+// the chunk's loads are issued before its arithmetic.  A plane vector
+// holds VEC values of V, an x window VEC values of X (the two differ in
+// width for the mixed pairs); both convert to X's compute type.
+template <typename V, typename X, int K, int VEC, int CH>
 __device__ __forceinline__ void add_diagonals(
-    const T* __restrict__ v, int64_t n, const T* __restrict__ x, int64_t i0,
-    const int (&o)[CH], int cnt, typename Compute<T>::type (&acc)[VEC]) {
-  using C = typename Compute<T>::type;
+    const V* __restrict__ v, int64_t n, const X* __restrict__ x, int64_t i0,
+    const int (&o)[CH], int cnt, typename Compute<X>::type (&acc)[VEC]) {
+  using C = typename Compute<X>::type;
   if constexpr (VEC == 1) {
     C pv[CH], xv[CH];
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       if (c < cnt) {
-        pv[c] = ldcs_c(v + c * n);
+        pv[c] = C(ldcs_c(v + c * n));
         const int64_t j = i0 + o[c];
-        xv[c] = (j >= 0 && j < n) ? ldg_c(x + j) : C(0);
+        xv[c] = (j >= 0 && j < n) ? C(ldg_c(x + j)) : C(0);
       }
     }
 #pragma unroll
@@ -263,35 +271,38 @@ __device__ __forceinline__ void add_diagonals(
       if (c < cnt) acc[0] = Term<K>::f(acc[0], pv[c], xv[c]);
     }
   } else {
-    constexpr int W = VEC * static_cast<int>(sizeof(T)) / 4;
-    uint32_t pw[CH][W], xw[CH][2 * W];
+    constexpr int WV = VEC * static_cast<int>(sizeof(V)) / 4;
+    constexpr int WX = VEC * static_cast<int>(sizeof(X)) / 4;
+    uint32_t pw[CH][WV], xw[CH][2 * WX];
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       if (c < cnt) {
-        load_words<W, true>(v + c * n, pw[c]);
-        load_x_window<T, VEC>(x, n, i0, o[c], xw[c]);
+        load_words<WV, true>(v + c * n, pw[c]);
+        load_x_window<X, VEC>(x, n, i0, o[c], xw[c]);
       }
     }
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       if (c < cnt) {
-        shift_window<T, VEC>(xw[c], o[c]);
+        shift_window<X, VEC>(xw[c], o[c]);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          acc[e] = Term<K>::f(acc[e], elem<T>(pw[c], e), elem<T>(xw[c], e));
+          acc[e] = Term<K>::f(acc[e], C(elem<V>(pw[c], e)),
+                              C(elem<X>(xw[c], e)));
         }
       }
     }
   }
 }
 
-// T: values, x and y; K: how a term rounds (dtypes.cuh); VEC: rows a
-// thread; ND: the diagonal count (7), or 0 for the runtime count nd
-template <typename T, int K, int VEC, int ND>
+// V: values; X: x and y (the promoted type: X itself for every pair
+// built); K: how a term rounds (dtypes.cuh); VEC: rows a thread; ND:
+// the diagonal count (7), or 0 for the runtime count nd
+template <typename V, typename X, int K, int VEC, int ND>
 __global__ void __launch_bounds__(kThreads, 2)
-dia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
-                T* __restrict__ y, int64_t n, int nd, const DiaOffsets offs) {
-  using C = typename Compute<T>::type;
+dia_spmv_kernel(const V* __restrict__ vals, const X* __restrict__ x,
+                X* __restrict__ y, int64_t n, int nd, const DiaOffsets offs) {
+  using C = typename Compute<X>::type;
   const int64_t i0 =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * VEC;
   if (i0 >= n) return;
@@ -302,7 +313,7 @@ dia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
     int o[ND];
 #pragma unroll
     for (int c = 0; c < ND; ++c) o[c] = offs.off[c];
-    add_diagonals<T, K, VEC, ND>(vals + i0, n, x, i0, o, ND, acc);
+    add_diagonals<V, X, K, VEC, ND>(vals + i0, n, x, i0, o, ND, acc);
   } else {
     for (int k0 = 0; k0 < nd; k0 += kChunk) {
       int o[kChunk];
@@ -310,29 +321,29 @@ dia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
       for (int c = 0; c < kChunk; ++c) {
         o[c] = k0 + c < nd ? offs.off[k0 + c] : 0;
       }
-      add_diagonals<T, K, VEC, kChunk>(vals + k0 * n + i0, n, x, i0, o,
-                                       nd - k0, acc);
+      add_diagonals<V, X, K, VEC, kChunk>(vals + k0 * n + i0, n, x, i0, o,
+                                          nd - k0, acc);
     }
   }
   if constexpr (VEC == 1) {
     store_y(y + i0, acc[0]);
   } else {
-    constexpr int W = VEC * static_cast<int>(sizeof(T)) / 4;
+    constexpr int W = VEC * static_cast<int>(sizeof(X)) / 4;
     uint32_t w[W];
-    pack<T, VEC>(acc, w);
+    pack<X, VEC>(acc, w);
     store_words<W>(y + i0, w);
   }
 }
 
-template <typename T, int K, int VEC>
-void launch_vec(int nd_inst, unsigned blocks, cudaStream_t s, const T* vals,
-                const T* x, T* y, int64_t n, int nd, const DiaOffsets& o) {
+template <typename V, typename X, int K, int VEC>
+void launch_vec(int nd_inst, unsigned blocks, cudaStream_t s, const V* vals,
+                const X* x, X* y, int64_t n, int nd, const DiaOffsets& o) {
   if (nd_inst == 7) {
-    dia_spmv_kernel<T, K, VEC, 7><<<blocks, kThreads, 0, s>>>(vals, x, y, n,
-                                                             nd, o);
+    dia_spmv_kernel<V, X, K, VEC, 7><<<blocks, kThreads, 0, s>>>(
+        vals, x, y, n, nd, o);
   } else {
-    dia_spmv_kernel<T, K, VEC, 0><<<blocks, kThreads, 0, s>>>(vals, x, y, n,
-                                                             nd, o);
+    dia_spmv_kernel<V, X, K, VEC, 0><<<blocks, kThreads, 0, s>>>(
+        vals, x, y, n, nd, o);
   }
 }
 
@@ -341,11 +352,13 @@ bool aligned(const void* p, long long bytes) {
 }
 
 // a: nd, nd_inst, vec, threads, blocks, then the nd offsets (see
-// dia_spmv_f32)
-template <typename T, int K>
+// dia_spmv_f32).  A vector of the wider of V and X is at most 16 bytes.
+template <typename V, typename X, int K>
 int launch(const void* vals, const void* x, void* y, long long n,
            const int* a, void* stream) {
-  constexpr int kMaxVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int kWide = static_cast<int>(sizeof(V) > sizeof(X) ? sizeof(V)
+                                                               : sizeof(X));
+  constexpr int kMaxVec = 16 / kWide;
   const int nd = a[0], nd_inst = a[1], vec = a[2], threads = a[3],
             blocks = a[4];
   const int* offsets = a + 5;
@@ -356,9 +369,10 @@ int launch(const void* vals, const void* x, void* y, long long n,
             vec <= kMaxVec && n % vec == 0 && threads == kThreads &&
             blocks > 0 && blocks * rows_per_block >= n &&
             (blocks - 1) * rows_per_block < n;
-  const long long vbytes = static_cast<long long>(vec) * sizeof(T);
-  ok = ok && aligned(vals, vbytes) && aligned(x, vbytes) &&
-       aligned(y, vbytes);
+  const long long vbytes = static_cast<long long>(vec) * sizeof(V);
+  const long long xbytes = static_cast<long long>(vec) * sizeof(X);
+  ok = ok && aligned(vals, vbytes) && aligned(x, xbytes) &&
+       aligned(y, xbytes);
   DiaOffsets o{};
   for (int k = 0; ok && k < nd; ++k) {
     ok = offsets[k] > -n && offsets[k] < n;
@@ -366,19 +380,19 @@ int launch(const void* vals, const void* x, void* y, long long n,
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* v = static_cast<const T*>(vals);
-  const T* xx = static_cast<const T*>(x);
-  T* yy = static_cast<T*>(y);
+  const V* v = static_cast<const V*>(vals);
+  const X* xx = static_cast<const X*>(x);
+  X* yy = static_cast<X*>(y);
   const unsigned g = static_cast<unsigned>(blocks);
   if (vec == 1) {
-    launch_vec<T, K, 1>(nd_inst, g, s, v, xx, yy, n, nd, o);
+    launch_vec<V, X, K, 1>(nd_inst, g, s, v, xx, yy, n, nd, o);
   } else if (vec == 2) {
-    launch_vec<T, K, 2>(nd_inst, g, s, v, xx, yy, n, nd, o);
+    launch_vec<V, X, K, 2>(nd_inst, g, s, v, xx, yy, n, nd, o);
   } else if constexpr (kMaxVec >= 4) {
     if (vec == 4) {
-      launch_vec<T, K, 4>(nd_inst, g, s, v, xx, yy, n, nd, o);
+      launch_vec<V, X, K, 4>(nd_inst, g, s, v, xx, yy, n, nd, o);
     } else if constexpr (kMaxVec >= 8) {
-      launch_vec<T, K, 8>(nd_inst, g, s, v, xx, yy, n, nd, o);
+      launch_vec<V, X, K, 8>(nd_inst, g, s, v, xx, yy, n, nd, o);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -392,15 +406,32 @@ int launch(const void* vals, const void* x, void* y, long long n,
 // threads (a block), blocks, then the nd offsets in order
 extern "C" int dia_spmv_f32(const void* vals, const void* x, void* y,
                             long long n, const int* plan, void* stream) {
-  return launch<float, 0>(vals, x, y, n, plan, stream);
+  return launch<float, float, 0>(vals, x, y, n, plan, stream);
 }
 
 extern "C" int dia_spmv_f64(const void* vals, const void* x, void* y,
                             long long n, const int* plan, void* stream) {
-  return launch<double, 0>(vals, x, y, n, plan, stream);
+  return launch<double, double, 0>(vals, x, y, n, plan, stream);
 }
 
 extern "C" int dia_spmv_bf16(const void* vals, const void* x, void* y,
                              long long n, const int* plan, void* stream) {
-  return launch<bf16, 2>(vals, x, y, n, plan, stream);
+  return launch<bf16, bf16, 2>(vals, x, y, n, plan, stream);
+}
+
+// the mixed pairs of dDFI / dIFI (f32 planes, f64 x and y) and dFBI
+// (bf16 planes, f32 x and y): each product, then each sum, rounded in
+// the wider type (dtypes.cuh Term<1>), in offset order from +0.0, as the
+// plain version's torch promotion does, so the kernel returns its bits.
+// x is the wider of the two, one scalar load a row (load_x_window); the
+// plan (dia_launch_plan with x_dtype) sizes vec by the planes and keeps
+// a vector of y within 16 bytes
+extern "C" int dia_spmv_f32_f64(const void* vals, const void* x, void* y,
+                                long long n, const int* plan, void* stream) {
+  return launch<float, double, 1>(vals, x, y, n, plan, stream);
+}
+
+extern "C" int dia_spmv_bf16_f32(const void* vals, const void* x, void* y,
+                                 long long n, const int* plan, void* stream) {
+  return launch<bf16, float, 1>(vals, x, y, n, plan, stream);
 }

@@ -80,7 +80,12 @@
 //   * sell_spmv (bf16, bf16) -> bf16: the classical operators of a bf16
 //     hierarchy, with one lane a row only (SparseMatrix.astype sets the
 //     plan): the tree of L > 1 lanes would add the parts, each sum
-//     rounded to bf16, in another order than the plain version's.
+//     rounded to bf16, in another order than the plain version's;
+//     (f32, f64) -> f64 and (bf16, f32) -> f32: an unstructured matrix
+//     in the C API's mixed modes (dDFI / dIFI, dFBI), each term rounded
+//     in the wider type.  With one lane a row (always for bf16 values)
+//     they return the plain version's bits; with L > 1 the tree adds the
+//     parts in another order, within a tolerance.
 // A bf16 value moves 2 bytes (a slot 6, column id included).
 //
 // Plain C interface, loaded with ctypes (amgx_tpu_torch/ops/kernels.py).
@@ -123,14 +128,14 @@ ell_spmv_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
 // items grid-stride and loads the next item's header (offset, width)
 // and output row while it works on the current one, so a narrow slice
 // costs two dependent loads (entries, then x), not four.
-template <typename T, int K, int L>
+template <typename V, typename X, int K, int L>
 __global__ void __launch_bounds__(kThreads)
-sell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
+sell_spmv_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
                  const int64_t* __restrict__ offsets,
                  const int* __restrict__ widths,
                  const int* __restrict__ rows, int64_t n_items,
-                 const T* __restrict__ x, T* __restrict__ y, int64_t n) {
-  using C = typename Compute<T>::type;
+                 const X* __restrict__ x, X* __restrict__ y, int64_t n) {
+  using C = typename Compute<X>::type;
   constexpr int kRows = 32 / L;
   constexpr int kBatch = 8;
   const int lane = threadIdx.x & 31;
@@ -170,12 +175,12 @@ sell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
           const int64_t e = at + static_cast<int64_t>(s + u) * 32;
           const bool live = s + u < s_end;
           c[u] = live ? __ldcs(cols + e) : -1;
-          v[u] = live ? ldcs_c(vals + e) : C(0);
+          v[u] = live ? C(ldcs_c(vals + e)) : C(0);
         }
         C xv[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
-          xv[u] = c[u] >= 0 ? ldg_c(x + c[u]) : C(0);
+          xv[u] = c[u] >= 0 ? C(ldg_c(x + c[u])) : C(0);
         }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) acc = Term<K>::f(acc, v[u], xv[u]);
@@ -210,7 +215,7 @@ int launch(const void* cols, const void* vals, int w, const void* x,
 
 // enough blocks to cover every item, at most as many as fit on the card
 // at once (the rest are walked grid-stride)
-template <typename T, int K, int L>
+template <typename V, typename X, int K, int L>
 int launch_sell_l(const void* cols, const void* vals, const void* offsets,
                   const void* widths, const void* rows, long long n_slices,
                   const void* x, void* y, long long n, void* stream) {
@@ -218,7 +223,7 @@ int launch_sell_l(const void* cols, const void* vals, const void* offsets,
   static int per_sm = 0;
   if (per_sm == 0) {
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sell_spmv_kernel<T, K, L>, kThreads, 0);
+        &per_sm, sell_spmv_kernel<V, X, K, L>, kThreads, 0);
     if (per_sm < 1) per_sm = 1;
   }
   int dev = 0, sms = 0;
@@ -228,30 +233,30 @@ int launch_sell_l(const void* cols, const void* vals, const void* offsets,
   long long blocks = (items + kThreads / 32 - 1) / (kThreads / 32);
   const long long resident = static_cast<long long>(sms) * per_sm;
   if (resident > 0 && blocks > resident) blocks = resident;
-  sell_spmv_kernel<T, K, L><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cols), static_cast<const T*>(vals),
+  sell_spmv_kernel<V, X, K, L><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(cols), static_cast<const V*>(vals),
       static_cast<const int64_t*>(offsets), static_cast<const int*>(widths),
       static_cast<const int*>(rows), static_cast<int64_t>(items),
-      static_cast<const T*>(x), static_cast<T*>(y),
+      static_cast<const X*>(x), static_cast<X*>(y),
       static_cast<int64_t>(n));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int K>
+template <typename V, typename X, int K>
 int launch_sell(const void* cols, const void* vals, const void* offsets,
                 const void* widths, const void* rows, long long n_slices,
                 int lanes, const void* x, void* y, long long n,
                 void* stream) {
   switch (lanes) {
-    case 1: return launch_sell_l<T, K, 1>(cols, vals, offsets, widths, rows,
-                                          n_slices, x, y, n, stream);
-    case 2: return launch_sell_l<T, K, 2>(cols, vals, offsets, widths, rows,
-                                          n_slices, x, y, n, stream);
-    case 4: return launch_sell_l<T, K, 4>(cols, vals, offsets, widths, rows,
-                                          n_slices, x, y, n, stream);
-    case 8: return launch_sell_l<T, K, 8>(cols, vals, offsets, widths, rows,
-                                          n_slices, x, y, n, stream);
+    case 1: return launch_sell_l<V, X, K, 1>(cols, vals, offsets, widths,
+                                             rows, n_slices, x, y, n, stream);
+    case 2: return launch_sell_l<V, X, K, 2>(cols, vals, offsets, widths,
+                                             rows, n_slices, x, y, n, stream);
+    case 4: return launch_sell_l<V, X, K, 4>(cols, vals, offsets, widths,
+                                             rows, n_slices, x, y, n, stream);
+    case 8: return launch_sell_l<V, X, K, 8>(cols, vals, offsets, widths,
+                                             rows, n_slices, x, y, n, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -275,8 +280,8 @@ extern "C" int sell_spmv_f32(const void* cols, const void* vals,
                              const void* rows, long long n_slices,
                              int lanes, const void* x, void* y, long long n,
                              void* stream) {
-  return launch_sell<float, 0>(cols, vals, offsets, widths, rows, n_slices,
-                            lanes, x, y, n, stream);
+  return launch_sell<float, float, 0>(cols, vals, offsets, widths, rows,
+                                     n_slices, lanes, x, y, n, stream);
 }
 
 extern "C" int sell_spmv_f64(const void* cols, const void* vals,
@@ -284,8 +289,8 @@ extern "C" int sell_spmv_f64(const void* cols, const void* vals,
                              const void* rows, long long n_slices,
                              int lanes, const void* x, void* y, long long n,
                              void* stream) {
-  return launch_sell<double, 0>(cols, vals, offsets, widths, rows, n_slices,
-                             lanes, x, y, n, stream);
+  return launch_sell<double, double, 0>(cols, vals, offsets, widths, rows,
+                                       n_slices, lanes, x, y, n, stream);
 }
 
 extern "C" int ell_spmv_bf16(const void* cols, const void* vals, int w,
@@ -313,6 +318,26 @@ extern "C" int sell_spmv_bf16(const void* cols, const void* vals,
                               void* stream) {
   // one lane a row: the bf16 sums in the plain version's order
   if (lanes != 1) return cudaErrorInvalidValue;
-  return launch_sell_l<bf16, 2, 1>(cols, vals, offsets, widths, rows,
-                                   n_slices, x, y, n, stream);
+  return launch_sell_l<bf16, bf16, 2, 1>(cols, vals, offsets, widths, rows,
+                                         n_slices, x, y, n, stream);
+}
+
+extern "C" int sell_spmv_f32_f64(const void* cols, const void* vals,
+                                 const void* offsets, const void* widths,
+                                 const void* rows, long long n_slices,
+                                 int lanes, const void* x, void* y,
+                                 long long n, void* stream) {
+  return launch_sell<float, double, 1>(cols, vals, offsets, widths, rows,
+                                       n_slices, lanes, x, y, n, stream);
+}
+
+extern "C" int sell_spmv_bf16_f32(const void* cols, const void* vals,
+                                  const void* offsets, const void* widths,
+                                  const void* rows, long long n_slices,
+                                  int lanes, const void* x, void* y,
+                                  long long n, void* stream) {
+  // one lane a row, as every bf16 value layout has (SparseMatrix.astype)
+  if (lanes != 1) return cudaErrorInvalidValue;
+  return launch_sell_l<bf16, float, 1, 1>(cols, vals, offsets, widths, rows,
+                                          n_slices, x, y, n, stream);
 }

@@ -41,6 +41,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from amgx_tpu_torch.core.printing import emit
+
 
 def greedy_coloring(indptr, indices, n, order=None) -> np.ndarray:
     """Greedy distance-1 coloring in the given vertex order
@@ -515,7 +517,7 @@ def _emit_coloring_info(g, scheme, colors, indptr, indices):
         nc = int(colors.max()) + 1
         sizes = np.bincount(colors, minlength=nc)
         ok = validate_coloring(indptr, indices, colors)
-        print(
+        emit(
             f"         Coloring [{scheme}]: {nc} colors over "
             f"{colors.shape[0]} rows; largest class {int(sizes.max())}"
             f", smallest {int(sizes.min())}; valid={ok}"

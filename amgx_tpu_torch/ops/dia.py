@@ -19,7 +19,9 @@ these); the plain version computes in it with torch's own promotion,
 one rounding per product and per sum, and bf16 in bf16 as the JAX
 package's XLA path and its Pallas kernel do.  The kernel is built for
 (f32, f32), (f64, f64) and (bf16, bf16), the pairs a hierarchy's DIA
-operators meet (``csrc/dtypes.cuh``); another pair on the card raises.
+operators meet, and for (f32, f64) and (bf16, f32), the operators of the
+C API's mixed modes (dDFI / dIFI, dFBI) under their wider vectors
+(``csrc/dtypes.cuh``); another pair on the card raises.
 
 ``launches`` counts kernel launches (never plain-version calls) and
 ``variant_launches`` the same per entry point; reset them by assigning
@@ -71,15 +73,20 @@ class DiaPlan(NamedTuple):
     blocks: int
 
 
-def dia_launch_plan(n, offsets, dtype, sms=H100_SMS, align=16):
+def dia_launch_plan(n, offsets, dtype, sms=H100_SMS, align=16,
+                    x_dtype=None):
     """The kernel's :class:`DiaPlan` for ``n`` rows, the sorted host
-    ``offsets`` and values of ``dtype``, on a card of ``sms`` SMs, for
-    pointers aligned to ``align`` bytes.
+    ``offsets``, planes of ``dtype`` and x and y of ``x_dtype`` (default
+    ``dtype``), on a card of ``sms`` SMs, for pointers aligned to
+    ``align`` bytes.
 
     ``vec`` starts at one VEC_BYTES vector of every plane (4 rows in
-    bf16, 2 in f32, 1 in f64): plane k starts k * n values in, so every
-    plane is aligned where n is a multiple; else it is the largest
-    power of two that divides n (and the pointers' alignment).  Then it
+    bf16, 2 in f32, 1 in f64), at most 16 bytes of the wider of the
+    plane and x types (a mixed pair reads x one value a row and writes
+    y as one vector of vec values): plane k starts k * n values in, so
+    every plane is aligned where n is a multiple; else it is the largest
+    power of two that divides n (and the pointers' alignment, which
+    the wider type's vectors need).  Then it
     halves while the grid would give some SM no block, so that a small
     level keeps every SM loading.  The 7-diagonal operators take the
     kernel with that count compiled in; any other count up to MAX_DIAGS
@@ -94,8 +101,10 @@ def dia_launch_plan(n, offsets, dtype, sms=H100_SMS, align=16):
         raise ValueError(f"dia_launch_plan: offsets {offsets} reach past "
                          f"{n} rows")
     size = torch.empty((), dtype=dtype).element_size()
-    vec = max(1, VEC_BYTES // size)
-    while vec > 1 and (n % vec or align % (vec * size)):
+    wide = max(size, torch.empty(
+        (), dtype=dtype if x_dtype is None else x_dtype).element_size())
+    vec = max(1, min(VEC_BYTES // size, 16 // wide))
+    while vec > 1 and (n % vec or align % (vec * wide)):
         vec //= 2
     while vec > 1 and -(-n // (vec * PLAN_THREADS)) < sms:
         vec //= 2
@@ -113,11 +122,11 @@ def pack_plan(plan: DiaPlan):
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_args(n, offsets, dtype, align, device_index):
+def _launch_args(n, offsets, dtype, x_dtype, align, device_index):
     """:func:`pack_plan` of :func:`dia_launch_plan` for the card's SMs,
     and the array's address; the cache keeps the array alive."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    arr = pack_plan(dia_launch_plan(n, offsets, dtype, sms, align))
+    arr = pack_plan(dia_launch_plan(n, offsets, dtype, sms, align, x_dtype))
     return arr, ctypes.addressof(arr)
 
 
@@ -179,7 +188,8 @@ def dia_spmv(dia_vals, offsets, x):
         raise NotImplementedError(
             f"dia_spmv: dtypes {dia_vals.dtype}/{x.dtype}; the kernel "
             "takes float32, float64 or bfloat16 planes with x of their "
-            "dtype"
+            "dtype, bfloat16 planes with float32 x, or float32 planes "
+            "with float64 x"
         )
     if not (dia_vals.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_spmv: inputs must be contiguous")
@@ -188,8 +198,8 @@ def dia_spmv(dia_vals, offsets, x):
     if n == 0:
         return y
     ptrs = dia_vals.data_ptr() | x.data_ptr() | y.data_ptr()
-    _, args = _launch_args(n, offs, x.dtype, min(16, ptrs & -ptrs),
-                           x.device.index)
+    _, args = _launch_args(n, offs, dia_vals.dtype, x.dtype,
+                           min(16, ptrs & -ptrs), x.device.index)
     fn = getattr(kernels.library("dia_spmv"), entry)
     rc = fn(dia_vals.data_ptr(), x.data_ptr(), y.data_ptr(), n, args,
             kernels.stream_handle(x.device))

@@ -25,9 +25,10 @@ and x, and the plain versions compute in it with torch's promotion
 (bf16, bf16), (bf16, f32) and (f32, f64): the transfers of a
 reduced-precision hierarchy, whose level-0 restriction meets the
 finer residual under ``level_dtype_policy`` COARSE; ``sell_spmv`` for
-(f32, f32), (f64, f64) and (bf16, bf16), the last with one lane a row
-only, so that its bf16 sums run in the plain version's order
-(``csrc/dtypes.cuh``).
+(f32, f32), (f64, f64), (bf16, bf16), (bf16, f32) and (f32, f64), the
+last two for unstructured matrices in the C API's mixed modes (dFBI,
+dDFI / dIFI).  bf16 values take one lane a row only, so that their sums
+run in the plain version's order (``csrc/dtypes.cuh``).
 
 ``launches`` counts ``ell_spmv`` kernel launches and ``sell_launches``
 those of ``sell_spmv`` (never plain-version calls), ``variant_launches``
@@ -209,7 +210,8 @@ def sell_spmv(S: SlicedEll, x):
         raise NotImplementedError(
             f"sell_spmv: dtypes {S.vals.dtype}/{x.dtype}; the kernel "
             "takes float32, float64 or bfloat16 values with x of their "
-            "dtype"
+            "dtype, bfloat16 values with float32 x, or float32 values "
+            "with float64 x"
         )
     if (S.cols.dtype, S.offsets.dtype, S.widths.dtype) != (
             torch.int32, torch.int64, torch.int32) or (

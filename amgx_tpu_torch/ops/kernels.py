@@ -10,6 +10,12 @@ source, all at once, and waits for all of them.
 
 ``NVCC`` overrides the compiler path; otherwise ``nvcc`` on ``PATH``,
 then ``/usr/local/cuda/bin/nvcc``.
+
+:func:`build_native` builds the C API's native shim
+(``native/amgx_tpu_torch_c.c``, which embeds Python and dispatches into
+``amgx_tpu_torch.api.capi``) and its C host program
+(``native/capi_poisson.c``) with ``cc`` the same way: at first use,
+keyed by a hash of the sources and flags.
 """
 
 from __future__ import annotations
@@ -18,7 +24,10 @@ import ctypes
 import hashlib
 import os
 import shutil
+import shlex
 import subprocess
+import sys
+import sysconfig
 import threading
 from pathlib import Path
 
@@ -48,11 +57,13 @@ _ELL = (_P, _P, _I, _P, _P, _LL, _P)
 _SELL = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _P)
 _STENCIL = (_P, _P, _P, _P, _P)
 _SIGNATURES = {
-    "dia_spmv": {f"dia_spmv_{t}": _DIA for t in ("f32", "f64", "bf16")},
+    "dia_spmv": {f"dia_spmv_{t}": _DIA
+                 for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
     "ell_spmv": {
         **{f"ell_spmv_{t}": _ELL
            for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
-        **{f"sell_spmv_{t}": _SELL for t in ("f32", "f64", "bf16")},
+        **{f"sell_spmv_{t}": _SELL
+           for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
     },
     "stencil_spmv": {f"stencil_spmv_{t}": _STENCIL
                      for t in ("f32", "f64", "bf16")},
@@ -155,3 +166,70 @@ def check_launch(name: str, rc: int) -> None:
             f"{name}: kernel launch failed with CUDA error {rc} "
             f"({torch.cuda.get_device_name()})"
         )
+
+
+NATIVE = _PKG / "native"
+NATIVE_SOURCES = ("amgx_tpu_torch_c.c", "amgx_tpu_torch_c.h",
+                  "capi_poisson.c")
+
+
+def python_config(*args) -> list:
+    """The output of ``python3-config <args> --embed`` for this
+    interpreter (the one in its installation's BINDIR first: a venv's
+    interpreter has none of its own), split into arguments."""
+    ver = sysconfig.get_config_var("VERSION")
+    bindir = sysconfig.get_config_var("BINDIR") or ""
+    for tool in (os.path.join(bindir, f"python{ver}-config"),
+                 f"{sys.executable}-config",
+                 shutil.which(f"python{ver}-config") or "",
+                 shutil.which("python3-config") or ""):
+        if tool and os.path.exists(tool):
+            out = subprocess.run([tool, *args, "--embed"], check=True,
+                                 capture_output=True, text=True).stdout
+            return shlex.split(out)
+    raise RuntimeError("python3-config not found: the native C API is "
+                       "built against the embedding flags of this "
+                       "interpreter")
+
+
+def build_native(out_dir=None) -> dict:
+    """Build the native shim ``libamgx_tpu_torch_c_<hash>.so`` and the C
+    host program ``capi_poisson_<hash>`` into ``out_dir`` (default
+    ``_build/``, whence the shim finds the repository root two
+    directories up), with ``cc`` (``CC`` overrides) and the embedding
+    flags of ``python3-config``; each is built only where it is missing.
+    Returns ``{"lib": path, "program": path}``; raises with the compiler
+    output when a build fails."""
+    out = Path(out_dir) if out_dir is not None else BUILD_DIR
+    out.mkdir(parents=True, exist_ok=True)
+    cc = os.environ.get("CC") or shutil.which("cc") or "gcc"
+    cflags = python_config("--cflags")
+    ldflags = python_config("--ldflags")
+    # the libpython directory, for the loader at run time
+    rpath = [f"-Wl,-rpath,{f[2:]}" for f in ldflags if f.startswith("-L")]
+    h = hashlib.sha256()
+    for name in NATIVE_SOURCES:
+        h.update((NATIVE / name).read_bytes())
+    h.update(" ".join([cc, *cflags, *ldflags]).encode())
+    tag = h.hexdigest()[:16]
+    lib = out / f"libamgx_tpu_torch_c_{tag}.so"
+    prog = out / f"capi_poisson_{tag}"
+    steps = (
+        (lib, [cc, "-O2", "-fPIC", "-shared", *cflags, "-I", str(NATIVE),
+               str(NATIVE / "amgx_tpu_torch_c.c"), *ldflags, *rpath]),
+        (prog, [cc, "-O2", *cflags, "-I", str(NATIVE),
+                str(NATIVE / "capi_poisson.c"), str(lib),
+                f"-Wl,-rpath,{out}", *ldflags, *rpath, "-lm"]),
+    )
+    for target, cmd in steps:
+        if target.exists():
+            continue
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        r = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True,
+                           text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"native build of {target.name} failed "
+                               f"(exit {r.returncode}):\n{r.stdout}"
+                               f"{r.stderr}")
+        os.replace(tmp, target)
+    return {"lib": lib, "program": prog}

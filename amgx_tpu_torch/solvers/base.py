@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from amgx_tpu_torch.core.device import resolve_device
+from amgx_tpu_torch.core.printing import emit
 from amgx_tpu_torch.core.types import NormType, host_array, host_dtype
 from amgx_tpu_torch.ops.norms import get_norm as _get_norm
 from amgx_tpu_torch.ops.spmv import spmv
@@ -93,6 +94,9 @@ class Solver:
         self.print_solve_stats = bool(g("print_solve_stats"))
         self.obtain_timings = bool(g("obtain_timings"))
         self.verbosity = int(g("verbosity_level"))
+        # solver_verbose=1 dumps the solver settings at setup
+        # (reference solver.cu:349)
+        self.solver_verbose = bool(g("solver_verbose"))
         self.convergence_analysis = int(g("convergence_analysis"))
         self.rel_div_tolerance = float(g("rel_div_tolerance"))
         self.alt_rel_tolerance = float(g("alt_rel_tolerance"))
@@ -330,6 +334,14 @@ class Solver:
             _errors.validate_operator(
                 A, where=f"{self.registry_name} setup"
             )
+        if self.solver_verbose:
+            emit(
+                f"{self.registry_name} solver settings (scope "
+                f"{self.scope!r}): max_iters={self.max_iters} "
+                f"tolerance={self.tolerance} norm={self.norm_type.value} "
+                f"convergence={self.conv_type} "
+                f"relaxation_factor={self.relaxation_factor}"
+            )
         self._scale_vecs = None
         self._reorder = None
         if self.scaling.upper() not in ("", "NONE"):
@@ -508,14 +520,14 @@ class Solver:
         if self.print_solve_stats and self.verbosity > 2:
             self._print_stats(res)
         elif self.print_solve_stats and self.verbosity in (1, 2):
-            print(
+            emit(
                 f"         Total Iterations: {res.iters}  "
                 f"status: {res.status}"
             )
         if self.convergence_analysis > 0:
             self._print_convergence_analysis(res)
         if self.obtain_timings:
-            print(
+            emit(
                 f"Total Time: {self.setup_time + self.solve_time:10.6f}\n"
                 f"    setup: {self.setup_time:10.6f} s\n"
                 f"    solve: {self.solve_time:10.6f} s\n"
@@ -547,11 +559,11 @@ class Solver:
             NOT_CONVERGED: "not converged",
         }.get(res.status, f"unknown ({res.status})")
         lines.append("         --------------------------------------")
-        print("\n".join(lines))
+        emit("\n".join(lines))
         r0 = float(np.max(hist[0]))
         rn = float(np.max(hist[iters]))
         rate = (rn / r0) ** (1.0 / iters) if iters >= 1 and r0 > 0 else 0.0
-        print(
+        emit(
             f"         Total Iterations: {iters}\n"
             f"         Avg Convergence Rate: {rate:18.4f}\n"
             f"         Final Residual: {rn:18.6e}\n"
@@ -577,7 +589,7 @@ class Solver:
         r0 = float(np.max(hist[iters - k]))
         rn = float(np.max(hist[iters]))
         geo = (rn / r0) ** (1.0 / k) if r0 > 0 else 0.0
-        print(
+        emit(
             "         Convergence analysis (last %d iterations):\n" % k
             + "\n".join(rows)
             + f"\n           geometric-mean rate: {geo:10.4f}"

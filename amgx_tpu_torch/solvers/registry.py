@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+from amgx_tpu_torch.core.printing import emit
+
 _SOLVERS: Dict[str, Callable] = {}
 
 # names the JAX package registers that the port lacks: none
@@ -49,7 +51,7 @@ def create_solver(cfg, scope: str = "default", param: str = "solver",
         lines = ["         AMG Configuration:"]
         for (sc, name_), v in sorted(cfg.items().items()):
             lines.append(f"           {sc}:{name_} = {v!r}")
-        print("\n".join(lines))
+        emit("\n".join(lines))
     name, new_scope = cfg.get_scoped(param, scope)
     cls = SolverRegistry.get(name)
     return cls(cfg, new_scope, device=device)

@@ -8,7 +8,11 @@ CUDA toolkit:
 Phases (any failure raises and exits non-zero; without ``--phases``
 nothing is skipped; with it, only the named phases run, with those they
 need (``NEEDS``), and the skipped phases and the checks left out are
-printed before the result):
+printed before the result).  The CPU port's runs that the phases hold
+the card to, and the host matcher of phase 16, start once the kernels
+are built, in one child process at the lowest priority (``CpuSide``),
+beside the card's work; each phase's ``phase_s`` line gives the seconds
+it waited for them:
 
 1. Card and build: prints the card's ``nvidia-smi`` name and power
    limit, builds the hand-written kernels from ``amgx_tpu_torch/csrc``
@@ -64,8 +68,9 @@ printed before the result):
    in f32, counts zeroed just before setup and read just after the
    solve.  Checks status 0, the true residual, every level DIA, and
    the ``dia_spmv`` and ``ell_spmv`` counts against the count derived
-   from the hierarchy and the iterations; traces one warm solve (device
-   ops per iteration, busy share, time in the SpMV kernels and in the
+   from the hierarchy and the iterations; traces the first 3 iterations
+   of a warm solve (device ops per iteration, busy share, time in the
+   SpMV kernels and in the
    colour stages' gathers, reductions and index copies); repeats it on
    the CPU (same colours per level, iterations within one, x to rtol
    1e-4); 64^3 f64 on both (iterations equal, x to rtol 1e-9); and a
@@ -105,7 +110,8 @@ printed before the result):
    lmax to rtol 1e-9, the true residual at the tolerance).
 8. idr_dilu: ``IDR_DILU_CFG`` (IDR(8) + one MULTICOLOR_DILU sweep) on
    ``poisson_3d_7pt(128)`` in f32: colours, the ``dia_spmv`` count (s + 1
-   an iteration and the initial residual), a trace; the CPU port at
+   an iteration and the initial residual), a trace of 3 warm
+   iterations; the CPU port at
    96^3 f32 (status and monitored residual: in f32 IDR(8)'s recurred
    residual parts from the true one and its iterations move by several
    with the summation order); 128^3 f64 on the card (the true residual
@@ -164,11 +170,12 @@ printed before the result):
    its plain version), the level-0 R in (bf16, f32), the CSR products
    of the bf16 P; the CPU port at 96^3.
 16. device_match: the device matcher bit for bit with the host one on
-   the 128^3 Poisson graph and a shuffled one (both timed); PCG +
+   the 128^3 Poisson graph and a shuffled one (both timed, the host one
+   in a child process beside the card's work); PCG +
    SIZE_2 aggregation by matching at 128^3 (every pass over 16,384
    rows on the card); 64^3 f64 against the CPU port's host matcher.
-17. block4_amg_pcg: ``kron(poisson_3d_7pt(64), I_4 + 0.2 * ones)`` in
-   f32 as block CSR with b = 4 (1,048,576 unknowns): PCG + aggregation
+17. block4_amg_pcg: ``kron(poisson_3d_7pt(48), I_4 + 0.2 * ones)`` in
+   f32 as block CSR with b = 4 (442,368 unknowns): PCG + aggregation
    AMG (SIZE_2, MULTICOLOR_DILU, DENSE_LU) on the scalar expansion,
    whose level 0 is DIA with 43 diagonals, with per-component norms:
    levels and colours, launches against the walk (``dia_spmv`` among
@@ -177,8 +184,7 @@ printed before the result):
    hierarchy (their launches adding up to the path's);
    ``block4_pcg_bdilu`` (PCG + block-native MULTICOLOR_DILU, no
    kernel); both card against the CPU port at 32^3 x 4 f32 and, with
-   BLOCK_JACOBI and MULTICOLOR_ILU, at 12^3 x 4 f64, the CPU's side in
-   two child processes beside the card's work.
+   BLOCK_JACOBI and MULTICOLOR_ILU, at 12^3 x 4 f64.
 18. eigensolvers (f64): INVERSE_ITERATION on ``poisson_3d_7pt(128)``
    (2,097,152 rows) with PCG to 1e-10 around the bench AMG inside,
    plain and with ``eig_shift`` 1.7e-3 (shift-invert on A - sigma I):
@@ -192,7 +198,7 @@ printed before the result):
    Google matrix's format and kernel); then all nine names at 64^3
    (PAGERANK on 65,536 nodes), each case's launches against its walk
    (``eig_walk``: a column loop is one launch a column), held to the CPU
-   port (two child processes from the phase's start): iterations and
+   port: iterations and
    ``converged`` equal, eigenvalues to rtol 1e-10, vectors up to sign
    to 1e-8 where their eigenvalue is simple, and INVERSE_ITERATION's
    eigenvector post-pass (``eig_eigenvector_solver``) the same.
@@ -208,7 +214,34 @@ printed before the result):
    64^3: a hit restores the solver, a corrupted, a truncated and a
    stale-schema entry are each a counted miss.  Payloads go under
    ``ci/artifacts`` and are deleted.
-20. Prints the per-kernel summary line (each kernel's launches on every
+20. capi: the C API (``amgx_tpu_torch/api/capi.py`` and the native
+   shim ``amgx_tpu_torch/native``) in the mode table's real modes.
+   a. Builds the shim and the C host program (``kernels.build_native``)
+   and prints the seconds.  b. Loads the shim into this interpreter
+   (``ctypes.PyDLL``) and runs the bench config in dFFI at 128^3 from
+   raw CSR buffers: status 0, the true residual, launches (zeroed just
+   before ``AMGX_solver_setup``, read just after the solve) equal to the
+   walk, and iterations and x bit for bit those of a direct
+   ``create_solver`` solve of the same CSR arrays.  c. The same solve in
+   dDFI (f32 matrix, f64 vectors): launches per entry point equal to
+   the walk (PCG's A p on ``dia_spmv_f32_f64``; the cycle runs in the
+   hierarchy's f32, so no ELL transfer meets an f64 vector).  d. PCG +
+   BLOCK_JACOBI (``JACOBI_CFG``) in dFBI at 128^3 (``dia_spmv_bf16_f32``)
+   and in dDFI and dFBI on ``irregular_poisson(64)``, an unstructured
+   upload that takes the sliced layout (``sell_spmv_f32_f64``,
+   ``sell_spmv_bf16_f32``), launches as derived; the card against the
+   CPU port at 64^3: bench
+   dDFI and Jacobi dFBI and the two sliced solves, iterations equal with
+   f64 vectors and x to rtol 1e-9, within one with f32 ones.  Each of
+   the four mixed entry points is held to its plain version at its
+   path's shape (bit for bit; a 4-lane sliced case within TOL) and
+   timed.  e. The C host program (``native/capi_poisson.c``) in a
+   subprocess in dDDI at 64^3: status 0, its own residual, iterations
+   and x (from its file) bit for bit those of the in-process dDDI
+   solve of the same system, lines through its print callback.  f.
+   Through the shim, a bad handle returns RC_BAD_PARAMETERS, an unknown
+   mode RC_BAD_MODE and ``AMGX_solver_solve_batch`` RC_NOT_IMPLEMENTED.
+21. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``; one entry
@@ -429,11 +462,12 @@ TOL = {"float32": 1e-5, "float64": 1e-13}
 
 
 def timed(name, fn, *args):
-    """``fn(*args)``, printing its seconds on a ``phase_s`` line."""
-    t0 = time.perf_counter()
+    """``fn(*args)``, printing its seconds on a ``phase_s`` line with
+    the seconds of them it waited for runs of :data:`CPU`."""
+    t0, w0 = time.perf_counter(), CPU.wait_s
     out = fn(*args)
-    print(json.dumps({"phase_s": {name: time.perf_counter() - t0}}),
-          flush=True)
+    print(json.dumps({"phase_s": {name: time.perf_counter() - t0},
+                      "cpu_side_wait_s": CPU.wait_s - w0}), flush=True)
     return out
 
 
@@ -601,16 +635,20 @@ def stencil_scipy(grid, steps, coefs):
     n = nx * ny * nz
     i = np.arange(n, dtype=np.int64)
     ix, iy, iz = i % nx, (i // nx) % ny, i // (nx * ny)
-    rows, cols, vals = [], [], []
-    for (dx, dy, dz), c in zip(steps, coefs):
-        r = i[(ix + dx >= 0) & (ix + dx < nx) & (iy + dy >= 0)
-              & (iy + dy < ny) & (iz + dz >= 0) & (iz + dz < nz)]
-        rows.append(r)
-        cols.append(r + dx + nx * dy + nx * ny * dz)
-        vals.append(np.full(r.shape[0], c))
-    return sps.csr_matrix(
-        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
-        shape=(n, n))
+    offs = np.array([dx + nx * dy + nx * ny * dz for dx, dy, dz in steps])
+    order = np.argsort(offs, kind="stable")
+    # (n, k) in ascending column order within each row: CSR directly
+    inside = np.empty((n, len(steps)), dtype=bool)
+    for j, k in enumerate(order):
+        dx, dy, dz = steps[k]
+        inside[:, j] = ((ix + dx >= 0) & (ix + dx < nx) & (iy + dy >= 0)
+                        & (iy + dy < ny) & (iz + dz >= 0) & (iz + dz < nz))
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(inside.sum(axis=1), out=indptr[1:])
+    cols = (i[:, None] + offs[order][None, :])[inside]
+    vals = np.broadcast_to(np.asarray(coefs, dtype=np.float64)[order],
+                           inside.shape)[inside]
+    return sps.csr_matrix((vals, cols, indptr), shape=(n, n))
 
 
 def sell_info(S, entries):
@@ -1113,6 +1151,38 @@ def true_rel_residual(n, b, x):
     return float(np.linalg.norm(r) / np.linalg.norm(b64))
 
 
+def cpu_solve(cfg_str, n, dtype, accel_formats=None, p_structure=False):
+    """The CPU port's :func:`solve_on` as plain data (what a phase holds
+    the card's run to, from :data:`CPU`): status, iterations, x, the
+    monitored and true residuals, seconds; of an AMG hierarchy (the
+    solver's or its preconditioner's) each level's rows and nonzeros,
+    smoother colours and Chebyshev bounds, and with ``p_structure`` each
+    P's CSR structure; a colouring preconditioner's colours."""
+    s, r, setup_s, b, _ = solve_on("cpu", cfg_str, n, dtype, accel_formats)
+    x = r.x.numpy()
+    amg = s if hasattr(s, "levels") else getattr(s, "precond", None)
+    with np.errstate(all="ignore"):
+        # (0 / 0 where the solver monitors no residual)
+        monitored = monitored_ratio(r)
+    out = {"iterations": int(r.iters), "status": int(r.status),
+           "setup_s": setup_s, "solve_s": s.solve_time, "x": x,
+           "tolerance": s.tolerance, "monitored_rel_residual": monitored,
+           "true_rel_residual_f64": true_rel_residual(n, b, x),
+           "colors": getattr(amg, "num_colors", None)}
+    if hasattr(amg, "levels"):
+        smoothers = [lv.smoother for lv in amg.levels]
+        out["levels"] = [(lv.n_rows, lv.nnz) for lv in amg.levels]
+        out["level_colors"] = [getattr(sm, "num_colors", None)
+                               for sm in smoothers]
+        out["lmax_lmin"] = [(sm.lmax, sm.lmin) if hasattr(sm, "lmax")
+                            else None for sm in smoothers]
+        if p_structure:
+            out["P"] = [None if lv.P is None else
+                        (lv.P.host_csr().indptr, lv.P.host_csr().indices)
+                        for lv in amg.levels]
+    return out
+
+
 def trace_solve(torch, s, b, iters, groups=None):
     """Where a warm solve's time goes: one solve under torch.profiler,
     recording the device's activity only (the host's doubles the events
@@ -1166,6 +1236,20 @@ def trace_solve(torch, s, b, iters, groups=None):
     print(json.dumps({"trace": rec}), flush=True)
 
 
+def trace_first(torch, s, b, k, groups):
+    """:func:`trace_solve` of the first ``k`` iterations of a warm solve
+    by ``s`` (its ``max_iters`` set to ``k`` for the trace)."""
+    keep = s.max_iters
+    s.max_iters = k
+    s._cache.clear()
+    print(json.dumps({"trace_of": f"the first {k} iterations"}), flush=True)
+    try:
+        trace_solve(torch, s, b, k, groups=groups)
+    finally:
+        s.max_iters = keep
+        s._cache.clear()
+
+
 def slice_phase(torch):
     N = SLICE_N
     # ---- the main path: counts zeroed just before, read just after
@@ -1208,51 +1292,52 @@ def slice_phase(torch):
           f"sell_spmv launched {launches['sell_spmv']} times")
 
     # ---- the same solve through the port on the CPU (plain versions)
-    sc, rc, setup_c, _, _ = solve_on("cpu", BENCH_CFG, N, np.float32)
-    xc = rc.x.numpy()
+    rc = CPU.get(cpu_solve, BENCH_CFG, N, np.float32)
+    xc = rc["x"]
     xinf = float(np.abs(xc).max())
     diff = float(np.abs(x - xc).max())
     cpu = {
-        "cpu_iterations": int(rc.iters), "cpu_status": int(rc.status),
-        "cpu_setup_s": setup_c, "cpu_solve_s": sc.solve_time,
+        "cpu_iterations": rc["iterations"], "cpu_status": rc["status"],
+        "cpu_setup_s": rc["setup_s"], "cpu_solve_s": rc["solve_s"],
         "max_abs_diff_vs_cpu": diff, "x_inf": xinf,
     }
     print(json.dumps(cpu), flush=True)
-    check(abs(int(rc.iters) - iters) <= 1,
-          f"f32 iterations card {iters} vs cpu {rc.iters}")
+    check(abs(rc["iterations"] - iters) <= 1,
+          f"f32 iterations card {iters} vs cpu {rc['iterations']}")
     check(np.allclose(x, xc, rtol=1e-3, atol=1e-5 * xinf),
           f"f32 x card vs cpu: max abs diff {diff:.3e}, |x|inf {xinf:.3e}")
 
     # ---- 64^3 in f64: iterations equal, x to rtol 1e-9
     _, r64, _, _, _ = solve_on("cuda", BENCH_CFG, 64, np.float64)
-    _, c64, _, _, _ = solve_on("cpu", BENCH_CFG, 64, np.float64)
-    x64, xc64 = r64.x.cpu().numpy(), c64.x.numpy()
+    c64 = CPU.get(cpu_solve, BENCH_CFG, 64, np.float64)
+    x64, xc64 = r64.x.cpu().numpy(), c64["x"]
     d64 = float(np.abs(x64 - xc64).max())
     print(json.dumps({
         "f64_64^3": {"iterations": int(r64.iters),
-                     "cpu_iterations": int(c64.iters),
+                     "cpu_iterations": c64["iterations"],
                      "status": int(r64.status),
                      "max_abs_diff_vs_cpu": d64}}), flush=True)
     check(int(r64.status) == 0, f"64^3 f64 status {r64.status}")
-    check(int(r64.iters) == int(c64.iters),
-          f"f64 iterations card {r64.iters} vs cpu {c64.iters}")
+    check(int(r64.iters) == c64["iterations"],
+          f"f64 iterations card {r64.iters} vs cpu {c64['iterations']}")
     check(np.allclose(x64, xc64, rtol=1e-9,
                       atol=1e-9 * float(np.abs(xc64).max())),
           f"f64 x card vs cpu: max abs diff {d64:.3e}")
 
     # ---- the entry() config: 16^3, SIZE_2, max_iters 20, f32
     se, re_, _, be, _ = solve_on("cuda", ENTRY_CFG, 16, np.float32)
-    _, ce, _, _, _ = solve_on("cpu", ENTRY_CFG, 16, np.float32)
+    ce = CPU.get(cpu_solve, ENTRY_CFG, 16, np.float32)
     xe = re_.x.cpu().numpy()
     entry = {"entry_16^3": {
-        "iterations": int(re_.iters), "cpu_iterations": int(ce.iters),
+        "iterations": int(re_.iters), "cpu_iterations": ce["iterations"],
         "status": int(re_.status), "levels": se.precond.level_summary(),
         "true_rel_residual_f64": true_rel_residual(16, be, xe)}}
     print(json.dumps(entry), flush=True)
     check(np.all(np.isfinite(xe)), "entry config: non-finite x")
     check(int(re_.status) == 0, f"entry config status {re_.status}")
-    check(abs(int(re_.iters) - int(ce.iters)) <= 1,
-          f"entry config iterations card {re_.iters} vs cpu {ce.iters}")
+    check(abs(int(re_.iters) - ce["iterations"]) <= 1,
+          f"entry config iterations card {re_.iters} vs cpu "
+          f"{ce['iterations']}")
     return launches, {"x": x, "iters": iters, "x_cpu": xc,
                       "x64": x64, "x64_cpu": xc64}
 
@@ -1310,19 +1395,19 @@ def mf_slice_phase(torch, ref):
           f"MF x differs from the DIA slice's x: max {diff_dia:.3e}")
 
     # ---- the same MF solve through the port on the CPU
-    sc, rc, setup_c, _, _ = solve_on("cpu", MF_CFG, N, np.float32,
-                                     accel_formats=MF_FORMATS)
-    xc = rc.x.numpy()
+    rc = CPU.get(cpu_solve, MF_CFG, N, np.float32, MF_FORMATS)
+    xc = rc["x"]
     xinf = float(np.abs(xc).max())
     diff = float(np.abs(x - xc).max())
     print(json.dumps({
-        "mf_cpu_iterations": int(rc.iters), "mf_cpu_status": int(rc.status),
-        "mf_cpu_setup_s": setup_c, "mf_cpu_solve_s": sc.solve_time,
+        "mf_cpu_iterations": rc["iterations"],
+        "mf_cpu_status": rc["status"],
+        "mf_cpu_setup_s": rc["setup_s"], "mf_cpu_solve_s": rc["solve_s"],
         "max_abs_diff_vs_cpu": diff, "x_inf": xinf,
         "cpu_x_bitwise_equal_dia_cpu": xc.tobytes() == ref["x_cpu"].tobytes(),
     }), flush=True)
-    check(abs(int(rc.iters) - iters) <= 1,
-          f"MF f32 iterations card {iters} vs cpu {rc.iters}")
+    check(abs(rc["iterations"] - iters) <= 1,
+          f"MF f32 iterations card {iters} vs cpu {rc['iterations']}")
     check(np.allclose(x, xc, rtol=1e-3, atol=1e-5 * xinf),
           f"MF f32 x card vs cpu: max abs diff {diff:.3e}")
     check(xc.tobytes() == ref["x_cpu"].tobytes(),
@@ -1331,13 +1416,12 @@ def mf_slice_phase(torch, ref):
     # ---- 64^3 in f64 on the card and the CPU (the f64 kernel)
     s64, r64, _, _, _ = solve_on("cuda", MF_CFG, 64, np.float64,
                                  accel_formats=MF_FORMATS)
-    _, c64, _, _, _ = solve_on("cpu", MF_CFG, 64, np.float64,
-                               accel_formats=MF_FORMATS)
-    x64, xc64 = r64.x.cpu().numpy(), c64.x.numpy()
+    c64 = CPU.get(cpu_solve, MF_CFG, 64, np.float64, MF_FORMATS)
+    x64, xc64 = r64.x.cpu().numpy(), c64["x"]
     d64 = float(np.abs(x64 - xc64).max())
     print(json.dumps({
         "mf_f64_64^3": {"iterations": int(r64.iters),
-                        "cpu_iterations": int(c64.iters),
+                        "cpu_iterations": c64["iterations"],
                         "status": int(r64.status),
                         "max_abs_diff_vs_cpu": d64,
                         "x_bitwise_equal_dia_slice":
@@ -1346,8 +1430,8 @@ def mf_slice_phase(torch, ref):
     check(int(r64.status) == 0, f"MF 64^3 f64 status {r64.status}")
     check(all(lv.A.has_matrix_free for lv in s64.precond.levels),
           "MF 64^3 f64: a level is not MATRIX_FREE")
-    check(int(r64.iters) == int(c64.iters),
-          f"MF f64 iterations card {r64.iters} vs cpu {c64.iters}")
+    check(int(r64.iters) == c64["iterations"],
+          f"MF f64 iterations card {r64.iters} vs cpu {c64['iterations']}")
     check(np.allclose(x64, xc64, rtol=1e-9,
                       atol=1e-9 * float(np.abs(xc64).max())),
           f"MF f64 x card vs cpu: max abs diff {d64:.3e}")
@@ -1562,11 +1646,10 @@ def fgmres_cpu_side(n):
 
 def fgmres_phase(torch):
     """FGMRES_AGGREGATION (FGMRES + aggregation AMG + MULTICOLOR_DILU)
-    at 128^3 f32 on the card, its CPU run (in a child process from the
-    phase's start), 64^3 f64 on both, a trace of one warm solve, and the
-    32^3 solver matrix."""
+    at 128^3 f32 on the card, its CPU run, 64^3 f64 on both, a trace of
+    the first ``TRACE_ITERS`` iterations of a warm solve, and the 32^3
+    solver matrix (the CPU's side from :data:`CPU`)."""
     N = SLICE_N
-    cpu = CpuJob("cuda", fgmres_cpu_side, N)
     # ---- A. the main path: counts zeroed just before, read just after
     zero_counts()
     s, res, setup_s, b, upload_s = solve_on("cuda", FGMRES_CFG, N,
@@ -1604,10 +1687,10 @@ def fgmres_phase(torch):
         check(launches[k] == derived[k],
               f"FGMRES {k} launches {launches[k]} != derived {derived[k]}")
 
-    # ---- D. a trace of one warm solve
+    # ---- D. a trace of a warm solve's first iterations
     # index_copy_ runs as an index_elementwise_kernel too: its own
     # fragment is tried before the gathers'
-    trace_solve(torch, s, b, iters, groups={
+    trace_first(torch, s, b, TRACE_ITERS, groups={
         "dia_spmv": ["dia_spmv"], "sell_spmv": ["sell_spmv"],
         "ell_spmv": ["ell_spmv"], "index_copy": ["index_copy"],
         "gather": ["index_elementwise", "gather", "index_select"],
@@ -1617,7 +1700,7 @@ def fgmres_phase(torch):
 
     # ---- B. the same solve through the port on the CPU
     t0 = time.perf_counter()
-    rc = cpu.get()
+    rc = CPU.get(fgmres_cpu_side, N)
     wait_s = time.perf_counter() - t0
     xc = rc["x"]
     xinf = float(np.abs(xc).max())
@@ -1639,17 +1722,18 @@ def fgmres_phase(torch):
 
     # ---- C. 64^3 in f64 on the card and the CPU
     _, r64, _, _, _ = solve_on("cuda", FGMRES_CFG, 64, np.float64)
-    _, c64, _, _, _ = solve_on("cpu", FGMRES_CFG, 64, np.float64)
-    x64, xc64 = r64.x.cpu().numpy(), c64.x.numpy()
+    c64 = CPU.get(cpu_solve, FGMRES_CFG, 64, np.float64)
+    x64, xc64 = r64.x.cpu().numpy(), c64["x"]
     d64 = float(np.abs(x64 - xc64).max())
     print(json.dumps({
         "fgmres_f64_64^3": {"iterations": int(r64.iters),
-                            "cpu_iterations": int(c64.iters),
+                            "cpu_iterations": c64["iterations"],
                             "status": int(r64.status),
                             "max_abs_diff_vs_cpu": d64}}), flush=True)
     check(int(r64.status) == 0, f"FGMRES 64^3 f64 status {r64.status}")
-    check(int(r64.iters) == int(c64.iters),
-          f"FGMRES f64 iterations card {r64.iters} vs cpu {c64.iters}")
+    check(int(r64.iters) == c64["iterations"],
+          f"FGMRES f64 iterations card {r64.iters} vs cpu "
+          f"{c64['iterations']}")
     check(np.allclose(x64, xc64, rtol=1e-9,
                       atol=1e-9 * float(np.abs(xc64).max())),
           f"FGMRES f64 x card vs cpu: max abs diff {d64:.3e}")
@@ -1659,18 +1743,19 @@ def fgmres_phase(torch):
         t0 = time.perf_counter()
         _, rg, _, bg, _ = solve_on("cuda", cfg, 32, np.float32)
         card_s = time.perf_counter() - t0
-        _, rcpu, _, _, _ = solve_on("cpu", cfg, 32, np.float32)
+        rcpu = CPU.get(cpu_solve, cfg, 32, np.float32)
+        ic, stc = rcpu["iterations"], rcpu["status"]
         xg = rg.x.cpu().numpy()
         print(json.dumps({"solver_32^3": {
             "case": label, "iterations": int(rg.iters),
-            "cpu_iterations": int(rcpu.iters), "status": int(rg.status),
-            "cpu_status": int(rcpu.status), "card_s": card_s,
+            "cpu_iterations": ic, "status": int(rg.status),
+            "cpu_status": stc, "card_s": card_s,
             "true_rel_residual_f64": true_rel_residual(32, bg, xg)}}),
             flush=True)
-        check(int(rg.status) == 0 and int(rcpu.status) == 0,
-              f"{label}: status card {rg.status} cpu {rcpu.status}")
-        check(abs(int(rg.iters) - int(rcpu.iters)) <= 1,
-              f"{label}: iterations card {rg.iters} vs cpu {rcpu.iters}")
+        check(int(rg.status) == 0 and stc == 0,
+              f"{label}: status card {rg.status} cpu {stc}")
+        check(abs(int(rg.iters) - ic) <= 1,
+              f"{label}: iterations card {rg.iters} vs cpu {ic}")
     return launches
 
 
@@ -1755,6 +1840,29 @@ def shuffled_poisson(m, seed=0):
     return A
 
 
+def irregular_poisson(m, seed=0, frac=0.1, extra=8):
+    """:func:`shuffled_poisson` plus the graph Laplacian of random
+    long-range couplings (weight 0.25) from a tenth of the unknowns,
+    ``extra`` each: symmetric positive definite, unstructured, with rows
+    of 4 to some 20 entries, so its upload takes the sliced ELL layout
+    (shuffled Poisson alone does not: its rows are too alike)."""
+    import scipy.sparse as sps
+
+    A = shuffled_poisson(m, seed)
+    n = A.shape[0]
+    rng = np.random.default_rng(seed + 1)
+    i = np.repeat(rng.choice(n, int(frac * n), replace=False), extra)
+    j = rng.integers(0, n, i.size)
+    keep = i != j
+    W = sps.coo_matrix((np.full(int(keep.sum()), 0.25),
+                        (i[keep], j[keep])), shape=(n, n)).tocsr()
+    W = W + W.T
+    L = sps.diags_array(np.asarray(W.sum(axis=1)).ravel()) - W
+    A = (A + L).tocsr()
+    A.sort_indices()
+    return A
+
+
 def ell_operators(amg, iters, sweep_spmvs=1, setup_spmvs=0):
     """(label, matrix, launches per PCG setup and solve of ``iters``
     iterations) of every ELL operator of the AMG hierarchy ``amg``, as
@@ -1832,8 +1940,6 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
     ``n_cpu``^3).  ``peaks`` None (a rehearsal on the CPU) skips the
     kernel cases and the trace."""
     from amgx_tpu_torch.amg import classical, device_setup
-    from amgx_tpu_torch.core.matrix import SparseMatrix
-    from amgx_tpu_torch.io.poisson import poisson_rhs
     from amgx_tpu_torch.ops import spmv
 
     def device_built(amg, label):
@@ -1965,20 +2071,19 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
     if n_cpu != n:
         _, res, _, b, _ = solve_on(device, PCG_CLASSICAL, n_cpu, np.float32)
         iters, x = int(res.iters), res.x.cpu().numpy()
-    sc, rc, setup_c, _, _ = solve_on("cpu", PCG_CLASSICAL, n_cpu, np.float32)
-    xc = rc.x.numpy()
+    rc = CPU.get(cpu_solve, PCG_CLASSICAL, n_cpu, np.float32)
+    xc = rc["x"]
     print(json.dumps({"classical_cpu": {
-        "n": n_cpu, "iterations": int(rc.iters), "card_iterations": iters,
-        "status": int(rc.status), "setup_s": setup_c,
-        "solve_s": sc.solve_time,
-        "levels": [(lv.n_rows, lv.nnz) for lv in sc.precond.levels],
-        "true_rel_residual_f64": true_rel_residual(n_cpu, b, xc),
+        "n": n_cpu, "iterations": rc["iterations"], "card_iterations": iters,
+        "status": rc["status"], "setup_s": rc["setup_s"],
+        "solve_s": rc["solve_s"], "levels": rc["levels"],
+        "true_rel_residual_f64": rc["true_rel_residual_f64"],
         "max_abs_diff_vs_card": float(np.abs(x - xc).max()),
         "x_inf": float(np.abs(xc).max())}}), flush=True)
-    check(int(rc.status) == 0, f"classical cpu status {rc.status}")
-    check(abs(int(rc.iters) - iters) <= 1,
-          f"classical f32 iterations card {iters} vs cpu {rc.iters}")
-    del sc, rc
+    check(rc["status"] == 0, f"classical cpu status {rc['status']}")
+    check(abs(rc["iterations"] - iters) <= 1,
+          f"classical f32 iterations card {iters} vs cpu {rc['iterations']}")
+    del rc
 
     # ---- 4. the device pipeline against the host builder, f64: each
     # coarse level of the card's hierarchy built again from the same
@@ -1990,7 +2095,7 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
     import amgx_tpu_torch as T
 
     sd, _, _, _, _ = solve_on(device, PCG_CLASSICAL, n_cmp, np.float64)
-    sh, _, _, _, _ = solve_on("cpu", PCG_CLASSICAL, n_cmp, np.float64)
+    sh = CPU.get(cpu_solve, PCG_CLASSICAL, n_cmp, np.float64)
     device_built(sd.precond, f"{n_cmp}^3 f64")
     cfg = T.AMGConfig.from_string(PCG_CLASSICAL)
     cmp = []
@@ -2018,8 +2123,7 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
     print(json.dumps({f"classical_levels_{n_cmp}^3_f64_vs_host": cmp,
                       "card_hierarchy": [(lv.n_rows, lv.nnz)
                                          for lv in sd.precond.levels],
-                      "host_hierarchy": [(lv.n_rows, lv.nnz)
-                                         for lv in sh.precond.levels]}),
+                      "host_hierarchy": sh["levels"]}),
           flush=True)
     for rec in cmp:
         lv = rec["level"]
@@ -2046,16 +2150,16 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
     sg64 = hierarchy_from_numpy(given, T.AMGConfig.from_string(PCG_CLASSICAL),
                                 device="cpu")
     g64 = sg64.solve(b64)
-    _, c64, _, _, _ = solve_on("cpu", PCG_CLASSICAL, n_f64, np.float64)
+    c64 = CPU.get(cpu_solve, PCG_CLASSICAL, n_f64, np.float64)
     x64, xg64 = r64.x.cpu().numpy(), g64.x.numpy()
     d64 = float(np.abs(x64 - xg64).max())
     print(json.dumps({f"classical_f64_{n_f64}^3": {
         "iterations": int(r64.iters), "status": int(r64.status),
         "cpu_on_card_hierarchy_iterations": int(g64.iters),
         "max_abs_diff_vs_cpu_on_card_hierarchy": d64,
-        "cpu_own_setup_iterations": int(c64.iters),
+        "cpu_own_setup_iterations": c64["iterations"],
         "max_abs_diff_vs_cpu_own_setup":
-            float(np.abs(x64 - c64.x.numpy()).max()),
+            float(np.abs(x64 - c64["x"]).max()),
         "x_inf": float(np.abs(x64).max())}}), flush=True)
     check(int(r64.status) == 0, f"classical f64 status {r64.status}")
     check(int(r64.iters) == int(g64.iters),
@@ -2063,29 +2167,29 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
     check(np.allclose(x64, xg64, rtol=1e-9,
                       atol=1e-9 * float(np.abs(xg64).max())),
           f"classical f64 x card vs cpu: max abs diff {d64:.3e}")
-    check(abs(int(r64.iters) - int(c64.iters)) <= 1,
+    check(abs(int(r64.iters) - c64["iterations"]) <= 1,
           f"classical f64 iterations card {r64.iters} vs cpu's own "
-          f"setup {c64.iters}")
+          f"setup {c64['iterations']}")
     del s64, sg64
 
     # ---- 5. the other selector / interpolator / reordering paths
-    def card_and_cpu(label, run):
+    def card_and_cpu(label, run, rcpu):
         t0 = time.perf_counter()
         sg, rg, xres = run(device)
         card_s = time.perf_counter() - t0
-        _, rcpu, _ = run("cpu")
+        ic, stc = rcpu["iterations"], rcpu["status"]
         print(json.dumps({"classical_path": {
             "case": label, "iterations": int(rg.iters),
-            "cpu_iterations": int(rcpu.iters), "status": int(rg.status),
-            "cpu_status": int(rcpu.status), "card_s": card_s,
+            "cpu_iterations": ic, "status": int(rg.status),
+            "cpu_status": stc, "card_s": card_s,
             "levels": [(lv.n_rows, lv.nnz, lv.A.format)
                        for lv in sg.precond.levels],
             "setup_profile": sg.precond.setup_profile,
             "true_rel_residual_f64": xres}}), flush=True)
-        check(int(rg.status) == 0 and int(rcpu.status) == 0,
-              f"{label}: status card {rg.status} cpu {rcpu.status}")
-        check(abs(int(rg.iters) - int(rcpu.iters)) <= 1,
-              f"{label}: iterations card {rg.iters} vs cpu {rcpu.iters}")
+        check(int(rg.status) == 0 and stc == 0,
+              f"{label}: status card {rg.status} cpu {stc}")
+        check(abs(int(rg.iters) - ic) <= 1,
+              f"{label}: iterations card {rg.iters} vs cpu {ic}")
         return sg
 
     def poisson_run(cfg, m):
@@ -2096,35 +2200,56 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
 
     # (D2 + aggressive coarsening + 4 interpolation elements at n^3, on
     # the card and the CPU: the pcg_classical_cheby path, cheby_phase)
-    sg = card_and_cpu(f"{n_cpu}^3 f32 PCG_CLASSICAL MULTIPASS", poisson_run(
-        classical_cfg(', "interpolator": "MULTIPASS"'), n_cpu))
-    device_built(sg.precond, "MULTIPASS")
-    del sg
-    card_and_cpu(f"{n_small}^3 f32 ENERGYMIN",
-                 poisson_run(classical_cfg(', "algorithm": "ENERGYMIN"'),
-                             n_small))
-    shuffled = shuffled_poisson(n_small).astype(np.float32)
-    rcm_cfg = classical_cfg(main_extra=', "matrix_reordering": "RCM"')
-
-    def rcm_run(dev):
-        import amgx_tpu_torch as T
-
-        A = SparseMatrix.from_scipy(shuffled, device=dev)
-        sg = T.create_solver(T.AMGConfig.from_string(rcm_cfg), "default",
-                             device=dev)
-        sg.setup(A)
-        check(sg._reorder is not None, "RCM: the system was not reordered")
-        bg = poisson_rhs(A.n_rows, dtype=np.float32)
-        rg = sg.solve(bg)
-        xg = rg.x.cpu().numpy().astype(np.float64)
-        b64 = bg.astype(np.float64)
-        xres = float(np.linalg.norm(b64 - shuffled.astype(np.float64) @ xg)
-                     / np.linalg.norm(b64))
-        return sg, rg, xres
-
-    sg = card_and_cpu(f"{n_small}^3 shuffled f32 PCG_CLASSICAL RCM", rcm_run)
+    for label, extra, m in classical_paths(n_cpu, n_small):
+        cfg = classical_cfg(extra)
+        sg = card_and_cpu(label, poisson_run(cfg, m),
+                          CPU.get(cpu_solve, cfg, m, np.float32))
+        if "MULTIPASS" in label:
+            device_built(sg.precond, "MULTIPASS")
+        del sg
+    sg = card_and_cpu(f"{n_small}^3 shuffled f32 PCG_CLASSICAL RCM",
+                      lambda dev: classical_rcm_solve(dev, n_small),
+                      CPU.get(classical_rcm_cpu, n_small))
     device_built(sg.precond, "RCM")
     return launches, recs
+
+
+def classical_paths(n_cpu, n_small):
+    """(label, ``classical_cfg`` extra, size) of the classical phase's
+    other selector / interpolator paths."""
+    return ((f"{n_cpu}^3 f32 PCG_CLASSICAL MULTIPASS",
+             ', "interpolator": "MULTIPASS"', n_cpu),
+            (f"{n_small}^3 f32 ENERGYMIN", ', "algorithm": "ENERGYMIN"',
+             n_small))
+
+
+def classical_rcm_solve(device, m):
+    """PCG_CLASSICAL with RCM reordering on ``shuffled_poisson(m)`` f32
+    on ``device``: (solver, result, true residual)."""
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.core.matrix import SparseMatrix
+    from amgx_tpu_torch.io.poisson import poisson_rhs
+
+    shuffled = shuffled_poisson(m).astype(np.float32)
+    rcm_cfg = classical_cfg(main_extra=', "matrix_reordering": "RCM"')
+    A = SparseMatrix.from_scipy(shuffled, device=device)
+    sg = T.create_solver(T.AMGConfig.from_string(rcm_cfg), "default",
+                         device=device)
+    sg.setup(A)
+    check(sg._reorder is not None, "RCM: the system was not reordered")
+    bg = poisson_rhs(A.n_rows, dtype=np.float32)
+    rg = sg.solve(bg)
+    xg = rg.x.cpu().numpy().astype(np.float64)
+    b64 = bg.astype(np.float64)
+    xres = float(np.linalg.norm(b64 - shuffled.astype(np.float64) @ xg)
+                 / np.linalg.norm(b64))
+    return sg, rg, xres
+
+
+def classical_rcm_cpu(m):
+    """:func:`classical_rcm_solve` on the CPU as plain data."""
+    _, rg, _ = classical_rcm_solve("cpu", m)
+    return {"iterations": int(rg.iters), "status": int(rg.status)}
 
 
 def monitored_ratio(res):
@@ -2141,25 +2266,34 @@ def check_launches(label, launches, derived, device):
               f"{label} {k} launches {launches[k]} != derived {derived[k]}")
 
 
-def f64_vs_cpu(label, run, device):
+def f64_vs_cpu(label, run, device, cpu=None):
     """``run(dev) -> (solver, result, true residual)`` on ``device`` and
-    on the CPU in f64: iterations equal, x to rtol 1e-9, status 0 and
-    the true residual at the config's tolerance on both."""
+    on the CPU in f64 (``cpu``, a :func:`cpu_solve` record, gives the
+    CPU's side instead of ``run("cpu")``): iterations equal, x to rtol
+    1e-9, status 0 and the true residual at the config's tolerance on
+    both.  Returns the two solvers (the CPU's None where ``cpu`` was
+    given)."""
     sg, rg, resg = run(device)
-    sc, rc, resc = run("cpu")
-    xg, xc = rg.x.cpu().numpy(), rc.x.numpy()
+    sc = None
+    if cpu is None:
+        sc, rc, resc = run("cpu")
+        cpu = {"iterations": int(rc.iters), "status": int(rc.status),
+               "x": rc.x.numpy(), "true_rel_residual_f64": resc}
+    xg, xc = rg.x.cpu().numpy(), cpu["x"]
+    ic, stc, resc = (cpu["iterations"], cpu["status"],
+                     cpu["true_rel_residual_f64"])
     d = float(np.abs(xg - xc).max())
     tol = sg.tolerance
     print(json.dumps({f"{label}_f64": {
-        "iterations": int(rg.iters), "cpu_iterations": int(rc.iters),
-        "status": int(rg.status), "cpu_status": int(rc.status),
+        "iterations": int(rg.iters), "cpu_iterations": ic,
+        "status": int(rg.status), "cpu_status": stc,
         "true_rel_residual_f64": resg, "cpu_true_rel_residual_f64": resc,
         "max_abs_diff_vs_cpu": d, "x_inf": float(np.abs(xc).max())}}),
         flush=True)
-    check(int(rg.status) == 0 and int(rc.status) == 0,
-          f"{label} f64: status card {rg.status} cpu {rc.status}")
-    check(int(rg.iters) == int(rc.iters),
-          f"{label} f64: iterations card {rg.iters} vs cpu {rc.iters}")
+    check(int(rg.status) == 0 and stc == 0,
+          f"{label} f64: status card {rg.status} cpu {stc}")
+    check(int(rg.iters) == ic,
+          f"{label} f64: iterations card {rg.iters} vs cpu {ic}")
     check(np.allclose(xg, xc, rtol=1e-9,
                       atol=1e-9 * float(np.abs(xc).max())),
           f"{label} f64: x card vs cpu, max abs diff {d:.3e}")
@@ -2250,19 +2384,15 @@ def cheby_phase(torch, peaks=None, device="cuda", n=SLICE_N, n_cmp=SLICE_N,
     del s, res, res2, amg
 
     # ---- the CPU port (AUTO: the host builder there)
-    sc, rc, setup_c, bc, _ = solve_on("cpu", cfg, n_cmp, np.float32)
+    rc = CPU.get(cpu_solve, cfg, n_cmp, np.float32)
     print(json.dumps({"cheby_cpu": {
-        "n": n_cmp, "iterations": int(rc.iters), "status": int(rc.status),
-        "setup_s": setup_c, "solve_s": sc.solve_time,
-        "levels": [(lv.n_rows, lv.nnz) for lv in sc.precond.levels],
-        "lmax_lmin": [(lv.smoother.lmax, lv.smoother.lmin) if lv.smoother
-                      else None for lv in sc.precond.levels],
-        "true_rel_residual_f64": true_rel_residual(
-            n_cmp, bc, rc.x.numpy())}}), flush=True)
-    check(int(rc.status) == 0, f"Chebyshev cpu status {rc.status}")
-    check(abs(int(rc.iters) - iters) <= 1,
-          f"Chebyshev f32 iterations card {iters} vs cpu {rc.iters}")
-    del sc, rc
+        "n": n_cmp, **{k: rc[k] for k in (
+            "iterations", "status", "setup_s", "solve_s", "levels",
+            "lmax_lmin", "true_rel_residual_f64")}}}), flush=True)
+    check(rc["status"] == 0, f"Chebyshev cpu status {rc['status']}")
+    check(abs(rc["iterations"] - iters) <= 1,
+          f"Chebyshev f32 iterations card {iters} vs cpu {rc['iterations']}")
+    del rc
 
     # ---- n_f64^3 f64: the card's hierarchy carried to the CPU (the
     # host builder parts from the device pipeline at threshold ties)
@@ -2340,26 +2470,24 @@ def idr_phase(torch, device="cuda", n=SLICE_N, n_cmp=96, n_f64=64):
     check(bool(np.isfinite(x).all()), "IDR: non-finite x")
     check_launches("IDR", launches, derived, device)
     if device == "cuda":
-        trace_solve(torch, s, b, iters, groups={
+        trace_first(torch, s, b, TRACE_ITERS, groups={
             "dia_spmv": ["dia_spmv"], "index_copy": ["index_copy"],
             "gather": ["index_elementwise", "gather", "index_select"],
             "reduction": ["reduce_kernel"],
             "small_dense": ["trsm", "trsv", "gemv", "gemm", "dot_kernel"]})
     del s, res, res2
 
-    sc, rc, setup_c, bc, _ = solve_on("cpu", cfg, n_cmp, np.float32)
+    rc = CPU.get(cpu_solve, cfg, n_cmp, np.float32)
     print(json.dumps({"idr_cpu_f32": {
-        "n": n_cmp, "iterations": int(rc.iters), "status": int(rc.status),
+        "n": n_cmp, "iterations": rc["iterations"], "status": rc["status"],
         "card_iterations": iters if n_cmp == n else None,
-        "setup_s": setup_c, "solve_s": sc.solve_time,
-        "colors": sc.precond.num_colors,
-        "monitored_rel_residual": monitored_ratio(rc),
-        "true_rel_residual_f64": true_rel_residual(
-            n_cmp, bc, rc.x.numpy())}}), flush=True)
-    check(int(rc.status) == 0, f"IDR cpu status {rc.status}")
-    check(monitored_ratio(rc) <= sc.tolerance,
-          f"IDR cpu monitored residual {monitored_ratio(rc):.3e}")
-    del sc, rc
+        **{k: rc[k] for k in ("setup_s", "solve_s", "colors",
+                              "monitored_rel_residual",
+                              "true_rel_residual_f64")}}}), flush=True)
+    check(rc["status"] == 0, f"IDR cpu status {rc['status']}")
+    check(rc["monitored_rel_residual"] <= rc["tolerance"],
+          f"IDR cpu monitored residual {rc['monitored_rel_residual']:.3e}")
+    del rc
 
     # n^3 in f64 on the device: the true residual at the tolerance.  (At
     # this size even f64 IDR(8) amplifies the order of its sums: on the
@@ -2381,13 +2509,15 @@ def idr_phase(torch, device="cuda", n=SLICE_N, n_cmp=96, n_f64=64):
         sg, rg, _, bg, _ = solve_on(dev, cfg, n_f64, np.float64)
         return sg, rg, true_rel_residual(n_f64, bg, rg.x.cpu().numpy())
 
-    f64_vs_cpu(f"idr_{n_f64}^3", run, device)
+    f64_vs_cpu(f"idr_{n_f64}^3", run, device,
+               CPU.get(cpu_solve, cfg, n_f64, np.float64))
     return launches
 
 
 def gmres_cpu_side(n):
     """The CPU port's gmres_ilu0 solve on ``convection_diffusion_3d(n)``
-    (what the phase holds the card's run to)."""
+    (what the phase holds the card's run to): seconds, colours,
+    status, iterations, x and the true residual."""
     import amgx_tpu_torch as T
     from amgx_tpu_torch.core.matrix import SparseMatrix
 
@@ -2399,10 +2529,12 @@ def gmres_cpu_side(n):
     s.setup(SparseMatrix.from_scipy(Asp, device="cpu"))
     setup_s = time.perf_counter() - t0
     r = s.solve(b)
+    x = r.x.numpy()
     return {"iterations": int(r.iters), "status": int(r.status),
             "setup_s": setup_s, "ilu_setup_s": s.precond.setup_time,
             "solve_s": s.solve_time, "colors": s.precond.num_colors,
-            "x": r.x.numpy()}
+            "x": x, "true_rel_residual_f64": float(
+                np.linalg.norm(b - Asp @ x) / np.linalg.norm(b))}
 
 
 def gmres_ilu_phase(torch, device="cuda", n=108, n_cmp=108, n_f64=64,
@@ -2411,9 +2543,9 @@ def gmres_ilu_phase(torch, device="cuda", n=108, n_cmp=108, n_f64=64,
     acceptance config 4) on the ``n``^3 upwind convection-diffusion
     operator in f64: colours, the ILU factorization's host time,
     launches (one A-SpMV an iteration and one residual a restart
-    cycle), a trace of a warm solve; the CPU port at ``n_cmp``^3 (in a
-    child process from the phase's start on the card);
-    ``n_f64``^3 against the CPU; ILU(1) at ``n_ilu1``^3."""
+    cycle), a trace of a warm solve; the CPU port at ``n_cmp``^3 and
+    ``n_f64``^3 against the CPU (from :data:`CPU`); ILU(1) at
+    ``n_ilu1``^3."""
     import amgx_tpu_torch as T
     from amgx_tpu_torch.core.matrix import SparseMatrix
 
@@ -2436,7 +2568,6 @@ def gmres_ilu_phase(torch, device="cuda", n=108, n_cmp=108, n_f64=64,
     def rel_of(Asp, bb, xx):
         return float(np.linalg.norm(bb - Asp @ xx) / np.linalg.norm(bb))
 
-    cpu = CpuJob(device, gmres_cpu_side, n_cmp)
     zero_counts()
     s, res, Asp, b, upload_s, setup_s = setup_solve(device, n)
     launches = kernel_counts()
@@ -2478,7 +2609,7 @@ def gmres_ilu_phase(torch, device="cuda", n=108, n_cmp=108, n_f64=64,
     del s, res, res2
 
     t0 = time.perf_counter()
-    rc = cpu.get()
+    rc = CPU.get(gmres_cpu_side, n_cmp)
     print(json.dumps({"gmres_cpu": {
         "n": n_cmp, **{k: v for k, v in rc.items() if k != "x"},
         "cpu_side_wait_s": time.perf_counter() - t0,
@@ -2493,7 +2624,8 @@ def gmres_ilu_phase(torch, device="cuda", n=108, n_cmp=108, n_f64=64,
         sg, rg, Ag, bg, _, _ = setup_solve(dev, n_f64)
         return sg, rg, rel_of(Ag, bg, rg.x.cpu().numpy())
 
-    f64_vs_cpu(f"gmres_ilu0_{n_f64}^3", run, device)
+    f64_vs_cpu(f"gmres_ilu0_{n_f64}^3", run, device,
+               CPU.get(gmres_cpu_side, n_f64))
 
     ilu = []
     for level in (0, 1):
@@ -2607,22 +2739,23 @@ def pbicgstab_w_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N,
         trace_solve(torch, s, b, iters, groups=TRACE_GROUPS)
     del s, res
 
-    sc, rc, setup_c, bc, _ = solve_on("cpu", cfg, n_cmp, np.float32)
+    rc = CPU.get(cpu_solve, cfg, n_cmp, np.float32)
     print(json.dumps({"pbicgstab_w_cpu": {
-        "n": n_cmp, "iterations": int(rc.iters), "status": int(rc.status),
-        "setup_s": setup_c, "solve_s": sc.solve_time,
-        "true_rel_residual_f64": true_rel_residual(
-            n_cmp, bc, rc.x.numpy())}}), flush=True)
-    check(int(rc.status) == 0, f"PBICGSTAB W cpu status {rc.status}")
-    check(abs(int(rc.iters) - iters) <= 1 or n_cmp != n,
-          f"PBICGSTAB W f32 iterations card {iters} vs cpu {rc.iters}")
-    del sc, rc
+        "n": n_cmp, **{k: rc[k] for k in (
+            "iterations", "status", "setup_s", "solve_s",
+            "true_rel_residual_f64")}}}), flush=True)
+    check(rc["status"] == 0, f"PBICGSTAB W cpu status {rc['status']}")
+    check(abs(rc["iterations"] - iters) <= 1 or n_cmp != n,
+          f"PBICGSTAB W f32 iterations card {iters} vs cpu "
+          f"{rc['iterations']}")
+    del rc
 
     def run(dev):
         sg, rg, _, bg, _ = solve_on(dev, cfg, n_f64, np.float64)
         return sg, rg, true_rel_residual(n_f64, bg, rg.x.cpu().numpy())
 
-    f64_vs_cpu(f"pbicgstab_w_{n_f64}^3", run, device)
+    f64_vs_cpu(f"pbicgstab_w_{n_f64}^3", run, device,
+               CPU.get(cpu_solve, cfg, n_f64, np.float64))
     return launches
 
 
@@ -2657,28 +2790,30 @@ def kcycle_phase(torch, device="cuda", n=64, n_cmp=64, n_f64=64):
         trace_solve(torch, s, b, iters, groups=TRACE_GROUPS)
     del s, res
 
-    sc, rc, setup_c, bc, _ = solve_on("cpu", cfg, n_cmp, np.float32)
+    rc = CPU.get(cpu_solve, cfg, n_cmp, np.float32)
     print(json.dumps({"kcycle_cpu": {
-        "n": n_cmp, "iterations": int(rc.iters), "status": int(rc.status),
-        "setup_s": setup_c, "solve_s": sc.solve_time,
-        "levels": [(lv.n_rows, lv.nnz) for lv in sc.levels],
-        "true_rel_residual_f64": true_rel_residual(
-            n_cmp, bc, rc.x.numpy())}}), flush=True)
-    check(int(rc.status) == 0, f"K-cycle cpu status {rc.status}")
-    check(abs(int(rc.iters) - iters) <= 1 or n_cmp != n,
-          f"K-cycle f32 iterations card {iters} vs cpu {rc.iters}")
-    del sc, rc
-
-    dev_cfg = cfg.replace('"algorithm": "CLASSICAL",',
-                          '"algorithm": "CLASSICAL", '
-                          '"setup_location": "DEVICE",')
+        "n": n_cmp, **{k: rc[k] for k in (
+            "iterations", "status", "setup_s", "solve_s", "levels",
+            "true_rel_residual_f64")}}}), flush=True)
+    check(rc["status"] == 0, f"K-cycle cpu status {rc['status']}")
+    check(abs(rc["iterations"] - iters) <= 1 or n_cmp != n,
+          f"K-cycle f32 iterations card {iters} vs cpu {rc['iterations']}")
+    del rc
 
     def run(dev):
-        sg, rg, _, bg, _ = solve_on(dev, dev_cfg, n_f64, np.float64)
+        sg, rg, _, bg, _ = solve_on(dev, KCYCLE_DEVICE_CFG, n_f64,
+                                    np.float64)
         return sg, rg, true_rel_residual(n_f64, bg, rg.x.cpu().numpy())
 
-    f64_vs_cpu(f"kcycle_{n_f64}^3", run, device)
+    f64_vs_cpu(f"kcycle_{n_f64}^3", run, device,
+               CPU.get(cpu_solve, KCYCLE_DEVICE_CFG, n_f64, np.float64))
     return launches
+
+
+# the K-cycle config with setup_location DEVICE (its f64 comparison)
+KCYCLE_DEVICE_CFG = AMG_CLASSICAL_CG_CFG.replace(
+    '"algorithm": "CLASSICAL",',
+    '"algorithm": "CLASSICAL", "setup_location": "DEVICE",')
 
 
 def variable_diffusion_3d(n, seed):
@@ -2845,6 +2980,44 @@ def reuse_sequence(torch, device, cfg, n, dtype, systems, formats=None,
                "derived_launches": derived}, xs, Ak
 
 
+def diffusion(m):
+    """The DIA half's systems: ``poisson_3d_7pt(m)``, then
+    -div(kappa_k grad u) on its pattern for k = 1, 2, 3."""
+    from amgx_tpu_torch.io.poisson import poisson_scipy
+
+    systems = [poisson_scipy((m, m, m)).tocsr()] + [
+        variable_diffusion_3d(m, k) for k in (1, 2, 3)]
+    for sp in systems[1:]:
+        check(np.array_equal(sp.indptr, systems[0].indptr)
+              and np.array_equal(sp.indices, systems[0].indices),
+              "variable diffusion: pattern differs from poisson_3d_7pt")
+    return systems
+
+
+def heat(m):
+    """The MATRIX_FREE half's systems: heat steps of dt 1 ... 0.125."""
+    return [heat_step_3d(m, dt) for dt in (1.0, 0.5, 0.25, 0.125)]
+
+
+REUSE_SYSTEMS = {"diffusion": diffusion, "heat": heat}
+# (half, config, systems, formats) of the resetup phase
+RESETUP_HALVES = (("DIA", REUSE_CFG, "diffusion", None),
+                  ("MATRIX_FREE", MF_REUSE_CFG, "heat", MF_FORMATS))
+CLASSICAL_REUSE_CFG = classical_cfg(', "structure_reuse_levels": -1, '
+                                    '"setup_location": "DEVICE"')
+
+
+def cpu_reuse(cfg, n, dtype, kind, formats, rap):
+    """:func:`reuse_sequence` on the CPU over ``REUSE_SYSTEMS[kind](n)``
+    as plain data: (records, the x of each step, each level's A as
+    scipy CSR)."""
+    import torch
+
+    s, rec, xs, _ = reuse_sequence(torch, "cpu", cfg, n, dtype,
+                                   REUSE_SYSTEMS[kind](n), formats, rap=rap)
+    return rec, xs, [lv.A.to_scipy() for lv in s.precond.levels]
+
+
 def levels_values(amg):
     """Clones of every level's A, P and R values on the device."""
     return [[getattr(lv, f).values.clone() for f in ("A", "P", "R")
@@ -2868,26 +3041,11 @@ def resetup_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N, n_f64=64,
     (iterations equal, x to rtol 1e-9, coarse A to 1e-12), and
     classical reuse at ``n_cl``^3 f64 with the device setup on both
     (each level planned or not alike, resetup iterations equal).
-    Returns the launches of the two halves, summed."""
-    from amgx_tpu_torch.io.poisson import poisson_scipy
-
-    def diffusion(m):
-        systems = [poisson_scipy((m, m, m)).tocsr()] + [
-            variable_diffusion_3d(m, k) for k in (1, 2, 3)]
-        for sp in systems[1:]:
-            check(np.array_equal(sp.indptr, systems[0].indptr)
-                  and np.array_equal(sp.indices, systems[0].indices),
-                  "variable diffusion: pattern differs from poisson_3d_7pt")
-        return systems
-
-    def heat(m):
-        return [heat_step_3d(m, dt) for dt in (1.0, 0.5, 0.25, 0.125)]
-
+    The CPU's sides come from :data:`CPU`.  Returns the launches of the
+    two halves, summed."""
     total = dict.fromkeys(COUNTERS, 0)
-    for half, cfg, make, formats in (
-            ("DIA", REUSE_CFG, diffusion, None),
-            ("MATRIX_FREE", MF_REUSE_CFG, heat, MF_FORMATS)):
-        systems = make(n)
+    for half, cfg, kind, formats in RESETUP_HALVES:
+        systems = REUSE_SYSTEMS[kind](n)
         s, rec, xs, Ak = reuse_sequence(
             torch, device, cfg, n, np.float32, systems, formats,
             fresh=BENCH_CFG if half == "DIA" else None)
@@ -2913,8 +3071,8 @@ def resetup_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N, n_f64=64,
             check(all(rec["x_bitwise_equal_dia"]),
                   "MF resetup x differs from the DIA hierarchy's x")
         del s, amg
-        _, crec, _, _ = reuse_sequence(torch, "cpu", cfg, n_cmp, np.float32,
-                                       make(n_cmp), formats, rap=False)
+        crec, _, _ = CPU.get(cpu_reuse, cfg, n_cmp, np.float32, kind,
+                             formats, False)
         rec["cpu_iterations"] = [st["iterations"] for st in crec["steps"]]
         rec["cpu_resetup_s"] = [st["resetup_s"] for st in crec["steps"]]
         rec["repeat_resetup_bitwise"] = bitwise
@@ -2930,13 +3088,12 @@ def resetup_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N, n_f64=64,
                   f"vs cpu {ci}")
 
     # ---- n_f64^3 f64, DIA half: card against CPU
-    out = {}
-    for dev in (device, "cpu"):
-        s, rec, xs, _ = reuse_sequence(torch, dev, REUSE_CFG, n_f64,
-                                       np.float64, diffusion(n_f64))
-        out[dev] = (rec, xs, [lv.A.to_scipy() for lv in s.precond.levels])
-        del s
-    (rg, xg, ag), (rc, xc, ac) = out[device], out["cpu"]
+    s, rg, xg, _ = reuse_sequence(torch, device, REUSE_CFG, n_f64,
+                                  np.float64, diffusion(n_f64))
+    ag = [lv.A.to_scipy() for lv in s.precond.levels]
+    del s
+    rc, xc, ac = CPU.get(cpu_reuse, REUSE_CFG, n_f64, np.float64,
+                         "diffusion", None, True)
     dx = max(float(np.abs(a - b).max()) for a, b in zip(xg, xc))
     dA = max(float(abs(a - b).max()) / float(abs(b).max())
              for a, b in zip(ag, ac))
@@ -2955,14 +3112,12 @@ def resetup_phase(torch, device="cuda", n=SLICE_N, n_cmp=SLICE_N, n_f64=64,
     check(dA <= 1e-12, f"resetup f64 coarse A card vs cpu {dA:.3e}")
 
     # ---- classical reuse at n_cl^3 f64, the device setup on both
-    cl_cfg = classical_cfg(', "structure_reuse_levels": -1, '
-                           '"setup_location": "DEVICE"')
-    cl = {}
-    for dev in (device, "cpu"):
-        s, rec, _, _ = reuse_sequence(torch, dev, cl_cfg, n_cl, np.float64,
-                                      diffusion(n_cl))
-        cl[dev] = rec
-        del s
+    cl_cfg = CLASSICAL_REUSE_CFG
+    s, rec, _, _ = reuse_sequence(torch, device, cl_cfg, n_cl, np.float64,
+                                  diffusion(n_cl))
+    del s
+    cl = {device: rec, "cpu": CPU.get(cpu_reuse, cl_cfg, n_cl, np.float64,
+                                      "diffusion", None, True)[0]}
     planned = {d: r["setup"]["planned"] for d, r in cl.items()}
     its = {d: [st["iterations"] for st in r["steps"]] for d, r in cl.items()}
     print(json.dumps({f"classical_resetup_{n_cl}^3_f64": {
@@ -3054,6 +3209,15 @@ VARIANTS = {
     "stencil_spmv_bf16": ("amgx_tpu_torch/csrc/stencil_spmv.cu",
                           "amgx_tpu/ops/pallas_stencil.py:64", "mf_bf16_1",
                           "mf_bf16 level0 A"),
+    # the C API's mixed modes (the capi phase)
+    "dia_spmv_f32_f64": (_DIA_SRC, "amgx_tpu/ops/pallas_dia.py:76",
+                         "capi_dDFI", "capi dDFI level0 A"),
+    "dia_spmv_bf16_f32": (_DIA_SRC, "amgx_tpu/ops/pallas_dia.py:76",
+                          "capi_dFBI", "capi dFBI A"),
+    "sell_spmv_f32_f64": (_ELL_SRC, _WELL, "capi_dDFI_sell",
+                          "capi dDFI irregular"),
+    "sell_spmv_bf16_f32": (_ELL_SRC, _WELL, "capi_dFBI_sell",
+                           "capi dFBI irregular"),
 }
 
 
@@ -3222,11 +3386,13 @@ def dia_bf16_edge_case(torch, rng, n, offsets, sms):
 
 
 def variant_case(torch, timer, peaks, name, label, m, x, run, plain,
-                 nbytes, extra=None):
+                 nbytes, extra=None, exact=True):
     """One bf16 or mixed-dtype entry point ``name`` on operator ``m``
     (a SparseMatrix on the card) and ``x``: held to its plain version
     on the same inputs bit for bit (each sums in the plain version's
-    order, rounding as it does); CUDA-event times cold and warm,
+    order, rounding as it does), or with ``exact`` False (a sliced
+    kernel adding a row's parts in its lanes' tree) within TOL of the
+    row's |A||x|; CUDA-event times cold and warm,
     profiler device time, the bound (``nbytes``, bf16 at 2 bytes; the
     f32 or f64 rate the arithmetic runs at) and torch's CSR product on
     the same values, or None where torch has none for the dtypes."""
@@ -3248,8 +3414,15 @@ def variant_case(torch, timer, peaks, name, label, m, x, run, plain,
     d = np.abs(host_array(y).astype(np.float64)
                - host_array(yp).astype(np.float64))
     same = bool(torch.equal(y, yp))
-    check(same, f"{label}: kernel vs plain max abs diff "
-          f"{float(d.max()):.3e}, not bit for bit")
+    rel_row = float(np.max(d / np.maximum(scale, 1e-300))) if d.size else 0.0
+    if exact:
+        check(same, f"{label}: kernel vs plain max abs diff "
+              f"{float(d.max()):.3e}, not bit for bit")
+    else:
+        # a kernel summing in another order than the plain version's
+        tol = TOL[str(y.dtype).replace("torch.", "")]
+        check(rel_row <= tol, f"{label}: kernel vs plain {rel_row:.3e} of "
+              f"the row's |A||x| > {tol}")
     lib = None
     try:
         dt = y.dtype
@@ -3273,8 +3446,7 @@ def variant_case(torch, timer, peaks, name, label, m, x, run, plain,
         "case": label, "kernel": name,
         "dtypes": [str(m.dtype)[6:], str(x.dtype)[6:], str(y.dtype)[6:]],
         "bitwise": same, "max_abs_err": float(d.max()) if d.size else 0.0,
-        "max_rel_err_of_row_abs": float(np.max(d / np.maximum(scale,
-                                                              1e-300))),
+        "max_rel_err_of_row_abs": rel_row,
         "kernel_ms": timer(run), "kernel_ms_warm_l2": timer(run,
                                                           flush=False),
         "kernel_device_ms": timer.device(run, ACTIVITY[name.split("_")[0]
@@ -3521,27 +3693,18 @@ def refine_phase(torch, peaks=None, device="cuda", n=REFINE_N, n_cmp=64,
     del A, Asp
 
     # ---- card against the CPU port
-    def run(cfg, dev, m, dtype):
-        Am = SparseMatrix.from_scipy(poisson_scipy((m, m, m)).astype(dtype),
-                                     device=dev)
-        bm = poisson_rhs(Am.n_rows, dtype=dtype)
-        sm = T.create_solver(T.AMGConfig.from_string(cfg), "default",
-                             device=dev)
-        sm.setup(Am)
-        return sm, sm.solve(bm), bm
-
     def card_cpu(label, cfg, dtype, x_tol=None, count=False):
         if count:
             zero_counts()
-        sg, rg, bg = run(cfg, device, n_cmp, dtype)
+        sg, rg, bg = refine_run(cfg, device, n_cmp, dtype)
         got = variant_counts()
-        sc, rc, _ = run(cfg, "cpu", n_cmp, dtype)
+        rc = CPU.get(refine_cpu, cfg, n_cmp, dtype)
         Am = poisson_scipy((n_cmp,) * 3)
-        xg, xc = rg.x.numpy(), rc.x.numpy()
+        xg, xc = rg.x.numpy(), rc["x"]
         d = float(np.abs(xg - xc).max())
         out = {"n": n_cmp, "corrections": int(rg.iters),
-               "cpu_corrections": int(rc.iters), "status": int(rg.status),
-               "cpu_status": int(rc.status),
+               "cpu_corrections": rc["iterations"], "status": int(rg.status),
+               "cpu_status": rc["status"],
                "true_rel_residual_f64": rel_residual_sp(Am, bg, xg),
                "cpu_true_rel_residual_f64": rel_residual_sp(Am, bg, xc),
                "max_abs_diff_vs_cpu": d, "x_inf": float(np.abs(xc).max()),
@@ -3551,12 +3714,12 @@ def refine_phase(torch, peaks=None, device="cuda", n=REFINE_N, n_cmp=64,
                "precision_fallbacks": sg.precision_fallbacks}
         print(json.dumps({label: out}), flush=True)
         check(out["status"] == 0 and out["cpu_status"] == 0,
-              f"{label}: status card {rg.status} cpu {rc.status}")
-        check(sg.precision_fallbacks == 0 and sc.precision_fallbacks == 0,
+              f"{label}: status card {rg.status} cpu {rc['status']}")
+        check(sg.precision_fallbacks == 0 and rc["precision_fallbacks"] == 0,
               f"{label}: fallbacks card {sg.precision_fallbacks} cpu "
-              f"{sc.precision_fallbacks}")
+              f"{rc['precision_fallbacks']}")
         check(abs(out["corrections"] - out["cpu_corrections"]) <= 1,
-              f"{label}: corrections card {rg.iters} cpu {rc.iters}")
+              f"{label}: corrections card {rg.iters} cpu {rc['iterations']}")
         check(max(out["true_rel_residual_f64"],
                   out["cpu_true_rel_residual_f64"]) <= 1e-8,
               f"{label}: true residual above 1e-8 ({out})")
@@ -3585,6 +3748,29 @@ def refine_phase(torch, peaks=None, device="cuda", n=REFINE_N, n_cmp=64,
                                sg.inner.precond, f"cheap_coarse {n_cmp}^3",
                                (("R", torch.float64),))
     return by_path, recs
+
+
+def refine_run(cfg, device, m, dtype):
+    """``cfg`` on the ``m``^3 Poisson system in ``dtype`` on ``device``:
+    (solver, result, b)."""
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.core.matrix import SparseMatrix
+    from amgx_tpu_torch.io.poisson import poisson_rhs, poisson_scipy
+
+    Am = SparseMatrix.from_scipy(poisson_scipy((m, m, m)).astype(dtype),
+                                 device=device)
+    bm = poisson_rhs(Am.n_rows, dtype=dtype)
+    sm = T.create_solver(T.AMGConfig.from_string(cfg), "default",
+                         device=device)
+    sm.setup(Am)
+    return sm, sm.solve(bm), bm
+
+
+def refine_cpu(cfg, m, dtype):
+    """:func:`refine_run` on the CPU as plain data."""
+    sc, rc, _ = refine_run(cfg, "cpu", m, dtype)
+    return {"iterations": int(rc.iters), "status": int(rc.status),
+            "x": rc.x.numpy(), "precision_fallbacks": sc.precision_fallbacks}
 
 
 def mf_bf16_phase(torch, peaks=None, device="cuda", n=SLICE_N):
@@ -3726,36 +3912,53 @@ def classical_bf16_phase(torch, peaks=None, device="cuda", n=96,
         recs += transfer_cases(torch, timer, peaks, rng, amg,
                                "classical_bf16", (("R", torch.float32),))
     del s, res
-    sc, rc, setup_c, bc, _ = solve_on("cpu", cfg, n_cpu, np.float32)
+    rc = CPU.get(cpu_solve, cfg, n_cpu, np.float32)
     print(json.dumps({"classical_bf16_cpu": {
-        "n": n_cpu, "iterations": int(rc.iters), "status": int(rc.status),
-        "setup_s": setup_c, "solve_s": sc.solve_time,
-        "true_rel_residual_f64": true_rel_residual(n_cpu, bc,
-                                                   rc.x.numpy())}}),
-          flush=True)
-    check(int(rc.status) == 0, f"classical_bf16 cpu status {rc.status}")
-    check(abs(int(rc.iters) - iters) <= 1 or n_cpu != n,
-          f"classical_bf16 iterations card {iters} vs cpu {rc.iters}")
+        "n": n_cpu, **{k: rc[k] for k in (
+            "iterations", "status", "setup_s", "solve_s",
+            "true_rel_residual_f64")}}}), flush=True)
+    check(rc["status"] == 0, f"classical_bf16 cpu status {rc['status']}")
+    check(abs(rc["iterations"] - iters) <= 1 or n_cpu != n,
+          f"classical_bf16 iterations card {iters} vs cpu "
+          f"{rc['iterations']}")
     return {"classical_bf16": launches}, recs
+
+
+def match_graph(label, n):
+    """The edge weights of the ``n``^3 Poisson ("poisson") or shuffled
+    Poisson ("shuffled") matrix, as the matchers take them."""
+    from amgx_tpu_torch.amg import aggregation as ag
+    from amgx_tpu_torch.io.poisson import poisson_scipy
+
+    Asp = (poisson_scipy((n, n, n)) if label == "poisson"
+           else shuffled_poisson(n))
+    return ag.edge_weights(Asp.tocsr())
+
+
+def host_match(label, n):
+    """The host matcher on :func:`match_graph`: (aggregates, seconds)."""
+    from amgx_tpu_torch.amg import aggregation as ag
+
+    W = match_graph(label, n)
+    t0 = time.perf_counter()
+    h = ag.pairwise_match(W)
+    return h, time.perf_counter() - t0
 
 
 def device_match_phase(torch, device="cuda", n=SLICE_N, n_f64=64):
     """device_match: the device matcher against the host one on the
     ``n``^3 Poisson weight graph and a shuffled Poisson (aggregates
-    bit for bit, both timed); PCG + SIZE_2 aggregation by matching at
+    bit for bit, both timed, the host one in a child of :data:`CPU`
+    beside the card's work); PCG + SIZE_2 aggregation by matching at
     ``n``^3 f32 on ``device`` (every pass over 16,384 rows or more on
     the device, launches as derived); ``n_f64``^3 f64 against the CPU
     port and its host matcher (the same aggregates per level,
     iterations equal, x to rtol 1e-9).  Returns {path: launches}."""
     from amgx_tpu_torch.amg import aggregation as ag
-    from amgx_tpu_torch.io.poisson import poisson_scipy
 
-    for label, Asp in (("poisson", poisson_scipy((n, n, n))),
-                       ("shuffled", shuffled_poisson(n))):
-        W = ag.edge_weights(Asp.tocsr())
-        t0 = time.perf_counter()
-        h = ag.pairwise_match(W)
-        host_s = time.perf_counter() - t0
+    for label in ("poisson", "shuffled"):
+        W = match_graph(label, n)
+        h, host_s = CPU.get(host_match, label, n)
         t0 = time.perf_counter()
         d = ag.pairwise_match_device(W, device=device)
         device_s = time.perf_counter() - t0
@@ -3766,7 +3969,7 @@ def device_match_phase(torch, device="cuda", n=SLICE_N, n_f64=64):
             flush=True)
         check(np.array_equal(h, d),
               f"device_match {label}: aggregates differ from the host's")
-        del W, h, d, Asp
+        del W, h, d
 
     calls = []
     real = ag.pairwise_match_device
@@ -3816,14 +4019,15 @@ def device_match_phase(torch, device="cuda", n=SLICE_N, n_f64=64):
                                     np.float64)
         return sg, rg, true_rel_residual(n_f64, bg, rg.x.cpu().numpy())
 
-    sg, sc = f64_vs_cpu(f"device_match_{n_f64}^3", run, device)
-    lg, lc = sg.precond.levels, sc.precond.levels
+    cpu = CPU.get(cpu_solve, SIZE2_MATCH_CFG, n_f64, np.float64, None, True)
+    sg, _ = f64_vs_cpu(f"device_match_{n_f64}^3", run, device, cpu)
+    lg, lc = sg.precond.levels, cpu["P"]
     check(len(lg) == len(lc), f"device_match f64: {len(lg)} levels vs "
           f"{len(lc)}")
-    for a, c in zip(lg[:-1], lc[:-1]):
-        pa, pc = a.P.host_csr(), c.P.host_csr()
-        check(np.array_equal(pa.indices, pc.indices)
-              and np.array_equal(pa.indptr, pc.indptr),
+    for a, (indptr, indices) in zip(lg[:-1], lc[:-1]):
+        pa = a.P.host_csr()
+        check(np.array_equal(pa.indices, indices)
+              and np.array_equal(pa.indptr, indptr),
               f"device_match f64: level {a.level_id} aggregates differ")
     return {"device_match": launches}
 
@@ -3833,7 +4037,7 @@ def device_match_phase(torch, device="cuda", n=SLICE_N, n_f64=64):
 # __graft_entry__.dryrun_multichip on one card)
 
 BLOCK_B = 4
-BLOCK_N = 64
+BLOCK_N = 48
 # iterations of the traced block4_amg_pcg solve
 TRACE_ITERS = 3
 
@@ -3880,8 +4084,6 @@ BLOCK4_CMP = (("block4_amg_pcg", BLOCK4_AMG_CFG),
               ("block4_pcg_bdilu", BLOCK4_DILU_CFG))
 BLOCK4_F64 = BLOCK4_CMP + (("block4_pcg_block_jacobi", BLOCK4_BJ_CFG),
                            ("block4_pcg_milu", BLOCK4_ILU_CFG))
-# torch threads of each child process that runs the CPU side
-BLOCK_CPU_THREADS = 3
 
 
 def block4_scipy(n, dtype):
@@ -3950,25 +4152,9 @@ def block4_amg_phase(torch, peaks=None, device="cuda", n=BLOCK_N, n_cmp=32,
     and on the CPU (status, hierarchy and colours, iterations within
     one), and at ``n_f64``^3 f64 on both (iterations equal, x to rtol
     1e-9, the per-component history), with PCG + BLOCK_JACOBI and PCG +
-    MULTICOLOR_ILU on the block matrix; on the card, the CPU's side of
-    these runs from the start in two child processes of lower priority
-    (f32 and f64) beside the card's work.  Returns (the AMG path's
-    launches, the kernel records)."""
-    pool = (multiprocessing.get_context("spawn").Pool(
-        2, initializer=_cpu_child, initargs=(BLOCK_CPU_THREADS,))
-        if device == "cuda" else None)
-    try:
-        return _block4_amg_phase(torch, peaks, device, n, n_cmp, n_f64,
-                                 pool)
-    finally:
-        if pool is not None:
-            pool.terminate()
-            pool.join()
-
-
-def _block4_amg_phase(torch, peaks, device, n, n_cmp, n_f64, pool):
-    jobs = pool and (pool.apply_async(block4_cmp_f32, ("cpu", n_cmp)),
-                     pool.apply_async(block4_cmp_f64, ("cpu", n_f64)))
+    MULTICOLOR_ILU on the block matrix; the CPU's side of these from
+    :data:`CPU`.  Returns (the AMG path's launches, the kernel
+    records)."""
     recs = []
     # ---- A. block4_amg_pcg, counts zeroed just before, read just after
     zero_counts()
@@ -4025,11 +4211,7 @@ def _block4_amg_phase(torch, peaks, device, n, n_cmp, n_f64, pool):
         # a warm solve of TRACE_ITERS iterations (about 25,000 launches
         # an iteration): its ops per iteration count the first cycle
         # with them
-        s.max_iters = TRACE_ITERS
-        s._cache.clear()
-        print(json.dumps({"trace_of": f"block4_amg_pcg, {TRACE_ITERS} of "
-                          f"its {iters} iterations"}), flush=True)
-        trace_solve(torch, s, b, TRACE_ITERS, groups={
+        trace_first(torch, s, b, TRACE_ITERS, groups={
             "dia_spmv": ["dia_spmv"], "sell_spmv": ["sell_spmv"],
             "ell_spmv": ["ell_spmv"], "index_copy": ["index_copy"],
             "gather": ["index_elementwise", "gather", "index_select"],
@@ -4072,9 +4254,8 @@ def _block4_amg_phase(torch, peaks, device, n, n_cmp, n_f64, pool):
     dev_f32 = block4_cmp_f32(device, n_cmp)
     dev_f64 = block4_cmp_f64(device, n_f64)
     t0 = time.perf_counter()
-    cpu_f32, cpu_f64 = ((jobs[0].get(timeout=900), jobs[1].get(timeout=900))
-                        if jobs else (block4_cmp_f32("cpu", n_cmp),
-                                      block4_cmp_f64("cpu", n_f64)))
+    cpu_f32 = CPU.get(block4_cmp_f32, "cpu", n_cmp)
+    cpu_f64 = CPU.get(block4_cmp_f64, "cpu", n_f64)
     print(json.dumps({"block4_cpu_side_wait_s": time.perf_counter() - t0}),
           flush=True)
 
@@ -4158,52 +4339,69 @@ def block4_cmp_f64(device, n):
     return out
 
 
-# pools of CpuJob children still running (main ends them on any exit)
-_POOLS = []
+# the CPU port's runs that the phases hold the card to.  On the card,
+# once the kernels are built, :func:`main` starts every one that does
+# not wait for a result of the card (:func:`cpu_side_calls`) in one
+# spawned child process at the lowest priority, in the order the phases
+# read them, so that they run beside the card's work.  Each runs with
+# the torch threads it had where it ran before (those of this process;
+# ``CHILD_THREADS`` for the runs that had a child of their own): the
+# summation order, and so the iterations of f32 BICGSTAB, move with
+# them.  A phase that reads one not started (a CPU rehearsal, other
+# sizes) runs it where it stands.
+CHILD_THREADS = 3
 
 
-class CpuJob:
-    """``fn(*args)`` on the CPU beside the card's work: on the card
-    (``device`` "cuda") it starts now in a spawned child process at the
-    lowest priority with ``BLOCK_CPU_THREADS`` torch threads; on a CPU
-    rehearsal it runs when asked for.  ``get()`` returns the result and
-    ends the child.  ``fn`` is a module-level function (the child imports
-    it) returning plain data."""
+class CpuSide:
+    """The started CPU runs, keyed by (function, *arguments)."""
 
-    def __init__(self, device, fn, *args):
-        self.fn, self.args, self.pool, self.job = fn, args, None, None
-        if device == "cuda":
-            self.pool = multiprocessing.get_context("spawn").Pool(
-                1, initializer=_cpu_child, initargs=(BLOCK_CPU_THREADS,))
-            _POOLS.append(self.pool)
-            self.job = self.pool.apply_async(fn, args)
+    def __init__(self):
+        self.pool, self.jobs, self.wait_s = None, {}, 0.0
 
-    def get(self):
-        if self.job is None:
-            return self.fn(*self.args)
+    def start(self, calls, threads):
+        """Start ``calls`` ((function, *arguments) with the torch threads
+        of each) in a child process."""
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            1, initializer=_cpu_child)
+        for call, n in zip(calls, threads):
+            self.jobs[call] = self.pool.apply_async(_run_call, (n, *call))
+
+    def get(self, fn, *args):
+        """``fn(*args)``: the child's result where it was started (the
+        seconds waited for it add to ``wait_s``), else run here."""
+        job = self.jobs.pop((fn, *args), None)
+        if job is None:
+            return fn(*args)
+        t0 = time.perf_counter()
         try:
-            return self.job.get(timeout=900)
+            return job.get(timeout=600)
         finally:
-            end_pool(self.pool)
+            self.wait_s += time.perf_counter() - t0
+
+    def end(self):
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+        self.pool, self.jobs = None, {}
 
 
-def end_pool(pool):
-    pool.terminate()
-    pool.join()
-    if pool in _POOLS:
-        _POOLS.remove(pool)
+CPU = CpuSide()
 
 
-def _cpu_child(threads):
-    """A child process of the block phase: ``threads`` torch threads, at
-    the lowest priority, so that the card's work beside it keeps the
-    host."""
+def _cpu_child():
+    """The child process of :class:`CpuSide`, at the lowest priority, so
+    that the card's work beside it keeps the host."""
     import os
 
+    os.nice(19)
+
+
+def _run_call(threads, fn, *args):
+    """``fn(*args)`` with ``threads`` torch threads."""
     import torch
 
-    os.nice(19)
     torch.set_num_threads(threads)
+    return fn(*args)
 
 
 def block_dia_case(torch, timer, peaks, A, launches):
@@ -4475,8 +4673,8 @@ def eig_cmp_cpu(n=EIG_CMP_N, nodes=PAGERANK_CMP_NODES, labels=None):
             if labels is None or label in labels}
 
 
-# the CPU side's two shares (two child processes): inverse iteration
-# with its post-pass, about as long as the other eight together
+# the CPU side's two shares (one job each): inverse iteration with its
+# post-pass, about as long as the other eight together
 EIG_CPU_SPLIT = (("INVERSE_ITERATION",),
                  ("POWER_ITERATION", "SINGLE_ITERATION", "PAGERANK",
                   "SUBSPACE_ITERATION", "LANCZOS", "ARNOLDI", "LOBPCG",
@@ -4570,17 +4768,14 @@ def eigen_phase(torch, peaks=None, device="cuda", n=EIG_N, n_cmp=EIG_CMP_N,
     the two largest (60 steps), each at most 6 + 6 cos(pi / (n + 1));
     (c) PAGERANK on a link graph of ``nodes`` nodes with dangling
     nodes; (d) all nine names at ``n_cmp``^3 (PAGERANK on ``cmp_nodes``
-    nodes) against the CPU port, which runs in two child processes
-    (:class:`CpuJob`) from the phase's start.  On the card the kernels
-    are also held at the path's f64 shapes (:func:`eig_kernel_cases`)
-    while the CPU side runs.  Returns (the launches of (a), the kernel
+    nodes) against the CPU port (from :data:`CPU`).  On the card the
+    kernels are also held at the path's f64 shapes
+    (:func:`eig_kernel_cases`).  Returns (the launches of (a), the kernel
     records)."""
     import amgx_tpu_torch as T
     from amgx_tpu_torch.io.poisson import poisson_3d_7pt
     from amgx_tpu_torch.ops.spmv import spmv
 
-    jobs = [CpuJob(device, eig_cmp_cpu, n_cmp, cmp_nodes, share)
-            for share in EIG_CPU_SPLIT]
     lam_min = 6.0 - 6.0 * np.cos(np.pi / (n + 1))
     lam_max = 6.0 + 6.0 * np.cos(np.pi / (n + 1))
     t0 = time.perf_counter()
@@ -4710,8 +4905,8 @@ def eigen_phase(torch, peaks=None, device="cuda", n=EIG_N, n_cmp=EIG_CMP_N,
         dev[label] = rec
     t0 = time.perf_counter()
     cpu = {}
-    for job in jobs:
-        cpu.update(job.get())
+    for share in EIG_CPU_SPLIT:
+        cpu.update(CPU.get(eig_cmp_cpu, n_cmp, cmp_nodes, share))
     print(json.dumps({"eigen_cpu_side_wait_s": time.perf_counter() - t0}),
           flush=True)
     mult = poisson_multiplicity(n_cmp)
@@ -4924,14 +5119,528 @@ def store_phase(torch, device="cuda", n=SLICE_N, n_f64=64, n_store=64):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the C API (api/capi.py and the native shim), in the modes of the mode
+# table: PHASES "capi"
+
+CAPI_N = SLICE_N
+CAPI_CMP_N = 64
+CAPI_SELL_N = 64
+CAPI_C_N = 64
+# the tests/test_capi.py config (PCG + two BLOCK_JACOBI sweeps) with
+# max_iters 1000 for its 300: PCG takes about two iterations a grid
+# line, some 250 at 128^3
+JACOBI_CFG = (
+    '{"config_version": 2, "solver": {"scope": "main", "solver": "PCG",'
+    ' "monitor_residual": 1, "convergence": "RELATIVE_INI",'
+    ' "tolerance": 1e-08, "max_iters": 1000,'
+    ' "preconditioner": {"scope": "p", "solver": "BLOCK_JACOBI",'
+    ' "max_iters": 2, "monitor_residual": 0}}}'
+)
+
+
+def capi_mode(letters, device):
+    """The mode of vector and matrix ``letters`` ("DFI") on ``device``:
+    ``d`` for the card, ``h`` for the CPU."""
+    return ("d" if device == "cuda" else "h") + letters
+
+
+def capi_flow(mode, cfg, sp, b):
+    """The AMGX_* sequence of a host code through the port's handle
+    layer (``amgx_tpu_torch.api.capi``): upload the CSR of ``sp``, b,
+    x = 0, setup, solve, download; kernel counts zeroed just before
+    setup and read just after the solve.  Returns a record with the
+    set-up solver (for the walks) and x."""
+    from amgx_tpu_torch.api import capi as C
+
+    n = sp.shape[0]
+    c = C.config_create(cfg)
+    r = C.resources_create_simple(c)
+    A = C.matrix_create(r, mode)
+    vb, vx = C.vector_create(r, mode), C.vector_create(r, mode)
+    s = C.solver_create(r, mode, c)
+    t0 = time.perf_counter()
+    C.matrix_upload_all(A, n, sp.nnz, 1, 1, sp.indptr, sp.indices, sp.data)
+    upload_s = time.perf_counter() - t0
+    C.vector_upload(vb, n, 1, b)
+    C.vector_set_zero(vx, n, 1)
+    zero_counts()
+    t0 = time.perf_counter()
+    C.solver_setup(s, A)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    C.solver_solve(s, vb, vx)
+    solve_s = time.perf_counter() - t0
+    out = {"mode": mode, "status": C.solver_get_status(s),
+           "iterations": C.solver_get_iterations_number(s),
+           "x": C.vector_download(vx), "launches": variant_counts(),
+           "upload_s": upload_s, "setup_s": setup_s, "solve_s": solve_s,
+           "solver": C._get(s).solver}
+    for fn, h in (("solver_destroy", s), ("vector_destroy", vx),
+                  ("vector_destroy", vb), ("matrix_destroy", A),
+                  ("resources_destroy", r), ("config_destroy", c)):
+        getattr(C, fn)(h)
+    return out
+
+
+def capi_cpu_side(n_cmp, n_sell):
+    """The CPU port's side of the capi phase (``h`` modes): the bench
+    config in hDFI at ``n_cmp``^3, JACOBI_CFG in hFBI at ``n_cmp``^3
+    and in hDFI and hFBI on ``irregular_poisson(n_sell)``:
+    {label: (status, iterations, x)}."""
+    import amgx_tpu_torch
+    from amgx_tpu_torch.io.poisson import poisson_rhs, poisson_scipy
+
+    amgx_tpu_torch.initialize()
+    sp = poisson_scipy((n_cmp,) * 3).tocsr()
+    irr = irregular_poisson(n_sell)
+    out = {}
+    for label, mode, cfg, m in (("bench_DFI", "hDFI", BENCH_CFG, sp),
+                                ("jacobi_FBI", "hFBI", JACOBI_CFG, sp),
+                                ("sell_DFI", "hDFI", JACOBI_CFG, irr),
+                                ("sell_FBI", "hFBI", JACOBI_CFG, irr)):
+        b = poisson_rhs(m.shape[0], dtype=np.float64)
+        f = capi_flow(mode, cfg, m, b)
+        out[label] = (f["status"], f["iterations"], f["x"])
+    return out
+
+
+def jacobi_pcg_launches(s, iters):
+    """SpMVs of a PCG + BLOCK_JACOBI solve of ``iters`` iterations on
+    the level-0 operator: r0 = b - A x0 and one A p an iteration, and in
+    each of the iters + 1 preconditioner applications every Jacobi
+    sweep after the first (the first starts from x = 0 and needs no
+    residual)."""
+    return (iters + 1) * (1 + max(s.precond.max_iters - 1, 0))
+
+
+def shim_flow(lib, mode, cfg, sp, b):
+    """The same host sequence through the native shim loaded in this
+    process (ctypes; raw CSR buffers in the mode's dtypes, handles as
+    uintptr_t): every RC, status, iterations, x and the launches
+    (zeroed just before AMGX_solver_setup, read just after the
+    solve)."""
+    import ctypes
+
+    H, P = ctypes.c_uint64, ctypes.c_void_p
+    n = sp.shape[0]
+    mat_dt = np.float32 if mode[2] == "F" else np.float64
+    vec_dt = np.float32 if mode[1] == "F" else np.float64
+    rp = np.ascontiguousarray(sp.indptr, np.int32)
+    ci = np.ascontiguousarray(sp.indices, np.int32)
+    vals = np.ascontiguousarray(sp.data, mat_dt)
+    bb = np.ascontiguousarray(b, vec_dt)
+    x = np.zeros(n, vec_dt)
+    md = ctypes.c_char_p(mode.encode())
+    c, r, A, vb, vx, s = (H() for _ in range(6))
+    rcs = [lib.AMGX_config_create(ctypes.byref(c),
+                                  ctypes.c_char_p(cfg.encode())),
+           lib.AMGX_resources_create_simple(ctypes.byref(r), c),
+           lib.AMGX_matrix_create(ctypes.byref(A), r, md),
+           lib.AMGX_vector_create(ctypes.byref(vb), r, md),
+           lib.AMGX_vector_create(ctypes.byref(vx), r, md),
+           lib.AMGX_solver_create(ctypes.byref(s), r, md, c)]
+    t0 = time.perf_counter()
+    rcs.append(lib.AMGX_matrix_upload_all(
+        A, n, sp.nnz, 1, 1, rp.ctypes.data_as(P), ci.ctypes.data_as(P),
+        vals.ctypes.data_as(P), None))
+    upload_s = time.perf_counter() - t0
+    rcs.append(lib.AMGX_vector_upload(vb, n, 1, bb.ctypes.data_as(P)))
+    rcs.append(lib.AMGX_vector_upload(vx, n, 1, x.ctypes.data_as(P)))
+    zero_counts()
+    t0 = time.perf_counter()
+    rcs.append(lib.AMGX_solver_setup(s, A))
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rcs.append(lib.AMGX_solver_solve(s, vb, vx))
+    solve_s = time.perf_counter() - t0
+    launches, per_entry = kernel_counts(), variant_counts()
+    st, it = ctypes.c_int(-1), ctypes.c_int(-1)
+    rcs.append(lib.AMGX_solver_get_status(s, ctypes.byref(st)))
+    rcs.append(lib.AMGX_solver_get_iterations_number(s, ctypes.byref(it)))
+    rcs.append(lib.AMGX_vector_download(vx, x.ctypes.data_as(P)))
+    from amgx_tpu_torch.api import capi as C
+
+    solver = C._get(s.value).solver
+    for fn, h in (("AMGX_solver_destroy", s), ("AMGX_vector_destroy", vx),
+                  ("AMGX_vector_destroy", vb), ("AMGX_matrix_destroy", A),
+                  ("AMGX_resources_destroy", r), ("AMGX_config_destroy", c)):
+        rcs.append(getattr(lib, fn)(h))
+    return {"rcs": rcs, "status": st.value, "iterations": it.value, "x": x,
+            "launches": launches, "variants": per_entry, "solver": solver,
+            "upload_s": upload_s,
+            "setup_s": setup_s, "solve_s": solve_s}
+
+
+def shim_rcs(lib):
+    """Return codes of misuse through the shim: a handle that names no
+    object, an unknown mode, and the batched solve (not ported)."""
+    import ctypes
+
+    H = ctypes.c_uint64
+    c, r, A = H(), H(), H()
+    got = {
+        "config": lib.AMGX_config_create(
+            ctypes.byref(c), ctypes.c_char_p(BENCH_CFG.encode())),
+        "resources": lib.AMGX_resources_create_simple(ctypes.byref(r), c),
+        "bad_handle": lib.AMGX_solver_setup(H(987654321), H(987654322)),
+        "bad_mode": lib.AMGX_matrix_create(ctypes.byref(A), r,
+                                           ctypes.c_char_p(b"xQQQ")),
+    }
+    arr = (H * 1)(0)
+    got["solve_batch"] = lib.AMGX_solver_solve_batch(H(1), 1, arr, arr, arr)
+    lib.AMGX_resources_destroy(r)
+    lib.AMGX_config_destroy(c)
+    return got
+
+
+def same_x(label, x, xc, wide):
+    """Card against CPU: equal iterations and x to rtol 1e-9 with f64
+    vectors (checked by the caller), x to 1e-3 with f32 ones."""
+    xinf = float(np.abs(xc).max())
+    d = float(np.abs(x.astype(np.float64) - xc.astype(np.float64)).max())
+    tol = 1e-9 if wide else 1e-3
+    check(np.allclose(x, xc, rtol=tol, atol=tol * xinf),
+          f"{label}: x card vs CPU max abs diff {d:.3e}, |x|inf {xinf:.3e}")
+    return d
+
+
+def capi_phase(torch, peaks=None, device="cuda", n=CAPI_N, n_cmp=CAPI_CMP_N,
+               n_sell=CAPI_SELL_N, n_c=CAPI_C_N):
+    """The C API on the card, in the mode table's real modes (module
+    docstring, phase 20).  Returns ({path: launches per entry point},
+    kernel case records, the dFFI path's launches per kernel)."""
+    import ctypes
+    import os
+    import shutil
+
+    from amgx_tpu_torch.api import capi as C
+    from amgx_tpu_torch.io.poisson import poisson_rhs, poisson_scipy
+    from amgx_tpu_torch.ops import kernels
+
+    on_card = device == "cuda"
+    variants, recs, summary = {}, [], {}
+    # ---- a. build the shim and the C host program
+    t0 = time.perf_counter()
+    native = kernels.build_native()
+    summary["native_build_s"] = time.perf_counter() - t0
+    print(json.dumps({"capi_build": {
+        "seconds": summary["native_build_s"],
+        "lib": os.path.basename(str(native["lib"])),
+        "program": os.path.basename(str(native["program"]))}}), flush=True)
+
+    # ---- b. the bench config in dFFI through the shim, in this process
+    lib = ctypes.PyDLL(str(native["lib"]))
+    check(lib.AMGX_initialize() == 0, "AMGX_initialize through the shim")
+    sp = poisson_scipy((n,) * 3).tocsr()
+    sp.sort_indices()
+    b32 = poisson_rhs(sp.shape[0], dtype=np.float32)
+    mode = capi_mode("FFI", device)
+    f = shim_flow(lib, mode, BENCH_CFG, sp, b32)
+    iters = f["iterations"]
+    derived = pcg_derived_launches(f["solver"], iters)
+    rel = rel_residual_sp(sp, b32, f["x"])
+    # the same CSR arrays through the port's own entry points
+    import amgx_tpu_torch as T
+
+    A32 = T.SparseMatrix.from_csr(sp.indptr, sp.indices,
+                                  sp.data.astype(np.float32), device=device)
+    direct = T.create_solver(T.AMGConfig.from_string(BENCH_CFG), "default",
+                             device=device).setup(A32)
+    rd = direct.solve(b32)
+    same = (int(rd.iters) == iters
+            and np.array_equal(rd.x.cpu().numpy(), f["x"]))
+    rec = {"capi_dFFI_bench": {
+        "n": n, "mode": mode, "rcs_all_zero": not any(f["rcs"]),
+        "status": f["status"], "iterations": iters,
+        "true_rel_residual_f64": rel, "launches": f["launches"],
+        "derived": derived, "direct_iterations": int(rd.iters),
+        "x_bitwise_direct": same, "upload_s": f["upload_s"],
+        "setup_s": f["setup_s"], "solve_s": f["solve_s"],
+        "direct_setup_s": direct.setup_time,
+        "direct_solve_s": direct.solve_time}}
+    print(json.dumps(rec), flush=True)
+    check(not any(f["rcs"]), f"dFFI shim RCs {f['rcs']}")
+    check(f["status"] == 0, f"dFFI status {f['status']}")
+    check(rel <= 1e-5, f"dFFI true relative residual {rel:.3e}")
+    check(same, "dFFI through the shim differs from the direct solve")
+    if on_card:
+        check(f["launches"] == derived,
+              f"dFFI launches {f['launches']} != derived {derived}")
+    variants["capi_dFFI"] = f["variants"]
+    counts = f["launches"]
+    rcs = shim_rcs(lib)
+    print(json.dumps({"capi_shim_rcs": rcs}), flush=True)
+    # ---- f. misuse through the shim: a code, never a crash
+    check(rcs == {"config": 0, "resources": 0, "bad_handle": 1,
+                  "bad_mode": 9, "solve_batch": 13},
+          f"shim RCs {rcs}")
+    del A32, direct, rd, f
+
+    # ---- c. the bench config in dDFI (f32 matrix, f64 vectors)
+    b64 = poisson_rhs(sp.shape[0], dtype=np.float64)
+    f = capi_flow(capi_mode("DFI", device), BENCH_CFG, sp, b64)
+    s, iters = f["solver"], f["iterations"]
+    A0 = s.precond.levels[0].A
+    want = derived_variant_launches(s.precond, iters + 1,
+                                    top=((A0, torch.float64, iters + 1),))
+    rel = rel_residual_sp(sp, b64, f["x"])
+    print(json.dumps({"capi_dDFI_bench": {
+        "n": n, "status": f["status"], "iterations": iters,
+        "x_dtype": str(f["x"].dtype), "true_rel_residual_f64": rel,
+        "launches": f["launches"], "derived": want,
+        "upload_s": f["upload_s"], "setup_s": f["setup_s"],
+        "solve_s": f["solve_s"]}}), flush=True)
+    check(f["status"] == 0 and f["x"].dtype == np.float64,
+          f"dDFI status {f['status']}, x {f['x'].dtype}")
+    check(rel <= 1e-5, f"dDFI true relative residual {rel:.3e}")
+    check_variants("capi dDFI", f["launches"], want, device)
+    variants["capi_dDFI"] = f["launches"]
+    if on_card:
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            A0.n_rows)).cuda()
+        recs.append(mixed_dia_case(torch, peaks, "dia_spmv_f32_f64",
+                                   f"capi dDFI level0 A {n}^3 f32/f64", A0,
+                                   x))
+    del f, s, A0
+
+    # ---- d. PCG + BLOCK_JACOBI in dFBI on the 7-point matrix
+    b32 = poisson_rhs(sp.shape[0], dtype=np.float32)
+    f = capi_flow(capi_mode("FBI", device), JACOBI_CFG, sp, b32)
+    s, iters = f["solver"], f["iterations"]
+    entry = kernels.entry_point("dia_spmv", s.A.dtype, torch.float32)
+    want = {entry: jacobi_pcg_launches(s, iters)}
+    rel = rel_residual_sp(sp, b32, f["x"])
+    print(json.dumps({"capi_dFBI_jacobi": {
+        "n": n, "status": f["status"], "iterations": iters,
+        "matrix_dtype": str(s.A.dtype), "x_dtype": str(f["x"].dtype),
+        "true_rel_residual_f64": rel, "launches": f["launches"],
+        "derived": want, "setup_s": f["setup_s"],
+        "solve_s": f["solve_s"]}}), flush=True)
+    check(f["status"] == 0 and s.A.dtype == torch.bfloat16,
+          f"dFBI status {f['status']}, A {s.A.dtype}")
+    check_variants("capi dFBI", f["launches"], want, device)
+    variants["capi_dFBI"] = f["launches"]
+    if on_card:
+        x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            s.A.n_rows)).cuda().float()
+        recs.append(mixed_dia_case(torch, peaks, "dia_spmv_bf16_f32",
+                                   f"capi dFBI A {n}^3 bf16/f32", s.A, x))
+    del f, s, sp
+
+    # ---- d. the same two modes on an unstructured upload (sliced ELL)
+    irr = irregular_poisson(n_sell)
+    card = {}
+    for letters, vdt in (("DFI", np.float64), ("FBI", np.float32)):
+        b = poisson_rhs(irr.shape[0], dtype=vdt)
+        f = capi_flow(capi_mode(letters, device), JACOBI_CFG, irr, b)
+        s, iters = f["solver"], f["iterations"]
+        S = s.A.sell
+        check(S is not None and s.A.format == "ELL",
+              f"{letters} irregular upload: {s.A.format}, no sliced layout")
+        entry = kernels.entry_point("sell_spmv", s.A.dtype,
+                                    torch.from_numpy(b).dtype)
+        want = {entry: jacobi_pcg_launches(s, iters)}
+        print(json.dumps({f"capi_d{letters}_sell": {
+            "n": n_sell, "rows": irr.shape[0], "nonzeros": irr.nnz,
+            "status": f["status"], "iterations": iters,
+            "sell": sell_info(S, s.A.nnz), "launches": f["launches"],
+            "derived": want, "setup_s": f["setup_s"],
+            "solve_s": f["solve_s"]}}), flush=True)
+        check(f["status"] == 0, f"{letters} sliced status {f['status']}")
+        check_variants(f"capi d{letters} sliced", f["launches"], want,
+                       device)
+        variants[f"capi_d{letters}_sell"] = f["launches"]
+        card[f"sell_{letters}"] = (f["status"], iters, f["x"])
+        if on_card:
+            x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+                irr.shape[0]).astype(vdt)).cuda()
+            recs.append(mixed_sell_case(
+                torch, peaks, entry, f"capi d{letters} irregular {n_sell}^3 "
+                f"{str(s.A.dtype)[6:]}/{str(x.dtype)[6:]} lanes {S.lanes}",
+                s.A, x))
+        del f, s, S
+    if on_card:
+        # a slice count small enough for 4 lanes a row: the tree adds
+        # the parts in its own order, held within TOL
+        small = irregular_poisson(32)
+        As = T.SparseMatrix.from_scipy(small.astype(np.float32),
+                                       device="cuda")
+        check(As.sell is not None and As.sell.lanes > 1,
+              "irregular 32^3: no multi-lane sliced layout")
+        x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            As.n_rows)).cuda()
+        recs.append(mixed_sell_case(
+            torch, peaks, "sell_spmv_f32_f64",
+            f"irregular 32^3 f32/f64 lanes {As.sell.lanes}", As, x,
+            exact=False))
+        del As
+
+    # ---- c., d. the card against the CPU port at n_cmp^3
+    sp = poisson_scipy((n_cmp,) * 3).tocsr()
+    for label, letters, cfg, vdt in (
+            ("bench_DFI", "DFI", BENCH_CFG, np.float64),
+            ("jacobi_FBI", "FBI", JACOBI_CFG, np.float32)):
+        f = capi_flow(capi_mode(letters, device), cfg, sp,
+                      poisson_rhs(sp.shape[0], dtype=np.float64))
+        card[label] = (f["status"], f["iterations"], f["x"])
+    cpu = CPU.get(capi_cpu_side, n_cmp, n_sell)
+    cmp = {}
+    for label, (st, it, x) in card.items():
+        cst, cit, cx = cpu[label]
+        wide = x.dtype == np.float64
+        d = same_x(label, x, cx, wide)
+        cmp[label] = {"iterations": it, "cpu_iterations": cit,
+                      "status": st, "cpu_status": cst,
+                      "max_abs_diff_vs_cpu": d}
+        check(st == cst == 0, f"{label}: status card {st}, cpu {cst}")
+        check(it == cit if wide else abs(it - cit) <= 1,
+              f"{label}: iterations card {it} vs cpu {cit}")
+    print(json.dumps({"capi_card_vs_cpu": cmp}), flush=True)
+
+    # ---- e. the C host program in a subprocess, dDDI at n_c^3
+    folder = store_dir()
+    try:
+        cfg_file = os.path.join(folder, "bench.json")
+        with open(cfg_file, "w") as fh:
+            fh.write(BENCH_CFG.replace(
+                '"monitor_residual": 1,',
+                '"monitor_residual": 1, "print_solve_stats": 1,', 1))
+        xfile = os.path.join(folder, "x.bin")
+        mode = capi_mode("DDI", device)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in sys.path if p))
+        t0 = time.perf_counter()
+        out = subprocess.run([str(native["program"]), str(n_c), mode,
+                              cfg_file, xfile], capture_output=True,
+                             text=True, timeout=600, env=env)
+        prog_s = time.perf_counter() - t0
+        check(out.returncode == 0,
+              f"capi_poisson exit {out.returncode}: {out.stdout[-2000:]}"
+              f"{out.stderr[-2000:]}")
+        prog = json.loads(out.stdout.strip().splitlines()[-1])
+        xc = np.fromfile(xfile, dtype=np.float64)
+        spc = poisson_scipy((n_c,) * 3).tocsr()
+        spc.sort_indices()
+        f = capi_flow(mode, BENCH_CFG, spc, np.ones(spc.shape[0]))
+        same = bool(np.array_equal(xc, f["x"]))
+        print(json.dumps({"capi_c_program": {
+            **prog, "process_s": prog_s,
+            "in_process_iterations": f["iterations"],
+            "x_bitwise_in_process": same}}), flush=True)
+        check(prog["status"] == 0, f"C program status {prog['status']}")
+        check(prog["iterations"] == f["iterations"],
+              f"C program iterations {prog['iterations']} vs in-process "
+              f"{f['iterations']}")
+        check(same, "C program x differs from the in-process solve")
+        check(prog["print_lines"] > 0, "the print callback received nothing")
+        check(prog["rc_bad_handle"] == 1,
+              f"C program bad handle RC {prog['rc_bad_handle']}")
+        check(prog["rel_residual"] <= 1e-5,
+              f"C program residual {prog['rel_residual']:.3e}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    check(lib.AMGX_finalize() == 0, "AMGX_finalize through the shim")
+    C.finalize()
+    return variants, recs, counts
+
+
+def mixed_dia_case(torch, peaks, name, label, A, x):
+    """``dia_spmv`` on a mixed pair at its path's shape: bit for bit
+    with the plain version, timed as every variant case (bytes: the
+    nonzeros in the planes' dtype, x read and y written in x's, the
+    offsets)."""
+    from amgx_tpu_torch.ops import dia
+
+    check(dia.kernels.entry_point("dia_spmv", A.dtype, x.dtype) == name,
+          f"{label}: entry point is not {name}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = dia.dia_launch_plan(A.n_rows, A.dia_offsets, A.dtype, sms,
+                               x_dtype=x.dtype)
+    vs, xs = A.dia_vals.element_size(), x.element_size()
+    return variant_case(
+        torch, Timer(torch), peaks, name, label, A, x,
+        lambda: dia.dia_spmv(A.dia_vals, A.dia_offsets, x),
+        lambda: dia.dia_spmv_plain(A.dia_vals, A.dia_offsets, x),
+        nbytes=vs * A.nnz + 2 * xs * A.n_rows + 4 * len(A.dia_offsets),
+        extra={"plan": {k: v for k, v in plan._asdict().items()
+                        if k != "offsets"}})
+
+
+def mixed_sell_case(torch, peaks, name, label, A, x, exact=True):
+    """``sell_spmv`` on a mixed pair: bit for bit with the plain version
+    with one lane a row, within TOL with more (``exact`` False)."""
+    from amgx_tpu_torch.ops import ell
+
+    S = A.sell
+    vs, xs = S.vals.element_size(), x.element_size()
+    return variant_case(
+        torch, Timer(torch), peaks, name, label, A, x,
+        lambda: ell.sell_spmv(S, x), lambda: ell.sell_spmv_plain(S, x),
+        nbytes=(4 + vs) * A.nnz + xs * (A.n_cols + A.n_rows),
+        extra={"sell": sell_info(S, A.nnz)}, exact=exact)
+
+
 # every phase in the order a run takes them; a phase named on the
 # command line brings the phases it needs
 PHASES = ("kernels", "bench_pcg", "bench_pcg_matrix_free",
           "fgmres_aggregation", "pcg_classical", "pcg_classical_cheby",
           "idr_dilu", "gmres_ilu0", "pbicgstab_agg_w", "amg_classical_kcycle",
           "pcg_agg_resetup", "refine_bf16_256", "mf_bf16", "classical_bf16",
-          "device_match", "block4_amg_pcg", "eigensolvers", "setup_store")
+          "device_match", "block4_amg_pcg", "eigensolvers", "setup_store",
+          "capi")
 NEEDS = {"bench_pcg_matrix_free": ("bench_pcg",)}
+
+
+def cpu_side_calls(phases):
+    """The CPU runs of ``phases`` that wait for nothing of the card, as
+    the phases read them from :data:`CPU` (each phase's own sizes), in
+    run order."""
+    f32, f64 = np.float32, np.float64
+    n = SLICE_N
+    calls = {
+        "bench_pcg": [(cpu_solve, BENCH_CFG, n, f32),
+                      (cpu_solve, BENCH_CFG, 64, f64),
+                      (cpu_solve, ENTRY_CFG, 16, f32)],
+        "bench_pcg_matrix_free": [(cpu_solve, MF_CFG, n, f32, MF_FORMATS),
+                                  (cpu_solve, MF_CFG, 64, f64, MF_FORMATS)],
+        "fgmres_aggregation": [(fgmres_cpu_side, n),
+                               (cpu_solve, FGMRES_CFG, 64, f64)] + [
+            (cpu_solve, cfg, 32, f32) for _, cfg in solver_matrix()],
+        "pcg_classical": [(cpu_solve, PCG_CLASSICAL, 64, f32),
+                          (cpu_solve, PCG_CLASSICAL, 48, f64),
+                          (cpu_solve, PCG_CLASSICAL, 64, f64)] + [
+            (cpu_solve, classical_cfg(extra), m, f32)
+            for _, extra, m in classical_paths(64, 32)] + [
+            (classical_rcm_cpu, 32)],
+        "pcg_classical_cheby": [(cpu_solve, PCG_CLASSICAL_CHEB, n, f32)],
+        "idr_dilu": [(cpu_solve, IDR_DILU_CFG, 96, f32),
+                     (cpu_solve, IDR_DILU_CFG, 64, f64)],
+        "gmres_ilu0": [(gmres_cpu_side, 108), (gmres_cpu_side, 64)],
+        "pbicgstab_agg_w": [(cpu_solve, PBICGSTAB_AGG_W_CFG, n, f32),
+                            (cpu_solve, PBICGSTAB_AGG_W_CFG, 64, f64)],
+        "amg_classical_kcycle": [(cpu_solve, AMG_CLASSICAL_CG_CFG, 64, f32),
+                                 (cpu_solve, KCYCLE_DEVICE_CFG, 64, f64)],
+        "pcg_agg_resetup": [
+            (cpu_reuse, cfg, n, f32, kind, formats, False)
+            for _, cfg, kind, formats in RESETUP_HALVES] + [
+            (cpu_reuse, REUSE_CFG, 64, f64, "diffusion", None, True),
+            (cpu_reuse, CLASSICAL_REUSE_CFG, 64, f64, "diffusion", None,
+             True)],
+        "refine_bf16_256": [(refine_cpu, REFINE_BF16_CFG, 64, f32),
+                            (refine_cpu, CHEAP_CFG, 64, f64),
+                            (refine_cpu, CHEAP_COARSE_CFG, 64, f64)],
+        "classical_bf16": [(cpu_solve, CLASSICAL_BF16_CFG, 96, f32)],
+        "device_match": [(host_match, "poisson", n),
+                         (host_match, "shuffled", n),
+                         (cpu_solve, SIZE2_MATCH_CFG, 64, f64, None, True)],
+        "block4_amg_pcg": [(block4_cmp_f32, "cpu", 32),
+                           (block4_cmp_f64, "cpu", 12)],
+        "eigensolvers": [(eig_cmp_cpu, EIG_CMP_N, PAGERANK_CMP_NODES, share)
+                         for share in EIG_CPU_SPLIT],
+        "capi": [(capi_cpu_side, CAPI_CMP_N, CAPI_SELL_N)],
+    }
+    return [c for p in phases for c in calls.get(p, ())]
 
 
 def selected_phases(argv):
@@ -4960,8 +5669,7 @@ def main(argv=None):
     try:
         return _main(argv)
     finally:
-        for pool in list(_POOLS):
-            end_pool(pool)
+        CPU.end()
 
 
 def _main(argv=None):
@@ -5001,6 +5709,10 @@ def _main(argv=None):
     recs = []
     by_path = {}
     variants_by_path = {}
+    calls = cpu_side_calls(phases)
+    CPU.start(calls, [CHILD_THREADS if c[0] in (
+        block4_cmp_f32, block4_cmp_f64, eig_cmp_cpu, capi_cpu_side)
+        else torch.get_num_threads() for c in calls])
     if "kernels" in phases:
         recs += timed("kernels", kernel_phase, torch, peaks)
     if "bench_pcg" in phases:
@@ -5044,6 +5756,11 @@ def _main(argv=None):
         recs += e_recs
     if "setup_store" in phases:
         by_path["setup_store"] = timed("setup_store", store_phase, torch)
+    if "capi" in phases:
+        got, c_recs, by_path["capi"] = timed("capi", capi_phase, torch,
+                                             peaks)
+        variants_by_path.update(got)
+        recs += c_recs
 
     # each kernel: the path whose count is its ``launches``, the case
     # whose times the summary gives, its source and the TPU kernel
@@ -5081,7 +5798,8 @@ def _main(argv=None):
                                          "ell_spmv")),
                      ("eigensolvers", ("dia_spmv", "ell_spmv")),
                      ("setup_store", ("dia_spmv", "ell_spmv", "sell_spmv",
-                                      "stencil_spmv")))
+                                      "stencil_spmv")),
+                     ("capi", ("dia_spmv", "ell_spmv")))
     not_checked = []
     for path, kernels_of in launch_checks:
         if path not in by_path:
@@ -5130,6 +5848,10 @@ def _main(argv=None):
             "launches_by_path": {p: c.get(name, 0)
                                  for p, c in variants_by_path.items()},
         })
+    # the started CPU runs no phase read (a phase asked with other
+    # arguments and ran its own)
+    print(json.dumps({"cpu_side_unread": [
+        f"{c[0].__name__}{c[1:]!r}"[:160] for c in CPU.jobs]}), flush=True)
     # a run of every phase checks everything; a selection names what it
     # left unchecked before it prints its result
     check(not not_checked or skipped,

@@ -52,6 +52,33 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+_JAX_MODULE = re.compile(r"\bamgx_tpu\.[a-z]|\bjax\b", re.IGNORECASE)
+
+
+def test_native_sources_embed_the_port_and_never_the_jax_package():
+    """The C shim imports ``amgx_tpu_torch.api.capi`` and its sources and
+    the C host program name no module of the JAX package, nor JAX."""
+    native = sorted((PORT / "native").glob("*.[ch]"))
+    assert {p.name for p in native} >= {"amgx_tpu_torch_c.c",
+                                        "amgx_tpu_torch_c.h",
+                                        "capi_poisson.c"}
+    shim = (PORT / "native" / "amgx_tpu_torch_c.c").read_text()
+    assert shim.count('PyImport_ImportModule("amgx_tpu_torch.api.capi")') \
+        == 2
+    assert "PyImport_ImportModule" not in shim.replace(
+        'PyImport_ImportModule("amgx_tpu_torch.api.capi")', "")
+    bad = [f"{p.relative_to(ROOT)}: {m.group(0)}" for p in native
+           for m in _JAX_MODULE.finditer(p.read_text())]
+    assert not bad, bad
+
+
+def test_native_pattern_matches_the_jax_package_only():
+    assert _JAX_MODULE.search('PyImport_ImportModule("amgx_tpu.api.capi")')
+    assert _JAX_MODULE.search("/* JAX runtimes */")
+    assert not _JAX_MODULE.search('"amgx_tpu_torch.api.capi"')
+    assert not _JAX_MODULE.search("amgx_tpu/ops/pallas_dia.py:76")
+
+
 def test_pattern_matches_whole_module_names_only():
     assert _FORBIDDEN_IMPORT.search("import amgx_tpu\n")
     assert _FORBIDDEN_IMPORT.search("from amgx_tpu.ops import spmv\n")
@@ -67,6 +94,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import amgx_tpu_torch.io.matrix_market, amgx_tpu_torch.ops.reorder\n"
         "import amgx_tpu_torch.ops.ff, amgx_tpu_torch.solvers.refinement\n"
         "import amgx_tpu_torch.amg.spgemm, amgx_tpu_torch.core.types\n"
+        "import amgx_tpu_torch.api.capi, amgx_tpu_torch.ops.analysis\n"
+        "import amgx_tpu_torch.core.printing, amgx_tpu_torch.version\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'amgx_tpu'\n"
         "             or m.startswith('amgx_tpu.'))\n"
