@@ -800,8 +800,11 @@ def build_aggregation_level(Asp, cfg, scope, device=None, dia=None):
         raise KeyError(
             f"CoarseAGeneratorFactory '{gen}' has not been registered"
         )
-    if not Asp.data.flags.writeable:
-        # scipy's abs()/binops dedup IN PLACE: work on a private copy
+    if not Asp.data.flags.writeable or not Asp.has_canonical_format:
+        # aggregation reads the summed operator (the JAX package sums
+        # the duplicates of every finest operator, whose host arrays are
+        # read-only there), and scipy's abs()/binops dedup IN PLACE:
+        # work on a private canonical copy
         Asp = Asp.copy()
         Asp.sum_duplicates()
         Asp.sort_indices()

@@ -654,6 +654,70 @@ class AMGSolver(Solver):
                             "restored": True}
         self._finalize_setup(reuse_smoothers=True)
 
+    def make_batch_params(self):
+        """Batched values-only rebuild of the hierarchy (the JAX
+        package's ``make_batch_params``, the batched form of
+        :meth:`_resetup_impl`): the finest values (B, nnz) flow down the
+        Galerkin chain through the stored plans (``SpMMPlan.apply`` over
+        the leading batch dimension), each level's operator becomes a
+        batched view in its level's dtype, its smoother's params rebuild
+        from it, and the coarse solver refactors each instance.  P and R
+        keep their setup-time weights, shared by every instance.  None
+        unless every transition has a plan and every smoother and the
+        coarse solver have a batch rebuild."""
+        if not self.levels or self.levels[0].A.block_size != 1:
+            return None
+        lvls = self.levels
+        if any(lvl.rap_plan is None for lvl in lvls[:-1]):
+            return None
+        sm = []
+        for lvl in lvls:
+            if lvl.smoother is None:
+                sm.append(None)
+                continue
+            s = lvl.smoother.make_batch_params()
+            if s is None:
+                return None
+            sm.append(s)
+        cs = None
+        if self.coarse_solver is not None:
+            cs = self.coarse_solver.make_batch_params()
+            if cs is None:
+                return None
+        n_lv = len(lvls)
+        sm_fns = [None if s is None else s[1] for s in sm]
+        cs_fn = None if cs is None else cs[1]
+        lvl_dts = tuple(lvl.A.dtype for lvl in lvls)
+        template = dict(
+            As=tuple(lvl.A for lvl in lvls),
+            Ps=tuple(lvl.P for lvl in lvls[:-1]),
+            Rs=tuple(lvl.R for lvl in lvls[:-1]),
+            plans=tuple(lvl.rap_plan for lvl in lvls[:-1]),
+            smoothers=tuple(None if s is None else s[0] for s in sm),
+            coarse=None if cs is None else cs[0],
+        )
+
+        def fn(t, v):
+            lvl_vals = [_to_dtype(v, lvl_dts[0])]
+            for i in range(n_lv - 1):
+                lvl_vals.append(_to_dtype(
+                    t["plans"][i].apply(t["Rs"][i].values, lvl_vals[i],
+                                        t["Ps"][i].values),
+                    lvl_dts[i + 1]))
+            per_level = []
+            for i in range(n_lv):
+                Ai = t["As"][i].replace_values_batched(lvl_vals[i])
+                P = t["Ps"][i] if i < n_lv - 1 else None
+                R = t["Rs"][i] if i < n_lv - 1 else None
+                smp = (sm_fns[i](t["smoothers"][i], lvl_vals[i])
+                       if sm_fns[i] is not None else None)
+                per_level.append((Ai, P, R, smp))
+            coarse = (cs_fn(t["coarse"], lvl_vals[-1])
+                      if cs_fn is not None else None)
+            return tuple(per_level), coarse
+
+        return template, fn
+
     def _collect_params(self):
         per_level = tuple(
             (
@@ -686,7 +750,9 @@ class AMGSolver(Solver):
         CGF).  W, F and the K-cycles branch only on the top
         ``W_MAX_BRANCH_LEVELS`` levels, as in the JAX package; below
         them every cycle is a V-cycle.  Each level works in its own
-        dtype (the module docstring's casts)."""
+        dtype (the module docstring's casts).  b and x may be a batch
+        (B, n) with the params of :meth:`make_batch_params`; the
+        K-cycles' and error scaling's scalars are then (B, 1)."""
         n_levels = len(self.levels)
         lvl_dts = [lvl.A.dtype for lvl in self.levels]
         # fused descent legs: static per level, MATRIX_FREE operators
@@ -785,7 +851,9 @@ class AMGSolver(Solver):
             # R's product has the promoted dtype of R and r: down to the
             # coarser level's
             bc = _to_dtype(bc, lvl_dts[lvl_id + 1])
-            xc = torch.zeros(R.n_rows, dtype=bc.dtype, device=bc.device)
+            # (B, coarse rows) for a batch of vectors (the serve layer)
+            xc = torch.zeros(bc.shape[:-1] + (R.n_rows,), dtype=bc.dtype,
+                             device=bc.device)
             branch = lvl_id < min(n_levels - 2, W_MAX_BRANCH_LEVELS)
             if kind == "W" and branch:
                 xc = visit(params, bc, xc, lvl_id + 1, "W")

@@ -68,9 +68,16 @@ class SpMMPlan:
 
     def apply(self, b_vals, c_vals):
         """The output's values for B's values ``b_vals`` and C's
-        ``c_vals`` (tensors on the plan's device)."""
-        contrib = b_vals[self.left_idx] * c_vals[self.right_idx]
-        return segment_sum(contrib, self.offsets)
+        ``c_vals`` (tensors on the plan's device).  Either may carry a
+        leading batch dimension, (batch, nnz), the other shared (the
+        serve layer's groups: batched operators, shared transfers); the
+        output is then (batch, nnz_out), each instance summed in the
+        unbatched order."""
+        contrib = b_vals[..., self.left_idx] * c_vals[..., self.right_idx]
+        if contrib.dim() == 1:
+            return segment_sum(contrib, self.offsets)
+        return segment_sum(contrib.T.contiguous(),
+                           self.offsets).T.contiguous()
 
     @property
     def n_paths(self) -> int:

@@ -19,9 +19,11 @@ values (dFBI) arrive as 2-byte words, read as ``uint16`` and viewed as
 ``torch.bfloat16``.  Vectors stay host numpy arrays of the mode's
 vector dtype, as in the JAX package.
 
-Not ported in this slice, each raising ``RC_NOT_IMPLEMENTED`` with the
-``ROADMAP.md`` queue that brings it: the batch, session and telemetry
-entry points and the fleet front behind them (A.7, A.8), the
+The batched solve (``solver_solve_batch`` and its accessors) runs on
+the port's serve layer (``amgx_tpu_torch.serve``).  Not ported, each
+raising ``RC_NOT_IMPLEMENTED`` with the ``ROADMAP.md`` queue that
+brings it: the session and telemetry entry points, the fleet front and
+admission gateway of the batched solve (A.7, A.8), the
 distribution handles, partition data, one-ring maps, distributed
 reads and writes and setup on more than one device (A.9).
 """
@@ -200,6 +202,11 @@ class _SolverHandle:
         self.cfg = cfg
         self.solver = None
         self.result = None
+        # the batched solve's service, its in-flight tickets and its
+        # per-system results (solver_solve_batch)
+        self.batch_service = None
+        self.batch_pending = None
+        self.batch_results = None
 
 
 class _EigSolverHandle:
@@ -605,6 +612,11 @@ def vector_set_random(vec_h: int, n: int):
 
 def vector_download(vec_h: int) -> np.ndarray:
     v = _get(vec_h, _Vector)
+    owner = getattr(v, "_batch_owner", None)
+    if owner is not None:
+        # the solution vector of an in-flight batched solve: read it
+        # (and its groupmates) now
+        _drain_batch(owner)
     if v.data is None:
         raise AMGXError(RC_BAD_PARAMETERS, "vector empty")
     # always the mode's dtype: the C caller sizes its buffer by the mode
@@ -764,25 +776,154 @@ def solver_destroy(slv_h):
 
 
 # ---------------------------------------------------------------------------
-# batched solves, telemetry and streaming sessions: the serving tier
-# (queue A.7; with the fleet front of A.8 behind them)
+# batched solves (the serve layer); telemetry and streaming sessions
+# are the rest of the serving tier (queue A.7)
+
+
+def _batch_service(s):
+    """The solver handle's batch service, built at its first batched
+    solve from the handle's config on the mode's device (the JAX
+    package's ``_ensure_batch_front`` without its fleet front and
+    admission gateway, queue A.7 / A.8)."""
+    svc = getattr(s, "batch_service", None)
+    if svc is None:
+        from amgx_tpu_torch.serve import BatchedSolveService
+
+        svc = s.batch_service = BatchedSolveService(
+            config=s.cfg.cfg, device=s.mode.device)
+    return svc
 
 
 def solver_solve_batch(slv_h: int, mtx_handles, rhs_handles, sol_handles):
-    _not_ported("solver_solve_batch (and the fleet front behind it, "
-                "A.8)", _A7)
+    """Solve N independent systems through the serve layer
+    (``amgx_tpu_torch.serve``): systems that share a sparsity pattern
+    run as batched groups with one setup per pattern.  The first call
+    builds the handle's service from its config; later calls reuse its
+    caches.  An uploaded solution vector warm-starts its system.
+
+    The results are read at the first accessor
+    (``solver_get_batch_status`` / ``_iterations_number`` /
+    ``_metrics``, or ``vector_download`` of one of the solution
+    vectors), which writes every solution into its vector.  A system
+    refused or failed with a typed error (non-finite values, a failed
+    setup) fails alone: its status is FAILED and its vector keeps what
+    it held.  The call returns RC_OK once the batch ran."""
+    from amgx_tpu_torch.core.errors import AMGXTPUError
+
+    s = _get(slv_h, _SolverHandle)
+    mtx_handles = list(mtx_handles)
+    rhs_handles = list(rhs_handles)
+    sol_handles = list(sol_handles)
+    if not (len(mtx_handles) == len(rhs_handles) == len(sol_handles)):
+        raise AMGXError(RC_BAD_PARAMETERS,
+                        "solver_solve_batch: handle lists must have equal "
+                        "length")
+    _drain_batch(s)
+    if not mtx_handles:
+        s.batch_results = []
+        return RC_OK
+    svc = _batch_service(s)
+    systems = []
+    for mh, rh, sh in zip(mtx_handles, rhs_handles, sol_handles):
+        m = _get(mh, _Matrix)
+        r = _get(rh, _Vector)
+        if m.A is None:
+            raise AMGXError(RC_BAD_PARAMETERS, "matrix not uploaded")
+        if r.data is None:
+            raise AMGXError(RC_BAD_PARAMETERS, "rhs not uploaded")
+        sol = _get(sh, _Vector)
+        x0 = None if sol.data is None else sol.data.astype(s.mode.vec_np)
+        systems.append((m.A.astype(s.mode.mat_dtype),
+                        r.data.astype(s.mode.vec_np), x0))
+    pending = []
+    for sys_, sh in zip(systems, sol_handles):
+        n = sys_[0].n_rows * sys_[0].block_size
+        try:
+            t = svc.submit(*sys_)
+        except AMGXTPUError:
+            t = None  # a typed refusal fails only this system
+        else:
+            _get(sh, _Vector)._batch_owner = s
+        pending.append((t, n, sh))
+    svc.flush()
+    s.batch_pending = pending
+    s.batch_results = None
+    return RC_OK
+
+
+def _batch_failed_result(n, s):
+    """A system's failed result: status FAILED, NaN norms."""
+    from amgx_tpu_torch.solvers.base import FAILED, SolveResult
+
+    rdt = np.dtype(s.mode.vec_np)
+    if rdt.kind == "c":
+        rdt = np.dtype(np.float64 if rdt.itemsize == 16 else np.float32)
+    return SolveResult(x=torch.zeros(n, dtype=s.mode.vec_dtype), iters=0,
+                       status=FAILED, final_norm=np.full((1,), np.nan, rdt),
+                       initial_norm=np.full((1,), np.nan, rdt),
+                       history=np.full((1, 1), np.nan, rdt))
+
+
+def _drain_batch(s):
+    """Read an in-flight batched solve's results: each solution into its
+    vector, each system's result kept.  A no-op when none is pending."""
+    from amgx_tpu_torch.core.errors import AMGXTPUError
+
+    pending = getattr(s, "batch_pending", None)
+    if pending is None:
+        return
+    s.batch_pending = None
+    results = []
+    for t, n, sh in pending:
+        try:
+            v = _get(sh, _Vector)
+        except AMGXError:
+            v = None  # the vector was destroyed while the batch ran
+        if v is not None and getattr(v, "_batch_owner", None) is s:
+            v._batch_owner = None
+        if t is None:
+            results.append(_batch_failed_result(n, s))
+            continue
+        try:
+            res = t.result()
+        except AMGXTPUError:
+            res = _batch_failed_result(n, s)
+        else:
+            if v is not None:
+                v.data = np.asarray(host_array(res.x), dtype=v.mode.vec_np)
+        results.append(res)
+    s.batch_results = results
+    if results:
+        s.result = results[-1]
+
+
+def _batch_result(slv_h, idx):
+    s = _get(slv_h, _SolverHandle)
+    _drain_batch(s)
+    results = getattr(s, "batch_results", None)
+    if results is None:
+        raise AMGXError(RC_BAD_PARAMETERS, "no batch solve yet")
+    if not 0 <= idx < len(results):
+        raise AMGXError(RC_BAD_PARAMETERS, f"batch index {idx} invalid")
+    return results[idx]
 
 
 def solver_get_batch_status(slv_h: int, idx: int) -> int:
-    _not_ported("solver_get_batch_status", _A7)
+    return int(_batch_result(slv_h, idx).status)
 
 
 def solver_get_batch_iterations_number(slv_h: int, idx: int) -> int:
-    _not_ported("solver_get_batch_iterations_number", _A7)
+    return int(_batch_result(slv_h, idx).iters)
 
 
 def solver_get_batch_metrics(slv_h: int) -> dict:
-    _not_ported("solver_get_batch_metrics", _A7)
+    """The handle's serve counters (``ServeMetrics.snapshot``) after any
+    in-flight batch is read; {} before the first batched solve."""
+    s = _get(slv_h, _SolverHandle)
+    if getattr(s, "batch_service", None) is None:
+        return {}
+    _drain_batch(s)
+    return s.batch_service.metrics.snapshot()
 
 
 def solver_get_telemetry(slv_h: int) -> dict:

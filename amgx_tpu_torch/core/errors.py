@@ -4,7 +4,8 @@ Same classes and AMGX_RC codes as the JAX package (reference
 amgx_c.h:52-69): :class:`SetupError` and its subclasses for operators
 that cannot be set up, with input validation at the upload and setup
 boundaries, :class:`ResourceError` for overflow-class failures (the
-classical device setup's ``DeviceSetupOverflow``) and
+classical device setup's ``DeviceSetupOverflow``, the serve layer's
+:class:`DeadlineExceededError`) and
 :class:`StoreError` for the setup store.  ``AMGX_TPU_VALIDATE=0``
 disables validation in both packages.
 """
@@ -55,6 +56,14 @@ class ResourceError(AMGXTPUError):
     failures, exhausted deadlines."""
 
     rc = RC_NO_MEMORY
+
+
+class DeadlineExceededError(ResourceError):
+    """A request's ``deadline_s`` passed before it could be served: at
+    submit (already expired on arrival), at flush (expired while
+    queued) or at the fetch of its group's result (the serve layer,
+    ``amgx_tpu_torch.serve``).  A :class:`ResourceError`, so its RC is
+    ``RC_NO_MEMORY`` as in the JAX package."""
 
 
 class SingularDiagonalError(SetupError):

@@ -145,6 +145,10 @@ class SparseMatrix:
     sell: Optional[SlicedEll] = None
     mf_src: Optional[torch.Tensor] = None
     block_size: int = 1
+    # B for a batched view (``replace_values_batched``): B instances of
+    # this structure, their value tensors with a leading dimension of B;
+    # 0 for a matrix
+    batch: int = 0
     # host CSR triple (numpy) the matrix was built from, the values None
     # until read back (a matrix made by replace_values); read it through
     # ``_host``
@@ -506,6 +510,49 @@ class SparseMatrix:
         return self._propagate_structure_memo(
             dataclasses.replace(self, **rep))
 
+    def replace_values_batched(self, values) -> "SparseMatrix":
+        """A batched view of B instances of this scalar matrix's
+        structure (the serve layer's groups), one row of ``values`` (B,
+        nnz) each, in CSR order: the index arrays are shared, and
+        ``values`` (B, nnz), ``diag`` (B, n_rows), the DIA planes (B, nd,
+        n_rows), the slot-major ELL values (B, w, n_rows) and ``dense``
+        (B, n_rows, n_cols) are refilled on the device through the same
+        source maps as :meth:`replace_values` (a scatter for dense), so
+        each instance's arrays are what ``replace_values`` gives it.
+        The view keeps no sliced ELL layout (the batched kernel is
+        slot-major) and no host triple; ``spmv`` takes it with x (B,
+        n_cols).  Not for block or MATRIX_FREE matrices."""
+        if self.block_size != 1 or self.has_matrix_free or self.batch:
+            raise NotImplementedError(
+                "replace_values_batched: scalar matrices without the "
+                "MATRIX_FREE format only, and not a batched view")
+        if isinstance(values, torch.Tensor):
+            v = values.to(device=self.device, dtype=self.dtype)
+        else:
+            v = to_tensor(np.asarray(values), self.device).to(self.dtype)
+        if v.dim() != 2 or v.shape[1] != self.nnz:
+            raise ValueError(
+                f"replace_values_batched: values {tuple(v.shape)} for "
+                f"{self.nnz} stored entries; expected (B, nnz)")
+        v = v.contiguous()
+        B = int(v.shape[0])
+        maps = self._src_maps()
+        rep = {"values": v, "diag": _gather_src_batched(maps["diag"], v),
+               "sell": None, "batch": B,
+               "_host_csr": (self._host_csr[0], self._host_csr[1], None)}
+        if self.has_dia:
+            rep["dia_vals"] = _gather_src_batched(maps["dia"], v)
+        if self.has_dense:
+            m, k = self.dense.shape
+            flat = (self.row_ids.long() * k + self.col_indices.long())
+            rep["dense"] = torch.zeros(
+                (B, m * k), dtype=v.dtype, device=v.device
+            ).index_add_(1, flat, v).reshape(B, m, k)
+        if self.has_ell:
+            rep["ell_vals"] = _gather_src_batched(maps["ell"], v)
+        return self._propagate_structure_memo(
+            dataclasses.replace(self, **rep))
+
     def astype(self, dtype) -> "SparseMatrix":
         """The same matrix with values of ``dtype`` (torch.bfloat16,
         float32 or float64, or a numpy dtype or name of one), every
@@ -640,6 +687,14 @@ def _gather_src(src, values):
     mask = (src >= 0).reshape(src.shape + (1,) * (values.dim() - 1))
     return torch.where(mask, v, torch.zeros((), dtype=v.dtype,
                                             device=v.device))
+
+
+def _gather_src_batched(src, values):
+    """:func:`_gather_src` of each row of ``values`` (B, nnz): (B,) +
+    ``src.shape``."""
+    v = values[:, src.clamp(min=0)]
+    return torch.where(src >= 0, v, torch.zeros((), dtype=v.dtype,
+                                                device=v.device))
 
 
 def sparsity_fingerprint(row_offsets, col_indices, n_rows, n_cols,

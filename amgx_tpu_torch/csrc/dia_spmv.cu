@@ -61,6 +61,17 @@
 //     of X, each term rounded in X (Term<1>), so that they too return the
 //     plain version's bits.
 //
+// Batched entry points (dia_spmv_batched_f32 / _f64, for the serve
+// layer's groups of same-pattern systems, amgx_tpu_torch/serve): B
+// instances of one structure, planes (B, nd, n) (or one (nd, n) set
+// shared by every instance: a batch stride of 0), x and y (B, n).  The
+// batch is the grid's y axis; each instance runs the unbatched kernel's
+// code on its own slices with the same launch plan, so each instance's y
+// is the unbatched entry point's bit for bit.  This is the TPU package's
+// _dia_kernel under jax.vmap (amgx_tpu/serve/batched.py), whose batch
+// Pallas adds as an outer grid axis.  Bound: bytes, B times the
+// unbatched call's planes, x and y (the planes once when shared).
+//
 // Plain C interface, loaded with ctypes (amgx_tpu_torch/ops/kernels.py).
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a plan it does not
@@ -301,8 +312,14 @@ __device__ __forceinline__ void add_diagonals(
 template <typename V, typename X, int K, int VEC, int ND>
 __global__ void __launch_bounds__(kThreads, 2)
 dia_spmv_kernel(const V* __restrict__ vals, const X* __restrict__ x,
-                X* __restrict__ y, int64_t n, int nd, const DiaOffsets offs) {
+                X* __restrict__ y, int64_t n, int nd, const DiaOffsets offs,
+                int64_t vstride) {
   using C = typename Compute<X>::type;
+  // instance blockIdx.y of a batch (0 unbatched): its planes start
+  // vstride values in (0: shared), its x and y n values in
+  vals += static_cast<int64_t>(blockIdx.y) * vstride;
+  x += static_cast<int64_t>(blockIdx.y) * n;
+  y += static_cast<int64_t>(blockIdx.y) * n;
   const int64_t i0 =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * VEC;
   if (i0 >= n) return;
@@ -336,14 +353,15 @@ dia_spmv_kernel(const V* __restrict__ vals, const X* __restrict__ x,
 }
 
 template <typename V, typename X, int K, int VEC>
-void launch_vec(int nd_inst, unsigned blocks, cudaStream_t s, const V* vals,
-                const X* x, X* y, int64_t n, int nd, const DiaOffsets& o) {
+void launch_vec(int nd_inst, dim3 grid, cudaStream_t s, const V* vals,
+                const X* x, X* y, int64_t n, int nd, const DiaOffsets& o,
+                int64_t vstride) {
   if (nd_inst == 7) {
-    dia_spmv_kernel<V, X, K, VEC, 7><<<blocks, kThreads, 0, s>>>(
-        vals, x, y, n, nd, o);
+    dia_spmv_kernel<V, X, K, VEC, 7><<<grid, kThreads, 0, s>>>(
+        vals, x, y, n, nd, o, vstride);
   } else {
-    dia_spmv_kernel<V, X, K, VEC, 0><<<blocks, kThreads, 0, s>>>(
-        vals, x, y, n, nd, o);
+    dia_spmv_kernel<V, X, K, VEC, 0><<<grid, kThreads, 0, s>>>(
+        vals, x, y, n, nd, o, vstride);
   }
 }
 
@@ -353,9 +371,12 @@ bool aligned(const void* p, long long bytes) {
 
 // a: nd, nd_inst, vec, threads, blocks, then the nd offsets (see
 // dia_spmv_f32).  A vector of the wider of V and X is at most 16 bytes.
+// batch instances (the grid's y axis, at most 65535), their planes
+// shared when `shared` is set
 template <typename V, typename X, int K>
 int launch(const void* vals, const void* x, void* y, long long n,
-           const int* a, void* stream) {
+           const int* a, void* stream, long long batch = 1,
+           int shared = 0) {
   constexpr int kWide = static_cast<int>(sizeof(V) > sizeof(X) ? sizeof(V)
                                                                : sizeof(X));
   constexpr int kMaxVec = 16 / kWide;
@@ -372,7 +393,7 @@ int launch(const void* vals, const void* x, void* y, long long n,
   const long long vbytes = static_cast<long long>(vec) * sizeof(V);
   const long long xbytes = static_cast<long long>(vec) * sizeof(X);
   ok = ok && aligned(vals, vbytes) && aligned(x, xbytes) &&
-       aligned(y, xbytes);
+       aligned(y, xbytes) && batch >= 1 && batch <= 65535;
   DiaOffsets o{};
   for (int k = 0; ok && k < nd; ++k) {
     ok = offsets[k] > -n && offsets[k] < n;
@@ -383,16 +404,17 @@ int launch(const void* vals, const void* x, void* y, long long n,
   const V* v = static_cast<const V*>(vals);
   const X* xx = static_cast<const X*>(x);
   X* yy = static_cast<X*>(y);
-  const unsigned g = static_cast<unsigned>(blocks);
+  const dim3 g(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
+  const int64_t vs = shared ? 0 : static_cast<int64_t>(nd) * n;
   if (vec == 1) {
-    launch_vec<V, X, K, 1>(nd_inst, g, s, v, xx, yy, n, nd, o);
+    launch_vec<V, X, K, 1>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
   } else if (vec == 2) {
-    launch_vec<V, X, K, 2>(nd_inst, g, s, v, xx, yy, n, nd, o);
+    launch_vec<V, X, K, 2>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
   } else if constexpr (kMaxVec >= 4) {
     if (vec == 4) {
-      launch_vec<V, X, K, 4>(nd_inst, g, s, v, xx, yy, n, nd, o);
+      launch_vec<V, X, K, 4>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
     } else if constexpr (kMaxVec >= 8) {
-      launch_vec<V, X, K, 8>(nd_inst, g, s, v, xx, yy, n, nd, o);
+      launch_vec<V, X, K, 8>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -434,4 +456,21 @@ extern "C" int dia_spmv_f32_f64(const void* vals, const void* x, void* y,
 extern "C" int dia_spmv_bf16_f32(const void* vals, const void* x, void* y,
                                  long long n, const int* plan, void* stream) {
   return launch<bf16, float, 1>(vals, x, y, n, plan, stream);
+}
+
+// batch instances of one structure: planes (batch, nd, n), or one (nd,
+// n) set shared by all (shared != 0); x and y (batch, n); the plan is
+// the unbatched one for n rows (each instance's rows start at a multiple
+// of n, so the plan's vectors stay aligned)
+extern "C" int dia_spmv_batched_f32(const void* vals, const void* x, void* y,
+                                    long long n, long long batch, int shared,
+                                    const int* plan, void* stream) {
+  return launch<float, float, 0>(vals, x, y, n, plan, stream, batch, shared);
+}
+
+extern "C" int dia_spmv_batched_f64(const void* vals, const void* x, void* y,
+                                    long long n, long long batch, int shared,
+                                    const int* plan, void* stream) {
+  return launch<double, double, 0>(vals, x, y, n, plan, stream, batch,
+                                   shared);
 }

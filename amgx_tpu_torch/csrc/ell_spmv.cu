@@ -88,6 +88,18 @@
 //     parts in another order, within a tolerance.
 // A bf16 value moves 2 bytes (a slot 6, column id included).
 //
+// Batched entry points (ell_spmv_batched_f32 / _f64, for the serve
+// layer's groups of same-pattern systems, amgx_tpu_torch/serve): B
+// instances of one slot-major structure, cols (w, n) shared, values (B,
+// w, n) or one (w, n) set shared by every instance (a batch stride of 0:
+// the AMG transfers, whose setup-time weights every instance keeps), x
+// (B, m) and y (B, n).  The batch is the grid's y axis and each instance
+// runs the unbatched kernel's loop on its own slices, so its y is the
+// unbatched entry point's bit for bit.  This is the TPU package's
+// _well_kernel under jax.vmap (amgx_tpu/serve/batched.py).  Bound:
+// bytes, the column ids once, the values once or B times, x and y B
+// times.
+//
 // Plain C interface, loaded with ctypes (amgx_tpu_torch/ops/kernels.py).
 
 #include <cstdint>
@@ -107,8 +119,13 @@ template <typename V, typename X, typename Y, int K>
 __global__ void __launch_bounds__(kThreads)
 ell_spmv_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
                 int w, const X* __restrict__ x, Y* __restrict__ y,
-                int64_t n) {
+                int64_t n, int64_t m, int64_t vstride) {
   using C = typename Compute<Y>::type;
+  // instance blockIdx.y of a batch (0 unbatched): its values start
+  // vstride in (0: shared), its x m and its y n values in
+  vals += static_cast<int64_t>(blockIdx.y) * vstride;
+  x += static_cast<int64_t>(blockIdx.y) * m;
+  y += static_cast<int64_t>(blockIdx.y) * n;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
@@ -199,17 +216,26 @@ sell_spmv_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
   }
 }
 
+// batch instances (the grid's y axis, at most 65535) of m columns,
+// their values shared when `shared` is set
 template <typename V, typename X, typename Y, int K>
 int launch(const void* cols, const void* vals, int w, const void* x,
-           void* y, long long n, void* stream) {
+           void* y, long long n, void* stream, long long m = 0,
+           long long batch = 1, int shared = 1) {
   if (n <= 0) return 0;
+  if (batch < 1 || batch > 65535 || m < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  ell_spmv_kernel<V, X, Y, K><<<static_cast<unsigned>(blocks), kThreads, 0,
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(batch));
+  ell_spmv_kernel<V, X, Y, K><<<grid, kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(cols), static_cast<const V*>(vals), w,
       static_cast<const X*>(x), static_cast<Y*>(y),
-      static_cast<int64_t>(n));
+      static_cast<int64_t>(n), static_cast<int64_t>(m),
+      shared ? 0 : static_cast<int64_t>(w) * n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -340,4 +366,25 @@ extern "C" int sell_spmv_bf16_f32(const void* cols, const void* vals,
   if (lanes != 1) return cudaErrorInvalidValue;
   return launch_sell_l<bf16, float, 1, 1>(cols, vals, offsets, widths, rows,
                                           n_slices, x, y, n, stream);
+}
+
+// batch instances of one slot-major structure: cols (w, n), values
+// (batch, w, n) or one (w, n) set shared by all (shared != 0), x (batch,
+// m), y (batch, n)
+extern "C" int ell_spmv_batched_f32(const void* cols, const void* vals,
+                                    int w, const void* x, void* y,
+                                    long long n, long long m,
+                                    long long batch, int shared,
+                                    void* stream) {
+  return launch<float, float, float, 0>(cols, vals, w, x, y, n, stream, m,
+                                        batch, shared);
+}
+
+extern "C" int ell_spmv_batched_f64(const void* cols, const void* vals,
+                                    int w, const void* x, void* y,
+                                    long long n, long long m,
+                                    long long batch, int shared,
+                                    void* stream) {
+  return launch<double, double, double, 0>(cols, vals, w, x, y, n, stream,
+                                           m, batch, shared);
 }

@@ -55,3 +55,22 @@ def poisson_rhs(n, dtype=np.float64, seed=0):
     """Deterministic right-hand side (numpy, the JAX package's seed)."""
     rng = np.random.default_rng(seed)
     return rng.standard_normal(n).astype(dtype)
+
+
+def jittered_poisson_family(shape, count, seed=0, jitter=0.08):
+    """``count`` SPD scipy systems sharing the Poisson sparsity pattern,
+    each with its own coefficient jitter, and random right-hand sides
+    (the JAX package's ``jittered_poisson_family``, the workload of the
+    serve layer): a list of (csr_matrix, rhs) pairs, host numpy."""
+    rng = np.random.default_rng(seed)
+    base = poisson_scipy(shape).tocsr()
+    n = base.shape[0]
+    out = []
+    for _ in range(count):
+        sp = base.copy()
+        sp.data = sp.data * (1.0 + jitter * rng.standard_normal(sp.nnz))
+        sp = (sp + sp.T) * 0.5 + sps.eye_array(n) * 0.5
+        sp = sp.tocsr()
+        sp.sort_indices()
+        out.append((sp, rng.standard_normal(n)))
+    return out

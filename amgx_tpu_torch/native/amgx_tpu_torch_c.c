@@ -548,8 +548,9 @@ AMGX_RC AMGX_solver_get_iteration_residual(AMGX_solver_handle slv, int it,
   LEAVE_RET(AMGX_RC_OK);
 }
 
-/* Batched solve of n systems (the serving tier, queue A.7): not
- * ported yet, so the handle layer returns AMGX_RC_NOT_IMPLEMENTED. */
+/* Batched solve of n systems through the serve layer
+ * (amgx_tpu_torch.serve); per-system results through the handle
+ * layer's batch accessors. */
 AMGX_RC AMGX_solver_solve_batch(AMGX_solver_handle slv, int n,
                                 const AMGX_matrix_handle *mtx,
                                 const AMGX_vector_handle *rhs,

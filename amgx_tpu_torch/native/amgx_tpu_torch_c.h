@@ -119,7 +119,7 @@ AMGX_RC AMGX_solver_get_status(AMGX_solver_handle slv,
 AMGX_RC AMGX_solver_get_iterations_number(AMGX_solver_handle slv, int *n);
 AMGX_RC AMGX_solver_get_iteration_residual(AMGX_solver_handle slv, int it,
                                            int idx, double *res);
-/* batched solves (not ported yet: AMGX_RC_NOT_IMPLEMENTED) */
+/* batched solves (the serve layer) */
 AMGX_RC AMGX_solver_solve_batch(AMGX_solver_handle slv, int n,
                                 const AMGX_matrix_handle *mtx,
                                 const AMGX_vector_handle *rhs,

@@ -47,19 +47,28 @@ def make_site_counter(slot: str):
 
 def dot(x, y):
     """<x, y> with complex conjugation on the first argument, as a
-    0-dim tensor on the device (no host sync)."""
+    0-dim tensor on the device (no host sync).  For a batch of vectors,
+    x and y (B, n), the B products as a (B, 1) tensor, each reduced over
+    its row (the serve layer's batched solves; the 1-D path is not
+    touched)."""
+    if x.dim() == 2:
+        if x.is_complex():
+            x = x.conj()
+        return torch.sum(x * y, dim=-1, keepdim=True)
     if x.is_complex():
         return torch.vdot(x, y)
     return torch.dot(x, y)
 
 
 def fused_dots(pairs):
-    """k dot products as one stacked reduction -> (k,) tensor."""
+    """k dot products as one stacked reduction -> (k,) tensor; for
+    batched (B, n) vectors a (k, B, 1) tensor, so that each of the k
+    unpacks to (B, 1) scalars."""
     xs = torch.stack([p[0] for p in pairs])
     ys = torch.stack([p[1] for p in pairs])
     if xs.is_complex():
         xs = xs.conj()
-    return torch.sum(xs * ys, dim=1)
+    return torch.sum(xs * ys, dim=-1, keepdim=xs.dim() > 2)
 
 
 def gram_block(X, Y):

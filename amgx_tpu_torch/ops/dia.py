@@ -23,9 +23,13 @@ operators meet, and for (f32, f64) and (bf16, f32), the operators of the
 C API's mixed modes (dDFI / dIFI, dFBI) under their wider vectors
 (``csrc/dtypes.cuh``); another pair on the card raises.
 
-``launches`` counts kernel launches (never plain-version calls) and
-``variant_launches`` the same per entry point; reset them by assigning
-0 and an empty dict.
+``dia_spmv_batched`` is the serve layer's entry (B instances of one
+structure, the batch a grid axis of the same kernel).
+
+``launches`` counts kernel launches of ``dia_spmv`` (never
+plain-version calls), ``batched_launches`` those of
+``dia_spmv_batched``, and ``variant_launches`` both per entry point;
+reset them by assigning 0 and an empty dict.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch.nn.functional as F
 from amgx_tpu_torch.ops import kernels
 
 launches = 0
+batched_launches = 0
 variant_launches: dict = {}
 # the kernel takes at most this many offsets by value (the format's own
 # limit, core/matrix.py _DIA_MAX_DIAGS)
@@ -205,5 +210,82 @@ def dia_spmv(dia_vals, offsets, x):
             kernels.stream_handle(x.device))
     kernels.check_launch("dia_spmv", rc)
     launches += 1
+    variant_launches[entry] = variant_launches.get(entry, 0) + 1
+    return y
+
+
+def dia_spmv_batched_plain(dia_vals, offsets, x):
+    """:func:`dia_spmv_plain` over a leading batch dimension: ``x`` (B,
+    n), ``dia_vals`` (B, nd, n) or (nd, n) shared by every instance;
+    each instance's row sums run in offset order from +0.0, as the
+    unbatched version's."""
+    offs = tuple(int(o) for o in offsets)
+    n = dia_vals.shape[-1]
+    pneg = max(0, -min(offs))
+    ppos = max(0, max(offs))
+    xpad = F.pad(x, (pneg, ppos))
+    y = torch.zeros(x.shape[:-1] + (n,),
+                    dtype=torch.promote_types(dia_vals.dtype, x.dtype),
+                    device=x.device)
+    for k, off in enumerate(offs):
+        y = y + dia_vals[..., k, :] * xpad[..., off + pneg:off + pneg + n]
+    return y
+
+
+def dia_spmv_batched(dia_vals, offsets, x):
+    """y = A_b @ x_b for B instances of one square DIA structure (the
+    serve layer's groups): ``dia_vals`` (B, nd, n), or (nd, n) shared by
+    every instance, ``offsets`` the nd sorted host ints, ``x`` (B, n).
+    On the card the ``dia_spmv_batched`` kernel (f32, f64) with the
+    unbatched launch plan, the batch a grid axis: each instance's y is
+    :func:`dia_spmv`'s bit for bit.  Counted in ``batched_launches``
+    and ``variant_launches``."""
+    global batched_launches
+    if x.dim() != 2 or dia_vals.dim() not in (2, 3):
+        raise ValueError(
+            f"dia_spmv_batched: dia_vals {tuple(dia_vals.shape)}, x "
+            f"{tuple(x.shape)}")
+    B, n = x.shape
+    shared = dia_vals.dim() == 2
+    nd = dia_vals.shape[-2]
+    if dia_vals.shape[-1] != n or (not shared and dia_vals.shape[0] != B):
+        raise ValueError(
+            f"dia_spmv_batched: dia_vals {tuple(dia_vals.shape)} and x "
+            f"{tuple(x.shape)} do not form a batched square DIA product")
+    if len(offsets) != nd:
+        raise ValueError(
+            f"dia_spmv_batched: {len(offsets)} offsets for {nd} planes")
+    if x.device.type == "cpu":
+        return dia_spmv_batched_plain(dia_vals, _host_offsets(offsets), x)
+    if x.device.type != "cuda" or dia_vals.device != x.device:
+        raise ValueError(
+            "dia_spmv_batched: all tensors must be on one CUDA device")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"dia_spmv_batched: tensors on {x.device} but the current "
+            f"device is cuda:{torch.cuda.current_device()}")
+    entry = (kernels.entry_point("dia_spmv_batched", dia_vals.dtype,
+                                 x.dtype) if dia_vals.dtype == x.dtype
+             else None)
+    if entry is None:
+        raise NotImplementedError(
+            f"dia_spmv_batched: dtypes {dia_vals.dtype}/{x.dtype}; the "
+            "kernel takes float32 or float64 planes with x of their dtype")
+    if not (dia_vals.is_contiguous() and x.is_contiguous()):
+        raise ValueError("dia_spmv_batched: inputs must be contiguous")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"dia_spmv_batched: batch {B} outside 1..65535")
+    offs = _host_offsets(offsets)
+    y = torch.empty((B, n), dtype=x.dtype, device=x.device)
+    if n == 0:
+        return y
+    ptrs = dia_vals.data_ptr() | x.data_ptr() | y.data_ptr()
+    _, args = _launch_args(n, offs, dia_vals.dtype, x.dtype,
+                           min(16, ptrs & -ptrs), x.device.index)
+    fn = getattr(kernels.library("dia_spmv"), entry)
+    rc = fn(dia_vals.data_ptr(), x.data_ptr(), y.data_ptr(), n, B,
+            int(shared), args, kernels.stream_handle(x.device))
+    kernels.check_launch("dia_spmv_batched", rc)
+    batched_launches += 1
     variant_launches[entry] = variant_launches.get(entry, 0) + 1
     return y

@@ -30,9 +30,15 @@ last two for unstructured matrices in the C API's mixed modes (dFBI,
 dDFI / dIFI).  bf16 values take one lane a row only, so that their sums
 run in the plain version's order (``csrc/dtypes.cuh``).
 
-``launches`` counts ``ell_spmv`` kernel launches and ``sell_launches``
-those of ``sell_spmv`` (never plain-version calls), ``variant_launches``
-both per entry point; reset them by assigning 0 and an empty dict.
+``ell_spmv_batched`` is the serve layer's entry: B instances of one
+slot-major structure, values batched or shared, the batch a grid axis
+of the ``ell_spmv`` kernel (f32, f64).  The sliced layout has no
+batched kernel; a batched template builds none.
+
+``launches`` counts ``ell_spmv`` kernel launches, ``sell_launches``
+those of ``sell_spmv`` and ``batched_launches`` those of
+``ell_spmv_batched`` (never plain-version calls), ``variant_launches``
+all three per entry point; reset them by assigning 0 and an empty dict.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from amgx_tpu_torch.ops import kernels
 
 launches = 0
 sell_launches = 0
+batched_launches = 0
 variant_launches: dict = {}
 
 # rows per slice: one warp's worth, so one warp's loads of one slot are
@@ -103,6 +110,69 @@ def ell_spmv(ell_cols, ell_vals, x):
             y.data_ptr(), n, kernels.stream_handle(x.device))
     kernels.check_launch("ell_spmv", rc)
     launches += 1
+    variant_launches[entry] = variant_launches.get(entry, 0) + 1
+    return y
+
+
+def ell_spmv_batched_plain(ell_cols, ell_vals, x):
+    """:func:`ell_spmv_plain` over a leading batch dimension: ``x`` (B,
+    m), ``ell_vals`` (B, w, n) or (w, n) shared by every instance; each
+    instance's rows sum in slot order from +0.0."""
+    w, n = ell_cols.shape
+    y = torch.zeros(x.shape[:-1] + (n,),
+                    dtype=torch.promote_types(ell_vals.dtype, x.dtype),
+                    device=x.device)
+    for s in range(w):
+        y = y + ell_vals[..., s, :] * x[..., ell_cols[s]]
+    return y
+
+
+def ell_spmv_batched(ell_cols, ell_vals, x):
+    """y = A_b @ x_b for B instances of one slot-major ELL structure
+    (the serve layer's groups): ``ell_cols`` (w, n_rows) int32 shared,
+    ``ell_vals`` (B, w, n_rows) or (w, n_rows) shared by every instance
+    (AMG's transfers), ``x`` (B, n_cols).  On the card the
+    ``ell_spmv_batched`` kernel (f32, f64), each instance's y
+    :func:`ell_spmv`'s bit for bit."""
+    global batched_launches
+    if x.dim() != 2 or ell_cols.dim() != 2 \
+            or ell_vals.shape[-2:] != ell_cols.shape \
+            or ell_vals.dim() not in (2, 3) \
+            or (ell_vals.dim() == 3 and ell_vals.shape[0] != x.shape[0]):
+        raise ValueError(
+            f"ell_spmv_batched: cols {tuple(ell_cols.shape)}, vals "
+            f"{tuple(ell_vals.shape)}, x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return ell_spmv_batched_plain(ell_cols, ell_vals, x)
+    w, n = ell_cols.shape
+    B, m = x.shape
+    if w > 0 and m == 0:
+        raise ValueError("ell_spmv_batched: stored entries but an empty x")
+    _check_cuda("ell_spmv_batched", x, (ell_cols, ell_vals))
+    entry = (kernels.entry_point("ell_spmv_batched", ell_vals.dtype,
+                                 x.dtype) if ell_vals.dtype == x.dtype
+             else None)
+    if entry is None:
+        raise NotImplementedError(
+            f"ell_spmv_batched: dtypes {ell_vals.dtype}/{x.dtype}; the "
+            "kernel takes float32 or float64 values with x of their dtype")
+    if ell_cols.dtype != torch.int32:
+        raise ValueError(
+            f"ell_spmv_batched: cols must be int32, got {ell_cols.dtype}")
+    if not (ell_cols.is_contiguous() and ell_vals.is_contiguous()
+            and x.is_contiguous()):
+        raise ValueError("ell_spmv_batched: inputs must be contiguous")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"ell_spmv_batched: batch {B} outside 1..65535")
+    y = torch.empty((B, n), dtype=x.dtype, device=x.device)
+    if n == 0:
+        return y
+    fn = getattr(kernels.library("ell_spmv"), entry)
+    rc = fn(ell_cols.data_ptr(), ell_vals.data_ptr(), w, x.data_ptr(),
+            y.data_ptr(), n, m, B, int(ell_vals.dim() == 2),
+            kernels.stream_handle(x.device))
+    kernels.check_launch("ell_spmv_batched", rc)
+    batched_launches += 1
     variant_launches[entry] = variant_launches.get(entry, 0) + 1
     return y
 

@@ -51,17 +51,26 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # lanes, x, y, rows, stream); stencil: (coefs, x, y, host int array of
 # the grid, the launch plan and the steps, stream).  An entry point is
 # named for its value dtype, then for x's where that differs
-# (``ell_spmv_bf16_f32``: bf16 values, f32 x, f32 y)
+# (``ell_spmv_bf16_f32``: bf16 values, f32 x, f32 y).  The batched
+# entry points of the serve layer add the batch and whether its values
+# are shared: DIA (vals, x, y, rows, batch, shared, plan, stream), ELL
+# (cols, vals, width, x, y, rows, columns, batch, shared, stream)
 _DIA = (_P, _P, _P, _LL, _P, _P)
+_DIA_BATCHED = (_P, _P, _P, _LL, _LL, _I, _P, _P)
 _ELL = (_P, _P, _I, _P, _P, _LL, _P)
+_ELL_BATCHED = (_P, _P, _I, _P, _P, _LL, _LL, _LL, _I, _P)
 _SELL = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _P)
 _STENCIL = (_P, _P, _P, _P, _P)
 _SIGNATURES = {
-    "dia_spmv": {f"dia_spmv_{t}": _DIA
-                 for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
+    "dia_spmv": {
+        **{f"dia_spmv_{t}": _DIA
+           for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
+        **{f"dia_spmv_batched_{t}": _DIA_BATCHED for t in ("f32", "f64")},
+    },
     "ell_spmv": {
         **{f"ell_spmv_{t}": _ELL
            for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
+        **{f"ell_spmv_batched_{t}": _ELL_BATCHED for t in ("f32", "f64")},
         **{f"sell_spmv_{t}": _SELL
            for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
     },
@@ -80,8 +89,16 @@ def entry_point(kernel: str, vals_dtype, x_dtype):
     if v is None or x is None:
         return None
     name = f"{kernel}_{v}" if v == x else f"{kernel}_{v}_{x}"
-    lib = "ell_spmv" if kernel == "sell_spmv" else kernel
-    return name if name in _SIGNATURES[lib] else None
+    return name if name in _SIGNATURES[library_of(kernel)] else None
+
+
+def library_of(kernel: str) -> str:
+    """The source (``csrc/<name>.cu``) that holds ``kernel``'s entry
+    points: ``sell_spmv`` and the batched entries live beside their
+    unbatched kernels."""
+    if kernel == "sell_spmv":
+        return "ell_spmv"
+    return kernel.removesuffix("_batched")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

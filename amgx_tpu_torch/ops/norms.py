@@ -1,6 +1,7 @@
 """Vector norms (reference src/norm.cu, types.h:16): L1, L1_SCALED,
 L2, LMAX.  Return tensors on the vector's device: 0-dim from
-:func:`norm`, (b,) per-component norms from :func:`block_norm`."""
+:func:`norm` ((B, 1) for a batch of vectors (B, n)), (b,) per-component
+norms from :func:`block_norm`."""
 
 from __future__ import annotations
 
@@ -10,6 +11,10 @@ from amgx_tpu_torch.core.types import NormType
 
 
 def norm(x, norm_type: NormType = NormType.L2):
+    """The norm of x (0-dim), or of each row of a batch x (B, n): (B,
+    1), reduced over the row."""
+    if x.dim() == 2:
+        return _batched_norm(x, norm_type)
     a = torch.abs(x)
     if norm_type == NormType.L1:
         return torch.sum(a)
@@ -19,6 +24,19 @@ def norm(x, norm_type: NormType = NormType.L2):
         return torch.sqrt(torch.sum(a * a))
     if norm_type == NormType.LMAX:
         return torch.max(a)
+    raise ValueError(f"unknown norm {norm_type}")
+
+
+def _batched_norm(x, norm_type):
+    a = torch.abs(x)
+    if norm_type == NormType.L1:
+        return torch.sum(a, dim=-1, keepdim=True)
+    if norm_type == NormType.L1_SCALED:
+        return torch.sum(a, dim=-1, keepdim=True) / x.shape[-1]
+    if norm_type == NormType.L2:
+        return torch.sqrt(torch.sum(a * a, dim=-1, keepdim=True))
+    if norm_type == NormType.LMAX:
+        return torch.amax(a, dim=-1, keepdim=True)
     raise ValueError(f"unknown norm {norm_type}")
 
 

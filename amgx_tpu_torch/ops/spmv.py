@@ -32,6 +32,18 @@ Every branch returns the dtype the JAX package's returns: the
 promoted dtype of the matrix values and x (bf16 with bf16 x, f32 with
 bf16 values and f32 x, ...).
 
+Batched products (the serve layer's groups of same-structure systems):
+x of shape (B, n_cols) with a batched view of A
+(``SparseMatrix.replace_values_batched``, values with a leading B) or
+with a matrix shared by every instance (AMG's transfers) gives y (B,
+n_rows), through :func:`_spmv_batched`: the ``dia_spmv_batched`` and
+``ell_spmv_batched`` kernels on the card (a sliced matrix takes its
+slot-major arrays, which it keeps beside the sliced ones), a batched
+``torch.matmul`` for dense (the JAX package leaves it to XLA) and the
+CSR products of each instance through :func:`segment_sum` (the
+unbatched path's row order; ``csr_products`` counts them).  Scalar
+matrices only; MATRIX_FREE has no batched form.
+
 ``op_pass_counter`` mirrors the JAX package's counter of the same name:
 every SpMV with a square operator records one pass while a counter is
 active, so running one cycle under it counts the cycle's passes.
@@ -45,8 +57,8 @@ from __future__ import annotations
 import torch
 
 from amgx_tpu_torch.ops.blas import make_site_counter
-from amgx_tpu_torch.ops.dia import dia_spmv
-from amgx_tpu_torch.ops.ell import ell_spmv, sell_spmv
+from amgx_tpu_torch.ops.dia import dia_spmv, dia_spmv_batched
+from amgx_tpu_torch.ops.ell import ell_spmv, ell_spmv_batched, sell_spmv
 from amgx_tpu_torch.ops.stencil import stencil_spmv
 
 record_op_pass, op_pass_counter = make_site_counter("op_pass")
@@ -59,6 +71,11 @@ def spmv(A, x, n_rows: int | None = None):
     keeps a leading window of that many (block) rows of y."""
     if A.is_square:
         record_op_pass()
+    if A.batch or x.dim() == 2:
+        y = _spmv_batched(A, x)
+        if n_rows is not None and n_rows != A.n_rows:
+            y = y[..., :n_rows]
+        return y
     b = A.block_size
     if b == 1:
         y = _spmv_scalar(A, x)
@@ -85,6 +102,33 @@ def _spmv_scalar(A, x):
     if x.device.type == "cuda":
         csr_products += 1
     return segment_sum(A.values * x[A.col_indices], A.row_offsets)
+
+
+def _spmv_batched(A, x):
+    """(B, n_rows) products of a batched view of A (or of A shared by
+    every instance) with x (B, n_cols)."""
+    global csr_products
+    if x.dim() != 2 or (A.batch and x.shape[0] != A.batch):
+        raise ValueError(
+            f"batched spmv: x {tuple(x.shape)} for a batch of {A.batch}")
+    if A.block_size != 1 or A.has_matrix_free:
+        raise NotImplementedError(
+            "batched spmv: scalar matrices without the MATRIX_FREE format "
+            "only (ROADMAP.md, queue A: serving tier)")
+    if A.has_dia:
+        return dia_spmv_batched(A.dia_vals, A.dia_offsets, x)
+    if A.has_dense:
+        dt = torch.promote_types(A.dense.dtype, x.dtype)
+        d, xd = A.dense.to(dt), x.to(dt)
+        if A.batch:
+            return torch.matmul(d, xd.unsqueeze(-1)).squeeze(-1)
+        return torch.matmul(xd, d.T)
+    if A.has_ell:
+        return ell_spmv_batched(A.ell_cols, A.ell_vals, x)
+    if x.device.type == "cuda":
+        csr_products += 1
+    contrib = A.values * x[:, A.col_indices]
+    return segment_sum(contrib.T.contiguous(), A.row_offsets).T.contiguous()
 
 
 def _spmv_block(A, x2d):

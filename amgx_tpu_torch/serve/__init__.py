@@ -1,0 +1,55 @@
+"""Batched solve service (the JAX package's ``amgx_tpu.serve``, its
+core): many independent sparse solves that share sparsity patterns run
+as a few batched groups on one device.
+
+  * :func:`~amgx_tpu_torch.serve.bucketing.pad_pattern` pads each
+    request to a (n, nnz, batch) bucket;
+  * :class:`~amgx_tpu_torch.serve.cache.HierarchyCache` keeps one setup
+    per (padded fingerprint, config, dtype) for every later coefficient
+    set;
+  * :func:`~amgx_tpu_torch.serve.batched.make_batched_solve` runs a
+    group's masked-convergence solve on the batched DIA and ELL kernels
+    (converged instances freeze);
+  * :class:`~amgx_tpu_torch.serve.metrics.ServeMetrics` holds the
+    counters.
+
+Entry point::
+
+    from amgx_tpu_torch.serve import BatchedSolveService
+    svc = BatchedSolveService(device="cuda")   # PCG + BLOCK_JACOBI
+    results = svc.solve_many([(A0, b0), (A1, b1), ...])
+
+The gateway, admission, retries, placement, sessions, telemetry and
+warm boot of the JAX package's serving tier are not ported
+(ROADMAP.md, queue A.7).
+"""
+
+from amgx_tpu_torch.serve.batched import make_batched_solve
+from amgx_tpu_torch.serve.bucketing import bucket_batch, pad_pattern
+from amgx_tpu_torch.serve.cache import HierarchyCache, config_hash
+from amgx_tpu_torch.serve.metrics import ServeMetrics
+from amgx_tpu_torch.serve.service import (
+    CHEAP_PRECONDITIONER_CONFIG,
+    COMM_AVOIDING_CONFIG,
+    DEFAULT_CONFIG,
+    BatchedSolveService,
+    SolveTicket,
+)
+
+# the serving stack's name for the service
+SolveService = BatchedSolveService
+
+__all__ = [
+    "BatchedSolveService",
+    "SolveService",
+    "DEFAULT_CONFIG",
+    "COMM_AVOIDING_CONFIG",
+    "CHEAP_PRECONDITIONER_CONFIG",
+    "SolveTicket",
+    "HierarchyCache",
+    "ServeMetrics",
+    "make_batched_solve",
+    "pad_pattern",
+    "bucket_batch",
+    "config_hash",
+]

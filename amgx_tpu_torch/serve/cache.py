@@ -1,0 +1,199 @@
+"""Hierarchy cache: one solver setup per (padded sparsity fingerprint,
+config, dtype), shared by every request that reuses the pattern (the
+JAX package's ``serve/cache.py``).
+
+The service-side form of ``AMGX_solver_resetup`` /
+``structure_reuse_levels``: the hierarchy STRUCTURE (aggregates,
+transfer weights, Galerkin plans, colourings) is the one computed from
+the first-seen coefficient set; later coefficient sets re-evaluate the
+values only, through the solver's batch rebuild
+(``make_batch_params``, ``serve/batched.py``).
+
+:class:`CompileCache` is the port's counterpart of the JAX package's
+cache of compiled executables: PyTorch runs eagerly, so what it keeps
+per (template signature, batch bucket) is the built batched-solve
+callable, which every entry of an equal signature reuses with its own
+template.  ``compiles`` counts its builds and ``bucket_hits`` its
+hits, so the JAX package's counter contracts carry over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from collections import OrderedDict
+from typing import Callable, Optional
+
+import torch
+
+from amgx_tpu_torch.serve.bucketing import PaddedPattern
+from amgx_tpu_torch.serve.metrics import ServeMetrics
+
+
+def config_hash(cfg) -> str:
+    """Stable content hash of an AMGConfig (the store keys on it too)."""
+    return cfg.content_hash()
+
+
+@dataclasses.dataclass
+class HierarchyEntry:
+    """One cached setup: the template solver, its batch template and
+    its batched solve (None: no batched path, the service solves each
+    request in turn)."""
+
+    solver: object  # set-up Solver (on the padded template matrix)
+    template: object  # batch-params template (None: no batched path)
+    batch_fn: Optional[Callable]  # fn(template, vals_B, b_B, x0_B)
+    signature: object  # hashable description of the template
+    pattern: PaddedPattern
+    # serializes resetup + solve on the SHARED template solver (the
+    # sequential fallback and quarantine paths mutate it)
+    solver_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock
+    )
+
+
+def template_signature(template) -> tuple:
+    """Hashable description of a batch template: its nesting, and for
+    each matrix its shape, nonzeros, dtype, format and the format's
+    static layout (DIA offsets, ELL width, dense shape), for each tensor
+    its shape and dtype.  Two entries with equal signatures and config
+    run the same batched solve on their own templates, so they share
+    one built callable (the JAX package's treedef-and-leaf-shapes
+    signature)."""
+    from amgx_tpu_torch.core.matrix import SparseMatrix
+
+    def sig(node):
+        if node is None or isinstance(node, (int, float, str, bool)):
+            return node
+        if isinstance(node, torch.Tensor):
+            return ("T", tuple(node.shape), str(node.dtype))
+        if isinstance(node, SparseMatrix):
+            return ("M", node.n_rows, node.n_cols, node.nnz,
+                    node.block_size, str(node.dtype), node.format,
+                    node.dia_offsets,
+                    None if node.ell_cols is None
+                    else tuple(node.ell_cols.shape),
+                    None if node.dense is None else tuple(node.dense.shape))
+        if isinstance(node, dict):
+            return ("D",) + tuple((k, sig(v)) for k, v in sorted(
+                node.items()))
+        if isinstance(node, (tuple, list)):
+            return ("S",) + tuple(sig(v) for v in node)
+        if dataclasses.is_dataclass(node):
+            return (type(node).__name__,) + tuple(
+                (f.name, sig(getattr(node, f.name)))
+                for f in dataclasses.fields(node))
+        raise TypeError(
+            f"template_signature: no signature for {type(node).__name__}")
+
+    return sig(template)
+
+
+class HierarchyCache:
+    """LRU cache: (padded fingerprint, config hash, dtype) -> entry.
+    ``on_evict(key, entry)`` runs, outside the lock, for every evicted
+    entry (the service drops the entry's built solves with it)."""
+
+    def __init__(self, max_entries: int = 64,
+                 metrics: Optional[ServeMetrics] = None,
+                 on_evict: Optional[Callable] = None):
+        self.max_entries = max_entries
+        self.metrics = metrics or ServeMetrics()
+        self.on_evict = on_evict
+        self._lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()
+
+    def _insert(self, key, entry):
+        evicted = []
+        with self._lock:
+            self._entries[key] = entry
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.max_entries:
+                evicted.append(self._entries.popitem(last=False))
+                self.metrics.inc("cache_evictions")
+        if self.on_evict is not None:
+            for k, e in evicted:
+                self.on_evict(k, e)
+
+    def any_with_signature(self, signature) -> bool:
+        """Does any cached entry share this template signature?"""
+        with self._lock:
+            return any(e.signature == signature
+                       for e in self._entries.values())
+
+    def peek(self, fingerprint: str, cfg_key: str, dtype
+             ) -> Optional[HierarchyEntry]:
+        """The cached entry or None; never builds."""
+        key = (fingerprint, cfg_key, str(dtype))
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+            return entry
+
+    def get_or_build(self, pattern: PaddedPattern, cfg_key: str, dtype,
+                     build: Callable[[], HierarchyEntry]) -> HierarchyEntry:
+        key = (pattern.fingerprint, cfg_key, str(dtype))
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+                self.metrics.inc("cache_hits")
+                return entry
+        # build outside the lock: setup takes seconds, and other
+        # fingerprints must not queue behind it
+        self.metrics.inc("cache_misses")
+        self.metrics.inc("setups")
+        entry = build()
+        self._insert(key, entry)
+        return entry
+
+
+class CompileCache:
+    """(template signature, batch bucket) -> the built batched-solve
+    callable: the first entry of a signature builds it (``compiles``),
+    every later lookup of the signature, from any entry, hits
+    (``bucket_hits``).  :meth:`warm` builds ahead of the first flush
+    (``compile_warmups``)."""
+
+    def __init__(self, metrics: Optional[ServeMetrics] = None):
+        self.metrics = metrics or ServeMetrics()
+        self._lock = threading.Lock()
+        self._fns: dict = {}
+
+    def _lookup(self, entry: HierarchyEntry, Bb: int):
+        """(callable, built now)."""
+        key = (entry.signature, Bb)
+        with self._lock:
+            fn = self._fns.get(key)
+            if fn is not None:
+                return fn, False
+            self._fns[key] = fn = entry.batch_fn
+        self.metrics.inc("compiles")
+        return fn, True
+
+    def get(self, entry: HierarchyEntry, Bb: int):
+        """The callable for (entry.signature, Bb), built on a miss."""
+        fn, built = self._lookup(entry, Bb)
+        if not built:
+            self.metrics.inc("bucket_hits")
+        return fn
+
+    def warm(self, entry: HierarchyEntry, Bb: int):
+        """Build the callable for (entry.signature, Bb) if missing."""
+        if self._lookup(entry, Bb)[1]:
+            self.metrics.inc("compile_warmups")
+
+    def evict_signature(self, signature) -> int:
+        """Drop every callable of one template signature (the hierarchy
+        cache evicted its last entry) under ``compile_evictions``."""
+        if signature is None:
+            return 0
+        with self._lock:
+            keys = [k for k in self._fns if k[0] == signature]
+            for k in keys:
+                del self._fns[k]
+        if keys:
+            self.metrics.inc("compile_evictions", len(keys))
+        return len(keys)

@@ -1,0 +1,924 @@
+"""Batched solve service: many independent solve requests, solved as a
+few batched groups on one device (the JAX package's
+``serve/service.py``, its core).
+
+    submit(A, b) --+   group by (padded fingerprint, dtype)
+    submit(A, b) --+-> queue --flush--> staging slot (rows padded in place
+    submit(A, b) --+   (max_batch /       at submit)
+                        max_wait_s)            |
+                                               v
+                       hierarchy cache: one setup per (pattern, config,
+                       dtype), reused for every later coefficient set
+                                               |
+                                               v
+                       batched solve (serve/batched.py), one per
+                       template signature: one masked loop for the group
+                                               |
+                                               v
+                       SolveTicket.result(): the group's results, per
+                       request, unpadded
+
+Solvers without a batch rebuild (GMRES, the polynomial smoothers, ...)
+run each request in turn (``fallback_solves``).  Guardrails, as in the
+JAX package: non-finite uploads are rejected at submit with a typed
+error (``validate``); a group that fails as a unit is quarantined and
+every member re-solves alone, so only the poisoned requests fail; a
+per-fingerprint circuit breaker bypasses batching for a pattern that
+keeps failing, with a half-open probe every ``breaker_probe_every``-th
+group; a ticket whose deadline passes fails alone.
+
+What the port leaves out (ROADMAP.md, queue A.7) raises
+``NotImplementedError`` when asked for: the setup store and warm boot
+(``store=``), placement and failover (``placement=``, ``failover=``,
+``fetch_watchdog_s=``), buffer donation (``donate=``: torch has none),
+priority lanes and tenants, telemetry and fault injection.  The group
+runs on the flushing thread (submit, flush, poll or the poller): there
+is no dispatch pool, and a group's results are ready when its flush
+returns.  Scalar (block_size 1) systems only, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from amgx_tpu_torch.config.amg_config import AMGConfig
+from amgx_tpu_torch.core.device import resolve_device
+from amgx_tpu_torch.core.matrix import SparseMatrix, sparsity_fingerprint
+from amgx_tpu_torch.core.types import torch_dtype
+from amgx_tpu_torch.serve.batched import make_batched_solve
+from amgx_tpu_torch.serve.bucketing import (
+    PaddedPattern,
+    StagingSlot,
+    bucket_batch,
+    pad_pattern,
+)
+from amgx_tpu_torch.serve.cache import (
+    CompileCache,
+    HierarchyCache,
+    HierarchyEntry,
+    config_hash,
+    template_signature,
+)
+from amgx_tpu_torch.serve.metrics import ServeMetrics
+from amgx_tpu_torch.solvers.base import SolveResult
+
+_A7 = "ROADMAP.md, queue A.7: serving tier"
+
+
+def _host_csr(A):
+    """(row_offsets, col_indices, values, n, raw fingerprint) host
+    arrays of a SparseMatrix or a scipy sparse matrix; scalar matrices
+    only.  A scipy matrix's fingerprint is memoized on it, so callers
+    that change its index arrays in place after a submit must pass a
+    new matrix."""
+    if isinstance(A, SparseMatrix):
+        if A.block_size != 1:
+            raise ValueError(
+                "BatchedSolveService: scalar (block_size == 1) systems "
+                "only")
+        ro, ci, v = A._host
+        return ro, ci, v, A.n_rows, A.fingerprint()
+    try:
+        sp = A.tocsr()
+    except AttributeError:
+        raise TypeError(
+            f"expected SparseMatrix or scipy sparse matrix, got "
+            f"{type(A).__name__}") from None
+    sp.sort_indices()
+    fp = getattr(sp, "_amgx_tpu_fp", None)
+    if fp is None:
+        fp = sparsity_fingerprint(sp.indptr, sp.indices, sp.shape[0],
+                                  sp.shape[1], 1)
+        try:
+            sp._amgx_tpu_fp = fp
+        except AttributeError:
+            pass
+    return sp.indptr, sp.indices, sp.data, sp.shape[0], fp
+
+
+def _resolve_dtype(dt) -> np.dtype:
+    """The service dtype of an upload: integers promote to f64."""
+    rdt = np.dtype(dt)
+    if not np.issubdtype(rdt, np.inexact):
+        rdt = np.dtype(np.float64)
+    return rdt
+
+
+# the service's stock configuration (PCG + BLOCK_JACOBI)
+DEFAULT_CONFIG = (
+    '{"config_version": 2, "solver": {"scope": "main", "solver": "PCG",'
+    ' "max_iters": 200, "tolerance": 1e-8,'
+    ' "monitor_residual": 1, "convergence": "RELATIVE_INI",'
+    ' "preconditioner": {"scope": "jac", "solver": "BLOCK_JACOBI",'
+    ' "relaxation_factor": 0.9, "max_iters": 2,'
+    ' "monitor_residual": 0}}}'
+)
+
+# s-step PCG over an aggregation AMG V-cycle smoothed by the
+# fourth-kind Chebyshev polynomial (the JAX package's recommended serve
+# configuration); the port has no batch rebuild for it yet, so it runs
+# each request in turn
+COMM_AVOIDING_CONFIG = (
+    '{"config_version": 2, "solver": {"scope": "main",'
+    ' "solver": "SSTEP_PCG", "s_step": 4, "max_iters": 200,'
+    ' "tolerance": 1e-8, "monitor_residual": 1,'
+    ' "convergence": "RELATIVE_INI",'
+    ' "preconditioner": {"scope": "amg", "solver": "AMG",'
+    ' "algorithm": "AGGREGATION", "selector": "SIZE_8",'
+    ' "smoother": {"scope": "sm", "solver": "OPT_POLYNOMIAL",'
+    ' "chebyshev_polynomial_order": 2, "monitor_residual": 0},'
+    ' "presweeps": 1, "postsweeps": 1, "max_iters": 1,'
+    ' "min_coarse_rows": 32, "max_levels": 10,'
+    ' "structure_reuse_levels": -1,'
+    ' "coarse_solver": "DENSE_LU_SOLVER", "cycle": "V",'
+    ' "monitor_residual": 0}}}'
+)
+
+# the cheap-preconditioner configuration: an f32 AMG hierarchy with an
+# INEXACT coarse solve inside f64 ITERATIVE_REFINEMENT (run in turn by
+# the port, as COMM_AVOIDING_CONFIG)
+CHEAP_PRECONDITIONER_CONFIG = (
+    '{"config_version": 2, "solver": {"scope": "main",'
+    ' "solver": "ITERATIVE_REFINEMENT", "max_iters": 40,'
+    ' "tolerance": 1e-8, "monitor_residual": 1,'
+    ' "convergence": "RELATIVE_INI", "precision_fallback": 1,'
+    ' "preconditioner": {"scope": "inner", "solver": "PCG",'
+    ' "max_iters": 8, "monitor_residual": 0,'
+    ' "preconditioner": {"scope": "amg", "solver": "AMG",'
+    ' "algorithm": "AGGREGATION", "selector": "SIZE_8",'
+    ' "hierarchy_dtype": "FLOAT32", "level_dtype_policy": "ALL",'
+    ' "smoother": {"scope": "sm", "solver": "OPT_POLYNOMIAL",'
+    ' "chebyshev_polynomial_order": 2, "monitor_residual": 0},'
+    ' "presweeps": 1, "postsweeps": 1, "max_iters": 1,'
+    ' "min_coarse_rows": 32, "max_levels": 10,'
+    ' "structure_reuse_levels": -1,'
+    ' "coarse_solver": "INEXACT",'
+    ' "inexact_coarse_solver": "OPT_POLYNOMIAL", "cycle": "V",'
+    ' "monitor_residual": 0}}}}'
+)
+
+
+@dataclasses.dataclass
+class SolveTicket:
+    """Handle returned by submit().  ``done()`` is True once the
+    ticket's group has run (or the ticket failed alone); ``result()``
+    flushes the group if needed and returns this request's SolveResult
+    (x on the service's device, unpadded), or raises its typed
+    error."""
+
+    _service: "BatchedSolveService"
+    _group_key: tuple
+    _row: int = 0
+    _result: object = None
+    _done: bool = False
+    _error: Optional[BaseException] = None
+    _batch: object = None  # _BatchResult once the group ran batched
+    _deadline: Optional[float] = None  # absolute monotonic, or None
+    # concurrent result() calls on one ticket settle consistently
+    _rlock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+
+    def done(self) -> bool:
+        return self._done
+
+    def result(self) -> SolveResult:
+        if not self._done:
+            self._service._flush_group_of(self)
+        with self._rlock:
+            if self._error is not None:
+                raise self._error
+            if self._result is None and self._batch is not None:
+                # a deadline that passed before the group's results were
+                # fetched fails this ticket (sticky), not the group
+                if (self._deadline is not None
+                        and not self._batch.fetched()
+                        and time.monotonic() > self._deadline):
+                    from amgx_tpu_torch.core.errors import (
+                        DeadlineExceededError,
+                    )
+
+                    self._service.metrics.inc("deadline_expired_fetch")
+                    self._error = DeadlineExceededError(
+                        "serve deadline exceeded before the result was "
+                        "fetched")
+                    self._batch = None
+                    raise self._error
+                self._result = self._batch.result_for(self)
+            return self._result
+
+
+@dataclasses.dataclass
+class _Request:
+    ticket: SolveTicket
+    row: int  # staging-slot row owned by this request
+    deadline: Optional[float] = None
+    # the row write finished (writes happen outside the service lock)
+    ready: bool = False
+
+
+@dataclasses.dataclass
+class _Group:
+    key: tuple  # (padded fingerprint, dtype str)
+    pattern: PaddedPattern
+    dtype: np.dtype
+    requests: list
+    deadline: float  # monotonic max-wait flush time
+    slot: Optional[StagingSlot]
+
+
+class _BatchResult:
+    """One batched group's results: ``fetch()`` waits for the device
+    once (whichever ticket asks first) and records the group's
+    metrics; ``result_for`` cuts a ticket's row out."""
+
+    def __init__(self, service, res, pattern, tickets, Bb, t_flush):
+        self._service = service
+        self.res = res
+        self.pattern = pattern
+        self.tickets = tickets
+        self.Bb = Bb
+        self.t_flush = t_flush
+        self._lock = threading.Lock()
+        self._fetched = False
+
+    def fetched(self) -> bool:
+        with self._lock:
+            return self._fetched
+
+    def fetch(self):
+        with self._lock:
+            if self._fetched:
+                return self.res
+            if self.res.x.device.type == "cuda":
+                torch.cuda.synchronize(self.res.x.device)
+            t_done = time.perf_counter()
+            m = self._service.metrics
+            pat = self.pattern
+            # the loop's norm reads and this synchronisation
+            m.inc("host_syncs", self.res.host_reads + 1)
+            device_s = max(t_done - self.t_flush, 0.0)
+            m.add_time("device_busy_s", device_s)
+            m.record_batch((pat.nb, pat.nnzb, self.Bb), device_s,
+                           len(self.tickets), self.Bb - len(self.tickets))
+            m.inc("solved", len(self.tickets))
+            m.inc("padded_elems", self.Bb * pat.nb)
+            m.inc("real_elems", len(self.tickets) * pat.n)
+            self._fetched = True
+            return self.res
+
+    def result_for(self, ticket: SolveTicket) -> SolveResult:
+        res = self.fetch()
+        i, n = ticket._row, self.pattern.n
+        return SolveResult(
+            x=res.x[i, :n].clone(),
+            iters=int(res.iters[i]),
+            status=int(res.status[i]),
+            final_norm=res.final_norm[i],
+            initial_norm=res.initial_norm[i],
+            history=res.history[i],
+        )
+
+
+class BatchedSolveService:
+    """Shape-bucketed batched multi-system solver front end.
+
+    Parameters
+    ----------
+    config: AMGConfig, JSON / key-value string or None (DEFAULT_CONFIG):
+        the configuration every request shares.
+    max_batch: flush a group when it reaches this many requests.
+    max_wait_s: flush a group this long after its first request
+        (enforced by poll() and flush(); start() runs a poller).
+    queue_limit: bound on queued requests; reaching it flushes all.
+    cache_entries: hierarchy-cache capacity (LRU).
+    validate: reject non-finite uploads at submit() with a typed
+        ``NonFiniteValuesError`` (``validation_rejects``).
+    breaker_threshold: consecutive group failures of one pattern after
+        which its requests bypass batching (``breaker_trips`` /
+        ``breaker_bypasses``); 0 disables the breaker.
+    breaker_probe_every: every this-many-th group of an open-breaker
+        pattern is a half-open probe whose success closes it.
+    device: ``"cuda"`` (the default; raises without a card) or
+        ``"cpu"``, where the kernels' plain versions run.
+    """
+
+    # the JAX package's parameters this port does not carry yet
+    _LEFT_OUT = {
+        "donate": "buffer donation (torch has none)",
+        "store": f"the setup store's warm boot ({_A7}: warm boot)",
+        "placement": f"device placement ({_A7}: placement)",
+        "fetch_watchdog_s": f"the fetch watchdog ({_A7}: failover)",
+        "failover": f"device-loss failover ({_A7}: failover)",
+    }
+
+    def __init__(self, config=None, max_batch: int = 32,
+                 max_wait_s: float = 0.02, queue_limit: int = 1024,
+                 cache_entries: int = 64, validate: bool = True,
+                 breaker_threshold: int = 3, breaker_probe_every: int = 8,
+                 device="cuda", *, donate=None, store=None,
+                 placement=None, fetch_watchdog_s=None, failover=None):
+        given = {"donate": donate, "store": store, "placement": placement,
+                 "fetch_watchdog_s": fetch_watchdog_s,
+                 "failover": failover}
+        for name, value in given.items():
+            if value is not None:
+                raise NotImplementedError(
+                    f"BatchedSolveService({name}=...): "
+                    f"{self._LEFT_OUT[name]} is not ported")
+        self.device = resolve_device(device)
+        if config is None:
+            config = DEFAULT_CONFIG
+        if isinstance(config, str):
+            config = AMGConfig.from_string(config)
+        self.cfg = config
+        self.cfg_key = config_hash(config)
+        self.max_batch = int(max_batch)
+        self.max_wait_s = float(max_wait_s)
+        self.queue_limit = int(queue_limit)
+        self.validate = bool(validate)
+        self.breaker_threshold = int(breaker_threshold)
+        self.breaker_probe_every = max(int(breaker_probe_every), 1)
+        self.metrics = ServeMetrics()
+        self.cache = HierarchyCache(
+            max_entries=cache_entries, metrics=self.metrics,
+            on_evict=self._on_hierarchy_evict)
+        self.compile_cache = CompileCache(metrics=self.metrics)
+        self._lock = threading.RLock()
+        self._groups: dict = {}
+        self._queued = 0
+        self._patterns: dict = {}
+        self._staging: dict = {}
+        self._poller: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._warm_pool: Optional[concurrent.futures.Executor] = None
+        # circuit breaker: padded fingerprint -> consecutive failures
+        self._fail_counts: dict = {}
+        self._broken: set = set()
+        self._bypass_counts: dict = {}
+
+    # ------------------------------------------------------------------
+    # submission
+
+    def submit(self, A, b, x0=None, deadline_s=None) -> SolveTicket:
+        """Queue one system and return its ticket.  ``A`` is a
+        SparseMatrix or a scipy sparse matrix (block size 1), ``b`` and
+        ``x0`` host arrays.  ``deadline_s`` (seconds from now): an
+        expired one is refused here with ``DeadlineExceededError``; one
+        that passes while queued fails this ticket at flush, and one
+        that passes before the group's results are fetched fails it at
+        ``result()``; the group goes on either way."""
+        if deadline_s is not None and float(deadline_s) <= 0.0:
+            from amgx_tpu_torch.core.errors import DeadlineExceededError
+
+            self.metrics.inc("deadline_expired")
+            raise DeadlineExceededError(
+                f"deadline_s={float(deadline_s):g} already expired at "
+                "submit")
+        ro, ci, vals, n, raw_fp = _host_csr(A)
+        if self.validate:
+            from amgx_tpu_torch.core.errors import NonFiniteValuesError
+
+            bad = not np.all(np.isfinite(vals))
+            bad = bad or (b is not None
+                          and not np.all(np.isfinite(np.asarray(b))))
+            bad = bad or (x0 is not None
+                          and not np.all(np.isfinite(np.asarray(x0))))
+            if bad:
+                self.metrics.inc("validation_rejects")
+                raise NonFiniteValuesError(
+                    "BatchedSolveService.submit: system contains NaN/Inf "
+                    "(validation reject)")
+        pattern = self._pattern_for(ro, ci, n, raw_fp)
+        dtype = _resolve_dtype(vals.dtype)
+        key = (pattern.fingerprint, str(dtype))
+        flush_now = []
+        with self._lock:
+            now = time.monotonic()
+            grp = self._groups.get(key)
+            if grp is None:
+                grp = _Group(key=key, pattern=pattern, dtype=dtype,
+                             requests=[], deadline=now + self.max_wait_s,
+                             slot=self._acquire_slot(key, pattern, dtype))
+                self._groups[key] = grp
+            ticket = SolveTicket(_service=self, _group_key=key,
+                                 _row=len(grp.requests))
+            if deadline_s is not None:
+                ticket._deadline = now + float(deadline_s)
+            req = _Request(ticket=ticket, row=ticket._row,
+                           deadline=ticket._deadline)
+            grp.requests.append(req)
+            self._queued += 1
+            self.metrics.inc("submitted")
+            self.metrics.set_gauge("queue_depth", self._queued)
+            if len(grp.requests) >= self.max_batch:
+                flush_now.append(self._take_group(key))
+            elif self._queued >= self.queue_limit:
+                flush_now.extend(self._take_group(k)
+                                 for k in self._ordered_keys())
+        # pad the request into its staging row outside the lock (the
+        # row is this thread's until the group flushes)
+        t0 = time.perf_counter()
+        try:
+            grp.slot.write_row(req.row, vals, b, x0)
+        except BaseException as e:
+            # a malformed request fails only its own ticket; groups
+            # already taken for flushing still run
+            ticket._error = e
+            ticket._done = True
+            req.ready = True
+            for g in flush_now:
+                self._execute_group(g)
+            raise
+        req.ready = True
+        self.metrics.profile.add("pad", time.perf_counter() - t0)
+        for g in flush_now:
+            self._execute_group(g)
+        return ticket
+
+    def solve_many(self, systems):
+        """Submit every (A, b[, x0]) tuple, flush, and return the
+        SolveResults in order."""
+        tickets = [self.submit(*sys) for sys in systems]
+        self.flush()
+        return [t.result() for t in tickets]
+
+    def prewarm(self, A, batch: Optional[int] = None):
+        """Build (or find) the hierarchy entry of ``A``'s pattern and its
+        batched solve for the ``batch`` bucket (default max_batch) on a
+        background thread, so the pattern's first flush finds both
+        (``prewarms`` / ``prewarm_failures``)."""
+        ro, ci, vals, n, raw_fp = _host_csr(A)
+        pattern = self._pattern_for(ro, ci, n, raw_fp)
+        dtype = _resolve_dtype(vals.dtype)
+        Bb = bucket_batch(self.max_batch if batch is None else batch)
+        vals = np.asarray(vals).copy()
+
+        def job():
+            self._enter_device()
+            try:
+                entry = self.cache.get_or_build(
+                    pattern, self.cfg_key, dtype,
+                    lambda: self._build_entry(pattern, vals, dtype))
+                if entry.batch_fn is not None:
+                    self.compile_cache.warm(entry, Bb)
+                self.metrics.inc("prewarms")
+            except Exception:  # noqa: BLE001 — a warm-up is best-effort
+                self.metrics.inc("prewarm_failures")
+
+        with self._lock:
+            if self._warm_pool is None:
+                self._warm_pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="serve-warm")
+            return self._warm_pool.submit(job)
+
+    # ------------------------------------------------------------------
+    # flushing
+
+    def _ordered_keys(self) -> list:
+        """Group keys, oldest max-wait deadline first (caller holds the
+        lock)."""
+        return sorted(self._groups, key=lambda k: self._groups[k].deadline)
+
+    def flush(self):
+        """Run every queued group now."""
+        with self._lock:
+            groups = [self._take_group(k) for k in self._ordered_keys()]
+        for grp in groups:
+            self._execute_group(grp)
+
+    def poll(self):
+        """Run the groups whose max-wait deadline has passed."""
+        now = time.monotonic()
+        with self._lock:
+            due = [self._take_group(k) for k in self._ordered_keys()
+                   if self._groups[k].deadline <= now]
+        for grp in due:
+            self._execute_group(grp)
+
+    def _enter_device(self):
+        """Make the service's card this thread's current device (the
+        kernel wrappers launch on the current device's stream)."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+
+    def start(self, interval_s: float = 0.005):
+        """Run a daemon poller that enforces max_wait_s."""
+        if self._poller is not None:
+            return
+        self._stop.clear()
+
+        def loop():
+            self._enter_device()
+            while not self._stop.wait(interval_s):
+                self.poll()
+
+        self._poller = threading.Thread(target=loop, name="serve-poller",
+                                        daemon=True)
+        self._poller.start()
+
+    def stop(self):
+        """Stop the poller and the warm-up thread, then flush."""
+        if self._poller is not None:
+            self._stop.set()
+            self._poller.join()
+            self._poller = None
+        with self._lock:
+            pool, self._warm_pool = self._warm_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+        self.flush()
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    # ------------------------------------------------------------------
+    # internals
+
+    _PATTERN_CACHE_MAX = 512
+    # two resident staging slots per group key
+    _STAGING_SLOTS_PER_KEY = 2
+
+    def _pattern_for(self, ro, ci, n, raw_fp) -> PaddedPattern:
+        """Padded pattern of a raw fingerprint, cached."""
+        with self._lock:
+            pat = self._patterns.get(raw_fp)
+        if pat is not None:
+            return pat
+        pat = pad_pattern(ro, ci, n)
+        with self._lock:
+            if len(self._patterns) >= self._PATTERN_CACHE_MAX:
+                self._patterns.clear()
+            self._patterns[raw_fp] = pat
+        return pat
+
+    def _acquire_slot(self, key, pattern, dtype) -> StagingSlot:
+        """A free staging slot of the key, or a new one (caller holds
+        the lock)."""
+        pool = self._staging.setdefault(key, [])
+        for s in pool:
+            if not s.in_use:
+                s.in_use = True
+                s.x0_used = False
+                self.metrics.inc("staging_reuses")
+                return s
+        s = StagingSlot(pattern, dtype, bucket_batch(self.max_batch))
+        s.in_use = True
+        if len(pool) < self._STAGING_SLOTS_PER_KEY:
+            pool.append(s)
+        else:
+            self.metrics.inc("staging_overflows")
+        if len(self._staging) > self._PATTERN_CACHE_MAX:
+            for k in list(self._staging):
+                if k != key and not any(x.in_use for x in self._staging[k]):
+                    del self._staging[k]
+        return s
+
+    def _release_group_slot(self, grp: _Group):
+        """Release a group's slot exactly once (``grp.slot`` is the
+        ownership token)."""
+        slot, grp.slot = grp.slot, None
+        if slot is not None:
+            with self._lock:
+                slot.in_use = False
+
+    # total bytes the batched dense copies may take (B x nb x nb); above
+    # it a bucket that is neither DIA nor ELL stays CSR
+    _DENSE_BUDGET_MB = 256
+    # padded max row length up to which the ELL structure is used
+    _ELL_MAX_WIDTH = 64
+
+    def _accel_for(self, pat: PaddedPattern) -> tuple:
+        """Formats of a padded pattern's template, as the JAX package
+        picks them (at its default dense budget): DIA for stencil
+        patterns, then slot-major ELL, then dense within the byte
+        budget, else CSR."""
+        from amgx_tpu_torch.core.matrix import dia_gate
+
+        if dia_gate(pat.num_diagonals, pat.nb, pat.nnzb):
+            return ("dia",)
+        w = pat.max_row_len
+        if 0 < w <= self._ELL_MAX_WIDTH and w * pat.nb <= 4 * pat.nnzb:
+            return ("ell",)
+        budget = self._DENSE_BUDGET_MB * 2**20
+        if bucket_batch(self.max_batch) * pat.nb * pat.nb * 8 <= budget:
+            return ("dense",)
+        return ()
+
+    def _take_group(self, key) -> _Group:
+        """Remove a group from the queue (caller holds the lock)."""
+        grp = self._groups.pop(key)
+        self._queued -= len(grp.requests)
+        self.metrics.set_gauge("queue_depth", self._queued)
+        return grp
+
+    def _flush_group_of(self, ticket: SolveTicket):
+        with self._lock:
+            grp = self._groups.get(ticket._group_key)
+            if grp is None or ticket not in [r.ticket
+                                             for r in grp.requests]:
+                grp = None
+            else:
+                grp = self._take_group(ticket._group_key)
+        if grp is not None:
+            self._execute_group(grp)
+        else:
+            # another thread is running the group right now
+            while not ticket._done:
+                time.sleep(0.001)
+
+    @staticmethod
+    def _wait_ready(grp: _Group):
+        """Row writes happen outside the lock: wait until every
+        submitter of the group has finished its write."""
+        for r in grp.requests:
+            while not r.ready:
+                time.sleep(0.0001)
+
+    def _new_solver(self):
+        import amgx_tpu_torch.amg  # noqa: F401 — registers "AMG"
+        import amgx_tpu_torch.solvers  # noqa: F401 — registry
+        from amgx_tpu_torch.solvers.registry import (
+            create_solver,
+            make_nested,
+        )
+
+        # make_nested: the service owns the solve boundary (no scaling
+        # or renumbering of padded systems)
+        return make_nested(create_solver(self.cfg, "default",
+                                         device=self.device))
+
+    def _template(self, pattern, values, dtype):
+        return pattern.template_matrix(
+            values, dtype, accel_formats=self._accel_for(pattern),
+            device=self.device)
+
+    def _build_entry(self, pattern: PaddedPattern, values, dtype
+                     ) -> HierarchyEntry:
+        """One solver setup for a padded pattern (a hierarchy-cache
+        miss) from one request's coefficients (original (nnz,)
+        layout)."""
+        with self.metrics.profile.phase("setup"):
+            solver = self._new_solver()
+            solver.setup(self._template(pattern, values, dtype))
+            bp = solver.make_batch_params()
+            batch_fn = make_batched_solve(solver)
+            template = bp[0] if bp is not None else None
+            sig = (template_signature(template) if batch_fn is not None
+                   else None)
+        for k, v in (getattr(solver, "setup_profile", None) or {}).items():
+            if isinstance(v, float):
+                self.metrics.profile.add(f"setup:{k}", v)
+        inner = getattr(solver, "precond", None)
+        for k, v in (getattr(inner, "setup_profile", None) or {}).items():
+            if isinstance(v, float):
+                self.metrics.profile.add(f"setup:{k}", v)
+        return HierarchyEntry(solver=solver, template=template,
+                              batch_fn=batch_fn, signature=sig,
+                              pattern=pattern)
+
+    def resetup_entry(self, fingerprint: str, values, dtype=None, *,
+                      b=None, x0=None):
+        """Values-only resetup of a CACHED hierarchy entry (the serve
+        form of ``AMGX_solver_resetup``): ``values`` (original (nnz,)
+        layout) are embedded in the pattern's padded template and the
+        cached solver refreshes through ``replace_values`` and its
+        ``resetup``.  ``fingerprint`` is a submitted matrix's raw
+        fingerprint or the padded one; ``KeyError`` when nothing is
+        cached for it.  With ``b`` (padded or original length) the
+        refreshed solver also solves once, in the same critical section,
+        and its SolveResult (x padded) is returned; else None."""
+        dtype = (_resolve_dtype(np.asarray(values).dtype) if dtype is None
+                 else np.dtype(dtype))
+        with self._lock:
+            pat = self._patterns.get(fingerprint)
+        fp = pat.fingerprint if pat is not None else fingerprint
+        entry = self.cache.peek(fp, self.cfg_key, dtype)
+        if entry is None:
+            raise KeyError(
+                f"no cached hierarchy entry for fingerprint "
+                f"{str(fingerprint)[:16]}... under this service's "
+                "config/dtype")
+        pat = entry.pattern
+        values = np.asarray(values).reshape(-1)
+        old = entry.solver.A
+        if (old is not None and old.nnz == pat.nnzb
+                and old.dtype == torch_dtype(dtype)):
+            A = old.replace_values(pat.embed_values(values, dtype))
+        else:
+            A = self._template(pat, values, dtype)
+        if b is not None:
+            bb = np.asarray(b).reshape(-1)
+            if bb.shape[0] == pat.n:
+                bb = pat.embed_vector(bb, dtype)
+            if x0 is not None:
+                x0 = np.asarray(x0).reshape(-1)
+                if x0.shape[0] == pat.n:
+                    x0 = pat.embed_vector(x0, dtype)
+        with entry.solver_lock:
+            entry.solver.resetup(A)
+            res = None if b is None else entry.solver.solve(bb, x0=x0)
+        self.metrics.inc("entry_resetups")
+        return res
+
+    def _on_hierarchy_evict(self, key, entry: HierarchyEntry):
+        """Drop an evicted entry's batched solves unless another cached
+        entry shares its signature."""
+        sig = entry.signature
+        if sig is not None and not self.cache.any_with_signature(sig):
+            self.compile_cache.evict_signature(sig)
+
+    def _expire_deadlines(self, grp: _Group):
+        """Fail (only) the tickets whose deadline already passed; their
+        rows ride along inert."""
+        from amgx_tpu_torch.core.errors import DeadlineExceededError
+
+        now = time.monotonic()
+        for r in grp.requests:
+            if (r.deadline is not None and now > r.deadline
+                    and not r.ticket._done):
+                r.ticket._error = DeadlineExceededError(
+                    "serve deadline exceeded before execution")
+                r.ticket._done = True
+                self.metrics.inc("deadline_expired")
+
+    def _breaker_failure(self, fp: str):
+        """Count a group failure; trip the breaker at the threshold
+        (under the lock: two failures crossing it together trip it
+        once)."""
+        if self.breaker_threshold <= 0:
+            return
+        with self._lock:
+            if fp in self._broken:
+                return
+            n = self._fail_counts.get(fp, 0) + 1
+            self._fail_counts[fp] = n
+            if n >= self.breaker_threshold:
+                self._broken.add(fp)
+                self.metrics.inc("breaker_trips")
+                self.metrics.set_gauge("breakers_open", len(self._broken))
+
+    def _breaker_success(self, fp: str):
+        """A group completed: reset the count, and close the breaker if
+        this was its half-open probe."""
+        with self._lock:
+            self._fail_counts.pop(fp, None)
+            if fp in self._broken:
+                self._broken.discard(fp)
+                self._bypass_counts.pop(fp, None)
+                self.metrics.inc("breaker_closes")
+                self.metrics.set_gauge("breakers_open", len(self._broken))
+
+    def _execute_group(self, grp: _Group):
+        """Deadlines, the breaker, the hierarchy entry and its batched
+        solve, then the group's run; a failure quarantines the group."""
+        if not grp.requests:
+            self._release_group_slot(grp)
+            return
+        self._wait_ready(grp)
+        t_flush = time.perf_counter()
+        self._expire_deadlines(grp)
+        live = [r for r in grp.requests if not r.ticket._done]
+        if not live:
+            self._release_group_slot(grp)
+            return
+        fp = grp.pattern.fingerprint
+        with self._lock:
+            broken = fp in self._broken
+            if broken:
+                probes = self._bypass_counts.get(fp, 0) + 1
+                self._bypass_counts[fp] = probes
+        if broken and probes % self.breaker_probe_every != 0:
+            # breaker open: per-request isolation, no batched attempt
+            self.metrics.inc("breaker_bypasses")
+            self._execute_quarantined(grp)
+            return
+        try:
+            vals0 = grp.pattern.extract_values(grp.slot.vals[live[0].row])
+            entry = self.cache.get_or_build(
+                grp.pattern, self.cfg_key, grp.dtype,
+                lambda: self._build_entry(grp.pattern, vals0, grp.dtype))
+            if entry.batch_fn is None:
+                self._execute_sequential(entry, grp, live)
+                self._breaker_success(fp)
+                return
+            Bb = bucket_batch(len(grp.requests))
+            fn = self.compile_cache.get(entry, Bb)
+            self._dispatch_batched(entry, fn, grp, live, Bb, t_flush)
+        except Exception:  # noqa: BLE001 — failures reach the tickets
+            # the group failed as a unit (a poisoned member spoiled the
+            # shared setup, or the batched solve raised): every member
+            # re-solves alone, so only the poisoned ones fail
+            self._group_failed(grp, fp)
+            return
+        self._breaker_success(fp)
+
+    def _group_failed(self, grp: _Group, fp: str):
+        self.metrics.inc("failed_groups")
+        self._breaker_failure(fp)
+        self.metrics.inc("quarantines")
+        self._execute_quarantined(grp)
+
+    def _dispatch_batched(self, entry, fn, grp, live, Bb, t_flush):
+        """Ship the staged rows to the device, run the group's batched
+        solve and hand its results to the tickets.  Raises on failure
+        (the caller quarantines the group: the slot is still held)."""
+        pat, slot = grp.pattern, grp.slot
+        nreq = len(grp.requests)
+        with self.metrics.profile.phase("dispatch"):
+            # batch padding: clones of a live system with b = 0 converge
+            # at iteration 0 and freeze
+            slot.fill_batch_padding(nreq, Bb)
+            if live[0].row != 0:
+                slot.vals[nreq:Bb] = slot.vals[live[0].row]
+            dev = self.device
+            vals_d = torch.from_numpy(slot.vals[:Bb]).to(dev)
+            bs_d = torch.from_numpy(slot.bs[:Bb]).to(dev)
+            if slot.x0_used:
+                x0_d = torch.from_numpy(slot.x0s[:Bb]).to(dev)
+            else:
+                x0_d = torch.zeros_like(bs_d)
+            res = fn(entry.template, vals_d, bs_d, x0_d)
+            self.metrics.inc("batches")
+        self._release_group_slot(grp)
+        br = _BatchResult(self, res, pat, [r.ticket for r in live], Bb,
+                          t_flush)
+        for r in live:
+            r.ticket._batch = br
+            r.ticket._done = True
+
+    def _isolated_solve(self, pat, entry, vals, b, x0, dtype):
+        """One request alone: through the cached entry (a values-only
+        resetup) where there is one, else a fresh setup."""
+        if entry is not None:
+            try:
+                res = self.resetup_entry(pat.fingerprint, vals, dtype,
+                                         b=b, x0=x0)
+                self.metrics.inc("quarantine_entry_reuses")
+                return res
+            except Exception:  # noqa: BLE001 — the isolated setup decides
+                pass
+        solver = self._new_solver()
+        solver.setup(self._template(pat, vals, dtype))
+        return solver.solve(b, x0=x0)
+
+    def _execute_quarantined(self, grp: _Group):
+        """Per-request isolation: each request re-solves on its own
+        coefficients, so exactly the poisoned requests fail (with their
+        typed errors) and the rest complete."""
+        pat = grp.pattern
+        entry = self.cache.peek(pat.fingerprint, self.cfg_key, grp.dtype)
+        try:
+            for r in grp.requests:
+                if r.ticket._done:
+                    continue
+                vals = pat.extract_values(grp.slot.vals[r.row])
+                b = grp.slot.bs[r.row].copy()
+                x0 = grp.slot.x0s[r.row].copy()
+                try:
+                    with self.metrics.profile.phase("quarantine"):
+                        res = self._isolated_solve(pat, entry, vals, b, x0,
+                                                   grp.dtype)
+                except Exception as e:  # noqa: BLE001 — per request
+                    r.ticket._error = e
+                    r.ticket._done = True
+                    self.metrics.inc("poisoned_requests")
+                else:
+                    r.ticket._result = dataclasses.replace(
+                        res, x=res.x[: pat.n])
+                    r.ticket._done = True
+                    self.metrics.inc("quarantined_solves")
+                    self.metrics.inc("solved")
+        finally:
+            self._release_group_slot(grp)
+
+    def _execute_sequential(self, entry: HierarchyEntry, grp: _Group,
+                            live: list):
+        """Solvers without a batch rebuild: each request in turn on the
+        cached solver (values-only resetup, then solve).  The slot is
+        released only on full success, so a failure mid-way leaves the
+        rows for the quarantine path."""
+        pat = grp.pattern
+        for r in live:
+            with self.metrics.profile.phase("fallback"):
+                vals = pat.extract_values(grp.slot.vals[r.row])
+                A = self._template(pat, vals, grp.dtype)
+                with entry.solver_lock:
+                    entry.solver.resetup(A)
+                    res = entry.solver.solve(grp.slot.bs[r.row].copy(),
+                                             x0=grp.slot.x0s[r.row].copy())
+            r.ticket._result = dataclasses.replace(res, x=res.x[: pat.n])
+            r.ticket._done = True
+            self.metrics.inc("fallback_solves")
+            self.metrics.inc("solved")
+        self._release_group_slot(grp)

@@ -474,6 +474,23 @@ class Solver:
         return serialize.load_setup(path, cfg=cfg, expect_dtype=expect_dtype,
                                     device=device)
 
+    def make_batch_params(self):
+        """Values-only rebuild of this solver's ``apply_params()`` for a
+        batch of coefficient sets on the setup matrix's structure (the
+        serve layer's batched solves; the JAX package's
+        ``make_batch_params``).  Returns ``(template, fn)`` with
+        ``fn(template, values)`` -> the params of B instances for
+        ``values`` (B, nnz): batched views of the operators
+        (``SparseMatrix.replace_values_batched``) and of whatever derives
+        from their values, and the structure (index arrays, transfers,
+        Galerkin plans) shared from ``template``.  None where the solver
+        has no such rebuild (the serve layer then solves each system in
+        turn).  The default covers solvers whose params are the
+        matrix."""
+        if self._params is None or self._params is not self.A:
+            return None
+        return self.A, lambda t, v: t.replace_values_batched(v)
+
     def apply_params(self):
         return self._params
 

@@ -3,7 +3,8 @@ the densified coarse matrix).
 
 Densify at setup on the host, factorize once with
 ``torch.linalg.lu_factor`` on the solver's device; the apply is
-``torch.linalg.lu_solve``.  A bf16 level (``hierarchy_dtype``) is
+``torch.linalg.lu_solve``, which also takes the serve layer's batches
+(factors (B, m, m), r (B, m): ``make_batch_params``).  A bf16 level (``hierarchy_dtype``) is
 factored in f32, as the JAX package does (LAPACK has no sub-f32
 factorization; its host triple reads back as f32): the apply takes r
 to f32 and returns an f32 correction, which the cycle casts back to
@@ -41,6 +42,19 @@ def _bad_pivots(lu) -> bool:
         return True
     tiny = np.finfo(d.dtype).eps * d.shape[0] * dmax
     return bool(np.any(d <= tiny))
+
+
+def _per_instance(batch, fn):
+    """``fn`` on each instance of a batch (a tensor, or a tuple of
+    tensors with a leading batch dimension), its outputs stacked.  The
+    serve layer's CPU batches take LAPACK one matrix at a time: the
+    batched CPU factorization of the card machine's torch (its oneMKL
+    build) fails in DLASWP ("Parameter 6 was incorrect") and hangs in a
+    spawned process, where a single matrix does not."""
+    n = (batch[0] if isinstance(batch, tuple) else batch).shape[0]
+    outs = [fn(tuple(t[i] for t in batch) if isinstance(batch, tuple)
+               else batch[i]) for i in range(n)]
+    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 @register_solver("DENSE_LU_SOLVER")
@@ -98,6 +112,39 @@ class DenseLUSolver(Solver):
         self._params = (self.A, torch.as_tensor(impl["fac"]).to(self.device),
                         (piv + 1).to(torch.int32))
 
+    def make_batch_params(self):
+        """Batched views of the coarse operator and a batched
+        ``torch.linalg.lu_factor`` of each instance's dense matrix (B, m,
+        m), in f32 for a bf16 level as at setup; None in pseudoinverse
+        mode (the plain LU just failed there) and for block matrices, as
+        in the JAX package."""
+        if self._pinv_mode:
+            return None
+        A0 = self._params[0]
+        if A0.block_size != 1:
+            return None
+
+        def fn(t, v):
+            A = t.replace_values_batched(v)
+            if A.has_dense:
+                dense = A.dense
+            else:
+                B, n = A.batch, A.n_rows
+                flat = A.row_ids.long() * A.n_cols + A.col_indices.long()
+                dense = torch.zeros(
+                    (B, n * A.n_cols), dtype=A.dtype, device=A.device
+                ).index_add_(1, flat, A.values).reshape(B, n, A.n_cols)
+            if dense.element_size() < 4:
+                dense = dense.to(torch.float32)
+            if dense.device.type == "cpu":
+                lu, piv = _per_instance(dense, lambda d: (
+                    torch.linalg.lu_factor_ex(d)[:2]))
+            else:
+                lu, piv, _ = torch.linalg.lu_factor_ex(dense)
+            return A, lu, piv
+
+        return A0, fn
+
     def make_apply(self):
         if self._pinv_mode:
             def apply_pinv(params, r):
@@ -108,8 +155,12 @@ class DenseLUSolver(Solver):
 
         def apply(params, r):
             _, lu, piv = params
-            return torch.linalg.lu_solve(
-                lu, piv, r.to(lu.dtype).unsqueeze(-1)).squeeze(-1)
+            rhs = r.to(lu.dtype).unsqueeze(-1)
+            if lu.dim() == 3 and lu.device.type == "cpu":
+                return _per_instance(
+                    (lu, piv, rhs),
+                    lambda f: (torch.linalg.lu_solve(*f),))[0].squeeze(-1)
+            return torch.linalg.lu_solve(lu, piv, rhs).squeeze(-1)
 
         return apply
 

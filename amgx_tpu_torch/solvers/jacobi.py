@@ -8,6 +8,7 @@ in the JAX package)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from amgx_tpu_torch.core.matrix import (
     _extract_diag_np,
@@ -64,6 +65,24 @@ class BlockJacobiSolver(_DiagSmootherBase):
 
     def _setup_impl(self, A):
         self._params = (A, invert_diag(A))
+
+    def make_batch_params(self):
+        """Batched views of the operator and the inverse of each
+        instance's diagonal (1 where it is 0, as :func:`invert_diag`),
+        on the device; scalar matrices only."""
+        A0 = self._params[0]
+        if A0.block_size != 1:
+            return None
+
+        def fn(t, v):
+            A = t.replace_values_batched(v)
+            d = A.diag
+            nz = d != 0
+            return A, torch.where(
+                nz, 1.0 / torch.where(nz, d, torch.ones_like(d)),
+                torch.ones_like(d))
+
+        return A0, fn
 
 
 @register_solver("JACOBI_L1")

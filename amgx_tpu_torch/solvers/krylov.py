@@ -5,7 +5,10 @@ bicgstab_solver.cu).
 Each iteration is a function over (params, b, x, extra) with
 ``extra[0]`` the current residual; scalars (rho, alpha, beta) stay
 0-dim tensors on the device, so an iteration syncs with the host only
-where the monitored loop reads the residual norm.  The preconditioner
+where the monitored loop reads the residual norm.  The same functions
+take a batch of vectors (B, n) with (B, 1) scalars (``ops/blas.py``),
+which is how the serve layer's batched solves run them
+(``make_batch_params``).  The preconditioner
 is the nested solver's ``make_apply`` over ``params[1]``.  NOSOLVER as
 preconditioner disables preconditioning (reference
 pcg_solver.cu:21-29).
@@ -74,6 +77,23 @@ class KrylovSolver(Solver):
             return self._setup_impl(self.A)
         self.precond._import_setup(impl["precond"])
         self._params = (self.A, self.precond.apply_params())
+
+    def make_batch_params(self):
+        """The operator's batched view and the preconditioner's batch
+        rebuild (None where the preconditioner has none)."""
+        A0 = self._params[0]
+        if self.precond is None:
+            return A0, lambda t, v: (t.replace_values_batched(v), None)
+        sub = self.precond.make_batch_params()
+        if sub is None:
+            return None
+        ptmpl, pfn = sub
+
+        def fn(t, v):
+            At, pt = t
+            return At.replace_values_batched(v), pfn(pt, v)
+
+        return (A0, ptmpl), fn
 
     def _make_M(self):
         """fn(Mp, r) -> z; identity when unpreconditioned."""

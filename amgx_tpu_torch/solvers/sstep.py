@@ -68,6 +68,14 @@ class SStepPCGSolver(PCGSolver):
         """CG steps per reported iteration (= s)."""
         return self.s
 
+    def make_batch_params(self):
+        """None for s > 1: the s-step block iteration takes no batch of
+        vectors yet, so the serve layer solves each system in turn
+        (ROADMAP.md, queue A: serving tier); s = 1 is PCG's."""
+        if self.s > 1:
+            return None
+        return super().make_batch_params()
+
     # extra = (r, P, AP, k): the residual, the previous direction block
     # and its A-image (s, n), zero on entry so that the first
     # A-orthogonalisation is a no-op, and the outer-iteration count

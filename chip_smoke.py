@@ -240,8 +240,45 @@ it waited for them:
    and x (from its file) bit for bit those of the in-process dDDI
    solve of the same system, lines through its print callback.  f.
    Through the shim, a bad handle returns RC_BAD_PARAMETERS, an unknown
-   mode RC_BAD_MODE and ``AMGX_solver_solve_batch`` RC_NOT_IMPLEMENTED.
-21. Prints the per-kernel summary line (each kernel's launches on every
+   mode RC_BAD_MODE and ``AMGX_solver_solve_batch`` on a handle that
+   names no solver RC_BAD_PARAMETERS.
+21. serve: the batched solve service (``amgx_tpu_torch.serve``) on the
+   card.  a. The main path: 16 systems of ``jittered_poisson_family
+   ((64, 64, 64), 16)`` in f64 under ``SERVE_PCG_AMG`` (tests/test_serve.
+   py's PCG_AMG) through ``BatchedSolveService(device="cuda").
+   solve_many``, counts zeroed just before it and read just after: one
+   batch, one setup, no fallback, every status 0 with a true residual
+   at 1e-8, iterations equal to the card's sequential reference (one
+   solver set up on system 0, then resetup and solve for each) and x
+   to rtol 1e-10, ``dia_spmv_batched_f64`` / ``ell_spmv_batched_f64``
+   launches equal to the batched cycle's walk (:func:`batched_walk`)
+   over the group's largest iteration count, and no unbatched launch.
+   b. New coefficients on the same pattern: no new setup, no new
+   build.  c. DEFAULT_CONFIG in f32 on 16 x 64^3 and on 8 systems of
+   the ``irregular_poisson(64)`` pattern (a slot-major ELL template):
+   iterations within one of the sequential ones, true residual at
+   1e-5, launches as walked.  d. A mixed queue of 8 x 64^3, 8 x 60^3
+   (padded rows) and 8 irregular systems in f64: three batches (DIA,
+   DIA, ELL), ``ell_spmv_batched_f64`` with batched values, each
+   system equal to its sequential solve.  e. Masked early exit: a
+   diagonally dominant system among 15 hard ones freezes (fewer
+   iterations than the group's largest, history NaN past its freeze)
+   with x bit for bit its solve in a group of 16 copies of itself
+   (torch orders a batched reduction's sums by the batch's shape).
+   f. Guards at 32^3: a NaN request (``validate=False``) quarantined
+   with its three groupmates converged, ``validate=True`` rejecting
+   non-finite uploads, an expired deadline failing only its ticket.
+   g. ``AMGX_solver_solve_batch`` through the shim in dDDI on 4 x
+   64^3: every RC 0, statuses and iterations those of the in-process
+   service.  h. Host seconds per system, batched (first and warm
+   flush) against sequential, for a and c.  i. The same service calls
+   on the card and in the CPU port at 4 x 24^3 f64: iterations equal,
+   x to rtol 1e-9.  The kernels phase holds the four batched entry
+   points at these shapes (B = 16): each instance bit for bit the
+   unbatched entry point's, the batch within TOL of the plain batched
+   version, timed beside a block-diagonal CSR ``torch.mv`` of the same
+   work.
+22. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``; one entry
@@ -1036,6 +1073,7 @@ def kernel_phase(torch, peaks):
     rect.sum_duplicates()
     ell_case(f"random rect {m}x{k} empty rows f32", rect, np.float32)
     sell_edge_cases(torch, rng)
+    recs += serve_kernel_cases(torch, timer, peaks, rng)
     return recs
 
 
@@ -3209,6 +3247,17 @@ VARIANTS = {
     "stencil_spmv_bf16": ("amgx_tpu_torch/csrc/stencil_spmv.cu",
                           "amgx_tpu/ops/pallas_stencil.py:64", "mf_bf16_1",
                           "mf_bf16 level0 A"),
+    # the serve layer's batched entry points (the serve phase)
+    "dia_spmv_batched_f64": (_DIA_SRC, "amgx_tpu/ops/pallas_dia.py:76",
+                             "serve_pcg_amg",
+                             "serve dia_spmv_batched_f64 level0 A"),
+    "ell_spmv_batched_f64": (_ELL_SRC, _WELL, "serve_pcg_amg",
+                             "serve ell_spmv_batched_f64 level0 R"),
+    "dia_spmv_batched_f32": (_DIA_SRC, "amgx_tpu/ops/pallas_dia.py:76",
+                             "serve_default_f32",
+                             "serve dia_spmv_batched_f32 level0 A"),
+    "ell_spmv_batched_f32": (_ELL_SRC, _WELL, "serve_default_f32",
+                             "serve ell_spmv_batched_f32 irregular A"),
     # the C API's mixed modes (the capi phase)
     "dia_spmv_f32_f64": (_DIA_SRC, "amgx_tpu/ops/pallas_dia.py:76",
                          "capi_dDFI", "capi dDFI level0 A"),
@@ -5274,7 +5323,8 @@ def shim_flow(lib, mode, cfg, sp, b):
 
 def shim_rcs(lib):
     """Return codes of misuse through the shim: a handle that names no
-    object, an unknown mode, and the batched solve (not ported)."""
+    object, an unknown mode, and the batched solve on a handle that
+    names no solver."""
     import ctypes
 
     H = ctypes.c_uint64
@@ -5372,8 +5422,10 @@ def capi_phase(torch, peaks=None, device="cuda", n=CAPI_N, n_cmp=CAPI_CMP_N,
     rcs = shim_rcs(lib)
     print(json.dumps({"capi_shim_rcs": rcs}), flush=True)
     # ---- f. misuse through the shim: a code, never a crash
+    # the batched solve is ported: handle 1 names no solver, so it is
+    # RC_BAD_PARAMETERS, as the JAX package answers any unknown handle
     check(rcs == {"config": 0, "resources": 0, "bad_handle": 1,
-                  "bad_mode": 9, "solve_batch": 13},
+                  "bad_mode": 9, "solve_batch": 1},
           f"shim RCs {rcs}")
     del A32, direct, rd, f
 
@@ -5583,12 +5635,706 @@ def mixed_sell_case(torch, peaks, name, label, A, x, exact=True):
 
 # every phase in the order a run takes them; a phase named on the
 # command line brings the phases it needs
+# ---------------------------------------------------------------------
+# 21. serve: the batched solve service (amgx_tpu_torch.serve)
+
+SERVE_N = 64
+SERVE_B = 16
+SERVE_CPU_N = 24
+SERVE_GUARD_N = 32
+# tests/test_serve.py's PCG_AMG: PCG + SIZE_8 aggregation AMG with
+# Galerkin plans on every level (the batch rebuild needs them)
+SERVE_PCG_AMG = (
+    '{"config_version": 2, "solver": {"scope": "main", "solver": "PCG",'
+    ' "max_iters": 100, "tolerance": 1e-8, "monitor_residual": 1,'
+    ' "convergence": "RELATIVE_INI",'
+    ' "preconditioner": {"scope": "amg", "solver": "AMG",'
+    ' "algorithm": "AGGREGATION", "selector": "SIZE_8",'
+    ' "smoother": {"scope": "j", "solver": "BLOCK_JACOBI",'
+    ' "relaxation_factor": 0.8, "monitor_residual": 0},'
+    ' "presweeps": 1, "postsweeps": 1, "max_iters": 1,'
+    ' "min_coarse_rows": 32, "max_levels": 10,'
+    ' "structure_reuse_levels": -1,'
+    ' "coarse_solver": "DENSE_LU_SOLVER", "cycle": "V",'
+    ' "monitor_residual": 0}}}'
+)
+# the batched entry point each unbatched counter's SpMV takes with a
+# batch of vectors (a sliced matrix takes its slot-major arrays)
+BATCHED = {"dia_spmv": "dia_spmv_batched", "ell_spmv": "ell_spmv_batched",
+           "sell_spmv": "ell_spmv_batched", "csr": "csr"}
+
+
+def serve_family(shape, count, seed=0, dtype=np.float64):
+    """``count`` jittered Poisson systems on ``shape`` (the JAX
+    package's ``jittered_poisson_family``) in ``dtype``."""
+    from amgx_tpu_torch.io.poisson import jittered_poisson_family
+
+    return [(sp.astype(dtype), b.astype(dtype))
+            for sp, b in jittered_poisson_family(shape, count, seed=seed)]
+
+
+def irregular_family(m, count, seed=0, dtype=np.float64):
+    """``count`` systems on the pattern of :func:`irregular_poisson`
+    ``(m)``, each entry jittered by 5 %, symmetrized, plus 0.5 I."""
+    import scipy.sparse as sps
+
+    base = irregular_poisson(m)
+    n = base.shape[0]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        sp = base.copy()
+        sp.data = sp.data * (1.0 + 0.05 * rng.standard_normal(sp.nnz))
+        sp = ((sp + sp.T) * 0.5 + sps.eye_array(n) * 0.5).tocsr()
+        sp.sort_indices()
+        out.append((sp.astype(dtype), rng.standard_normal(n).astype(dtype)))
+    return out
+
+
+def batched_walk(amg, cycles, top, x_dtype):
+    """Launches per batched entry point (and CSR products) of ``cycles``
+    cycles of a batched AMG hierarchy (:func:`cycle_walk` over the
+    template's levels) and ``top`` level-0 A-SpMVs outside them."""
+    from amgx_tpu_torch.ops import kernels
+
+    counts = {}
+
+    def add(m, k):
+        c = BATCHED.get(counter_of(m))
+        if c is None or not k:
+            return
+        name = c if c == "csr" else kernels.entry_point(c, m.dtype, x_dtype)
+        counts[name] = counts.get(name, 0) + k
+
+    lv = amg.levels
+    add(lv[0].A, top)
+    for (i, f), k in cycle_walk(amg).items():
+        add(getattr(lv[i], f), cycles * k)
+    return counts
+
+
+def jacobi_walk(A, iters, x_dtype):
+    """Launches of a batched PCG + BLOCK_JACOBI (2 sweeps) group of
+    ``iters`` iterations on ``A`` (:func:`jacobi_pcg_launches`)."""
+    from amgx_tpu_torch.ops import kernels
+
+    c = BATCHED[counter_of(A)]
+    return {kernels.entry_point(c, A.dtype, x_dtype): 2 * (iters + 1)}
+
+
+def batched_counts():
+    """Launches of the batched entry points, per entry point."""
+    return {k: v for k, v in variant_counts().items() if "batched" in k}
+
+
+def serve_seq(device, cfg, systems, reuse):
+    """The sequential reference on ``device``: with ``reuse`` one solver
+    set up on system 0, then ``replace_values``, ``resetup`` and
+    ``solve`` for each system (``tests/test_serve.py``'s contract for a
+    cached hierarchy), else a setup and a solve each.  Returns
+    ([(status, iterations, x)], first seconds (the setup and the first
+    solve), the rest's seconds)."""
+    import amgx_tpu_torch as T
+
+    out, first_s = [], 0.0
+    t0 = time.perf_counter()
+    s = A0 = None
+    for i, (sp, b) in enumerate(systems):
+        if reuse and A0 is not None:
+            s.resetup(A0.replace_values(sp.data))
+        else:
+            A = T.SparseMatrix.from_scipy(sp, device=device)
+            A0 = A
+            s = T.create_solver(T.AMGConfig.from_string(cfg), "default",
+                                device=device).setup(A)
+        r = s.solve(b)
+        out.append((int(r.status), int(r.iters), r.x.cpu().numpy()))
+        if i == 0:
+            first_s = time.perf_counter() - t0
+    return out, first_s, time.perf_counter() - t0 - first_s
+
+
+def served(svc, systems):
+    """``svc.solve_many(systems)`` as [(status, iterations, x, history)]
+    and its seconds, and those seconds split by the service's phases
+    (``pad``: submit's host work, the pattern's hash included;
+    ``setup``; ``dispatch``: the upload and the batched solve)."""
+    before = svc.metrics.profile.snapshot()["times"]
+    t0 = time.perf_counter()
+    res = svc.solve_many(systems)
+    secs = time.perf_counter() - t0
+    after = svc.metrics.profile.snapshot()["times"]
+    split = {k: after[k] - before.get(k, 0.0) for k in after
+             if ":" not in k}
+    return [(int(r.status), int(r.iters), r.x.cpu().numpy(), r.history)
+            for r in res], {"s": secs, **split}
+
+
+def same_as_seq(label, got, ref, rtol=1e-10, iters_within=0):
+    """Statuses, iterations (within ``iters_within``) and x (to
+    ``rtol`` of its largest entry, None: unchecked) of a served group
+    against its sequential reference."""
+    worst, it_diff = 0.0, 0
+    for (st, it, x, _), (rst, rit, rx) in zip(got, ref):
+        check(st == rst == 0, f"{label}: status {st} vs sequential {rst}")
+        it_diff = max(it_diff, abs(it - rit))
+        worst = max(worst, float(np.abs(x - rx).max() / np.abs(rx).max()))
+    check(it_diff <= iters_within,
+          f"{label}: iterations differ by {it_diff} from the sequential")
+    if rtol is not None:
+        check(worst <= rtol, f"{label}: x differs by {worst:.3e} > {rtol}")
+    return {"max_iterations_diff": it_diff, "x_max_rel_diff": worst}
+
+
+def serve_cpu_side(n, count=4):
+    """The CPU port's side of the serve phase: PCG_AMG and
+    DEFAULT_CONFIG served at ``n``^3 f64: {config: [(status, iterations,
+    x)]}."""
+    import amgx_tpu_torch  # noqa: F401
+    from amgx_tpu_torch.serve import DEFAULT_CONFIG, BatchedSolveService
+
+    systems = serve_family((n,) * 3, count, seed=3)
+    out = {}
+    for label, cfg in (("pcg_amg", SERVE_PCG_AMG),
+                       ("default", DEFAULT_CONFIG)):
+        svc = BatchedSolveService(config=cfg, max_batch=count,
+                                  device="cpu")
+        out[label] = [(int(r.status), int(r.iters), r.x.numpy())
+                      for r in svc.solve_many(systems)]
+    return out
+
+
+def true_residual(sp, b, x):
+    sp64 = sp.astype(np.float64)
+    b64 = b.astype(np.float64)
+    return float(np.linalg.norm(b64 - sp64 @ x.astype(np.float64))
+                 / np.linalg.norm(b64))
+
+
+def serve_guards(torch, device, n):
+    """Check f: a quarantined NaN request, validation rejects and an
+    expired deadline at ``n``^3, counters as in
+    ``tests/test_robustness.py``."""
+    from amgx_tpu_torch.core.errors import (
+        AMGXTPUError,
+        DeadlineExceededError,
+        NonFiniteValuesError,
+    )
+    from amgx_tpu_torch.serve import BatchedSolveService
+
+    systems = serve_family((n,) * 3, 4, seed=7)
+    sp = systems[0][0]
+    bad = sp.copy()
+    bad.data = bad.data.copy()
+    bad.data[5] = np.nan
+    svc = BatchedSolveService(max_batch=4, validate=False, device=device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tickets = [svc.submit(bad, systems[0][1])] + [
+            svc.submit(s, b) for s, b in systems[1:]]
+        svc.flush()
+    try:
+        tickets[0].result()
+        typed = False
+    except AMGXTPUError:
+        typed = True
+    mates = [t.result() for t in tickets[1:]]
+    res = [true_residual(s, b, r.x.cpu().numpy())
+           for (s, b), r in zip(systems[1:], mates)]
+    snap = svc.metrics.snapshot()
+    quarantine = {k: snap.get(k, 0) for k in (
+        "quarantines", "poisoned_requests", "quarantined_solves",
+        "failed_groups")}
+    check(typed, "the NaN request's ticket did not raise a typed error")
+    check(all(int(r.status) == 0 for r in mates) and max(res) <= 1e-7,
+          f"groupmates of the NaN request: {res}")
+    check(quarantine == {"quarantines": 1, "poisoned_requests": 1,
+                         "quarantined_solves": 3, "failed_groups": 1},
+          f"quarantine counters {quarantine}")
+    svc = BatchedSolveService(device=device)
+    rejects = 0
+    for A, b in ((bad, systems[0][1]),
+                 (sp, np.full(sp.shape[0], np.nan))):
+        try:
+            svc.submit(A, b)
+        except NonFiniteValuesError:
+            rejects += 1
+    check(rejects == 2 and svc.metrics.get("validation_rejects") == 2,
+          f"validation rejects {rejects}")
+    svc = BatchedSolveService(max_batch=8, device=device)
+    try:
+        svc.submit(sp, systems[0][1], deadline_s=-1.0)
+        doa = False
+    except DeadlineExceededError:
+        doa = True
+    t_late = svc.submit(sp, systems[0][1], deadline_s=0.01)
+    t_ok = svc.submit(systems[1][0], systems[1][1])
+    time.sleep(0.05)
+    svc.flush()
+    try:
+        t_late.result()
+        late = False
+    except DeadlineExceededError:
+        late = True
+    ok = int(t_ok.result().status) == 0
+    check(doa and late and ok
+          and svc.metrics.get("deadline_expired") == 2,
+          f"deadlines: on arrival {doa}, late {late}, groupmate {ok}")
+    return {"quarantine": quarantine, "groupmate_true_residuals": res,
+            "validation_rejects": rejects,
+            "deadline_expired": svc.metrics.get("deadline_expired")}
+
+
+def serve_capi(torch, device, n, count=4):
+    """Check g: ``AMGX_solver_solve_batch`` through the native shim
+    (``ctypes.PyDLL``) in dDDI on ``count`` systems of ``n``^3 with
+    DEFAULT_CONFIG: every RC, and statuses and iterations against the
+    in-process service's."""
+    import ctypes
+
+    from amgx_tpu_torch.api import capi as C
+    from amgx_tpu_torch.ops import kernels
+    from amgx_tpu_torch.serve import DEFAULT_CONFIG, BatchedSolveService
+
+    lib = ctypes.PyDLL(str(kernels.build_native()["lib"]))
+    H, P = ctypes.c_uint64, ctypes.c_void_p
+    systems = serve_family((n,) * 3, count, seed=11)
+    mode = ctypes.c_char_p(capi_mode("DDI", device).encode())
+    c, r, s = H(), H(), H()
+    rcs = [lib.AMGX_initialize(),
+           lib.AMGX_config_create(ctypes.byref(c),
+                                  ctypes.c_char_p(DEFAULT_CONFIG.encode())),
+           lib.AMGX_resources_create_simple(ctypes.byref(r), c),
+           lib.AMGX_solver_create(ctypes.byref(s), r, mode, c)]
+    mats, rhs, sols, keep = [], [], [], []
+    for sp, b in systems:
+        A, vb, vx = H(), H(), H()
+        rp = np.ascontiguousarray(sp.indptr, np.int32)
+        ci = np.ascontiguousarray(sp.indices, np.int32)
+        vals = np.ascontiguousarray(sp.data, np.float64)
+        bb = np.ascontiguousarray(b, np.float64)
+        keep += [rp, ci, vals, bb]
+        m = sp.shape[0]
+        rcs += [lib.AMGX_matrix_create(ctypes.byref(A), r, mode),
+                lib.AMGX_vector_create(ctypes.byref(vb), r, mode),
+                lib.AMGX_vector_create(ctypes.byref(vx), r, mode),
+                lib.AMGX_matrix_upload_all(
+                    A, m, sp.nnz, 1, 1, rp.ctypes.data_as(P),
+                    ci.ctypes.data_as(P), vals.ctypes.data_as(P), None),
+                lib.AMGX_vector_upload(vb, m, 1, bb.ctypes.data_as(P)),
+                lib.AMGX_vector_set_zero(vx, m, 1)]
+        mats.append(A.value)
+        rhs.append(vb.value)
+        sols.append(vx.value)
+    arr = lambda hs: (H * len(hs))(*hs)  # noqa: E731
+    t0 = time.perf_counter()
+    rcs.append(lib.AMGX_solver_solve_batch(s, count, arr(mats), arr(rhs),
+                                           arr(sols)))
+    xs = []
+    for h, (sp, _) in zip(sols, systems):
+        x = np.zeros(sp.shape[0], np.float64)
+        rcs.append(lib.AMGX_vector_download(H(h), x.ctypes.data_as(P)))
+        xs.append(x)
+    shim_s = time.perf_counter() - t0
+    statuses = [C.solver_get_batch_status(s.value, i) for i in range(count)]
+    iters = [C.solver_get_batch_iterations_number(s.value, i)
+             for i in range(count)]
+    for h in sols + rhs:
+        rcs.append(lib.AMGX_vector_destroy(H(h)))
+    for h in mats:
+        rcs.append(lib.AMGX_matrix_destroy(H(h)))
+    rcs += [lib.AMGX_solver_destroy(s), lib.AMGX_resources_destroy(r),
+            lib.AMGX_config_destroy(c)]
+    direct = BatchedSolveService(config=DEFAULT_CONFIG, device=device
+                                 ).solve_many(systems)
+    want_st = [int(d.status) for d in direct]
+    want_it = [int(d.iters) for d in direct]
+    x_diff = max(float(np.abs(x - d.x.cpu().numpy()).max()
+                       / np.abs(d.x.cpu().numpy()).max())
+                 for x, d in zip(xs, direct))
+    rec = {"rcs_all_zero": not any(rcs), "statuses": statuses,
+           "iterations": iters, "service_statuses": want_st,
+           "service_iterations": want_it, "x_max_rel_diff": x_diff,
+           "shim_solve_download_s": shim_s}
+    check(not any(rcs), f"serve C API RCs {rcs}")
+    check(statuses == want_st and iters == want_it,
+          f"solve_batch statuses {statuses} / iterations {iters} vs the "
+          f"service's {want_st} / {want_it}")
+    return rec
+
+
+def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
+                n_cpu=SERVE_CPU_N, n_guard=SERVE_GUARD_N):
+    """The batched solve service (module docstring, phase 21).  Returns
+    {path: launches per batched entry point}."""
+    from amgx_tpu_torch.serve import DEFAULT_CONFIG, BatchedSolveService
+
+    on_card = device == "cuda"
+    paths = {}
+    # ---- a. the main path: B systems of n^3, f64, PCG_AMG
+    systems = serve_family((n,) * 3, B, seed=1)
+    svc = BatchedSolveService(config=SERVE_PCG_AMG, max_batch=B,
+                              device=device)
+    zero_counts()
+    got, first_s = served(svc, systems)
+    launches, unbatched = batched_counts(), kernel_counts()
+    m1 = svc.metrics.snapshot()
+    entry = next(iter(svc.cache._entries.values()))
+    amg = entry.solver.precond
+    it_max = max(g[1] for g in got)
+    want = batched_walk(amg, it_max + 1, it_max + 1, torch.float64)
+    ref, seq_first_s, seq_rest_s = serve_seq(device, SERVE_PCG_AMG,
+                                             systems, reuse=True)
+    cmp_a = same_as_seq("serve a", got, ref)
+    res_a = [true_residual(sp, b, g[2]) for (sp, b), g in zip(systems, got)]
+    # ---- b. new coefficients on the cached pattern
+    systems_b = [(sp * 1.01, b) for sp, b in systems]
+    got_b, warm_s = served(svc, systems_b)
+    m2 = svc.metrics.snapshot()
+    rec = {"serve_pcg_amg": {
+        "n": n, "batch": B, "levels": [(lv.A.n_rows, lv.A.format)
+                                        for lv in amg.levels],
+        "iterations": [g[1] for g in got], "statuses": [g[0] for g in got],
+        "true_rel_residual_max": max(res_a), **cmp_a,
+        "launches": launches, "walk": want, "unbatched_launches": unbatched,
+        "batches": m1.get("batches"), "setups": m1.get("setups"),
+        "fallback_solves": m1.get("fallback_solves", 0),
+        "host_syncs": m1.get("host_syncs"),
+        "resubmit_new_setups": m2["setups"] - m1["setups"],
+        "resubmit_new_compiles": m2["compiles"] - m1["compiles"],
+        "resubmit_statuses": sorted({g[0] for g in got_b}),
+        "per_system_s": {"batched_first_flush": first_s["s"] / B,
+                         "batched_warm_flush": warm_s["s"] / B,
+                         "sequential_first": seq_first_s,
+                         "sequential_warm": seq_rest_s / (B - 1)},
+        "first_flush_s": first_s, "warm_flush_s": warm_s}}
+    print(json.dumps(rec), flush=True)
+    check(m1.get("batches") == 1 and m1.get("setups") == 1
+          and m1.get("fallback_solves", 0) == 0,
+          f"serve a: batches {m1.get('batches')}, setups "
+          f"{m1.get('setups')}, fallback {m1.get('fallback_solves')}")
+    check(max(res_a) <= 1e-8, f"serve a: true residual {max(res_a):.3e}")
+    check(all(v == 0 for v in unbatched.values()),
+          f"serve a: unbatched launches {unbatched}")
+    if on_card:
+        check(launches == want, f"serve a: launches {launches} != walk "
+              f"{want}")
+    check(m2["setups"] == m1["setups"] and m2["compiles"] == m1["compiles"]
+          and all(g[0] == 0 for g in got_b),
+          "serve b: the resubmit set up or built again")
+    paths["serve_pcg_amg"] = launches
+    del svc, entry, amg, systems, systems_b, got, got_b, ref
+
+    # ---- c. DEFAULT_CONFIG in f32 (and an f32 group on the irregular
+    # pattern: the f32 ELL entry point's path)
+    systems = serve_family((n,) * 3, B, seed=2, dtype=np.float32)
+    irr = irregular_family(n, B // 2, seed=4, dtype=np.float32)
+    svc = BatchedSolveService(config=DEFAULT_CONFIG, max_batch=B,
+                              device=device)
+    zero_counts()
+    got, first_s = served(svc, systems)
+    launches = batched_counts()
+    A_t = next(iter(svc.cache._entries.values())).solver.A
+    want = jacobi_walk(A_t, max(g[1] for g in got), torch.float32)
+    got_w, warm_s = served(svc, [(sp * 1.01, b) for sp, b in systems])
+    zero_counts()
+    got_i, _ = served(svc, irr)
+    launches_i = batched_counts()
+    A_i = svc.cache.peek(
+        svc._patterns[irr[0][0]._amgx_tpu_fp].fingerprint, svc.cfg_key,
+        np.dtype(np.float32)).solver.A
+    want_i = jacobi_walk(A_i, max(g[1] for g in got_i), torch.float32)
+    ref, seq_first_s, seq_rest_s = serve_seq(device, DEFAULT_CONFIG,
+                                             systems, reuse=True)
+    ref_i, _, _ = serve_seq(device, DEFAULT_CONFIG, irr, reuse=True)
+    cmp_c = same_as_seq("serve c", got, ref, rtol=None, iters_within=1)
+    cmp_ci = same_as_seq("serve c irregular", got_i, ref_i, rtol=None,
+                         iters_within=1)
+    res_c = [true_residual(sp, b, g[2])
+             for (sp, b), g in zip(systems + irr, got + got_i)]
+    print(json.dumps({"serve_default_f32": {
+        "n": n, "batch": B, "iterations": [g[1] for g in got],
+        "irregular_iterations": [g[1] for g in got_i],
+        "irregular_format": A_i.format, **cmp_c,
+        "irregular": cmp_ci, "true_rel_residual_max": max(res_c),
+        "launches": launches, "walk": want, "irregular_launches": launches_i,
+        "irregular_walk": want_i, "warm_statuses": sorted(
+            {g[0] for g in got_w}),
+        "per_system_s": {"batched_first_flush": first_s["s"] / B,
+                         "batched_warm_flush": warm_s["s"] / B,
+                         "sequential_first": seq_first_s,
+                         "sequential_warm": seq_rest_s / (B - 1)},
+        "first_flush_s": first_s, "warm_flush_s": warm_s}}),
+        flush=True)
+    check(max(res_c) <= 1e-5, f"serve c: true residual {max(res_c):.3e}")
+    check(A_i.format == "ELL", f"serve c: irregular template {A_i.format}")
+    if on_card:
+        check(launches == want, f"serve c: launches {launches} != {want}")
+        check(launches_i == want_i,
+              f"serve c irregular: launches {launches_i} != {want_i}")
+    paths["serve_default_f32"] = {**launches, **launches_i}
+    del svc, systems, irr, got, got_i, got_w, ref, ref_i
+
+    # ---- d. a mixed queue: n^3, a padded (n - 4)^3 and the irregular
+    # pattern, 8 each, DEFAULT_CONFIG in f64
+    half = B // 2
+    groups = (serve_family((n,) * 3, half, seed=5)
+              + serve_family((n - 4,) * 3, half, seed=6)
+              + irregular_family(n, half, seed=8))
+    svc = BatchedSolveService(config=DEFAULT_CONFIG, max_batch=B,
+                              device=device)
+    zero_counts()
+    got, _ = served(svc, groups)
+    launches = batched_counts()
+    ref = []
+    for k in range(3):
+        ref += serve_seq(device, DEFAULT_CONFIG,
+                         groups[k * half:(k + 1) * half], reuse=True)[0]
+    cmp_d = same_as_seq("serve d", got, ref)
+    fmts = sorted(e.solver.A.format for e in svc.cache._entries.values())
+    print(json.dumps({"serve_mixed": {
+        "batches": svc.metrics.get("batches"), "formats": fmts,
+        "padded_rows": [(n - 4) ** 3, svc._patterns[
+            groups[half][0]._amgx_tpu_fp].nb],
+        "iterations": [g[1] for g in got], **cmp_d,
+        "launches": launches}}), flush=True)
+    check(svc.metrics.get("batches") == 3, "serve d: not 3 batches")
+    check(fmts == ["DIA", "DIA", "ELL"], f"serve d: formats {fmts}")
+    if on_card:
+        check(launches.get("ell_spmv_batched_f64", 0) > 0,
+              "serve d: ell_spmv_batched_f64 never launched")
+    paths["serve_mixed"] = launches
+    del svc, groups, got, ref
+
+    # ---- e. masked early exit: one easy system among B - 1 hard ones
+    import scipy.sparse as sps
+
+    hard = serve_family((n,) * 3, B - 1, seed=9)
+    easy = hard[0][0].copy()
+    easy.data = easy.data * 1e-3
+    easy = (easy + sps.eye_array(easy.shape[0]) * 4.0).tocsr()
+    easy.sort_indices()
+    b_easy = np.random.default_rng(10).standard_normal(easy.shape[0])
+    got, _ = served(BatchedSolveService(config=DEFAULT_CONFIG, max_batch=B,
+                                        device=device),
+                    [(easy, b_easy)] + hard)
+    # frozen bit for bit: the easy system in a group of B copies of
+    # itself (torch's reductions order their sums by the batch's shape)
+    solo, _ = served(BatchedSolveService(config=DEFAULT_CONFIG,
+                                         max_batch=B, device=device),
+                     [(easy, b_easy)] * B)
+    it_e, h = got[0][1], got[0][3]
+    rec = {"serve_masked": {
+        "easy_iterations": it_e, "group_max_iterations": max(
+            g[1] for g in got), "solo_iterations": solo[0][1],
+        "x_bitwise_solo": bool(np.array_equal(got[0][2], solo[0][2])),
+        "history_nan_past_freeze": bool(np.all(np.isnan(h[it_e + 1:])))}}
+    print(json.dumps(rec), flush=True)
+    r = rec["serve_masked"]
+    check(it_e < r["group_max_iterations"] and it_e == solo[0][1],
+          f"serve e: easy {it_e}, group {r['group_max_iterations']}, solo "
+          f"{solo[0][1]}")
+    check(r["x_bitwise_solo"], "serve e: frozen x differs from its solo")
+    check(r["history_nan_past_freeze"], "serve e: history past freeze")
+    del hard, got, solo
+
+    # ---- f. guards; g. the C API through the shim
+    print(json.dumps({"serve_guards": serve_guards(torch, device,
+                                                   n_guard)}), flush=True)
+    print(json.dumps({"serve_capi_dDDI": serve_capi(torch, device, n)}),
+          flush=True)
+
+    # ---- i. card against the CPU port at n_cpu^3 f64
+    cpu = CPU.get(serve_cpu_side, n_cpu)
+    card = {}
+    systems = serve_family((n_cpu,) * 3, 4, seed=3)
+    for label, cfg in (("pcg_amg", SERVE_PCG_AMG),
+                       ("default", DEFAULT_CONFIG)):
+        svc = BatchedSolveService(config=cfg, max_batch=4, device=device)
+        card[label] = [(int(r.status), int(r.iters), r.x.cpu().numpy())
+                       for r in svc.solve_many(systems)]
+    worst = 0.0
+    for label in card:
+        for (st, it, x), (cst, cit, cx) in zip(card[label], cpu[label]):
+            check(st == cst == 0 and it == cit,
+                  f"serve i {label}: card {st}/{it} vs CPU {cst}/{cit}")
+            worst = max(worst, float(np.abs(x - cx).max()
+                                     / np.abs(cx).max()))
+    print(json.dumps({"serve_vs_cpu": {
+        "n": n_cpu, "iterations": {k: [c[1] for c in v]
+                                   for k, v in card.items()},
+        "x_max_rel_diff": worst}}), flush=True)
+    check(worst <= 1e-9, f"serve i: x differs from the CPU's by {worst:.3e}")
+    return paths
+
+
+def blockdiag_csr(torch, ro, ci, vals, m):
+    """The block-diagonal CSR (B n x B m) of B instances of one CSR
+    structure (``ro``, ``ci`` host arrays, ``vals`` (B, nnz) or (nnz,)
+    shared, on the card): the library's batched product of the same
+    work, one ``torch.mv``."""
+    n, nnz = ro.shape[0] - 1, ci.shape[0]
+    B = vals.shape[0]
+    ro_b = (np.asarray(ro, np.int64)[None, :-1] + nnz * np.arange(B)[:, None])
+    ro_b = np.append(ro_b.reshape(-1), B * nnz)
+    ci_b = (np.asarray(ci, np.int64)[None, :] + m * np.arange(B)[:, None])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(ro_b).cuda(), torch.from_numpy(ci_b.reshape(-1)
+                                                            ).cuda(),
+            vals.reshape(-1), size=(B * n, B * m))
+
+
+def batched_case(torch, timer, peaks, name, label, run, plain, instance,
+                 lib, nbytes, nops, dtype, launches=None, extra=None):
+    """One batched entry point: y held bit for bit, instance by
+    instance, to the unbatched entry point (``instance(i)``) and within
+    TOL to its plain batched version; timed as :func:`kernel_case`
+    times (cold, warm, device), with the plain version and ``lib`` (a
+    block-diagonal CSR ``torch.mv`` of the same work)."""
+    y, yp = run(), plain()
+    torch.cuda.synchronize()
+    check(y.shape == yp.shape, f"{label}: shape {y.shape} vs {yp.shape}")
+    check(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
+    bitwise = all(torch.equal(y[i], instance(i)) for i in range(y.shape[0]))
+    check(bitwise, f"{label}: an instance differs from the unbatched entry")
+    err, rel = rel_err(y, yp)
+    tol = TOL[str(dtype).replace("torch.", "")]
+    check(rel <= tol, f"{label}: kernel vs plain rel err {rel:.3e} > {tol}")
+    yl = lib()
+    torch.cuda.synchronize()
+    kind = "f64" if dtype == torch.float64 else "f32"
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    t_ops = nops / peaks[kind] * 1e3
+    rec = {
+        "case": label, "kernel": name, "dtype": kind, "batch": y.shape[0],
+        "bitwise_unbatched": bitwise, "max_abs_err": err,
+        "max_rel_err": rel, "tol": tol,
+        "library_max_abs_err": float((yl.reshape(y.shape) - yp).abs().max()),
+        "kernel_ms": timer(run), "kernel_ms_warm_l2": timer(run, flush=False),
+        "kernel_device_ms": timer.device(run, ACTIVITY[
+            name.split("_batched")[0]]),
+        "plain_ms": timer(plain), "library_ms": timer(lib),
+        "bytes": int(nbytes), "ops": int(nops),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **(extra or {}),
+    }
+    rec["share"] = rec["bound_ms"] / rec["kernel_ms"]
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def serve_kernel_cases(torch, timer, peaks, rng, n=SERVE_N, B=SERVE_B):
+    """The four batched entry points at the serve paths' shapes: the
+    n^3 level-0 A in DIA (f64 and f32, batched planes), the SIZE_8
+    level-0 R and P (f64, shared values) and the irregular level-0 A in
+    slot-major ELL (f64 and f32, batched values), B instances each.
+    The bound counts the shared structure once and the batched values,
+    x and y B times."""
+    import scipy.sparse as sps
+
+    from amgx_tpu_torch.amg.aggregation import geo_aggregate
+    from amgx_tpu_torch.core.matrix import SparseMatrix
+    from amgx_tpu_torch.io.poisson import poisson_scipy
+    from amgx_tpu_torch.ops import dia, ell
+    from amgx_tpu_torch.serve.bucketing import pad_pattern
+
+    recs = []
+    base = poisson_scipy((n,) * 3).tocsr()
+    nf = base.shape[0]
+    for dt in (torch.float64, torch.float32):
+        isz = 8 if dt == torch.float64 else 4
+        A = SparseMatrix.from_scipy(base, device="cuda",
+                                    accel_formats=("dia",))
+        A = A.astype(dt)
+        jit = torch.from_numpy(1.0 + 0.08 * rng.standard_normal(
+            (B, A.nnz))).cuda().to(dt)
+        Ab = A.replace_values_batched(A.values * jit)
+        x = torch.from_numpy(rng.standard_normal((B, nf))).cuda().to(dt)
+        nd = len(A.dia_offsets)
+        name = f"dia_spmv_batched_{'f64' if isz == 8 else 'f32'}"
+        lib = blockdiag_csr(torch, base.indptr, base.indices, Ab.values, nf)
+        recs.append(batched_case(
+            torch, timer, peaks, name,
+            f"serve {name} level0 A B{B} {n}^3",
+            lambda: dia.dia_spmv_batched(Ab.dia_vals, Ab.dia_offsets, x),
+            lambda: dia.dia_spmv_batched_plain(Ab.dia_vals, Ab.dia_offsets,
+                                               x),
+            lambda i: dia.dia_spmv(Ab.dia_vals[i].contiguous(),
+                                   Ab.dia_offsets, x[i]),
+            lambda: torch.mv(lib, x.reshape(-1)),
+            nbytes=isz * B * (base.nnz + 2 * nf) + 4 * nd,
+            nops=2 * B * base.nnz, dtype=dt,
+            extra={"diagonals": nd, "nonzeros": base.nnz}))
+        del A, Ab, x, lib, jit
+    # SIZE_8 transfers of the n^3 hierarchy (geometric 2x2x2 aggregates),
+    # values shared by every instance
+    agg = geo_aggregate(n, n, n, 3)
+    nc = int(agg.max()) + 1
+    P = sps.csr_matrix((np.ones(nf), (np.arange(nf), agg)), shape=(nf, nc))
+    for label, T_ in (("R", P.T.tocsr()), ("P", P)):
+        M = SparseMatrix.from_scipy(T_, device="cuda")
+        rows, cols = T_.shape
+        x = torch.from_numpy(rng.standard_normal((B, cols))).cuda()
+        w = int(M.ell_cols.shape[0])
+        lib = blockdiag_csr(torch, T_.indptr, T_.indices,
+                            M.values.expand(B, -1).contiguous(), cols)
+        recs.append(batched_case(
+            torch, timer, peaks, "ell_spmv_batched_f64",
+            f"serve ell_spmv_batched_f64 level0 {label} {rows}x{cols} w={w} "
+            f"shared B{B}",
+            lambda: ell.ell_spmv_batched(M.ell_cols, M.ell_vals, x),
+            lambda: ell.ell_spmv_batched_plain(M.ell_cols, M.ell_vals, x),
+            lambda i: ell.ell_spmv(M.ell_cols, M.ell_vals, x[i]),
+            lambda: torch.mv(lib, x.reshape(-1)),
+            nbytes=12 * T_.nnz + 8 * B * (rows + cols),
+            nops=2 * B * T_.nnz, dtype=torch.float64,
+            extra={"width": w, "shared_values": True}))
+        del M, x, lib
+    # the irregular pattern's padded template (slot-major ELL), batched
+    # values
+    irr = irregular_poisson(n)
+    pat = pad_pattern(irr.indptr, irr.indices, irr.shape[0])
+    for dt in (torch.float64, torch.float32):
+        isz = 8 if dt == torch.float64 else 4
+        npdt = np.float64 if isz == 8 else np.float32
+        A = pat.template_matrix(irr.data, npdt, accel_formats=("ell",),
+                                device="cuda")
+        check(A.format == "ELL" and A.sell is None,
+              f"irregular template {A.format}")
+        vals = np.stack([pat.embed_values(
+            irr.data * (1.0 + 0.05 * rng.standard_normal(irr.nnz)), npdt)
+            for _ in range(B)])
+        Ab = A.replace_values_batched(torch.from_numpy(vals).cuda())
+        x = torch.from_numpy(rng.standard_normal((B, pat.nb))).cuda().to(dt)
+        w = int(A.ell_cols.shape[0])
+        name = f"ell_spmv_batched_{'f64' if isz == 8 else 'f32'}"
+        lib = blockdiag_csr(torch, pat.row_offsets, pat.col_indices,
+                            Ab.values, pat.nb)
+        recs.append(batched_case(
+            torch, timer, peaks, name,
+            f"serve {name} irregular A {pat.nb} w={w} B{B}",
+            lambda: ell.ell_spmv_batched(Ab.ell_cols, Ab.ell_vals, x),
+            lambda: ell.ell_spmv_batched_plain(Ab.ell_cols, Ab.ell_vals, x),
+            lambda i: ell.ell_spmv(Ab.ell_cols, Ab.ell_vals[i].contiguous(),
+                                   x[i]),
+            lambda: torch.mv(lib, x.reshape(-1)),
+            nbytes=4 * irr.nnz + isz * B * (irr.nnz + 2 * pat.nb),
+            nops=2 * B * irr.nnz, dtype=dt,
+            extra={"width": w, "nonzeros": irr.nnz,
+                   "padded_slots": w * pat.nb}))
+        del A, Ab, x, lib, vals
+    return recs
+
+
 PHASES = ("kernels", "bench_pcg", "bench_pcg_matrix_free",
           "fgmres_aggregation", "pcg_classical", "pcg_classical_cheby",
           "idr_dilu", "gmres_ilu0", "pbicgstab_agg_w", "amg_classical_kcycle",
           "pcg_agg_resetup", "refine_bf16_256", "mf_bf16", "classical_bf16",
           "device_match", "block4_amg_pcg", "eigensolvers", "setup_store",
-          "capi")
+          "capi", "serve")
 NEEDS = {"bench_pcg_matrix_free": ("bench_pcg",)}
 
 
@@ -5639,6 +6385,7 @@ def cpu_side_calls(phases):
         "eigensolvers": [(eig_cmp_cpu, EIG_CMP_N, PAGERANK_CMP_NODES, share)
                          for share in EIG_CPU_SPLIT],
         "capi": [(capi_cpu_side, CAPI_CMP_N, CAPI_SELL_N)],
+        "serve": [(serve_cpu_side, SERVE_CPU_N)],
     }
     return [c for p in phases for c in calls.get(p, ())]
 
@@ -5711,7 +6458,8 @@ def _main(argv=None):
     variants_by_path = {}
     calls = cpu_side_calls(phases)
     CPU.start(calls, [CHILD_THREADS if c[0] in (
-        block4_cmp_f32, block4_cmp_f64, eig_cmp_cpu, capi_cpu_side)
+        block4_cmp_f32, block4_cmp_f64, eig_cmp_cpu, capi_cpu_side,
+        serve_cpu_side)
         else torch.get_num_threads() for c in calls])
     if "kernels" in phases:
         recs += timed("kernels", kernel_phase, torch, peaks)
@@ -5761,6 +6509,8 @@ def _main(argv=None):
                                              peaks)
         variants_by_path.update(got)
         recs += c_recs
+    if "serve" in phases:
+        variants_by_path.update(timed("serve", serve_phase, torch))
 
     # each kernel: the path whose count is its ``launches``, the case
     # whose times the summary gives, its source and the TPU kernel

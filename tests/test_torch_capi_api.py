@@ -620,9 +620,6 @@ def test_d_mode_without_a_card_raises(monkeypatch):
 
 
 NOT_PORTED = [
-    ("solver_solve_batch", 4, "A.7"), ("solver_get_batch_status", 2, "A.7"),
-    ("solver_get_batch_iterations_number", 2, "A.7"),
-    ("solver_get_batch_metrics", 1, "A.7"),
     ("solver_get_telemetry", 1, "A.7"), ("solver_telemetry_json", 1, "A.7"),
     ("solver_session_create", 2, "A.7"), ("solver_session_step", 4, "A.7"),
     ("solver_session_sync", 1, "A.7"),
@@ -651,6 +648,24 @@ def test_entry_points_not_ported_are_rc_not_implemented(name, nargs, queue):
         getattr(T, name)(*([1] * nargs))
     assert e.value.rc == T.RC_NOT_IMPLEMENTED
     assert queue in str(e.value) and "ROADMAP.md" in str(e.value)
+
+
+# the batched solve and its accessors, ported with the serve layer
+BATCH = [("solver_solve_batch", 4), ("solver_get_batch_status", 2),
+         ("solver_get_batch_iterations_number", 2),
+         ("solver_get_batch_metrics", 1)]
+
+
+@pytest.mark.parametrize("name,nargs", BATCH, ids=[n for n, _ in BATCH])
+def test_batch_entry_points_refuse_an_unknown_handle_as_jax(name, nargs):
+    """On a handle that names no solver both packages answer
+    RC_BAD_PARAMETERS."""
+    got = []
+    for C in (T, J):
+        with pytest.raises(C.AMGXError) as e:
+            getattr(C, name)(*([1] * nargs))
+        got.append(e.value.rc)
+    assert got == [T.RC_BAD_PARAMETERS] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -142,7 +142,8 @@ def test_shim_return_codes(lib):
                   ctypes.c_char_p(b"not json and not k=v"))[0] == 12
     rc, A = handle(lib, "AMGX_matrix_create", r, mode_arg("hDDI"))
     arr = (H * 1)(A.value)
-    assert lib.AMGX_solver_solve_batch(H(1), 1, arr, arr, arr) == 13
+    # the batched solve is ported: handle 1 names no solver
+    assert lib.AMGX_solver_solve_batch(H(1), 1, arr, arr, arr) == 1
     assert lib.AMGX_distribution_create(ctypes.byref(H()), c) == 13
 
 

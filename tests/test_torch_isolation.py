@@ -96,6 +96,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import amgx_tpu_torch.amg.spgemm, amgx_tpu_torch.core.types\n"
         "import amgx_tpu_torch.api.capi, amgx_tpu_torch.ops.analysis\n"
         "import amgx_tpu_torch.core.printing, amgx_tpu_torch.version\n"
+        "import amgx_tpu_torch.serve, amgx_tpu_torch.serve.service\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'amgx_tpu'\n"
         "             or m.startswith('amgx_tpu.'))\n"
@@ -133,6 +134,41 @@ def test_default_device_raises_without_cuda(no_cuda):
     s = T.create_solver(cfg, "default", device="cpu")
     s.setup(poisson_3d_7pt(4, device="cpu"))
     assert s.solve(np.ones(64)).status == 0
+
+
+def test_serve_sources_are_checked_and_import_neither_jax_nor_the_jax_package():
+    serve = sorted((PORT / "serve").glob("*.py"))
+    assert {p.name for p in serve} >= {"__init__.py", "bucketing.py",
+                                       "cache.py", "batched.py",
+                                       "metrics.py", "service.py"}
+    assert set(serve) <= set(_port_sources())
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in serve
+           for m in _FORBIDDEN_IMPORT.finditer(f.read_text())]
+    assert not bad, bad
+
+
+def test_serve_raises_without_cuda_and_runs_nothing_on_the_cpu(no_cuda):
+    from amgx_tpu_torch.api import capi
+    from amgx_tpu_torch.serve import BatchedSolveService, SolveService
+
+    for make in (lambda: BatchedSolveService(),
+                 lambda: SolveService(max_batch=4),
+                 lambda: BatchedSolveService(device="cuda:0")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    # the C API's batched solve in a d mode: refused at the handle
+    capi.initialize()
+    cfg = capi.config_create(
+        '{"config_version": 2, "solver": {"scope": "main",'
+        ' "solver": "PCG"}}')
+    res = capi.resources_create_simple(cfg)
+    with pytest.raises(capi.AMGXError) as e:
+        capi.solver_create(res, "dDDI", cfg)
+    assert e.value.rc == capi.RC_NOT_SUPPORTED_TARGET
+    # asked for explicitly, the CPU serves
+    m = poisson_scipy((4, 4))
+    r = BatchedSolveService(device="cpu").solve_many([(m, np.ones(16))])
+    assert r[0].status == 0 and r[0].x.device.type == "cpu"
 
 
 def test_setup_rejects_a_matrix_on_another_device():
