@@ -515,13 +515,13 @@ class SparseMatrix:
         structure (the serve layer's groups), one row of ``values`` (B,
         nnz) each, in CSR order: the index arrays are shared, and
         ``values`` (B, nnz), ``diag`` (B, n_rows), the DIA planes (B, nd,
-        n_rows), the slot-major ELL values (B, w, n_rows) and ``dense``
-        (B, n_rows, n_cols) are refilled on the device through the same
-        source maps as :meth:`replace_values` (a scatter for dense), so
-        each instance's arrays are what ``replace_values`` gives it.
-        The view keeps no sliced ELL layout (the batched kernel is
-        slot-major) and no host triple; ``spmv`` takes it with x (B,
-        n_cols).  Not for block or MATRIX_FREE matrices."""
+        n_rows), the slot-major ELL values (B, w, n_rows), the sliced
+        ELL values (B, stored; its index arrays and plan shared) and
+        ``dense`` (B, n_rows, n_cols) are refilled on the device through
+        the same source maps as :meth:`replace_values` (a scatter for
+        dense), so each instance's arrays are what ``replace_values``
+        gives it.  The view keeps no host triple; ``spmv`` takes it with
+        x (B, n_cols).  Not for block or MATRIX_FREE matrices."""
         if self.block_size != 1 or self.has_matrix_free or self.batch:
             raise NotImplementedError(
                 "replace_values_batched: scalar matrices without the "
@@ -538,7 +538,7 @@ class SparseMatrix:
         B = int(v.shape[0])
         maps = self._src_maps()
         rep = {"values": v, "diag": _gather_src_batched(maps["diag"], v),
-               "sell": None, "batch": B,
+               "batch": B,
                "_host_csr": (self._host_csr[0], self._host_csr[1], None)}
         if self.has_dia:
             rep["dia_vals"] = _gather_src_batched(maps["dia"], v)
@@ -550,6 +550,9 @@ class SparseMatrix:
             ).index_add_(1, flat, v).reshape(B, m, k)
         if self.has_ell:
             rep["ell_vals"] = _gather_src_batched(maps["ell"], v)
+            if self.sell is not None:
+                rep["sell"] = dataclasses.replace(
+                    self.sell, vals=_gather_src_batched(maps["sell"], v))
         return self._propagate_structure_memo(
             dataclasses.replace(self, **rep))
 

@@ -30,15 +30,19 @@ last two for unstructured matrices in the C API's mixed modes (dFBI,
 dDFI / dIFI).  bf16 values take one lane a row only, so that their sums
 run in the plain version's order (``csrc/dtypes.cuh``).
 
-``ell_spmv_batched`` is the serve layer's entry: B instances of one
-slot-major structure, values batched or shared, the batch a grid axis
-of the ``ell_spmv`` kernel (f32, f64).  The sliced layout has no
-batched kernel; a batched template builds none.
+The serve layer's batched entries take B instances of one structure,
+values batched or shared by every instance, in f32 and f64:
+``sell_spmv_batched`` for a matrix with the sliced layout (a batched
+view keeps its template's, ``SparseMatrix.replace_values_batched``),
+each instance's y ``sell_spmv``'s bit for bit; ``ell_spmv_batched``
+for the slot-major rest (the batch a grid axis of the ``ell_spmv``
+kernel).
 
 ``launches`` counts ``ell_spmv`` kernel launches, ``sell_launches``
-those of ``sell_spmv`` and ``batched_launches`` those of
-``ell_spmv_batched`` (never plain-version calls), ``variant_launches``
-all three per entry point; reset them by assigning 0 and an empty dict.
+those of ``sell_spmv``, ``batched_launches`` those of
+``ell_spmv_batched`` and ``sell_batched_launches`` those of
+``sell_spmv_batched`` (never plain-version calls), ``variant_launches``
+all four per entry point; reset them by assigning 0 and an empty dict.
 """
 
 from __future__ import annotations
@@ -53,11 +57,16 @@ from amgx_tpu_torch.ops import kernels
 launches = 0
 sell_launches = 0
 batched_launches = 0
+sell_batched_launches = 0
 variant_launches: dict = {}
 
 # rows per slice: one warp's worth, so one warp's loads of one slot are
 # 32 neighbouring entries
 SELL_C = 32
+# the most instances a tile of the batched sliced kernel takes
+# (``kMaxTile`` in ``csrc/ell_spmv.cu``): its copy of x holds the batch
+# rounded up to a multiple of it
+SELL_BATCH_TILE_MAX = 16
 
 
 
@@ -189,8 +198,9 @@ class SlicedEll:
     column 0 and value 0.  ``rows[p]`` is the matrix row at sorted
     position p (None when ``sigma`` is 1: no reordering).
 
-    cols (stored,) int32, vals (stored,), offsets (n_slices + 1,)
-    int64, widths (n_slices,) int32, rows (n_rows,) int32 or None.
+    cols (stored,) int32, vals (stored,) (a batched view's: (B,
+    stored), its structure shared), offsets (n_slices + 1,) int64,
+    widths (n_slices,) int32, rows (n_rows,) int32 or None.
     ``sigma`` is the window rows were sorted in, ``lanes`` the lanes
     the kernel gives each row (1, 2, 4 or 8): the launch plan, fixed at
     upload.  ``SparseMatrix.replace_values`` refills ``vals`` through a
@@ -214,7 +224,7 @@ class SlicedEll:
 
     @property
     def stored(self) -> int:
-        return int(self.vals.shape[0])
+        return int(self.vals.shape[-1])
 
     def nbytes(self) -> int:
         """Device bytes of the sliced arrays."""
@@ -230,7 +240,9 @@ def sell_spmv_plain(S: SlicedEll, x):
     :func:`ell_spmv_plain` on the slot-major arrays bit for bit (the
     slots it skips add +0.0 or -0.0 there).  Where x holds an inf or a
     NaN, a row shorter than the matrix-wide width no longer picks up
-    0 * x[0] = NaN from the padding slots this layout does not store."""
+    0 * x[0] = NaN from the padding slots this layout does not store.
+    Leading dimensions of ``x`` (and of ``S.vals``, a batched view's)
+    are a batch, each instance summed as alone."""
     ns = S.n_slices
     dev = x.device
     lane = torch.arange(SELL_C, device=dev, dtype=torch.int64)
@@ -239,18 +251,19 @@ def sell_spmv_plain(S: SlicedEll, x):
     base = S.offsets[:-1][k] + lane.repeat(ns)
     wk = S.widths[k]
     dt = torch.promote_types(S.vals.dtype, x.dtype)
-    acc = torch.zeros(ns * SELL_C, dtype=dt, device=dev)
+    acc = torch.zeros(x.shape[:-1] + (ns * SELL_C,), dtype=dt, device=dev)
     width = int(S.widths.max()) if ns else 0
     zero = torch.zeros((), dtype=dt, device=dev)
     for s in range(width):
         live = wk > s
         idx = torch.where(live, base + SELL_C * s, 0)
-        acc = acc + torch.where(live, S.vals[idx] * x[S.cols[idx]], zero)
-    acc = acc[:S.n_rows]
+        acc = acc + torch.where(live, S.vals[..., idx] * x[..., S.cols[idx]],
+                                zero)
+    acc = acc[..., :S.n_rows]
     if S.rows is None:
         return acc
-    y = torch.empty(S.n_rows, dtype=dt, device=dev)
-    y[S.rows.long()] = acc
+    y = torch.empty(x.shape[:-1] + (S.n_rows,), dtype=dt, device=dev)
+    y[..., S.rows.long()] = acc
     return y
 
 
@@ -305,6 +318,73 @@ def sell_spmv(S: SlicedEll, x):
             kernels.stream_handle(x.device))
     kernels.check_launch("sell_spmv", rc)
     sell_launches += 1
+    variant_launches[entry] = variant_launches.get(entry, 0) + 1
+    return y
+
+
+# the plain batched version: ``sell_spmv_plain`` takes ``x`` (B, m) and
+# ``S.vals`` (B, stored) or (stored,) shared by every instance itself
+sell_spmv_batched_plain = sell_spmv_plain
+
+
+def sell_spmv_batched(S: SlicedEll, x):
+    """y = A_b @ x_b for B instances of one sliced ELL structure (the
+    serve layer's groups): ``S.vals`` (B, stored) or (stored,) shared by
+    every instance (AMG's transfers), ``x`` (B, n_cols).  On the card
+    the ``sell_spmv_batched`` kernel (f32, f64) with the plan
+    ``S.lanes``, each instance's y :func:`sell_spmv`'s bit for bit."""
+    global sell_batched_launches
+    if x.dim() != 2 or S.vals.dim() not in (1, 2) \
+            or S.cols.shape[0] != S.vals.shape[-1] \
+            or (S.vals.dim() == 2 and S.vals.shape[0] != x.shape[0]) \
+            or S.offsets.shape[0] != S.n_slices + 1 \
+            or S.n_slices * SELL_C < S.n_rows \
+            or (S.rows is not None and S.rows.shape != (S.n_rows,)):
+        raise ValueError(
+            f"sell_spmv_batched: cols {tuple(S.cols.shape)}, vals "
+            f"{tuple(S.vals.shape)}, {S.n_slices} slices for {S.n_rows} "
+            f"rows, x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return sell_spmv_plain(S, x)
+    B, m = x.shape
+    if S.stored > 0 and m == 0:
+        raise ValueError("sell_spmv_batched: stored entries but an empty x")
+    ts = [S.cols, S.vals, S.offsets, S.widths]
+    if S.rows is not None:
+        ts.append(S.rows)
+    _check_cuda("sell_spmv_batched", x, ts)
+    entry = (kernels.entry_point("sell_spmv_batched", S.vals.dtype, x.dtype)
+             if S.vals.dtype == x.dtype else None)
+    if entry is None:
+        raise NotImplementedError(
+            f"sell_spmv_batched: dtypes {S.vals.dtype}/{x.dtype}; the "
+            "kernel takes float32 or float64 values with x of their dtype")
+    if (S.cols.dtype, S.offsets.dtype, S.widths.dtype) != (
+            torch.int32, torch.int64, torch.int32) or (
+            S.rows is not None and S.rows.dtype != torch.int32):
+        raise ValueError("sell_spmv_batched: cols, widths and rows must be "
+                         "int32, offsets int64")
+    if S.lanes not in (1, 2, 4, 8):
+        raise ValueError(f"sell_spmv_batched: {S.lanes} lanes a row")
+    if not all(t.is_contiguous() for t in [*ts, x]):
+        raise ValueError("sell_spmv_batched: inputs must be contiguous")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"sell_spmv_batched: batch {B} outside 1..65535")
+    y = torch.empty((B, S.n_rows), dtype=x.dtype, device=x.device)
+    if S.n_rows == 0:
+        return y
+    # the kernel's instance-minor copy of x, the batch in tiles
+    scratch = torch.empty(-(-B // SELL_BATCH_TILE_MAX) * SELL_BATCH_TILE_MAX
+                          * m, dtype=x.dtype, device=x.device)
+    fn = getattr(kernels.library("ell_spmv"), entry)
+    rc = fn(S.cols.data_ptr(), S.vals.data_ptr(), S.offsets.data_ptr(),
+            S.widths.data_ptr(),
+            None if S.rows is None else S.rows.data_ptr(),
+            S.n_slices, S.lanes, x.data_ptr(), y.data_ptr(), S.n_rows, m,
+            S.stored, B, int(S.vals.dim() == 1), scratch.data_ptr(),
+            kernels.stream_handle(x.device))
+    kernels.check_launch("sell_spmv_batched", rc)
+    sell_batched_launches += 1
     variant_launches[entry] = variant_launches.get(entry, 0) + 1
     return y
 

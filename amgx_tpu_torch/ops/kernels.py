@@ -54,12 +54,17 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (``ell_spmv_bf16_f32``: bf16 values, f32 x, f32 y).  The batched
 # entry points of the serve layer add the batch and whether its values
 # are shared: DIA (vals, x, y, rows, batch, shared, plan, stream), ELL
-# (cols, vals, width, x, y, rows, columns, batch, shared, stream)
+# (cols, vals, width, x, y, rows, columns, batch, shared, stream),
+# sliced ELL (cols, vals, offsets, widths, row permutation or None,
+# slices, lanes, x, y, rows, columns, stored slots, batch, shared,
+# scratch, stream)
 _DIA = (_P, _P, _P, _LL, _P, _P)
 _DIA_BATCHED = (_P, _P, _P, _LL, _LL, _I, _P, _P)
 _ELL = (_P, _P, _I, _P, _P, _LL, _P)
 _ELL_BATCHED = (_P, _P, _I, _P, _P, _LL, _LL, _LL, _I, _P)
 _SELL = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _P)
+_SELL_BATCHED = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _LL, _LL, _LL,
+                 _I, _P, _P)
 _STENCIL = (_P, _P, _P, _P, _P)
 _SIGNATURES = {
     "dia_spmv": {
@@ -73,6 +78,7 @@ _SIGNATURES = {
         **{f"ell_spmv_batched_{t}": _ELL_BATCHED for t in ("f32", "f64")},
         **{f"sell_spmv_{t}": _SELL
            for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
+        **{f"sell_spmv_batched_{t}": _SELL_BATCHED for t in ("f32", "f64")},
     },
     "stencil_spmv": {f"stencil_spmv_{t}": _STENCIL
                      for t in ("f32", "f64", "bf16")},
@@ -96,9 +102,8 @@ def library_of(kernel: str) -> str:
     """The source (``csrc/<name>.cu``) that holds ``kernel``'s entry
     points: ``sell_spmv`` and the batched entries live beside their
     unbatched kernels."""
-    if kernel == "sell_spmv":
-        return "ell_spmv"
-    return kernel.removesuffix("_batched")
+    kernel = kernel.removesuffix("_batched")
+    return "ell_spmv" if kernel == "sell_spmv" else kernel
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

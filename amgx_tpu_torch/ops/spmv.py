@@ -36,9 +36,9 @@ Batched products (the serve layer's groups of same-structure systems):
 x of shape (B, n_cols) with a batched view of A
 (``SparseMatrix.replace_values_batched``, values with a leading B) or
 with a matrix shared by every instance (AMG's transfers) gives y (B,
-n_rows), through :func:`_spmv_batched`: the ``dia_spmv_batched`` and
-``ell_spmv_batched`` kernels on the card (a sliced matrix takes its
-slot-major arrays, which it keeps beside the sliced ones), a batched
+n_rows), through :func:`_spmv_batched`: the ``dia_spmv_batched``
+kernel on the card, ``sell_spmv_batched`` where the matrix has its
+sliced layout, else ``ell_spmv_batched``, a batched
 ``torch.matmul`` for dense (the JAX package leaves it to XLA) and the
 CSR products of each instance through :func:`segment_sum` (the
 unbatched path's row order; ``csr_products`` counts them).  Scalar
@@ -58,7 +58,12 @@ import torch
 
 from amgx_tpu_torch.ops.blas import make_site_counter
 from amgx_tpu_torch.ops.dia import dia_spmv, dia_spmv_batched
-from amgx_tpu_torch.ops.ell import ell_spmv, ell_spmv_batched, sell_spmv
+from amgx_tpu_torch.ops.ell import (
+    ell_spmv,
+    ell_spmv_batched,
+    sell_spmv,
+    sell_spmv_batched,
+)
 from amgx_tpu_torch.ops.stencil import stencil_spmv
 
 record_op_pass, op_pass_counter = make_site_counter("op_pass")
@@ -124,6 +129,8 @@ def _spmv_batched(A, x):
             return torch.matmul(d, xd.unsqueeze(-1)).squeeze(-1)
         return torch.matmul(xd, d.T)
     if A.has_ell:
+        if A.sell is not None:
+            return sell_spmv_batched(A.sell, x)
         return ell_spmv_batched(A.ell_cols, A.ell_vals, x)
     if x.device.type == "cuda":
         csr_products += 1

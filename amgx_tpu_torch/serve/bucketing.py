@@ -16,8 +16,9 @@ keeps the padded system equivalent to the original:
     width) near the original.
 
 ``template_matrix`` builds the padded matrix in the formats the
-service picks (DIA, slot-major ELL, dense or CSR) and drops the sliced
-ELL layout, which has no batched kernel.
+service picks (DIA, ELL, dense or CSR); an ELL template keeps the
+sliced layout ``SparseMatrix.from_csr`` builds beside the slot-major
+arrays where it streams fewer bytes, and its batched SpMVs take it.
 """
 
 from __future__ import annotations
@@ -128,12 +129,12 @@ class PaddedPattern:
     def template_matrix(self, values, dtype, accel_formats=(),
                         device="cuda") -> SparseMatrix:
         """The padded matrix on ``device``, in the formats of
-        ``accel_formats`` (a subset of DIA, dense and ELL; none: CSR)
-        and without a sliced ELL layout: the batched template's SpMVs
-        take the slot-major arrays."""
+        ``accel_formats`` (a subset of DIA, dense and ELL; none: CSR),
+        an ELL one with the sliced layout where ``from_csr`` builds it
+        (the batched template's SpMVs then take it)."""
         if not set(accel_formats) <= {"dia", "dense", "ell"}:
             raise ValueError(f"template formats {accel_formats}")
-        A = SparseMatrix.from_csr(
+        return SparseMatrix.from_csr(
             self.row_offsets,
             self.col_indices,
             self.embed_values(values, dtype=dtype),
@@ -141,10 +142,6 @@ class PaddedPattern:
             accel_formats=tuple(accel_formats),
             device=device,
         )
-        if A.sell is not None:
-            A = A._propagate_structure_memo(
-                dataclasses.replace(A, sell=None))
-        return A
 
 
 class StagingSlot:

@@ -255,12 +255,15 @@ it waited for them:
    over the group's largest iteration count, and no unbatched launch.
    b. New coefficients on the same pattern: no new setup, no new
    build.  c. DEFAULT_CONFIG in f32 on 16 x 64^3 and on 8 systems of
-   the ``irregular_poisson(64)`` pattern (a slot-major ELL template):
+   the ``irregular_poisson(64)`` pattern (an ELL template with the
+   sliced layout: ``sell_spmv_batched_f32``), and ``SERVE_PCG_AMG_F32``
+   on 8 x 64^3 (the f32 SIZE_8 transfers: ``ell_spmv_batched_f32``):
    iterations within one of the sequential ones, true residual at
    1e-5, launches as walked.  d. A mixed queue of 8 x 64^3, 8 x 60^3
    (padded rows) and 8 irregular systems in f64: three batches (DIA,
-   DIA, ELL), ``ell_spmv_batched_f64`` with batched values, each
-   system equal to its sequential solve.  e. Masked early exit: a
+   DIA, ELL), launches as walked (``sell_spmv_batched_f64`` on the
+   irregular group, no slot-major ELL launch), each system equal to
+   its sequential solve.  e. Masked early exit: a
    diagonally dominant system among 15 hard ones freezes (fewer
    iterations than the group's largest, history NaN past its freeze)
    with x bit for bit its solve in a group of 16 copies of itself
@@ -273,17 +276,18 @@ it waited for them:
    service.  h. Host seconds per system, batched (first and warm
    flush) against sequential, for a and c.  i. The same service calls
    on the card and in the CPU port at 4 x 24^3 f64: iterations equal,
-   x to rtol 1e-9.  The kernels phase holds the four batched entry
-   points at these shapes (B = 16): each instance bit for bit the
-   unbatched entry point's, the batch within TOL of the plain batched
-   version, timed beside a block-diagonal CSR ``torch.mv`` of the same
-   work.
+   x to rtol 1e-9.  The kernels phase holds the six batched entry
+   points at these shapes (B = 16; the slot-major ELL entry on the
+   irregular template too, as the sliced one's "before"): each
+   instance bit for bit the unbatched entry point's, the batch within
+   TOL of the plain batched version, timed beside a block-diagonal CSR
+   ``torch.mv`` of the same work.
 22. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``; one entry
-   for each bf16 and mixed-dtype entry point, its launches from its
-   path in ``VARIANTS``), then the device line last.  Each phase's
+   for each bf16, mixed-dtype and batched entry point, its launches
+   from its path in ``VARIANTS``), then the device line last.  Each phase's
    seconds print on a ``phase_s`` line.
 
 Exits non-zero without a result when CUDA is unavailable.  Imports
@@ -292,6 +296,7 @@ nothing of JAX or of the JAX package ``amgx_tpu``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import multiprocessing
 import subprocess
@@ -490,7 +495,11 @@ PEAKS = (
 
 # what the profiler names each kernel's launches
 ACTIVITY = {"dia_spmv": "dia_spmv_kernel", "ell_spmv": "ell_spmv_kernel",
-            "sell_spmv": "sell_spmv_kernel", "stencil_spmv": "stencil_"}
+            "sell_spmv": "sell_spmv_kernel", "stencil_spmv": "stencil_",
+            # the batched sliced entry's two kernels: the copy of x, then
+            # the product
+            "sell_spmv_batched": ("batch_tiles_kernel",
+                                  "sell_spmv_batched_kernel")}
 
 # kernel-vs-plain tolerance on max|y_kernel - y_plain| / max|y_plain|:
 # both sum in the same order from +0.0; the kernel contracts each
@@ -566,11 +575,12 @@ class Timer:
         """Device time of one call without its launch: the median over
         ``reps`` calls, each after the L2 flush, of the duration the
         profiler (CUPTI) records for the one kernel or copy ``fn`` runs,
-        whose name holds ``activity``.  A profile that does not hold one
-        such activity per call is taken again, up to ``attempts`` in
-        all; then None: CUPTI at times records no activity at all for
-        a whole process (PERF.md, section 7); a line before the kernel
-        summary lists every device time that was not measured."""
+        whose name holds ``activity`` (a tuple: the sum of one kernel of
+        each name a call).  A profile that does not hold one such
+        activity per call is taken again, up to ``attempts`` in all;
+        then None: CUPTI at times records no activity at all for a whole
+        process (PERF.md, section 7); a line before the kernel summary
+        lists every device time that was not measured."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -586,11 +596,12 @@ class Timer:
                         self.flush.sum()
                         fn()
                     torch.cuda.synchronize()
-            durs = [e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and activity in e.name]
-            if len(durs) == self.reps:
-                return float(np.median(durs)) / 1e3
+            names = activity if isinstance(activity, tuple) else (activity,)
+            durs = [[e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and a in e.name]
+                    for a in names]
+            if all(len(d) == self.reps for d in durs):
+                return float(np.median(np.sum(durs, axis=0))) / 1e3
         return None
 
 
@@ -1554,6 +1565,8 @@ def zero_counts():
     from amgx_tpu_torch.ops import dia, ell, spmv, stencil
 
     dia.launches = ell.launches = ell.sell_launches = 0
+    dia.batched_launches = ell.batched_launches = 0
+    ell.sell_batched_launches = 0
     stencil.launches = spmv.csr_products = 0
     for m in (dia, ell, stencil):
         m.variant_launches.clear()
@@ -3257,7 +3270,11 @@ VARIANTS = {
                              "serve_default_f32",
                              "serve dia_spmv_batched_f32 level0 A"),
     "ell_spmv_batched_f32": (_ELL_SRC, _WELL, "serve_default_f32",
-                             "serve ell_spmv_batched_f32 irregular A"),
+                             "serve ell_spmv_batched_f32 level0 R"),
+    "sell_spmv_batched_f64": (_ELL_SRC, _WELL, "serve_mixed",
+                              "serve sell_spmv_batched_f64 irregular A"),
+    "sell_spmv_batched_f32": (_ELL_SRC, _WELL, "serve_default_f32",
+                              "serve sell_spmv_batched_f32 irregular A"),
     # the C API's mixed modes (the capi phase)
     "dia_spmv_f32_f64": (_DIA_SRC, "amgx_tpu/ops/pallas_dia.py:76",
                          "capi_dDFI", "capi dDFI level0 A"),
@@ -5658,10 +5675,13 @@ SERVE_PCG_AMG = (
     ' "coarse_solver": "DENSE_LU_SOLVER", "cycle": "V",'
     ' "monitor_residual": 0}}}'
 )
+# SERVE_PCG_AMG in f32, to the tolerance of the f32 groups
+SERVE_PCG_AMG_F32 = SERVE_PCG_AMG.replace('"tolerance": 1e-8',
+                                          '"tolerance": 1e-6')
 # the batched entry point each unbatched counter's SpMV takes with a
-# batch of vectors (a sliced matrix takes its slot-major arrays)
+# batch of vectors
 BATCHED = {"dia_spmv": "dia_spmv_batched", "ell_spmv": "ell_spmv_batched",
-           "sell_spmv": "ell_spmv_batched", "csr": "csr"}
+           "sell_spmv": "sell_spmv_batched", "csr": "csr"}
 
 
 def serve_family(shape, count, seed=0, dtype=np.float64):
@@ -5725,6 +5745,15 @@ def jacobi_walk(A, iters, x_dtype):
 def batched_counts():
     """Launches of the batched entry points, per entry point."""
     return {k: v for k, v in variant_counts().items() if "batched" in k}
+
+
+def add_counts(*counts):
+    """The sum of launch counts per entry point."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def serve_seq(device, cfg, systems, reuse):
@@ -6044,22 +6073,37 @@ def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
         svc._patterns[irr[0][0]._amgx_tpu_fp].fingerprint, svc.cfg_key,
         np.dtype(np.float32)).solver.A
     want_i = jacobi_walk(A_i, max(g[1] for g in got_i), torch.float32)
+    # the f32 SIZE_8 transfers, slot-major (no sliced layout)
+    amg_sys = serve_family((n,) * 3, B // 2, seed=11, dtype=np.float32)
+    svc_a = BatchedSolveService(config=SERVE_PCG_AMG_F32, max_batch=B,
+                                device=device)
+    zero_counts()
+    got_a, _ = served(svc_a, amg_sys)
+    launches_a = batched_counts()
+    amg = next(iter(svc_a.cache._entries.values())).solver.precond
+    it_a = max(g[1] for g in got_a)
+    want_a = batched_walk(amg, it_a + 1, it_a + 1, torch.float32)
     ref, seq_first_s, seq_rest_s = serve_seq(device, DEFAULT_CONFIG,
                                              systems, reuse=True)
     ref_i, _, _ = serve_seq(device, DEFAULT_CONFIG, irr, reuse=True)
+    ref_a, _, _ = serve_seq(device, SERVE_PCG_AMG_F32, amg_sys, reuse=True)
     cmp_c = same_as_seq("serve c", got, ref, rtol=None, iters_within=1)
     cmp_ci = same_as_seq("serve c irregular", got_i, ref_i, rtol=None,
                          iters_within=1)
-    res_c = [true_residual(sp, b, g[2])
-             for (sp, b), g in zip(systems + irr, got + got_i)]
+    cmp_ca = same_as_seq("serve c amg", got_a, ref_a, rtol=None,
+                         iters_within=1)
+    res_c = [true_residual(sp, b, g[2]) for (sp, b), g in zip(
+        systems + irr + amg_sys, got + got_i + got_a)]
     print(json.dumps({"serve_default_f32": {
         "n": n, "batch": B, "iterations": [g[1] for g in got],
         "irregular_iterations": [g[1] for g in got_i],
-        "irregular_format": A_i.format, **cmp_c,
+        "irregular_format": A_i.format,
+        "irregular_sliced": A_i.sell is not None, **cmp_c,
         "irregular": cmp_ci, "true_rel_residual_max": max(res_c),
         "launches": launches, "walk": want, "irregular_launches": launches_i,
-        "irregular_walk": want_i, "warm_statuses": sorted(
-            {g[0] for g in got_w}),
+        "irregular_walk": want_i, "amg_iterations": [g[1] for g in got_a],
+        "amg": cmp_ca, "amg_launches": launches_a, "amg_walk": want_a,
+        "warm_statuses": sorted({g[0] for g in got_w}),
         "per_system_s": {"batched_first_flush": first_s["s"] / B,
                          "batched_warm_flush": warm_s["s"] / B,
                          "sequential_first": seq_first_s,
@@ -6067,13 +6111,22 @@ def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
         "first_flush_s": first_s, "warm_flush_s": warm_s}}),
         flush=True)
     check(max(res_c) <= 1e-5, f"serve c: true residual {max(res_c):.3e}")
-    check(A_i.format == "ELL", f"serve c: irregular template {A_i.format}")
+    check(A_i.format == "ELL" and A_i.sell is not None,
+          f"serve c: irregular template {A_i.format}, sliced "
+          f"{A_i.sell is not None}")
+    check("sell_spmv_batched_f32" in want_i
+          and "ell_spmv_batched_f32" not in want_i
+          and "ell_spmv_batched_f32" in want_a,
+          f"serve c: walks {want_i} (irregular), {want_a} (AMG)")
     if on_card:
         check(launches == want, f"serve c: launches {launches} != {want}")
         check(launches_i == want_i,
               f"serve c irregular: launches {launches_i} != {want_i}")
-    paths["serve_default_f32"] = {**launches, **launches_i}
-    del svc, systems, irr, got, got_i, got_w, ref, ref_i
+        check(launches_a == want_a,
+              f"serve c amg: launches {launches_a} != {want_a}")
+    paths["serve_default_f32"] = add_counts(launches, launches_i, launches_a)
+    del svc, svc_a, systems, irr, amg_sys, amg, got, got_i, got_a, got_w
+    del ref, ref_i, ref_a
 
     # ---- d. a mixed queue: n^3, a padded (n - 4)^3 and the irregular
     # pattern, 8 each, DEFAULT_CONFIG in f64
@@ -6086,10 +6139,16 @@ def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
     zero_counts()
     got, _ = served(svc, groups)
     launches = batched_counts()
-    ref = []
+    ref, walks = [], []
     for k in range(3):
         ref += serve_seq(device, DEFAULT_CONFIG,
                          groups[k * half:(k + 1) * half], reuse=True)[0]
+        A_k = svc.cache.peek(
+            svc._patterns[groups[k * half][0]._amgx_tpu_fp].fingerprint,
+            svc.cfg_key, np.dtype(np.float64)).solver.A
+        walks.append(jacobi_walk(A_k, max(g[1] for g in got[
+            k * half:(k + 1) * half]), torch.float64))
+    want = add_counts(*walks)
     cmp_d = same_as_seq("serve d", got, ref)
     fmts = sorted(e.solver.A.format for e in svc.cache._entries.values())
     print(json.dumps({"serve_mixed": {
@@ -6097,12 +6156,14 @@ def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
         "padded_rows": [(n - 4) ** 3, svc._patterns[
             groups[half][0]._amgx_tpu_fp].nb],
         "iterations": [g[1] for g in got], **cmp_d,
-        "launches": launches}}), flush=True)
+        "launches": launches, "walk": want}}), flush=True)
     check(svc.metrics.get("batches") == 3, "serve d: not 3 batches")
     check(fmts == ["DIA", "DIA", "ELL"], f"serve d: formats {fmts}")
+    check("sell_spmv_batched_f64" in walks[2]
+          and not any(k.startswith("ell_spmv_batched") for k in want),
+          f"serve d: walks {walks}")
     if on_card:
-        check(launches.get("ell_spmv_batched_f64", 0) > 0,
-              "serve d: ell_spmv_batched_f64 never launched")
+        check(launches == want, f"serve d: launches {launches} != {want}")
     paths["serve_mixed"] = launches
     del svc, groups, got, ref
 
@@ -6213,8 +6274,8 @@ def batched_case(torch, timer, peaks, name, label, run, plain, instance,
         "max_rel_err": rel, "tol": tol,
         "library_max_abs_err": float((yl.reshape(y.shape) - yp).abs().max()),
         "kernel_ms": timer(run), "kernel_ms_warm_l2": timer(run, flush=False),
-        "kernel_device_ms": timer.device(run, ACTIVITY[
-            name.split("_batched")[0]]),
+        "kernel_device_ms": timer.device(run, ACTIVITY.get(
+            name.rsplit("_", 1)[0], ACTIVITY[name.split("_batched")[0]])),
         "plain_ms": timer(plain), "library_ms": timer(lib),
         "bytes": int(nbytes), "ops": int(nops),
         "bound_ms": max(t_bytes, t_ops),
@@ -6222,17 +6283,24 @@ def batched_case(torch, timer, peaks, name, label, run, plain, instance,
         **(extra or {}),
     }
     rec["share"] = rec["bound_ms"] / rec["kernel_ms"]
+    if "stream_bound_ms" in rec:
+        rec["stream_share"] = rec["stream_bound_ms"] / rec["kernel_ms"]
     print(json.dumps(rec), flush=True)
     return rec
 
 
 def serve_kernel_cases(torch, timer, peaks, rng, n=SERVE_N, B=SERVE_B):
-    """The four batched entry points at the serve paths' shapes: the
-    n^3 level-0 A in DIA (f64 and f32, batched planes), the SIZE_8
-    level-0 R and P (f64, shared values) and the irregular level-0 A in
-    slot-major ELL (f64 and f32, batched values), B instances each.
-    The bound counts the shared structure once and the batched values,
-    x and y B times."""
+    """The six batched entry points at the serve paths' shapes: the n^3
+    level-0 A in DIA (f64 and f32, batched planes), the SIZE_8 level-0
+    R and P (slot-major ELL, f64 and f32, shared values) and the
+    irregular template's A in sliced ELL (f64 and f32, batched values;
+    f64 shared values too) and in slot-major ELL (the sliced entry's
+    "before", on the same values), B instances each.  The bound counts the shared structure
+    once and the batched values, x and y B times, the stored entries of
+    the pattern only; ``stream_bound_ms`` of a sliced case counts every
+    slot of the layout, the bucket's filler included."""
+    import dataclasses
+
     import scipy.sparse as sps
 
     from amgx_tpu_torch.amg.aggregation import geo_aggregate
@@ -6274,45 +6342,105 @@ def serve_kernel_cases(torch, timer, peaks, rng, n=SERVE_N, B=SERVE_B):
     agg = geo_aggregate(n, n, n, 3)
     nc = int(agg.max()) + 1
     P = sps.csr_matrix((np.ones(nf), (np.arange(nf), agg)), shape=(nf, nc))
-    for label, T_ in (("R", P.T.tocsr()), ("P", P)):
-        M = SparseMatrix.from_scipy(T_, device="cuda")
+    for dt, (label, T_) in itertools.product(
+            (torch.float64, torch.float32), (("R", P.T.tocsr()), ("P", P))):
+        isz = 8 if dt == torch.float64 else 4
+        name = f"ell_spmv_batched_{'f64' if isz == 8 else 'f32'}"
+        M = SparseMatrix.from_scipy(T_, device="cuda").astype(dt)
+        check(M.format == "ELL" and M.sell is None,
+              f"SIZE_8 {label}: {M.format}, sliced {M.sell is not None}")
         rows, cols = T_.shape
-        x = torch.from_numpy(rng.standard_normal((B, cols))).cuda()
+        x = torch.from_numpy(rng.standard_normal((B, cols))).cuda().to(dt)
         w = int(M.ell_cols.shape[0])
         lib = blockdiag_csr(torch, T_.indptr, T_.indices,
                             M.values.expand(B, -1).contiguous(), cols)
         recs.append(batched_case(
-            torch, timer, peaks, "ell_spmv_batched_f64",
-            f"serve ell_spmv_batched_f64 level0 {label} {rows}x{cols} w={w} "
-            f"shared B{B}",
+            torch, timer, peaks, name,
+            f"serve {name} level0 {label} {rows}x{cols} w={w} shared B{B}",
             lambda: ell.ell_spmv_batched(M.ell_cols, M.ell_vals, x),
             lambda: ell.ell_spmv_batched_plain(M.ell_cols, M.ell_vals, x),
             lambda i: ell.ell_spmv(M.ell_cols, M.ell_vals, x[i]),
             lambda: torch.mv(lib, x.reshape(-1)),
-            nbytes=12 * T_.nnz + 8 * B * (rows + cols),
-            nops=2 * B * T_.nnz, dtype=torch.float64,
+            nbytes=(4 + isz) * T_.nnz + isz * B * (rows + cols),
+            nops=2 * B * T_.nnz, dtype=dt,
             extra={"width": w, "shared_values": True}))
         del M, x, lib
-    # the irregular pattern's padded template (slot-major ELL), batched
-    # values
+    # the irregular pattern's padded template, batched values: the
+    # sliced entry the serve paths take, the slot-major one beside it
     irr = irregular_poisson(n)
     pat = pad_pattern(irr.indptr, irr.indices, irr.shape[0])
     for dt in (torch.float64, torch.float32):
         isz = 8 if dt == torch.float64 else 4
+        kind = "f64" if isz == 8 else "f32"
         npdt = np.float64 if isz == 8 else np.float32
         A = pat.template_matrix(irr.data, npdt, accel_formats=("ell",),
                                 device="cuda")
-        check(A.format == "ELL" and A.sell is None,
-              f"irregular template {A.format}")
+        check(A.format == "ELL" and A.sell is not None,
+              f"irregular template {A.format}, sliced "
+              f"{A.sell is not None}")
         vals = np.stack([pat.embed_values(
             irr.data * (1.0 + 0.05 * rng.standard_normal(irr.nnz)), npdt)
             for _ in range(B)])
         Ab = A.replace_values_batched(torch.from_numpy(vals).cuda())
         x = torch.from_numpy(rng.standard_normal((B, pat.nb))).cuda().to(dt)
         w = int(A.ell_cols.shape[0])
-        name = f"ell_spmv_batched_{'f64' if isz == 8 else 'f32'}"
+        S = Ab.sell
         lib = blockdiag_csr(torch, pat.row_offsets, pat.col_indices,
                             Ab.values, pat.nb)
+        # the layout's own stream: every stored slot's value B times, its
+        # column, the row permutation and the slice headers once
+        stream = (isz * B * (S.stored + 2 * pat.nb) + 4 * S.stored
+                  + 4 * pat.nb + 12 * S.n_slices)
+        layout = {"nonzeros": irr.nnz, "stored_slots": S.stored,
+                  "slices": S.n_slices, "sigma": S.sigma, "lanes": S.lanes,
+                  "stream_bytes": stream,
+                  "stream_bound_ms": stream / peaks["bw"] * 1e3}
+        name = f"sell_spmv_batched_{kind}"
+        recs.append(batched_case(
+            torch, timer, peaks, name,
+            f"serve {name} irregular A {pat.nb} B{B}",
+            lambda: ell.sell_spmv_batched(S, x),
+            lambda: ell.sell_spmv_batched_plain(S, x),
+            lambda i: ell.sell_spmv(dataclasses.replace(S, vals=S.vals[i]),
+                                    x[i]),
+            lambda: torch.mv(lib, x.reshape(-1)),
+            nbytes=4 * irr.nnz + isz * B * (irr.nnz + 2 * pat.nb),
+            nops=2 * B * irr.nnz, dtype=dt, extra=layout))
+        if dt == torch.float64:
+            # one set of values shared by every instance
+            lib_s = blockdiag_csr(torch, pat.row_offsets, pat.col_indices,
+                                  A.values.expand(B, -1).contiguous(),
+                                  pat.nb)
+            stream_s = ((isz + 4) * S.stored + isz * B * 2 * pat.nb
+                        + 4 * pat.nb + 12 * S.n_slices)
+            recs.append(batched_case(
+                torch, timer, peaks, name,
+                f"serve {name} shared irregular A {pat.nb} B{B}",
+                lambda: ell.sell_spmv_batched(A.sell, x),
+                lambda: ell.sell_spmv_batched_plain(A.sell, x),
+                lambda i: ell.sell_spmv(A.sell, x[i]),
+                lambda: torch.mv(lib_s, x.reshape(-1)),
+                nbytes=(4 + isz) * irr.nnz + isz * B * 2 * pat.nb,
+                nops=2 * B * irr.nnz, dtype=dt,
+                extra={**layout, "shared_values": True,
+                       "stream_bytes": stream_s,
+                       "stream_bound_ms": stream_s / peaks["bw"] * 1e3}))
+            # the slot-major entry on the same shared values, beside it
+            slot = f"ell_spmv_batched_{kind}"
+            recs.append(batched_case(
+                torch, timer, peaks, slot,
+                f"serve {slot} shared irregular A {pat.nb} w={w} B{B}",
+                lambda: ell.ell_spmv_batched(A.ell_cols, A.ell_vals, x),
+                lambda: ell.ell_spmv_batched_plain(A.ell_cols, A.ell_vals,
+                                                   x),
+                lambda i: ell.ell_spmv(A.ell_cols, A.ell_vals, x[i]),
+                lambda: torch.mv(lib_s, x.reshape(-1)),
+                nbytes=(4 + isz) * irr.nnz + isz * B * 2 * pat.nb,
+                nops=2 * B * irr.nnz, dtype=dt,
+                extra={"width": w, "nonzeros": irr.nnz,
+                       "padded_slots": w * pat.nb, "shared_values": True}))
+            del lib_s
+        name = f"ell_spmv_batched_{kind}"
         recs.append(batched_case(
             torch, timer, peaks, name,
             f"serve {name} irregular A {pat.nb} w={w} B{B}",
@@ -6325,7 +6453,7 @@ def serve_kernel_cases(torch, timer, peaks, rng, n=SERVE_N, B=SERVE_B):
             nops=2 * B * irr.nnz, dtype=dt,
             extra={"width": w, "nonzeros": irr.nnz,
                    "padded_slots": w * pat.nb}))
-        del A, Ab, x, lib, vals
+        del A, Ab, S, x, lib, vals
     return recs
 
 

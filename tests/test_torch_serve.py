@@ -200,7 +200,8 @@ def test_template_formats_match_jax(case, fmt):
     assert ta == ja
     A = tp.template_matrix(sp.data, np.float64, accel_formats=ta,
                            device="cpu")
-    assert A.format == fmt and A.sell is None
+    # an ELL template keeps the sliced layout its batched SpMVs take
+    assert A.format == fmt and (A.sell is not None) == (fmt == "ELL")
     JA = jp.template_matrix(sp.data, np.float64, accel_formats=ja)
     np.testing.assert_allclose(A.to_dense(), np.asarray(JA.to_dense()),
                                rtol=0, atol=0)
@@ -324,7 +325,8 @@ def test_replace_values_batched_and_spmv_match_per_instance(formats, fmt):
     V = torch.from_numpy(rng.standard_normal((3, A.nnz)))
     X = torch.from_numpy(rng.standard_normal((3, A.n_cols)))
     Ab = A.replace_values_batched(V)
-    assert Ab.batch == 3 and Ab.sell is None
+    # the view keeps A's sliced layout where A has one
+    assert Ab.batch == 3 and (Ab.sell is None) == (A.sell is None)
     Y = spmv(Ab, X)
     for i in range(3):
         Ai = A.replace_values(V[i])
@@ -916,4 +918,7 @@ def test_chip_smoke_batched_walks_count_every_batched_spmv(monkeypatch, cfg,
         want = chip_smoke.jacobi_walk(entry.solver.A, it, torch.float64)
         assert entry.solver.A.format == ("ELL" if "irregular" in cfg
                                          else "DIA")
+        if "irregular" in cfg:
+            # the template keeps its sliced layout: the sliced entry
+            assert list(want) == ["sell_spmv_batched_f64"]
     assert seen == want
