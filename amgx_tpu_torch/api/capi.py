@@ -20,10 +20,12 @@ values (dFBI) arrive as 2-byte words, read as ``uint16`` and viewed as
 vector dtype, as in the JAX package.
 
 The batched solve (``solver_solve_batch`` and its accessors) runs on
-the port's serve layer (``amgx_tpu_torch.serve``).  Not ported, each
-raising ``RC_NOT_IMPLEMENTED`` with the ``ROADMAP.md`` queue that
-brings it: the session and telemetry entry points, the fleet front and
-admission gateway of the batched solve (A.7, A.8), the
+the port's serve layer (``amgx_tpu_torch.serve``), the streaming
+session calls (``solver_session_*``) on its sessions
+(``amgx_tpu_torch.sessions``).  Not ported, each raising
+``RC_NOT_IMPLEMENTED`` with the ``ROADMAP.md`` queue that brings it:
+``solver_session_save`` (A.7.6), the telemetry entry points, the fleet
+front and admission gateway of the batched solve (A.7, A.8), the
 distribution handles, partition data, one-ring maps, distributed
 reads and writes and setup on more than one device (A.9).
 """
@@ -207,6 +209,8 @@ class _SolverHandle:
         self.batch_service = None
         self.batch_pending = None
         self.batch_results = None
+        # the sessions of solver_session_create, on batch_service
+        self.session_manager = None
 
 
 class _EigSolverHandle:
@@ -776,8 +780,8 @@ def solver_destroy(slv_h):
 
 
 # ---------------------------------------------------------------------------
-# batched solves (the serve layer); telemetry and streaming sessions
-# are the rest of the serving tier (queue A.7)
+# batched solves (the serve layer); telemetry is the rest of the
+# serving tier (queue A.7)
 
 
 def _batch_service(s):
@@ -934,32 +938,126 @@ def solver_telemetry_json(slv_h: int) -> str:
     _not_ported("solver_telemetry_json", _A7)
 
 
+# ---------------------------------------------------------------------------
+# streaming solve sessions (amgx_tpu_torch.sessions): register a
+# sparsity pattern once, then stream replace_coefficients-style steps
+# with warm starts through the handle's batch service.  No reference
+# analogue: AmgX hosts loop replace_coefficients + resetup + solve by
+# hand; this is that loop as a serve-level object.
+
+
+class _SessionHandle:
+    def __init__(self, owner: _SolverHandle, session):
+        self.owner = owner
+        self.session = session
+        self.pending = None  # (StepTicket, solution handle) not yet read
+        self.last = None  # the last resolved SolveResult
+
+
+def _session_settle(h: "_SessionHandle"):
+    """Read the pending step's result and deliver its solution to the
+    step's solution vector.  A typed failure of the step becomes a
+    FAILED result, as in the batched solve: the stream goes on."""
+    from amgx_tpu_torch.core.errors import AMGXTPUError
+
+    if h.pending is None:
+        return
+    (ticket, sol_h), h.pending = h.pending, None
+    try:
+        res = ticket.result()
+    except AMGXTPUError:
+        h.last = _batch_failed_result(h.session.n, h.owner)
+        return
+    h.last = res
+    try:
+        v = _get(sol_h, _Vector)
+    except AMGXError:
+        return  # the vector was destroyed in the meantime
+    v.data = np.asarray(host_array(res.x), dtype=v.mode.vec_np)
+
+
 def solver_session_create(slv_h: int, mtx_h: int) -> int:
-    _not_ported("solver_session_create", _A7)
+    """Open a streaming session on the uploaded matrix's sparsity
+    pattern (AMGX_solver_session_create); the matrix gives structure
+    only, each step's coefficients come with
+    :func:`solver_session_step`.  Steps run through the handle's batch
+    service (the one ``solver_solve_batch`` uses)."""
+    s = _get(slv_h, _SolverHandle)
+    m = _get(mtx_h, _Matrix)
+    if m.A is None:
+        raise AMGXError(RC_BAD_PARAMETERS, "matrix not uploaded")
+    svc = _batch_service(s)
+    if s.session_manager is None:
+        from amgx_tpu_torch.sessions import SessionManager
+
+        s.session_manager = SessionManager(svc)
+    sess = s.session_manager.open(m.A, dtype=host_dtype(s.mode.mat_dtype))
+    return _new(_SessionHandle(s, sess))
 
 
 def solver_session_step(sess_h: int, mtx_h: int, rhs_h: int, sol_h: int):
-    _not_ported("solver_session_step", _A7)
+    """Stream one step (AMGX_solver_session_step): the current
+    coefficients of ``mtx_h`` (refreshed by
+    ``matrix_replace_coefficients``) and the rhs, submitted with the
+    session's masked warm start.  The previous step's solution reaches
+    its solution vector here, or at :func:`solver_session_sync`."""
+    h = _get(sess_h, _SessionHandle)
+    m = _get(mtx_h, _Matrix)
+    r = _get(rhs_h, _Vector)
+    _get(sol_h, _Vector)  # checked before anything is submitted
+    if m.A is None:
+        raise AMGXError(RC_BAD_PARAMETERS, "matrix not uploaded")
+    if r.data is None:
+        raise AMGXError(RC_BAD_PARAMETERS, "rhs not uploaded")
+    vals = host_array(m.A.values).reshape(-1)
+    sess = h.session
+    # settle the previous step first (its solution delivered, a typed
+    # failure a FAILED result), then stage and submit this one
+    _session_settle(h)
+    sess.prestage(vals, np.asarray(r.data, dtype=h.owner.mode.vec_np))
+    ticket = sess.commit()
+    h.owner.batch_service.flush()
+    h.pending = (ticket, sol_h)
+    return RC_OK
 
 
 def solver_session_sync(sess_h: int):
-    _not_ported("solver_session_sync", _A7)
+    """Read the pending step and write its solution vector
+    (AMGX_solver_session_sync)."""
+    _session_settle(_get(sess_h, _SessionHandle))
+    return RC_OK
 
 
 def solver_session_get_status(sess_h: int) -> int:
-    _not_ported("solver_session_get_status", _A7)
+    """Status of the last resolved step (the pending one read first)."""
+    h = _get(sess_h, _SessionHandle)
+    _session_settle(h)
+    if h.last is None:
+        raise AMGXError(RC_BAD_PARAMETERS, "no session step yet")
+    return int(h.last.status)
 
 
 def solver_session_get_iterations_number(sess_h: int) -> int:
-    _not_ported("solver_session_get_iterations_number", _A7)
+    h = _get(sess_h, _SessionHandle)
+    _session_settle(h)
+    if h.last is None:
+        raise AMGXError(RC_BAD_PARAMETERS, "no session step yet")
+    return int(h.last.iters)
 
 
 def solver_session_save(sess_h: int, path: str):
-    _not_ported("solver_session_save", _A7)
+    _not_ported("solver_session_save", "A.7.6: warm boot")
 
 
 def solver_session_destroy(sess_h: int):
-    _not_ported("solver_session_destroy", _A7)
+    h = _objects.pop(sess_h, None)
+    if isinstance(h, _SessionHandle):
+        try:
+            _session_settle(h)
+            h.session.close()
+        except Exception:  # noqa: BLE001 — destroy is best-effort
+            pass
+    return RC_OK
 
 
 # ---------------------------------------------------------------------------

@@ -191,7 +191,10 @@ class SparseMatrix:
 
     @property
     def has_ell(self) -> bool:
-        return self.ell_cols is not None
+        """An ELL format: the slot-major arrays, or the sliced layout
+        alone (a batched view of a sliced matrix keeps no slot-major
+        copy)."""
+        return self.ell_cols is not None or self.sell is not None
 
     @property
     def _host(self) -> tuple:
@@ -254,7 +257,8 @@ class SparseMatrix:
 
     @property
     def ell_src(self):
-        return self._src_maps()["ell"] if self.has_ell else None
+        return (self._src_maps()["ell"] if self.ell_cols is not None
+                else None)
 
     @property
     def format(self) -> str:
@@ -520,8 +524,11 @@ class SparseMatrix:
         ``dense`` (B, n_rows, n_cols) are refilled on the device through
         the same source maps as :meth:`replace_values` (a scatter for
         dense), so each instance's arrays are what ``replace_values``
-        gives it.  The view keeps no host triple; ``spmv`` takes it with
-        x (B, n_cols).  Not for block or MATRIX_FREE matrices."""
+        gives it.  A matrix with the sliced layout gives a view with
+        that layout alone: its batched SpMVs take only ``sell``, so the
+        view has no slot-major ``ell_cols`` / ``ell_vals`` (``has_ell``
+        stays true).  The view keeps no host triple; ``spmv`` takes it
+        with x (B, n_cols).  Not for block or MATRIX_FREE matrices."""
         if self.block_size != 1 or self.has_matrix_free or self.batch:
             raise NotImplementedError(
                 "replace_values_batched: scalar matrices without the "
@@ -548,11 +555,12 @@ class SparseMatrix:
             rep["dense"] = torch.zeros(
                 (B, m * k), dtype=v.dtype, device=v.device
             ).index_add_(1, flat, v).reshape(B, m, k)
-        if self.has_ell:
+        if self.sell is not None:
+            rep["sell"] = dataclasses.replace(
+                self.sell, vals=_gather_src_batched(maps["sell"], v))
+            rep["ell_cols"] = rep["ell_vals"] = None
+        elif self.has_ell:
             rep["ell_vals"] = _gather_src_batched(maps["ell"], v)
-            if self.sell is not None:
-                rep["sell"] = dataclasses.replace(
-                    self.sell, vals=_gather_src_batched(maps["sell"], v))
         return self._propagate_structure_memo(
             dataclasses.replace(self, **rep))
 
@@ -611,7 +619,7 @@ class SparseMatrix:
             maps["dia"] = _first_src(
                 len(self.dia_offsets) * n, k * n + rows, entries
             ).reshape(len(self.dia_offsets), n)
-        if self.has_ell:
+        if self.ell_cols is not None:
             w = int(self.ell_cols.shape[0])
             slot = entries - self.row_offsets.long()[rows]
             maps["ell"] = _first_src(w * n, slot * n + rows,

@@ -74,9 +74,9 @@ def fused_dots(pairs):
 def gram_block(X, Y):
     """Block of inner products G[i, j] = <X_i, Y_j> as one product:
     X is (k, n), Y is (m, n) (rows are vectors), G is (k, m);
-    conjugation on the rows of X, as in :func:`dot`.  The s-step
-    Krylov solvers form every inner product of an outer iteration
-    with it."""
+    conjugation on the rows of X, as in :func:`dot`.  A batch (B, k, n)
+    and (B, m, n) gives the B blocks (B, k, m).  The s-step Krylov
+    solvers form every inner product of an outer iteration with it."""
     if X.is_complex():
         X = X.conj()
-    return X @ Y.T
+    return X @ Y.mT

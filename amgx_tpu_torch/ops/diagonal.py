@@ -83,6 +83,15 @@ def invert_diag(A):
     return torch.from_numpy(inv).to(device=A.device, dtype=A.dtype)
 
 
+def invert_diag_batched(d):
+    """1 / d on the device, 1 where d == 0, for the (B, n) diagonals of
+    a batched view: :func:`reciprocal_np` of each instance, bit for
+    bit (the batch rebuilds of the Jacobi-type smoothers)."""
+    nz = d != 0
+    one = torch.ones_like(d)
+    return torch.where(nz, 1.0 / torch.where(nz, d, one), one)
+
+
 def apply_dinv(dinv, r, block_size=1):
     """z = D^{-1} r for flat r (each block row times its inverted
     block for ``block_size`` > 1)."""

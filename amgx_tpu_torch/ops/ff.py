@@ -89,7 +89,10 @@ def ff_to_f(x):
 def ff_residual_dia(A, b_ff, x_ff):
     """r = b - A x with ff accumulation for a DIA matrix (f32 planes;
     b_ff and x_ff pairs).  Error per element O(eps^2 w |A||x|): it
-    resolves residuals near rtol 1e-12, below the 1e-8 target."""
+    resolves residuals near rtol 1e-12, below the 1e-8 target.  A batch
+    (B, n) of pairs takes a batched view's planes (B, nd, n), or A's
+    planes shared: each instance's operations are the unbatched ones,
+    element by element, so its bits are too."""
     n = A.n_rows
     offs = A.dia_offsets
     pneg = max(0, -min(offs))
@@ -98,9 +101,9 @@ def ff_residual_dia(A, b_ff, x_ff):
     xl = F.pad(x_ff[1], (pneg, ppos))
     hi, lo = b_ff
     for k, off in enumerate(offs):
-        sh = xh[off + pneg:off + pneg + n]
-        sl = xl[off + pneg:off + pneg + n]
-        d = A.dia_vals[k]
+        sh = xh[..., off + pneg:off + pneg + n]
+        sl = xl[..., off + pneg:off + pneg + n]
+        d = A.dia_vals[..., k, :]
         p, pe = two_prod(d, sh)
         # subtract the exact product and the low-order terms
         hi, e = two_sum(hi, -p)
@@ -111,7 +114,8 @@ def ff_residual_dia(A, b_ff, x_ff):
 def ff_residual(A, b_ff, x_ff):
     """r = b - A x as an ff pair: full ff accumulation for DIA
     matrices; other formats accumulate the dominant terms only (the
-    x_lo contribution exact, the per-product errors dropped)."""
+    x_lo contribution exact, the per-product errors dropped).  Pairs of
+    (B, n) batches take a batched view of A or A shared."""
     from amgx_tpu_torch.ops.spmv import spmv
 
     if A.has_dia:

@@ -19,9 +19,10 @@ Entry point::
     svc = BatchedSolveService(device="cuda")   # PCG + BLOCK_JACOBI
     results = svc.solve_many([(A0, b0), (A1, b1), ...])
 
-The gateway, admission, retries, placement, sessions, telemetry and
-warm boot of the JAX package's serving tier are not ported
-(ROADMAP.md, queue A.7).
+Streaming solve sessions over a service are
+:mod:`amgx_tpu_torch.sessions`.  The gateway, admission, retries,
+placement, telemetry and warm boot of the JAX package's serving tier
+are not ported (ROADMAP.md, queue A.7).
 """
 
 from amgx_tpu_torch.serve.batched import make_batched_solve

@@ -18,8 +18,8 @@ few batched groups on one device (the JAX package's
                        SolveTicket.result(): the group's results, per
                        request, unpadded
 
-Solvers without a batch rebuild (GMRES, the polynomial smoothers, ...)
-run each request in turn (``fallback_solves``).  Guardrails, as in the
+Solvers without an iteration protocol (GMRES, IDR) run each request in
+turn (``fallback_solves``).  Guardrails, as in the
 JAX package: non-finite uploads are rejected at submit with a typed
 error (``validate``); a group that fails as a unit is quarantined and
 every member re-solves alone, so only the poisoned requests fail; a
@@ -72,18 +72,22 @@ from amgx_tpu_torch.solvers.base import SolveResult
 _A7 = "ROADMAP.md, queue A.7: serving tier"
 
 
-def _host_csr(A):
+def _host_csr(A, metrics=None):
     """(row_offsets, col_indices, values, n, raw fingerprint) host
     arrays of a SparseMatrix or a scipy sparse matrix; scalar matrices
     only.  A scipy matrix's fingerprint is memoized on it, so callers
     that change its index arrays in place after a submit must pass a
-    new matrix."""
+    new matrix.  Each fingerprint computed (not read from a memo)
+    counts in ``metrics``' ``pattern_hashes``."""
     if isinstance(A, SparseMatrix):
         if A.block_size != 1:
             raise ValueError(
                 "BatchedSolveService: scalar (block_size == 1) systems "
                 "only")
         ro, ci, v = A._host
+        if metrics is not None and getattr(
+                A, "_fingerprint_cache", None) is None:
+            metrics.inc("pattern_hashes")
         return ro, ci, v, A.n_rows, A.fingerprint()
     try:
         sp = A.tocsr()
@@ -94,6 +98,8 @@ def _host_csr(A):
     sp.sort_indices()
     fp = getattr(sp, "_amgx_tpu_fp", None)
     if fp is None:
+        if metrics is not None:
+            metrics.inc("pattern_hashes")
         fp = sparsity_fingerprint(sp.indptr, sp.indices, sp.shape[0],
                                   sp.shape[1], 1)
         try:
@@ -123,8 +129,7 @@ DEFAULT_CONFIG = (
 
 # s-step PCG over an aggregation AMG V-cycle smoothed by the
 # fourth-kind Chebyshev polynomial (the JAX package's recommended serve
-# configuration); the port has no batch rebuild for it yet, so it runs
-# each request in turn
+# configuration); a group runs as one batch
 COMM_AVOIDING_CONFIG = (
     '{"config_version": 2, "solver": {"scope": "main",'
     ' "solver": "SSTEP_PCG", "s_step": 4, "max_iters": 200,'
@@ -142,8 +147,11 @@ COMM_AVOIDING_CONFIG = (
 )
 
 # the cheap-preconditioner configuration: an f32 AMG hierarchy with an
-# INEXACT coarse solve inside f64 ITERATIVE_REFINEMENT (run in turn by
-# the port, as COMM_AVOIDING_CONFIG)
+# INEXACT coarse solve inside f64 ITERATIVE_REFINEMENT; a group runs as
+# one batch (the cycle on the f32 levels, PCG's operator and the outer
+# residual in f64), and a batched instance that ends non-SUCCESS keeps
+# its status: the precision guardrail re-solves only requests solved
+# alone (quarantine, the breaker), as in the JAX package
 CHEAP_PRECONDITIONER_CONFIG = (
     '{"config_version": 2, "solver": {"scope": "main",'
     ' "solver": "ITERATIVE_REFINEMENT", "max_iters": 40,'
@@ -366,14 +374,21 @@ class BatchedSolveService:
     # ------------------------------------------------------------------
     # submission
 
-    def submit(self, A, b, x0=None, deadline_s=None) -> SolveTicket:
+    def submit(self, A, b, x0=None, deadline_s=None, *,
+               _host=None) -> SolveTicket:
         """Queue one system and return its ticket.  ``A`` is a
         SparseMatrix or a scipy sparse matrix (block size 1), ``b`` and
         ``x0`` host arrays.  ``deadline_s`` (seconds from now): an
         expired one is refused here with ``DeadlineExceededError``; one
         that passes while queued fails this ticket at flush, and one
         that passes before the group's results are fetched fails it at
-        ``result()``; the group goes on either way."""
+        ``result()``; the group goes on either way.
+
+        ``_host``: ``(row_offsets, col_indices, values, n, raw
+        fingerprint)`` of a pattern registered before (a streaming
+        session's step, ``amgx_tpu_torch.sessions``); ``A`` is then
+        ignored, and the submit extracts no CSR and hashes no
+        pattern."""
         if deadline_s is not None and float(deadline_s) <= 0.0:
             from amgx_tpu_torch.core.errors import DeadlineExceededError
 
@@ -381,7 +396,8 @@ class BatchedSolveService:
             raise DeadlineExceededError(
                 f"deadline_s={float(deadline_s):g} already expired at "
                 "submit")
-        ro, ci, vals, n, raw_fp = _host_csr(A)
+        ro, ci, vals, n, raw_fp = (_host if _host is not None
+                                   else _host_csr(A, self.metrics))
         if self.validate:
             from amgx_tpu_torch.core.errors import NonFiniteValuesError
 
@@ -454,7 +470,7 @@ class BatchedSolveService:
         batched solve for the ``batch`` bucket (default max_batch) on a
         background thread, so the pattern's first flush finds both
         (``prewarms`` / ``prewarm_failures``)."""
-        ro, ci, vals, n, raw_fp = _host_csr(A)
+        ro, ci, vals, n, raw_fp = _host_csr(A, self.metrics)
         pattern = self._pattern_for(ro, ci, n, raw_fp)
         dtype = _resolve_dtype(vals.dtype)
         Bb = bucket_batch(self.max_batch if batch is None else batch)
@@ -555,6 +571,8 @@ class BatchedSolveService:
             pat = self._patterns.get(raw_fp)
         if pat is not None:
             return pat
+        # the padded pattern's own fingerprint
+        self.metrics.inc("pattern_hashes")
         pat = pad_pattern(ro, ci, n)
         with self._lock:
             if len(self._patterns) >= self._PATTERN_CACHE_MAX:

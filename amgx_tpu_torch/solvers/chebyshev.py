@@ -21,7 +21,13 @@ counting the resetups served off the cache in ``bound_staleness``; the
 (0: never).  AMG resetups its surviving level smoothers, so the cache
 rides a hierarchy's values-only resetup too.  ``save_setup`` keeps
 lmax, lmin and the preconditioner's state, so a restore runs no power
-iteration.  Not ported (ROADMAP.md, queue A7): the batched rebuild.
+iteration.
+
+Batch rebuild (the serve layer's groups, ``make_batch_params``): the
+operator and the preconditioner's state re-derive per instance (the
+nested preconditioner's own rebuild, or each instance's inverted
+diagonal); the spectral window stays the cached setup-time one, shared
+by the group, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,7 +37,11 @@ import torch
 
 from amgx_tpu_torch.core.matrix import to_tensor
 from amgx_tpu_torch.core.types import host_dtype
-from amgx_tpu_torch.ops.diagonal import invert_diag, scalarized
+from amgx_tpu_torch.ops.diagonal import (
+    invert_diag,
+    invert_diag_batched,
+    scalarized,
+)
 from amgx_tpu_torch.ops.spmv import spmv
 from amgx_tpu_torch.solvers.base import Solver
 from amgx_tpu_torch.solvers.registry import register_solver
@@ -117,6 +127,33 @@ class ChebyshevSolver(Solver):
                 self.bound_staleness += 1
         self._params = (A, Mp)
         return True
+
+    def make_batch_params(self):
+        """Batched views of the operator and of the preconditioner's
+        params (its own batch rebuild, or each instance's inverted
+        diagonal); the window (lmax, lmin) is the cached one.  None
+        where the nested preconditioner has no rebuild, or for a block
+        matrix without one (scalarized at setup)."""
+        A0 = self._params[0]
+        if self.precond is not None:
+            sub = self.precond.make_batch_params()
+            if sub is None:
+                return None
+            ptmpl, pfn = sub
+
+            def fn(t, v):
+                At, pt = t
+                return At.replace_values_batched(v), pfn(pt, v)
+
+            return (A0, ptmpl), fn
+        if A0 is not self.A:
+            return None
+
+        def fn_jacobi(t, v):
+            A = t.replace_values_batched(v)
+            return A, invert_diag_batched(A.diag)
+
+        return A0, fn_jacobi
 
     def _export_impl(self):
         # the spectral bounds (the power iteration is this setup's

@@ -10,7 +10,7 @@ sweep budget grows with the cycle depth and is capped by
 
 (the AMG setup sets ``cycle_depth`` to the level count before the
 coarse solver's setup).  The class delegates everything to the inner
-solver, its resetup and its setup export included.
+solver, its resetup, its setup export and its batch rebuild included.
 """
 
 from __future__ import annotations
@@ -108,3 +108,9 @@ class InexactCoarseSolver(Solver):
 
     def make_solve(self):
         return self.inner.make_solve()
+
+    def make_batch_params(self):
+        """The inner solver's batch rebuild (its params are this
+        solver's), so an INEXACT coarse level rides a batched hierarchy
+        unchanged."""
+        return self.inner.make_batch_params()

@@ -18,6 +18,7 @@ from amgx_tpu_torch.core.matrix import (
 from amgx_tpu_torch.ops.diagonal import (
     apply_dinv,
     invert_diag,
+    invert_diag_batched,
     reciprocal_np,
     scalarized,
 )
@@ -76,11 +77,7 @@ class BlockJacobiSolver(_DiagSmootherBase):
 
         def fn(t, v):
             A = t.replace_values_batched(v)
-            d = A.diag
-            nz = d != 0
-            return A, torch.where(
-                nz, 1.0 / torch.where(nz, d, torch.ones_like(d)),
-                torch.ones_like(d))
+            return A, invert_diag_batched(A.diag)
 
         return A0, fn
 
@@ -102,3 +99,25 @@ class JacobiL1Solver(_DiagSmootherBase):
             A, to_tensor(reciprocal_np(d).astype(vals.dtype),
                          A.device).to(A.dtype)
         )
+
+    def make_batch_params(self):
+        """Batched views of the operator and each instance's L1
+        diagonal: the |a_ij| of each row's off-diagonal entries summed
+        in entry order (``segment_sum``, the order of the setup's
+        ``np.add.at``) plus |a_ii|, inverted as :func:`reciprocal_np`.
+        None for a block matrix (scalarized at setup: the values no
+        longer map one to one onto the operator)."""
+        from amgx_tpu_torch.ops.spmv import segment_sum
+
+        A0 = self._params[0]
+        if A0 is not self.A:
+            return None
+
+        def fn(t, v):
+            A = t.replace_values_batched(v)
+            off = (t.col_indices != t.row_ids).to(A.dtype)
+            av = torch.abs(A.values) * off
+            offd = segment_sum(av.T.contiguous(), t.row_offsets).T
+            return A, invert_diag_batched(torch.abs(A.diag) + offd)
+
+        return A0, fn

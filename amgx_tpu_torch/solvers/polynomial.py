@@ -16,8 +16,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from amgx_tpu_torch.ops.diagonal import invert_diag, scalarized
-from amgx_tpu_torch.ops.spmv import spmv
+from amgx_tpu_torch.ops.diagonal import (
+    invert_diag,
+    invert_diag_batched,
+    scalarized,
+)
+from amgx_tpu_torch.ops.spmv import segment_sum, spmv
 from amgx_tpu_torch.solvers.base import Solver
 from amgx_tpu_torch.solvers.chebyshev import ChebyshevSolver
 from amgx_tpu_torch.solvers.registry import register_solver
@@ -35,6 +39,20 @@ class PolynomialSolver(Solver):
         A = scalarized(A, self.registry_name)
         self._params = (A, invert_diag(A))
 
+    def make_batch_params(self):
+        """Batched views of the operator and each instance's inverted
+        Jacobi diagonal; None for a block matrix (scalarized at
+        setup)."""
+        A0 = self._params[0]
+        if A0 is not self.A:
+            return None
+
+        def fn(t, v):
+            A = t.replace_values_batched(v)
+            return A, invert_diag_batched(A.diag)
+
+        return A0, fn
+
     def make_residual_step(self):
         order = self.order
         omega = self.relaxation_factor
@@ -48,6 +66,19 @@ class PolynomialSolver(Solver):
             return x + omega * z
 
         return rstep
+
+
+def _kpz_window(smax, mu, sqrt):
+    """KPZ's spectral window over [smax / mu, smax]: (smu0, smu1,
+    delta, beta, chi), for a float smax with ``np.sqrt`` at setup or a
+    (B, 1) tensor with ``torch.sqrt`` in the batch rebuild."""
+    smin = smax / mu
+    smu0, smu1 = 1.0 / smax, 1.0 / smin
+    skappa = sqrt(smax / smin)
+    delta = (skappa - 1.0) / (skappa + 1.0)
+    beta = (sqrt(smu0) + sqrt(smu1)) ** 2
+    chi = 4.0 * smu0 * smu1 / beta
+    return smu0, smu1, delta, beta, chi
 
 
 @register_solver("KPZ_POLYNOMIAL")
@@ -64,19 +95,42 @@ class KPZPolynomialSolver(PolynomialSolver):
         A = scalarized(A, self.registry_name)
         # ||A||_inf via column abs-sums (reference transposes and takes
         # the max row sum, kpz_polynomial_solver.cu:100-111)
-        smax = float(np.abs(A.host_csr()).sum(axis=0).max())
+        # (on a copy: scipy's abs sums duplicate entries in place, and
+        # the view shares the matrix's host arrays)
+        smax = float(np.abs(A.host_csr().copy()).sum(axis=0).max())
         smax = smax if smax > 0 else 1.0
-        smin = smax / self.mu
-        smu0, smu1 = 1.0 / smax, 1.0 / smin
-        skappa = np.sqrt(smax / smin)
-        delta = (skappa - 1.0) / (skappa + 1.0)
-        beta = (np.sqrt(smu0) + np.sqrt(smu1)) ** 2
-        chi = 4.0 * smu0 * smu1 / beta
         coef = tuple(
             torch.tensor(v, dtype=A.dtype, device=A.device)
-            for v in (smu0, smu1, delta, beta, chi)
+            for v in _kpz_window(smax, self.mu, np.sqrt)
         )
         self._params = (A, coef)
+
+    def make_batch_params(self):
+        """Batched views of the operator and each instance's spectral
+        window: smax the largest column abs-sum of its values (summed
+        column by column in entry order over a column-sorted
+        permutation shared by the batch), the five scalars derived
+        from it in float64 as at setup and held as (B, 1) tensors in
+        the values' dtype."""
+        A0 = self._params[0]
+        if A0 is not self.A:
+            return None
+        cols = A0.col_indices.long()
+        perm = torch.argsort(cols, stable=True)
+        col_offsets = torch.searchsorted(
+            cols[perm], torch.arange(A0.n_cols + 1, device=cols.device))
+        mu = self.mu
+
+        def fn(t, v):
+            A, perm, col_offsets = t[0].replace_values_batched(v), t[1], t[2]
+            colsum = segment_sum(torch.abs(A.values)[:, perm].T.contiguous(),
+                                 col_offsets)
+            smax = colsum.amax(dim=0).to(torch.float64).reshape(-1, 1)
+            smax = torch.where(smax > 0, smax, torch.ones_like(smax))
+            return A, tuple(c.to(A.dtype)
+                            for c in _kpz_window(smax, mu, torch.sqrt))
+
+        return (A0, perm, col_offsets), fn
 
     def make_residual_step(self):
         order = max(self.order, 1)

@@ -33,8 +33,16 @@ a twin set up with ``hierarchy_dtype`` SAME; ``precision_fallbacks``
 counts the trips.  ``last_inner_iters`` is the inner iterations of the
 last solve, ``first_attempt`` its own refinement's (status,
 corrections) before any fallback.  ``save_setup`` stores the inner
-solver's setup.  Not ported (ROADMAP.md, queue A7): the batched serve
-protocol.
+solver's setup.
+
+Batched serve protocol (``_make_init`` / ``_make_iter`` and
+``make_batch_params``, the JAX package's): one iteration is one outer
+correction on (B, n) vectors, extra = (residual estimate, low word of
+x, high word of the residual).  A monitored inner solver runs each
+correction's solves to their own convergence
+(``solvers/batched_loop.make_masked_loop``).  The batched loop returns x's
+high word and applies no guardrail, as the JAX package's does: an
+instance that ends non-SUCCESS keeps its status.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from amgx_tpu_torch.solvers.base import (
     _real_np_dtype,
     host_norm,
 )
+from amgx_tpu_torch.solvers.batched_loop import make_masked_loop
 from amgx_tpu_torch.solvers.registry import register_solver
 
 
@@ -151,6 +160,61 @@ class IterativeRefinementSolver(Solver):
             )
 
         return solve
+
+    # -- iteration protocol (serve batching) --------------------------
+
+    def _make_init(self):
+        def init(params, b, x0):
+            A, _ip = params
+            xl = torch.zeros_like(x0)
+            rh, rl = ffm.ff_residual(A, ffm.ff(b), (x0, xl))
+            return (rh + rl, xl, rh)
+
+        return init
+
+    def _make_iter(self):
+        inner_solve = self.inner.make_solve()
+        batched = None
+        if self.inner.monitor_residual:
+            batched = make_masked_loop(self.inner)
+            if batched is None:
+                raise NotImplementedError(
+                    f"{type(self.inner).__name__} has no iteration "
+                    "protocol to run a batch of corrections"
+                )
+
+        def iterate(params, b, x, extra):
+            A, ip = params
+            _r, xl, rh = extra
+            if batched is not None and rh.dim() == 2:
+                d = batched(ip, rh, torch.zeros_like(rh)).x
+            else:
+                d = inner_solve(ip, rh, torch.zeros_like(rh)).x
+            xh, xl = ffm.ff_add((x, xl), ffm.ff(d))
+            r2h, r2l = ffm.ff_residual(A, ffm.ff(b), (xh, xl))
+            return xh, (r2h + r2l, xl, r2h)
+
+        return iterate
+
+    def make_batch_params(self):
+        """The operator's batched view and the inner solver's batch
+        rebuild; None where the inner solver has none.  A monitored
+        inner solver without an iteration protocol (GMRES, IDR) leaves
+        the rebuild but no iteration (``_make_iter`` raises), so the
+        serve layer runs such a refinement in turn."""
+        if self.A is None or self.A.block_size != 1:
+            return None
+        sub = self.inner.make_batch_params()
+        if sub is None:
+            return None
+        itmpl, ifn = sub
+        A0 = self._params[0]
+
+        def fn(t, v):
+            At, it = t
+            return At.replace_values_batched(v), ifn(it, v)
+
+        return (A0, itmpl), fn
 
     def make_solve(self):
         """fn(params, b, x0) -> SolveResult with x = hi + lo in working

@@ -23,6 +23,12 @@ iteration are PCG's).
 and ``iterations_scale`` (= s) converts them to CG steps.  All the small
 (s x s) algebra stays on the device; the monitored loop reads one norm
 an outer iteration.
+
+A batch of systems (the serve layer's groups) runs the same iteration on
+(B, n) vectors: the Krylov block is (B, s, n), the Gram block one
+batched product (B, 2s+1, 2s+1), and the guarded s x s solves batched,
+each instance's ridge its own; the rebuild is PCG's
+(``make_batch_params``).
 """
 
 from __future__ import annotations
@@ -38,12 +44,13 @@ from amgx_tpu_torch.solvers.registry import register_solver
 def _guarded_solve(W, rhs):
     """Solve W x = rhs for a tiny Gram system with a relative ridge:
     near breakdown (W -> 0 as r -> 0) x -> 0, and any non-finite
-    result becomes the no-op update."""
-    s = W.shape[0]
+    result becomes the no-op update.  A batch of systems W (B, s, s)
+    takes each instance's own ridge."""
+    s = W.shape[-1]
     rdt = W.real.dtype
-    diag = torch.abs(torch.diagonal(W).real)
-    delta = torch.max(diag) * torch.finfo(rdt).eps * 4.0 \
-        + torch.finfo(rdt).tiny
+    diag = torch.abs(torch.diagonal(W, dim1=-2, dim2=-1).real)
+    delta = torch.amax(diag, dim=-1, keepdim=True)[..., None] \
+        * torch.finfo(rdt).eps * 4.0 + torch.finfo(rdt).tiny
     sol = torch.linalg.solve(
         W + delta * torch.eye(s, dtype=W.dtype, device=W.device), rhs
     )
@@ -68,14 +75,6 @@ class SStepPCGSolver(PCGSolver):
         """CG steps per reported iteration (= s)."""
         return self.s
 
-    def make_batch_params(self):
-        """None for s > 1: the s-step block iteration takes no batch of
-        vectors yet, so the serve layer solves each system in turn
-        (ROADMAP.md, queue A: serving tier); s = 1 is PCG's."""
-        if self.s > 1:
-            return None
-        return super().make_batch_params()
-
     # extra = (r, P, AP, k): the residual, the previous direction block
     # and its A-image (s, n), zero on entry so that the first
     # A-orthogonalisation is a no-op, and the outer-iteration count
@@ -88,7 +87,9 @@ class SStepPCGSolver(PCGSolver):
         def init(params, b, x):
             A, _ = params
             r = b - spmv(A, x)
-            P = torch.zeros((s,) + r.shape, dtype=r.dtype, device=r.device)
+            # (s, n), or (B, s, n) for a batch
+            P = torch.zeros(r.shape[:-1] + (s,) + r.shape[-1:],
+                            dtype=r.dtype, device=r.device)
             return (r, P, torch.zeros_like(P), 0)
 
         return init
@@ -102,6 +103,8 @@ class SStepPCGSolver(PCGSolver):
         replace_every = self.replace_every
 
         def iterate(params, b, x, extra):
+            # over leading dims: x, r (n) or (B, n), P and AP (s, n) or
+            # (B, s, n), one Gram block per instance
             A, Mp = params
             r, Pr, APr, k = extra
 
@@ -111,48 +114,50 @@ class SStepPCGSolver(PCGSolver):
                 az_rows.append(spmv(A, z_rows[-1]))
                 z_rows.append(M(Mp, az_rows[-1]))
             az_rows.append(spmv(A, z_rows[-1]))
-            Z = torch.stack(z_rows)
-            AZ = torch.stack(az_rows)
+            Z = torch.stack(z_rows, dim=-2)
+            AZ = torch.stack(az_rows, dim=-2)
 
             # 2. one Gram block: every inner product
-            G = gram_block(torch.cat([Z, Pr, r[None]]),
-                           torch.cat([AZ, APr, r[None]]))
+            G = gram_block(torch.cat([Z, Pr, r[..., None, :]], dim=-2),
+                           torch.cat([AZ, APr, r[..., None, :]], dim=-2))
             if scaled:
                 # column-normalise the basis by its A-norms off the
                 # Gram diagonal: a rescaling of the small systems
                 rdt = G.real.dtype
                 d = torch.sqrt(torch.clamp(
-                    torch.abs(torch.diagonal(G)[:s].real),
+                    torch.abs(torch.diagonal(G, dim1=-2,
+                                             dim2=-1)[..., :s].real),
                     min=torch.finfo(rdt).tiny,
                 ))
                 inv = (1.0 / d).to(G.dtype)
-                sl = torch.cat([inv, torch.ones(s + 1, dtype=G.dtype,
-                                                device=G.device)])
-                G = G * sl[:, None] * sl[None, :]
-                Z = Z * inv[:, None]
-                AZ = AZ * inv[:, None]
+                sl = torch.cat([inv, torch.ones(
+                    inv.shape[:-1] + (s + 1,), dtype=G.dtype,
+                    device=G.device)], dim=-1)
+                G = G * sl[..., :, None] * sl[..., None, :]
+                Z = Z * inv[..., :, None]
+                AZ = AZ * inv[..., :, None]
 
-            G_ZAZ = G[:s, :s]            # <z_i, A z_j>
-            G_ZAP = G[:s, s:2 * s]       # <z_i, A p_j>
-            G_Zr = G[:s, -1]             # <z_i, r>
-            G_PAZ = G[s:2 * s, :s]       # <p_i, A z_j>
-            W_prev = G[s:2 * s, s:2 * s]  # <p_i, A p_j>
-            G_Pr = G[s:2 * s, -1]        # <p_i, r>
+            G_ZAZ = G[..., :s, :s]            # <z_i, A z_j>
+            G_ZAP = G[..., :s, s:2 * s]       # <z_i, A p_j>
+            G_Zr = G[..., :s, -1]             # <z_i, r>
+            G_PAZ = G[..., s:2 * s, :s]       # <p_i, A z_j>
+            W_prev = G[..., s:2 * s, s:2 * s]  # <p_i, A p_j>
+            G_Pr = G[..., s:2 * s, -1]        # <p_i, r>
 
             # 3. scalar recurrences off the Gram block
-            C = -_guarded_solve(W_prev, G_PAZ).T
+            C = -_guarded_solve(W_prev, G_PAZ).mT
             P_new = Z + C @ Pr
             AP_new = AZ + C @ APr
             Cc = C.conj()
             # <P_new, A P_new> from the Gram blocks (the G_PAZ + W_prev
             # C^T term is ~0 by construction; keeping it keeps the
             # float cancellation of the JAX package's form)
-            W_new = G_ZAZ + G_ZAP @ C.T + Cc @ (G_PAZ + W_prev @ C.T)
-            g = G_Zr + Cc @ G_Pr  # <P_new_i, r>
+            W_new = G_ZAZ + G_ZAP @ C.mT + Cc @ (G_PAZ + W_prev @ C.mT)
+            g = G_Zr + (Cc @ G_Pr[..., None])[..., 0]  # <P_new_i, r>
             a = _guarded_solve(W_new, g)
 
-            x = x + torch.tensordot(a, P_new, dims=1)
-            r_new = r - torch.tensordot(a, AP_new, dims=1)
+            x = x + (a[..., None, :] @ P_new)[..., 0, :]
+            r_new = r - (a[..., None, :] @ AP_new)[..., 0, :]
             k += 1
             if replace_every > 0 and k % replace_every == 0:
                 # residual replacement: the true residual, one SpMV

@@ -281,8 +281,33 @@ it waited for them:
    irregular template too, as the sliced one's "before"): each
    instance bit for bit the unbatched entry point's, the batch within
    TOL of the plain batched version, timed beside a block-diagonal CSR
-   ``torch.mv`` of the same work.
-22. Prints the per-kernel summary line (each kernel's launches on every
+   ``torch.mv`` of the same work.  j. ``COMM_AVOIDING_CONFIG`` (s-step
+   PCG over an OPT_POLYNOMIAL-smoothed AMG) on the 16 systems of a:
+   one batch, one setup, no fallback, iterations within one of the
+   card's sequential solves and x within 1.1e-9 of its largest entry,
+   true residual at 1e-8, launches as walked (:func:`comm_walk`).
+   k. ``CHEAP_PRECONDITIONER_CONFIG`` (ITERATIVE_REFINEMENT over PCG
+   and an f32 AMG with an INEXACT coarse solve) on the same systems:
+   one batch, corrections and inner iterations equal to the sequential
+   solves', x to rtol 1e-10, true residual at 1e-8, launches per entry
+   point as walked (:func:`cheap_walk`: the cycle on
+   ``dia_spmv_batched_f32`` / ``ell_spmv_batched_f32``, PCG's operator
+   on ``dia_spmv_batched_f64``).
+22. sessions: streaming solve sessions (``amgx_tpu_torch.sessions``).
+   c. ``session_heat``: 16 sessions of implicit-Euler heat steps on
+   64^3 (:class:`HeatStream`: the coefficients drawn anew for every
+   session and step), 8 steps through ``SessionManager.step_all`` under
+   ``SESSION_CFG``, counts zeroed just before and read just after: a
+   batch a step, one setup and one build over all steps, no pattern
+   hash after ``open``, each step's iterations and x (rtol 1e-10) those
+   of the sequential solve from the same x0, fewer iterations in all
+   than the same stream from zero guesses, launches as walked, host
+   seconds a system and step beside the sequential solve's.  d.
+   ``session_capi``: a dDDI session through ``api/capi.py`` (create,
+   3 steps, sync): every RC 0, statuses and iterations those of the
+   Python session, x bit for bit.  e. The card against the CPU port
+   at 4 x 24^3, 3 steps: iterations equal, x to rtol 1e-9.
+23. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``; one entry
@@ -2873,10 +2898,17 @@ def variable_diffusion_3d(n, seed):
     ``default_rng(seed)``, each face coefficient the harmonic mean of
     its two cells', a wall face the cell's own (Dirichlet walls as
     ``poisson_3d_7pt``, which is kappa = 1).  Scipy CSR, float64."""
+    return diffusion_3d(np.exp(0.5 * np.random.default_rng(
+        seed).standard_normal((n, n, n))))
+
+
+def diffusion_3d(kappa):
+    """-div(kappa grad u) for the (n, n, n) cell coefficients ``kappa``
+    (x fastest), as :func:`variable_diffusion_3d` builds it: scipy CSR,
+    float64, the pattern of ``poisson_3d_7pt(n)``."""
     import scipy.sparse as sps
 
-    kappa = np.exp(0.5 * np.random.default_rng(seed).standard_normal(
-        (n, n, n)))
+    n = kappa.shape[0]
     N = n ** 3
     diag = np.zeros((n, n, n))
     diags, offsets = [], []
@@ -5728,9 +5760,49 @@ def batched_walk(amg, cycles, top, x_dtype):
 
     lv = amg.levels
     add(lv[0].A, top)
-    for (i, f), k in cycle_walk(amg).items():
+    sm = next((lvl.smoother for lvl in lv if lvl.smoother is not None),
+              None)
+    walk = cycle_walk(amg, sweep_spmvs(sm) if sm is not None else 1,
+                      coarse_solve_spmvs(amg))
+    for (i, f), k in walk.items():
         add(getattr(lv[i], f), cycles * k)
     return counts
+
+
+def comm_walk(s, iters):
+    """Launches per batched entry point of a COMM_AVOIDING_CONFIG group
+    whose longest instance ran ``iters`` outer iterations: r0 = b - A
+    x0, then per outer iteration s A-SpMVs and s cycles (s-step PCG's
+    Krylov block), in f64."""
+    import torch
+
+    return batched_walk(s.precond, s.s * iters, 1 + s.s * iters,
+                        torch.float64)
+
+
+def cheap_walk(s, corrections):
+    """Launches per batched entry point of a
+    CHEAP_PRECONDITIONER_CONFIG group whose longest instance made
+    ``corrections`` corrections: each runs the inner PCG's init and its
+    ``max_iters`` iterations (an A-SpMV of the f64 operator and a
+    cycle each, the cycle in the hierarchy's dtype); the float-float
+    residual of a DIA operator launches no kernel (plane sums), of
+    another two SpMVs a residual (one more residual before the
+    loop)."""
+    import torch
+
+    from amgx_tpu_torch.ops import kernels
+
+    inner = s.inner
+    amg = inner.precond
+    k = (inner.max_iters + 1) * corrections
+    walk = batched_walk(amg, k, 0, amg.levels[0].A.dtype)
+    A = s.A
+    top = k + (0 if A.has_dia else 2 * (corrections + 1))
+    c = BATCHED[counter_of(A)]
+    name = c if c == "csr" else kernels.entry_point(c, A.dtype,
+                                                    torch.float64)
+    return add_counts(walk, {name: top})
 
 
 def jacobi_walk(A, iters, x_dtype):
@@ -5996,7 +6068,12 @@ def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
                 n_cpu=SERVE_CPU_N, n_guard=SERVE_GUARD_N):
     """The batched solve service (module docstring, phase 21).  Returns
     {path: launches per batched entry point}."""
-    from amgx_tpu_torch.serve import DEFAULT_CONFIG, BatchedSolveService
+    from amgx_tpu_torch.serve import (
+        CHEAP_PRECONDITIONER_CONFIG,
+        COMM_AVOIDING_CONFIG,
+        DEFAULT_CONFIG,
+        BatchedSolveService,
+    )
 
     on_card = device == "cuda"
     paths = {}
@@ -6226,7 +6303,384 @@ def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
                                    for k, v in card.items()},
         "x_max_rel_diff": worst}}), flush=True)
     check(worst <= 1e-9, f"serve i: x differs from the CPU's by {worst:.3e}")
+
+    # ---- j. COMM_AVOIDING_CONFIG, k. CHEAP_PRECONDITIONER_CONFIG: the
+    # batch rebuilds of s-step PCG, OPT_POLYNOMIAL, INEXACT and
+    # ITERATIVE_REFINEMENT on the systems of a
+    systems = serve_family((n,) * 3, B, seed=1)
+    paths["serve_comm_avoiding"] = serve_rebuild_group(
+        torch, device, "serve_comm_avoiding", COMM_AVOIDING_CONFIG,
+        systems)
+    paths["serve_cheap"] = serve_rebuild_group(
+        torch, device, "serve_cheap", CHEAP_PRECONDITIONER_CONFIG, systems)
     return paths
+
+
+def serve_rebuild_group(torch, device, label, cfg, systems):
+    """One group of ``systems`` under ``cfg`` (COMM_AVOIDING_CONFIG or
+    CHEAP_PRECONDITIONER_CONFIG) through the service, counts zeroed just
+    before it and read just after: one batch, one setup, no fallback,
+    launches per batched entry point as walked (:func:`comm_walk`,
+    :func:`cheap_walk`), against the card's sequential solves (one
+    solver, resetup and solve for each): s-step PCG's iterations within
+    one and x within 1.1e-9 of its largest entry; refinement's
+    corrections and inner iterations equal, x to rtol 1e-10; every true
+    residual at 1e-8.  Returns the launches."""
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.serve import COMM_AVOIDING_CONFIG, BatchedSolveService
+
+    comm = cfg == COMM_AVOIDING_CONFIG
+    B = len(systems)
+    svc = BatchedSolveService(config=cfg, max_batch=B, device=device)
+    zero_counts()
+    got, first_s = served(svc, systems)
+    launches = batched_counts()
+    m = svc.metrics.snapshot()
+    solver = next(iter(svc.cache._entries.values())).solver
+    it_max = max(g[1] for g in got)
+    want = comm_walk(solver, it_max) if comm else cheap_walk(solver,
+                                                             it_max)
+    got_w, warm_s = served(svc, [(sp * 1.01, b) for sp, b in systems])
+    # the sequential reference: one solver, resetup and solve each
+    ref, inner, fallbacks = [], [], 0
+    t0 = time.perf_counter()
+    s = A0 = None
+    for sp, b in systems:
+        if A0 is None:
+            A0 = T.SparseMatrix.from_scipy(sp, device=device)
+            s = T.create_solver(T.AMGConfig.from_string(cfg), "default",
+                                device=device).setup(A0)
+        else:
+            s.resetup(A0.replace_values(sp.data))
+        r = s.solve(b)
+        ref.append((int(r.status), int(r.iters), r.x.cpu().numpy()))
+        inner.append(getattr(s, "last_inner_iters", None))
+        fallbacks = getattr(s, "precision_fallbacks", 0)
+    seq_s = time.perf_counter() - t0
+    cmp = same_as_seq(label, got, ref, rtol=1.1e-9 if comm else 1e-10,
+                      iters_within=1 if comm else 0)
+    res = [true_residual(sp, b, g[2]) for (sp, b), g in zip(systems, got)]
+    rec = {"n": systems[0][0].shape[0], "batch": B,
+           "levels": [(lv.A.n_rows, lv.A.format, str(lv.A.dtype)[6:])
+                      for lv in (solver.precond if comm
+                                 else solver.inner.precond).levels],
+           "iterations": [g[1] for g in got],
+           "sequential_iterations": [r[1] for r in ref], **cmp,
+           "true_rel_residual_max": max(res),
+           "batches": m.get("batches"), "setups": m.get("setups"),
+           "compiles": m.get("compiles"),
+           "fallback_solves": m.get("fallback_solves", 0),
+           "host_syncs": m.get("host_syncs"), "launches": launches,
+           "walk": want,
+           "warm_statuses": sorted({g[0] for g in got_w}),
+           "per_system_s": {"batched_first_flush": first_s["s"] / B,
+                            "batched_warm_flush": warm_s["s"] / B,
+                            "sequential": seq_s / B},
+           "first_flush_s": first_s, "warm_flush_s": warm_s}
+    if not comm:
+        # corrections x (the unmonitored inner PCG's iterations)
+        per = solver.inner.max_iters * solver.inner.iterations_scale
+        rec.update({"inner_iterations": [g[1] * per for g in got],
+                    "sequential_inner_iterations": inner,
+                    "sequential_precision_fallbacks": fallbacks})
+    print(json.dumps({label: rec}), flush=True)
+    check(m.get("batches") == 1 and m.get("setups") == 1
+          and m.get("fallback_solves", 0) == 0,
+          f"{label}: batches {m.get('batches')}, setups {m.get('setups')}, "
+          f"fallback {m.get('fallback_solves')}")
+    check(max(res) <= 1e-8, f"{label}: true residual {max(res):.3e}")
+    check(got_w and all(g[0] == 0 for g in got_w),
+          f"{label}: the warm flush's statuses")
+    if not comm:
+        check(rec["inner_iterations"] == inner,
+              f"{label}: inner iterations {rec['inner_iterations']} vs "
+              f"sequential {inner}")
+    if device == "cuda":
+        check(launches == want, f"{label}: launches {launches} != walk "
+              f"{want}")
+    return launches
+
+
+SESSION_N = 64
+SESSION_B = 16
+SESSION_STEPS = 8
+SESSION_DT = 0.05
+SESSION_CPU_N = 24
+# SERVE_PCG_AMG to an absolute 1e-6: under RELATIVE_INI each step is
+# held to its own initial residual, and a warm start cannot save an
+# iteration (tests/test_sessions.py's time-stepping config is ABSOLUTE
+# for the same reason)
+SESSION_CFG = SERVE_PCG_AMG.replace('"RELATIVE_INI"', '"ABSOLUTE"').replace(
+    '"tolerance": 1e-8', '"tolerance": 1e-6')
+
+
+class HeatStream:
+    """Implicit-Euler steps of du/dt = div(kappa grad u) + 1 on an n^3
+    grid for ``count`` sessions: step k of session s solves (I / dt +
+    L(kappa_sk)) u_k = u_{k-1} / dt + 1, with kappa_sk = exp(0.5 xi_s +
+    0.05 eta_sk), xi_s a field of session s and eta_sk drawn anew each
+    step (i.i.d. N(0, 1) per cell, from ``default_rng``), u_{-1} a
+    normal draw.  Every operator has the pattern of
+    ``poisson_3d_7pt(n)``."""
+
+    def __init__(self, n, count, dt=SESSION_DT, seed=0):
+        self.n, self.dt, self.seed = n, dt, seed
+        self.base = diffusion_3d(np.ones((n, n, n)))
+        N = self.base.shape[0]
+        rows = np.repeat(np.arange(N), np.diff(self.base.indptr))
+        self.dpos = np.flatnonzero(rows == self.base.indices)
+        self.xi = [np.random.default_rng(seed * 7919 + s).standard_normal(
+            (n, n, n)) for s in range(count)]
+        self.u0 = np.random.default_rng(seed + 1).standard_normal(N)
+
+    def values(self, s, k):
+        eta = np.random.default_rng(
+            (self.seed, s, k)).standard_normal((self.n,) * 3)
+        v = diffusion_3d(np.exp(0.5 * self.xi[s] + 0.05 * eta)).data
+        v[self.dpos] += 1.0 / self.dt
+        return v
+
+    def rhs(self, x_prev):
+        return (self.u0 if x_prev is None else x_prev) / self.dt + 1.0
+
+    def session_rhs(self, sess):
+        return self.rhs(sess.last_x)
+
+
+def heat_sessions(device, stream, steps, cfg=SESSION_CFG, warm=True,
+                  svc=None, after_step=None):
+    """``steps`` lockstep steps of one session per field of ``stream``
+    through a SessionManager (on ``svc``, else a new service); with
+    ``warm`` False every step starts from zeros.  Returns (per step
+    {"results": [(status, iterations)], "host_s": seconds of step_all
+    and the reads}, the service, the manager, its pattern hashes after
+    the opens).  ``after_step(k, values, x_prev, x0, results)`` sees
+    each step's inputs and SolveResults, outside the timed window."""
+    from amgx_tpu_torch.serve import BatchedSolveService
+    from amgx_tpu_torch.sessions import SessionManager
+
+    B = len(stream.xi)
+    if svc is None:
+        svc = BatchedSolveService(config=cfg, max_batch=B, device=device)
+    mgr = SessionManager(svc)
+    sessions = [mgr.open(stream.base, session_id=f"heat{i}")
+                for i in range(B)]
+    hashes = svc.metrics.get("pattern_hashes")
+    out = []
+    for k in range(steps):
+        vals = [stream.values(i, k) for i in range(B)]
+        x_prev = [s.last_x for s in sessions]
+        if not warm:
+            for s in sessions:
+                s._last_status = None
+        x0 = [s.last_x if s.last_status == 0 else None for s in sessions]
+        t0 = time.perf_counter()
+        tickets = mgr.step_all([(s, v, stream.session_rhs)
+                                for s, v in zip(sessions, vals)])
+        res = [t.result() for t in tickets]
+        secs = time.perf_counter() - t0
+        out.append({"results": [(int(r.status), int(r.iters)) for r in res],
+                    "host_s": secs})
+        if after_step is not None:
+            after_step(k, vals, x_prev, x0, res)
+        del vals, x_prev, x0, res, tickets
+    return out, svc, mgr, hashes
+
+
+def heat_stream_results(device, n, count=4, steps=3):
+    """The warm heat stream of ``count`` sessions at ``n``^3 on
+    ``device``: [step][session] (status, iterations, x)."""
+    xs = []
+    heat_sessions(device, HeatStream(n, count), steps, after_step=lambda k,
+                  v, xp, x0, res: xs.append([(int(r.status), int(r.iters),
+                                              r.x.cpu().numpy())
+                                             for r in res]))
+    return xs
+
+
+def session_cpu_side(n):
+    """The CPU port's side of the sessions phase (check e)."""
+    import amgx_tpu_torch  # noqa: F401
+
+    return heat_stream_results("cpu", n)
+
+
+def session_phase(torch, device="cuda", n=SESSION_N, B=SESSION_B,
+                  steps=SESSION_STEPS, n_cpu=SESSION_CPU_N):
+    """Streaming solve sessions (module docstring, phase 22).  Returns
+    {path: launches per batched entry point}."""
+    import amgx_tpu_torch as T
+
+    # ---- c. session_heat: B sessions of n^3 in lockstep, counts zeroed
+    # just before the stream and read just after; each step against the
+    # sequential solve from the same x0 (one solver set up on the first
+    # step's values, resetup and solve: unbatched launches), outside the
+    # stream's clock
+    stream = HeatStream(n, B)
+    ref = {"seq": None, "A0": None, "it_diff": 0, "worst": 0.0, "s": 0.0}
+
+    def sequential(k, vals, x_prev, x0, res):
+        if ref["seq"] is None:
+            ref["A0"] = T.SparseMatrix.from_csr(
+                stream.base.indptr, stream.base.indices, vals[0],
+                device=device)
+            ref["seq"] = T.create_solver(
+                T.AMGConfig.from_string(SESSION_CFG), "default",
+                device=device).setup(ref["A0"])
+        seq = ref["seq"]
+        for i, r in enumerate(res):
+            t0 = time.perf_counter()
+            seq.resetup(ref["A0"].replace_values(vals[i]))
+            rr = seq.solve(stream.rhs(x_prev[i]), x0=x0[i])
+            ref["s"] += time.perf_counter() - t0
+            x, rx = r.x.cpu().numpy(), rr.x.cpu().numpy()
+            check(int(r.status) == int(rr.status) == 0,
+                  f"session_heat: status {r.status} vs sequential "
+                  f"{rr.status}")
+            ref["it_diff"] = max(ref["it_diff"],
+                                 abs(int(r.iters) - int(rr.iters)))
+            ref["worst"] = max(ref["worst"], float(
+                np.abs(x - rx).max() / np.abs(rx).max()))
+
+    zero_counts()
+    warm, svc, mgr, h_open = heat_sessions(device, stream, steps,
+                                           after_step=sequential)
+    launches = batched_counts()
+    m = svc.metrics.snapshot()
+    entry = next(iter(svc.cache._entries.values()))
+    amg = entry.solver.precond
+    want = add_counts(*[batched_walk(
+        amg, it + 1, it + 1, torch.float64) for it in (
+            max(r[1] for r in o["results"]) for o in warm)])
+    # the same stream from zero guesses
+    cold, _, _, _ = heat_sessions(device, stream, steps, warm=False,
+                                  svc=svc)
+    total_warm = sum(r[1] for o in warm for r in o["results"])
+    total_cold = sum(r[1] for o in cold for r in o["results"])
+    host_s = sum(o["host_s"] for o in warm)
+    rec = {"n": n, "sessions": B, "steps": steps, "dt": SESSION_DT,
+           "levels": [(lv.A.n_rows, lv.A.format) for lv in amg.levels],
+           "iterations": [[r[1] for r in o["results"]] for o in warm],
+           "zero_guess_iterations": [[r[1] for r in o["results"]]
+                                     for o in cold],
+           "total_iterations": total_warm,
+           "zero_guess_total_iterations": total_cold,
+           "max_iterations_diff_sequential": ref["it_diff"],
+           "x_max_rel_diff_sequential": ref["worst"],
+           "batches": m.get("batches"), "setups": m.get("setups"),
+           "compiles": m.get("compiles"),
+           "pattern_hashes_after_open": m.get("pattern_hashes") - h_open,
+           "host_syncs": m.get("host_syncs"),
+           "warm_starts": mgr.counters().get("warm_starts_total", 0),
+           "launches": launches, "walk": want,
+           "per_system_step_s": {
+               "session": host_s / (B * steps),
+               "sequential": ref["s"] / (B * steps),
+               "steps": [o["host_s"] / B for o in warm]},
+           "resetup_overlap_s": mgr.resetup_overlap_s}
+    print(json.dumps({"session_heat": rec}), flush=True)
+    check(m.get("batches") == steps and m.get("setups") == 1
+          and m.get("compiles") == 1,
+          f"session_heat: batches {m.get('batches')}, setups "
+          f"{m.get('setups')}, compiles {m.get('compiles')}")
+    check(rec["pattern_hashes_after_open"] == 0,
+          f"session_heat: {rec['pattern_hashes_after_open']} pattern "
+          "hashes after open")
+    check(ref["it_diff"] == 0 and ref["worst"] <= 1e-10,
+          f"session_heat: iterations differ by {ref['it_diff']}, x by "
+          f"{ref['worst']:.3e} from the sequential solves")
+    check(total_warm < total_cold,
+          f"session_heat: {total_warm} iterations warm, {total_cold} from "
+          "zero guesses")
+    if device == "cuda":
+        check(launches == want, f"session_heat: launches {launches} != "
+              f"walk {want}")
+    paths = {"session_heat": launches}
+    del warm, cold, svc, mgr, entry, amg, ref
+
+    # ---- d. session_capi: a dDDI session through the C API, 3 steps,
+    # against the Python session of the same stream
+    print(json.dumps({"session_capi": session_capi(device, stream)}),
+          flush=True)
+
+    # ---- e. the card against the CPU port at n_cpu^3
+    cpu = CPU.get(session_cpu_side, n_cpu)
+    xs = heat_stream_results(device, n_cpu)
+    worst, it_eq = 0.0, True
+    for o, c in zip(xs, cpu):
+        for (st, it, x), (cst, cit, cx) in zip(o, c):
+            it_eq = it_eq and st == cst == 0 and it == cit
+            worst = max(worst, float(np.abs(x - cx).max()
+                                     / np.abs(cx).max()))
+    print(json.dumps({"session_vs_cpu": {
+        "n": n_cpu, "iterations": [[r[1] for r in o] for o in xs],
+        "x_max_rel_diff": worst}}), flush=True)
+    check(len(xs) == len(cpu) == 3 and it_eq and worst <= 1e-9,
+          f"session e: card against CPU: iterations equal {it_eq}, x "
+          f"{worst:.3e}")
+    return paths
+
+
+def session_capi(device, stream, steps=3):
+    """Check d: create, ``steps`` steps (``matrix_replace_coefficients``,
+    the rhs, ``solver_session_step``, ``_sync``) and destroy a session
+    of ``stream``'s first field through ``amgx_tpu_torch.api.capi`` in
+    dDDI (hDDI on the CPU): every RC 0, statuses and iterations those
+    of a Python session of the same steps, x bit for bit."""
+    from amgx_tpu_torch.api import capi as C
+    from amgx_tpu_torch.serve import BatchedSolveService
+    from amgx_tpu_torch.sessions import SessionManager
+
+    sp = stream.base
+    N = sp.shape[0]
+    mode = capi_mode("DDI", device)
+    rcs = [C.initialize()]
+    c = C.config_create(SESSION_CFG)
+    r = C.resources_create_simple(c)
+    mtx, rhs, sol = (C.matrix_create(r, mode), C.vector_create(r, mode),
+                     C.vector_create(r, mode))
+    rcs.append(C.matrix_upload_all(mtx, N, sp.nnz, 1, 1, sp.indptr,
+                                   sp.indices, stream.values(0, 0), None))
+    slv = C.solver_create(r, mode, c)
+    sh = C.solver_session_create(slv, mtx)
+    got, x = [], None
+    t0 = time.perf_counter()
+    for k in range(steps):
+        rcs += [C.matrix_replace_coefficients(mtx, N, sp.nnz,
+                                              stream.values(0, k)),
+                C.vector_upload(rhs, N, 1, stream.rhs(x)),
+                C.solver_session_step(sh, mtx, rhs, sol),
+                C.solver_session_sync(sh)]
+        x = C.vector_download(sol)
+        got.append((C.solver_session_get_status(sh),
+                    C.solver_session_get_iterations_number(sh), x))
+    capi_s = time.perf_counter() - t0
+    rcs += [C.solver_session_destroy(sh), C.solver_destroy(slv),
+            C.matrix_destroy(mtx), C.vector_destroy(rhs),
+            C.vector_destroy(sol)]
+    mgr = SessionManager(BatchedSolveService(config=SESSION_CFG,
+                                             device=device))
+    sess = mgr.open(sp)
+    py = []
+    for k in range(steps):
+        t = sess.step(stream.values(0, k), stream.session_rhs)
+        mgr.flush()
+        res = t.result()
+        py.append((int(res.status), int(res.iters), res.x.cpu().numpy()))
+    bitwise = all(np.array_equal(a[2], b[2]) for a, b in zip(got, py))
+    rec = {"mode": mode, "rcs_all_zero": not any(rcs),
+           "statuses": [g[0] for g in got],
+           "iterations": [g[1] for g in got],
+           "python_statuses": [p[0] for p in py],
+           "python_iterations": [p[1] for p in py],
+           "x_bitwise_python": bitwise, "capi_s": capi_s}
+    check(not any(rcs), f"session_capi: RCs {rcs}")
+    check([g[:2] for g in got] == [p[:2] for p in py]
+          and all(g[0] == 0 for g in got),
+          f"session_capi: {[g[:2] for g in got]} vs the Python session's "
+          f"{[p[:2] for p in py]}")
+    check(bitwise, "session_capi: x differs from the Python session's")
+    return rec
 
 
 def blockdiag_csr(torch, ro, ci, vals, m):
@@ -6440,20 +6894,24 @@ def serve_kernel_cases(torch, timer, peaks, rng, n=SERVE_N, B=SERVE_B):
                 extra={"width": w, "nonzeros": irr.nnz,
                        "padded_slots": w * pat.nb, "shared_values": True}))
             del lib_s
+        # the slot-major values of the batch (a sliced batched view
+        # keeps none): each instance's replace_values
+        slot_vals = torch.stack([A.replace_values(Ab.values[i]).ell_vals
+                                 for i in range(B)])
         name = f"ell_spmv_batched_{kind}"
         recs.append(batched_case(
             torch, timer, peaks, name,
             f"serve {name} irregular A {pat.nb} w={w} B{B}",
-            lambda: ell.ell_spmv_batched(Ab.ell_cols, Ab.ell_vals, x),
-            lambda: ell.ell_spmv_batched_plain(Ab.ell_cols, Ab.ell_vals, x),
-            lambda i: ell.ell_spmv(Ab.ell_cols, Ab.ell_vals[i].contiguous(),
+            lambda: ell.ell_spmv_batched(A.ell_cols, slot_vals, x),
+            lambda: ell.ell_spmv_batched_plain(A.ell_cols, slot_vals, x),
+            lambda i: ell.ell_spmv(A.ell_cols, slot_vals[i].contiguous(),
                                    x[i]),
             lambda: torch.mv(lib, x.reshape(-1)),
             nbytes=4 * irr.nnz + isz * B * (irr.nnz + 2 * pat.nb),
             nops=2 * B * irr.nnz, dtype=dt,
             extra={"width": w, "nonzeros": irr.nnz,
                    "padded_slots": w * pat.nb}))
-        del A, Ab, S, x, lib, vals
+        del A, Ab, S, x, lib, vals, slot_vals
     return recs
 
 
@@ -6462,7 +6920,7 @@ PHASES = ("kernels", "bench_pcg", "bench_pcg_matrix_free",
           "idr_dilu", "gmres_ilu0", "pbicgstab_agg_w", "amg_classical_kcycle",
           "pcg_agg_resetup", "refine_bf16_256", "mf_bf16", "classical_bf16",
           "device_match", "block4_amg_pcg", "eigensolvers", "setup_store",
-          "capi", "serve")
+          "capi", "serve", "sessions")
 NEEDS = {"bench_pcg_matrix_free": ("bench_pcg",)}
 
 
@@ -6514,6 +6972,7 @@ def cpu_side_calls(phases):
                          for share in EIG_CPU_SPLIT],
         "capi": [(capi_cpu_side, CAPI_CMP_N, CAPI_SELL_N)],
         "serve": [(serve_cpu_side, SERVE_CPU_N)],
+        "sessions": [(session_cpu_side, SESSION_CPU_N)],
     }
     return [c for p in phases for c in calls.get(p, ())]
 
@@ -6587,7 +7046,7 @@ def _main(argv=None):
     calls = cpu_side_calls(phases)
     CPU.start(calls, [CHILD_THREADS if c[0] in (
         block4_cmp_f32, block4_cmp_f64, eig_cmp_cpu, capi_cpu_side,
-        serve_cpu_side)
+        serve_cpu_side, session_cpu_side)
         else torch.get_num_threads() for c in calls])
     if "kernels" in phases:
         recs += timed("kernels", kernel_phase, torch, peaks)
@@ -6639,6 +7098,8 @@ def _main(argv=None):
         recs += c_recs
     if "serve" in phases:
         variants_by_path.update(timed("serve", serve_phase, torch))
+    if "sessions" in phases:
+        variants_by_path.update(timed("sessions", session_phase, torch))
 
     # each kernel: the path whose count is its ``launches``, the case
     # whose times the summary gives, its source and the TPU kernel

@@ -621,11 +621,7 @@ def test_d_mode_without_a_card_raises(monkeypatch):
 
 NOT_PORTED = [
     ("solver_get_telemetry", 1, "A.7"), ("solver_telemetry_json", 1, "A.7"),
-    ("solver_session_create", 2, "A.7"), ("solver_session_step", 4, "A.7"),
-    ("solver_session_sync", 1, "A.7"),
-    ("solver_session_get_status", 1, "A.7"),
-    ("solver_session_get_iterations_number", 1, "A.7"),
-    ("solver_session_save", 2, "A.7"), ("solver_session_destroy", 1, "A.7"),
+    ("solver_session_save", 2, "A.7.6"),
     ("distribution_create", 1, "A.9"),
     ("distribution_set_partition_data", 3, "A.9"),
     ("distribution_set_32bit_colindices", 2, "A.9"),
@@ -648,6 +644,25 @@ def test_entry_points_not_ported_are_rc_not_implemented(name, nargs, queue):
         getattr(T, name)(*([1] * nargs))
     assert e.value.rc == T.RC_NOT_IMPLEMENTED
     assert queue in str(e.value) and "ROADMAP.md" in str(e.value)
+
+
+# the streaming session calls, ported with the sessions
+SESSION = [("solver_session_create", 2), ("solver_session_step", 4),
+           ("solver_session_sync", 1), ("solver_session_get_status", 1),
+           ("solver_session_get_iterations_number", 1)]
+
+
+@pytest.mark.parametrize("name,nargs", SESSION, ids=[n for n, _ in SESSION])
+def test_session_entry_points_refuse_an_unknown_handle_as_jax(name, nargs):
+    import amgx_tpu.api.capi as J
+
+    for mod in (T, J):
+        with pytest.raises(mod.AMGXError) as e:
+            getattr(mod, name)(*([987654] * nargs))
+        assert e.value.rc == mod.RC_BAD_PARAMETERS
+    # destroying an unknown session is a no-op in both packages
+    assert T.solver_session_destroy(987654) == J.solver_session_destroy(
+        987654) == T.RC_OK
 
 
 # the batched solve and its accessors, ported with the serve layer

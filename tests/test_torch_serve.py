@@ -332,7 +332,10 @@ def test_replace_values_batched_and_spmv_match_per_instance(formats, fmt):
         Ai = A.replace_values(V[i])
         np.testing.assert_array_equal(Ab.diag[i].numpy(), Ai.diag.numpy())
         for name in ("dia_vals", "ell_vals", "dense"):
-            if getattr(Ai, name) is not None:
+            # a sliced view keeps no slot-major values (its SpMVs take
+            # ``sell``)
+            if getattr(Ai, name) is not None and not (
+                    name == "ell_vals" and Ab.sell is not None):
                 np.testing.assert_array_equal(
                     getattr(Ab, name)[i].numpy(), getattr(Ai, name).numpy())
         np.testing.assert_allclose(Y[i].numpy(), spmv(Ai, X[i]).numpy(),
@@ -484,12 +487,12 @@ def test_make_batch_params_dense_lu_matches_jax():
 
 
 def test_unported_rebuilds_return_none():
-    """Solvers without a batch rebuild in the port run in turn: the
-    polynomial smoothers (so COMM_AVOIDING_CONFIG's AMG), s-step PCG at
-    s > 1, GMRES."""
+    """Solvers without an iteration protocol run in turn: GMRES (and
+    IDR, ``tests/test_torch_serve_rebuilds.py``).  COMM_AVOIDING_CONFIG
+    batches since its rebuilds landed."""
     sp = poisson_scipy((8, 8)).tocsr()
     A = SparseMatrix.from_scipy(sp, device="cpu")
-    for cfg in (COMM_AVOIDING_CONFIG, GMRES_CFG):
+    for cfg in (GMRES_CFG,):
         s = create_solver(AMGConfig.from_string(cfg), "default",
                           device="cpu")
         s.setup(A)
@@ -661,21 +664,23 @@ def test_fallback_gmres_as_jax():
 
 
 def test_comm_avoiding_runs_in_turn_with_jax_results():
-    """COMM_AVOIDING_CONFIG has no batch rebuild in the port (the
-    polynomial smoother): every system runs in turn, with the JAX
-    package's statuses and iterations, and x to 5e-9 of its largest
-    entry: s-step PCG's Gram systems amplify the last bits, and the JAX
-    package's own batched and sequential solves of these systems differ
-    by up to 1.08e-9 (ROADMAP.md, queue C: s-step PCG)."""
+    """COMM_AVOIDING_CONFIG (s-step PCG over an OPT_POLYNOMIAL-smoothed
+    AMG) runs as one batch, as in the JAX package, with its statuses
+    and iterations, and x to 1.1e-9 of its largest entry: s-step PCG's
+    Gram systems amplify the last bits, and the JAX package's own
+    batched and sequential solves of these systems differ by up to
+    1.08e-9 (ROADMAP.md, queue C: s-step PCG).  (The name is the one
+    the test had while the config ran in turn.)"""
     systems = jittered_poisson_family((16, 16), 4, seed=14, jitter=0.05)
     ts, js = tsvc(COMM_AVOIDING_CONFIG, max_batch=8), jsvc(J_COMM,
                                                            max_batch=8)
     tr, jr = ts.solve_many(systems), js.solve_many(systems)
-    same_results(tr, jr, rtol=5e-9)
+    same_results(tr, jr, rtol=1.1e-9)
     for (sp, b), r in zip(systems, tr):
         assert np.linalg.norm(b - sp @ host_x(r)) < 1e-8 * np.linalg.norm(b)
-    assert ts.metrics.get("fallback_solves") == len(systems)
-    assert ts.metrics.get("batches") == 0
+    assert counters(ts) == counters(js)
+    assert ts.metrics.get("fallback_solves") == 0
+    assert ts.metrics.get("batches") == 1
 
 
 def test_max_batch_triggers_flush_as_jax():
