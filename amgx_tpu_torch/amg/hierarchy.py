@@ -64,6 +64,7 @@ import warnings
 import numpy as np
 import torch
 
+from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.core.matrix import SparseMatrix
 from amgx_tpu_torch.core.printing import emit
 from amgx_tpu_torch.core.profiling import setup_phase, setup_profile_scope
@@ -314,7 +315,9 @@ class AMGSolver(Solver):
                 self._adopt_levels(A, given)
             else:
                 self.levels = [AMGLevel(A, 0)]
-                self._coarsen_from(A.host_csr())
+                with setup_phase("host_csr"):
+                    Asp = A.host_csr()
+                self._coarsen_from(Asp)
             self._finalize_setup()
 
     def _coarsen_from(self, Asp):
@@ -519,22 +522,28 @@ class AMGSolver(Solver):
         # the precision policy first: smoothers and the coarse solver
         # set up on the cast operators
         self._cast_hierarchy()
-        for lvl in self.levels[:-1]:
-            if not (reuse_smoothers and lvl.smoother is not None):
-                self._refresh_smoother(lvl)
+        with setup_phase("finalize"):
+            for lvl in self.levels[:-1]:
+                if not (reuse_smoothers and lvl.smoother is not None):
+                    self._refresh_smoother(lvl)
         coarsest = self.levels[-1]
-        restored, self._restored_coarse = self._restored_coarse, None
-        if reuse_smoothers and restored is not None:
-            self.coarse_solver = restored
-        else:
-            # the coarse solver is rebuilt (DENSE_LU factors anew)
-            self.coarse_solver = self._make_coarse_solver(coarsest.A)
-        if self.coarse_solver is None:
-            # coarsest-level smoothing fallback (coarse_solver=NOSOLVER)
-            if not (reuse_smoothers and coarsest.smoother is not None):
-                self._refresh_smoother(coarsest)
-        else:
-            coarsest.smoother = None
+        # the coarse solver's build is a phase of its own, as in the JAX
+        # package (a DENSE_LU factorization is O(n^3))
+        with setup_phase("coarse_factor"):
+            restored, self._restored_coarse = self._restored_coarse, None
+            if reuse_smoothers and restored is not None:
+                self.coarse_solver = restored
+            else:
+                # the coarse solver is rebuilt (DENSE_LU factors anew)
+                self.coarse_solver = self._make_coarse_solver(coarsest.A)
+        with setup_phase("finalize"):
+            if self.coarse_solver is None:
+                # coarsest-level smoothing fallback (coarse_solver=
+                # NOSOLVER)
+                if not (reuse_smoothers and coarsest.smoother is not None):
+                    self._refresh_smoother(coarsest)
+            else:
+                coarsest.smoother = None
         self._params = self._collect_params()
         # grid stats and vis data print only at verbosity_level > 2
         # (reference solver.cu:541-546)
@@ -907,14 +916,15 @@ class AMGSolver(Solver):
     def cycle_passes_per_iteration(self):
         """Square-operator SpMVs one cycle makes, counted by running one
         cycle on zero vectors under ``op_pass_counter`` (the JAX
-        package counts the same sites at trace time).  Cached per
-        setup."""
+        package counts the same sites at trace time; the run is a
+        build of its own for the fault sites, as that trace is).  On the
+        card the run launches kernels.  Cached per setup."""
         key = "cycle_passes"
         if key not in self._cache:
             A0 = self.levels[0].A
             z = torch.zeros(A0.n_rows, dtype=A0.dtype, device=A0.device)
             with op_pass_counter() as c:
-                self.make_cycle()(self.apply_params(), z, z)
+                faults.built(self.make_cycle())(self.apply_params(), z, z)
             self._cache[key] = c.count
         return self._cache[key]
 

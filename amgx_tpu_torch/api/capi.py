@@ -22,9 +22,13 @@ vector dtype, as in the JAX package.
 The batched solve (``solver_solve_batch`` and its accessors) runs on
 the port's serve layer (``amgx_tpu_torch.serve``), the streaming
 session calls (``solver_session_*``) on its sessions
-(``amgx_tpu_torch.sessions``).  Not ported, each raising
+(``amgx_tpu_torch.sessions``), the telemetry calls
+(``solver_get_telemetry``, ``solver_telemetry_json``) on
+``amgx_tpu_torch.telemetry``.  The fault site ``capi_internal``
+(``core/faults.py``) raises inside the solve path and comes back as an
+RC through the catch-all.  Not ported, each raising
 ``RC_NOT_IMPLEMENTED`` with the ``ROADMAP.md`` queue that brings it:
-``solver_session_save`` (A.7.6), the telemetry entry points, the fleet
+``solver_session_save`` (A.7.6), the fleet
 front and admission gateway of the batched solve (A.7, A.8), the
 distribution handles, partition data, one-ring maps, distributed
 reads and writes and setup on more than one device (A.9).
@@ -684,12 +688,20 @@ def solver_setup(slv_h: int, mtx_h: int):
 
 
 def _solve_impl(s, rhs_h, sol_h, zero_guess):
+    from amgx_tpu_torch.core import faults
+
     rhs = _get(rhs_h, _Vector)
     sol = _get(sol_h, _Vector)
     if s.solver is None:
         raise AMGXError(RC_BAD_PARAMETERS, "solver not set up")
     if rhs.data is None:
         raise AMGXError(RC_BAD_PARAMETERS, "rhs not uploaded")
+    if faults.should_fire("capi_internal"):
+        # an injected internal error: it must come back as a clean RC
+        # through the catch-all (_rc_guard), never a traceback across
+        # the native shim
+        raise RuntimeError("injected internal error (fault site "
+                           "capi_internal)")
     x0 = None if (zero_guess or sol.data is None) else sol.data
     res = s.solver.solve(
         rhs.data.astype(s.mode.vec_np),
@@ -780,8 +792,7 @@ def solver_destroy(slv_h):
 
 
 # ---------------------------------------------------------------------------
-# batched solves (the serve layer); telemetry is the rest of the
-# serving tier (queue A.7)
+# batched solves (the serve layer) and the telemetry calls
 
 
 def _batch_service(s):
@@ -931,11 +942,37 @@ def solver_get_batch_metrics(slv_h: int) -> dict:
 
 
 def solver_get_telemetry(slv_h: int) -> dict:
-    _not_ported("solver_get_telemetry", _A7)
+    """Telemetry of one solver handle (AMGX_solver_get_telemetry): the
+    direct solve's timings, the handle's serve metrics and flight
+    recorder (records and incident log) once batched solves ran, and
+    the process registry's snapshot (every component: serve, sessions,
+    store, solvers, tracing).  Collection degrades: a telemetry failure
+    is counted, never raised into the C ABI."""
+    from amgx_tpu_torch import telemetry
+
+    s = _get(slv_h, _SolverHandle)
+    out: dict = {"enabled": telemetry.telemetry_enabled()}
+    if getattr(s, "batch_service", None) is not None:
+        _drain_batch(s)
+        out["serve"] = s.batch_service.metrics.snapshot()
+        out["flight"] = s.batch_service.recorder.to_dict()
+    if s.solver is not None:
+        out["solver"] = {
+            "setup_s": getattr(s.solver, "setup_time", 0.0),
+            "restore_s": getattr(s.solver, "restore_time", 0.0),
+            "compile_s": getattr(s.solver, "compile_time", 0.0),
+            "solve_s": getattr(s.solver, "solve_time", 0.0),
+        }
+    out["registry"] = telemetry.get_registry().snapshot()
+    return out
 
 
 def solver_telemetry_json(slv_h: int) -> str:
-    _not_ported("solver_telemetry_json", _A7)
+    """:func:`solver_get_telemetry` as a JSON string (the form a C host
+    reads as a ``char*``)."""
+    import json
+
+    return json.dumps(solver_get_telemetry(slv_h), default=str)
 
 
 # ---------------------------------------------------------------------------
@@ -1313,6 +1350,33 @@ def write_system_distributed(mtx_h, rhs_h, sol_h, filename, *args):
 # the tests assert that none is left unguarded
 
 
+# the entry points that get a profiler range each (``AMGX_<name>``,
+# reference amgx_c.cu:2747 nvtxRange), as in the JAX package
+_TRACED = frozenset((
+    "matrix_upload_all", "matrix_replace_coefficients", "vector_upload",
+    "vector_download", "solver_setup", "solver_solve",
+    "solver_solve_with_0_initial_guess", "solver_solve_batch",
+    "solver_resetup", "solver_save", "solver_load",
+    "solver_session_create", "solver_session_step",
+    "solver_session_sync", "solver_session_save", "eig_solver_setup",
+    "eig_solver_solve", "read_system", "write_system",
+))
+
+
+def _traced(fn):
+    """A ``trace_range`` around one entry point."""
+    from amgx_tpu_torch.core.profiling import trace_range
+
+    name = "AMGX_" + fn.__name__
+
+    @functools.wraps(fn)
+    def wrap(*a, **k):
+        with trace_range(name):
+            return fn(*a, **k)
+
+    return wrap
+
+
 def _install_rc_guards():
     import types
 
@@ -1323,6 +1387,8 @@ def _install_rc_guards():
             and _obj.__module__ == __name__
             and not getattr(_obj, "_rc_guarded", False)
         ):
+            if _name in _TRACED:
+                _obj = _traced(_obj)
             globals()[_name] = _rc_guard(_obj)
 
 

@@ -8,11 +8,13 @@ from __future__ import annotations
 import torch
 
 from amgx_tpu_torch.core.types import NormType
+from amgx_tpu_torch.ops.blas import record_reduction
 
 
 def norm(x, norm_type: NormType = NormType.L2):
     """The norm of x (0-dim), or of each row of a batch x (B, n): (B,
     1), reduced over the row."""
+    record_reduction()
     if x.dim() == 2:
         return _batched_norm(x, norm_type)
     a = torch.abs(x)
@@ -42,6 +44,7 @@ def _batched_norm(x, norm_type):
 
 def block_norm(x, block_size: int, norm_type: NormType = NormType.L2):
     """Per-block-component norms; x flat (n * b,) -> (b,)."""
+    record_reduction()
     xb = torch.abs(x.reshape(-1, block_size))
     if norm_type == NormType.L1:
         return torch.sum(xb, dim=0)

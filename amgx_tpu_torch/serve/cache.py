@@ -26,6 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
+from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.serve.bucketing import PaddedPattern
 from amgx_tpu_torch.serve.metrics import ServeMetrics
 
@@ -149,6 +150,61 @@ class HierarchyCache:
         self._insert(key, entry)
         return entry
 
+    def bytes_by_dtype(self) -> dict:
+        """Resident bytes of every cached entry (the template solver's
+        params and the batch template), per tensor dtype (``{"float64":
+        n, "int32": m, ...}``; ``amgx_cache_hierarchy_bytes{dtype=...}``).
+        A tensor reached twice counts once."""
+        out: dict = {}
+        for _fmt, t in self._resident():
+            key = str(t.dtype).replace("torch.", "")
+            out[key] = out.get(key, 0) + t.nbytes
+        return out
+
+    def bytes_by_format(self) -> dict:
+        """The same bytes per format of the matrix that holds them
+        (``MATRIX_FREE``, ``DIA``, ``DENSE``, ``ELL``, ``CSR``; ``other``
+        for tensors outside a matrix;
+        ``amgx_cache_hierarchy_bytes{format=...}``)."""
+        out: dict = {}
+        for fmt, t in self._resident():
+            out[fmt] = out.get(fmt, 0) + t.nbytes
+        return out
+
+    def _resident(self):
+        """(format, tensor) of every tensor the cached entries hold, each
+        once."""
+        from amgx_tpu_torch.core.matrix import SparseMatrix
+
+        with self._lock:
+            entries = list(self._entries.values())
+        seen: set = set()
+        found = []
+
+        def walk(node, fmt):
+            if id(node) in seen or node is None:
+                return
+            seen.add(id(node))
+            if isinstance(node, torch.Tensor):
+                found.append((fmt, node))
+            elif isinstance(node, SparseMatrix):
+                for v in vars(node).values():
+                    walk(v, node.format.upper())
+            elif isinstance(node, (tuple, list)):
+                for v in node:
+                    walk(v, fmt)
+            elif isinstance(node, dict):
+                for v in node.values():
+                    walk(v, fmt)
+            elif hasattr(node, "__dict__") and not callable(node):
+                for v in vars(node).values():
+                    walk(v, fmt)
+
+        for e in entries:
+            walk(getattr(e.solver, "_params", None), "other")
+            walk(e.template, "other")
+        return found
+
 
 class CompileCache:
     """(template signature, batch bucket) -> the built batched-solve
@@ -169,7 +225,9 @@ class CompileCache:
             fn = self._fns.get(key)
             if fn is not None:
                 return fn, False
-            self._fns[key] = fn = entry.batch_fn
+            # each build owns its fault decisions, as each of the JAX
+            # package's compiles traces anew
+            self._fns[key] = fn = faults.built(entry.batch_fn)
         self.metrics.inc("compiles")
         return fn, True
 

@@ -25,16 +25,35 @@ error (``validate``); a group that fails as a unit is quarantined and
 every member re-solves alone, so only the poisoned requests fail; a
 per-fingerprint circuit breaker bypasses batching for a pattern that
 keeps failing, with a half-open probe every ``breaker_probe_every``-th
-group; a ticket whose deadline passes fails alone.
+group; a ticket whose deadline passes fails alone.  The fault site
+``serve_compile`` (``core/faults.py``) fails a group after its
+hierarchy entry is built and before its batched solve is looked up, so
+the group quarantines.
+
+Telemetry, as in the JAX package: the service registers a ``serve``
+source in the process registry (``amgx_tpu_torch.telemetry``); its
+:class:`FlightRecorder` (``recorder``) keeps one record per solved
+ticket (``path`` batched, quarantine or fallback) and an incident per
+quarantine, breaker trip and deadline expiry; with request tracing on
+(``AMGX_TPU_TRACE_SAMPLE``) a sampled ticket's spans are ``submit``
+(its root), ``pad``, ``queue``, ``dispatch``, ``device`` and ``fetch``,
+and each batched group with a sampled member records one ``flush_group``
+span naming its members.  Telemetry failures (the ``telemetry_export``
+site) count ``telemetry_errors`` and never fail a solve.  The solve is
+synchronous until ROADMAP.md queue A.7.5: a group's ``dispatch`` stage
+runs from its flush to the batched loop's first launch, its ``device``
+stage from there to the synchronisation at its fetch (the loop and its
+norm reads included), and ``fetch`` after it.
 
 What the port leaves out (ROADMAP.md, queue A.7) raises
 ``NotImplementedError`` when asked for: the setup store and warm boot
 (``store=``), placement and failover (``placement=``, ``failover=``,
 ``fetch_watchdog_s=``), buffer donation (``donate=``: torch has none),
-priority lanes and tenants, telemetry and fault injection.  The group
-runs on the flushing thread (submit, flush, poll or the poller): there
-is no dispatch pool, and a group's results are ready when its flush
-returns.  Scalar (block_size 1) systems only, as in the JAX package.
+priority lanes and tenants (every ticket's lane is ``default`` and its
+tenant ``-``).  The group runs on the flushing thread (submit, flush,
+poll or the poller): there is no dispatch pool, and a group's results
+are ready when its flush returns.  Scalar (block_size 1) systems only,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,6 +68,7 @@ import numpy as np
 import torch
 
 from amgx_tpu_torch.config.amg_config import AMGConfig
+from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.core.device import resolve_device
 from amgx_tpu_torch.core.matrix import SparseMatrix, sparsity_fingerprint
 from amgx_tpu_torch.core.types import torch_dtype
@@ -66,10 +86,21 @@ from amgx_tpu_torch.serve.cache import (
     config_hash,
     template_signature,
 )
+from amgx_tpu_torch.core.profiling import trace_range
 from amgx_tpu_torch.serve.metrics import ServeMetrics
 from amgx_tpu_torch.solvers.base import SolveResult
+from amgx_tpu_torch.telemetry import (
+    FlightRecorder,
+    SolveRecord,
+    get_registry,
+    telemetry_enabled,
+    tracing,
+)
 
 _A7 = "ROADMAP.md, queue A.7: serving tier"
+# every ticket's lane and tenant until the gateway (queue A.7.7)
+LANE = "default"
+TENANT = "-"
 
 
 def _host_csr(A, metrics=None):
@@ -189,6 +220,9 @@ class SolveTicket:
     _error: Optional[BaseException] = None
     _batch: object = None  # _BatchResult once the group ran batched
     _deadline: Optional[float] = None  # absolute monotonic, or None
+    _t_submit: float = 0.0  # perf_counter at submit
+    _pad_s: float = 0.0  # seconds writing the staging row
+    _trace: object = None  # the sampled trace context, or None
     # concurrent result() calls on one ticket settle consistently
     _rlock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
@@ -217,6 +251,9 @@ class SolveTicket:
                         "serve deadline exceeded before the result was "
                         "fetched")
                     self._batch = None
+                    self._service._flight_incident(
+                        "deadline_expired",
+                        detail="fetch-boundary short-circuit")
                     raise self._error
                 self._result = self._batch.result_for(self)
             return self._result
@@ -244,15 +281,18 @@ class _Group:
 class _BatchResult:
     """One batched group's results: ``fetch()`` waits for the device
     once (whichever ticket asks first) and records the group's
-    metrics; ``result_for`` cuts a ticket's row out."""
+    metrics, latency stages, spans and flight records; ``result_for``
+    cuts a ticket's row out."""
 
-    def __init__(self, service, res, pattern, tickets, Bb, t_flush):
+    def __init__(self, service, res, pattern, tickets, Bb, t_flush,
+                 t_launch):
         self._service = service
         self.res = res
         self.pattern = pattern
         self.tickets = tickets
         self.Bb = Bb
         self.t_flush = t_flush
+        self.t_launch = t_launch
         self._lock = threading.Lock()
         self._fetched = False
 
@@ -271,7 +311,10 @@ class _BatchResult:
             pat = self.pattern
             # the loop's norm reads and this synchronisation
             m.inc("host_syncs", self.res.host_reads + 1)
-            device_s = max(t_done - self.t_flush, 0.0)
+            # synchronous solve: device is the loop's first launch to
+            # this synchronisation
+            device_s = max(t_done - self.t_launch, 0.0)
+            dispatch_s = self.t_launch - self.t_flush
             m.add_time("device_busy_s", device_s)
             m.record_batch((pat.nb, pat.nnzb, self.Bb), device_s,
                            len(self.tickets), self.Bb - len(self.tickets))
@@ -279,7 +322,57 @@ class _BatchResult:
             m.inc("padded_elems", self.Bb * pat.nb)
             m.inc("real_elems", len(self.tickets) * pat.n)
             self._fetched = True
+            t_fetch = time.perf_counter()
+            m.add_time("host_busy_s", t_fetch - t_done)
+            self._observe(device_s, dispatch_s, t_done, t_fetch)
             return self.res
+
+    def _observe(self, device_s, dispatch_s, t_done, t_fetch):
+        """Each ticket's latency stages, spans and flight record, and
+        the group's device seconds against the tickets' one tenant and
+        lane."""
+        svc = self._service
+        m = svc.metrics
+        rec_on = telemetry_enabled()
+        if rec_on:
+            # shared or vectorised once: the loop only builds records
+            ts_now = time.time()
+            iters_l = np.asarray(self.res.iters).tolist()
+            status_l = np.asarray(self.res.status).tolist()
+            fn = np.asarray(self.res.final_norm)
+            fn_max = fn.reshape(fn.shape[0], -1).max(axis=1)
+            recs = []
+        for t in self.tickets:
+            total = max(t_fetch - t._t_submit, 0.0)
+            stages = {
+                "queue": max(self.t_flush - t._t_submit - t._pad_s, 0.0),
+                "pad": t._pad_s,
+                "dispatch": dispatch_s,
+                "device": device_s,
+                "fetch": t_fetch - t_done,
+                "total": total,
+            }
+            m.record_ticket(stages)
+            m.record_lane(LANE, total)
+            ctx = t._trace
+            if ctx is not None:
+                tracing.record_span("queue", t._t_submit + t._pad_s,
+                                    self.t_flush, ctx)
+                tracing.record_span("device", self.t_launch, t_done, ctx)
+                tracing.record_span("fetch", t_done, t_fetch, ctx)
+            if rec_on:
+                i = t._row
+                recs.append(SolveRecord(
+                    ts=ts_now, fingerprint=self.pattern.fingerprint,
+                    config=svc.cfg_key, lane=LANE, tenant=TENANT,
+                    iterations=iters_l[i],
+                    final_residual=float(fn_max[i]),
+                    status=status_l[i], stages=stages, path="batched",
+                    trace_id=ctx.trace_id if ctx is not None else None,
+                ))
+        m.record_tenant_device(TENANT, LANE, device_s)
+        if rec_on and recs:
+            svc._flight_record_many(recs)
 
     def result_for(self, ticket: SolveTicket) -> SolveResult:
         res = self.fetch()
@@ -354,6 +447,9 @@ class BatchedSolveService:
         self.breaker_threshold = int(breaker_threshold)
         self.breaker_probe_every = max(int(breaker_probe_every), 1)
         self.metrics = ServeMetrics()
+        # the flight recorder: its incident snapshots read this
+        # service's metrics
+        self.recorder = FlightRecorder(snapshot_fn=self.metrics.snapshot)
         self.cache = HierarchyCache(
             max_entries=cache_entries, metrics=self.metrics,
             on_evict=self._on_hierarchy_evict)
@@ -370,12 +466,60 @@ class BatchedSolveService:
         self._fail_counts: dict = {}
         self._broken: set = set()
         self._bypass_counts: dict = {}
+        # the registry holds a weak reference: registering never extends
+        # the service's lifetime
+        self.telemetry_name = get_registry().register("serve", self)
+
+    # ------------------------------------------------------------------
+    # telemetry
+
+    def telemetry_snapshot(self) -> dict:
+        """Registry source (kind ``serve``): the metrics snapshot and the
+        hierarchy cache's resident bytes by dtype and by format."""
+        snap = self.metrics.snapshot()
+        try:
+            snap["hierarchy_bytes"] = self.cache.bytes_by_dtype()
+            snap["hierarchy_format_bytes"] = self.cache.bytes_by_format()
+        except Exception:  # noqa: BLE001 — telemetry never fails
+            pass
+        return snap
+
+    def _flight_record(self, **fields):
+        """One solve into the flight recorder; a failure (the
+        ``telemetry_export`` fault included) counts ``telemetry_errors``
+        and never fails the solve."""
+        try:
+            self.recorder.record(**fields)
+        except Exception:  # noqa: BLE001 — degrade, never raise
+            self.metrics.inc("telemetry_errors")
+
+    def _flight_record_many(self, recs):
+        """A group's records in one append; a failure counts one
+        ``telemetry_errors`` for each record lost."""
+        try:
+            self.recorder.extend(recs)
+        except Exception:  # noqa: BLE001 — degrade, never raise
+            self.metrics.inc("telemetry_errors", len(recs))
+
+    def _flight_incident(self, kind: str, detail: str = ""):
+        """One incident (quarantine, breaker trip, deadline expiry),
+        under the same degrade contract."""
+        if not telemetry_enabled():
+            return
+        try:
+            self.recorder.incident(kind, detail=detail)
+        except Exception:  # noqa: BLE001 — degrade, never raise
+            self.metrics.inc("telemetry_errors")
 
     # ------------------------------------------------------------------
     # submission
 
+    # a front end (a session's step) that already made the sampling
+    # decision passes its context, possibly None
+    _TRACE_UNSET = object()
+
     def submit(self, A, b, x0=None, deadline_s=None, *,
-               _host=None) -> SolveTicket:
+               _host=None, _trace=_TRACE_UNSET) -> SolveTicket:
         """Queue one system and return its ticket.  ``A`` is a
         SparseMatrix or a scipy sparse matrix (block size 1), ``b`` and
         ``x0`` host arrays.  ``deadline_s`` (seconds from now): an
@@ -388,11 +532,16 @@ class BatchedSolveService:
         fingerprint)`` of a pattern registered before (a streaming
         session's step, ``amgx_tpu_torch.sessions``); ``A`` is then
         ignored, and the submit extracts no CSR and hashes no
-        pattern."""
+        pattern; ``_trace``: its sampled trace context (the session
+        step's root), so this submit records no root of its own."""
+        t_submit = time.perf_counter()
+        ctx = tracing.new_trace() if _trace is self._TRACE_UNSET else _trace
         if deadline_s is not None and float(deadline_s) <= 0.0:
             from amgx_tpu_torch.core.errors import DeadlineExceededError
 
             self.metrics.inc("deadline_expired")
+            self._flight_incident("deadline_expired",
+                                  detail="dead on arrival at submit")
             raise DeadlineExceededError(
                 f"deadline_s={float(deadline_s):g} already expired at "
                 "submit")
@@ -424,7 +573,8 @@ class BatchedSolveService:
                              slot=self._acquire_slot(key, pattern, dtype))
                 self._groups[key] = grp
             ticket = SolveTicket(_service=self, _group_key=key,
-                                 _row=len(grp.requests))
+                                 _row=len(grp.requests),
+                                 _t_submit=t_submit, _trace=ctx)
             if deadline_s is not None:
                 ticket._deadline = now + float(deadline_s)
             req = _Request(ticket=ticket, row=ticket._row,
@@ -442,7 +592,9 @@ class BatchedSolveService:
         # row is this thread's until the group flushes)
         t0 = time.perf_counter()
         try:
-            grp.slot.write_row(req.row, vals, b, x0)
+            # spans recorded inside attribute to this request's trace
+            with tracing.use_context(ctx), trace_range("serve_submit"):
+                grp.slot.write_row(req.row, vals, b, x0)
         except BaseException as e:
             # a malformed request fails only its own ticket; groups
             # already taken for flushing still run
@@ -453,7 +605,15 @@ class BatchedSolveService:
                 self._execute_group(g)
             raise
         req.ready = True
-        self.metrics.profile.add("pad", time.perf_counter() - t0)
+        ticket._pad_s = time.perf_counter() - t0
+        self.metrics.profile.add("pad", ticket._pad_s)
+        if ctx is not None:
+            tracing.record_span("pad", t0, t0 + ticket._pad_s, ctx)
+            if _trace is self._TRACE_UNSET:
+                # a direct submit is its trace's root
+                tracing.record_span(
+                    "submit", t_submit, time.perf_counter(), ctx,
+                    args={"lane": LANE, "tenant": TENANT}, root=True)
         for g in flush_now:
             self._execute_group(g)
         return ticket
@@ -769,6 +929,8 @@ class BatchedSolveService:
                     "serve deadline exceeded before execution")
                 r.ticket._done = True
                 self.metrics.inc("deadline_expired")
+                self._flight_incident("deadline_expired",
+                                      detail="expired while queued")
 
     def _breaker_failure(self, fp: str):
         """Count a group failure; trip the breaker at the threshold
@@ -781,10 +943,16 @@ class BatchedSolveService:
                 return
             n = self._fail_counts.get(fp, 0) + 1
             self._fail_counts[fp] = n
-            if n >= self.breaker_threshold:
+            tripped = n >= self.breaker_threshold
+            if tripped:
                 self._broken.add(fp)
                 self.metrics.inc("breaker_trips")
                 self.metrics.set_gauge("breakers_open", len(self._broken))
+        if tripped:
+            # outside the service lock: the incident snapshots the
+            # metrics, which take their own
+            self._flight_incident("breaker_trip",
+                                  detail=f"fingerprint {fp[:16]}...")
 
     def _breaker_success(self, fp: str):
         """A group completed: reset the count, and close the breaker if
@@ -830,6 +998,11 @@ class BatchedSolveService:
                 self._execute_sequential(entry, grp, live)
                 self._breaker_success(fp)
                 return
+            if faults.should_fire("serve_compile"):
+                from amgx_tpu_torch.core.errors import ResourceError
+
+                raise ResourceError("injected serve compile failure "
+                                    "(fault site serve_compile)")
             Bb = bucket_batch(len(grp.requests))
             fn = self.compile_cache.get(entry, Bb)
             self._dispatch_batched(entry, fn, grp, live, Bb, t_flush)
@@ -845,6 +1018,9 @@ class BatchedSolveService:
         self.metrics.inc("failed_groups")
         self._breaker_failure(fp)
         self.metrics.inc("quarantines")
+        self._flight_incident(
+            "quarantine",
+            detail=f"group of {len(grp.requests)} fingerprint {fp[:16]}...")
         self._execute_quarantined(grp)
 
     def _dispatch_batched(self, entry, fn, grp, live, Bb, t_flush):
@@ -853,7 +1029,8 @@ class BatchedSolveService:
         (the caller quarantines the group: the slot is still held)."""
         pat, slot = grp.pattern, grp.slot
         nreq = len(grp.requests)
-        with self.metrics.profile.phase("dispatch"):
+        with trace_range("serve_batch_dispatch"), \
+                self.metrics.profile.phase("dispatch"):
             # batch padding: clones of a live system with b = 0 converge
             # at iteration 0 and freeze
             slot.fill_batch_padding(nreq, Bb)
@@ -866,11 +1043,28 @@ class BatchedSolveService:
                 x0_d = torch.from_numpy(slot.x0s[:Bb]).to(dev)
             else:
                 x0_d = torch.zeros_like(bs_d)
+            t_launch = time.perf_counter()
             res = fn(entry.template, vals_d, bs_d, x0_d)
             self.metrics.inc("batches")
         self._release_group_slot(grp)
+        self.metrics.add_time(
+            "host_busy_s",
+            (t_launch - t_flush) + sum(r.ticket._pad_s for r in live))
+        if tracing.tracing_enabled():
+            sampled = [r.ticket._trace for r in live
+                       if r.ticket._trace is not None]
+            for c in sampled:
+                tracing.record_span("dispatch", t_flush, t_launch, c)
+            # one group-formation span per group with a sampled member,
+            # naming the members' trace ids
+            if sampled:
+                tracing.record_span(
+                    "flush_group", t_flush, t_launch, None,
+                    args={"members": [c.trace_id for c in sampled],
+                          "batch": Bb, "real": nreq, "lane": LANE,
+                          "fingerprint": pat.fingerprint[:16]})
         br = _BatchResult(self, res, pat, [r.ticket for r in live], Bb,
-                          t_flush)
+                          t_flush, t_launch)
         for r in live:
             r.ticket._batch = br
             r.ticket._done = True
@@ -917,6 +1111,7 @@ class BatchedSolveService:
                     r.ticket._done = True
                     self.metrics.inc("quarantined_solves")
                     self.metrics.inc("solved")
+                    self._record_alone(r.ticket, pat, res, "quarantine")
         finally:
             self._release_group_slot(grp)
 
@@ -939,4 +1134,19 @@ class BatchedSolveService:
             r.ticket._done = True
             self.metrics.inc("fallback_solves")
             self.metrics.inc("solved")
+            self._record_alone(r.ticket, pat, res, "fallback")
         self._release_group_slot(grp)
+
+    def _record_alone(self, ticket, pat, res, path: str):
+        """The flight record of a request solved alone (the solve is
+        synchronous, so its status and iterations are known: the JAX
+        package's fallback record holds -1 and NaN for them)."""
+        if not telemetry_enabled():
+            return
+        ctx = ticket._trace
+        self._flight_record(
+            fingerprint=pat.fingerprint, config=self.cfg_key, lane=LANE,
+            tenant=TENANT, iterations=int(res.iters),
+            final_residual=float(np.max(np.asarray(res.final_norm))),
+            status=int(res.status), stages={}, path=path,
+            trace_id=ctx.trace_id if ctx is not None else None)

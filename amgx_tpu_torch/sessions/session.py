@@ -37,11 +37,18 @@ Differences from the JAX package (ROADMAP.md, queue C):
   * the service's batched loop reads each iteration's norms, so a step
     group costs its iterations + 2 host syncs, not one.
 
+Telemetry, as in the JAX package: the manager registers a ``sessions``
+source (:meth:`SessionManager.telemetry_snapshot`, the
+``amgx_session_*`` families; :meth:`SessionManager.counters` holds the
+same counts); a resolved step leaves a flight record (``path``
+``session_step``) in the service's recorder; with request tracing on, a
+sampled step's root span is ``session_step`` (its ``resetup`` child at
+prestage, then the service's ``pad`` ... ``fetch``).
+
 Not ported, each raising ``NotImplementedError`` with its queue item:
 persistence (``save`` / ``restore`` / ``recover`` / ``save_all`` /
 ``drain``, a ``store`` and ``checkpoint_every``: A.7.6), a gateway
-front, tenants and lanes, ``placement_device`` (A.7.7), and the
-telemetry source, spans and flight records (A.7.4).
+front, tenants and lanes, ``placement_device`` (A.7.7).
 """
 
 from __future__ import annotations
@@ -55,9 +62,16 @@ import numpy as np
 
 from amgx_tpu_torch.core.types import host_array
 from amgx_tpu_torch.serve.service import (
+    LANE,
+    TENANT,
     BatchedSolveService,
     _host_csr,
     _resolve_dtype,
+)
+from amgx_tpu_torch.telemetry import (
+    get_registry,
+    telemetry_enabled,
+    tracing,
 )
 
 _WARM_BOOT = "ROADMAP.md, queue A.7.6: warm boot and the service's store"
@@ -70,16 +84,19 @@ class StepTicket:
     owning session, so the warm-start state updates once whoever asks
     first (the session's next ``step`` or the client)."""
 
-    __slots__ = ("session", "step", "ticket", "resetup_s", "_res", "_err")
+    __slots__ = ("session", "step", "ticket", "resetup_s", "_res", "_err",
+                 "_trace", "_t0")
 
     def __init__(self, session: "SolveSession", step: int, ticket,
-                 resetup_s: float):
+                 resetup_s: float, trace=None, t0: float = 0.0):
         self.session = session
         self.step = step
         self.ticket = ticket
         self.resetup_s = resetup_s
         self._res = None
         self._err = None
+        self._trace = trace
+        self._t0 = t0
 
     def done(self) -> bool:
         return (self._res is not None or self._err is not None
@@ -117,7 +134,7 @@ class SolveSession:
         self._last_status: Optional[int] = None
         self._last_iters: Optional[int] = None
         self._pending: Optional[StepTicket] = None
-        self._staged = None  # (values, b, resetup_s)
+        self._staged = None  # (values, b, t0, resetup_s, trace)
         # the padded fingerprint (the hierarchy cache's key), set at open
         self._padded_fp: Optional[str] = None
 
@@ -173,6 +190,7 @@ class SolveSession:
                 "prestage called twice without a commit; a session "
                 "pipelines at depth one (x0 depends on the previous x)")
         t0 = time.perf_counter()
+        ctx = tracing.new_trace()
         values = np.ascontiguousarray(
             np.asarray(values, dtype=self.dtype).reshape(-1))
         if values.shape[0] != self.nnz:
@@ -182,8 +200,10 @@ class SolveSession:
         if b is not None and not callable(b):
             b = self._coerce_b(b)
         resetup_s = time.perf_counter() - t0
+        if ctx is not None:
+            tracing.record_span("resetup", t0, t0 + resetup_s, ctx)
         self.manager._account_resetup(resetup_s)
-        self._staged = (values, b, resetup_s)
+        self._staged = (values, b, t0, resetup_s, ctx)
         return self
 
     def commit(self, b=None) -> StepTicket:
@@ -196,26 +216,49 @@ class SolveSession:
         # consume the stage first: a failure below (the previous step's
         # error surfacing in the resolve, a raising rhs callable) leaves
         # the session retryable with a fresh prestage, not wedged
-        (values, b0, resetup_s), self._staged = self._staged, None
+        (values, b0, t0, resetup_s, ctx), self._staged = self._staged, None
         if b is None:
             b = b0
-        if self._pending is not None:
-            self._resolve_ticket(self._pending)
-        if callable(b):
-            b = b(self)
-        if b is None:
-            raise ValueError("no rhs: pass b to prestage or commit")
-        b = self._coerce_b(b)
-        x0, warm = self._x0_for_next()
-        step_idx = self.step_idx
-        mgr = self.manager
-        ticket = mgr._submit(self, values, b, x0)
+        try:
+            if self._pending is not None:
+                self._resolve_ticket(self._pending)
+            if callable(b):
+                b = b(self)
+            if b is None:
+                raise ValueError("no rhs: pass b to prestage or commit")
+            b = self._coerce_b(b)
+            x0, warm = self._x0_for_next()
+            step_idx = self.step_idx
+            mgr = self.manager
+            ticket = mgr._submit(self, values, b, x0, ctx)
+        except BaseException as e:
+            # close the sampled root, so its resetup child does not
+            # dangle
+            self._close_root(t0, ctx, error=type(e).__name__)
+            raise
         mgr._count("steps_total")
         mgr._count("warm_starts_total" if warm else "cold_starts_total")
-        st = StepTicket(self, step_idx, ticket, resetup_s)
+        st = StepTicket(self, step_idx, ticket, resetup_s, ctx, t0)
         self._pending = st
+        if ctx is not None:
+            # the step's root span, prestage through submit: its
+            # children (resetup, pad, queue, dispatch, device, fetch)
+            # parent onto it
+            tracing.record_span(
+                "session_step", t0, time.perf_counter(), ctx,
+                args={"session": self.session_id, "step": step_idx,
+                      "lane": LANE, "tenant": TENANT, "warm": warm},
+                root=True)
         mgr._maybe_entry_resetup(self, values)
         return st
+
+    def _close_root(self, t0, ctx, error: str):
+        if ctx is not None:
+            tracing.record_span(
+                "session_step", t0, time.perf_counter(), ctx,
+                args={"session": self.session_id, "step": self.step_idx,
+                      "error": error},
+                root=True)
 
     def step(self, values, b) -> StepTicket:
         """One time step: ``prestage`` and ``commit``.  For many sessions
@@ -225,8 +268,14 @@ class SolveSession:
 
     def _abandon_stage(self, err=None):
         """Drop a staged step without submitting it (a lockstep peer
-        failed), so the session stays retryable."""
-        self._staged = None
+        failed), so the session stays retryable, and close its sampled
+        root span."""
+        if self._staged is None:
+            return
+        (_v, _b, t0, _rs, ctx), self._staged = self._staged, None
+        self._close_root(t0, ctx, error=(type(err).__name__
+                                         if err is not None
+                                         else "abandoned"))
 
     def finish(self):
         """Resolve the step in flight, if any, and return ``last_x``
@@ -266,6 +315,7 @@ class SolveSession:
             self._last_status = int(res.status)
             self._last_iters = int(res.iters)
             self.step_idx = st.step + 1
+            self.manager._record_step(self, st, res)
 
     def save(self, store=None) -> bool:
         raise NotImplementedError(
@@ -321,6 +371,7 @@ class SessionManager:
         # steps per fingerprint: the entry-refresh cadence follows the
         # entry's traffic, not one session's step count
         self._fp_steps: dict = {}
+        self.telemetry_name = get_registry().register("sessions", self)
 
     # -- counters ------------------------------------------------------
 
@@ -344,11 +395,31 @@ class SessionManager:
             out["open"] = len(self._sessions)
         return out
 
-    def telemetry_snapshot(self):
-        raise NotImplementedError(
-            "SessionManager.telemetry_snapshot: the telemetry source "
-            "(ROADMAP.md, queue A.7.4) is not ported; counters() holds "
-            "the counts")
+    def telemetry_snapshot(self) -> dict:
+        """Registry source (kind ``sessions``): :meth:`counters` and the
+        overlap seconds (0: the solve is synchronous), the
+        ``amgx_session_*`` families."""
+        out = self.counters()
+        out["resetup_overlap_seconds_total"] = self.resetup_overlap_s
+        return out
+
+    def _record_step(self, sess: SolveSession, st: StepTicket, res):
+        """The flight record of one resolved step (``path``
+        ``session_step``), in the service's recorder under its degrade
+        contract."""
+        if not telemetry_enabled():
+            return
+        self.service._flight_record(
+            fingerprint=sess._padded_fp or sess.fingerprint,
+            config=self.service.cfg_key, lane=LANE, tenant=TENANT,
+            iterations=int(res.iters),
+            final_residual=float(np.max(np.asarray(res.final_norm))),
+            status=int(res.status),
+            stages={"resetup": st.resetup_s,
+                    "step": max(time.perf_counter() - st._t0, 0.0)},
+            path="session_step",
+            trace_id=(st._trace.trace_id if st._trace is not None
+                      else None))
 
     @property
     def resetup_overlap_s(self) -> float:
@@ -408,13 +479,14 @@ class SessionManager:
 
     # -- stepping ------------------------------------------------------
 
-    def _submit(self, sess: SolveSession, values, b, x0):
+    def _submit(self, sess: SolveSession, values, b, x0, trace=None):
         """One step into the service by the values-only fast path: the
         registered (ro, ci, n, fingerprint) go in as ``_host``, so the
-        submit extracts no CSR and hashes no pattern."""
+        submit extracts no CSR and hashes no pattern; ``trace`` is the
+        step's sampled context (its root is the step's)."""
         host = (sess._ro, sess._ci, values, sess.n, sess.fingerprint)
         return self.service.submit(None, b, x0, deadline_s=sess.deadline_s,
-                                   _host=host)
+                                   _host=host, _trace=trace)
 
     def step_all(self, steps) -> list:
         """Lockstep step of many sessions: ``steps`` is a list of

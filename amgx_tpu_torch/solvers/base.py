@@ -23,24 +23,31 @@ re-uploading the scaled matrix so that it gets its own formats, and the
 vectors at the ``solve`` boundary (b -> Dr b, x0 -> x0 / Dc, x -> Dc
 x).  ``matrix_reordering=RCM`` permutes the system once at setup and
 the vectors at the same boundary (``ops/reorder.py``); AUTO, like the
-JAX package on any non-TPU backend, never reorders.  Not ported
-(ROADMAP.md, queue A) and raising ``NotImplementedError`` when a config
-asks for them: solve retries and fault injection (``AMGX_TPU_FAULTS``).
+JAX package on any non-TPU backend, never reorders.
 ``save_setup`` / ``load_setup`` persist a set-up solver in the JAX
-package's payload format (``amgx_tpu_torch/store``); telemetry has no
-entry point in this package yet.
+package's payload format (``amgx_tpu_torch/store``).
+
+Guardrails, as in the JAX package: the fault site ``smoother_nan``
+(``core/faults.py``) sits in both monitored loops and at the end of
+``make_smooth``; ``solve_retries`` re-solves a FAILED or DIVERGED solve
+from a zero guess with a fresh build (``_retry_if_failed``).  The solve
+function is built once per setup (``make_solve`` under
+``faults.built``): its build time is ``last_compile_s`` /
+``compile_time``, what the JAX package's compile time is.  Under
+``obtain_timings`` a solve also feeds the telemetry registry's solver
+aggregate and the default flight recorder (``_telemetry_observe``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.core.device import resolve_device
 from amgx_tpu_torch.core.printing import emit
 from amgx_tpu_torch.core.types import NormType, host_array, host_dtype
@@ -117,6 +124,12 @@ class Solver:
         self._cache: dict = {}
         self.setup_time = 0.0
         self.solve_time = 0.0
+        # seconds building the solve function (the JAX package's compile
+        # time): the last solve's, and their sum
+        self.last_compile_s = 0.0
+        self.compile_time = 0.0
+        # retries the last solve took (``solve_retries``)
+        self.solve_retries_used = 0
         # seconds of the last load_setup import (0 for a set-up solver)
         self.restore_time = 0.0
 
@@ -170,7 +183,8 @@ class Solver:
 
                 def body(x, extra):
                     (r,) = extra
-                    x = rstep(params, b, x, r)
+                    x = faults.corrupt_nan("smoother_nan",
+                                           rstep(params, b, x, r))
                     r = b - spmv(A, x)
                     return x, (r,), norm_of(r)
 
@@ -186,7 +200,7 @@ class Solver:
             A = self.operator_of(params)
 
             def body(x, extra):
-                x = step(params, b, x)
+                x = faults.corrupt_nan("smoother_nan", step(params, b, x))
                 return x, extra, norm_of(b - spmv(A, x))
 
             return self._monitored_loop(
@@ -207,13 +221,14 @@ class Solver:
         return apply
 
     def make_smooth(self) -> Callable:
-        """fn(params, b, x, sweeps) -> x."""
+        """fn(params, b, x, sweeps) -> x; one ``smoother_nan`` place a
+        call, after the sweeps."""
         step = self.make_step()
 
         def smooth(params, b, x, sweeps):
             for _ in range(sweeps):
                 x = step(params, b, x)
-            return x
+            return faults.corrupt_nan("smoother_nan", x)
 
         return smooth
 
@@ -282,7 +297,8 @@ class Solver:
         """The monitored loop (reference solver.cu:586-860).
         ``body(x, extra) -> (x, extra, nrm)`` runs one iteration and
         returns the new residual norm as a tensor; it is read to the
-        host once per iteration."""
+        host once per iteration.  The body is one fault region (the
+        JAX package's ``while_loop``)."""
         rdt = _real_np_dtype(b)
         nrm0 = host_norm(nrm0).astype(rdt, copy=False)
         hist = np.full((self.max_iters + 1, nrm0.shape[0]), np.nan, rdt)
@@ -292,8 +308,10 @@ class Solver:
             else NOT_CONVERGED
         )
         it, x, extra, nrm, mx = 0, x0, extra0, nrm0, nrm0
+        region = faults.loop()
         while status == NOT_CONVERGED and it < self.max_iters:
-            x, extra, nrm_t = body(x, extra)
+            with region:
+                x, extra, nrm_t = body(x, extra)
             nrm = host_norm(nrm_t).astype(rdt, copy=False)
             it += 1
             mx, status = self._monitor_update(it, nrm, nrm0, mx, hist)
@@ -304,18 +322,6 @@ class Solver:
 
     # ------------------------------------------------------------------
     # public API (reference Solver::setup / solve, solver.cu:333,586)
-
-    def _check_unported(self):
-        if self.solve_retries > 0:
-            raise NotImplementedError(
-                "solve_retries is not ported yet (ROADMAP.md, queue A: "
-                "serving tier and fault injection)"
-            )
-        if os.environ.get("AMGX_TPU_FAULTS"):
-            raise NotImplementedError(
-                "fault injection (AMGX_TPU_FAULTS) is not ported yet "
-                "(ROADMAP.md, queue A: serving tier and fault injection)"
-            )
 
     def _check_device(self, A):
         if A.device != self.device:
@@ -329,7 +335,6 @@ class Solver:
         t0 = time.perf_counter()
         from amgx_tpu_torch.core import errors as _errors
 
-        self._check_unported()
         if _errors.validation_enabled():
             _errors.validate_operator(
                 A, where=f"{self.registry_name} setup"
@@ -517,7 +522,9 @@ class Solver:
             x0 = self._as_vector(x0)
         fn = self._cache.get("solve")
         if fn is None:
-            fn = self._cache["solve"] = self.make_solve()
+            fn = self._build_main_solve()
+        else:
+            self.last_compile_s = 0.0
         if self._scale_vecs is not None:
             r_s, c_s = self._scale_vecs
             b = r_s * b
@@ -526,7 +533,10 @@ class Solver:
             perm, _ = self._reorder
             b, x0 = b[perm], x0[perm]
         t0 = time.perf_counter()
+        self.solve_retries_used = 0
         res = fn(self.apply_params(), b, x0)
+        if self.solve_retries > 0:
+            res = self._retry_if_failed(res, b)
         if self._reorder is not None:
             res = dataclasses.replace(res, x=res.x[self._reorder[1]])
         if self._scale_vecs is not None:
@@ -551,7 +561,172 @@ class Solver:
                 f"    solve(per iteration): "
                 f"{self.solve_time / max(1, res.iters):10.6f} s"
             )
+            # the same lines into the telemetry registry, and a flight
+            # record of the direct solve; this branch has synchronised
+            self._telemetry_observe(res, self.collect_setup_profile())
         return res
+
+    def _build_main_solve(self):
+        """Build the solve function (one fault plan: the JAX package's
+        trace and compile), timing the build as ``last_compile_s``."""
+        t0 = time.perf_counter()
+        fn = self._cache["solve"] = faults.built(self.make_solve())
+        self.last_compile_s = time.perf_counter() - t0
+        self.compile_time += self.last_compile_s
+        return fn
+
+    # result-status preference of the retry hook: a retry's outcome
+    # replaces the original only when strictly better
+    _STATUS_RANK = {FAILED: 0, DIVERGED: 1, NOT_CONVERGED: 2, SUCCESS: 3}
+
+    def _retry_if_failed(self, res: SolveResult, b) -> SolveResult:
+        """Retry with a safer configuration (``solve_retries``, the JAX
+        package's hook).  A FAILED or DIVERGED solve retries up to
+        ``solve_retries`` times; each attempt evicts the main solve
+        function (its next solve builds afresh, escaping spent fault
+        injections) and restarts from a zero initial guess.  The first
+        retry keeps the configuration (transient corruption); later
+        ones halve the relaxation factor each time (real divergence).
+        Each retry build is cached under its own ``("retry", attempt)``
+        slot, so a later failing solve reuses it.  The best result by
+        status wins."""
+        attempt = 0
+        while (attempt < self.solve_retries
+               and int(res.status) in (FAILED, DIVERGED)):
+            attempt += 1
+            self.solve_retries_used = attempt
+            self._cache.pop("solve", None)
+            rkey = ("retry", attempt)
+            fn = self._cache.get(rkey)
+            if fn is None:
+                old_omega = self.relaxation_factor
+                self.relaxation_factor = old_omega * 0.5 ** (attempt - 1)
+                try:
+                    fn = faults.built(self.make_solve())
+                finally:
+                    self.relaxation_factor = old_omega
+                self._cache[rkey] = fn
+            retry = fn(self.apply_params(), b, torch.zeros_like(b))
+            if self._STATUS_RANK.get(int(retry.status), 0) > \
+                    self._STATUS_RANK.get(int(res.status), 0):
+                res = retry
+        return res
+
+    def collect_setup_profile(self) -> dict:
+        """The setup-phase profile of this solver and its nested
+        preconditioner, summed (the ``setup:<phase>`` seconds)."""
+        prof = dict(getattr(self, "setup_profile", None) or {})
+        inner = getattr(self, "precond", None)
+        if inner is not None and inner is not self:
+            for k, v in inner.collect_setup_profile().items():
+                prof[k] = prof.get(k, 0) + v
+        return prof
+
+    def _telemetry_observe(self, res: SolveResult, setup_prof: dict):
+        """Fold one timed solve into the telemetry registry's solver
+        aggregate and record it in the default flight recorder
+        (``path="direct"``).  Best effort: any failure, the
+        ``telemetry_export`` fault included, is swallowed; the result
+        is already computed."""
+        try:
+            from amgx_tpu_torch import telemetry
+            from amgx_tpu_torch.telemetry.registry import default_recorder
+
+            if not telemetry.telemetry_enabled():
+                return
+            # iterations in inner-step equivalents (an s-step outer
+            # iteration is s CG steps); reductions and cycle passes are
+            # the per-iteration counts times the loop's iterations
+            red = self.reductions_per_iteration()
+            cp = self.cycle_passes_per_iteration()
+            telemetry.get_registry().record_solver(
+                self.registry_name,
+                setup_s=self.setup_time,
+                compile_s=self.last_compile_s,
+                solve_s=self.solve_time,
+                iterations=int(res.iters) * int(self.iterations_scale),
+                reductions=(red or 0) * int(res.iters),
+                cycle_passes=(cp or 0) * int(res.iters),
+                setup_phases={k: v for k, v in (setup_prof or {}).items()
+                              if isinstance(v, float)},
+            )
+            default_recorder().record(
+                fingerprint=(self.A.fingerprint() if self.A is not None
+                             else ""),
+                config=self.cfg.content_hash(),
+                lane="direct",
+                tenant="-",
+                iterations=int(res.iters),
+                final_residual=float(np.max(np.asarray(res.final_norm))),
+                status=int(res.status),
+                stages={"setup": self.setup_time,
+                        "compile": self.last_compile_s,
+                        "solve": self.solve_time},
+                path="direct",
+            )
+        except Exception:  # noqa: BLE001 — observability may fail, the
+            # solve may not
+            pass
+
+    def reductions_per_iteration(self):
+        """Global reductions (dots and norms: the cross-device sync
+        points of a sharded solve) one monitored iteration makes,
+        counted under :func:`amgx_tpu_torch.ops.blas.reduction_counter`
+        by running one loop body on zero vectors: on the card that pass
+        launches kernels (the JAX package only traces).  None where the
+        solver has no step or iteration protocol (GMRES, IDR).  Cached
+        per setup; the count behind ``amgx_solver_reductions_total``."""
+        key = "reductions_per_iteration"
+        if key not in self._cache:
+            try:
+                val = faults.built(self._count_iteration_reductions)()
+            except Exception:  # noqa: BLE001 — accounting never fails
+                val = None
+            self._cache[key] = val
+        return self._cache[key]
+
+    def cycle_passes_per_iteration(self):
+        """Fine-grid operator passes an iteration makes: None for
+        solvers without a cycle (the AMG hierarchy overrides it)."""
+        return None
+
+    def _count_iteration_reductions(self):
+        """Run one monitored-loop body (iterate and the residual norm)
+        on zeros and count its reduction sites, as the JAX package
+        counts them on the traced body."""
+        from amgx_tpu_torch.ops import blas
+
+        if self.A is None:
+            return None
+        params = self.apply_params()
+        z = torch.zeros(self.A.n_rows * self.A.block_size,
+                        dtype=self.A.dtype, device=self.device)
+        norm_of = self.make_norm() if self.monitor_residual else None
+        if hasattr(self, "_make_init"):
+            try:
+                init_fn, iter_fn = self._make_init(), self._make_iter()
+            except NotImplementedError:
+                init_fn = None
+            if init_fn is not None:
+                extra = init_fn(params, z, z)
+                with blas.reduction_counter() as c:
+                    x, e = iter_fn(params, z, z, extra)
+                    if norm_of is not None:
+                        norm_of(e[0])
+                return c.count
+        rstep = self.make_residual_step()
+        if rstep is not None:
+            with blas.reduction_counter() as c:
+                x = rstep(params, z, z, z)
+                if norm_of is not None:
+                    norm_of(z - spmv(self.operator_of(params), x))
+            return c.count
+        step = self.make_step()
+        with blas.reduction_counter() as c:
+            x = step(params, z, z)
+            if norm_of is not None:
+                norm_of(z - spmv(self.operator_of(params), x))
+        return c.count
 
     def _print_stats(self, res: SolveResult):
         """Residual table in the reference output format."""

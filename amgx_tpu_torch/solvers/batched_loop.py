@@ -31,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.core.types import host_dtype
 from amgx_tpu_torch.ops.norms import get_norm
 from amgx_tpu_torch.ops.spmv import spmv
@@ -145,8 +146,10 @@ def make_masked_loop(solver):
     def solve_plain(params, b_B, x0_B):
         """Unmonitored: max_iters sweeps for every instance."""
         x, extra = x0_B, init_one(params, b_B, x0_B)
+        region = faults.loop()
         for _ in range(max_iters):
-            x, extra = iter_one(params, b_B, x, extra)
+            with region:
+                x, extra = iter_one(params, b_B, x, extra)
         B, rdt = b_B.shape[0], result_dtype(b_B)
         zero = np.zeros((B, ncomp), rdt)
         return BatchedSolveResult(
@@ -189,11 +192,14 @@ def make_masked_loop(solver):
         iters = np.zeros((B,), np.int32)
         nrm, mx, x = ini.copy(), ini.copy(), x0_B
         it = 0
+        region = faults.loop()
         while it < max_iters and np.any(status == NOT_CONVERGED):
             active = status == NOT_CONVERGED
             mask = torch.from_numpy(active).to(x.device).reshape(B, 1)
-            x_n, extra_n = iter_one(params, b_B, x, extra)
-            nrm_n = _host(norm_one(params, b_B, x_n, extra_n)).astype(rdt)
+            with region:
+                x_n, extra_n = iter_one(params, b_B, x, extra)
+                nrm_n = _host(norm_one(params, b_B, x_n,
+                                       extra_n)).astype(rdt)
             reads += 1
             it += 1
             # commit only where active: torch.where, so a frozen

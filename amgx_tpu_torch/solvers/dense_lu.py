@@ -23,6 +23,7 @@ import warnings
 import numpy as np
 import torch
 
+from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.core.errors import SingularDiagonalError
 from amgx_tpu_torch.solvers.base import Solver
 from amgx_tpu_torch.solvers.registry import register_solver
@@ -68,6 +69,12 @@ class DenseLUSolver(Solver):
 
     def _setup_impl(self, A):
         dense = np.asarray(A.to_dense())
+        if faults.should_fire("coarse_lu_zero_pivot"):
+            # injected singularity: the last row and column zeroed, so
+            # the factorization meets an exact zero pivot
+            dense = dense.copy()
+            dense[-1, :] = 0.0
+            dense[:, -1] = 0.0
         self._pinv_mode = False
         # the _ex form: lu_factor itself raises on an exact zero pivot,
         # before the policy below can choose between RAISE and REGULARIZE

@@ -26,7 +26,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from amgx_tpu_torch.ops.blas import dot
+from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.ops.spmv import spmv
 from amgx_tpu_torch.solvers.base import (
     DIVERGED,
@@ -43,6 +43,13 @@ from amgx_tpu_torch.solvers.registry import register_solver
 
 def _np_dtype(t):
     return np.dtype(str(t.dtype).replace("torch.", ""))
+
+
+def dot(x, y):
+    """<x, y>, conjugated on x: the products of the Arnoldi process,
+    which (as in the JAX package) are not ``ops/blas`` reduction or
+    ``dot_breakdown`` sites."""
+    return torch.vdot(x, y) if x.is_complex() else torch.dot(x, y)
 
 
 def _vec_norm(v):
@@ -103,78 +110,84 @@ class FGMRESSolver(KrylovSolver):
             V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
             Z = torch.zeros((m, n), dtype=b.dtype, device=b.device) \
                 if flexible else None
+            restarts = faults.loop()
             while status == NOT_CONVERGED and it < max_iters:
-                if it > 0:
-                    # a restart: the first cycle reuses r0 and its norm
-                    r = precond_resid(x)
-                    beta_t = _vec_norm(r)
-                    beta = host_norm(beta_t)[0]
-                V[0] = r / torch.where(beta_t > 0, beta_t, one)
-                H = np.zeros((m + 1, m), dt)
-                g = np.zeros(m + 1, dt)
-                g[0] = beta
-                cs = np.ones(m, dt)
-                sn = np.zeros(m, dt)
-                j = 0
-                while j < m and status == NOT_CONVERGED and it < max_iters:
-                    if flexible:
-                        z = M(Mp, V[j])
-                        Z[j] = z
-                        w = spmv(A, z)
-                    else:
-                        w = M(Mp, spmv(A, V[j]))
-                    # modified Gram-Schmidt over i <= j; the dots stay on
-                    # the device (conjugated projection for complex)
-                    hs = []
-                    for i in range(j + 1):
-                        h = dot(V[i], w)
-                        w = w - h * V[i]
-                        hs.append(h)
-                    hlast = _vec_norm(w)
-                    V[j + 1] = w / torch.where(hlast > 0, hlast, one)
-                    # the step's one read: the new Hessenberg column
-                    hcol = np.zeros(m + 1, dt)
-                    hcol[: j + 2] = torch.stack(
-                        hs + [hlast.to(w.dtype)]
-                    ).cpu().numpy()
-                    # apply the existing Givens rotations, unitary form
-                    # [[c, s], [-conj(s), conj(c)]]
-                    for i in range(j):
-                        t = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
-                        u = (-np.conj(sn[i]) * hcol[i]
-                             + np.conj(cs[i]) * hcol[i + 1])
-                        hcol[i], hcol[i + 1] = t, u
-                    hj, hj1 = hcol[j], hcol[j + 1]
-                    denom = np.sqrt(
-                        np.real(hj * np.conj(hj))
-                        + np.real(hj1 * np.conj(hj1))
+                with restarts:
+                    if it > 0:
+                        # a restart: the first cycle reuses r0 and its norm
+                        r = precond_resid(x)
+                        beta_t = _vec_norm(r)
+                        beta = host_norm(beta_t)[0]
+                    V[0] = r / torch.where(beta_t > 0, beta_t, one)
+                    H = np.zeros((m + 1, m), dt)
+                    g = np.zeros(m + 1, dt)
+                    g[0] = beta
+                    cs = np.ones(m, dt)
+                    sn = np.zeros(m, dt)
+                    j = 0
+                    arnoldi = faults.loop()
+                    while j < m and status == NOT_CONVERGED and it < max_iters:
+                        with arnoldi:
+                            if flexible:
+                                z = M(Mp, V[j])
+                                Z[j] = z
+                                w = spmv(A, z)
+                            else:
+                                w = M(Mp, spmv(A, V[j]))
+                            # modified Gram-Schmidt over i <= j; the dots
+                            # stay on the device (conjugated projection for
+                            # complex)
+                            hs = []
+                            for i in range(j + 1):
+                                h = dot(V[i], w)
+                                w = w - h * V[i]
+                                hs.append(h)
+                            hlast = _vec_norm(w)
+                            V[j + 1] = w / torch.where(hlast > 0, hlast, one)
+                            # the step's one read: the new Hessenberg column
+                            hcol = np.zeros(m + 1, dt)
+                            hcol[: j + 2] = torch.stack(
+                                hs + [hlast.to(w.dtype)]
+                            ).cpu().numpy()
+                            # apply the existing Givens rotations, unitary form
+                            # [[c, s], [-conj(s), conj(c)]]
+                            for i in range(j):
+                                t = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                                u = (-np.conj(sn[i]) * hcol[i]
+                                     + np.conj(cs[i]) * hcol[i + 1])
+                                hcol[i], hcol[i + 1] = t, u
+                            hj, hj1 = hcol[j], hcol[j + 1]
+                            denom = np.sqrt(
+                                np.real(hj * np.conj(hj))
+                                + np.real(hj1 * np.conj(hj1))
+                            )
+                            if not denom > 0:
+                                denom = rdt.type(1)
+                            # G = [[conj(hj), conj(hj1)], [-hj1, hj]] / denom
+                            # maps (hj, hj1) -> (denom, 0)
+                            cs[j] = np.conj(hj) / denom
+                            sn[j] = np.conj(hj1) / denom
+                            hcol[j], hcol[j + 1] = denom, 0
+                            gj = g[j]
+                            g[j] = cs[j] * gj
+                            g[j + 1] = -np.conj(sn[j]) * gj
+                            H[:, j] = hcol
+                            # the implicit residual |g[j+1]|
+                            nrm = np.abs(g[j + 1 : j + 2]).astype(
+                                rdt, copy=False)
+                            j += 1
+                            it += 1
+                            hist[it] = nrm
+                            mx = np.maximum(mx, nrm)
+                            status = status_of(nrm, nrm0, mx)
+                    # the j x j upper-triangular system of this cycle
+                    y = scipy.linalg.solve_triangular(
+                        H[:j, :j], g[:j], lower=False, check_finite=False
+                    ).astype(dt, copy=False)
+                    basis = Z if flexible else V
+                    x = x + torch.matmul(
+                        torch.from_numpy(y).to(b.device), basis[:j]
                     )
-                    if not denom > 0:
-                        denom = rdt.type(1)
-                    # G = [[conj(hj), conj(hj1)], [-hj1, hj]] / denom maps
-                    # (hj, hj1) -> (denom, 0)
-                    cs[j] = np.conj(hj) / denom
-                    sn[j] = np.conj(hj1) / denom
-                    hcol[j], hcol[j + 1] = denom, 0
-                    gj = g[j]
-                    g[j] = cs[j] * gj
-                    g[j + 1] = -np.conj(sn[j]) * gj
-                    H[:, j] = hcol
-                    # the implicit residual |g[j+1]|
-                    nrm = np.abs(g[j + 1 : j + 2]).astype(rdt, copy=False)
-                    j += 1
-                    it += 1
-                    hist[it] = nrm
-                    mx = np.maximum(mx, nrm)
-                    status = status_of(nrm, nrm0, mx)
-                # the j x j upper-triangular system of this cycle
-                y = scipy.linalg.solve_triangular(
-                    H[:j, :j], g[:j], lower=False, check_finite=False
-                ).astype(dt, copy=False)
-                basis = Z if flexible else V
-                x = x + torch.matmul(
-                    torch.from_numpy(y).to(b.device), basis[:j]
-                )
             if not monitored:
                 status = SUCCESS
             return SolveResult(

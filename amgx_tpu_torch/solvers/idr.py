@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.core.matrix import to_tensor
 from amgx_tpu_torch.ops.blas import dot
 from amgx_tpu_torch.ops.spmv import spmv
@@ -140,8 +141,10 @@ class IDRSolver(KrylovSolver):
 
         def run(params, b, x, cycles):
             state = self._init_state(params, b, x)
+            region = faults.loop()
             for _ in range(cycles):
-                x, state = cycle(params, x, state)
+                with region:
+                    x, state = cycle(params, x, state)
             return x
 
         return run

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.ops.blas import dot, fused_dots
 from amgx_tpu_torch.ops.spmv import spmv
 from amgx_tpu_torch.solvers.base import Solver
@@ -117,8 +118,10 @@ class KrylovSolver(Solver):
             extra0 = init(params, b, x0)
             if not monitored:
                 x, extra = x0, extra0
+                region = faults.loop()
                 for _ in range(self.max_iters):
-                    x, extra = iterate(params, b, x, extra)
+                    with region:
+                        x, extra = iterate(params, b, x, extra)
                 return self._fixed_result(x, b, self.max_iters)
 
             def body(x, extra):
@@ -140,8 +143,10 @@ class KrylovSolver(Solver):
         def apply(params, r):
             x = torch.zeros_like(r)
             extra = init(params, r, x)
+            region = faults.loop()
             for _ in range(iters):
-                x, extra = iterate(params, r, x, extra)
+                with region:
+                    x, extra = iterate(params, r, x, extra)
             return x
 
         return apply
@@ -152,8 +157,10 @@ class KrylovSolver(Solver):
 
         def smooth(params, b, x, sweeps):
             extra = init(params, b, x)
+            region = faults.loop()
             for _ in range(sweeps):
-                x, extra = iterate(params, b, x, extra)
+                with region:
+                    x, extra = iterate(params, b, x, extra)
             return x
 
         return smooth

@@ -53,6 +53,7 @@ import time
 import numpy as np
 import torch
 
+from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.core.types import host_array
 from amgx_tpu_torch.ops import ff as ffm
 from amgx_tpu_torch.ops.norms import norm as _norm
@@ -138,10 +139,13 @@ class IterativeRefinementSolver(Solver):
             done = bool(self._conv_check(nrm0, nrm0, nrm0)
                         or np.all(nrm0 == 0))
             it, nrm, mx, inner_tot = 0, nrm0, nrm0, 0
+            region = faults.loop()
             while it < max_outer and not done:
-                res = inner_solve(inner_params, rh, torch.zeros_like(rh))
-                xh, xl = ffm.ff_add((xh, xl), ffm.ff(res.x))
-                nrm, rh = residual(A, b_ff, xh, xl)
+                with region:
+                    res = inner_solve(inner_params, rh,
+                                      torch.zeros_like(rh))
+                    xh, xl = ffm.ff_add((xh, xl), ffm.ff(res.x))
+                    nrm, rh = residual(A, b_ff, xh, xl)
                 nrm = nrm.astype(rdt, copy=False)
                 mx = np.maximum(mx, nrm)
                 it += 1
@@ -257,7 +261,7 @@ class IterativeRefinementSolver(Solver):
             b, x0 = b[perm], x0[perm]
         fn = self._cache.get("pair")
         if fn is None:
-            fn = self._cache["pair"] = self._make_solve_pair()
+            fn = self._cache["pair"] = faults.built(self._make_solve_pair())
         t0 = time.perf_counter()
         res, xl, inner_tot = fn(self.apply_params(), b, x0)
         scale = getattr(self.inner, "iterations_scale", 1)

@@ -18,9 +18,9 @@ JSON, a stale schema) is a counted miss, never an exception: the store
 cannot make a solve fail or answer wrongly.  A size budget
 (``AMGX_TPU_STORE_MB``, default 512) is enforced after each put by
 evicting the least recently used entries (a hit refreshes the
-mtimes).  The JAX package also registers each store with its
-telemetry; the port has no telemetry yet (ROADMAP.md, queue A7), so
-``counters`` and :meth:`ArtifactStore.stats` are the record.
+mtimes).  Each store registers a ``store`` source in the telemetry
+registry (:meth:`ArtifactStore.telemetry_snapshot`, the
+``amgx_store_*`` families), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,6 +55,19 @@ class ArtifactStore:
         self._lock = threading.Lock()
         self.counters: dict = defaultdict(int)
         self._sweep_tmp()
+        # a weak reference: registering never extends the store's life
+        from amgx_tpu_torch.telemetry import get_registry
+
+        self.telemetry_name = get_registry().register("store", self)
+
+    def telemetry_snapshot(self) -> dict:
+        """Registry source (kind ``store``): the counters, the entries
+        on disk and the byte budget."""
+        return {
+            "counters": self.stats(),
+            "entries": len(self),
+            "max_bytes": self.max_bytes,
+        }
 
     # tmp files older than this are crash leftovers, not live writers
     _TMP_MAX_AGE_S = 300.0

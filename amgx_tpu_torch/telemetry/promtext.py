@@ -1,0 +1,412 @@
+"""Prometheus text-exposition rendering for registry snapshots (the JAX
+package's ``telemetry/promtext.py``).
+
+One module owns the mapping from the package's internal snapshot
+shapes (serve :class:`~amgx_tpu_torch.serve.metrics.ServeMetrics`
+dicts, :class:`~amgx_tpu_torch.store.store.ArtifactStore` counters, the
+aggregated solver timings, the session manager, the flight recorder,
+the trace buffer) to the Prometheus text-exposition format, so
+components never need to know metric grammar.  Family names and labels
+are those of the JAX package's catalog (doc/OBSERVABILITY.md).  The
+gateway, admission, mesh, distributed and fleet families wait for
+their sources (ROADMAP.md, queue A.7.7, A.8, A.9); a component of
+another kind renders through the generic numeric walk.
+
+The model is a *family* table: ``name -> {"type", "help", "samples"}``
+where samples are ``(labels_dict, value)`` pairs.  ``render()`` emits
+``# HELP`` / ``# TYPE`` headers once per family and one sample line
+per (labels, value), with label values escaped per the exposition
+grammar.  Families merge across components: every registered serve
+service contributes samples to the same ``amgx_serve_*`` families,
+distinguished by the ``component`` label.
+"""
+
+from __future__ import annotations
+
+import re
+
+_NAME_OK = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_NAME_SANITIZE = re.compile(r"[^a-zA-Z0-9_:]")
+
+# per-config iteration histogram bucket upper bounds (inner-step
+# equivalents; the registry's record_solver sorts each timed solve
+# into the first bucket that covers it, "+Inf" past the last)
+ITERATION_BUCKETS = (1, 2, 5, 10, 20, 50, 100, 200, 500)
+
+
+def sanitize_name(name: str) -> str:
+    """Coerce an internal counter key into a legal metric name."""
+    name = _NAME_SANITIZE.sub("_", str(name))
+    if not name or not _NAME_OK.match(name):
+        name = "_" + name
+    return name
+
+
+def escape_label_value(v) -> str:
+    return (
+        str(v)
+        .replace("\\", "\\\\")
+        .replace("\n", "\\n")
+        .replace('"', '\\"')
+    )
+
+
+def _fmt_value(v) -> str:
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, int):
+        return str(v)
+    f = float(v)
+    if f != f:  # NaN
+        return "NaN"
+    return repr(f)
+
+
+class FamilyTable:
+    """Accumulator for metric families; insertion-ordered."""
+
+    def __init__(self):
+        self._fams: dict = {}
+
+    def add(self, name: str, mtype: str, help_text: str,
+            labels: dict, value) -> None:
+        if value is None:
+            return
+        name = sanitize_name(name)
+        fam = self._fams.get(name)
+        if fam is None:
+            fam = self._fams[name] = {
+                "type": mtype,
+                "help": help_text,
+                "samples": [],
+            }
+        fam["samples"].append((dict(labels), value))
+
+    def names(self):
+        return list(self._fams)
+
+    def render(self) -> str:
+        lines = []
+        for name, fam in self._fams.items():
+            lines.append(f"# HELP {name} {fam['help']}")
+            lines.append(f"# TYPE {name} {fam['type']}")
+            for labels, value in fam["samples"]:
+                if labels:
+                    lab = ",".join(
+                        f'{sanitize_name(k)}="{escape_label_value(v)}"'
+                        for k, v in sorted(labels.items())
+                    )
+                    lines.append(f"{name}{{{lab}}} {_fmt_value(value)}")
+                else:
+                    lines.append(f"{name} {_fmt_value(value)}")
+        return "\n".join(lines) + "\n" if lines else ""
+
+
+# ----------------------------------------------------------------------
+# serve metrics (ServeMetrics.snapshot() shape)
+
+# counters that are point-in-time levels, not monotone totals
+_SERVE_GAUGES = {
+    "queue_depth",
+    "breakers_open",
+}
+
+# hierarchy/compile-cache counters get their own amgx_cache_* namespace
+# (the catalog's "cache source"), the rest of the int counters land in
+# amgx_serve_*
+_CACHE_RENAME = {
+    "cache_hits": "amgx_cache_hierarchy_hits_total",
+    "cache_misses": "amgx_cache_hierarchy_misses_total",
+    "cache_evictions": "amgx_cache_hierarchy_evictions_total",
+    "setups": "amgx_cache_hierarchy_setups_total",
+    "bucket_hits": "amgx_cache_compile_hits_total",
+    "compiles": "amgx_cache_compiles_total",
+    "compile_warmups": "amgx_cache_compile_warmups_total",
+    "compile_evictions": "amgx_cache_compile_evictions_total",
+    "aot_fallbacks": "amgx_cache_aot_fallbacks_total",
+    "prewarms": "amgx_cache_prewarms_total",
+    "prewarm_failures": "amgx_cache_prewarm_failures_total",
+}
+
+# snapshot keys that are derived/structured, rendered specially or not
+# rendered as plain counters
+_SERVE_SKIP = {
+    "buckets", "latency", "lanes", "profile",
+    "ticket_p50_s", "ticket_p99_s", "tenant_device_s",
+    "hierarchy_bytes", "hierarchy_format_bytes",
+}
+
+
+def _quantile_samples(fams, name, help_text, comp, extra, summ):
+    base = {"component": comp}
+    base.update(extra)
+    for q, key in (("0.5", "p50_s"), ("0.99", "p99_s")):
+        fams.add(name, "gauge", help_text,
+                 {**base, "quantile": q}, summ.get(key, 0.0))
+    fams.add(name + "_count", "counter",
+             help_text + " (lifetime sample count)", base,
+             summ.get("count", 0))
+    fams.add(name + "_max", "gauge",
+             help_text + " (window max)", base, summ.get("max_s", 0.0))
+
+
+def serve_families(fams: FamilyTable, comp: str, snap: dict) -> None:
+    """ServeMetrics.snapshot() -> amgx_serve_* / amgx_cache_* /
+    amgx_setup_phase_* families."""
+    labels = {"component": comp}
+    for k, v in snap.items():
+        if k in _SERVE_SKIP or not isinstance(v, (int, float)):
+            continue
+        if isinstance(v, int) and not isinstance(v, bool):
+            if k in _CACHE_RENAME:
+                fams.add(_CACHE_RENAME[k], "counter",
+                         f"serve cache counter {k}", labels, v)
+            elif k in _SERVE_GAUGES:
+                fams.add(f"amgx_serve_{k}", "gauge",
+                         f"serve gauge {k}", labels, v)
+            else:
+                fams.add(f"amgx_serve_{k}_total", "counter",
+                         f"serve counter {k}", labels, v)
+        else:
+            # float accumulators / derived rates
+            if k.endswith("_s"):
+                fams.add(f"amgx_serve_{k[:-2]}_seconds_total", "counter",
+                         f"serve seconds accumulator {k}", labels, v)
+            else:
+                fams.add(f"amgx_serve_{k}", "gauge",
+                         f"serve derived gauge {k}", labels, v)
+    for dt, nb in (snap.get("hierarchy_bytes") or {}).items():
+        fams.add("amgx_cache_hierarchy_bytes", "gauge",
+                 "resident hierarchy-cache bytes by array dtype "
+                 "(mixed-precision policy observability: a "
+                 "hierarchy_dtype=FLOAT32 hierarchy moves value "
+                 "bytes from the float64 to the float32 family)",
+                 {**labels, "dtype": dt}, nb)
+    for fmt, nb in (snap.get("hierarchy_format_bytes") or {}).items():
+        fams.add("amgx_cache_hierarchy_bytes", "gauge",
+                 "resident hierarchy-cache bytes by accel format "
+                 "(MATRIX_FREE levels hold O(1) coefficient state "
+                 "where DIA holds O(nnz) value planes — this split "
+                 "shows the compression landing)",
+                 {**labels, "format": fmt}, nb)
+    for stage, summ in (snap.get("latency") or {}).items():
+        _quantile_samples(
+            fams, "amgx_serve_ticket_latency_seconds",
+            "per-ticket pipeline stage latency", comp,
+            {"stage": stage}, summ,
+        )
+    for lane, summ in (snap.get("lanes") or {}).items():
+        _quantile_samples(
+            fams, "amgx_serve_lane_latency_seconds",
+            "per-priority-lane end-to-end latency", comp,
+            {"lane": lane}, summ,
+        )
+    for bk, st in (snap.get("buckets") or {}).items():
+        bl = {**labels, "bucket": bk}
+        fams.add("amgx_serve_bucket_calls_total", "counter",
+                 "batched executions per (n, nnz, batch) bucket", bl,
+                 st.get("calls", 0))
+        fams.add("amgx_serve_bucket_seconds_total", "counter",
+                 "device seconds per bucket", bl, st.get("total_s", 0.0))
+        fams.add("amgx_serve_bucket_instances_total", "counter",
+                 "real instances executed per bucket", bl,
+                 st.get("instances", 0))
+        fams.add("amgx_serve_bucket_pad_instances_total", "counter",
+                 "padding instances executed per bucket", bl,
+                 st.get("pad_instances", 0))
+    prof = snap.get("profile") or {}
+    for phase, secs in (prof.get("times") or {}).items():
+        if phase.startswith("setup:"):
+            fams.add("amgx_setup_phase_seconds_total", "counter",
+                     "hierarchy-setup phase seconds "
+                     "(cold-setup anatomy)",
+                     {**labels, "phase": phase[len("setup:"):]}, secs)
+        else:
+            fams.add("amgx_serve_phase_seconds_total", "counter",
+                     "serve pipeline phase seconds",
+                     {**labels, "phase": phase}, secs)
+    for phase, calls in (prof.get("counts") or {}).items():
+        if phase.startswith("setup:"):
+            continue
+        fams.add("amgx_serve_phase_calls_total", "counter",
+                 "serve pipeline phase call counts",
+                 {**labels, "phase": phase}, calls)
+
+
+def store_families(fams: FamilyTable, comp: str, snap: dict) -> None:
+    """ArtifactStore stats -> amgx_store_* families."""
+    labels = {"component": comp}
+    for k, v in (snap.get("counters") or {}).items():
+        fams.add(f"amgx_store_{k}_total", "counter",
+                 f"artifact-store counter {k}", labels, v)
+    if "entries" in snap:
+        fams.add("amgx_store_entries", "gauge",
+                 "entries currently on disk", labels, snap["entries"])
+    if "max_bytes" in snap:
+        fams.add("amgx_store_budget_bytes", "gauge",
+                 "configured store size budget", labels,
+                 snap["max_bytes"])
+
+
+def solver_families(fams: FamilyTable, comp: str, snap: dict) -> None:
+    """Aggregated solver timings (obtain_timings re-emission) ->
+    amgx_solver_* families, labeled by solver registry name."""
+    for solver, st in snap.items():
+        labels = {"component": comp, "solver": solver}
+        fams.add("amgx_solver_solves_total", "counter",
+                 "timed solves observed", labels, st.get("solves", 0))
+        fams.add("amgx_solver_iterations_total", "counter",
+                 "iterations across timed solves (inner-step "
+                 "equivalents: one s-step outer = s CG steps)", labels,
+                 st.get("iterations", 0))
+        fams.add("amgx_solver_reductions_total", "counter",
+                 "global dot/norm reductions across timed solves (the "
+                 "cross-chip psum sync points; ~3/iter for monitored "
+                 "PCG, ~2/s per iter for SSTEP_PCG)", labels,
+                 st.get("reductions", 0))
+        fams.add("amgx_solver_cycle_passes_total", "counter",
+                 "fine-grid operator passes across timed solves "
+                 "(trace-time op_pass counter; fused matrix-free "
+                 "cycle legs drop this from 3(L-1)+1 to 2(L-1)+1 "
+                 "per V-cycle)", labels,
+                 st.get("cycle_passes", 0))
+        hist = st.get("iter_hist") or {}
+        if hist:
+            # histogram-shaped per-config iteration distribution:
+            # cumulative le-labelled buckets + _sum/_count
+            cum = 0
+            for le in ITERATION_BUCKETS:
+                cum += hist.get(le, 0)
+                fams.add("amgx_solver_iterations_bucket", "counter",
+                         "timed solves by iteration count "
+                         "(cumulative buckets)",
+                         {**labels, "le": str(le)}, cum)
+            fams.add("amgx_solver_iterations_bucket", "counter",
+                     "timed solves by iteration count "
+                     "(cumulative buckets)",
+                     {**labels, "le": "+Inf"}, st.get("solves", 0))
+            fams.add("amgx_solver_iterations_sum", "counter",
+                     "iteration histogram sum", labels,
+                     st.get("iterations", 0))
+            fams.add("amgx_solver_iterations_count", "counter",
+                     "iteration histogram count", labels,
+                     st.get("solves", 0))
+        fams.add("amgx_solver_setup_seconds_total", "counter",
+                 "setup seconds across timed solves", labels,
+                 st.get("setup_s", 0.0))
+        fams.add("amgx_solver_compile_seconds_total", "counter",
+                 "compile seconds across timed solves (this package: "
+                 "the seconds building the solve function)", labels,
+                 st.get("compile_s", 0.0))
+        fams.add("amgx_solver_solve_seconds_total", "counter",
+                 "solve seconds across timed solves", labels,
+                 st.get("solve_s", 0.0))
+        for phase, secs in (st.get("setup_phases") or {}).items():
+            fams.add("amgx_setup_phase_seconds_total", "counter",
+                     "hierarchy-setup phase seconds "
+                     "(cold-setup anatomy)",
+                     {"component": comp, "solver": solver,
+                      "phase": phase}, secs)
+
+
+def recorder_families(fams: FamilyTable, comp: str, snap: dict) -> None:
+    """The direct-API default FlightRecorder's summary ->
+    amgx_flight_* / amgx_incidents_* families (the JAX package's
+    gateway source renders a service's recorder into the same
+    families; that source waits with the gateway)."""
+    labels = {"component": comp}
+    fams.add("amgx_flight_records_total", "counter",
+             "per-solve flight-recorder records", labels,
+             snap.get("records_total"))
+    fams.add("amgx_incident_log_size", "gauge",
+             "incidents currently held in the ring", labels,
+             snap.get("incident_log_size"))
+    for kind, n in (snap.get("incidents_by_kind") or {}).items():
+        fams.add("amgx_incidents_total", "counter",
+                 "flight-recorder incidents by kind",
+                 {**labels, "kind": kind}, n)
+
+
+def session_families(fams: FamilyTable, comp: str, snap: dict) -> None:
+    """SessionManager.telemetry_snapshot() -> amgx_session_* families
+    (the streaming transient-PDE workload: step/warm-start counts,
+    resetup-under-solve overlap seconds, persistence outcomes)."""
+    labels = {"component": comp}
+    for k, v in snap.items():
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            continue
+        if k == "open":
+            fams.add("amgx_session_open", "gauge",
+                     "streaming sessions currently open", labels, v)
+        elif isinstance(v, float):
+            # float accumulators are seconds totals (resetup /
+            # resetup-overlap)
+            name = k if k.endswith("_seconds_total") \
+                else f"{k}_seconds_total"
+            fams.add(f"amgx_session_{name}", "counter",
+                     f"session seconds accumulator {k}", labels, v)
+        else:
+            name = k if k.endswith("_total") else f"{k}_total"
+            fams.add(f"amgx_session_{name}", "counter",
+                     f"session counter {k}", labels, v)
+
+
+def tracing_families(fams: FamilyTable, comp: str, snap: dict) -> None:
+    labels = {"component": comp}
+    fams.add("amgx_trace_spans_total", "counter",
+             "spans recorded since process start", labels,
+             snap.get("spans_total", 0))
+    fams.add("amgx_trace_buffer_spans", "gauge",
+             "spans currently held in the ring", labels,
+             snap.get("buffer_len", 0))
+    fams.add("amgx_trace_sample_rate", "gauge",
+             "effective trace sampling rate", labels,
+             snap.get("sample_rate", 0.0))
+
+
+def generic_families(fams: FamilyTable, kind: str, comp: str,
+                     snap: dict) -> None:
+    """Fallback: flat numeric walk for unknown component kinds."""
+    labels = {"component": comp}
+    for k, v in snap.items():
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            continue
+        fams.add(f"amgx_{kind}_{k}", "gauge",
+                 f"{kind} value {k}", labels, v)
+
+
+_RENDERERS = {
+    "serve": serve_families,
+    "store": store_families,
+    "solvers": solver_families,
+    "sessions": session_families,
+    "tracing": tracing_families,
+    "recorder": recorder_families,
+}
+
+
+def render(components: dict, telemetry_errors: int = 0) -> str:
+    """Registry snapshot ({name: {"kind", "data"}}) -> exposition
+    text.  Unknown kinds degrade to a generic numeric walk; rendering
+    of one component never fails the whole page (errors are counted
+    into ``amgx_telemetry_errors_total`` by the caller)."""
+    fams = FamilyTable()
+    errors = telemetry_errors
+    for comp, ent in components.items():
+        kind = ent.get("kind", "component")
+        data = ent.get("data")
+        if not isinstance(data, dict):
+            continue
+        fn = _RENDERERS.get(kind, None)
+        try:
+            if fn is None:
+                generic_families(fams, kind, comp, data)
+            else:
+                fn(fams, comp, data)
+        except Exception:  # noqa: BLE001 — one bad component must not
+            # take down the whole exposition page
+            errors += 1
+    fams.add("amgx_telemetry_errors_total", "counter",
+             "telemetry collection/export failures (degraded, "
+             "never propagated to a solve)", {}, errors)
+    return fams.render()

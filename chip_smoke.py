@@ -90,9 +90,10 @@ it waited for them:
    a row, stored slots per CSR entry, device bytes); both ELL kernels at
    every ELL operator (the sliced one also at every lane count and
    window), the level-1 A in f64 and renumbered by RCM (a measurement
-   only); a trace of a warm solve.  Then a second setup and solve
-   (hierarchy and x bit for bit equal), the CPU port at 64^3 beside the
-   card's run at 64^3 (host setup, iterations within one), the 48^3 f64
+   only); a trace of a warm solve.  Then the CPU port at 64^3 beside
+   the card's run at 64^3 (host setup, iterations within one) and a
+   second card setup and solve at 64^3 (hierarchy and x bit for bit
+   equal), the 48^3 f64
    hierarchy against the host builder (C/F splits, rows and nonzeros equal, P and R to 1e-12, the
    coarse operators to 1e-11), 64^3 f64 against the CPU (iterations
    equal, x to rtol 1e-9), and,
@@ -307,7 +308,35 @@ it waited for them:
    3 steps, sync): every RC 0, statuses and iterations those of the
    Python session, x bit for bit.  e. The card against the CPU port
    at 4 x 24^3, 3 steps: iterations equal, x to rtol 1e-9.
-23. Prints the per-kernel summary line (each kernel's launches on every
+23. faults_telemetry: fault injection, solve retries and telemetry
+   (``core/faults.py``, ``telemetry/``) on the card; runs after
+   bench_pcg.  a. The main path: the bench config with
+   ``solve_retries`` 1 at 128^3 f32, ``smoother_nan`` armed once,
+   counts zeroed just before setup and read just after the solve: the
+   retry SUCCESS with the clean solve's iterations and x bit for bit
+   (that solve's x bit for bit the bench_pcg phase's), one retry, one
+   fire, launches as walked (two solves: the FAILED first attempt's
+   one iteration and the retry's); the first attempt alone FAILED at
+   iteration 1.  b. ``dot_breakdown`` unlimited with a stagnation
+   window of 5: DIVERGED within it, x finite.  c.
+   ``coarse_lu_zero_pivot`` at setup: REGULARIZE converges at 128^3
+   f32 on the pseudoinverse and at 64^3 f64 in the CPU port's
+   iterations (x to rtol 1e-9); RAISE raises SingularDiagonalError.
+   d. ``serve_compile`` once on 16 x 64^3 f64 under SERVE_PCG_AMG: one
+   quarantine, each request alone with its sequential solve's
+   iterations and x to rtol 1e-10, the incident in the recorder.  e.
+   ``capi_internal`` through the native shim in dDDI at 64^3: the JAX
+   package's RC (RC_UNKNOWN), then RC 0 and x bit for bit a direct
+   solve's.  f. A warm 16 x 64^3 flush at trace sample rate 1: 16
+   connected span chains, one ``flush_group`` naming the 16, a Chrome
+   export that parses, a Prometheus page that passes the exposition
+   grammar, 16 flight records with the tickets' iterations,
+   ``solver_telemetry_json`` that parses; the warm flush's host ms a
+   system with telemetry off, on and traced (two rounds, a
+   measurement).  g. ``profile_cycle`` of the bench hierarchy at
+   128^3 f32: each level's phases in ms (CUDA events) with the card's
+   name and power limit, beside one warm V-cycle's time.
+24. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``; one entry
@@ -508,6 +537,8 @@ def classical_cfg(amg_extra="", main_extra=""):
 
 
 SLICE_N = 128
+# the grid of the kernel phase's 19-point and wide-x stencil cases
+WIDE_N = 64
 
 # Data-sheet peaks (NVIDIA, dense, without sparsity): memory bytes/s,
 # float32 and float64 FLOP/s outside the tensor cores.  Matched on the
@@ -1015,27 +1046,31 @@ def kernel_phase(torch, peaks):
     stencil_case("27-point grid 64^3 f32",
                  sps.kron(sps.kron(ones3, ones3), ones3, format="csr"),
                  np.float32, nd_inst=27)
-    # realistic stencils other than the star: the 19-point Laplacian at
-    # 128^3 on the box-subset tile kernel; the 2D 5-point one on
-    # 2,097,152 rows and a 7-point stencil two points wide along x at
-    # 128^3 (no detected grid has it) on the runtime-count kernel
+    # realistic stencils other than the star: the 19-point Laplacian on
+    # the box-subset tile kernel; the 2D 5-point one on 2,097,152 rows
+    # and a 7-point stencil two points wide along x (no detected grid
+    # has it) on the runtime-count kernel.  The two 3D ones at
+    # WIDE_N^3 (128^3 until the faults_telemetry phase joined: building
+    # their matrices on the host took 20 s; the kernel each takes does
+    # not depend on the grid)
     stencil_case("2D 5-point 2048x1024 (runtime count) f32",
                  poisson_scipy((1024, 2048)), np.float32, nd_inst=0)
+    M = WIDE_N
     box = [(dx, dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
            for dx in (-1, 0, 1)]
     nineteen = [st for st in box if sum(map(abs, st)) <= 2]
-    stencil_case(f"19-point {N}^3 f32",
-                 stencil_scipy((N, N, N), nineteen,
+    stencil_case(f"19-point {M}^3 f32",
+                 stencil_scipy((M, M, M), nineteen,
                                [-1.0] * 9 + [18.0] + [-1.0] * 9),
                  np.float32, nd_inst=27)
     wide = [(0, 0, -1), (-2, 0, 0), (-1, 0, 0), (0, 0, 0), (1, 0, 0),
             (2, 0, 0), (0, 0, 1)]
     coefs = [-1.0, 0.0625, -1.25, 4.375, -1.25, 0.0625, -1.0]
-    offsets = tuple(dx + N * dy + N * N * dz for dx, dy, dz in wide)
-    stencil_case(f"wide-x 7-point {N}^3 (runtime count) f32",
-                 stencil_scipy((N, N, N), wide, coefs), np.float32,
+    offsets = tuple(dx + M * dy + M * M * dz for dx, dy, dz in wide)
+    stencil_case(f"wide-x 7-point {M}^3 (runtime count) f32",
+                 stencil_scipy((M, M, M), wide, coefs), np.float32,
                  nd_inst=0,
-                 meta=(stencil.StencilMeta("const", (N, N, N),
+                 meta=(stencil.StencilMeta("const", (M, M, M),
                                            tuple(wide), offsets),
                        np.asarray(coefs, dtype=np.float32)))
 
@@ -2132,21 +2167,26 @@ def classical_phase(torch, peaks=None, device="cuda", n=SLICE_N,
             "reduction": ["reduce_kernel"],
         })
 
-    # ---- 3. determinism: a second setup and solve on the same device
-    s2, r3, _, _, _ = solve_on(device, PCG_CLASSICAL, n, np.float32)
+    # ---- 2. the CPU port (AUTO: the host builder there) at n_cpu^3,
+    # beside the device's run at that size; 3. determinism: a second
+    # setup and solve of that size on the same device (at n_cpu^3
+    # since the faults_telemetry phase joined: the 128^3 repeat cost
+    # 13 s)
+    if n_cpu != n:
+        del s, res, res2, amg
+        s, res, _, b, _ = solve_on(device, PCG_CLASSICAL, n_cpu,
+                                   np.float32)
+        iters, x = int(res.iters), res.x.cpu().numpy()
+        amg = s.precond
+    s2, r3, _, _, _ = solve_on(device, PCG_CLASSICAL, n_cpu, np.float32)
     where = levels_bitwise(amg, s2.precond)
     print(json.dumps({"classical_repeat_setup": {
-        "hierarchy_bitwise": where is None, "first_difference": where,
+        "n": n_cpu, "hierarchy_bitwise": where is None,
+        "first_difference": where,
         "x_bitwise": bool(torch.equal(res.x, r3.x))}}), flush=True)
     check(where is None, f"two classical setups differ at {where}")
     check(torch.equal(res.x, r3.x), "two classical setups gave another x")
-    del s, s2, res, res2, r3, amg
-
-    # ---- 2. the CPU port (AUTO: the host builder there) at n_cpu^3,
-    # beside the device's run at that size
-    if n_cpu != n:
-        _, res, _, b, _ = solve_on(device, PCG_CLASSICAL, n_cpu, np.float32)
-        iters, x = int(res.iters), res.x.cpu().numpy()
+    del s, s2, res, r3, amg
     rc = CPU.get(cpu_solve, PCG_CLASSICAL, n_cpu, np.float32)
     xc = rc["x"]
     print(json.dumps({"classical_cpu": {
@@ -6915,13 +6955,376 @@ def serve_kernel_cases(torch, timer, peaks, rng, n=SERVE_N, B=SERVE_B):
     return recs
 
 
+# ---------------------------------------------------------------------
+# faults_telemetry: fault injection, solve retries and telemetry on the
+# card
+
+# the bench config with one retry: a FAILED or DIVERGED solve re-solves
+# from a zero guess with a fresh build
+RETRY_CFG = BENCH_CFG.replace('"monitor_residual": 1,',
+                              '"monitor_residual": 1, "solve_retries": 1,',
+                              1)
+RAISE_CFG = BENCH_CFG.replace('"coarse_solver": "DENSE_LU_SOLVER",',
+                              '"coarse_solver": "DENSE_LU_SOLVER",'
+                              ' "dense_lu_zero_pivot": "RAISE",')
+FT_N = 64
+FT_B = 16
+
+
+def zero_pivot_cpu(n):
+    """The CPU port's bench solve at ``n``^3 f64 with
+    ``coarse_lu_zero_pivot`` fired at setup (REGULARIZE): status,
+    iterations, x."""
+    from amgx_tpu_torch.core import faults
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with faults.inject("coarse_lu_zero_pivot"):
+            _, r, _, _, _ = solve_on("cpu", BENCH_CFG, n, np.float64)
+    return {"status": int(r.status), "iterations": int(r.iters),
+            "x": r.x.numpy()}
+
+
+def span_chains(spans):
+    """({trace id: [span]}, the flush_group spans) of a span ring."""
+    chains = {}
+    for s in spans:
+        if s["trace_id"] is not None:
+            chains.setdefault(s["trace_id"], []).append(s)
+    return chains, [s for s in spans if s["name"] == "flush_group"]
+
+
+PROM_SAMPLE = (r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"
+               r"(\{[a-zA-Z0-9_]+=\"(?:[^\"\\]|\\.)*\""
+               r"(,[a-zA-Z0-9_]+=\"(?:[^\"\\]|\\.)*\")*\})?"
+               r" (-?[0-9.e+-]+|NaN)$")
+
+
+def prom_grammar(text):
+    """Family names of a Prometheus page whose every line parses and
+    whose every sample's family has HELP and TYPE (the grammar check of
+    the JAX package's telemetry tests); raises on the first defect."""
+    import re
+
+    sample = re.compile(PROM_SAMPLE)
+    names, helped, typed = set(), set(), set()
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            helped.add(line.split()[2])
+        elif line.startswith("# TYPE "):
+            parts = line.split()
+            check(parts[3] in ("counter", "gauge", "summary"),
+                  f"prometheus type {parts[3]}")
+            typed.add(parts[2])
+        else:
+            m = sample.match(line)
+            check(m is not None, f"unparseable exposition line {line!r}")
+            names.add(m.group(1))
+    for n in names:
+        fam = next((f for f in (n, n[:-6], n[:-4]) if f in typed), None)
+        check(fam is not None and fam in helped,
+              f"sample {n} without HELP / TYPE")
+    return names
+
+
+def cycle_ms(torch, amg, b, reps=5):
+    """One warm cycle of ``amg`` on ``b``, ms (CUDA events)."""
+    cyc = amg.make_cycle()
+    params = amg.apply_params()
+    x = torch.zeros_like(b)
+    cyc(params, b, x)
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        cyc(params, b, x)
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def faults_phase(torch, ref=None, device="cuda", n=SLICE_N, n_small=FT_N,
+                 B=FT_B):
+    """Fault injection, solve retries and telemetry on the card (module
+    docstring, phase 23); ``ref``: the bench_pcg phase's results, whose
+    x phase a's clean solve equals bit for bit.  Returns the launches of
+    the main path (a)."""
+    import ctypes
+
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch import telemetry
+    from amgx_tpu_torch.api import capi as C
+    from amgx_tpu_torch.core import faults
+    from amgx_tpu_torch.core.errors import SingularDiagonalError
+    from amgx_tpu_torch.core.profiling import profile_cycle
+    from amgx_tpu_torch.io.poisson import (
+        poisson_3d_7pt,
+        poisson_rhs,
+        poisson_scipy,
+    )
+    from amgx_tpu_torch.ops import kernels
+    from amgx_tpu_torch.serve import BatchedSolveService
+    from amgx_tpu_torch.telemetry import tracing
+
+    on_card = device == "cuda"
+    faults.disarm()
+    faults.reset_counters()
+    # ---- a. the main path: the bench config with a retry, smoother_nan
+    # fired once; counts zeroed just before setup, read after the solve
+    A = poisson_3d_7pt(n, dtype=np.float32, device=device)
+    b = poisson_rhs(A.n_rows, dtype=np.float32)
+    zero_counts()
+    s = T.create_solver(T.AMGConfig.from_string(RETRY_CFG), "default",
+                        device=device).setup(A)
+    with faults.inject("smoother_nan"):
+        r = s.solve(b)
+    launches = kernel_counts()
+    retried = (int(r.status), int(r.iters), s.solve_retries_used,
+               faults.fired("smoother_nan"))
+    derived = add_counts(pcg_derived_launches(s, 1),
+                         pcg_derived_launches(s, int(r.iters)))
+    x_retry = r.x.cpu().numpy()
+    retry_s = s.solve_time
+    # the retry evicted the corrupted build: the next solve is clean
+    rc = s.solve(b)
+    clean = (int(rc.status), int(rc.iters), s.solve_retries_used)
+    clean_s = s.solve_time
+    x_clean = rc.x.cpu().numpy()
+    # the first attempt alone (no retry): FAILED at its first iteration
+    s.solve_retries = 0
+    s._cache.pop("solve", None)
+    with faults.inject("smoother_nan"):
+        rf = s.solve(b)
+    first = (int(rf.status), int(rf.iters))
+    s.solve_retries = 1
+    s._cache.pop("solve", None)
+    rec = {"faults_retry": {
+        "n": n, "status_iters_retries_fired": retried,
+        "first_attempt_status_iters": first, "clean": clean,
+        "x_bitwise_clean": bool(np.array_equal(x_retry, x_clean)),
+        "x_bitwise_bench_pcg": (None if ref is None else
+                                bool(np.array_equal(x_clean, ref["x"]))),
+        "launches": launches, "derived": derived,
+        "retry_solve_s": retry_s, "clean_solve_s": clean_s}}
+    print(json.dumps(rec), flush=True)
+    check(retried == (0, clean[1], 1, 1),
+          f"a: retried solve (status, iters, retries, fired) {retried}, "
+          f"clean {clean}")
+    check(first == (1, 1), f"a: first attempt {first}, not FAILED at 1")
+    check(clean[0] == 0 and clean[2] == 0, f"a: clean solve {clean}")
+    check(np.array_equal(x_retry, x_clean),
+          "a: the retried x differs from the clean solve's")
+    check(ref is None or np.array_equal(x_clean, ref["x"]),
+          "a: the clean solve differs from the bench_pcg phase's x")
+    check(ref is None or clean[1] == ref["iters"],
+          f"a: clean iterations {clean[1]} vs bench_pcg's")
+    if on_card:
+        check(launches == derived,
+              f"a: launches {launches} != walked {derived}")
+
+    # ---- b. dot_breakdown unlimited, a stagnation window of 5, no
+    # retry (a's cached retry build would take its clean decisions)
+    s.stagnation_window, s.solve_retries = 5, 0
+    faults.reset_counters()
+    with faults.inject("dot_breakdown", times=-1):
+        rd = s.solve(b)
+    s.stagnation_window, s.solve_retries = 0, 1
+    s._cache.pop("solve", None)
+    xd = rd.x.cpu().numpy()
+    stag = {"status": int(rd.status), "iterations": int(rd.iters),
+            "retries": s.solve_retries_used,
+            "fired": faults.fired("dot_breakdown"),
+            "x_finite": bool(np.all(np.isfinite(xd)))}
+    print(json.dumps({"faults_dot_breakdown": stag}), flush=True)
+    check(stag["status"] == 2 and stag["iterations"] <= 10
+          and stag["x_finite"], f"b: dot_breakdown {stag}")
+    del s, r, rc, rf, rd
+
+    # ---- c. coarse_lu_zero_pivot at setup
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with faults.inject("coarse_lu_zero_pivot"):
+            sz = T.create_solver(T.AMGConfig.from_string(BENCH_CFG),
+                                 "default", device=device).setup(A)
+        rz = sz.solve(b)
+        with faults.inject("coarse_lu_zero_pivot"):
+            _, rz64, _, _, _ = solve_on(device, BENCH_CFG, n_small,
+                                        np.float64)
+        raised = False
+        try:
+            with faults.inject("coarse_lu_zero_pivot"):
+                solve_on(device, RAISE_CFG, n_small, np.float64)
+        except SingularDiagonalError:
+            raised = True
+    cz = CPU.get(zero_pivot_cpu, n_small)
+    x64 = rz64.x.cpu().numpy()
+    d64 = float(np.abs(x64 - cz["x"]).max() / np.abs(cz["x"]).max())
+    zp = {"regularize_128": {"status": int(rz.status),
+                             "iterations": int(rz.iters),
+                             "pinv": sz.precond.coarse_solver._pinv_mode},
+          "regularize_64_f64": {"status": int(rz64.status),
+                                "iterations": int(rz64.iters),
+                                "cpu_iterations": cz["iterations"],
+                                "x_max_rel_diff": d64},
+          "raise_64_f64": raised}
+    print(json.dumps({"faults_zero_pivot": zp}), flush=True)
+    check(zp["regularize_128"]["status"] == 0 and zp["regularize_128"][
+        "pinv"], f"c: REGULARIZE at {n}^3 {zp['regularize_128']}")
+    check(int(rz64.status) == 0 and int(rz64.iters) == cz["iterations"]
+          and d64 <= 1e-9, f"c: REGULARIZE 64^3 f64 {zp}")
+    check(raised, "c: RAISE did not raise SingularDiagonalError")
+    del sz, rz, rz64, A
+
+    # ---- d. serve_compile once: the group quarantines
+    systems = serve_family((n_small,) * 3, B, seed=1)
+    svc = BatchedSolveService(config=SERVE_PCG_AMG, max_batch=B,
+                              device=device)
+    with faults.inject("serve_compile"):
+        got, _ = served(svc, systems)
+    seq, _, _ = serve_seq(device, SERVE_PCG_AMG, systems, reuse=True)
+    cmp_d = same_as_seq("faults d", got, seq)
+    kinds = [i["kind"] for i in svc.recorder.incidents()]
+    q = {"quarantines": svc.metrics.get("quarantines"),
+         "quarantined_solves": svc.metrics.get("quarantined_solves"),
+         "incidents": kinds,
+         "record_paths": sorted({rc_.path for rc_ in
+                                 svc.recorder.records()}),
+         "iterations": [g[1] for g in got], **cmp_d}
+    print(json.dumps({"faults_serve_compile": q}), flush=True)
+    check(q["quarantines"] == 1 and q["quarantined_solves"] == B,
+          f"d: {q}")
+    check("quarantine" in kinds, f"d: no quarantine incident ({kinds})")
+    del svc
+
+    # ---- e. capi_internal through the native shim, dDDI at n_small^3
+    lib = ctypes.PyDLL(str(kernels.build_native()["lib"]))
+    check(lib.AMGX_initialize() == 0, "e: AMGX_initialize")
+    sp = poisson_scipy((n_small,) * 3).tocsr()
+    sp.sort_indices()
+    b64 = poisson_rhs(sp.shape[0], dtype=np.float64)
+    H, P = ctypes.c_uint64, ctypes.c_void_p
+    mode = ctypes.c_char_p(capi_mode("DDI", device).encode())
+    c_h, r_h, A_h, vb, vx, s_h = (H() for _ in range(6))
+    rp = np.ascontiguousarray(sp.indptr, np.int32)
+    ci = np.ascontiguousarray(sp.indices, np.int32)
+    vals = np.ascontiguousarray(sp.data, np.float64)
+    x = np.zeros(sp.shape[0])
+    rcs = [lib.AMGX_config_create(ctypes.byref(c_h),
+                                  ctypes.c_char_p(BENCH_CFG.encode())),
+           lib.AMGX_resources_create_simple(ctypes.byref(r_h), c_h),
+           lib.AMGX_matrix_create(ctypes.byref(A_h), r_h, mode),
+           lib.AMGX_vector_create(ctypes.byref(vb), r_h, mode),
+           lib.AMGX_vector_create(ctypes.byref(vx), r_h, mode),
+           lib.AMGX_solver_create(ctypes.byref(s_h), r_h, mode, c_h),
+           lib.AMGX_matrix_upload_all(A_h, sp.shape[0], sp.nnz, 1, 1,
+                                      rp.ctypes.data_as(P),
+                                      ci.ctypes.data_as(P),
+                                      vals.ctypes.data_as(P), None),
+           lib.AMGX_vector_upload(vb, sp.shape[0], 1,
+                                  b64.ctypes.data_as(P)),
+           lib.AMGX_vector_upload(vx, sp.shape[0], 1, x.ctypes.data_as(P)),
+           lib.AMGX_solver_setup(s_h, A_h)]
+    faults.reset_counters()
+    with faults.inject("capi_internal"):
+        rc_fault = lib.AMGX_solver_solve(s_h, vb, vx)
+    rc_next = lib.AMGX_solver_solve(s_h, vb, vx)
+    rcs.append(lib.AMGX_vector_download(vx, x.ctypes.data_as(P)))
+    telemetry_json = C.solver_telemetry_json(s_h.value)
+    for fn, h in (("AMGX_solver_destroy", s_h), ("AMGX_vector_destroy", vx),
+                  ("AMGX_vector_destroy", vb), ("AMGX_matrix_destroy", A_h),
+                  ("AMGX_resources_destroy", r_h),
+                  ("AMGX_config_destroy", c_h)):
+        rcs.append(getattr(lib, fn)(h))
+    _, rdir, _, _, _ = solve_on(device, BENCH_CFG, n_small, np.float64)
+    e = {"rc_injected": rc_fault, "rc_next": rc_next,
+         "fired": faults.fired("capi_internal"),
+         "other_rcs_zero": not any(rcs),
+         "x_bitwise_direct": bool(np.array_equal(x, rdir.x.cpu().numpy()))}
+    print(json.dumps({"faults_capi_internal": e}), flush=True)
+    # the JAX package maps the injected RuntimeError to RC_UNKNOWN
+    # (tests/test_capi.py), and so does the port
+    check(rc_fault == C.RC_UNKNOWN and e["fired"] == 1,
+          f"e: injected RC {rc_fault}")
+    check(rc_next == 0 and e["other_rcs_zero"] and e["x_bitwise_direct"],
+          f"e: after the fault {e}")
+
+    # ---- f. telemetry of a warm group at trace sample rate 1
+    systems = serve_family((n_small,) * 3, B, seed=2)
+    svc = BatchedSolveService(config=SERVE_PCG_AMG, max_batch=B,
+                              device=device)
+    served(svc, systems)  # the cold flush: setup and build
+    times = {"off": [], "on": [], "traced": []}
+    for _ in range(2):
+        for mode_ in ("off", "on", "traced"):
+            telemetry.set_telemetry_enabled(mode_ != "off")
+            tracing.set_sample_rate(1.0 if mode_ == "traced" else 0.0)
+            tracing.clear()
+            n_rec = svc.recorder.records_total
+            got, t_ = served(svc, systems)
+            times[mode_].append(t_["s"] * 1e3 / B)
+    telemetry.set_telemetry_enabled(None)
+    tracing.set_sample_rate(None)
+    spans = tracing.span_buffer().spans()
+    chains, groups = span_chains(spans)
+    ids = {s_["sid"] for s_ in spans}
+    connected = all(
+        all(sp_.get("parent") in ids for sp_ in ch if "parent" in sp_)
+        and {x_["name"] for x_ in ch} >= {"submit", "pad", "queue",
+                                           "dispatch", "device", "fetch"}
+        for ch in chains.values())
+    chrome = json.loads(json.dumps(tracing.export_chrome()))
+    recs = svc.recorder.records()[n_rec:]
+    families = prom_grammar(telemetry.get_registry().render_prometheus())
+    parsed = json.loads(telemetry_json)
+    f = {"chains": len(chains), "connected": connected,
+         "flush_groups": len(groups),
+         "members": len(groups[0]["args"]["members"]) if groups else 0,
+         "chrome_events": len(chrome["traceEvents"]),
+         "prometheus_families": len(families),
+         "records": len(recs),
+         "record_iterations_match": [r_.iterations for r_ in recs]
+         == [g[1] for g in got],
+         "telemetry_json_keys": sorted(parsed),
+         "warm_flush_ms_per_system": times}
+    print(json.dumps({"faults_telemetry": f}), flush=True)
+    check(len(chains) == B and connected, f"f: span chains {f}")
+    check(len(groups) == 1 and f["members"] == B, f"f: flush_group {f}")
+    check(f["chrome_events"] >= 6 * B, "f: chrome export")
+    check(len(families) >= 25, f"f: {len(families)} families")
+    check(f["records"] == B and f["record_iterations_match"],
+          f"f: flight records {f['records']}")
+    check({"solver", "registry", "enabled"} <= set(parsed),
+          f"f: telemetry json keys {sorted(parsed)}")
+    del svc
+
+    # ---- g. profile_cycle on the bench hierarchy at n^3 f32
+    sb, rb, _, bb, _ = solve_on(device, BENCH_CFG, n, np.float32)
+    amg = sb.precond
+    bt = torch.from_numpy(bb).to(device)
+    prof = profile_cycle(amg, bt, reps=5)
+    per_level = {k: v * 1e3 for k, v in sorted(prof.times.items())}
+    g = {"card": card_line() if on_card else None, "n": n,
+         "levels": len(amg.levels),
+         "phase_ms": per_level,
+         "phases_sum_ms": sum(per_level.values()),
+         "cycle_ms": cycle_ms(torch, amg, bt) if on_card else None}
+    print(json.dumps({"profile_cycle": g}), flush=True)
+    check(all(v > 0 for v in per_level.values())
+          and "coarse/solve" in per_level, f"g: {g}")
+    faults.disarm()
+    return launches
+
+
 PHASES = ("kernels", "bench_pcg", "bench_pcg_matrix_free",
           "fgmres_aggregation", "pcg_classical", "pcg_classical_cheby",
           "idr_dilu", "gmres_ilu0", "pbicgstab_agg_w", "amg_classical_kcycle",
           "pcg_agg_resetup", "refine_bf16_256", "mf_bf16", "classical_bf16",
           "device_match", "block4_amg_pcg", "eigensolvers", "setup_store",
-          "capi", "serve", "sessions")
-NEEDS = {"bench_pcg_matrix_free": ("bench_pcg",)}
+          "capi", "serve", "sessions", "faults_telemetry")
+NEEDS = {"bench_pcg_matrix_free": ("bench_pcg",),
+         "faults_telemetry": ("bench_pcg",)}
 
 
 def cpu_side_calls(phases):
@@ -6973,6 +7376,7 @@ def cpu_side_calls(phases):
         "capi": [(capi_cpu_side, CAPI_CMP_N, CAPI_SELL_N)],
         "serve": [(serve_cpu_side, SERVE_CPU_N)],
         "sessions": [(session_cpu_side, SESSION_CPU_N)],
+        "faults_telemetry": [(zero_pivot_cpu, FT_N)],
     }
     return [c for p in phases for c in calls.get(p, ())]
 
@@ -7050,6 +7454,7 @@ def _main(argv=None):
         else torch.get_num_threads() for c in calls])
     if "kernels" in phases:
         recs += timed("kernels", kernel_phase, torch, peaks)
+    ref = None
     if "bench_pcg" in phases:
         by_path["bench_pcg"], ref = timed("bench_pcg", slice_phase, torch)
     if "bench_pcg_matrix_free" in phases:
@@ -7100,6 +7505,9 @@ def _main(argv=None):
         variants_by_path.update(timed("serve", serve_phase, torch))
     if "sessions" in phases:
         variants_by_path.update(timed("sessions", session_phase, torch))
+    if "faults_telemetry" in phases:
+        by_path["faults_telemetry"] = timed("faults_telemetry",
+                                            faults_phase, torch, ref)
 
     # each kernel: the path whose count is its ``launches``, the case
     # whose times the summary gives, its source and the TPU kernel
@@ -7138,7 +7546,8 @@ def _main(argv=None):
                      ("eigensolvers", ("dia_spmv", "ell_spmv")),
                      ("setup_store", ("dia_spmv", "ell_spmv", "sell_spmv",
                                       "stencil_spmv")),
-                     ("capi", ("dia_spmv", "ell_spmv")))
+                     ("capi", ("dia_spmv", "ell_spmv")),
+                     ("faults_telemetry", ("dia_spmv", "ell_spmv")))
     not_checked = []
     for path, kernels_of in launch_checks:
         if path not in by_path:

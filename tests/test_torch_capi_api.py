@@ -620,7 +620,6 @@ def test_d_mode_without_a_card_raises(monkeypatch):
 
 
 NOT_PORTED = [
-    ("solver_get_telemetry", 1, "A.7"), ("solver_telemetry_json", 1, "A.7"),
     ("solver_session_save", 2, "A.7.6"),
     ("distribution_create", 1, "A.9"),
     ("distribution_set_partition_data", 3, "A.9"),

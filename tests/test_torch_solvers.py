@@ -154,26 +154,6 @@ def test_dense_lu_zero_pivot_regularize_matches_jax():
                                atol=1e-12)
 
 
-@pytest.mark.parametrize("extra,match", [
-    (', "solve_retries": 2', "solve_retries"),
-    (', "solve_retries": 1', "queue A: serving tier"),
-])
-def test_unported_options_raise(extra, match):
-    cfg = T.AMGConfig.from_string(_cfg("PCG", JACOBI_PREC + extra))
-    s = T.create_solver(cfg, "default", device="cpu")
-    A = TMatrix.from_scipy(poisson_scipy((4, 4)), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        s.setup(A)
-
-
-def test_fault_injection_unported(monkeypatch):
-    monkeypatch.setenv("AMGX_TPU_FAULTS", "coarse_lu_zero_pivot")
-    cfg = T.AMGConfig.from_string(_cfg("PCG", JACOBI_PREC))
-    s = T.create_solver(cfg, "default", device="cpu")
-    with pytest.raises(NotImplementedError, match="AMGX_TPU_FAULTS"):
-        s.setup(TMatrix.from_scipy(poisson_scipy((4, 4)), device="cpu"))
-
-
 def test_iterative_refinement_still_raises():
     """ITERATIVE_REFINEMENT is ported with the reduced-precision slice:
     around a Jacobi inner solver it now builds and solves; what still
