@@ -24,12 +24,12 @@ the port's serve layer (``amgx_tpu_torch.serve``), the streaming
 session calls (``solver_session_*``) on its sessions
 (``amgx_tpu_torch.sessions``), the telemetry calls
 (``solver_get_telemetry``, ``solver_telemetry_json``) on
-``amgx_tpu_torch.telemetry``.  The fault site ``capi_internal``
-(``core/faults.py``) raises inside the solve path and comes back as an
-RC through the catch-all.  Not ported, each raising
-``RC_NOT_IMPLEMENTED`` with the ``ROADMAP.md`` queue that brings it:
-``solver_session_save`` (A.7.6), the fleet
-front and admission gateway of the batched solve (A.7, A.8), the
+``amgx_tpu_torch.telemetry``; ``solver_session_save`` writes a
+session into an artifact store (``amgx_tpu_torch.store``).  The fault
+site ``capi_internal`` (``core/faults.py``) raises inside the solve path
+and comes back as an RC through the catch-all.  Not ported, each raising
+``RC_NOT_IMPLEMENTED`` with the ``ROADMAP.md`` queue that brings it: the
+fleet front and admission gateway of the batched solve (A.7.7, A.8), the
 distribution handles, partition data, one-ring maps, distributed
 reads and writes and setup on more than one device (A.9).
 """
@@ -1083,7 +1083,16 @@ def solver_session_get_iterations_number(sess_h: int) -> int:
 
 
 def solver_session_save(sess_h: int, path: str):
-    _not_ported("solver_session_save", "A.7.6: warm boot")
+    """Save the session's streaming state (step counter, warm start,
+    registered pattern) into the artifact store at ``path``
+    (AMGX_solver_session_save), the step in flight settled first; with
+    the serve layer's hierarchy export it makes a drain and warm-boot
+    restart.  RC_IO_ERROR when the save fails."""
+    h = _get(sess_h, _SessionHandle)
+    _session_settle(h)
+    if not h.session.save(store=path):
+        raise AMGXError(RC_IO_ERROR, "session save failed")
+    return RC_OK
 
 
 def solver_session_destroy(sess_h: int):

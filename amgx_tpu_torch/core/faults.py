@@ -25,8 +25,8 @@ failure mode on demand:
   gateway_shed,         armed and counted like the others, but no call
   admission_quota,      site in this package meets them yet: their
   drain_timeout,        modules (the gateway and admission, placement
-  device_lost_dispatch, and failover, the dispatch and fetch pools) are
-  device_lost_fetch,    not ported (ROADMAP.md, queue A.7.5 and A.7.7)
+  device_lost_dispatch, and failover, the fetch watchdog and its fetch
+  device_lost_fetch,    pool) are not ported (ROADMAP.md, queue A.7.7)
   fetch_hang
   ====================  ===================================================
 

@@ -20,9 +20,11 @@ Entry point::
     results = svc.solve_many([(A0, b0), (A1, b1), ...])
 
 Streaming solve sessions over a service are
-:mod:`amgx_tpu_torch.sessions`.  The gateway, admission, retries,
-placement, telemetry and warm boot of the JAX package's serving tier
-are not ported (ROADMAP.md, queue A.7).
+:mod:`amgx_tpu_torch.sessions`; warm boot from a setup store is
+``BatchedSolveService(store=...)`` and :meth:`warm_boot`
+(``amgx_tpu_torch.store.warmboot``).  The gateway, admission,
+placement and failover of the JAX package's serving tier are not
+ported (ROADMAP.md, queue A.7.7).
 """
 
 from amgx_tpu_torch.serve.batched import make_batched_solve

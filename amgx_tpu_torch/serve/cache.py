@@ -14,11 +14,16 @@ cache of compiled executables: PyTorch runs eagerly, so what it keeps
 per (template signature, batch bucket) is the built batched-solve
 callable, which every entry of an equal signature reuses with its own
 template.  ``compiles`` counts its builds and ``bucket_hits`` its
-hits, so the JAX package's counter contracts carry over.
+hits, so the JAX package's counter contracts carry over.  A build
+ahead of the first flush (:meth:`CompileCache.warm`: ``prewarm``, a warm
+boot's restored entries) runs on the shared background worker
+(:func:`_compile_pool`), which the store's exports share too; a flush
+that finds the build in flight joins it.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import threading
 from collections import OrderedDict
@@ -27,6 +32,7 @@ from typing import Callable, Optional
 import torch
 
 from amgx_tpu_torch.core import faults
+from amgx_tpu_torch.core.dispatch import named_pool, on_worker
 from amgx_tpu_torch.serve.bucketing import PaddedPattern
 from amgx_tpu_torch.serve.metrics import ServeMetrics
 
@@ -52,6 +58,19 @@ class HierarchyEntry:
     solver_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock
     )
+    # the template solver's last solve(block=False) (the sequential
+    # fallback's), which may still run on the dispatch worker
+    pending: object = None
+
+    def settle(self):
+        """Wait for the template solver's solve in flight, if any (the
+        caller holds ``solver_lock``): a resetup or an export must not
+        change the solver under it.  Its outcome, an error included,
+        stays with its ticket."""
+        p, self.pending = self.pending, None
+        fut = getattr(p, "_future", None)
+        if fut is not None:
+            concurrent.futures.wait([fut])
 
 
 def template_signature(template) -> tuple:
@@ -105,6 +124,9 @@ class HierarchyCache:
         self._lock = threading.Lock()
         self._entries: OrderedDict = OrderedDict()
 
+    def __len__(self):
+        return len(self._entries)
+
     def _insert(self, key, entry):
         evicted = []
         with self._lock:
@@ -115,7 +137,22 @@ class HierarchyCache:
                 self.metrics.inc("cache_evictions")
         if self.on_evict is not None:
             for k, e in evicted:
-                self.on_evict(k, e)
+                try:
+                    self.on_evict(k, e)
+                except Exception:  # noqa: BLE001 — eviction housekeeping
+                    pass
+
+    def insert(self, fingerprint: str, cfg_key: str, dtype,
+               entry: HierarchyEntry):
+        """Insert a built entry (a warm boot's restore): neither a hit
+        nor a miss; the LRU bound holds."""
+        self._insert((fingerprint, cfg_key, str(dtype)), entry)
+
+    def items(self) -> list:
+        """((fingerprint, cfg_key, dtype), entry) of every cached entry,
+        least recently used first."""
+        with self._lock:
+            return list(self._entries.items())
 
     def any_with_signature(self, signature) -> bool:
         """Does any cached entry share this template signature?"""
@@ -206,52 +243,112 @@ class HierarchyCache:
         return found
 
 
+# the process-wide background worker: builds ahead of a flush (prewarm,
+# a warm boot's restores and their builds) and the store's exports of
+# every service share one thread, so none of them runs on a flush path
+# or on the dispatch worker
+_COMPILE = "serve-compile"
+
+
+def _compile_pool() -> concurrent.futures.ThreadPoolExecutor:
+    return named_pool(_COMPILE)
+
+
 class CompileCache:
     """(template signature, batch bucket) -> the built batched-solve
     callable: the first entry of a signature builds it (``compiles``),
     every later lookup of the signature, from any entry, hits
-    (``bucket_hits``).  :meth:`warm` builds ahead of the first flush
-    (``compile_warmups``)."""
+    (``bucket_hits``).  :meth:`warm` builds ahead of the first flush on
+    the background worker (``compile_warmups``); a :meth:`get` that
+    finds that build in flight waits for it.  A signature evicted while
+    its build is in flight is tombstoned, so the finishing build hands
+    its callable to its waiters but does not keep it."""
 
     def __init__(self, metrics: Optional[ServeMetrics] = None):
         self.metrics = metrics or ServeMetrics()
         self._lock = threading.Lock()
         self._fns: dict = {}
+        self._futures: dict = {}
+        self._dead_sigs: set = set()
 
-    def _lookup(self, entry: HierarchyEntry, Bb: int):
-        """(callable, built now)."""
-        key = (entry.signature, Bb)
+    def __len__(self):
+        return len(self._fns)
+
+    def _compile(self, entry: HierarchyEntry, Bb: int):
+        """Build the callable (the JAX package's AOT compile): each
+        build owns its fault decisions, as each of the JAX package's
+        compiles traces anew."""
+        return faults.built(entry.batch_fn)
+
+    def _resolve(self, key, entry: HierarchyEntry, Bb: int, fut):
+        try:
+            fn = self._compile(entry, Bb)
+        except BaseException as e:  # every waiter sees the failure
+            with self._lock:
+                self._futures.pop(key, None)
+            fut.set_exception(e)
+            raise
         with self._lock:
-            fn = self._fns.get(key)
-            if fn is not None:
-                return fn, False
-            # each build owns its fault decisions, as each of the JAX
-            # package's compiles traces anew
-            self._fns[key] = fn = faults.built(entry.batch_fn)
+            self._futures.pop(key, None)
+            if key[0] not in self._dead_sigs:
+                self._fns[key] = fn
         self.metrics.inc("compiles")
-        return fn, True
-
-    def get(self, entry: HierarchyEntry, Bb: int):
-        """The callable for (entry.signature, Bb), built on a miss."""
-        fn, built = self._lookup(entry, Bb)
-        if not built:
-            self.metrics.inc("bucket_hits")
+        fut.set_result(fn)
         return fn
 
+    def get(self, entry: HierarchyEntry, Bb: int):
+        """The callable for (entry.signature, Bb): cached, joined from a
+        build in flight, or built here."""
+        key = (entry.signature, Bb)
+        with self._lock:
+            self._dead_sigs.discard(key[0])  # the signature lives again
+            fn = self._fns.get(key)
+            if fn is not None:
+                self.metrics.inc("bucket_hits")
+                return fn
+            fut = self._futures.get(key)
+            mine = fut is None
+            if mine:
+                fut = self._futures[key] = concurrent.futures.Future()
+        if mine:
+            return self._resolve(key, entry, Bb, fut)
+        return fut.result()
+
     def warm(self, entry: HierarchyEntry, Bb: int):
-        """Build the callable for (entry.signature, Bb) if missing."""
-        if self._lookup(entry, Bb)[1]:
-            self.metrics.inc("compile_warmups")
+        """Build the callable for (entry.signature, Bb) ahead of the
+        first flush, unless it exists or is being built: on the
+        background worker, or right here when called there."""
+        key = (entry.signature, Bb)
+        with self._lock:
+            self._dead_sigs.discard(key[0])
+            if key in self._fns or key in self._futures:
+                return
+            fut = self._futures[key] = concurrent.futures.Future()
+        self.metrics.inc("compile_warmups")
+
+        def job():
+            try:
+                self._resolve(key, entry, Bb, fut)
+            except Exception:  # noqa: BLE001 — on the future
+                pass
+
+        if on_worker(_COMPILE):
+            job()
+        else:
+            _compile_pool().submit(job)
 
     def evict_signature(self, signature) -> int:
         """Drop every callable of one template signature (the hierarchy
-        cache evicted its last entry) under ``compile_evictions``."""
+        cache evicted its last entry) under ``compile_evictions``; a
+        build of it in flight finishes for its waiters, tombstoned."""
         if signature is None:
             return 0
         with self._lock:
             keys = [k for k in self._fns if k[0] == signature]
             for k in keys:
                 del self._fns[k]
+            if any(k[0] == signature for k in self._futures):
+                self._dead_sigs.add(signature)
         if keys:
             self.metrics.inc("compile_evictions", len(keys))
         return len(keys)

@@ -15,8 +15,13 @@ few batched groups on one device (the JAX package's
                        template signature: one masked loop for the group
                                                |
                                                v
-                       SolveTicket.result(): the group's results, per
-                       request, unpadded
+                       dispatch stage (inline, or the single worker for
+                       the poller): ship the rows, release the slot,
+                       tickets done(), run the loop
+                                               |
+                                               v
+                       SolveTicket.result(): ONE wait and fetch per
+                       group, results per request, unpadded
 
 Solvers without an iteration protocol (GMRES, IDR) run each request in
 turn (``fallback_solves``).  Guardrails, as in the
@@ -30,6 +35,34 @@ group; a ticket whose deadline passes fails alone.  The fault site
 hierarchy entry is built and before its batched solve is looked up, so
 the group quarantines.
 
+Async pipeline, as in the JAX package: a flush splits into a host stage
+(deadlines, the breaker, the hierarchy entry and its batched solve, on
+the flushing thread) and a device stage (``_dispatch_batched``: the
+staged rows shipped to the device, the slot released, the group handed
+to its tickets, then the batched loop).  The poller (``start()``) and
+``poll()`` hand the device stage to the process-wide single-worker
+dispatch stage (``core/dispatch.py``, ``serve-dispatch``) and go back to
+padding, so padding group N+1 overlaps group N on the device.  A flush
+(a submit that fills ``max_batch``, ``flush()``, ``solve_many``) hands
+it over too on a started service, and returns at the hand-over, as the
+JAX package's returns at dispatch; on a service that is not started it
+runs the device stage inline.  ``SolveTicket.done()`` is True once
+its group is handed over; ``result()`` makes the group's one blocking
+wait (``_block_ready``: the worker's future and the CUDA event recorded
+after the loop's last launch) and its host fetch (``_fetch_host``), once
+for the group, whichever ticket asks first.  The port's loop reads each
+iteration's norms on the worker, so ``host_syncs`` counts them and the
+fetch (iterations + 2; the JAX package reads once a group), and the
+fetch copies nothing more: x stays on the service's device.  Solvers
+without a batch rebuild solve each request with ``solve(block=False)``.
+
+Warm boot, as in the JAX package: with ``store=`` (a directory or an
+``ArtifactStore``) every hierarchy entry the service builds is exported
+on the shared background worker (``serve/cache._compile_pool``), and
+:meth:`BatchedSolveService.warm_boot` restores a store's entries of the
+service's configuration into the hierarchy cache, so that their first
+group is a cache hit (``store/warmboot.py``).
+
 Telemetry, as in the JAX package: the service registers a ``serve``
 source in the process registry (``amgx_tpu_torch.telemetry``); its
 :class:`FlightRecorder` (``recorder``) keeps one record per solved
@@ -38,22 +71,20 @@ quarantine, breaker trip and deadline expiry; with request tracing on
 (``AMGX_TPU_TRACE_SAMPLE``) a sampled ticket's spans are ``submit``
 (its root), ``pad``, ``queue``, ``dispatch``, ``device`` and ``fetch``,
 and each batched group with a sampled member records one ``flush_group``
-span naming its members.  Telemetry failures (the ``telemetry_export``
-site) count ``telemetry_errors`` and never fail a solve.  The solve is
-synchronous until ROADMAP.md queue A.7.5: a group's ``dispatch`` stage
-runs from its flush to the batched loop's first launch, its ``device``
-stage from there to the synchronisation at its fetch (the loop and its
-norm reads included), and ``fetch`` after it.
+span naming its members (spans recorded on the dispatch worker carry
+the ticket's trace context).  Telemetry failures (the
+``telemetry_export`` site) count ``telemetry_errors`` and never fail a
+solve.  A group's ``dispatch`` stage runs from its flush to the
+hand-over, its ``device`` stage from there to the end of the fetch's
+wait (an upper bound when the fetch comes late), ``fetch`` after it.
 
-What the port leaves out (ROADMAP.md, queue A.7) raises
-``NotImplementedError`` when asked for: the setup store and warm boot
-(``store=``), placement and failover (``placement=``, ``failover=``,
-``fetch_watchdog_s=``), buffer donation (``donate=``: torch has none),
-priority lanes and tenants (every ticket's lane is ``default`` and its
-tenant ``-``).  The group runs on the flushing thread (submit, flush,
-poll or the poller): there is no dispatch pool, and a group's results
-are ready when its flush returns.  Scalar (block_size 1) systems only,
-as in the JAX package.
+What the port leaves out (ROADMAP.md, queue A.7.7) raises
+``NotImplementedError`` when asked for: placement and failover
+(``placement=``, ``failover=``, ``fetch_watchdog_s=``: a group's fetch
+waits inline, as the JAX package's does with its watchdog off), buffer
+donation (``donate=``: torch has none), priority lanes and tenants
+(every ticket's lane is ``default`` and its tenant ``-``).  Scalar
+(block_size 1) systems only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -70,6 +101,8 @@ import torch
 from amgx_tpu_torch.config.amg_config import AMGConfig
 from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.core.device import resolve_device
+from amgx_tpu_torch.core.dispatch import dispatch_pool as _dispatch_pool
+from amgx_tpu_torch.core.dispatch import on_dispatch_worker
 from amgx_tpu_torch.core.matrix import SparseMatrix, sparsity_fingerprint
 from amgx_tpu_torch.core.types import torch_dtype
 from amgx_tpu_torch.serve.batched import make_batched_solve
@@ -83,12 +116,13 @@ from amgx_tpu_torch.serve.cache import (
     CompileCache,
     HierarchyCache,
     HierarchyEntry,
+    _compile_pool,
     config_hash,
     template_signature,
 )
 from amgx_tpu_torch.core.profiling import trace_range
 from amgx_tpu_torch.serve.metrics import ServeMetrics
-from amgx_tpu_torch.solvers.base import SolveResult
+from amgx_tpu_torch.solvers.base import PendingSolveResult, SolveResult
 from amgx_tpu_torch.telemetry import (
     FlightRecorder,
     SolveRecord,
@@ -97,7 +131,7 @@ from amgx_tpu_torch.telemetry import (
     tracing,
 )
 
-_A7 = "ROADMAP.md, queue A.7: serving tier"
+_A7 = "ROADMAP.md, queue A.7.7"
 # every ticket's lane and tenant until the gateway (queue A.7.7)
 LANE = "default"
 TENANT = "-"
@@ -204,13 +238,49 @@ CHEAP_PRECONDITIONER_CONFIG = (
 )
 
 
+def _block_ready(inflight):
+    """The group's one blocking wait: the dispatch stage's future (the
+    batched loop's result and the CUDA event recorded after its last
+    launch), then that event.  A module hook, so that tests count that
+    it runs once a group."""
+    res, event = inflight.result()
+    if event is not None:
+        event.synchronize()
+    return res
+
+
+def _fetch_host(res):
+    """The group's host fetch, the second half of its one sync (a hook
+    the tests count): the loop has already read every host field
+    (iterations, statuses, norms, history) on its way, and x stays on
+    the service's device, where the port's results keep it; so nothing
+    more is copied."""
+    return res
+
+
+def _outcome(k: int):
+    """The ``k``-th request's outcome in a fallback group's settled
+    list (:meth:`BatchedSolveService._fallback_settled`): its result,
+    or its error raised."""
+
+    def pick(outcomes):
+        out = outcomes[k]
+        if isinstance(out, BaseException):
+            raise out
+        return out
+
+    return pick
+
+
 @dataclasses.dataclass
 class SolveTicket:
-    """Handle returned by submit().  ``done()`` is True once the
-    ticket's group has run (or the ticket failed alone); ``result()``
-    flushes the group if needed and returns this request's SolveResult
-    (x on the service's device, unpadded), or raises its typed
-    error."""
+    """Handle returned by submit().  ``done()`` never blocks: it is
+    True once the ticket's group was handed to the device stage, or the
+    ticket settled alone; the result may still be in flight.
+    ``result()`` flushes the group if needed, makes the group's one
+    blocking wait (shared with every groupmate, whichever asks first)
+    and returns this request's SolveResult (x on the service's device,
+    unpadded), or raises its typed error."""
 
     _service: "BatchedSolveService"
     _group_key: tuple
@@ -256,6 +326,9 @@ class SolveTicket:
                         detail="fetch-boundary short-circuit")
                     raise self._error
                 self._result = self._batch.result_for(self)
+            if isinstance(self._result, PendingSolveResult):
+                # a sequential solve(block=False): its error raises here
+                self._result._settle()
             return self._result
 
 
@@ -279,20 +352,28 @@ class _Group:
 
 
 class _BatchResult:
-    """One batched group's results: ``fetch()`` waits for the device
-    once (whichever ticket asks first) and records the group's
-    metrics, latency stages, spans and flight records; ``result_for``
-    cuts a ticket's row out."""
+    """One dispatched batched group: ``inflight`` is the future of its
+    loop's (result, CUDA event).  ``fetch()`` makes the group's one
+    blocking wait (``_block_ready``) and host fetch (``_fetch_host``),
+    once, whichever ticket asks first, and records the group's metrics,
+    latency stages, spans and flight records; ``result_for`` cuts a
+    ticket's row out.  The ``device`` stage runs from the hand-over to
+    the end of that wait, measured at fetch: an upper bound when the
+    fetch comes late (a watcher waiting at completion would be a second
+    sync a group, which the one-sync contract rules out).  A group whose
+    loop failed settles its future with None after its quarantine:
+    each ticket then holds its own outcome."""
 
-    def __init__(self, service, res, pattern, tickets, Bb, t_flush,
-                 t_launch):
+    def __init__(self, service, inflight, pattern, tickets, Bb, t_flush,
+                 t_dispatch):
         self._service = service
-        self.res = res
+        self.inflight = inflight
+        self.res = None
         self.pattern = pattern
         self.tickets = tickets
         self.Bb = Bb
         self.t_flush = t_flush
-        self.t_launch = t_launch
+        self.t_dispatch = t_dispatch
         self._lock = threading.Lock()
         self._fetched = False
 
@@ -300,21 +381,38 @@ class _BatchResult:
         with self._lock:
             return self._fetched
 
+    def running(self) -> bool:
+        """Is the group's loop still running: its future unsettled (the
+        loop on the dispatch worker), or its CUDA event not reached?  A
+        group run inline has ended when its flush returns."""
+        fut = self.inflight
+        if fut is None:
+            return False
+        if not fut.done():
+            return True
+        event = fut.result()[1]
+        return event is not None and not event.query()
+
     def fetch(self):
         with self._lock:
             if self._fetched:
                 return self.res
-            if self.res.x.device.type == "cuda":
-                torch.cuda.synchronize(self.res.x.device)
+            res = _block_ready(self.inflight)
             t_done = time.perf_counter()
+            if res is None:
+                # the loop failed and the group went through the
+                # quarantine
+                self._fetched = True
+                self.inflight = None
+                return None
+            self.res = _fetch_host(res)
+            self.inflight = None
             m = self._service.metrics
             pat = self.pattern
-            # the loop's norm reads and this synchronisation
+            # the loop's norm reads and this wait
             m.inc("host_syncs", self.res.host_reads + 1)
-            # synchronous solve: device is the loop's first launch to
-            # this synchronisation
-            device_s = max(t_done - self.t_launch, 0.0)
-            dispatch_s = self.t_launch - self.t_flush
+            device_s = max(t_done - self.t_dispatch, 0.0)
+            dispatch_s = self.t_dispatch - self.t_flush
             m.add_time("device_busy_s", device_s)
             m.record_batch((pat.nb, pat.nnzb, self.Bb), device_s,
                            len(self.tickets), self.Bb - len(self.tickets))
@@ -358,7 +456,7 @@ class _BatchResult:
             if ctx is not None:
                 tracing.record_span("queue", t._t_submit + t._pad_s,
                                     self.t_flush, ctx)
-                tracing.record_span("device", self.t_launch, t_done, ctx)
+                tracing.record_span("device", self.t_dispatch, t_done, ctx)
                 tracing.record_span("fetch", t_done, t_fetch, ctx)
             if rec_on:
                 i = t._row
@@ -376,6 +474,11 @@ class _BatchResult:
 
     def result_for(self, ticket: SolveTicket) -> SolveResult:
         res = self.fetch()
+        if res is None:
+            # quarantined after the hand-over: the ticket's own outcome
+            if ticket._error is not None:
+                raise ticket._error
+            return ticket._result
         i, n = ticket._row, self.pattern.n
         return SolveResult(
             x=res.x[i, :n].clone(),
@@ -408,12 +511,18 @@ class BatchedSolveService:
         pattern is a half-open probe whose success closes it.
     device: ``"cuda"`` (the default; raises without a card) or
         ``"cpu"``, where the kernels' plain versions run.
+    store: the setup-artifact store of warm-boot serving (a directory
+        or an :class:`~amgx_tpu_torch.store.ArtifactStore`): every
+        hierarchy entry the service builds is exported to it in the
+        background, and :meth:`warm_boot` fills the hierarchy cache
+        from it.  The JAX package also points XLA's compile cache there;
+        the port's kernel cache is the ``_build/`` directory of the
+        checkout.
     """
 
     # the JAX package's parameters this port does not carry yet
     _LEFT_OUT = {
         "donate": "buffer donation (torch has none)",
-        "store": f"the setup store's warm boot ({_A7}: warm boot)",
         "placement": f"device placement ({_A7}: placement)",
         "fetch_watchdog_s": f"the fetch watchdog ({_A7}: failover)",
         "failover": f"device-loss failover ({_A7}: failover)",
@@ -425,7 +534,7 @@ class BatchedSolveService:
                  breaker_threshold: int = 3, breaker_probe_every: int = 8,
                  device="cuda", *, donate=None, store=None,
                  placement=None, fetch_watchdog_s=None, failover=None):
-        given = {"donate": donate, "store": store, "placement": placement,
+        given = {"donate": donate, "placement": placement,
                  "fetch_watchdog_s": fetch_watchdog_s,
                  "failover": failover}
         for name, value in given.items():
@@ -454,14 +563,23 @@ class BatchedSolveService:
             max_entries=cache_entries, metrics=self.metrics,
             on_evict=self._on_hierarchy_evict)
         self.compile_cache = CompileCache(metrics=self.metrics)
+        self.store = None
+        self._store_futures: list = []
+        if store is not None:
+            from amgx_tpu_torch.store.store import ArtifactStore
+
+            self.store = (store if isinstance(store, ArtifactStore)
+                          else ArtifactStore(store))
         self._lock = threading.RLock()
         self._groups: dict = {}
         self._queued = 0
         self._patterns: dict = {}
         self._staging: dict = {}
+        # template signature -> batch bucket of its last flush (a
+        # restored entry's build target)
+        self._last_bucket: dict = {}
         self._poller: Optional[threading.Thread] = None
         self._stop = threading.Event()
-        self._warm_pool: Optional[concurrent.futures.Executor] = None
         # circuit breaker: padded fingerprint -> consecutive failures
         self._fail_counts: dict = {}
         self._broken: set = set()
@@ -627,9 +745,10 @@ class BatchedSolveService:
 
     def prewarm(self, A, batch: Optional[int] = None):
         """Build (or find) the hierarchy entry of ``A``'s pattern and its
-        batched solve for the ``batch`` bucket (default max_batch) on a
-        background thread, so the pattern's first flush finds both
-        (``prewarms`` / ``prewarm_failures``)."""
+        batched solve for the ``batch`` bucket (default max_batch) on
+        the shared background worker, so the pattern's first flush finds
+        both (``prewarms`` / ``prewarm_failures``).  Returns the job's
+        future."""
         ro, ci, vals, n, raw_fp = _host_csr(A, self.metrics)
         pattern = self._pattern_for(ro, ci, n, raw_fp)
         dtype = _resolve_dtype(vals.dtype)
@@ -648,11 +767,63 @@ class BatchedSolveService:
             except Exception:  # noqa: BLE001 — a warm-up is best-effort
                 self.metrics.inc("prewarm_failures")
 
+        return _compile_pool().submit(job)
+
+    # ------------------------------------------------------------------
+    # the setup-artifact store (warm-boot serving, store/warmboot.py)
+
+    def _export_entry(self, entry: HierarchyEntry, dtype):
+        """Export a freshly built entry to the store on the background
+        worker (never on a flush path).  Best-effort: a failure counts
+        ``store_export_failures`` and raises nothing."""
+        if self.store is None:
+            return
+
+        def job():
+            try:
+                from amgx_tpu_torch.store.warmboot import export_entry
+
+                ok = export_entry(self, entry, dtype)
+                self.metrics.inc("store_exports" if ok
+                                 else "store_export_failures")
+            except Exception:  # noqa: BLE001 — never a serve fault
+                self.metrics.inc("store_export_failures")
+
         with self._lock:
-            if self._warm_pool is None:
-                self._warm_pool = concurrent.futures.ThreadPoolExecutor(
-                    max_workers=1, thread_name_prefix="serve-warm")
-            return self._warm_pool.submit(job)
+            self._store_futures = [f for f in self._store_futures
+                                   if not f.done()]
+            self._store_futures.append(_compile_pool().submit(job))
+
+    def flush_store(self, timeout: Optional[float] = None):
+        """Wait until every scheduled export has settled (tests and an
+        orderly shutdown; the serve path never calls it)."""
+        with self._lock:
+            futures, self._store_futures = self._store_futures, []
+        for f in futures:
+            f.result(timeout=timeout)
+
+    def export_all_entries(self) -> int:
+        """Export every cached hierarchy entry now (a drain: the hot
+        patterns must be on disk before a replacement boots), after the
+        background exports have settled, so that an entry already on
+        disk is skipped (``store_export_skips``).  Returns the number on
+        disk; 0 without a store."""
+        if self.store is None:
+            return 0
+        from amgx_tpu_torch.store.warmboot import export_all
+
+        self.flush_store()
+        return export_all(self)
+
+    def warm_boot(self, wait: bool = True, compile: bool = True) -> int:
+        """Fill the hierarchy cache from the store
+        (:func:`amgx_tpu_torch.store.warmboot.warm_boot`): a persisted
+        pattern's first group is a cache hit, with no setup, and with
+        ``compile`` its batched solve is built ahead on the background
+        worker too."""
+        from amgx_tpu_torch.store.warmboot import warm_boot
+
+        return warm_boot(self, wait=wait, compile=compile)
 
     # ------------------------------------------------------------------
     # flushing
@@ -670,13 +841,14 @@ class BatchedSolveService:
             self._execute_group(grp)
 
     def poll(self):
-        """Run the groups whose max-wait deadline has passed."""
+        """Run the groups whose max-wait deadline has passed, their
+        device stage handed to the dispatch worker (pipelined)."""
         now = time.monotonic()
         with self._lock:
             due = [self._take_group(k) for k in self._ordered_keys()
                    if self._groups[k].deadline <= now]
         for grp in due:
-            self._execute_group(grp)
+            self._execute_group(grp, wait_dispatch=False)
 
     def _enter_device(self):
         """Make the service's card this thread's current device (the
@@ -685,7 +857,9 @@ class BatchedSolveService:
             torch.cuda.set_device(self.device)
 
     def start(self, interval_s: float = 0.005):
-        """Run a daemon poller that enforces max_wait_s."""
+        """Run a daemon poller that enforces max_wait_s; its groups run
+        pipelined on the dispatch worker (:meth:`poll`), and so do the
+        groups of every flush until :meth:`stop`."""
         if self._poller is not None:
             return
         self._stop.clear()
@@ -700,15 +874,12 @@ class BatchedSolveService:
         self._poller.start()
 
     def stop(self):
-        """Stop the poller and the warm-up thread, then flush."""
+        """Stop the poller, then flush (the shared workers stay: other
+        services use them)."""
         if self._poller is not None:
             self._stop.set()
             self._poller.join()
             self._poller = None
-        with self._lock:
-            pool, self._warm_pool = self._warm_pool, None
-        if pool is not None:
-            pool.shutdown(wait=True)
         self.flush()
 
     def __enter__(self):
@@ -861,9 +1032,11 @@ class BatchedSolveService:
         for k, v in (getattr(inner, "setup_profile", None) or {}).items():
             if isinstance(v, float):
                 self.metrics.profile.add(f"setup:{k}", v)
-        return HierarchyEntry(solver=solver, template=template,
-                              batch_fn=batch_fn, signature=sig,
-                              pattern=pattern)
+        entry = HierarchyEntry(solver=solver, template=template,
+                               batch_fn=batch_fn, signature=sig,
+                               pattern=pattern)
+        self._export_entry(entry, dtype)
+        return entry
 
     def resetup_entry(self, fingerprint: str, values, dtype=None, *,
                       b=None, x0=None):
@@ -904,17 +1077,22 @@ class BatchedSolveService:
                 if x0.shape[0] == pat.n:
                     x0 = pat.embed_vector(x0, dtype)
         with entry.solver_lock:
+            entry.settle()
             entry.solver.resetup(A)
             res = None if b is None else entry.solver.solve(bb, x0=x0)
         self.metrics.inc("entry_resetups")
         return res
 
     def _on_hierarchy_evict(self, key, entry: HierarchyEntry):
-        """Drop an evicted entry's batched solves unless another cached
+        """Drop an evicted entry's batched solves, and its signature's
+        last bucket (the store's build target), unless another cached
         entry shares its signature."""
         sig = entry.signature
-        if sig is not None and not self.cache.any_with_signature(sig):
-            self.compile_cache.evict_signature(sig)
+        if sig is None or self.cache.any_with_signature(sig):
+            return
+        self.compile_cache.evict_signature(sig)
+        with self._lock:
+            self._last_bucket.pop(sig, None)
 
     def _expire_deadlines(self, grp: _Group):
         """Fail (only) the tickets whose deadline already passed; their
@@ -965,9 +1143,17 @@ class BatchedSolveService:
                 self.metrics.inc("breaker_closes")
                 self.metrics.set_gauge("breakers_open", len(self._broken))
 
-    def _execute_group(self, grp: _Group):
-        """Deadlines, the breaker, the hierarchy entry and its batched
-        solve, then the group's run; a failure quarantines the group."""
+    def _execute_group(self, grp: _Group, wait_dispatch: bool = True):
+        """Host stage of a flush: deadlines, the breaker, the hierarchy
+        entry and its batched solve; then the device stage.  A flush
+        (``wait_dispatch``: a submit at ``max_batch``, ``flush()``,
+        ``solve_many``, a ``result()`` of a queued ticket) returns once
+        its tickets are done(): a service that is not started runs the
+        device stage inline, a started one hands it to the dispatch
+        worker and waits for the hand-over only, as the JAX package's
+        flush returns at dispatch.  The poller (``wait_dispatch``
+        False) hands it over and goes back to padding.  A failure here
+        quarantines the group."""
         if not grp.requests:
             self._release_group_slot(grp)
             return
@@ -996,7 +1182,6 @@ class BatchedSolveService:
                 lambda: self._build_entry(grp.pattern, vals0, grp.dtype))
             if entry.batch_fn is None:
                 self._execute_sequential(entry, grp, live)
-                self._breaker_success(fp)
                 return
             if faults.should_fire("serve_compile"):
                 from amgx_tpu_torch.core.errors import ResourceError
@@ -1005,69 +1190,153 @@ class BatchedSolveService:
                                     "(fault site serve_compile)")
             Bb = bucket_batch(len(grp.requests))
             fn = self.compile_cache.get(entry, Bb)
-            self._dispatch_batched(entry, fn, grp, live, Bb, t_flush)
+            with self._lock:
+                if len(self._last_bucket) >= self._PATTERN_CACHE_MAX:
+                    self._last_bucket.clear()
+                self._last_bucket[entry.signature] = Bb
         except Exception:  # noqa: BLE001 — failures reach the tickets
             # the group failed as a unit (a poisoned member spoiled the
-            # shared setup, or the batched solve raised): every member
-            # re-solves alone, so only the poisoned ones fail
+            # shared setup, or the build raised): every member re-solves
+            # alone, so only the poisoned ones fail
             self._group_failed(grp, fp)
+            self._execute_quarantined(grp)
             return
-        self._breaker_success(fp)
+        if wait_dispatch and (self._poller is None or on_dispatch_worker()):
+            # (a job on the worker cannot wait for one queued behind it)
+            self._dispatch_batched(entry, fn, grp, live, Bb, t_flush)
+            return
+        handed = threading.Event()
+        _dispatch_pool().submit(self._dispatch_batched, entry, fn, grp,
+                                live, Bb, t_flush, handed)
+        if wait_dispatch:
+            handed.wait()
 
     def _group_failed(self, grp: _Group, fp: str):
+        """Count a group that failed as a unit (its members then
+        re-solve alone)."""
         self.metrics.inc("failed_groups")
         self._breaker_failure(fp)
         self.metrics.inc("quarantines")
         self._flight_incident(
             "quarantine",
             detail=f"group of {len(grp.requests)} fingerprint {fp[:16]}...")
-        self._execute_quarantined(grp)
 
-    def _dispatch_batched(self, entry, fn, grp, live, Bb, t_flush):
-        """Ship the staged rows to the device, run the group's batched
-        solve and hand its results to the tickets.  Raises on failure
-        (the caller quarantines the group: the slot is still held)."""
+    def _dispatch_batched(self, entry, fn, grp, live, Bb, t_flush,
+                          handed=None):
+        """Device stage: ship the staged rows to the device, release the
+        slot, hand the group to its tickets (done() from here, and
+        ``handed`` set), run the batched loop and settle the group's
+        future with its result and a CUDA event recorded after its last
+        launch.  Runs inline or on the dispatch worker, and never
+        raises: a failure before the hand-over quarantines the group
+        from its slot, one in the loop from the rows' device copies."""
         pat, slot = grp.pattern, grp.slot
+        fp = pat.fingerprint
         nreq = len(grp.requests)
-        with trace_range("serve_batch_dispatch"), \
-                self.metrics.profile.phase("dispatch"):
-            # batch padding: clones of a live system with b = 0 converge
-            # at iteration 0 and freeze
-            slot.fill_batch_padding(nreq, Bb)
-            if live[0].row != 0:
-                slot.vals[nreq:Bb] = slot.vals[live[0].row]
-            dev = self.device
-            vals_d = torch.from_numpy(slot.vals[:Bb]).to(dev)
-            bs_d = torch.from_numpy(slot.bs[:Bb]).to(dev)
-            if slot.x0_used:
-                x0_d = torch.from_numpy(slot.x0s[:Bb]).to(dev)
+        dev = self.device
+        inflight = concurrent.futures.Future()
+        shipped = None
+        try:
+            with trace_range("serve_batch_dispatch"), \
+                    self.metrics.profile.phase("dispatch"):
+                try:
+                    self._enter_device()
+                    # batch padding: clones of a live system with b = 0
+                    # converge at iteration 0 and freeze
+                    slot.fill_batch_padding(nreq, Bb)
+                    if live[0].row != 0:
+                        slot.vals[nreq:Bb] = slot.vals[live[0].row]
+                    # copies, on the CPU too: the slot goes back to the
+                    # pool before the loop reads them
+                    shipped = tuple(
+                        None if a is None
+                        else torch.from_numpy(a[:Bb]).to(dev, copy=True)
+                        for a in (slot.vals, slot.bs,
+                                  slot.x0s if slot.x0_used else None))
+                except Exception:  # noqa: BLE001 — the rows are still staged
+                    shipped = None
+                if shipped is not None:
+                    vals_d, bs_d, x0_d = shipped
+                    if x0_d is None:
+                        x0_d = torch.zeros_like(bs_d)
+                    self._release_group_slot(grp)
+                    t_dispatch = time.perf_counter()
+                    self._handed_over(grp, live, Bb, inflight, t_flush,
+                                      t_dispatch)
+                    if handed is not None:
+                        handed.set()
+                    try:
+                        res = fn(entry.template, vals_d, bs_d, x0_d)
+                        event = None
+                        if dev.type == "cuda":
+                            event = torch.cuda.Event()
+                            event.record()
+                        self.metrics.inc("batches")
+                    except Exception:  # noqa: BLE001 — the group quarantines
+                        res = None
+            if shipped is None:
+                self._group_failed(grp, fp)
+                self._execute_quarantined(grp)
+            elif res is None:
+                self._loop_failed(grp, fp, live, inflight, shipped)
             else:
-                x0_d = torch.zeros_like(bs_d)
-            t_launch = time.perf_counter()
-            res = fn(entry.template, vals_d, bs_d, x0_d)
-            self.metrics.inc("batches")
-        self._release_group_slot(grp)
+                inflight.set_result((res, event))
+                self._breaker_success(fp)
+        finally:
+            if handed is not None:
+                handed.set()
+
+    def _handed_over(self, grp, live, Bb, inflight, t_flush, t_dispatch):
+        """The group's rows are on the device: its host time, its
+        dispatch spans, and its tickets handed the group's result (done()
+        from here)."""
         self.metrics.add_time(
             "host_busy_s",
-            (t_launch - t_flush) + sum(r.ticket._pad_s for r in live))
+            (t_dispatch - t_flush) + sum(r.ticket._pad_s for r in live))
         if tracing.tracing_enabled():
             sampled = [r.ticket._trace for r in live
                        if r.ticket._trace is not None]
             for c in sampled:
-                tracing.record_span("dispatch", t_flush, t_launch, c)
+                tracing.record_span("dispatch", t_flush, t_dispatch, c)
             # one group-formation span per group with a sampled member,
             # naming the members' trace ids
             if sampled:
                 tracing.record_span(
-                    "flush_group", t_flush, t_launch, None,
+                    "flush_group", t_flush, t_dispatch, None,
                     args={"members": [c.trace_id for c in sampled],
-                          "batch": Bb, "real": nreq, "lane": LANE,
-                          "fingerprint": pat.fingerprint[:16]})
-        br = _BatchResult(self, res, pat, [r.ticket for r in live], Bb,
-                          t_flush, t_launch)
+                          "batch": Bb, "real": len(grp.requests),
+                          "lane": LANE,
+                          "fingerprint": grp.pattern.fingerprint[:16]})
+        br = _BatchResult(self, inflight, grp.pattern,
+                          [r.ticket for r in live], Bb, t_flush, t_dispatch)
         for r in live:
             r.ticket._batch = br
             r.ticket._done = True
+
+    def _loop_failed(self, grp, fp, live, inflight, shipped):
+        """The batched loop raised after the hand-over: every member
+        re-solves alone from its rows read back from their device copies
+        (``shipped``: values, b, and x0 or None for zeros; the slot is
+        already back in the pool; a row that cannot be read back fails
+        its request), then the group's future settles with None, so a
+        ticket waiting in ``result()`` reads its own outcome."""
+        vals_d, bs_d, x0_d = shipped
+        pat = grp.pattern
+
+        def rows(i):
+            b = bs_d[i].cpu().numpy().copy()
+            x0 = (np.zeros_like(b) if x0_d is None
+                  else x0_d[i].cpu().numpy().copy())
+            return pat.extract_values(vals_d[i].cpu().numpy()), b, x0
+
+        try:
+            self._group_failed(grp, fp)
+            entry = self.cache.peek(fp, self.cfg_key, grp.dtype)
+            for r in live:
+                self._settle_alone(r.ticket, pat, grp.dtype, entry,
+                                   lambda i=r.row: rows(i))
+        finally:
+            inflight.set_result((None, None))
 
     def _isolated_solve(self, pat, entry, vals, b, x0, dtype):
         """One request alone: through the cached entry (a values-only
@@ -1084,69 +1353,125 @@ class BatchedSolveService:
         solver.setup(self._template(pat, vals, dtype))
         return solver.solve(b, x0=x0)
 
+    def _solve_alone(self, ticket, pat, dtype, entry, rows):
+        """Quarantine one request: re-solve it alone from ``rows()``
+        (its values, b and x0), so that only a poisoned request fails,
+        with its typed error.  Returns its result (x unpadded) or raises
+        that error, counted either way."""
+        try:
+            vals, b, x0 = rows()
+            with self.metrics.profile.phase("quarantine"):
+                res = self._isolated_solve(pat, entry, vals, b, x0, dtype)
+        except Exception:
+            self.metrics.inc("poisoned_requests")
+            raise
+        self.metrics.inc("quarantined_solves")
+        self.metrics.inc("solved")
+        self._record_alone(ticket, pat, res, "quarantine")
+        return dataclasses.replace(res, x=res.x[: pat.n])
+
+    def _settle_alone(self, ticket, pat, dtype, entry, rows):
+        """A ticket's own outcome from :meth:`_solve_alone`."""
+        try:
+            ticket._result = self._solve_alone(ticket, pat, dtype, entry,
+                                               rows)
+        except Exception as e:  # noqa: BLE001 — per request
+            ticket._error = e
+        ticket._done = True
+
     def _execute_quarantined(self, grp: _Group):
-        """Per-request isolation: each request re-solves on its own
-        coefficients, so exactly the poisoned requests fail (with their
-        typed errors) and the rest complete."""
-        pat = grp.pattern
+        """Per-request isolation from the staging slot: every member not
+        yet settled re-solves alone (:meth:`_solve_alone`)."""
+        pat, slot = grp.pattern, grp.slot
         entry = self.cache.peek(pat.fingerprint, self.cfg_key, grp.dtype)
         try:
             for r in grp.requests:
                 if r.ticket._done:
                     continue
-                vals = pat.extract_values(grp.slot.vals[r.row])
-                b = grp.slot.bs[r.row].copy()
-                x0 = grp.slot.x0s[r.row].copy()
-                try:
-                    with self.metrics.profile.phase("quarantine"):
-                        res = self._isolated_solve(pat, entry, vals, b, x0,
-                                                   grp.dtype)
-                except Exception as e:  # noqa: BLE001 — per request
-                    r.ticket._error = e
-                    r.ticket._done = True
-                    self.metrics.inc("poisoned_requests")
-                else:
-                    r.ticket._result = dataclasses.replace(
-                        res, x=res.x[: pat.n])
-                    r.ticket._done = True
-                    self.metrics.inc("quarantined_solves")
-                    self.metrics.inc("solved")
-                    self._record_alone(r.ticket, pat, res, "quarantine")
+                self._settle_alone(
+                    r.ticket, pat, grp.dtype, entry,
+                    lambda i=r.row: (pat.extract_values(slot.vals[i]),
+                                     slot.bs[i].copy(), slot.x0s[i].copy()))
         finally:
             self._release_group_slot(grp)
 
     def _execute_sequential(self, entry: HierarchyEntry, grp: _Group,
                             live: list):
         """Solvers without a batch rebuild: each request in turn on the
-        cached solver (values-only resetup, then solve).  The slot is
-        released only on full success, so a failure mid-way leaves the
-        rows for the quarantine path."""
+        cached solver (values-only resetup, then ``solve(block=False)``:
+        the loop runs on the dispatch worker while the next request is
+        prepared; a resetup first waits for the solve before it, since
+        the solver is shared).  A failure here leaves the rows staged
+        for the quarantine path.  Once every solve is submitted the slot
+        goes back to the pool, and :meth:`_fallback_settled` runs on the
+        worker behind them: the tickets' results come from it."""
         pat = grp.pattern
+        kept = []
         for r in live:
             with self.metrics.profile.phase("fallback"):
-                vals = pat.extract_values(grp.slot.vals[r.row])
-                A = self._template(pat, vals, grp.dtype)
+                i = r.row
+                rows = (pat.extract_values(grp.slot.vals[i]),
+                        grp.slot.bs[i].copy(), grp.slot.x0s[i].copy())
+                A = self._template(pat, rows[0], grp.dtype)
                 with entry.solver_lock:
+                    entry.settle()
                     entry.solver.resetup(A)
-                    res = entry.solver.solve(grp.slot.bs[r.row].copy(),
-                                             x0=grp.slot.x0s[r.row].copy())
-            r.ticket._result = dataclasses.replace(res, x=res.x[: pat.n])
-            r.ticket._done = True
-            self.metrics.inc("fallback_solves")
-            self.metrics.inc("solved")
-            self._record_alone(r.ticket, pat, res, "fallback")
+                    res = entry.solver.solve(rows[1], x0=rows[2],
+                                             block=False)
+                    entry.pending = res
+            kept.append((r.ticket, rows, res))
         self._release_group_slot(grp)
+        outcomes = _dispatch_pool().submit(self._fallback_settled, grp, kept)
+        for k, (t, _rows, _res) in enumerate(kept):
+            t._result = PendingSolveResult(outcomes, then=_outcome(k))
+            t._done = True
+            self.metrics.inc("fallback_solves")
+            self._record_alone(t, pat, None, "fallback")
+
+    def _fallback_settled(self, grp: _Group, kept: list) -> list:
+        """A fallback group's last job on the dispatch worker, which runs
+        its jobs in order, so every solve of the group has ended: each
+        request's outcome (its result, x unpadded, or its error).  All
+        solved: the breaker counts a success.  A solve that raised fails
+        the group as a unit, as a batched loop's failure does, and its
+        request re-solves alone from its kept rows on a fresh setup (the
+        shared solver's lock may be held by a flush waiting on this
+        worker)."""
+        pat = grp.pattern
+        fp = pat.fingerprint
+        out, failed = [], False
+        for t, rows, res in kept:
+            try:
+                out.append(dataclasses.replace(res, x=res.x[: pat.n]))
+                self.metrics.inc("solved")
+                continue
+            except Exception:  # noqa: BLE001 — the request quarantines
+                pass
+            if not failed:
+                failed = True
+                self._group_failed(grp, fp)
+            try:
+                out.append(self._solve_alone(t, pat, grp.dtype, None,
+                                             lambda r=rows: r))
+            except Exception as e:  # noqa: BLE001 — the ticket's error
+                out.append(e)
+        if not failed:
+            self._breaker_success(fp)
+        return out
 
     def _record_alone(self, ticket, pat, res, path: str):
-        """The flight record of a request solved alone (the solve is
-        synchronous, so its status and iterations are known: the JAX
-        package's fallback record holds -1 and NaN for them)."""
+        """The flight record of a request solved alone.  A quarantined
+        solve is synchronous and records its status and iterations; a
+        fallback solve (``res`` None) is still in flight and records -1
+        and NaN, as the JAX package's does (reading them would wait)."""
         if not telemetry_enabled():
             return
         ctx = ticket._trace
         self._flight_record(
             fingerprint=pat.fingerprint, config=self.cfg_key, lane=LANE,
-            tenant=TENANT, iterations=int(res.iters),
-            final_residual=float(np.max(np.asarray(res.final_norm))),
-            status=int(res.status), stages={}, path=path,
-            trace_id=ctx.trace_id if ctx is not None else None)
+            tenant=TENANT,
+            iterations=-1 if res is None else int(res.iters),
+            final_residual=(float("nan") if res is None
+                            else float(np.max(np.asarray(res.final_norm)))),
+            status=-1 if res is None else int(res.status), stages={},
+            path=path, trace_id=ctx.trace_id if ctx is not None else None)

@@ -30,29 +30,45 @@ refreshes the cached solver through
 :meth:`BatchedSolveService.resetup_entry`, so the quarantine path and
 the Chebyshev bound cache (``reestimate_eigs``) follow the stream.
 
-Differences from the JAX package (ROADMAP.md, queue C):
-  * the port's solve is synchronous (queue A.7.5): a group has run when
-    its flush returns, so ``prestage`` never overlaps a solve in flight
-    and ``resetup_overlap_s`` stays 0;
-  * the service's batched loop reads each iteration's norms, so a step
-    group costs its iterations + 2 host syncs, not one.
+Over a started service (its poller running, ``start()``), the flush of
+a step group (the submit that fills ``max_batch``, or ``step_all``'s
+flush) hands it to the service's dispatch worker and returns at the
+hand-over; the group is fetched at the next step's resolve, so
+``prestage`` of step k + 1 runs while step k's loop is still running:
+that time is the resetup/solve overlap (``resetup_overlap_s``).  Over a
+service that is not started the group runs inline in the flush, as
+every synchronous flush of the port does, and the overlap stays 0 (the
+JAX package's flush returns at dispatch on any service; ROADMAP.md,
+queue C).  The service's batched loop reads each iteration's norms, so
+a step group costs its iterations + 2 host syncs, not one (queue C).
+
+Persistence, as in the JAX package: :meth:`SolveSession.save` writes a
+small manifest (step counter, warm start x, status, the registered
+pattern) into the :class:`~amgx_tpu_torch.store.ArtifactStore`; the
+hierarchy is the serve layer's own export (``store/warmboot.py``).  A
+drained worker's sessions survive a restart: ``warm_boot()`` then
+:meth:`SessionManager.restore` resume the stream at the saved step with
+no coarsening and the exporter's hierarchy bit for bit.
+``checkpoint_every`` saves each session every N resolved steps, and
+:meth:`SessionManager.recover` resumes a session from its last
+checkpoint.
 
 Telemetry, as in the JAX package: the manager registers a ``sessions``
 source (:meth:`SessionManager.telemetry_snapshot`, the
-``amgx_session_*`` families; :meth:`SessionManager.counters` holds the
-same counts); a resolved step leaves a flight record (``path``
+``amgx_session_*`` families, the saves, checkpoints, restores and their
+failures among them; :meth:`SessionManager.counters` holds the same
+counts); a resolved step leaves a flight record (``path``
 ``session_step``) in the service's recorder; with request tracing on, a
 sampled step's root span is ``session_step`` (its ``resetup`` child at
 prestage, then the service's ``pad`` ... ``fetch``).
 
 Not ported, each raising ``NotImplementedError`` with its queue item:
-persistence (``save`` / ``restore`` / ``recover`` / ``save_all`` /
-``drain``, a ``store`` and ``checkpoint_every``: A.7.6), a gateway
-front, tenants and lanes, ``placement_device`` (A.7.7).
+a gateway front, tenants and lanes, ``placement_device`` (A.7.7).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import uuid
@@ -60,6 +76,7 @@ from typing import Optional
 
 import numpy as np
 
+from amgx_tpu_torch.core.errors import StoreError
 from amgx_tpu_torch.core.types import host_array
 from amgx_tpu_torch.serve.service import (
     LANE,
@@ -74,9 +91,19 @@ from amgx_tpu_torch.telemetry import (
     tracing,
 )
 
-_WARM_BOOT = "ROADMAP.md, queue A.7.6: warm boot and the service's store"
 _GATEWAY = ("ROADMAP.md, queue A.7.7: the gateway, lanes, tenants and "
             "placement")
+SESSION_KIND = "solve_session"
+# sessions are keyed in the store without a dtype axis (the dtype is in
+# the manifest); this fills the key's dtype slot
+_SESSION_KEY_DTYPE = "session"
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
 
 
 class StepTicket:
@@ -191,6 +218,7 @@ class SolveSession:
                 "pipelines at depth one (x0 depends on the previous x)")
         t0 = time.perf_counter()
         ctx = tracing.new_trace()
+        overlapped = self._previous_in_flight()
         values = np.ascontiguousarray(
             np.asarray(values, dtype=self.dtype).reshape(-1))
         if values.shape[0] != self.nnz:
@@ -202,9 +230,20 @@ class SolveSession:
         resetup_s = time.perf_counter() - t0
         if ctx is not None:
             tracing.record_span("resetup", t0, t0 + resetup_s, ctx)
-        self.manager._account_resetup(resetup_s)
+        self.manager._account_resetup(resetup_s, overlapped)
         self._staged = (values, b, t0, resetup_s, ctx)
         return self
+
+    def _previous_in_flight(self) -> bool:
+        """Is the previous step's group still running (handed to the
+        dispatch worker, its loop not ended)?  Host work done now then
+        overlaps it.  A group flushed inline has ended by the time the
+        next prestage runs."""
+        p = self._pending
+        if p is None or p._res is not None or p._err is not None:
+            return False
+        batch = getattr(p.ticket, "_batch", None)
+        return batch is not None and batch.running()
 
     def commit(self, b=None) -> StepTicket:
         """Resolve the previous step (updating the warm start) and submit
@@ -316,10 +355,16 @@ class SolveSession:
             self._last_iters = int(res.iters)
             self.step_idx = st.step + 1
             self.manager._record_step(self, st, res)
+            self.manager._maybe_checkpoint(self)
 
     def save(self, store=None) -> bool:
-        raise NotImplementedError(
-            f"SolveSession.save: {_WARM_BOOT} is not ported")
+        """Write this session's streaming state (step counter, warm
+        start x, status, registered pattern) to the store (``store``, a
+        directory or an ArtifactStore, else the manager's).  The
+        hierarchy persists through the service's entry export.  False
+        (counted) on failure: persistence never raises into a
+        stream."""
+        return self.manager.save_session(self, store=store)
 
     def close(self):
         """Finish and deregister (the hierarchy stays cached for other
@@ -336,14 +381,17 @@ class SessionManager:
     ----------
     front: the service every step submits through (a gateway front is
         not ported: queue A.7.7).
-    store: the sessions' artifact store: not ported (A.7.6); None.
+    store: the store of the session manifests (a directory or an
+        ArtifactStore; default: the service's own store).
     resetup_every: every N streamed steps of a pattern, refresh its
         cached hierarchy entry with the step's values through
         :meth:`BatchedSolveService.resetup_entry` (0: never; default
         64).  Counted per
         fingerprint: B lockstep sessions share one entry.
-    checkpoint_every: 0 (the default with no store); a cadence needs the
-        store (A.7.6).
+    checkpoint_every: save each session's manifest every N resolved
+        steps, so :meth:`recover` loses at most N steps (0: never;
+        default ``AMGX_TPU_SESSION_CHECKPOINT_EVERY``, 16; nothing is
+        saved without a store).
     """
 
     def __init__(self, front, store=None,
@@ -353,21 +401,21 @@ class SessionManager:
             raise NotImplementedError(
                 f"SessionManager over {type(front).__name__}: {_GATEWAY} "
                 "is not ported; pass a BatchedSolveService")
-        if store is not None:
-            raise NotImplementedError(
-                f"SessionManager(store=...): {_WARM_BOOT} is not ported")
-        if checkpoint_every:
-            raise NotImplementedError(
-                f"SessionManager(checkpoint_every=...): {_WARM_BOOT} is "
-                "not ported")
         self.service = front
-        self.store = None
-        self.checkpoint_every = 0
+        self.store = store if store is not None else front.store
+        if isinstance(self.store, (str, os.PathLike)):
+            from amgx_tpu_torch.store.store import ArtifactStore
+
+            self.store = ArtifactStore(self.store)
+        self.checkpoint_every = (
+            _env_int("AMGX_TPU_SESSION_CHECKPOINT_EVERY", 16)
+            if checkpoint_every is None else int(checkpoint_every))
         self.resetup_every = int(resetup_every)
         self._lock = threading.Lock()
         self._sessions: dict = {}
         self._counters: dict = {}
         self._resetup_s = 0.0
+        self._overlap_s = 0.0
         # steps per fingerprint: the entry-refresh cadence follows the
         # entry's traffic, not one session's step count
         self._fp_steps: dict = {}
@@ -379,9 +427,11 @@ class SessionManager:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + by
 
-    def _account_resetup(self, seconds: float):
+    def _account_resetup(self, seconds: float, overlapped: bool = False):
         with self._lock:
             self._resetup_s += seconds
+            if overlapped:
+                self._overlap_s += seconds
 
     def counters(self) -> dict:
         """The manager's counters (the JAX package's ``amgx_session_*``
@@ -397,8 +447,7 @@ class SessionManager:
 
     def telemetry_snapshot(self) -> dict:
         """Registry source (kind ``sessions``): :meth:`counters` and the
-        overlap seconds (0: the solve is synchronous), the
-        ``amgx_session_*`` families."""
+        overlap seconds, the ``amgx_session_*`` families."""
         out = self.counters()
         out["resetup_overlap_seconds_total"] = self.resetup_overlap_s
         return out
@@ -423,10 +472,10 @@ class SessionManager:
 
     @property
     def resetup_overlap_s(self) -> float:
-        """Seconds of prestage work that ran while the previous step was
-        still solving: 0, since a group has run when its flush returns
-        (the solve is synchronous until ROADMAP.md queue A.7.5)."""
-        return 0.0
+        """Seconds of prestage work that ran while the previous step's
+        loop was still running."""
+        with self._lock:
+            return self._overlap_s
 
     @property
     def resetup_s(self) -> float:
@@ -534,24 +583,167 @@ class SessionManager:
         except Exception:  # noqa: BLE001 — the cadence is an optimisation
             self._count("entry_resetup_failures_total")
 
-    # -- persistence (ROADMAP.md, queue A.7.6) -------------------------
+    # -- persistence ---------------------------------------------------
 
-    def save_session(self, sess, store=None) -> bool:
-        raise NotImplementedError(
-            f"SessionManager.save_session: {_WARM_BOOT} is not ported")
+    def _session_key(self, session_id: str, store=None):
+        """The one place a session's store key derives (save and
+        restore must agree)."""
+        st = store if store is not None else self.store
+        if st is None:
+            raise StoreError("SessionManager has no artifact store")
+        return st.entry_key(session_id, self.service.cfg_key,
+                            _SESSION_KEY_DTYPE, kind=SESSION_KIND)
 
-    def restore(self, session_id: str, **kw):
-        raise NotImplementedError(
-            f"SessionManager.restore: {_WARM_BOOT} is not ported")
+    def save_session(self, sess: SolveSession, store=None) -> bool:
+        """Write one session's streaming state (manifest and arrays, the
+        JAX package's layout).  False (counted) on any failure."""
+        st = store if store is not None else self.store
+        if isinstance(st, (str, os.PathLike)):
+            from amgx_tpu_torch.store.store import ArtifactStore
 
-    def recover(self, session_id: str, **kw):
-        raise NotImplementedError(
-            f"SessionManager.recover: {_WARM_BOOT} is not ported")
+            st = ArtifactStore(st)
+        if st is None:
+            self._count("save_failures_total")
+            return False
+        try:
+            arrays = {"row_offsets": np.asarray(sess._ro),
+                      "col_indices": np.asarray(sess._ci)}
+            if sess._last_x is not None:
+                arrays["x"] = np.asarray(sess._last_x)
+            manifest = {
+                "kind": SESSION_KIND,
+                "session_id": sess.session_id,
+                "raw_fingerprint": sess.fingerprint,
+                "padded_fingerprint": sess._padded_fp,
+                "cfg_key": self.service.cfg_key,
+                "dtype": str(sess.dtype),
+                "n": sess.n,
+                "nnz": sess.nnz,
+                "step": sess.step_idx,
+                "last_status": sess._last_status,
+                "last_iterations": sess._last_iters,
+                "tenant": "default",
+                "lane": "interactive",
+                "deadline_s": sess.deadline_s,
+            }
+            key = self._session_key(sess.session_id, store=st)
+            ok = st.put(key, arrays, manifest)
+        except Exception:  # noqa: BLE001 — persistence never raises
+            ok = False
+        self._count("saves_total" if ok else "save_failures_total")
+        return ok
+
+    def _maybe_checkpoint(self, sess: SolveSession):
+        """The ``checkpoint_every`` cadence: save the session after every
+        Nth resolved step (the whole payload, the pattern included: the
+        store holds one entry per session, overwritten atomically).  A
+        failed checkpoint counts and never fails the step."""
+        n = self.checkpoint_every
+        if n <= 0 or self.store is None or sess.step_idx % n:
+            return
+        if self.save_session(sess):
+            self._count("checkpoints_total")
+            self.service.metrics.inc("resilience_checkpoints")
+        else:
+            self._count("checkpoint_failures_total")
+
+    def recover(self, session_id: str, **kw) -> SolveSession:
+        """Resume one session from its last checkpoint (:meth:`restore`)
+        and retire the live object: its step in flight is dropped, the
+        checkpoint is the resume point.  ``StoreError`` when there is no
+        checkpoint; the live session is then left as it was (restore
+        runs first)."""
+        live = self.get(session_id)
+        sess = self.restore(session_id, **kw)
+        if live is not None:
+            live._abandon_stage()
+            live._pending = None
+            live.closed = True
+        self._count("recoveries_total")
+        return sess
 
     def save_all(self) -> int:
-        raise NotImplementedError(
-            f"SessionManager.save_all: {_WARM_BOOT} is not ported")
+        """Finish and save every open session (the drain protocol);
+        returns the number saved."""
+        saved = 0
+        for sess in self.sessions():
+            sess.finish()
+            if self.save_session(sess):
+                saved += 1
+        return saved
+
+    def restore(self, session_id: str, *, tenant: Optional[str] = None,
+                lane: Optional[str] = None,
+                deadline_s: Optional[float] = None) -> SolveSession:
+        """Resume a saved session: its step counter, warm start x,
+        status and registered pattern (and its per-step deadline, unless
+        ``deadline_s`` is given).  The hierarchy is expected in the
+        service's cache (``warm_boot()`` it first), so the resumed
+        stream coarsens nothing.  ``StoreError`` (counted in
+        ``restore_failures_total``) when the manifest is missing or
+        corrupt, or was written under another configuration."""
+        if tenant not in (None, "default") or lane not in (
+                None, "interactive"):
+            raise NotImplementedError(
+                f"SessionManager.restore(tenant=, lane=): {_GATEWAY} is "
+                "not ported")
+        if self.store is None:
+            self._count("restore_failures_total")
+            raise StoreError("SessionManager has no artifact store")
+        got = self.store.get(self._session_key(session_id))
+        if got is None:
+            self._count("restore_failures_total")
+            raise StoreError(
+                f"no persisted session {session_id!r} for this service's "
+                "config")
+        manifest, arrays = got
+        try:
+            if manifest.get("kind") != SESSION_KIND:
+                raise StoreError(
+                    f"payload kind {manifest.get('kind')!r} is not a solve "
+                    "session")
+            if manifest.get("cfg_key") != self.service.cfg_key:
+                raise StoreError(
+                    "session was streamed under a different solver "
+                    "configuration")
+            host = (np.asarray(arrays["row_offsets"]),
+                    np.asarray(arrays["col_indices"]),
+                    int(manifest["n"]), str(manifest["raw_fingerprint"]))
+            if deadline_s is None:
+                dl = manifest.get("deadline_s")
+                deadline_s = None if dl is None else float(dl)
+            sess = SolveSession(self, session_id, host,
+                                manifest.get("dtype"),
+                                deadline_s=deadline_s)
+            sess.step_idx = int(manifest.get("step", 0))
+            sess._padded_fp = manifest.get("padded_fingerprint")
+            if "x" in arrays:
+                sess._last_x = np.array(arrays["x"])
+                ls = manifest.get("last_status")
+                sess._last_status = None if ls is None else int(ls)
+            li = manifest.get("last_iterations")
+            sess._last_iters = None if li is None else int(li)
+        except StoreError:
+            self._count("restore_failures_total")
+            raise
+        except Exception as e:
+            self._count("restore_failures_total")
+            raise StoreError(
+                f"malformed session manifest for {session_id!r}: {e}"
+            ) from e
+        if sess._padded_fp is None:
+            sess._padded_fp = self.service._pattern_for(
+                sess._ro, sess._ci, sess.n, sess.fingerprint).fingerprint
+        with self._lock:
+            self._sessions[session_id] = sess
+        self._count("restores_total")
+        self.service.metrics.inc("resilience_restores")
+        return sess
 
     def drain(self) -> dict:
-        raise NotImplementedError(
-            f"SessionManager.drain: {_WARM_BOOT} is not ported")
+        """A graceful hand-off over the service: flush, finish and save
+        every session, and export the hierarchy cache."""
+        self.flush()
+        saved = self.save_all()
+        exported = self.service.export_all_entries()
+        return {"sessions_saved": saved, "entries_exported": exported}

@@ -72,6 +72,65 @@ class SolveResult:
     history: np.ndarray  # (max_iters+1, ncomp) real, NaN-padded
 
 
+class _Settled:
+    """A :class:`SolveResult` field of a pending solve: the first read
+    waits for the solve and then the instance's own value (set by the
+    settle) shadows this descriptor."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, obj, cls=None):
+        if obj is None:
+            return self
+        obj._settle()
+        return obj.__dict__[self.name]
+
+
+class PendingSolveResult(SolveResult):
+    """The result of ``solve(block=False)``: the solve runs on the
+    dispatch worker (``core/dispatch.py``) and every field comes from
+    its future when first read, so reading ``x``, ``iters``, ``status``,
+    ``final_norm``, ``initial_norm`` or ``history`` waits for it (and
+    raises the solve's error, if it failed).  ``then(fn)`` is the
+    result ``fn(result)`` of the same solve, still pending.
+    ``dataclasses.replace`` of a pending result waits and gives a
+    settled one."""
+
+    x = _Settled()
+    iters = _Settled()
+    status = _Settled()
+    final_norm = _Settled()
+    initial_norm = _Settled()
+    history = _Settled()
+
+    def __init__(self, future=None, then=None, **fields):
+        if future is None:
+            # dataclasses.replace: the fields are given
+            SolveResult.__init__(self, **fields)
+            self._future = None
+            return
+        self._future = future
+        self._then = then
+
+    def _settle(self):
+        if self._future is None or "x" in self.__dict__:
+            return
+        res = self._future.result()
+        if self._then is not None:
+            res = self._then(res)
+        for f in dataclasses.fields(SolveResult):
+            self.__dict__[f.name] = getattr(res, f.name)
+
+    def then(self, fn) -> "PendingSolveResult":
+        if self._future is None:
+            return fn(self)
+        first = self._then
+        return PendingSolveResult(
+            self._future,
+            then=fn if first is None else (lambda r: fn(first(r))))
+
+
 def host_norm(t) -> np.ndarray:
     """A norm tensor read to the host as a (ncomp,) numpy array (a
     bf16 norm as float32)."""
@@ -509,10 +568,21 @@ class Solver:
             return v
         return torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
 
-    def solve(self, b, x0=None, zero_initial_guess=False) -> SolveResult:
+    def solve(self, b, x0=None, zero_initial_guess=False,
+              block=True) -> SolveResult:
         """Monitored solve; ``b`` and ``x0`` may be numpy arrays or
-        tensors on the solver's device.  Returns when the result is
-        computed (the device is synchronised)."""
+        tensors on the solver's device.  ``block=True`` returns when the
+        result is computed (the device is synchronised).  ``block=False``
+        is the asynchronous mode (the JAX package's): the solve function
+        is built and the vectors prepared on the caller's thread, the
+        loop (which reads each iteration's norm to the host) runs on
+        the dispatch worker, and the call returns a
+        :class:`PendingSolveResult` at once; the caller's thread makes
+        no synchronisation of its own.  Options that need the numbers
+        (``print_solve_stats``, ``obtain_timings``,
+        ``convergence_analysis`` > 0, ``solve_retries`` > 0, whose
+        trigger reads the status) still run and synchronise before the
+        return, as in the JAX package."""
         if self.A is None:
             raise RuntimeError("solve() before setup()")
         b = self._as_vector(b)
@@ -534,15 +604,22 @@ class Solver:
             b, x0 = b[perm], x0[perm]
         t0 = time.perf_counter()
         self.solve_retries_used = 0
-        res = fn(self.apply_params(), b, x0)
-        if self.solve_retries > 0:
-            res = self._retry_if_failed(res, b)
-        if self._reorder is not None:
-            res = dataclasses.replace(res, x=res.x[self._reorder[1]])
-        if self._scale_vecs is not None:
-            res = dataclasses.replace(res, x=self._scale_vecs[1] * res.x)
-        if res.x.device.type == "cuda":
-            torch.cuda.synchronize(res.x.device)
+        if not block and not self._solve_needs_sync():
+            from amgx_tpu_torch.core.dispatch import (
+                dispatch_pool,
+                on_dispatch_worker,
+            )
+
+            if not on_dispatch_worker():
+                stream = (torch.cuda.current_stream(self.device)
+                          if self.device.type == "cuda" else None)
+                fut = dispatch_pool().submit(
+                    self._solve_on_worker, stream, fn, self.apply_params(),
+                    b, x0)
+                self.solve_time = time.perf_counter() - t0
+                return PendingSolveResult(fut)
+        res = self._run_solve(fn, self.apply_params(), b, x0,
+                              self.solve_retries > 0)
         self.solve_time = time.perf_counter() - t0
         if self.print_solve_stats and self.verbosity > 2:
             self._print_stats(res)
@@ -565,6 +642,38 @@ class Solver:
             # record of the direct solve; this branch has synchronised
             self._telemetry_observe(res, self.collect_setup_profile())
         return res
+
+    def _solve_needs_sync(self) -> bool:
+        """Does a solve of this solver read its result before it
+        returns (a report, or the retry trigger)?"""
+        return (self.print_solve_stats or self.obtain_timings
+                or self.convergence_analysis > 0 or self.solve_retries > 0)
+
+    def _run_solve(self, fn, params, b, x0, retries: bool) -> SolveResult:
+        """The solve function's run, the retry hook, the solve
+        boundary's renumbering and scaling of x, and the device's
+        synchronisation."""
+        res = fn(params, b, x0)
+        if retries:
+            res = self._retry_if_failed(res, b)
+        if self._reorder is not None:
+            res = dataclasses.replace(res, x=res.x[self._reorder[1]])
+        if self._scale_vecs is not None:
+            res = dataclasses.replace(res, x=self._scale_vecs[1] * res.x)
+        if res.x.device.type == "cuda":
+            torch.cuda.synchronize(res.x.device)
+        return res
+
+    def _solve_on_worker(self, stream, fn, params, b, x0) -> SolveResult:
+        """``solve(block=False)``'s job on the dispatch worker: the
+        blocking solve's run on the caller's stream (``stream``, None on
+        the CPU), so its kernels queue behind the caller's uploads as a
+        blocking solve's do."""
+        if stream is None:
+            return self._run_solve(fn, params, b, x0, False)
+        torch.cuda.set_device(self.device)
+        with torch.cuda.stream(stream):
+            return self._run_solve(fn, params, b, x0, False)
 
     def _build_main_solve(self):
         """Build the solve function (one fault plan: the JAX package's

@@ -239,11 +239,14 @@ class IterativeRefinementSolver(Solver):
 
         return apply
 
-    def solve(self, b, x0=None, zero_initial_guess=False) -> SolveResult:
+    def solve(self, b, x0=None, zero_initial_guess=False,
+              block=True) -> SolveResult:
         """The refined solve: x returns as the pair summed in f64 on the
         host (a CPU tensor), after the solve-boundary scaling and
         renumbering the base solve applies.  A tripped guardrail
-        re-solves once on the full-precision twin."""
+        re-solves once on the full-precision twin.  The host sum and the
+        guardrail read the result, so ``block=False`` synchronises
+        before the return too (a sync-requiring option)."""
         if self.A is None:
             raise RuntimeError("solve() before setup()")
         raw_b, raw_x0 = b, x0

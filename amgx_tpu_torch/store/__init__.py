@@ -10,8 +10,9 @@ restores it without running setup.
     digest-checked and LRU under ``AMGX_TPU_STORE_MB``; a corrupt or
     stale entry is a miss.
 
-Not ported yet (ROADMAP.md, queue A7): warm boot of a serving tier and
-the store's telemetry registration.
+  * :mod:`amgx_tpu_torch.store.warmboot`: the serve layer's hierarchy
+    entries exported to a store and restored into a fresh service
+    (``BatchedSolveService(store=...)``, ``warm_boot()``).
 """
 
 from amgx_tpu_torch.store.serialize import (

@@ -164,6 +164,11 @@ def serve_families(fams: FamilyTable, comp: str, snap: dict) -> None:
             elif k in _SERVE_GAUGES:
                 fams.add(f"amgx_serve_{k}", "gauge",
                          f"serve gauge {k}", labels, v)
+            elif k.startswith("resilience_"):
+                # the sessions' checkpoints and restores get their own
+                # amgx_resilience_* namespace
+                fams.add(f"amgx_{k}_total", "counter",
+                         f"resilience counter {k}", labels, v)
             else:
                 fams.add(f"amgx_serve_{k}_total", "counter",
                          f"serve counter {k}", labels, v)

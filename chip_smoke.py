@@ -1372,10 +1372,16 @@ def slice_phase(torch):
     solve_s = s.solve_time
     # a second solve on the same setup: the first pays one-off costs
     # (cuBLAS/cuSOLVER handles, allocator growth)
+    zero_counts()
+    t0 = time.perf_counter()
     res2 = s.solve(b)
+    block_s = time.perf_counter() - t0
+    block_launches = kernel_counts()
     check(int(res2.iters) == iters, "repeat solve changed the iterations")
     warm_s = s.solve_time
     repeat_bitwise = bool(torch.equal(res.x, res2.x))
+    async_rec = async_solve_check(torch, s, b, res2, block_s,
+                                  block_launches)
     trace_solve(torch, s, b, iters)
     rel = true_rel_residual(N, b, x)
     rec = {
@@ -1388,6 +1394,7 @@ def slice_phase(torch):
         "true_rel_residual_f64": rel, "launches": launches,
         "cycle_passes_per_iteration": s.precond.cycle_passes_per_iteration(),
         "repeat_solve_x_bitwise": repeat_bitwise,
+        "async_solve": async_rec,
     }
     print(json.dumps(rec), flush=True)
     check(status == 0, f"status {status}")
@@ -1449,6 +1456,42 @@ def slice_phase(torch):
           f"{ce['iterations']}")
     return launches, {"x": x, "iters": iters, "x_cpu": xc,
                       "x64": x64, "x64_cpu": xc64}
+
+
+def async_solve_check(torch, s, b, ref, block_s, block_launches):
+    """Check a of the async solve: ``s.solve(b, block=False)``, twice
+    (the process's first one starts the dispatch worker, whose first
+    solve makes its thread's library handles), returns before the loop
+    on the dispatch worker ends, and its x is bit for bit the blocking
+    solve ``ref``'s, with its iterations and its launches per kernel
+    (``block_launches``); the host seconds to return and to ready beside
+    the blocking solve's ``block_s``."""
+    runs = []
+    for _ in range(2):
+        zero_counts()
+        t0 = time.perf_counter()
+        pending = s.solve(b, block=False)
+        return_s = time.perf_counter() - t0
+        in_flight = not pending._future.done()
+        pending._future.result(timeout=600)
+        ready_s = time.perf_counter() - t0
+        launches = kernel_counts()
+        runs.append({
+            "return_s": return_s, "ready_s": ready_s,
+            "in_flight_at_return": in_flight,
+            "iterations": int(pending.iters),
+            "x_bitwise_blocking": bool(torch.equal(pending.x, ref.x)),
+            "launches": launches})
+        check(in_flight, "async solve: the solve had ended at the return")
+        check(runs[-1]["iterations"] == int(ref.iters)
+              and runs[-1]["x_bitwise_blocking"],
+              f"async solve: {runs[-1]['iterations']} iterations, x bit "
+              f"for bit {runs[-1]['x_bitwise_blocking']}")
+        check(launches == block_launches,
+              f"async solve: launches {launches} vs blocking "
+              f"{block_launches}")
+    return {"first": runs[0], "second": runs[1], "blocking_s": block_s,
+            "blocking_launches": block_launches}
 
 
 def mf_slice_phase(torch, ref):
@@ -3627,7 +3670,7 @@ def transfer_cases(torch, timer, peaks, rng, amg, label, ops):
 
 
 def refine_phase(torch, peaks=None, device="cuda", n=REFINE_N, n_cmp=64,
-                 same=True):
+                 same=True, n_same=None):
     """refine_bf16_256, the reduced-precision path: ``REFINE_BF16_CFG``
     (ITERATIVE_REFINEMENT + PCG(8) + SIZE_8 AMG in bf16, OPT_POLYNOMIAL,
     INEXACT) on ``poisson_3d_7pt(n)`` in f32, counts zeroed just before
@@ -3639,7 +3682,10 @@ def refine_phase(torch, peaks=None, device="cuda", n=REFINE_N, n_cmp=64,
     as derived, first and warm solve time, a trace, the kernel cases of
     its bf16 operators.  Beside it on the same grid: the solve with
     ``hierarchy_dtype`` SAME (``same``), and plain f32 PCG on that
-    hierarchy to 1e-8.  Then, card against the CPU port: the path's
+    hierarchy to 1e-8, both on an ``n_same``^3 grid (default: ``n`` up
+    to 128; the depth cut that made room for the async slice's checks,
+    it ran at ``n``^3).  Then,
+    card against the CPU port: the path's
     config at ``n_cmp``^3 f32, CHEAP_CFG verbatim on an ``n_cmp``^3 f64
     operator, and (counted as the path ``refine_f32_coarse_f64``)
     CHEAP_CFG under COARSE at ``n_cmp``^3 f64.  ``peaks`` None (a
@@ -3796,10 +3842,14 @@ def refine_phase(torch, peaks=None, device="cuda", n=REFINE_N, n_cmp=64,
         recs += transfer_cases(torch, timer, peaks, rng, amg, "refine",
                                (("R", torch.bfloat16), ("R", torch.float32),
                                 ("P", torch.bfloat16)))
-    del s, res, res2, amg
+    del s, res, res2, amg, A, Asp
 
     if same:
         # ---- the same solve on an f32 hierarchy; plain f32 PCG on it
+        n_same = min(n, SLICE_N) if n_same is None else n_same
+        Asp = poisson_scipy((n_same,) * 3)
+        A = SparseMatrix.from_scipy(Asp.astype(np.float32), device=device)
+        b = poisson_rhs(A.n_rows, dtype=np.float32)
         t0 = time.perf_counter()
         s2 = T.create_solver(T.AMGConfig.from_string(REFINE_SAME_CFG),
                              "default", device=device)
@@ -3813,7 +3863,7 @@ def refine_phase(torch, peaks=None, device="cuda", n=REFINE_N, n_cmp=64,
         pcg.precond = amg2  # the same hierarchy, set up once
         pcg.A, pcg._params = A, (A, amg2.apply_params())
         rp = pcg.solve(b)
-        print(json.dumps({"refine_same_256": {
+        print(json.dumps({f"refine_same_{n_same}": {
             "setup_s": setup2_s, "solve_warm_s": s2.solve_time,
             "corrections": int(r2.iters), "status": int(r2.status),
             "last_inner_iters": s2.last_inner_iters,
@@ -3827,8 +3877,7 @@ def refine_phase(torch, peaks=None, device="cuda", n=REFINE_N, n_cmp=64,
                     Asp, b, rp.x.cpu().numpy()),
                 "solve_s": pcg.solve_time}}}), flush=True)
         check(int(r2.status) == 0, f"refine SAME status {r2.status}")
-        del s2, r2, amg2, pcg, rp
-    del A, Asp
+        del s2, r2, amg2, pcg, rp, A, Asp
 
     # ---- card against the CPU port
     def card_cpu(label, cfg, dtype, x_tol=None, count=False):
@@ -6106,8 +6155,19 @@ def serve_capi(torch, device, n, count=4):
 
 def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
                 n_cpu=SERVE_CPU_N, n_guard=SERVE_GUARD_N):
-    """The batched solve service (module docstring, phase 21).  Returns
-    {path: launches per batched entry point}."""
+    """The batched solve service (module docstring, phase 21), its
+    main service's store in a directory under ``ci/artifacts`` removed
+    at the end.  Returns {path: launches per batched entry point}."""
+    import shutil
+
+    folder = store_dir()
+    try:
+        return _serve_phase(torch, device, n, B, n_cpu, n_guard, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def _serve_phase(torch, device, n, B, n_cpu, n_guard, folder):
     from amgx_tpu_torch.serve import (
         CHEAP_PRECONDITIONER_CONFIG,
         COMM_AVOIDING_CONFIG,
@@ -6120,9 +6180,11 @@ def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
     # ---- a. the main path: B systems of n^3, f64, PCG_AMG
     systems = serve_family((n,) * 3, B, seed=1)
     svc = BatchedSolveService(config=SERVE_PCG_AMG, max_batch=B,
-                              device=device)
+                              device=device, store=folder)
     zero_counts()
     got, first_s = served(svc, systems)
+    # the entry's export (check m) ran on the background worker
+    svc.flush_store(timeout=600)
     launches, unbatched = batched_counts(), kernel_counts()
     m1 = svc.metrics.snapshot()
     entry = next(iter(svc.cache._entries.values()))
@@ -6169,7 +6231,14 @@ def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
           and all(g[0] == 0 for g in got_b),
           "serve b: the resubmit set up or built again")
     paths["serve_pcg_amg"] = launches
-    del svc, entry, amg, systems, systems_b, got, got_b, ref
+
+    # ---- l. four groups pipelined through a started poller; m. the
+    # service's store warm-boots a fresh service
+    paths["serve_pipelined"], sync = serve_pipelined(torch, device, svc,
+                                                     systems, got)
+    print(json.dumps({"serve_warm_boot": serve_warmboot(
+        svc, systems, sync[0], device)}), flush=True)
+    del svc, entry, amg, systems, systems_b, got, got_b, ref, sync
 
     # ---- c. DEFAULT_CONFIG in f32 (and an f32 group on the irregular
     # pattern: the f32 ELL entry point's path)
@@ -6356,6 +6425,197 @@ def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
     return paths
 
 
+def fresh(group):
+    """New scipy objects of a group's matrices: each submit hashes its
+    pattern, as new matrices from a client do."""
+    return [(sp.copy(), b) for sp, b in group]
+
+
+def serve_pipelined(torch, device, svc, base, got_a):
+    """Check l: four groups of serve a's systems (``base``, SERVE_PCG_AMG
+    on n^3, f64), with new coefficients from the second on (scaled by
+    1.01, 1.02, 1.03), on serve a's service ``svc``: flushed in turn
+    (synchronous), then submitted to a started poller (pipelined: the
+    poller hands each group to the dispatch worker, and the next group
+    pads meanwhile).  A group's max wait is cut short once its last
+    request is in (its deadline set to now), so that the poller takes
+    whole groups without a wait.  Every ticket reads done() before any
+    ``_block_ready``; each group makes one ``_block_ready`` and one
+    ``_fetch_host``; no setup or build; x bit for bit the synchronous
+    flush's, the first group's serve a's (``got_a``, held to the
+    sequential solves there), the last group's iterations and x those
+    of its sequential solves; launches of the pipelined groups as
+    walked.  Returns (launches, the synchronous results)."""
+    from amgx_tpu_torch.serve import service as service_mod
+
+    B = len(base)
+    groups = [base] + [[(sp * (1.0 + 0.01 * k), b) for sp, b in base]
+                       for k in (1, 2, 3)]
+    setups0, compiles0 = svc.metrics.get("setups"), svc.metrics.get(
+        "compiles")
+    # below max_batch: no submit flushes a group
+    svc.max_batch = B + 1
+    svc.max_wait_s = 600.0
+    sync = []
+    t0 = time.perf_counter()
+    for g in groups:
+        ts = [svc.submit(sp, b) for sp, b in fresh(g)]
+        svc.flush()
+        sync.append([t.result() for t in ts])
+    sync_s = time.perf_counter() - t0
+    waits, gets = [], []
+    real_block, real_get = service_mod._block_ready, service_mod._fetch_host
+    service_mod._block_ready = lambda x: (waits.append(1), real_block(x))[1]
+    service_mod._fetch_host = lambda r: (gets.append(1), real_get(r))[1]
+    batches0 = svc.metrics.get("batches")
+    svc.start(interval_s=0.0005)
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        tickets = []
+        for g in groups:
+            if tickets:
+                # the group before is taken before this one opens (one
+                # pattern: it would join it)
+                key = tickets[-1][0]._group_key
+                t_w = time.perf_counter()
+                while key in svc._groups:
+                    check(time.perf_counter() - t_w < 600,
+                          "serve l: a group was never taken")
+                    time.sleep(0.0001)
+            ts = [svc.submit(sp, b) for sp, b in fresh(g)]
+            with svc._lock:
+                grp = svc._groups.get(ts[0]._group_key)
+                if grp is not None:
+                    grp.deadline = 0.0
+            tickets.append(ts)
+        t_w = time.perf_counter()
+        while not all(t.done() for ts in tickets for t in ts):
+            check(time.perf_counter() - t_w < 600,
+                  "serve l: a ticket never read done()")
+            time.sleep(0.0001)
+        waits_at_done = len(waits)
+        # read in reverse order
+        got = [[t.result() for t in reversed(ts)][::-1]
+               for ts in reversed(tickets)][::-1]
+        pipe_s = time.perf_counter() - t0
+        launches = batched_counts()
+    finally:
+        svc.stop()
+        svc.max_batch = B
+        service_mod._block_ready, service_mod._fetch_host = (real_block,
+                                                             real_get)
+    entry = svc.cache.peek(tickets[0][0]._group_key[0], svc.cfg_key,
+                           np.dtype(np.float64))
+    want = add_counts(*[batched_walk(
+        entry.solver.precond, it + 1, it + 1, torch.float64)
+        for it in (max(int(r.iters) for r in res) for res in got)])
+    bitwise = all(torch.equal(a.x, b.x) and int(a.iters) == int(b.iters)
+                  for ga, gb in zip(got, sync) for a, b in zip(ga, gb))
+    as_a = all(int(r.iters) == g[1] and np.array_equal(r.x.cpu().numpy(),
+                                                       g[2])
+               for r, g in zip(sync[0], got_a))
+    ref, _, _ = serve_seq(device, SERVE_PCG_AMG, groups[3], reuse=True)
+    seq = same_as_seq("serve l", [
+        (int(r.status), int(r.iters), r.x.cpu().numpy(), None)
+        for r in sync[3]], ref)
+    rec = {"rows": base[0][0].shape[0], "batch": B, "groups": len(groups),
+           "iterations": [[int(r.iters) for r in res] for res in got],
+           "synchronous_s": sync_s, "pipelined_s": pipe_s,
+           "block_ready_calls": len(waits), "fetch_host_calls": len(gets),
+           "block_ready_before_all_done": waits_at_done,
+           "batches": svc.metrics.get("batches") - batches0,
+           "new_setups": svc.metrics.get("setups") - setups0,
+           "new_compiles": svc.metrics.get("compiles") - compiles0,
+           "x_bitwise_synchronous": bitwise,
+           "first_group_bitwise_serve_a": as_a,
+           "last_group_sequential": seq,
+           "launches": launches, "walk": want}
+    print(json.dumps({"serve_pipelined": rec}), flush=True)
+    check(waits_at_done == 0,
+          f"serve l: {waits_at_done} waits before every ticket was done")
+    check(len(waits) == len(gets) == len(groups) == rec["batches"],
+          f"serve l: {len(waits)} _block_ready, {len(gets)} _fetch_host "
+          f"for {rec['batches']} batches of {len(groups)} groups")
+    check(rec["new_setups"] == 0 and rec["new_compiles"] == 0,
+          f"serve l: {rec['new_setups']} setups, {rec['new_compiles']} "
+          "builds")
+    check(bitwise and as_a, "serve l: x or iterations differ from the "
+          "synchronous flush's or serve a's")
+    if device == "cuda":
+        check(launches == want, f"serve l: launches {launches} != walk "
+              f"{want}")
+    return launches, sync
+
+
+def serve_warmboot(svc, base, sync, device):
+    """Check m: a fresh service on ``svc``'s store (which exported serve
+    a's entry) warm-boots it (``warmboot_restores``), and its first
+    group (``base``) is a cache hit with no setup, x bit for bit
+    ``svc``'s (``sync``); with the payload corrupted, the entry counts a
+    ``warmboot_failures`` and the pattern sets up afresh (iterations
+    ``svc``'s, x to rtol 1e-10, serve a's rule)."""
+    import os
+
+    from amgx_tpu_torch.serve import BatchedSolveService
+
+    store = svc.store
+    prof = svc.metrics.profile.snapshot()["times"]
+    mb = sum(os.path.getsize(os.path.join(store.root, f))
+             for f in os.listdir(store.root) if f.endswith(".npz")) / 2**20
+
+    def booted():
+        new = BatchedSolveService(config=SERVE_PCG_AMG,
+                                  max_batch=svc.max_batch, device=device,
+                                  store=store.root)
+        t0 = time.perf_counter()
+        restored = new.warm_boot()
+        return new, restored, time.perf_counter() - t0
+
+    def served_as(new, rtol=0.0):
+        t0 = time.perf_counter()
+        res = new.solve_many(fresh(base))
+        secs = time.perf_counter() - t0
+        same = all(int(a.iters) == int(b.iters) and float(
+            (a.x - b.x).abs().max() / b.x.abs().max()) <= rtol
+            for a, b in zip(res, sync))
+        return same, secs
+
+    svc2, restored, restore_s = booted()
+    same2, first_s = served_as(svc2)
+    m2 = svc2.metrics.snapshot()
+    del svc2
+    for name in os.listdir(store.root):
+        if name.endswith(".npz"):
+            with open(os.path.join(store.root, name), "r+b") as fh:
+                fh.seek(64)
+                fh.write(b"rotten")
+    svc3, restored3, _ = booted()
+    same3, _ = served_as(svc3, rtol=1e-10)
+    m3 = svc3.metrics.snapshot()
+    rec = {"store_exports": svc.metrics.get("store_exports"),
+           "payload_mb": mb, "warmboot_restores": restored,
+           "restore_s": restore_s, "setup_s_exporter": prof.get("setup"),
+           "first_group_s": first_s,
+           "first_group_setups": m2.get("setups", 0),
+           "first_group_cache_hits": m2.get("cache_hits", 0),
+           "x_bitwise_exporter": same2,
+           "corrupt": {"restores": restored3,
+                       "warmboot_failures": m3.get("warmboot_failures", 0),
+                       "setups": m3.get("setups", 0),
+                       "x_as_exporter_1e-10": same3}}
+    check(rec["store_exports"] == 1 and restored == 1
+          and m2.get("warmboot_restores") == 1,
+          f"serve m: exports {rec['store_exports']}, restores {restored}")
+    check(rec["first_group_setups"] == 0
+          and rec["first_group_cache_hits"] >= 1 and same2,
+          f"serve m: the warm-booted group: {rec}")
+    check(restored3 == 0 and rec["corrupt"]["warmboot_failures"] == 1
+          and rec["corrupt"]["setups"] == 1 and same3,
+          f"serve m: the corrupted entry: {rec['corrupt']}")
+    return rec
+
+
 def serve_rebuild_group(torch, device, label, cfg, systems):
     """One group of ``systems`` under ``cfg`` (COMM_AVOIDING_CONFIG or
     CHEAP_PRECONDITIONER_CONFIG) through the service, counts zeroed just
@@ -6472,12 +6732,19 @@ class HeatStream:
         self.xi = [np.random.default_rng(seed * 7919 + s).standard_normal(
             (n, n, n)) for s in range(count)]
         self.u0 = np.random.default_rng(seed + 1).standard_normal(N)
+        # each (session, step)'s values, made once: the phase streams
+        # the same steps several times (read-only arrays)
+        self._values: dict = {}
 
     def values(self, s, k):
-        eta = np.random.default_rng(
-            (self.seed, s, k)).standard_normal((self.n,) * 3)
-        v = diffusion_3d(np.exp(0.5 * self.xi[s] + 0.05 * eta)).data
-        v[self.dpos] += 1.0 / self.dt
+        v = self._values.get((s, k))
+        if v is None:
+            eta = np.random.default_rng(
+                (self.seed, s, k)).standard_normal((self.n,) * 3)
+            v = diffusion_3d(np.exp(0.5 * self.xi[s] + 0.05 * eta)).data
+            v[self.dpos] += 1.0 / self.dt
+            v.flags.writeable = False
+            self._values[(s, k)] = v
         return v
 
     def rhs(self, x_prev):
@@ -6488,7 +6755,7 @@ class HeatStream:
 
 
 def heat_sessions(device, stream, steps, cfg=SESSION_CFG, warm=True,
-                  svc=None, after_step=None):
+                  svc=None, after_step=None, deadline_s=None):
     """``steps`` lockstep steps of one session per field of ``stream``
     through a SessionManager (on ``svc``, else a new service); with
     ``warm`` False every step starts from zeros.  Returns (per step
@@ -6503,8 +6770,8 @@ def heat_sessions(device, stream, steps, cfg=SESSION_CFG, warm=True,
     if svc is None:
         svc = BatchedSolveService(config=cfg, max_batch=B, device=device)
     mgr = SessionManager(svc)
-    sessions = [mgr.open(stream.base, session_id=f"heat{i}")
-                for i in range(B)]
+    sessions = [mgr.open(stream.base, session_id=f"heat{i}",
+                         deadline_s=deadline_s) for i in range(B)]
     hashes = svc.metrics.get("pattern_hashes")
     out = []
     for k in range(steps):
@@ -6557,9 +6824,11 @@ def session_phase(torch, device="cuda", n=SESSION_N, B=SESSION_B,
     # step's values, resetup and solve: unbatched launches), outside the
     # stream's clock
     stream = HeatStream(n, B)
-    ref = {"seq": None, "A0": None, "it_diff": 0, "worst": 0.0, "s": 0.0}
+    ref = {"seq": None, "A0": None, "it_diff": 0, "worst": 0.0, "s": 0.0,
+           "digests": []}
 
     def sequential(k, vals, x_prev, x0, res):
+        ref["digests"].append(x_digests(res))
         if ref["seq"] is None:
             ref["A0"] = T.SparseMatrix.from_csr(
                 stream.base.indptr, stream.base.indices, vals[0],
@@ -6582,8 +6851,16 @@ def session_phase(torch, device="cuda", n=SESSION_N, B=SESSION_B,
             ref["worst"] = max(ref["worst"], float(
                 np.abs(x - rx).max() / np.abs(rx).max()))
 
+    import shutil
+
+    from amgx_tpu_torch.serve import BatchedSolveService
+
+    # the service keeps a store (checks c and e of the async slice)
+    folder = store_dir()
+    svc = BatchedSolveService(config=SESSION_CFG, max_batch=B,
+                              device=device, store=folder)
     zero_counts()
-    warm, svc, mgr, h_open = heat_sessions(device, stream, steps,
+    warm, svc, mgr, h_open = heat_sessions(device, stream, steps, svc=svc,
                                            after_step=sequential)
     launches = batched_counts()
     m = svc.metrics.snapshot()
@@ -6636,7 +6913,16 @@ def session_phase(torch, device="cuda", n=SESSION_N, B=SESSION_B,
         check(launches == want, f"session_heat: launches {launches} != "
               f"walk {want}")
     paths = {"session_heat": launches}
-    del warm, cold, svc, mgr, entry, amg, ref
+    del warm, cold, mgr, entry, amg
+
+    # ---- c (async). the same stream over the service with its poller
+    # started; e. drained, then restored on a fresh service and manager
+    try:
+        print(json.dumps({"session_async": session_async(
+            device, stream, steps, ref["digests"], svc)}), flush=True)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    del ref, svc
 
     # ---- d. session_capi: a dDDI session through the C API, 3 steps,
     # against the Python session of the same stream
@@ -6659,6 +6945,107 @@ def session_phase(torch, device="cuda", n=SESSION_N, B=SESSION_B,
           f"session e: card against CPU: iterations equal {it_eq}, x "
           f"{worst:.3e}")
     return paths
+
+
+def x_digests(results):
+    """A digest of each result's x bytes (bit-for-bit comparisons of
+    whole streams without holding their solutions)."""
+    import hashlib
+
+    return [hashlib.blake2b(np.ascontiguousarray(
+        r.x.cpu().numpy()).tobytes(), digest_size=16).hexdigest()
+        for r in results]
+
+
+SESSION_DEADLINE_S = 600.0
+
+
+def session_async(device, stream, steps, digests, svc):
+    """Checks c and e of the async slice: ``stream`` again over ``svc``
+    (which has a store) with its poller started, so each step group's
+    loop runs on the dispatch worker: prestage overlaps the previous
+    step's running loop (``resetup_overlap_s`` > 0), every step's x
+    bit for bit the run without the poller (``digests``); then
+    ``drain()``, and on a fresh service (``warm_boot()``) and manager
+    ``restore()`` of every session: step index, deadline and last x bit
+    for bit, and the next step a cache hit with no setup, x bit for bit
+    the drained stream's own next step."""
+    from amgx_tpu_torch.serve import BatchedSolveService
+    from amgx_tpu_torch.sessions import SessionManager
+
+    B = len(stream.xi)
+    # over the started service step_all hands each step group to the
+    # dispatch worker and returns at its hand-over; the poller must not
+    # take a group that is still filling
+    svc.max_wait_s = 60.0
+    svc.start(interval_s=0.001)
+    try:
+        # each step's results read only by the next step's commits, so
+        # that its prestage runs while the step before is still running
+        t0 = time.perf_counter()
+        mgr = SessionManager(svc)
+        sessions = [mgr.open(stream.base, session_id=f"heat{i}",
+                             deadline_s=SESSION_DEADLINE_S)
+                    for i in range(B)]
+        stepped = [mgr.step_all([(s, stream.values(i, k),
+                                  stream.session_rhs)
+                                 for i, s in enumerate(sessions)])
+                   for k in range(steps)]
+        for s in sessions:
+            s.finish()
+        stream_s = time.perf_counter() - t0
+        got = [x_digests([t.result() for t in ts]) for ts in stepped]
+        del stepped
+        t0 = time.perf_counter()
+        report = mgr.drain()
+        drain_s = time.perf_counter() - t0
+    finally:
+        svc.stop()
+    sessions = mgr.sessions()
+    saved = {s.session_id: (s.step_idx, s.last_x.copy()) for s in sessions}
+    svc2 = BatchedSolveService(config=SESSION_CFG, max_batch=B,
+                               device=device, store=svc.store)
+    t0 = time.perf_counter()
+    restored = svc2.warm_boot()
+    mgr2 = SessionManager(svc2)
+    back = [mgr2.restore(s.session_id) for s in sessions]
+    restore_s = time.perf_counter() - t0
+    survived = all(
+        b.step_idx == saved[b.session_id][0] == steps
+        and b.deadline_s == SESSION_DEADLINE_S
+        and np.array_equal(b.last_x, saved[b.session_id][1]) for b in back)
+    # the next step, restored and drained
+    vals = [stream.values(i, steps) for i in range(B)]
+    nxt2 = [t.result() for t in mgr2.step_all(
+        [(s, v, stream.session_rhs) for s, v in zip(back, vals)])]
+    nxt = [t.result() for t in mgr.step_all(
+        [(s, v, stream.session_rhs) for s, v in zip(sessions, vals)])]
+    m2 = svc2.metrics.snapshot()
+    rec = {"sessions": B, "steps": steps, "stream_s": stream_s,
+           "resetup_overlap_s": mgr.resetup_overlap_s,
+           "resetup_s": mgr.resetup_s,
+           "x_bitwise_plain_service": got == digests,
+           "drain": report, "drain_s": drain_s,
+           "warmboot_restores": restored, "restore_s": restore_s,
+           "restored_state_bitwise": survived,
+           "next_step_setups": m2.get("setups", 0),
+           "next_step_cache_hits": m2.get("cache_hits", 0),
+           "next_step_x_bitwise": x_digests(nxt2) == x_digests(nxt),
+           "next_step_iterations": [int(r.iters) for r in nxt2]}
+    check(rec["resetup_overlap_s"] > 0.0,
+          "session c: no prestage overlapped a step in flight")
+    check(rec["x_bitwise_plain_service"],
+          "session c: a step's x differs from the plain service's")
+    check(report["sessions_saved"] == B and report["entries_exported"] >= 1
+          and restored >= 1,
+          f"session e: drain {report}, warm boot {restored}")
+    check(survived, "session e: a restored session's step, deadline or x "
+          "differs from the drained one's")
+    check(rec["next_step_setups"] == 0 and rec["next_step_cache_hits"] >= 1
+          and rec["next_step_x_bitwise"]
+          and all(int(r.status) == 0 for r in nxt2),
+          f"session e: the restored step: {rec}")
+    return rec
 
 
 def session_capi(device, stream, steps=3):
@@ -6695,6 +7082,16 @@ def session_capi(device, stream, steps=3):
         got.append((C.solver_session_get_status(sh),
                     C.solver_session_get_iterations_number(sh), x))
     capi_s = time.perf_counter() - t0
+    # the session saved into a store: RC 0 and one entry written
+    import os
+    import shutil
+
+    folder = store_dir()
+    try:
+        rcs.append(C.solver_session_save(sh, folder))
+        saved_files = sorted(os.listdir(folder))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
     rcs += [C.solver_session_destroy(sh), C.solver_destroy(slv),
             C.matrix_destroy(mtx), C.vector_destroy(rhs),
             C.vector_destroy(sol)]
@@ -6709,12 +7106,15 @@ def session_capi(device, stream, steps=3):
         py.append((int(res.status), int(res.iters), res.x.cpu().numpy()))
     bitwise = all(np.array_equal(a[2], b[2]) for a, b in zip(got, py))
     rec = {"mode": mode, "rcs_all_zero": not any(rcs),
+           "session_save_files": saved_files,
            "statuses": [g[0] for g in got],
            "iterations": [g[1] for g in got],
            "python_statuses": [p[0] for p in py],
            "python_iterations": [p[1] for p in py],
            "x_bitwise_python": bitwise, "capi_s": capi_s}
     check(not any(rcs), f"session_capi: RCs {rcs}")
+    check(len(saved_files) == 2,
+          f"session_capi: the save wrote {saved_files}")
     check([g[:2] for g in got] == [p[:2] for p in py]
           and all(g[0] == 0 for g in got),
           f"session_capi: {[g[:2] for g in got]} vs the Python session's "

@@ -620,7 +620,6 @@ def test_d_mode_without_a_card_raises(monkeypatch):
 
 
 NOT_PORTED = [
-    ("solver_session_save", 2, "A.7.6"),
     ("distribution_create", 1, "A.9"),
     ("distribution_set_partition_data", 3, "A.9"),
     ("distribution_set_32bit_colindices", 2, "A.9"),

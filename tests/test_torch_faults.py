@@ -40,6 +40,7 @@ RTOL = 1e-10
 
 @pytest.fixture(autouse=True)
 def _clean_faults():
+    prev = torch.get_num_threads()
     torch.set_num_threads(2)
     for f in (jfaults, tfaults):
         f.disarm()
@@ -48,6 +49,7 @@ def _clean_faults():
     for f in (jfaults, tfaults):
         f.disarm()
         f.reset_counters()
+    torch.set_num_threads(prev)
 
 
 def _jacobi(retries, omega=0.9, iters=800, extra=""):

@@ -872,7 +872,7 @@ def test_service_raises_without_a_card(monkeypatch):
     assert tsvc().device.type == "cpu"
 
 
-@pytest.mark.parametrize("param", ["donate", "store", "placement",
+@pytest.mark.parametrize("param", ["donate", "placement",
                                    "fetch_watchdog_s", "failover"])
 def test_left_out_parameters_raise(param):
     with pytest.raises(NotImplementedError, match="not ported"):

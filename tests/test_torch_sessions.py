@@ -5,8 +5,10 @@ telemetry, through both packages, with the same statuses, iterations and
 x (rtol 1e-10 of its largest entry, f64; f32 iterations within one and x
 to 1e-4); the values-only fast path (no CSR extraction and no pattern
 hash after ``open``); lockstep groups; the documented differences (a
-synchronous solve: no overlap, iterations + 2 host syncs a group); the
-stubs; the C API's session round trip in an ``h`` mode."""
+service that is not started: no overlap, iterations + 2 host syncs a
+group); the stubs; the C API's session round trip in an ``h`` mode.
+The overlap of an asynchronous step and persistence are ``tests/test_torch_async.py`` and
+``tests/test_torch_warmboot.py``."""
 
 import numpy as np
 import pytest
@@ -345,14 +347,15 @@ def test_resetup_every_refreshes_the_entry_per_fingerprint():
 
 
 # ---------------------------------------------------------------------
-# the documented differences: a synchronous solve
+# the documented differences: a service that is not started
 
 
 def test_syncs_and_overlap_of_a_synchronous_solve():
-    """The port's group has run when its flush returns: prestage never
-    overlaps a solve (``resetup_overlap_s`` 0, the JAX package's > 0),
-    and a step group reads its norms every iteration: iterations + 2
-    host syncs a group (the JAX package's one)."""
+    """Over a service that is not started a step group has run when its
+    flush returns: no prestage overlaps a loop (``resetup_overlap_s``
+    0, the JAX package's > 0); and a step group reads its norms every
+    iteration: iterations + 2 host syncs a group (the JAX package's
+    one)."""
     A0, values, u0, f, n = _heat_workload()
     tm, _ = managers()
     sessions = [tm.open(A0, session_id=f"o{i}") for i in range(2)]
@@ -405,29 +408,17 @@ def test_resetup_entry_unknown_fingerprint_raises():
 # what waits for later queue items
 
 
-@pytest.mark.parametrize("call", ["save", "restore", "recover", "save_all",
-                                  "drain", "save_session",
-                                  "placement", "store", "checkpoint",
-                                  "tenant", "gateway"])
+@pytest.mark.parametrize("call", ["placement", "tenant", "gateway"])
 def test_unported_session_parts_raise(call):
     A0, values, u0, f, n = _heat_workload()
     tm, _ = managers()
     sess = tm.open(A0, session_id="stub")
-    svc = tm.service
     run = {
-        "save": lambda: sess.save(),
-        "restore": lambda: tm.restore("stub"),
-        "recover": lambda: tm.recover("stub"),
-        "save_all": tm.save_all,
-        "drain": tm.drain,
-        "save_session": lambda: tm.save_session(sess),
         "placement": lambda: sess.placement_device,
-        "store": lambda: SessionManager(svc, store="/nonexistent"),
-        "checkpoint": lambda: SessionManager(svc, checkpoint_every=4),
         "tenant": lambda: tm.open(A0, tenant="cfd"),
         "gateway": lambda: SessionManager(object()),
     }[call]
-    with pytest.raises(NotImplementedError, match=r"A\.7\.[67]"):
+    with pytest.raises(NotImplementedError, match=r"A\.7\.7"):
         run()
 
 
@@ -435,9 +426,9 @@ def test_unported_session_parts_raise(call):
 # the C API
 
 
-def _capi_session(capi, mode, cfg, steps, A0, values, u0, f):
-    """Create, ``steps`` steps with replace_coefficients, sync: the
-    (status, iterations, x) of each step."""
+def _capi_session(capi, mode, cfg, steps, A0, values, u0, f, save_dir):
+    """Create, ``steps`` steps with replace_coefficients, sync, save to
+    ``save_dir``: the (status, iterations, x) of each step."""
     capi.initialize()
     n = A0.shape[0]
     c = capi.config_create(cfg)
@@ -458,9 +449,8 @@ def _capi_session(capi, mode, cfg, steps, A0, values, u0, f):
         x = capi.vector_download(sol)
         out.append((capi.solver_session_get_status(sess_h),
                     capi.solver_session_get_iterations_number(sess_h), x))
-    with pytest.raises(capi.AMGXError) as e:
-        capi.solver_session_save(sess_h, "/nonexistent")
-    assert e.value.rc == capi.RC_NOT_IMPLEMENTED
+    assert capi.solver_session_save(sess_h, str(save_dir)) == capi.RC_OK
+    assert any(p.suffix == ".npz" for p in save_dir.iterdir())
     assert capi.solver_session_destroy(sess_h) == 0
     for h, fn in ((slv, capi.solver_destroy), (mtx, capi.matrix_destroy),
                   (rhs, capi.vector_destroy), (sol, capi.vector_destroy)):
@@ -468,8 +458,8 @@ def _capi_session(capi, mode, cfg, steps, A0, values, u0, f):
     return out
 
 
-def test_capi_session_roundtrip_as_python_session_and_jax():
-    """tests/test_sessions.py's round trip in hDDI, minus the save:
+def test_capi_session_roundtrip_as_python_session_and_jax(tmp_path):
+    """tests/test_sessions.py's round trip in hDDI, the save included:
     every RC 0, statuses and iterations as the JAX package's (dDDI, its
     CPU) and as a Python session's, x bit for bit with the Python
     session's and to rtol 1e-10 of the JAX package's."""
@@ -478,7 +468,8 @@ def test_capi_session_roundtrip_as_python_session_and_jax():
     from amgx_tpu_torch.api import capi as T
 
     A0, values, u0, f, n = _heat_workload()
-    got = _capi_session(T, "hDDI", STEP_CFG, 3, A0, values, u0, f)
+    got = _capi_session(T, "hDDI", STEP_CFG, 3, A0, values, u0, f,
+                        tmp_path)
     tm, _ = managers()
     sess = tm.open(A0)
     x = u0

@@ -71,10 +71,22 @@ PORT_ONLY = {"amgx_serve_pattern_hashes_total"}
 
 @pytest.fixture(autouse=True)
 def _clean():
+    import copy
+
+    prev = torch.get_num_threads()
     torch.set_num_threads(2)
     for f in (jfaults, tfaults):
         f.disarm()
+    # the JAX package's solver aggregate is process-wide: the timed JAX
+    # solves here must not leave it filled for a later test of the
+    # process (tests/test_telemetry.py reads its histogram families)
+    jreg = jtel.get_registry()
+    with jreg._solver_lock:
+        saved = copy.deepcopy(jreg._solver_stats)
     yield
+    with jreg._solver_lock:
+        jreg._solver_stats.clear()
+        jreg._solver_stats.update(saved)
     for f in (jfaults, tfaults):
         f.disarm()
     for tr in (tracing, jtel.tracing):
@@ -82,6 +94,7 @@ def _clean():
         tr.clear()
     ttel.set_telemetry_enabled(None)
     jtel.set_telemetry_enabled(None)
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture()
