@@ -27,9 +27,11 @@ session calls (``solver_session_*``) on its sessions
 ``amgx_tpu_torch.telemetry``; ``solver_session_save`` writes a
 session into an artifact store (``amgx_tpu_torch.store``).  The fault
 site ``capi_internal`` (``core/faults.py``) raises inside the solve path
-and comes back as an RC through the catch-all.  Not ported, each raising
-``RC_NOT_IMPLEMENTED`` with the ``ROADMAP.md`` queue that brings it: the
-fleet front and admission gateway of the batched solve (A.7.7, A.8), the
+and comes back as an RC through the catch-all.  ``AMGX_TPU_CAPI_ADMISSION``
+fronts the batched solve and the sessions with the admission gateway
+(``amgx_tpu_torch.serve.gateway``): a shed system's status is FAILED.
+Not ported, each raising ``RC_NOT_IMPLEMENTED`` with the ``ROADMAP.md``
+queue that brings it: the fleet front of the batched solve (A.8), the
 distribution handles, partition data, one-ring maps, distributed
 reads and writes and setup on more than one device (A.9).
 """
@@ -159,7 +161,6 @@ def _not_ported(what, queue):
     )
 
 
-_A7 = "A.7: serving tier"
 _A9 = "A.9: multi-GPU"
 
 
@@ -211,6 +212,8 @@ class _SolverHandle:
         # the batched solve's service, its in-flight tickets and its
         # per-system results (solver_solve_batch)
         self.batch_service = None
+        # the admission gateway in front of it (AMGX_TPU_CAPI_ADMISSION)
+        self.batch_gateway = None
         self.batch_pending = None
         self.batch_results = None
         # the sessions of solver_session_create, on batch_service
@@ -795,18 +798,55 @@ def solver_destroy(slv_h):
 # batched solves (the serve layer) and the telemetry calls
 
 
-def _batch_service(s):
-    """The solver handle's batch service, built at its first batched
-    solve from the handle's config on the mode's device (the JAX
-    package's ``_ensure_batch_front`` without its fleet front and
-    admission gateway, queue A.7 / A.8)."""
-    svc = getattr(s, "batch_service", None)
-    if svc is None:
+def _ensure_batch_front(s):
+    """The solver handle's submit front, built at its first batched
+    solve or session from the handle's config on the mode's device (the
+    JAX package's ``_ensure_batch_front`` without its fleet front, queue
+    A.8): the gateway where admission control is on, else the service.
+
+    ``AMGX_TPU_CAPI_ADMISSION=<budget>`` fronts the service with a
+    :class:`~amgx_tpu_torch.serve.gateway.SolveGateway` of that
+    concurrency budget: a submit past it sheds typed (a per-system
+    FAILED status) instead of queueing without bound.  A malformed or
+    non-positive value, and a malformed ``AMGX_TPU_PLACEMENT``, fail
+    every call with RC_BAD_CONFIGURATION: they are read before any
+    handle state is set."""
+    if s.batch_service is None:
+        import os
+
         from amgx_tpu_torch.serve import BatchedSolveService
 
-        svc = s.batch_service = BatchedSolveService(
-            config=s.cfg.cfg, device=s.mode.device)
-    return svc
+        budget_env = os.environ.get("AMGX_TPU_CAPI_ADMISSION", "")
+        budget = None
+        if budget_env:
+            try:
+                budget = int(budget_env)
+            except ValueError:
+                raise AMGXError(
+                    RC_BAD_CONFIGURATION,
+                    "AMGX_TPU_CAPI_ADMISSION must be an integer "
+                    f"concurrency budget, got {budget_env!r}") from None
+            if budget <= 0:
+                raise AMGXError(
+                    RC_BAD_CONFIGURATION,
+                    "AMGX_TPU_CAPI_ADMISSION must be a positive "
+                    f"concurrency budget, got {budget_env!r}")
+        placement_env = os.environ.get("AMGX_TPU_PLACEMENT", "")
+        if placement_env:
+            from amgx_tpu_torch.serve.placement import parse_placement
+
+            try:
+                parse_placement(placement_env)
+            except ValueError as e:
+                raise AMGXError(RC_BAD_CONFIGURATION, str(e)) from None
+        s.batch_service = BatchedSolveService(config=s.cfg.cfg,
+                                              device=s.mode.device)
+        if budget:
+            from amgx_tpu_torch.serve import SolveGateway
+
+            s.batch_gateway = SolveGateway(s.batch_service,
+                                           max_inflight=budget)
+    return s.batch_gateway or s.batch_service
 
 
 def solver_solve_batch(slv_h: int, mtx_handles, rhs_handles, sol_handles):
@@ -822,7 +862,9 @@ def solver_solve_batch(slv_h: int, mtx_handles, rhs_handles, sol_handles):
     vectors), which writes every solution into its vector.  A system
     refused or failed with a typed error (non-finite values, a failed
     setup) fails alone: its status is FAILED and its vector keeps what
-    it held.  The call returns RC_OK once the batch ran."""
+    it held; so does a system the admission gateway sheds
+    (``AMGX_TPU_CAPI_ADMISSION``).  The call returns RC_OK once the
+    batch ran."""
     from amgx_tpu_torch.core.errors import AMGXTPUError
 
     s = _get(slv_h, _SolverHandle)
@@ -837,7 +879,7 @@ def solver_solve_batch(slv_h: int, mtx_handles, rhs_handles, sol_handles):
     if not mtx_handles:
         s.batch_results = []
         return RC_OK
-    svc = _batch_service(s)
+    front = _ensure_batch_front(s)
     systems = []
     for mh, rh, sh in zip(mtx_handles, rhs_handles, sol_handles):
         m = _get(mh, _Matrix)
@@ -854,13 +896,15 @@ def solver_solve_batch(slv_h: int, mtx_handles, rhs_handles, sol_handles):
     for sys_, sh in zip(systems, sol_handles):
         n = sys_[0].n_rows * sys_[0].block_size
         try:
-            t = svc.submit(*sys_)
+            t = front.submit(*sys_)
         except AMGXTPUError:
-            t = None  # a typed refusal fails only this system
+            # a typed refusal (validation, an admission shed) fails only
+            # this system
+            t = None
         else:
             _get(sh, _Vector)._batch_owner = s
         pending.append((t, n, sh))
-    svc.flush()
+    front.flush()
     s.batch_pending = pending
     s.batch_results = None
     return RC_OK
@@ -1018,16 +1062,18 @@ def solver_session_create(slv_h: int, mtx_h: int) -> int:
     pattern (AMGX_solver_session_create); the matrix gives structure
     only, each step's coefficients come with
     :func:`solver_session_step`.  Steps run through the handle's batch
-    service (the one ``solver_solve_batch`` uses)."""
+    service (the one ``solver_solve_batch`` uses), through its admission
+    gateway where ``AMGX_TPU_CAPI_ADMISSION`` is set: each step is then
+    admitted as one ticket."""
     s = _get(slv_h, _SolverHandle)
     m = _get(mtx_h, _Matrix)
     if m.A is None:
         raise AMGXError(RC_BAD_PARAMETERS, "matrix not uploaded")
-    svc = _batch_service(s)
+    front = _ensure_batch_front(s)
     if s.session_manager is None:
         from amgx_tpu_torch.sessions import SessionManager
 
-        s.session_manager = SessionManager(svc)
+        s.session_manager = SessionManager(front)
     sess = s.session_manager.open(m.A, dtype=host_dtype(s.mode.mat_dtype))
     return _new(_SessionHandle(s, sess))
 

@@ -11,7 +11,11 @@ solver of the process queues here in order; one worker keeps the
 launches of two groups from interleaving on the card.
 
 The pool is a :class:`concurrent.futures.ThreadPoolExecutor`, as in the
-JAX package, so its worker is joined at interpreter exit.  Nothing
+JAX package, so its worker is joined at interpreter exit.  When the
+serve layer's fetch watchdog gives up on a group whose loop still runs
+on the worker, :func:`abandon_worker` hands later jobs to a fresh one;
+the wedged thread is not reclaimed, and jobs queued on it before then
+stay there (ROADMAP.md, queue C).  Nothing
 starts it at import: the first job does.  The serve layer's background
 worker (``serve/cache.py``: builds ahead of a flush, the store's exports
 and restores) is a second pool of the same kind, ``serve-compile``.
@@ -52,3 +56,12 @@ def dispatch_pool() -> concurrent.futures.ThreadPoolExecutor:
 
 def on_dispatch_worker() -> bool:
     return on_worker(DISPATCH)
+
+
+def abandon_worker(name: str = DISPATCH):
+    """Hand later jobs of the pool ``name`` to a fresh worker (the
+    current one is wedged in a job that never ends)."""
+    with _POOLS_LOCK:
+        pool = _POOLS.pop(name, None)
+    if pool is not None:
+        pool.shutdown(wait=False)

@@ -5,8 +5,11 @@ amgx_c.h:52-69): :class:`SetupError` and its subclasses for operators
 that cannot be set up, with input validation at the upload and setup
 boundaries, :class:`ResourceError` for overflow-class failures (the
 classical device setup's ``DeviceSetupOverflow``, the serve layer's
-:class:`DeadlineExceededError`) and
-:class:`StoreError` for the setup store.  ``AMGX_TPU_VALIDATE=0``
+:class:`DeadlineExceededError`, and the gateway's
+:class:`AdmissionRejected` / :class:`Overloaded` sheds, all
+``RC_NO_MEMORY``), :class:`DeviceLostError` (``RC_CUDA_FAILURE``) for a
+lost or hung device under the serve layer, and :class:`StoreError` for
+the setup store.  ``AMGX_TPU_VALIDATE=0``
 disables validation in both packages.
 """
 
@@ -64,6 +67,53 @@ class DeadlineExceededError(ResourceError):
     queued) or at the fetch of its group's result (the serve layer,
     ``amgx_tpu_torch.serve``).  A :class:`ResourceError`, so its RC is
     ``RC_NO_MEMORY`` as in the JAX package."""
+
+
+class DeviceLostError(ResourceError):
+    """A device under the serve layer failed or hung: a dispatch or a
+    fetch raised a CUDA runtime error, or the fetch watchdog expired on
+    a group that never completed.  ``RC_CUDA_FAILURE`` at the C API, as
+    in the JAX package.  ``device_label`` names the placement device
+    where the failure could be attributed (None on a single device).
+    The serve layer requeues the group once before this error reaches a
+    ticket; ``inferred`` is set on one classified from a runtime error
+    (``serve/service.py``), which also charges the pattern's breaker."""
+
+    rc = RC_CUDA_FAILURE
+
+    def __init__(self, msg: str = "", rc: int | None = None,
+                 device_label: str | None = None):
+        super().__init__(msg, rc)
+        self.device_label = device_label
+
+
+class AdmissionRejected(ResourceError):
+    """The gateway (``amgx_tpu_torch.serve.gateway``) refused a request at
+    the door: a tenant's quota or device-seconds budget, a deadline that
+    cannot be met, an open circuit breaker.  ``retry_after_s`` is the
+    back-off hint (None when unknown), ``reason`` a short slug
+    (``quota``, ``device_budget``, ``deadline_unmeetable``,
+    ``breaker_open``, ``draining``, ``overloaded``).  A per-system FAILED
+    status at the C API (``RC_NO_MEMORY`` at the RC boundary)."""
+
+    def __init__(self, msg: str = "", rc: int | None = None,
+                 retry_after_s: float | None = None,
+                 reason: str = "rejected"):
+        super().__init__(msg, rc)
+        self.retry_after_s = retry_after_s
+        self.reason = reason
+
+
+class Overloaded(AdmissionRejected):
+    """The service as a whole is past its concurrency budget or is
+    draining: no request of the lane is admitted now, whatever its
+    tenant."""
+
+    def __init__(self, msg: str = "", rc: int | None = None,
+                 retry_after_s: float | None = None,
+                 reason: str = "overloaded"):
+        super().__init__(msg, rc, retry_after_s=retry_after_s,
+                         reason=reason)
 
 
 class SingularDiagonalError(SetupError):

@@ -22,12 +22,20 @@ failure mode on demand:
                         registry's collection and dump raise; telemetry
                         degrades to a counted ``telemetry_errors`` and
                         never fails a solve (telemetry/)
-  gateway_shed,         armed and counted like the others, but no call
-  admission_quota,      site in this package meets them yet: their
-  drain_timeout,        modules (the gateway and admission, placement
-  device_lost_dispatch, and failover, the fetch watchdog and its fetch
-  device_lost_fetch,    pool) are not ported (ROADMAP.md, queue A.7.7)
-  fetch_hang
+  gateway_shed          the gateway sheds a submit at the door, typed
+                        ``Overloaded`` (serve/gateway)
+  admission_quota       the admission controller refuses a tenant's
+                        submit, ``AdmissionRejected`` reason ``quota``
+                        (serve/admission)
+  drain_timeout         a gateway drain gets no settle budget: its
+                        unsettled tickets fail typed (serve/gateway)
+  device_lost_dispatch  a group's ship to the device raises
+                        ``DeviceLostError``; the service replans once
+                        (serve/service)
+  device_lost_fetch     a group's fetch raises ``DeviceLostError``; the
+                        service re-dispatches from its retained copy
+  fetch_hang            a group's fetch sleeps ``hang_seconds()`` on the
+                        watchdog's daemon thread, as a hung card would
   ====================  ===================================================
 
 **When a site fires.**  The JAX package consults a site while it traces
@@ -178,9 +186,8 @@ def inject(site: str, times: int = 1):
 
 
 def hang_seconds() -> float:
-    """How long an armed ``fetch_hang`` would sleep
-    (``AMGX_TPU_FAULT_HANG_S``, default 30 s); kept for the fetch
-    watchdog (queue A.7.7)."""
+    """How long an armed ``fetch_hang`` sleeps
+    (``AMGX_TPU_FAULT_HANG_S``, default 30 s)."""
     try:
         return float(os.environ.get("AMGX_TPU_FAULT_HANG_S", "") or 30.0)
     except ValueError:

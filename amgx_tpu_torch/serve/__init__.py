@@ -22,11 +22,23 @@ Entry point::
 Streaming solve sessions over a service are
 :mod:`amgx_tpu_torch.sessions`; warm boot from a setup store is
 ``BatchedSolveService(store=...)`` and :meth:`warm_boot`
-(``amgx_tpu_torch.store.warmboot``).  The gateway, admission,
-placement and failover of the JAX package's serving tier are not
-ported (ROADMAP.md, queue A.7.7).
+(``amgx_tpu_torch.store.warmboot``).  The admission-controlled door is
+:class:`~amgx_tpu_torch.serve.gateway.SolveGateway` (tenant quotas,
+priority lanes, the concurrency budget, deadline shedding, drain), on
+:mod:`~amgx_tpu_torch.serve.admission`; the client's back-off is
+:class:`~amgx_tpu_torch.serve.retry.RetryPolicy`; placement, the device
+breakers, device-loss failover and the fetch watchdog are
+:mod:`~amgx_tpu_torch.serve.placement` and the service's.  The JAX
+package's multi-device placements (``MeshPlacement``,
+``AffinityPlacement``, ``AffinityRouter``, ``DistributedPlacement``)
+wait for the multi-GPU port (ROADMAP.md, queue A.9).
 """
 
+from amgx_tpu_torch.serve.admission import (
+    AdmissionController,
+    TenantQuota,
+    TokenBucket,
+)
 from amgx_tpu_torch.serve.batched import make_batched_solve
 from amgx_tpu_torch.serve.bucketing import bucket_batch, pad_pattern
 from amgx_tpu_torch.serve.cache import HierarchyCache, config_hash
@@ -38,6 +50,15 @@ from amgx_tpu_torch.serve.service import (
     BatchedSolveService,
     SolveTicket,
 )
+from amgx_tpu_torch.serve.gateway import GatewayTicket, SolveGateway
+from amgx_tpu_torch.serve.placement import (
+    DeviceHealthBoard,
+    PlacementPolicy,
+    SingleDevicePolicy,
+    breaker_probe_every,
+    placement_from_env,
+)
+from amgx_tpu_torch.serve.retry import DEFAULT_RETRYABLE, RetryPolicy
 
 # the serving stack's name for the service
 SolveService = BatchedSolveService
@@ -49,6 +70,18 @@ __all__ = [
     "COMM_AVOIDING_CONFIG",
     "CHEAP_PRECONDITIONER_CONFIG",
     "SolveTicket",
+    "SolveGateway",
+    "GatewayTicket",
+    "AdmissionController",
+    "TenantQuota",
+    "TokenBucket",
+    "PlacementPolicy",
+    "SingleDevicePolicy",
+    "DeviceHealthBoard",
+    "breaker_probe_every",
+    "RetryPolicy",
+    "DEFAULT_RETRYABLE",
+    "placement_from_env",
     "HierarchyCache",
     "ServeMetrics",
     "make_batched_solve",

@@ -24,9 +24,13 @@ queue -> pad -> dispatch -> device -> fetch stages and its end-to-end
 total into its lane's (:meth:`record_lane`); ``snapshot()`` exports
 per-stage p50 / p99 and ``ticket_p50_s`` / ``ticket_p99_s``.  Each
 ticket's even share of its group's device seconds accumulates per
-(tenant, lane) (:meth:`record_tenant_device`).  Until the gateway is
-ported (queue A.7.7) every ticket's lane is ``default`` and its tenant
-``-``.
+(tenant, lane) (:meth:`record_tenant_device`); a gateway charges each
+share to its tenant's device-seconds budget through
+``on_tenant_device``.  A ticket's lane is ``interactive`` or ``batch``
+and its tenant ``default`` unless the submit names one.  The gateway
+(``gateway_*``, ``shed_<reason>``), the lanes (``batch_deferrals``,
+``batch_promotions``) and the failure domains (``resilience_*``) count
+here too.
 """
 
 from __future__ import annotations
@@ -71,6 +75,9 @@ class ServeMetrics:
         self.latency = {s: LatencyReservoir() for s in TICKET_STAGES}
         self.lane_latency = defaultdict(LatencyReservoir)
         self.tenant_device: dict = defaultdict(float)
+        # a gateway's device-seconds charge (tenant, lane, seconds),
+        # called outside the lock; a failure counts telemetry_errors
+        self.on_tenant_device = None
 
     def inc(self, name: str, by: int = 1):
         with self._lock:
@@ -116,13 +123,20 @@ class ServeMetrics:
     def record_tenant_device(self, tenant: str, lane: str,
                              seconds: float):
         """One ticket's share of its group's device seconds, against
-        its tenant and lane."""
+        its tenant and lane, then the ``on_tenant_device`` charge."""
         with self._lock:
             key = (tenant, lane)
             if (key not in self.tenant_device
                     and len(self.tenant_device) >= self._TENANT_DEVICE_CAP):
                 key = ("_other", lane)
             self.tenant_device[key] += float(seconds)
+        hook = self.on_tenant_device
+        if hook is not None:
+            try:
+                hook(tenant, lane, seconds)
+            except Exception:  # noqa: BLE001 — never fails the fetch
+                with self._lock:
+                    self.counters["telemetry_errors"] += 1
 
     def latency_percentile(self, stage: str, q: float):
         """A stage's percentile under the lock; None without samples."""

@@ -78,19 +78,49 @@ solve.  A group's ``dispatch`` stage runs from its flush to the
 hand-over, its ``device`` stage from there to the end of the fetch's
 wait (an upper bound when the fetch comes late), ``fetch`` after it.
 
-What the port leaves out (ROADMAP.md, queue A.7.7) raises
-``NotImplementedError`` when asked for: placement and failover
-(``placement=``, ``failover=``, ``fetch_watchdog_s=``: a group's fetch
-waits inline, as the JAX package's does with its watchdog off), buffer
-donation (``donate=``: torch has none), priority lanes and tenants
-(every ticket's lane is ``default`` and its tenant ``-``).  Scalar
-(block_size 1) systems only, as in the JAX package.
+Priority lanes and tenants, as in the JAX package: ``submit(lane=,
+tenant=)`` (``interactive`` and ``default`` unless named); groups never
+mix lanes (the group key is (padded fingerprint, dtype, lane)), a flush
+takes interactive groups first, ``poll()`` defers due batch groups while
+an interactive one is due (``batch_deferrals``), and a batch group
+passed over for ``_BATCH_AGING_FACTOR`` x ``max_wait_s`` gains
+interactive rank (``batch_promotions``).  The admission-controlled door
+in front of a service is :mod:`amgx_tpu_torch.serve.gateway`.
+
+Failure domains, as in the JAX package: every group is placed through
+``placement.plan`` (``serve/placement``: the one device of
+``SingleDevicePolicy``).  With ``failover`` (default on,
+``AMGX_TPU_FAILOVER``) a flush keeps a host copy of its batched values,
+b and x0, taken before the staging slot goes back to the pool.  A device
+lost at dispatch (the ``device_lost_dispatch`` site) replans once and
+ships the still-staged rows again (``_failover_replan``); one lost at
+the fetch (``device_lost_fetch``), one whose loop raised a CUDA runtime
+error (``_classify_device_loss``: ``torch.cuda.OutOfMemoryError`` and
+plain exceptions keep the quarantine path), and one whose fetch outran
+the watchdog re-dispatch the group once from that copy
+(``_failover_refetch``); a second loss settles every groupmate with a
+typed ``DeviceLostError``.  The watchdog (``fetch_watchdog_s``, default
+``AMGX_TPU_FETCH_WATCHDOG_S``, 120 s, and never below 25 x the observed
+p99 device seconds; <= 0 waits inline) waits for a group on a daemon
+thread (``_DaemonFetchPool``), so a hung card never blocks ``result()``
+(the ``fetch_hang`` site sleeps there).  The port's loop reads a norm
+each iteration, so the requeue's loop runs on a fetch-pool thread and
+the fetching thread waits for it under the watchdog; when the fire
+finds the group's loop itself still running on the dispatch worker,
+later groups go to a fresh worker (``core/dispatch.abandon_worker``).
+Buffer donation (``donate=``: torch has none) raises
+``NotImplementedError``, and so do the multi-device placements
+(ROADMAP.md, queue A.9).  Scalar (block_size 1) systems only, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import os
+import queue
+import re
 import threading
 import time
 from typing import Optional
@@ -101,8 +131,14 @@ import torch
 from amgx_tpu_torch.config.amg_config import AMGConfig
 from amgx_tpu_torch.core import faults
 from amgx_tpu_torch.core.device import resolve_device
+from amgx_tpu_torch.core.dispatch import abandon_worker
 from amgx_tpu_torch.core.dispatch import dispatch_pool as _dispatch_pool
 from amgx_tpu_torch.core.dispatch import on_dispatch_worker
+from amgx_tpu_torch.core.errors import (
+    AMGXTPUError,
+    DeviceLostError,
+    ResourceError,
+)
 from amgx_tpu_torch.core.matrix import SparseMatrix, sparsity_fingerprint
 from amgx_tpu_torch.core.types import torch_dtype
 from amgx_tpu_torch.serve.batched import make_batched_solve
@@ -122,6 +158,10 @@ from amgx_tpu_torch.serve.cache import (
 )
 from amgx_tpu_torch.core.profiling import trace_range
 from amgx_tpu_torch.serve.metrics import ServeMetrics
+from amgx_tpu_torch.serve.placement import (
+    breaker_probe_every as _probe_cadence,
+)
+from amgx_tpu_torch.serve.placement import resolve_placement
 from amgx_tpu_torch.solvers.base import PendingSolveResult, SolveResult
 from amgx_tpu_torch.telemetry import (
     FlightRecorder,
@@ -131,10 +171,12 @@ from amgx_tpu_torch.telemetry import (
     tracing,
 )
 
-_A7 = "ROADMAP.md, queue A.7.7"
-# every ticket's lane and tenant until the gateway (queue A.7.7)
-LANE = "default"
-TENANT = "-"
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
 
 
 def _host_csr(A, metrics=None):
@@ -258,6 +300,68 @@ def _fetch_host(res):
     return res
 
 
+class _DaemonFetchPool:
+    """Daemon threads for the watchdog's waits (the JAX package's
+    ``_DaemonFetchPool``): a group's blocking wait runs here so that the
+    fetching caller can give up at the watchdog.  Not a
+    ``ThreadPoolExecutor``, whose workers are joined at interpreter exit:
+    one truly hung wait would hold the exit.  A stuck worker is
+    abandoned and the pool grows around it, up to ``max_workers``;
+    workers are reused."""
+
+    def __init__(self, max_workers: int = 32):
+        self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._lock = threading.Lock()
+        self._workers = 0
+        self._idle = 0
+        self._max = int(max_workers)
+
+    def submit(self, fn) -> concurrent.futures.Future:
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._q.put((fn, fut))
+        with self._lock:
+            if self._idle == 0 and self._workers < self._max:
+                self._workers += 1
+                threading.Thread(target=self._loop,
+                                 name=f"serve-fetch-{self._workers}",
+                                 daemon=True).start()
+        return fut
+
+    def _loop(self):
+        while True:
+            with self._lock:
+                self._idle += 1
+            fn, fut = self._q.get()
+            with self._lock:
+                self._idle -= 1
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # noqa: BLE001 — to the waiter
+                fut.set_exception(e)
+
+
+_FETCH_POOL: Optional[_DaemonFetchPool] = None
+_FETCH_POOL_LOCK = threading.Lock()
+
+
+def _fetch_pool() -> _DaemonFetchPool:
+    global _FETCH_POOL
+    with _FETCH_POOL_LOCK:
+        if _FETCH_POOL is None:
+            _FETCH_POOL = _DaemonFetchPool(max_workers=32)
+        return _FETCH_POOL
+
+
+# a RuntimeError whose message names a CUDA runtime failure (a torch
+# built without AcceleratorError raises these as plain RuntimeErrors)
+_CUDA_ERROR = re.compile(
+    r"CUDA( \w+)? error|cudaError|CUBLAS_STATUS|CUSPARSE_STATUS"
+    r"|illegal memory access|device-side assert|launch failure"
+    r"|unspecified launch|ECC error|device not ready|GPU is lost")
+
+
 def _outcome(k: int):
     """The ``k``-th request's outcome in a fallback group's settled
     list (:meth:`BatchedSolveService._fallback_settled`): its result,
@@ -293,6 +397,8 @@ class SolveTicket:
     _t_submit: float = 0.0  # perf_counter at submit
     _pad_s: float = 0.0  # seconds writing the staging row
     _trace: object = None  # the sampled trace context, or None
+    _lane: str = "interactive"
+    _tenant: str = "default"  # the gateway's, or "default" direct
     # concurrent result() calls on one ticket settle consistently
     _rlock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
@@ -343,29 +449,36 @@ class _Request:
 
 @dataclasses.dataclass
 class _Group:
-    key: tuple  # (padded fingerprint, dtype str)
+    key: tuple  # (padded fingerprint, dtype str, lane)
     pattern: PaddedPattern
     dtype: np.dtype
     requests: list
     deadline: float  # monotonic max-wait flush time
     slot: Optional[StagingSlot]
+    lane: str = "interactive"
+    created: float = 0.0  # monotonic creation time (aging)
+    promoted: bool = False  # the batch aging credit, once given
 
 
 class _BatchResult:
     """One dispatched batched group: ``inflight`` is the future of its
     loop's (result, CUDA event).  ``fetch()`` makes the group's one
-    blocking wait (``_block_ready``) and host fetch (``_fetch_host``),
-    once, whichever ticket asks first, and records the group's metrics,
-    latency stages, spans and flight records; ``result_for`` cuts a
-    ticket's row out.  The ``device`` stage runs from the hand-over to
-    the end of that wait, measured at fetch: an upper bound when the
-    fetch comes late (a watcher waiting at completion would be a second
-    sync a group, which the one-sync contract rules out).  A group whose
-    loop failed settles its future with None after its quarantine:
-    each ticket then holds its own outcome."""
+    blocking wait (``_block_ready``, under the service's watchdog) and
+    host fetch (``_fetch_host``), once, whichever ticket asks first, and
+    records the group's metrics, latency stages, spans and flight
+    records; ``result_for`` cuts a ticket's row out.  The ``device``
+    stage runs from the hand-over to the end of that wait, measured at
+    fetch: an upper bound when the fetch comes late (a watcher waiting at
+    completion would be a second sync a group, which the one-sync
+    contract rules out).  A group whose loop failed settles its future
+    with None after its quarantine: each ticket then holds its own
+    outcome.  A device lost after dispatch re-dispatches the group once
+    from ``retry`` (the host copy of its batched arrays, with
+    ``failover``); a failure that stays settles every groupmate with the
+    same typed error."""
 
     def __init__(self, service, inflight, pattern, tickets, Bb, t_flush,
-                 t_dispatch):
+                 t_dispatch, plan=None, entry=None, retry=None):
         self._service = service
         self.inflight = inflight
         self.res = None
@@ -374,8 +487,15 @@ class _BatchResult:
         self.Bb = Bb
         self.t_flush = t_flush
         self.t_dispatch = t_dispatch
+        self.plan = plan  # the placement GroupPlan (fetch accounting)
+        # failover: the hierarchy entry and the retained host payload a
+        # device-lost group re-dispatches from, once
+        self.entry = entry
+        self.retry = retry
+        self.requeued = False
         self._lock = threading.Lock()
         self._fetched = False
+        self._error = None
 
     def fetched(self) -> bool:
         with self._lock:
@@ -390,48 +510,127 @@ class _BatchResult:
             return False
         if not fut.done():
             return True
+        if fut.exception() is not None:
+            return False
         event = fut.result()[1]
         return event is not None and not event.query()
+
+    def _sync_once(self):
+        """One attempt at the group's wait and fetch: the
+        ``device_lost_fetch`` site, then the watched wait, then the host
+        fetch.  Returns (result or None, t_done); raises a typed
+        ``DeviceLostError`` on an injected loss or a watchdog fire."""
+        label = self.plan.device_label if self.plan is not None else None
+        if faults.should_fire("device_lost_fetch"):
+            raise DeviceLostError(
+                "injected device loss at fetch (fault site "
+                "device_lost_fetch)", device_label=label)
+        res = self._service._watched_block(self.inflight, label)
+        t_done = time.perf_counter()
+        return (None if res is None else _fetch_host(res)), t_done
 
     def fetch(self):
         with self._lock:
             if self._fetched:
                 return self.res
-            res = _block_ready(self.inflight)
-            t_done = time.perf_counter()
+            if self._error is not None:
+                raise self._error
+            svc = self._service
+            m = svc.metrics
+            try:
+                res, t_done = self._sync_once()
+            except BaseException as e:  # noqa: BLE001 — settled typed
+                res, t_done = self._failed(e)
+            self.inflight = None
+            # settled: the failover payload and the entry are dead weight
+            self.retry = None
+            self.entry = None
+            self._fetched = True
             if res is None:
                 # the loop failed and the group went through the
                 # quarantine
-                self._fetched = True
-                self.inflight = None
+                if self.plan is not None:
+                    self.plan.abandon()
                 return None
-            self.res = _fetch_host(res)
-            self.inflight = None
-            m = self._service.metrics
-            pat = self.pattern
+            self.res = res
             # the loop's norm reads and this wait
             m.inc("host_syncs", self.res.host_reads + 1)
             device_s = max(t_done - self.t_dispatch, 0.0)
             dispatch_s = self.t_dispatch - self.t_flush
+            if self.plan is not None:
+                try:
+                    self.plan.on_fetch(res, device_s)
+                except Exception:  # noqa: BLE001 — placement telemetry
+                    m.inc("telemetry_errors")
+            pat = self.pattern
             m.add_time("device_busy_s", device_s)
             m.record_batch((pat.nb, pat.nnzb, self.Bb), device_s,
                            len(self.tickets), self.Bb - len(self.tickets))
             m.inc("solved", len(self.tickets))
             m.inc("padded_elems", self.Bb * pat.nb)
             m.inc("real_elems", len(self.tickets) * pat.n)
-            self._fetched = True
             t_fetch = time.perf_counter()
             m.add_time("host_busy_s", t_fetch - t_done)
             self._observe(device_s, dispatch_s, t_done, t_fetch)
             return self.res
 
+    def _failed(self, e):
+        """The group's wait raised (caller holds the lock): a device
+        loss (typed, or a CUDA runtime error classified as one) tries
+        the one-shot requeue, whose (result, t_done) is returned; any
+        other failure, or a failed requeue, settles the group with one
+        typed error, raised here."""
+        svc = self._service
+        label = self.plan.device_label if self.plan is not None else None
+        dl = svc._classify_device_loss(e, label)
+        if dl is not None:
+            e = dl
+            try:
+                return svc._failover_refetch(self, e)
+            except BaseException as e2:  # noqa: BLE001
+                if not isinstance(e2, Exception):
+                    raise  # Ctrl-C and SystemExit propagate
+                if isinstance(e2, AMGXTPUError):
+                    e = e2
+                elif e.__cause__ is None:
+                    e.__cause__ = e2
+                else:
+                    # the device failure stays the cause; the requeue's
+                    # error rides along
+                    e.requeue_error = e2
+        if isinstance(e, AMGXTPUError):
+            err = e
+        else:
+            err = ResourceError("batched group execution failed after "
+                                f"dispatch: {type(e).__name__}: {e}")
+            err.__cause__ = e
+        self._error = err
+        self.inflight = None
+        self.retry = None
+        self.entry = None
+        svc.metrics.inc("failed_groups")
+        if self.plan is not None:
+            try:
+                self.plan.abandon()
+            except Exception:  # noqa: BLE001 — never masks the failure
+                svc.metrics.inc("telemetry_errors")
+        if (not isinstance(err, DeviceLostError)
+                or getattr(err, "inferred", False)):
+            # a certain device loss (injected, the watchdog) is not the
+            # pattern's fault; an inferred one charges its breaker too
+            svc._breaker_failure(self.pattern.fingerprint)
+        raise err
+
     def _observe(self, device_s, dispatch_s, t_done, t_fetch):
         """Each ticket's latency stages, spans and flight record, and
-        the group's device seconds against the tickets' one tenant and
-        lane."""
+        each ticket's even share of the group's device seconds against
+        its tenant and lane (summed per pair: one metrics lock a
+        pair)."""
         svc = self._service
         m = svc.metrics
         rec_on = telemetry_enabled()
+        share = device_s / len(self.tickets)
+        tenant_shares: dict = {}
         if rec_on:
             # shared or vectorised once: the loop only builds records
             ts_now = time.time()
@@ -451,7 +650,9 @@ class _BatchResult:
                 "total": total,
             }
             m.record_ticket(stages)
-            m.record_lane(LANE, total)
+            m.record_lane(t._lane, total)
+            tk = (t._tenant, t._lane)
+            tenant_shares[tk] = tenant_shares.get(tk, 0.0) + share
             ctx = t._trace
             if ctx is not None:
                 tracing.record_span("queue", t._t_submit + t._pad_s,
@@ -462,13 +663,14 @@ class _BatchResult:
                 i = t._row
                 recs.append(SolveRecord(
                     ts=ts_now, fingerprint=self.pattern.fingerprint,
-                    config=svc.cfg_key, lane=LANE, tenant=TENANT,
+                    config=svc.cfg_key, lane=t._lane, tenant=t._tenant,
                     iterations=iters_l[i],
                     final_residual=float(fn_max[i]),
                     status=status_l[i], stages=stages, path="batched",
                     trace_id=ctx.trace_id if ctx is not None else None,
                 ))
-        m.record_tenant_device(TENANT, LANE, device_s)
+        for (tn, ln), sec in tenant_shares.items():
+            m.record_tenant_device(tn, ln, sec)
         if rec_on and recs:
             svc._flight_record_many(recs)
 
@@ -508,7 +710,9 @@ class BatchedSolveService:
         which its requests bypass batching (``breaker_trips`` /
         ``breaker_bypasses``); 0 disables the breaker.
     breaker_probe_every: every this-many-th group of an open-breaker
-        pattern is a half-open probe whose success closes it.
+        pattern is a half-open probe whose success closes it (None:
+        ``AMGX_TPU_BREAKER_PROBE_EVERY``, default 8; the device breakers
+        of ``serve/placement`` share it).
     device: ``"cuda"`` (the default; raises without a card) or
         ``"cpu"``, where the kernels' plain versions run.
     store: the setup-artifact store of warm-boot serving (a directory
@@ -518,30 +722,33 @@ class BatchedSolveService:
         from it.  The JAX package also points XLA's compile cache there;
         the port's kernel cache is the ``_build/`` directory of the
         checkout.
+    placement: a :class:`~amgx_tpu_torch.serve.placement.PlacementPolicy`,
+        a spec string or None (``AMGX_TPU_PLACEMENT``; unset: single
+        device).  The multi-device specs raise ``NotImplementedError``
+        (ROADMAP.md, queue A.9).
+    fetch_watchdog_s: the bound on a group's one blocking wait; past it
+        the fetch settles with a typed ``DeviceLostError`` and the group
+        requeues once.  None: ``AMGX_TPU_FETCH_WATCHDOG_S`` (default
+        120); <= 0 waits inline.  Never below 25 x the observed p99
+        device seconds.
+    failover: keep a host copy of each flushed group's batched values,
+        b and x0 (freed at its fetch), so that a device lost after
+        dispatch requeues the group once; without it such a loss
+        settles every groupmate typed.  None: ``AMGX_TPU_FAILOVER``
+        (default on).
     """
-
-    # the JAX package's parameters this port does not carry yet
-    _LEFT_OUT = {
-        "donate": "buffer donation (torch has none)",
-        "placement": f"device placement ({_A7}: placement)",
-        "fetch_watchdog_s": f"the fetch watchdog ({_A7}: failover)",
-        "failover": f"device-loss failover ({_A7}: failover)",
-    }
 
     def __init__(self, config=None, max_batch: int = 32,
                  max_wait_s: float = 0.02, queue_limit: int = 1024,
                  cache_entries: int = 64, validate: bool = True,
-                 breaker_threshold: int = 3, breaker_probe_every: int = 8,
+                 breaker_threshold: int = 3,
+                 breaker_probe_every: Optional[int] = None,
                  device="cuda", *, donate=None, store=None,
                  placement=None, fetch_watchdog_s=None, failover=None):
-        given = {"donate": donate, "placement": placement,
-                 "fetch_watchdog_s": fetch_watchdog_s,
-                 "failover": failover}
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"BatchedSolveService({name}=...): "
-                    f"{self._LEFT_OUT[name]} is not ported")
+        if donate is not None:
+            raise NotImplementedError(
+                "BatchedSolveService(donate=...): buffer donation (torch "
+                "has none) is not ported")
         self.device = resolve_device(device)
         if config is None:
             config = DEFAULT_CONFIG
@@ -554,7 +761,20 @@ class BatchedSolveService:
         self.queue_limit = int(queue_limit)
         self.validate = bool(validate)
         self.breaker_threshold = int(breaker_threshold)
-        self.breaker_probe_every = max(int(breaker_probe_every), 1)
+        # the half-open cadence of the fingerprint breaker and the
+        # placement's device breakers: the parameter, then the
+        # environment, then 8
+        self.breaker_probe_every = _probe_cadence(breaker_probe_every)
+        self.fetch_watchdog_s = (
+            _env_float("AMGX_TPU_FETCH_WATCHDOG_S", 120.0)
+            if fetch_watchdog_s is None else float(fetch_watchdog_s))
+        self.failover = (os.environ.get("AMGX_TPU_FAILOVER", "1") != "0"
+                         if failover is None else bool(failover))
+        self.placement = resolve_placement(placement)
+        if (breaker_probe_every is not None
+                and getattr(self.placement, "health", None) is not None):
+            # an explicit parameter governs the device breakers too
+            self.placement.health.probe_every = self.breaker_probe_every
         self.metrics = ServeMetrics()
         # the flight recorder: its incident snapshots read this
         # service's metrics
@@ -636,7 +856,8 @@ class BatchedSolveService:
     # decision passes its context, possibly None
     _TRACE_UNSET = object()
 
-    def submit(self, A, b, x0=None, deadline_s=None, *,
+    def submit(self, A, b, x0=None, deadline_s=None,
+               lane: str = "interactive", tenant: str = "default", *,
                _host=None, _trace=_TRACE_UNSET) -> SolveTicket:
         """Queue one system and return its ticket.  ``A`` is a
         SparseMatrix or a scipy sparse matrix (block size 1), ``b`` and
@@ -651,7 +872,13 @@ class BatchedSolveService:
         session's step, ``amgx_tpu_torch.sessions``); ``A`` is then
         ignored, and the submit extracts no CSR and hashes no
         pattern; ``_trace``: its sampled trace context (the session
-        step's root), so this submit records no root of its own."""
+        step's root), so this submit records no root of its own.
+
+        ``lane`` (``interactive`` or ``batch``) is the priority lane:
+        groups never mix lanes, a flush takes interactive groups first,
+        and a batch group passed over for ``_BATCH_AGING_FACTOR`` x
+        ``max_wait_s`` gains interactive rank (``batch_promotions``).
+        ``tenant`` labels the ticket's records and device seconds."""
         t_submit = time.perf_counter()
         ctx = tracing.new_trace() if _trace is self._TRACE_UNSET else _trace
         if deadline_s is not None and float(deadline_s) <= 0.0:
@@ -680,7 +907,7 @@ class BatchedSolveService:
                     "(validation reject)")
         pattern = self._pattern_for(ro, ci, n, raw_fp)
         dtype = _resolve_dtype(vals.dtype)
-        key = (pattern.fingerprint, str(dtype))
+        key = (pattern.fingerprint, str(dtype), lane)
         flush_now = []
         with self._lock:
             now = time.monotonic()
@@ -688,11 +915,13 @@ class BatchedSolveService:
             if grp is None:
                 grp = _Group(key=key, pattern=pattern, dtype=dtype,
                              requests=[], deadline=now + self.max_wait_s,
-                             slot=self._acquire_slot(key, pattern, dtype))
+                             slot=self._acquire_slot(key, pattern, dtype),
+                             lane=lane, created=now)
                 self._groups[key] = grp
             ticket = SolveTicket(_service=self, _group_key=key,
                                  _row=len(grp.requests),
-                                 _t_submit=t_submit, _trace=ctx)
+                                 _t_submit=t_submit, _trace=ctx,
+                                 _lane=lane, _tenant=tenant)
             if deadline_s is not None:
                 ticket._deadline = now + float(deadline_s)
             req = _Request(ticket=ticket, row=ticket._row,
@@ -704,8 +933,9 @@ class BatchedSolveService:
             if len(grp.requests) >= self.max_batch:
                 flush_now.append(self._take_group(key))
             elif self._queued >= self.queue_limit:
+                # flush all, interactive groups first
                 flush_now.extend(self._take_group(k)
-                                 for k in self._ordered_keys())
+                                 for k in self._ordered_keys(now))
         # pad the request into its staging row outside the lock (the
         # row is this thread's until the group flushes)
         t0 = time.perf_counter()
@@ -731,7 +961,7 @@ class BatchedSolveService:
                 # a direct submit is its trace's root
                 tracing.record_span(
                     "submit", t_submit, time.perf_counter(), ctx,
-                    args={"lane": LANE, "tenant": TENANT}, root=True)
+                    args={"lane": lane, "tenant": tenant}, root=True)
         for g in flush_now:
             self._execute_group(g)
         return ticket
@@ -762,7 +992,7 @@ class BatchedSolveService:
                     pattern, self.cfg_key, dtype,
                     lambda: self._build_entry(pattern, vals, dtype))
                 if entry.batch_fn is not None:
-                    self.compile_cache.warm(entry, Bb)
+                    self.placement.warm(self, entry, Bb)
                 self.metrics.inc("prewarms")
             except Exception:  # noqa: BLE001 — a warm-up is best-effort
                 self.metrics.inc("prewarm_failures")
@@ -828,25 +1058,56 @@ class BatchedSolveService:
     # ------------------------------------------------------------------
     # flushing
 
-    def _ordered_keys(self) -> list:
-        """Group keys, oldest max-wait deadline first (caller holds the
-        lock)."""
-        return sorted(self._groups, key=lambda k: self._groups[k].deadline)
+    # a batch group passed over this long (x max_wait_s) gains its aging
+    # credit and sorts with interactive rank
+    _BATCH_AGING_FACTOR = 8
+
+    def _lane_rank(self, grp: _Group, now: float) -> int:
+        """0: flush first (interactive, or a batch group its aging
+        credit promoted), 1: batch."""
+        if grp.lane != "batch" or grp.promoted:
+            return 0
+        if now - grp.created >= self.max_wait_s * self._BATCH_AGING_FACTOR:
+            grp.promoted = True
+            self.metrics.inc("batch_promotions")
+            return 0
+        return 1
+
+    def _ordered_keys(self, now: float) -> list:
+        """Group keys in flush order (caller holds the lock):
+        interactive before batch, then oldest max-wait deadline
+        first."""
+        return sorted(self._groups, key=lambda k: (
+            self._lane_rank(self._groups[k], now), self._groups[k].deadline))
 
     def flush(self):
-        """Run every queued group now."""
+        """Run every queued group now, interactive groups first."""
+        now = time.monotonic()
         with self._lock:
-            groups = [self._take_group(k) for k in self._ordered_keys()]
+            groups = [self._take_group(k) for k in self._ordered_keys(now)]
         for grp in groups:
             self._execute_group(grp)
 
     def poll(self):
-        """Run the groups whose max-wait deadline has passed, their
-        device stage handed to the dispatch worker (pipelined)."""
+        """Run the groups whose max-wait deadline has passed, in lane
+        order, their device stage handed to the dispatch worker
+        (pipelined).  While an interactive group is due, a due batch
+        group waits for a later poll (``batch_deferrals``), until its
+        aging credit promotes it."""
         now = time.monotonic()
         with self._lock:
-            due = [self._take_group(k) for k in self._ordered_keys()
-                   if self._groups[k].deadline <= now]
+            due_keys = [k for k in self._ordered_keys(now)
+                        if self._groups[k].deadline <= now]
+            pressure = any(self._groups[k].lane != "batch"
+                           for k in due_keys)
+            due = []
+            for k in due_keys:
+                g = self._groups[k]
+                if (pressure and g.lane == "batch"
+                        and self._lane_rank(g, now) != 0):
+                    self.metrics.inc("batch_deferrals")
+                    continue
+                due.append(self._take_group(k))
         for grp in due:
             self._execute_group(grp, wait_dispatch=False)
 
@@ -1107,8 +1368,9 @@ class BatchedSolveService:
                     "serve deadline exceeded before execution")
                 r.ticket._done = True
                 self.metrics.inc("deadline_expired")
-                self._flight_incident("deadline_expired",
-                                      detail="expired while queued")
+                self._flight_incident(
+                    "deadline_expired",
+                    detail=f"expired while queued (lane {grp.lane})")
 
     def _breaker_failure(self, fp: str):
         """Count a group failure; trip the breaker at the threshold
@@ -1145,7 +1407,8 @@ class BatchedSolveService:
 
     def _execute_group(self, grp: _Group, wait_dispatch: bool = True):
         """Host stage of a flush: deadlines, the breaker, the hierarchy
-        entry and its batched solve; then the device stage.  A flush
+        entry and the group's placement plan (its device and its built
+        batched solve); then the device stage.  A flush
         (``wait_dispatch``: a submit at ``max_batch``, ``flush()``,
         ``solve_many``, a ``result()`` of a queued ticket) returns once
         its tickets are done(): a service that is not started runs the
@@ -1184,12 +1447,11 @@ class BatchedSolveService:
                 self._execute_sequential(entry, grp, live)
                 return
             if faults.should_fire("serve_compile"):
-                from amgx_tpu_torch.core.errors import ResourceError
-
                 raise ResourceError("injected serve compile failure "
                                     "(fault site serve_compile)")
             Bb = bucket_batch(len(grp.requests))
-            fn = self.compile_cache.get(entry, Bb)
+            # where the group runs, and with which built solve
+            plan = self.placement.plan(self, entry, Bb)
             with self._lock:
                 if len(self._last_bucket) >= self._PATTERN_CACHE_MAX:
                     self._last_bucket.clear()
@@ -1203,39 +1465,60 @@ class BatchedSolveService:
             return
         if wait_dispatch and (self._poller is None or on_dispatch_worker()):
             # (a job on the worker cannot wait for one queued behind it)
-            self._dispatch_batched(entry, fn, grp, live, Bb, t_flush)
+            self._dispatch_batched(entry, plan, grp, live, Bb, t_flush)
             return
         handed = threading.Event()
-        _dispatch_pool().submit(self._dispatch_batched, entry, fn, grp,
+        _dispatch_pool().submit(self._dispatch_batched, entry, plan, grp,
                                 live, Bb, t_flush, handed)
         if wait_dispatch:
             handed.wait()
 
-    def _group_failed(self, grp: _Group, fp: str):
+    def _group_failed(self, grp: _Group, fp: str,
+                      device_loss: bool = False):
         """Count a group that failed as a unit (its members then
-        re-solve alone)."""
+        re-solve alone).  A lost device is not the pattern's fault: it
+        does not count toward the fingerprint breaker."""
         self.metrics.inc("failed_groups")
-        self._breaker_failure(fp)
+        if not device_loss:
+            self._breaker_failure(fp)
         self.metrics.inc("quarantines")
         self._flight_incident(
             "quarantine",
-            detail=f"group of {len(grp.requests)} fingerprint {fp[:16]}...")
+            detail=(f"group of {len(grp.requests)} (lane {grp.lane}) "
+                    f"fingerprint {fp[:16]}..."))
 
-    def _dispatch_batched(self, entry, fn, grp, live, Bb, t_flush,
+    def _ship(self, plan, slot, Bb):
+        """The staged rows' copies on the plan's device (the slot goes
+        back to the pool before the loop reads them), then the
+        ``device_lost_dispatch`` site."""
+        shipped = tuple(
+            None if a is None else plan.put(a[:Bb])
+            for a in (slot.vals, slot.bs,
+                      slot.x0s if slot.x0_used else None))
+        if faults.should_fire("device_lost_dispatch"):
+            raise DeviceLostError(
+                "injected device loss at dispatch (fault site "
+                "device_lost_dispatch)", device_label=plan.device_label)
+        return shipped
+
+    def _dispatch_batched(self, entry, plan, grp, live, Bb, t_flush,
                           handed=None):
-        """Device stage: ship the staged rows to the device, release the
-        slot, hand the group to its tickets (done() from here, and
-        ``handed`` set), run the batched loop and settle the group's
-        future with its result and a CUDA event recorded after its last
-        launch.  Runs inline or on the dispatch worker, and never
-        raises: a failure before the hand-over quarantines the group
-        from its slot, one in the loop from the rows' device copies."""
+        """Device stage: ship the staged rows through the plan (a device
+        lost there replans once and ships again), keep the failover copy,
+        release the slot, hand the group to its tickets (done() from
+        here, and ``handed`` set), run the batched loop and settle the
+        group's future with its result and a CUDA event recorded after
+        its last launch.  Runs inline or on the dispatch worker, and
+        never raises: a failure before the hand-over quarantines the
+        group from its slot; a CUDA runtime error in the loop settles
+        the future with a ``DeviceLostError``, which the fetch fails
+        over; any other loop failure quarantines from the rows' device
+        copies."""
         pat, slot = grp.pattern, grp.slot
         fp = pat.fingerprint
         nreq = len(grp.requests)
-        dev = self.device
         inflight = concurrent.futures.Future()
-        shipped = None
+        shipped = ship_err = br = None
         try:
             with trace_range("serve_batch_dispatch"), \
                     self.metrics.profile.phase("dispatch"):
@@ -1246,39 +1529,64 @@ class BatchedSolveService:
                     slot.fill_batch_padding(nreq, Bb)
                     if live[0].row != 0:
                         slot.vals[nreq:Bb] = slot.vals[live[0].row]
-                    # copies, on the CPU too: the slot goes back to the
-                    # pool before the loop reads them
-                    shipped = tuple(
-                        None if a is None
-                        else torch.from_numpy(a[:Bb]).to(dev, copy=True)
-                        for a in (slot.vals, slot.bs,
-                                  slot.x0s if slot.x0_used else None))
-                except Exception:  # noqa: BLE001 — the rows are still staged
-                    shipped = None
+                    try:
+                        shipped = self._ship(plan, slot, Bb)
+                    except DeviceLostError as e:
+                        # the rows are still staged: replan, ship again
+                        # (a second loss quarantines)
+                        plan = self._failover_replan(plan, e, entry, Bb)
+                        shipped = self._ship(plan, slot, Bb)
+                    retry = None
+                    if self.failover:
+                        # the host copy a device lost after this release
+                        # re-dispatches from
+                        retry = {"vals": np.array(slot.vals[:Bb]),
+                                 "bs": np.array(slot.bs[:Bb]),
+                                 "x0": (np.array(slot.x0s[:Bb])
+                                        if slot.x0_used else None)}
+                except Exception as e:  # noqa: BLE001 — rows still staged
+                    shipped, ship_err = None, e
                 if shipped is not None:
                     vals_d, bs_d, x0_d = shipped
                     if x0_d is None:
                         x0_d = torch.zeros_like(bs_d)
                     self._release_group_slot(grp)
                     t_dispatch = time.perf_counter()
-                    self._handed_over(grp, live, Bb, inflight, t_flush,
-                                      t_dispatch)
+                    br = self._handed_over(grp, live, Bb, inflight,
+                                           t_flush, t_dispatch, plan,
+                                           entry, retry)
                     if handed is not None:
                         handed.set()
+                    loop_err = None
                     try:
-                        res = fn(entry.template, vals_d, bs_d, x0_d)
+                        res = plan.fn(entry.template, vals_d, bs_d, x0_d)
                         event = None
-                        if dev.type == "cuda":
+                        if self.device.type == "cuda":
                             event = torch.cuda.Event()
                             event.record()
                         self.metrics.inc("batches")
-                    except Exception:  # noqa: BLE001 — the group quarantines
-                        res = None
+                    except Exception as e:  # noqa: BLE001 — settled below
+                        res, loop_err = None, e
             if shipped is None:
-                self._group_failed(grp, fp)
+                device_loss = isinstance(ship_err, DeviceLostError)
+                if device_loss:
+                    # the replan's device was lost too
+                    self._device_loss_attributed(plan, ship_err)
+                else:
+                    self._abandon(plan)
+                self._group_failed(grp, fp, device_loss=device_loss)
                 self._execute_quarantined(grp)
-            elif res is None:
-                self._loop_failed(grp, fp, live, inflight, shipped)
+            elif br.requeued:
+                # the watchdog gave up on this loop and the group was
+                # requeued: its late outcome is nobody's
+                inflight.set_result((None, None))
+            elif loop_err is not None:
+                dl = self._classify_device_loss(loop_err, plan.device_label)
+                if dl is not None:
+                    # the fetch fails the group over from its host copy
+                    inflight.set_exception(dl)
+                else:
+                    self._loop_failed(grp, fp, live, inflight, shipped)
             else:
                 inflight.set_result((res, event))
                 self._breaker_success(fp)
@@ -1286,10 +1594,17 @@ class BatchedSolveService:
             if handed is not None:
                 handed.set()
 
-    def _handed_over(self, grp, live, Bb, inflight, t_flush, t_dispatch):
+    def _abandon(self, plan):
+        try:
+            plan.abandon()  # release any routing reservation
+        except Exception:  # noqa: BLE001 — placement telemetry
+            self.metrics.inc("telemetry_errors")
+
+    def _handed_over(self, grp, live, Bb, inflight, t_flush, t_dispatch,
+                     plan=None, entry=None, retry=None):
         """The group's rows are on the device: its host time, its
         dispatch spans, and its tickets handed the group's result (done()
-        from here)."""
+        from here).  Returns the group's :class:`_BatchResult`."""
         self.metrics.add_time(
             "host_busy_s",
             (t_dispatch - t_flush) + sum(r.ticket._pad_s for r in live))
@@ -1305,21 +1620,24 @@ class BatchedSolveService:
                     "flush_group", t_flush, t_dispatch, None,
                     args={"members": [c.trace_id for c in sampled],
                           "batch": Bb, "real": len(grp.requests),
-                          "lane": LANE,
+                          "lane": grp.lane,
                           "fingerprint": grp.pattern.fingerprint[:16]})
         br = _BatchResult(self, inflight, grp.pattern,
-                          [r.ticket for r in live], Bb, t_flush, t_dispatch)
+                          [r.ticket for r in live], Bb, t_flush, t_dispatch,
+                          plan=plan, entry=entry, retry=retry)
         for r in live:
             r.ticket._batch = br
             r.ticket._done = True
+        return br
 
     def _loop_failed(self, grp, fp, live, inflight, shipped):
-        """The batched loop raised after the hand-over: every member
-        re-solves alone from its rows read back from their device copies
-        (``shipped``: values, b, and x0 or None for zeros; the slot is
-        already back in the pool; a row that cannot be read back fails
-        its request), then the group's future settles with None, so a
-        ticket waiting in ``result()`` reads its own outcome."""
+        """The batched loop raised after the hand-over (not a device
+        loss): every member re-solves alone from its rows read back from
+        their device copies (``shipped``: values, b, and x0 or None for
+        zeros; the slot is already back in the pool; a row that cannot
+        be read back fails its request), then the group's future settles
+        with None, so a ticket waiting in ``result()`` reads its own
+        outcome."""
         vals_d, bs_d, x0_d = shipped
         pat = grp.pattern
 
@@ -1337,6 +1655,163 @@ class BatchedSolveService:
                                    lambda i=r.row: rows(i))
         finally:
             inflight.set_result((None, None))
+
+    # ------------------------------------------------------------------
+    # failure domains: the watchdog and device-loss failover
+
+    # the watchdog never undercuts this multiple of the observed p99
+    # device seconds (long groups are not failed by a fixed bound)
+    _WATCHDOG_P99_FACTOR = 25.0
+
+    def _watched_block(self, inflight, device_label=None, worker=True):
+        """The group's one blocking wait (``_block_ready``) under the
+        watchdog: with ``fetch_watchdog_s > 0`` it runs on a daemon
+        fetch-pool thread and an expiry raises a typed
+        ``DeviceLostError`` (the thread is abandoned: ``result()`` never
+        blocks past the watchdog); <= 0 waits inline.  The
+        ``fetch_hang`` site sleeps ``faults.hang_seconds()`` first, as a
+        hung card would.  ``worker``: ``inflight`` is a job of the
+        dispatch worker (a requeue's is not)."""
+        hang = faults.should_fire("fetch_hang")
+        wd = self.fetch_watchdog_s
+        if not wd or wd <= 0:
+            if hang:
+                time.sleep(faults.hang_seconds())
+            return _block_ready(inflight)
+        # a cold service has no history: size the watchdog above its
+        # largest first group
+        p99 = self.metrics.latency_percentile("device", 99.0)
+        if p99:
+            wd = max(wd, self._WATCHDOG_P99_FACTOR * p99)
+
+        def work():
+            if hang:
+                time.sleep(faults.hang_seconds())
+            return _block_ready(inflight)
+
+        fut = _fetch_pool().submit(work)
+        try:
+            return fut.result(timeout=wd)
+        except concurrent.futures.TimeoutError:
+            self.metrics.inc("resilience_watchdog_fires")
+            self._flight_incident(
+                "watchdog_fire",
+                detail=(f"fetch exceeded the {wd:g}s watchdog on device "
+                        f"{device_label!r}"))
+            if worker and not inflight.done() and not on_dispatch_worker():
+                # the loop itself is still running on the dispatch
+                # worker: later groups go to a fresh one
+                abandon_worker()
+            raise DeviceLostError(
+                f"group fetch exceeded the {wd:g}s in-flight watchdog "
+                "(device presumed hung)", device_label=device_label
+            ) from None
+
+    @staticmethod
+    def _classify_device_loss(e, device_label=None):
+        """A ``DeviceLostError`` for a failure that means the device,
+        not the program, failed; None keeps the typed generic path (the
+        quarantine at the loop, a ``ResourceError`` at the fetch).  A
+        CUDA runtime error (``torch.AcceleratorError`` where torch has
+        it, or a ``RuntimeError`` whose message names a CUDA error) is
+        one, with ``inferred`` set; ``torch.cuda.OutOfMemoryError`` is a
+        program-level failure (the group is too big: it would not fit
+        the next device either) and stays on the generic path, with
+        every plain Python exception."""
+        if isinstance(e, DeviceLostError):
+            return e
+        if isinstance(e, (torch.cuda.OutOfMemoryError, AMGXTPUError)):
+            return None
+        accel = getattr(torch, "AcceleratorError", None)
+        msg = str(e)
+        if "out of memory" in msg.lower():
+            return None
+        if not ((accel is not None and isinstance(e, accel))
+                or (type(e) is RuntimeError and _CUDA_ERROR.search(msg))):
+            return None
+        err = DeviceLostError(
+            f"device runtime failure: {type(e).__name__}: {e}",
+            device_label=device_label)
+        err.__cause__ = e
+        # inferred, not certain: a pattern whose every group dies at run
+        # time still trips its own breaker
+        err.inferred = True
+        return err
+
+    def _device_loss_attributed(self, plan, exc):
+        """A device loss's bookkeeping: the plan's device breaker, its
+        reservation released, the ``device_failover`` incident."""
+        if plan is not None:
+            try:
+                plan.device_failure(exc)
+            except Exception:  # noqa: BLE001 — health accounting
+                self.metrics.inc("telemetry_errors")
+            self._abandon(plan)
+        self._flight_incident(
+            "device_failover",
+            detail=(f"device {getattr(plan, 'device_label', None)!r} "
+                    f"lost: {type(exc).__name__}: {exc}"))
+
+    def _failover_replan(self, plan, exc, entry, Bb):
+        """Dispatch-side failover: the ship lost its device; a fresh
+        plan through the policy (on a single device, the same device
+        again), which the caller ships through once more."""
+        self._device_loss_attributed(plan, exc)
+        self.metrics.inc("resilience_failovers")
+        return self.placement.plan(self, entry, Bb)
+
+    def _failover_refetch(self, batch, exc):
+        """Fetch-side failover: the device was lost (or hung past the
+        watchdog) after dispatch, the staging slot long released: the
+        group runs again from its retained host copy on a fresh plan,
+        and the fetching thread waits for it under the watchdog.  The
+        loop runs on a fetch-pool thread, not on the dispatch worker
+        (which may be the wedged one), and is not waited for past the
+        watchdog.  Once only: a second loss, or a group without a
+        retained copy (``failover=False``), raises ``exc``."""
+        self._device_loss_attributed(batch.plan, exc)
+        retry = batch.retry
+        if retry is None or batch.requeued or batch.entry is None:
+            raise exc
+        batch.requeued = True
+        self.metrics.inc("resilience_failovers")
+        entry, Bb, pat = batch.entry, batch.Bb, batch.pattern
+        nplan = None
+        try:
+            nplan = self.placement.plan(self, entry, Bb)
+
+            def rerun():
+                self._enter_device()
+                vals_d = nplan.put(retry["vals"])
+                bs_d = nplan.put(retry["bs"])
+                x0_d = (nplan.zeros(Bb, pat.nb, retry["bs"].dtype)
+                        if retry["x0"] is None else nplan.put(retry["x0"]))
+                res = nplan.fn(entry.template, vals_d, bs_d, x0_d)
+                event = None
+                if self.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record()
+                self.metrics.inc("batches")
+                return res, event
+
+            t_redispatch = time.perf_counter()
+            rerun_fut = _fetch_pool().submit(rerun)
+            res = self._watched_block(rerun_fut, nplan.device_label,
+                                      worker=False)
+            t_done = time.perf_counter()
+            res = _fetch_host(res)
+        except BaseException as e2:  # noqa: BLE001 — once only: any
+            # second failure settles the group typed
+            if isinstance(e2, DeviceLostError):
+                self._device_loss_attributed(nplan, e2)
+            elif nplan is not None:
+                self._abandon(nplan)
+            self.metrics.inc("resilience_requeue_failures")
+            raise
+        # the new plan owns the group: its accounting, its timings
+        batch.plan = nplan
+        batch.t_dispatch = t_redispatch
+        return res, t_done
 
     def _isolated_solve(self, pat, entry, vals, b, x0, dtype):
         """One request alone: through the cached entry (a values-only
@@ -1468,8 +1943,8 @@ class BatchedSolveService:
             return
         ctx = ticket._trace
         self._flight_record(
-            fingerprint=pat.fingerprint, config=self.cfg_key, lane=LANE,
-            tenant=TENANT,
+            fingerprint=pat.fingerprint, config=self.cfg_key,
+            lane=ticket._lane, tenant=ticket._tenant,
             iterations=-1 if res is None else int(res.iters),
             final_residual=(float("nan") if res is None
                             else float(np.max(np.asarray(res.final_norm)))),

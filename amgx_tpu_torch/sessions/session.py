@@ -62,8 +62,14 @@ counts); a resolved step leaves a flight record (``path``
 sampled step's root span is ``session_step`` (its ``resetup`` child at
 prestage, then the service's ``pad`` ... ``fetch``).
 
-Not ported, each raising ``NotImplementedError`` with its queue item:
-a gateway front, tenants and lanes, ``placement_device`` (A.7.7).
+Fronts, as in the JAX package: a :class:`~amgx_tpu_torch.serve.gateway.
+SolveGateway` in place of the service admits each step as one ticket
+(lanes, tenant quotas, deadline shedding and the concurrency budget
+apply per step; a shed step raises its typed error at commit);
+``open(tenant=, lane=)`` labels a session's steps, and ``restore`` takes
+them from the manifest unless given.  ``SolveSession.placement_device``
+is the device the placement policy routes the session's pattern to:
+None on the port's one device.
 """
 
 from __future__ import annotations
@@ -78,21 +84,13 @@ import numpy as np
 
 from amgx_tpu_torch.core.errors import StoreError
 from amgx_tpu_torch.core.types import host_array
-from amgx_tpu_torch.serve.service import (
-    LANE,
-    TENANT,
-    BatchedSolveService,
-    _host_csr,
-    _resolve_dtype,
-)
+from amgx_tpu_torch.serve.service import _host_csr, _resolve_dtype
 from amgx_tpu_torch.telemetry import (
     get_registry,
     telemetry_enabled,
     tracing,
 )
 
-_GATEWAY = ("ROADMAP.md, queue A.7.7: the gateway, lanes, tenants and "
-            "placement")
 SESSION_KIND = "solve_session"
 # sessions are keyed in the store without a dtype axis (the dtype is in
 # the manifest); this fills the key's dtype slot
@@ -135,6 +133,10 @@ class StepTicket:
             raise self._err
         return self._res
 
+    def _service_ticket(self):
+        """The serve SolveTicket (a gateway ticket's, unwrapped)."""
+        return getattr(self.ticket, "_ticket", self.ticket)
+
 
 class SolveSession:
     """One streamed solve: a registered sparsity pattern and the
@@ -142,7 +144,9 @@ class SolveSession:
     never directly."""
 
     def __init__(self, manager: "SessionManager", session_id: str,
-                 host: tuple, dtype, deadline_s: Optional[float] = None):
+                 host: tuple, dtype, tenant: str = "default",
+                 lane: str = "interactive",
+                 deadline_s: Optional[float] = None):
         self.manager = manager
         self.session_id = session_id
         # (row_offsets, col_indices, n, raw fingerprint): the one-time
@@ -154,6 +158,8 @@ class SolveSession:
         self.nnz = int(self._ci.shape[0])
         self.fingerprint = raw_fp
         self.dtype = _resolve_dtype(dtype)
+        self.tenant = tenant
+        self.lane = lane
         self.deadline_s = deadline_s
         self.step_idx = 0  # steps resolved so far
         self.closed = False
@@ -175,9 +181,15 @@ class SolveSession:
         return None, False
 
     @property
-    def placement_device(self):
-        raise NotImplementedError(
-            f"SolveSession.placement_device: {_GATEWAY} is not ported")
+    def placement_device(self) -> Optional[str]:
+        """The device the service's placement policy holds this
+        session's hierarchy on: None before the pattern is known, and
+        under a policy that does not route (the port's single
+        device)."""
+        fp = self._padded_fp
+        if fp is None:
+            return None
+        return self.manager.service.placement.device_for(fp)
 
     @property
     def last_x(self) -> Optional[np.ndarray]:
@@ -242,7 +254,7 @@ class SolveSession:
         p = self._pending
         if p is None or p._res is not None or p._err is not None:
             return False
-        batch = getattr(p.ticket, "_batch", None)
+        batch = getattr(p._service_ticket(), "_batch", None)
         return batch is not None and batch.running()
 
     def commit(self, b=None) -> StepTicket:
@@ -286,7 +298,8 @@ class SolveSession:
             tracing.record_span(
                 "session_step", t0, time.perf_counter(), ctx,
                 args={"session": self.session_id, "step": step_idx,
-                      "lane": LANE, "tenant": TENANT, "warm": warm},
+                      "lane": self.lane, "tenant": self.tenant,
+                      "warm": warm},
                 root=True)
         mgr._maybe_entry_resetup(self, values)
         return st
@@ -375,12 +388,15 @@ class SolveSession:
 
 
 class SessionManager:
-    """The streaming sessions of one :class:`BatchedSolveService`.
+    """The streaming sessions of one serve front (a
+    :class:`~amgx_tpu_torch.serve.service.BatchedSolveService` or a
+    :class:`~amgx_tpu_torch.serve.gateway.SolveGateway`).
 
     Parameters
     ----------
-    front: the service every step submits through (a gateway front is
-        not ported: queue A.7.7).
+    front: the service or the :class:`~amgx_tpu_torch.serve.gateway.
+        SolveGateway` every step submits through; through a gateway each
+        step is admitted as one ticket.
     store: the store of the session manifests (a directory or an
         ArtifactStore; default: the service's own store).
     resetup_every: every N streamed steps of a pattern, refresh its
@@ -397,12 +413,15 @@ class SessionManager:
     def __init__(self, front, store=None,
                  resetup_every: int = 64,
                  checkpoint_every: Optional[int] = None):
-        if not isinstance(front, BatchedSolveService):
-            raise NotImplementedError(
-                f"SessionManager over {type(front).__name__}: {_GATEWAY} "
-                "is not ported; pass a BatchedSolveService")
-        self.service = front
-        self.store = store if store is not None else front.store
+        from amgx_tpu_torch.serve.gateway import SolveGateway
+
+        if isinstance(front, SolveGateway):
+            self.gateway: Optional[SolveGateway] = front
+            self.service = front.service
+        else:
+            self.gateway = None
+            self.service = front
+        self.store = store if store is not None else self.service.store
         if isinstance(self.store, (str, os.PathLike)):
             from amgx_tpu_torch.store.store import ArtifactStore
 
@@ -460,7 +479,7 @@ class SessionManager:
             return
         self.service._flight_record(
             fingerprint=sess._padded_fp or sess.fingerprint,
-            config=self.service.cfg_key, lane=LANE, tenant=TENANT,
+            config=self.service.cfg_key, lane=sess.lane, tenant=sess.tenant,
             iterations=int(res.iters),
             final_residual=float(np.max(np.asarray(res.final_norm))),
             status=int(res.status),
@@ -491,18 +510,15 @@ class SessionManager:
         """Register ``A``'s sparsity pattern (a SparseMatrix or a scipy
         sparse matrix; its values only set the default dtype) and return
         its session.  ``x0`` seeds the first step's warm start;
-        ``deadline_s`` applies to every step's submit."""
-        if tenant != "default" or lane != "interactive":
-            raise NotImplementedError(
-                f"SessionManager.open(tenant=, lane=): {_GATEWAY} is not "
-                "ported")
+        ``deadline_s`` applies to every step's submit; ``tenant`` and
+        ``lane`` to every step's ticket."""
         svc = self.service
         ro, ci, vals, n, raw_fp = _host_csr(A, svc.metrics)
         if session_id is None:
             session_id = f"sess-{uuid.uuid4().hex[:12]}"
         sess = SolveSession(self, session_id, (ro, ci, n, raw_fp),
                             dtype if dtype is not None else vals.dtype,
-                            deadline_s=deadline_s)
+                            tenant, lane, deadline_s=deadline_s)
         # the padded pattern too, so that no step hashes anything
         sess._padded_fp = svc._pattern_for(ro, ci, n, raw_fp).fingerprint
         if x0 is not None:
@@ -529,13 +545,16 @@ class SessionManager:
     # -- stepping ------------------------------------------------------
 
     def _submit(self, sess: SolveSession, values, b, x0, trace=None):
-        """One step into the service by the values-only fast path: the
-        registered (ro, ci, n, fingerprint) go in as ``_host``, so the
-        submit extracts no CSR and hashes no pattern; ``trace`` is the
-        step's sampled context (its root is the step's)."""
+        """One step into the front (the gateway, else the service) by
+        the values-only fast path: the registered (ro, ci, n,
+        fingerprint) go in as ``_host``, so the submit extracts no CSR
+        and hashes no pattern; ``trace`` is the step's sampled context
+        (its root is the step's)."""
         host = (sess._ro, sess._ci, values, sess.n, sess.fingerprint)
-        return self.service.submit(None, b, x0, deadline_s=sess.deadline_s,
-                                   _host=host, _trace=trace)
+        front = self.gateway if self.gateway is not None else self.service
+        return front.submit(None, b, x0, deadline_s=sess.deadline_s,
+                            tenant=sess.tenant, lane=sess.lane,
+                            _host=host, _trace=trace)
 
     def step_all(self, steps) -> list:
         """Lockstep step of many sessions: ``steps`` is a list of
@@ -559,7 +578,7 @@ class SessionManager:
         return tickets
 
     def flush(self):
-        self.service.flush()
+        (self.gateway or self.service).flush()
 
     def _maybe_entry_resetup(self, sess: SolveSession, values):
         """The ``resetup_every`` cadence: refresh the cached hierarchy
@@ -622,8 +641,8 @@ class SessionManager:
                 "step": sess.step_idx,
                 "last_status": sess._last_status,
                 "last_iterations": sess._last_iters,
-                "tenant": "default",
-                "lane": "interactive",
+                "tenant": sess.tenant,
+                "lane": sess.lane,
                 "deadline_s": sess.deadline_s,
             }
             key = self._session_key(sess.session_id, store=st)
@@ -676,17 +695,12 @@ class SessionManager:
                 lane: Optional[str] = None,
                 deadline_s: Optional[float] = None) -> SolveSession:
         """Resume a saved session: its step counter, warm start x,
-        status and registered pattern (and its per-step deadline, unless
-        ``deadline_s`` is given).  The hierarchy is expected in the
+        status and registered pattern (and its tenant, lane and per-step
+        deadline, unless given).  The hierarchy is expected in the
         service's cache (``warm_boot()`` it first), so the resumed
         stream coarsens nothing.  ``StoreError`` (counted in
         ``restore_failures_total``) when the manifest is missing or
         corrupt, or was written under another configuration."""
-        if tenant not in (None, "default") or lane not in (
-                None, "interactive"):
-            raise NotImplementedError(
-                f"SessionManager.restore(tenant=, lane=): {_GATEWAY} is "
-                "not ported")
         if self.store is None:
             self._count("restore_failures_total")
             raise StoreError("SessionManager has no artifact store")
@@ -712,9 +726,13 @@ class SessionManager:
             if deadline_s is None:
                 dl = manifest.get("deadline_s")
                 deadline_s = None if dl is None else float(dl)
-            sess = SolveSession(self, session_id, host,
-                                manifest.get("dtype"),
-                                deadline_s=deadline_s)
+            sess = SolveSession(
+                self, session_id, host, manifest.get("dtype"),
+                tenant if tenant is not None
+                else str(manifest.get("tenant", "default")),
+                lane if lane is not None
+                else str(manifest.get("lane", "interactive")),
+                deadline_s=deadline_s)
             sess.step_idx = int(manifest.get("step", 0))
             sess._padded_fp = manifest.get("padded_fingerprint")
             if "x" in arrays:

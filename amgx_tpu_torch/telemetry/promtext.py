@@ -3,14 +3,16 @@ package's ``telemetry/promtext.py``).
 
 One module owns the mapping from the package's internal snapshot
 shapes (serve :class:`~amgx_tpu_torch.serve.metrics.ServeMetrics`
-dicts, :class:`~amgx_tpu_torch.store.store.ArtifactStore` counters, the
+dicts, the gateway's admission and tenant view,
+:class:`~amgx_tpu_torch.store.store.ArtifactStore` counters, the
 aggregated solver timings, the session manager, the flight recorder,
 the trace buffer) to the Prometheus text-exposition format, so
 components never need to know metric grammar.  Family names and labels
-are those of the JAX package's catalog (doc/OBSERVABILITY.md).  The
-gateway, admission, mesh, distributed and fleet families wait for
-their sources (ROADMAP.md, queue A.7.7, A.8, A.9); a component of
-another kind renders through the generic numeric walk.
+are those of the JAX package's catalog (doc/OBSERVABILITY.md): the
+``amgx_gateway_*``, ``amgx_admission_*`` and ``amgx_resilience_*``
+families among them.  The mesh, distributed and fleet families wait for
+their sources (ROADMAP.md, queue A.8, A.9); a component of another kind
+renders through the generic numeric walk.
 
 The model is a *family* table: ``name -> {"type", "help", "samples"}``
 where samples are ``(labels_dict, value)`` pairs.  ``render()`` emits
@@ -109,6 +111,12 @@ class FamilyTable:
 _SERVE_GAUGES = {
     "queue_depth",
     "breakers_open",
+    "gateway_draining",
+}
+
+# resilience_* keys that are levels, not totals
+_RESILIENCE_GAUGES = {
+    "resilience_devices_unhealthy",
 }
 
 # hierarchy/compile-cache counters get their own amgx_cache_* namespace
@@ -151,8 +159,8 @@ def _quantile_samples(fams, name, help_text, comp, extra, summ):
 
 
 def serve_families(fams: FamilyTable, comp: str, snap: dict) -> None:
-    """ServeMetrics.snapshot() -> amgx_serve_* / amgx_cache_* /
-    amgx_setup_phase_* families."""
+    """ServeMetrics.snapshot() -> amgx_serve_* / amgx_gateway_* /
+    amgx_resilience_* / amgx_cache_* / amgx_setup_phase_* families."""
     labels = {"component": comp}
     for k, v in snap.items():
         if k in _SERVE_SKIP or not isinstance(v, (int, float)):
@@ -165,10 +173,24 @@ def serve_families(fams: FamilyTable, comp: str, snap: dict) -> None:
                 fams.add(f"amgx_serve_{k}", "gauge",
                          f"serve gauge {k}", labels, v)
             elif k.startswith("resilience_"):
-                # the sessions' checkpoints and restores get their own
+                # failure-domain counters (failover, watchdog fires,
+                # session checkpoints and restores) get their own
                 # amgx_resilience_* namespace
+                if k in _RESILIENCE_GAUGES:
+                    fams.add(f"amgx_{k}", "gauge",
+                             f"resilience gauge {k}", labels, v)
+                else:
+                    fams.add(f"amgx_{k}_total", "counter",
+                             f"resilience counter {k}", labels, v)
+            elif k.startswith("shed_"):
+                fams.add("amgx_gateway_sheds_by_reason_total", "counter",
+                         "typed gateway sheds by reason",
+                         {**labels, "reason": k[len("shed_"):]}, v)
+            elif k.startswith("gateway_"):
                 fams.add(f"amgx_{k}_total", "counter",
-                         f"resilience counter {k}", labels, v)
+                         f"gateway counter {k}", labels, v)
+            elif k.startswith("tenant_"):
+                continue  # structured separately by the gateway source
             else:
                 fams.add(f"amgx_serve_{k}_total", "counter",
                          f"serve counter {k}", labels, v)
@@ -316,9 +338,8 @@ def solver_families(fams: FamilyTable, comp: str, snap: dict) -> None:
 
 def recorder_families(fams: FamilyTable, comp: str, snap: dict) -> None:
     """The direct-API default FlightRecorder's summary ->
-    amgx_flight_* / amgx_incidents_* families (the JAX package's
-    gateway source renders a service's recorder into the same
-    families; that source waits with the gateway)."""
+    the same amgx_flight_* / amgx_incidents_* families the gateway
+    source renders a service's recorder into."""
     labels = {"component": comp}
     fams.add("amgx_flight_records_total", "counter",
              "per-solve flight-recorder records", labels,
@@ -356,6 +377,63 @@ def session_families(fams: FamilyTable, comp: str, snap: dict) -> None:
                      f"session counter {k}", labels, v)
 
 
+def gateway_families(fams: FamilyTable, comp: str, snap: dict) -> None:
+    """Gateway telemetry_snapshot() -> amgx_gateway_* families (the
+    admission/tenant view; the shared counter set is exported by the
+    serve component)."""
+    labels = {"component": comp}
+    fams.add("amgx_gateway_inflight", "gauge",
+             "admitted-but-unsettled tickets", labels,
+             snap.get("inflight", 0))
+    fams.add("amgx_gateway_max_inflight", "gauge",
+             "global concurrency budget", labels,
+             snap.get("max_inflight", 0))
+    fams.add("amgx_gateway_up", "gauge",
+             "1 while the gateway state is 'serving'",
+             {**labels, "state": snap.get("state", "?")},
+             1 if snap.get("state") == "serving" else 0)
+    for tenant, counts in (snap.get("tenants") or {}).items():
+        tl = {**labels, "tenant": tenant}
+        fams.add("amgx_gateway_tenant_admitted_total", "counter",
+                 "admitted submits per tenant", tl,
+                 counts.get("admitted", 0))
+        fams.add("amgx_gateway_tenant_sheds_total", "counter",
+                 "typed sheds per tenant", tl, counts.get("sheds", 0))
+        fams.add("amgx_gateway_tenant_completed_total", "counter",
+                 "settled-success tickets per tenant", tl,
+                 counts.get("completed", 0))
+        if "tokens" in counts:
+            fams.add("amgx_admission_tenant_tokens", "gauge",
+                     "remaining token-bucket quota per tenant", tl,
+                     counts["tokens"])
+    for tenant, lanes in (snap.get("tenant_device_s") or {}).items():
+        for lane, secs in lanes.items():
+            fams.add("amgx_gateway_tenant_device_seconds_total",
+                     "counter",
+                     "device-execution seconds attributed per "
+                     "tenant/lane (each ticket's even share of its "
+                     "group's device time — fleet cost accounting)",
+                     {**labels, "tenant": tenant, "lane": lane}, secs)
+    for tenant, tokens in (snap.get("tenant_device_tokens") or {}
+                           ).items():
+        fams.add("amgx_admission_tenant_device_seconds", "gauge",
+                 "remaining device-seconds budget per tenant "
+                 "(negative = debt being refilled; admits shed typed "
+                 "reason=device_budget while negative)",
+                 {**labels, "tenant": tenant}, tokens)
+    rec = snap.get("recorder") or {}
+    fams.add("amgx_flight_records_total", "counter",
+             "per-solve flight-recorder records", labels,
+             rec.get("records_total"))
+    fams.add("amgx_incident_log_size", "gauge",
+             "incidents currently held in the ring", labels,
+             rec.get("incident_log_size"))
+    for kind, n in (rec.get("incidents_by_kind") or {}).items():
+        fams.add("amgx_incidents_total", "counter",
+                 "flight-recorder incidents by kind",
+                 {**labels, "kind": kind}, n)
+
+
 def tracing_families(fams: FamilyTable, comp: str, snap: dict) -> None:
     labels = {"component": comp}
     fams.add("amgx_trace_spans_total", "counter",
@@ -382,6 +460,7 @@ def generic_families(fams: FamilyTable, kind: str, comp: str,
 
 _RENDERERS = {
     "serve": serve_families,
+    "gateway": gateway_families,
     "store": store_families,
     "solvers": solver_families,
     "sessions": session_families,

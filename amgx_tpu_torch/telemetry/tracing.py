@@ -9,8 +9,8 @@ stage records a *completed* span (name, start, end) into one
 process-wide bounded ring.  Group-formation spans carry the member
 tickets' trace ids in their args, so a Perfetto view shows exactly
 which requests shared a batch and where a slow ticket spent its time.
-The gateway's ``admission`` span comes with the gateway (ROADMAP.md,
-queue A.7.7).
+A request through the gateway (``serve/gateway.py``) has its root
+minted there, with an ``admission`` span before the service's.
 
 Sampling (``AMGX_TPU_TRACE_SAMPLE``, default 0 = off) is
 deterministic — every round(1/rate)-th minted trace is sampled, no

@@ -336,7 +336,39 @@ it waited for them:
    measurement).  g. ``profile_cycle`` of the bench hierarchy at
    128^3 f32: each level's phases in ms (CUDA events) with the card's
    name and power limit, beside one warm V-cycle's time.
-24. Prints the per-kernel summary line (each kernel's launches on every
+24. gateway: the serve layer's front door and failure domains
+   (``serve/gateway.py``, ``serve/admission.py``, the service's lanes,
+   failover and fetch watchdog) on 16 x 64^3 f64 under
+   ``SERVE_PCG_AMG``, its hierarchy warm-booted from serve a's export
+   where the serve phase ran (nothing set up).  a. A started
+   ``SolveGateway`` of 24 in flight (batch ceiling 18) with two tenants'
+   quotas: 32 batch-lane systems from tenant A and 16 interactive from
+   B, in rounds of two A and one B (:func:`gateway_rounds`), counts
+   zeroed before the flush and read after the fetches: every shed typed
+   with ``retry_after_s`` > 0, the batch lane shedding first (A over the
+   budget, B over its quota), the flush order interactive then batch,
+   launches as walked over the two groups, each admitted system's
+   status and iterations those of the bare service and x to rtol 1e-10.
+   b. One group under each of ``device_lost_dispatch``,
+   ``device_lost_fetch`` and ``fetch_hang`` (watchdog 0.5 s, hang 2 s):
+   x bit for bit the clean group's, one failover, no quarantine and no
+   breaker trip, launches one walk (the dispatch loss) or two; with
+   failover off a fetch loss settles every ticket ``DeviceLostError``; a
+   double hang settles typed within 2 x the watchdog + 0.5 s; the
+   submit-and-flush seconds and the retained bytes with failover on and
+   off.  c. A real ``torch.cuda.OutOfMemoryError`` (an allocation past
+   the card's memory) is not classified as a device loss (no real device
+   loss is provoked).  d. ``drain()`` with two groups handed to the
+   dispatch worker: every ticket settled, none lost or timed out, the
+   entries exported; a fresh service warm-boots them and its first
+   group is a cache hit.  e. 16 heat-stream sessions take 2 steps on
+   the phase's service and then through a gateway on it, x bit for bit;
+   ``solver_solve_batch`` on 16 systems in dDDI under
+   ``AMGX_TPU_CAPI_ADMISSION=8``: RC 0, 8 SUCCESS with the bare
+   service's iterations, 8 FAILED; a malformed value RC 12 on every call.
+   f. Check a's traffic at 4 x 24^3 on the card and in the CPU port:
+   the same sheds, iterations equal, x to rtol 1e-9.
+25. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``; one entry
@@ -594,10 +626,18 @@ def peaks_for(name):
     raise RuntimeError(f"no data-sheet peaks for card {name!r}")
 
 
+# the sleep before a timed burst: 2.5 times the host's enqueue of the
+# burst (the warm-up call's host seconds, a launch each), within
+# 10-120 ms; cycles at the H100's 1.98 GHz boost clock, so that a lower
+# clock only lengthens it
+TIMER_SPIN_HZ = 1.98e9
+
+
 class Timer:
     """Device time of one call from CUDA events: the device is kept busy
-    by a sleep kernel while the host enqueues, so host overhead between
-    launches does not show.  Before each launch a read of a 128 MiB
+    by a sleep kernel while the host enqueues (sized from the warm-up
+    call's host seconds), so host overhead between launches does not
+    show.  Before each launch a read of a 128 MiB
     buffer (a sum of it) evicts the 50 MB L2, as the main path finds
     these operands cold; being a read, it leaves only clean lines, so no
     write-back of an earlier launch's output falls inside the timed
@@ -612,12 +652,15 @@ class Timer:
 
     def __call__(self, fn, flush=True):
         torch = self.torch
+        t0 = time.perf_counter()
         fn()
+        enqueue_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True))
               for _ in range(self.reps)]
-        torch.cuda._sleep(200_000_000)
+        spin_s = min(max(2.5 * self.reps * enqueue_s, 0.01), 0.12)
+        torch.cuda._sleep(int(spin_s * TIMER_SPIN_HZ))
         for s, e in ev:
             if flush:
                 self.flush.sum()
@@ -6154,20 +6197,24 @@ def serve_capi(torch, device, n, count=4):
 
 
 def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
-                n_cpu=SERVE_CPU_N, n_guard=SERVE_GUARD_N):
+                n_cpu=SERVE_CPU_N, n_guard=SERVE_GUARD_N, handoff=None):
     """The batched solve service (module docstring, phase 21), its
     main service's store in a directory under ``ci/artifacts`` removed
-    at the end.  Returns {path: launches per batched entry point}."""
+    at the end; with ``handoff`` (a directory), serve a's exported entry
+    is copied there first, for the gateway phase to warm-boot.  Returns
+    {path: launches per batched entry point}."""
     import shutil
 
     folder = store_dir()
     try:
-        return _serve_phase(torch, device, n, B, n_cpu, n_guard, folder)
+        return _serve_phase(torch, device, n, B, n_cpu, n_guard, folder,
+                            handoff)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 
 
-def _serve_phase(torch, device, n, B, n_cpu, n_guard, folder):
+def _serve_phase(torch, device, n, B, n_cpu, n_guard, folder,
+                 handoff=None):
     from amgx_tpu_torch.serve import (
         CHEAP_PRECONDITIONER_CONFIG,
         COMM_AVOIDING_CONFIG,
@@ -6185,6 +6232,10 @@ def _serve_phase(torch, device, n, B, n_cpu, n_guard, folder):
     got, first_s = served(svc, systems)
     # the entry's export (check m) ran on the background worker
     svc.flush_store(timeout=600)
+    if handoff is not None:
+        import shutil
+
+        shutil.copytree(folder, handoff, dirs_exist_ok=True)
     launches, unbatched = batched_counts(), kernel_counts()
     m1 = svc.metrics.snapshot()
     entry = next(iter(svc.cache._entries.values()))
@@ -7717,12 +7768,509 @@ def faults_phase(torch, ref=None, device="cuda", n=SLICE_N, n_small=FT_N,
     return launches
 
 
+GATEWAY_N = 64
+GATEWAY_B = 16
+GATEWAY_CPU_N = 24
+# the watchdog and the injected hang of check b
+GATEWAY_WATCHDOG_S = 0.5
+GATEWAY_HANG_S = 2.0
+
+
+def gateway_phase(torch, device="cuda", n=GATEWAY_N, B=GATEWAY_B,
+                  store=None):
+    """The serve layer's front door and failure domains (module
+    docstring, phase 24) on ``B`` x ``n``^3 f64 under SERVE_PCG_AMG.
+    ``store``: a directory holding the serve phase's exported entry (its
+    hierarchy then warm-boots and this phase sets nothing up), else None
+    (a store of its own); removed at the end.  Returns {path: launches
+    per batched entry point}."""
+    import shutil
+
+    folder = store if store is not None else store_dir()
+    try:
+        return _gateway_phase(torch, device, n, B, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def gateway_rounds(gw, base):
+    """The admission traffic of check a on gateway ``gw`` over the B
+    systems ``base``: tenant A sends 2 B batch-lane systems (base's
+    rhs scaled by 1 and 2), B sends B interactive ones (rhs x 3), in
+    rounds of two A and one B; with :func:`gateway_for`'s budget and
+    quotas.  Returns ([(GatewayTicket, system, lane)], [shed dict])."""
+    from amgx_tpu_torch.core.errors import AdmissionRejected
+
+    B = len(base)
+    a_sys = [(base[k % B][0], base[k % B][1] * (1 + k // B))
+             for k in range(2 * B)]
+    b_sys = [(sp, b * 3.0) for sp, b in base]
+    admitted, sheds = [], []
+    for r in range(B):
+        for tenant, lane, sys_ in (("A", "batch", a_sys[2 * r]),
+                                   ("A", "batch", a_sys[2 * r + 1]),
+                                   ("B", "interactive", b_sys[r])):
+            try:
+                admitted.append((gw.submit(*sys_, tenant=tenant, lane=lane),
+                                 sys_, lane))
+            except AdmissionRejected as e:
+                sheds.append({"tenant": tenant, "lane": lane,
+                              "type": type(e).__name__, "reason": e.reason,
+                              "retry_after_s": e.retry_after_s})
+    return admitted, sheds
+
+
+def gateway_for(svc, B):
+    """Check a's gateway on ``svc``: 1.5 B in flight (the batch lane's
+    ceiling 0.75 of it), tenant A's quota a burst of B, B's of 0.75 B,
+    both refilling at 1e-3 a second (their bursts decide)."""
+    from amgx_tpu_torch.serve import SolveGateway, TenantQuota
+
+    return SolveGateway(svc, max_inflight=3 * B // 2, quotas={
+        "A": TenantQuota(rate=1e-3, burst=float(B)),
+        "B": TenantQuota(rate=1e-3, burst=float(3 * B // 4))})
+
+
+def gateway_traffic(device, n, count=4):
+    """Check a's traffic on ``count`` systems of ``n``^3 f64 through a
+    gateway on a service that is not started: (sheds as (tenant, lane,
+    reason), [(status, iterations, x)] of the admitted)."""
+    from amgx_tpu_torch.serve import BatchedSolveService
+
+    svc = BatchedSolveService(config=SERVE_PCG_AMG, max_batch=count,
+                              device=device)
+    gw = gateway_for(svc, count)
+    admitted, sheds = gateway_rounds(gw, serve_family((n,) * 3, count,
+                                                      seed=27))
+    gw.flush()
+    return ([(s["tenant"], s["lane"], s["reason"]) for s in sheds],
+            [(int(r.status), int(r.iters), r.x.cpu().numpy())
+             for r in (t.result() for t, _s, _l in admitted)])
+
+
+def gateway_cpu_side(n):
+    """The CPU port's side of the gateway phase (check f)."""
+    import amgx_tpu_torch  # noqa: F401
+
+    return gateway_traffic("cpu", n)
+
+
+def _admitted_same(label, got, ref):
+    """Each admitted system (status, iterations, x) against the same
+    system through the bare service: status and iterations equal, x to
+    rtol 1e-10 of its largest entry."""
+    worst = 0.0
+    for (st, it, x), (rst, rit, rx) in zip(got, ref):
+        check(st == rst == 0 and it == rit,
+              f"{label}: {st}/{it} against the bare service's {rst}/{rit}")
+        worst = max(worst, float(np.abs(x - rx).max() / np.abs(rx).max()))
+    check(worst <= 1e-10, f"{label}: x differs by {worst:.3e}")
+    return worst
+
+
+def _group_walk(torch, amg, groups):
+    """The batched launches of ``groups`` (lists of iteration counts):
+    one cycle walk each over its largest count."""
+    return add_counts(*[batched_walk(amg, max(g) + 1, max(g) + 1,
+                                     torch.float64) for g in groups])
+
+
+def _gateway_phase(torch, device, n, B, folder):
+    import os
+
+    from amgx_tpu_torch.core import faults
+    from amgx_tpu_torch.core.errors import DeviceLostError
+    from amgx_tpu_torch.serve import BatchedSolveService, SolveGateway
+
+    on_card = device == "cuda"
+    paths = {}
+    base = serve_family((n,) * 3, B, seed=21)
+    svc = BatchedSolveService(config=SERVE_PCG_AMG, max_batch=B,
+                              max_wait_s=30.0, device=device, store=folder)
+    t0 = time.perf_counter()
+    restored = svc.warm_boot(wait=True)
+    boot_s = time.perf_counter() - t0
+
+    # ---- a. admission and lanes (gateway_rounds) through a started
+    # gateway; each group's max wait far off, so that the flush below
+    # forms them
+    gw = gateway_for(svc, B)
+    order = []
+    execute = svc._execute_group
+
+    def spy(grp, wait_dispatch=True):
+        order.append(grp.lane)
+        return execute(grp, wait_dispatch)
+
+    svc._execute_group = spy
+    gw.start()
+    admitted, sheds = gateway_rounds(gw, base)
+    zero_counts()
+    t0 = time.perf_counter()
+    gw.flush()
+    got = [(int(r.status), int(r.iters), r.x.cpu().numpy())
+           for r in (t.result() for t, _s, _l in admitted)]
+    flush_s = time.perf_counter() - t0
+    launches = batched_counts()
+    gw.stop()
+    svc._execute_group = execute
+    entry = next(iter(svc.cache._entries.values()))
+    amg = entry.solver.precond
+    want = _group_walk(torch, amg, [
+        [g[1] for g, (_t, _s, lane) in zip(got, admitted) if lane == ln]
+        for ln in ("interactive", "batch")])
+    ref = [(int(r.status), int(r.iters), r.x.cpu().numpy())
+           for r in svc.solve_many([s for _t, s, _l in admitted])]
+    worst = _admitted_same("gateway a", got, ref)
+    by = {}
+    for s in sheds:
+        key = f"{s['reason']}/{s['tenant']}/{s['lane']}"
+        by[key] = by.get(key, 0) + 1
+    first_shed = sheds[0]["lane"] if sheds else None
+    m = gw.metrics
+    rec = {"n": n, "batch": B, "restored_entries": restored,
+           "warm_boot_s": boot_s, "submitted": 3 * B,
+           "admitted": len(admitted),
+           "admitted_by_lane": {ln: sum(1 for a in admitted if a[2] == ln)
+                                for ln in ("interactive", "batch")},
+           "sheds_by_reason_tenant_lane": by, "first_shed_lane": first_shed,
+           "retry_after_s": sorted({s["retry_after_s"] for s in sheds}),
+           "flush_order": order, "flush_and_fetch_s": flush_s,
+           "iterations": [g[1] for g in got],
+           "x_max_rel_diff_bare": worst,
+           "inflight_after": gw.admission.inflight,
+           "setups": m.get("setups"),
+           "counters": {k: m.get(k) for k in (
+               "gateway_admitted", "gateway_completed", "gateway_sheds",
+               "shed_overloaded", "shed_quota", "batch_deferrals",
+               "batch_promotions")},
+           "launches": launches, "walk": want}
+    print(json.dumps({"gateway_admission": rec}), flush=True)
+    check(sheds and all(s["type"] in ("AdmissionRejected", "Overloaded")
+                        and s["retry_after_s"] > 0 for s in sheds),
+          f"gateway a: sheds {sheds[:3]}")
+    check(first_shed == "batch" and by.get("overloaded/A/batch", 0) > 0
+          and not any(k.startswith("overloaded/B") for k in by),
+          f"gateway a: the batch lane did not shed first: {by}")
+    check(order == ["interactive", "batch"],
+          f"gateway a: flush order {order}")
+    check(rec["inflight_after"] == 0
+          and m.get("gateway_completed") == len(admitted),
+          f"gateway a: {rec['inflight_after']} in flight after settle")
+    if restored:
+        check(m.get("setups") == 0, "gateway a: a warm boot set up")
+    if on_card:
+        check(launches == want, f"gateway a: launches {launches} != {want}")
+    paths["gateway_admission"] = launches
+    del gw, admitted, got, ref
+
+    # ---- b. failover and the watchdog on one group of base, the
+    # service stopped (flushes run inline); the device-time reservoir
+    # cleared before each faulted group, so that the watchdog is the
+    # 0.5 s set here and not 25 x an observed p99
+    svc.fetch_watchdog_s = GATEWAY_WATCHDOG_S
+    hang_env = os.environ.get("AMGX_TPU_FAULT_HANG_S")
+    os.environ["AMGX_TPU_FAULT_HANG_S"] = str(GATEWAY_HANG_S)
+
+    def run_group(site=None, times=1, failover=True):
+        svc.failover = failover
+        svc.metrics.reset_latency()
+        before = {k: svc.metrics.get(k) for k in (
+            "resilience_failovers", "resilience_requeue_failures",
+            "resilience_watchdog_fires", "quarantines", "breaker_trips",
+            "failed_groups")}
+        zero_counts()
+        faults.reset_counters()
+        if site is not None:
+            faults.arm(site, times)
+        try:
+            # the group flushes at its B-th submit (max_batch): the
+            # seconds of the submits and the flush
+            t0 = time.perf_counter()
+            ts = [svc.submit(sp, b) for sp, b in base]
+            svc.flush()
+            flush_s = time.perf_counter() - t0
+            retry = ts[0]._batch.retry
+            kept = 0 if retry is None else sum(
+                a.nbytes for a in retry.values() if a is not None)
+            out, t1 = [], time.perf_counter()
+            for t in ts:
+                try:
+                    r = t.result()
+                    out.append((int(r.status), int(r.iters),
+                                r.x.cpu().numpy()))
+                except DeviceLostError:
+                    out.append("DeviceLostError")
+            settle_s = time.perf_counter() - t1
+            fired = faults.fired(site) if site else 0
+        finally:
+            faults.disarm()
+            svc.failover = True
+        delta = {k: svc.metrics.get(k) - v for k, v in before.items()}
+        return out, batched_counts(), delta, flush_s, kept, settle_s, fired
+
+    clean, clean_l, _, on_s, kept_on, _, _ = run_group()
+    its = [g[1] for g in clean]
+    walk1 = _group_walk(torch, amg, [its])
+    walk2 = _group_walk(torch, amg, [its, its])
+    _, _, _, off_s, kept_off, _, _ = run_group(failover=False)
+    _, _, _, off_s2, _, _, _ = run_group(failover=False)
+    _, _, _, on_s2, _, _, _ = run_group()
+    sites = {}
+    for site, walk in (("device_lost_dispatch", walk1),
+                       ("device_lost_fetch", walk2),
+                       ("fetch_hang", walk2)):
+        out, lc, delta, f_s, _, settle_s, fired = run_group(site)
+        bitwise = all(isinstance(o, tuple) and o[:2] == c[:2]
+                      and np.array_equal(o[2], c[2])
+                      for o, c in zip(out, clean))
+        sites[site] = {"fired": fired, "x_bitwise_clean": bitwise,
+                       "flush_s": f_s, "settle_s": settle_s,
+                       "launches": lc, "walk": walk, **delta}
+        check(fired == 1 and bitwise,
+              f"gateway b {site}: fired {fired}, x bit for bit {bitwise}")
+        check(delta["resilience_failovers"] == 1
+              and delta["quarantines"] == 0 and delta["breaker_trips"] == 0,
+              f"gateway b {site}: {delta}")
+        if on_card:
+            check(lc == walk, f"gateway b {site}: launches {lc} != {walk}")
+        paths[f"gateway_{site}"] = lc
+    out_off, _, d_off, _, _, _, _ = run_group("device_lost_fetch",
+                                              failover=False)
+    out_dh, _, d_dh, _, _, dh_s, _ = run_group("fetch_hang", times=2)
+    bound = 2 * GATEWAY_WATCHDOG_S + 0.5
+    rec = {"watchdog_s": GATEWAY_WATCHDOG_S, "hang_s": GATEWAY_HANG_S,
+           "clean_iterations": its, "clean_launches": clean_l,
+           "submit_and_flush_s": {"failover_on": [on_s, on_s2],
+                                  "failover_off": [off_s, off_s2]},
+           "retained_bytes": {"failover_on": kept_on,
+                              "failover_off": kept_off},
+           "sites": sites,
+           "failover_off_fetch_loss": {
+               "outcomes": sorted({str(o) for o in out_off}), **d_off},
+           "double_hang": {"outcomes": sorted({str(o) for o in out_dh}),
+                           "settle_s": dh_s, "bound_s": bound, **d_dh}}
+    print(json.dumps({"gateway_failover": rec}), flush=True)
+    check(out_off == ["DeviceLostError"] * len(base)
+          and d_off["resilience_failovers"] == 0,
+          f"gateway b: failover off: {rec['failover_off_fetch_loss']}")
+    check(out_dh == ["DeviceLostError"] * len(base) and dh_s <= bound
+          and d_dh["resilience_watchdog_fires"] == 2
+          and d_dh["resilience_requeue_failures"] == 1,
+          f"gateway b: double hang: {rec['double_hang']}")
+    check(kept_on > 0 and kept_off == 0,
+          f"gateway b: retained {kept_on} / {kept_off} bytes")
+    svc.fetch_watchdog_s = 120.0
+    if hang_env is None:
+        os.environ.pop("AMGX_TPU_FAULT_HANG_S", None)
+    else:
+        os.environ["AMGX_TPU_FAULT_HANG_S"] = hang_env
+
+    # ---- c. the classifier on a real error of the card: an allocation
+    # past the card's memory raises torch.cuda.OutOfMemoryError, which is
+    # not a device loss (no real device loss is provoked)
+    if on_card:
+        free, total = torch.cuda.mem_get_info()
+        oom = None
+        try:
+            torch.empty(total + (1 << 30), dtype=torch.uint8,
+                        device=device)
+        except torch.cuda.OutOfMemoryError as e:
+            oom = e
+        cuda_like = RuntimeError("CUDA error: an illegal memory access was "
+                                 "encountered")
+        rec = {"free_bytes": free, "total_bytes": total,
+               "oom_raised": oom is not None,
+               "oom_classified_as_loss": oom is not None and (
+                   BatchedSolveService._classify_device_loss(oom)
+                   is not None),
+               "cuda_error_message_classified_as_loss":
+                   BatchedSolveService._classify_device_loss(cuda_like)
+                   is not None,
+               "real_device_loss_provoked": False}
+        print(json.dumps({"gateway_classifier": rec}), flush=True)
+        check(rec["oom_raised"] and not rec["oom_classified_as_loss"]
+              and rec["cuda_error_message_classified_as_loss"],
+              f"gateway c: {rec}")
+        del oom
+
+    # ---- d. drain under load: two groups handed to the dispatch worker
+    # (each fills max_batch at its submit), then drain() at once
+    gw = SolveGateway(svc, max_inflight=4 * B)
+    gw.start()
+    d_sys = base + [(sp, b * 2.0) for sp, b in base]
+    ts = [gw.submit(sp, b) for sp, b in d_sys]
+    running = sum(1 for t in ts if t._ticket._batch is not None
+                  and t._ticket._batch.running())
+    t0 = time.perf_counter()
+    report = gw.drain(timeout_s=120.0)
+    drain_s = time.perf_counter() - t0
+    from amgx_tpu_torch.core.errors import AMGXTPUError
+
+    outcomes = {"done": 0, "typed": 0, "untyped": 0}
+    for t in ts:
+        try:
+            t.result()
+            outcomes["done"] += 1
+        except AMGXTPUError:
+            outcomes["typed"] += 1
+        except Exception:  # noqa: BLE001 — counted: must stay 0
+            outcomes["untyped"] += 1
+    svc2 = BatchedSolveService(config=SERVE_PCG_AMG, max_batch=B,
+                               device=device, store=folder)
+    gw2 = SolveGateway(svc2)
+    t0 = time.perf_counter()
+    booted = svc2.warm_boot(wait=True)
+    boot2_s = time.perf_counter() - t0
+    ts2 = [gw2.submit(sp, b) for sp, b in base]
+    gw2.flush()
+    st2 = [int(t.result().status) for t in ts2]
+    rec = {"tickets": len(ts), "running_at_drain": running,
+           "report": report, "outcomes": outcomes, "drain_s": drain_s,
+           "replacement_restores": booted, "replacement_boot_s": boot2_s,
+           "replacement_setups": svc2.metrics.get("setups"),
+           "replacement_cache_hits": svc2.metrics.get("cache_hits"),
+           "replacement_statuses": sorted(set(st2))}
+    print(json.dumps({"gateway_drain": rec}), flush=True)
+    check(report["settled"] + report["failed"] == len(ts)
+          and report["timed_out"] == 0 and report["failed"] == 0
+          and outcomes["done"] == len(ts) and report["exported"] >= 1,
+          f"gateway d: drain report {report}")
+    check(booted >= 1 and rec["replacement_setups"] == 0
+          and rec["replacement_cache_hits"] >= 1 and st2 == [0] * B,
+          f"gateway d: the replacement {rec}")
+    del gw, gw2, svc2, ts, ts2, d_sys, entry, amg
+
+    # ---- e. sessions through a gateway: the heat stream's B sessions, 2
+    # steps, over the phase's service (its hierarchy: the stream has the
+    # pattern of base) and then through a gateway on it (x bit for bit);
+    # the C API's admission front
+    stream = HeatStream(n, B)
+    bare = svc
+    digests = {"bare": [], "gateway": []}
+
+    def keep(label):
+        return lambda k, v, xp, x0, res: digests[label].append(
+            x_digests(res))
+
+    zero_counts()
+    heat_sessions(device, stream, 2, svc=bare, after_step=keep("bare"))
+    gw = SolveGateway(bare, max_inflight=4 * B)
+    admitted0 = gw.metrics.get("gateway_admitted")
+    zero_counts()
+    out, _, mgr, _ = heat_sessions(device, stream, 2, svc=gw,
+                                   after_step=keep("gateway"))
+    paths["gateway_sessions"] = batched_counts()
+    rec = {"sessions": B, "steps": 2,
+           "iterations": [[r[1] for r in o["results"]] for o in out],
+           "x_bitwise_bare": digests["gateway"] == digests["bare"],
+           "gateway_admitted": gw.metrics.get("gateway_admitted")
+           - admitted0,
+           "launches": paths["gateway_sessions"]}
+    print(json.dumps({"gateway_sessions": rec}), flush=True)
+    check(rec["x_bitwise_bare"] and rec["gateway_admitted"] == 2 * B
+          and mgr.gateway is gw,
+          f"gateway e: sessions {rec}")
+    del gw, mgr, bare, stream, svc
+    print(json.dumps({"gateway_capi": gateway_capi(device, n, B)}),
+          flush=True)
+
+    # ---- f. check a's traffic on the card and in the CPU port at 4 x
+    # GATEWAY_CPU_N^3 f64: the same sheds, iterations equal, x to 1e-9
+    n_cpu = GATEWAY_CPU_N if on_card else n
+    cpu = CPU.get(gateway_cpu_side, n_cpu)
+    card = gateway_traffic(device, n_cpu)
+    worst = max(float(np.abs(x - cx).max() / np.abs(cx).max())
+                for (_s, _i, x), (_cs, _ci, cx) in zip(card[1], cpu[1]))
+    rec = {"n": n_cpu, "sheds": card[0],
+           "iterations": [r[1] for r in card[1]],
+           "cpu_iterations": [r[1] for r in cpu[1]],
+           "x_max_rel_diff": worst}
+    print(json.dumps({"gateway_vs_cpu": rec}), flush=True)
+    check(card[0] == cpu[0] and [r[:2] for r in card[1]]
+          == [r[:2] for r in cpu[1]] and worst <= 1e-9,
+          f"gateway f: card against CPU: {rec}")
+    return paths
+
+
+def gateway_capi(device, n, count):
+    """Check e, the C API: ``solver_solve_batch`` on ``count`` systems of
+    ``n``^3 under ``AMGX_TPU_CAPI_ADMISSION`` = count / 2 (dDDI; hDDI on
+    the CPU): RC 0 (the JAX package's), the admitted half SUCCESS with
+    the bare service's iterations, the shed half FAILED; a malformed
+    value RC_BAD_CONFIGURATION on every call."""
+    import os
+
+    from amgx_tpu_torch.api import capi as C
+
+    mode = capi_mode("DDI", device)
+    systems = serve_family((n,) * 3, count, seed=23)
+    C.initialize()
+
+    def handles(systems):
+        c = C.config_create(SERVE_PCG_AMG)
+        r = C.resources_create_simple(c)
+        slv = C.solver_create(r, mode, c)
+        mh, rh, sh = [], [], []
+        for sp, b in systems:
+            m = C.matrix_create(r, mode)
+            C.matrix_upload_all(m, sp.shape[0], sp.nnz, 1, 1, sp.indptr,
+                                sp.indices, sp.data, None)
+            v = C.vector_create(r, mode)
+            C.vector_upload(v, sp.shape[0], 1, b)
+            x = C.vector_create(r, mode)
+            C.vector_set_zero(x, sp.shape[0], 1)
+            mh.append(m)
+            rh.append(v)
+            sh.append(x)
+        return slv, mh, rh, sh
+
+    prev = os.environ.get("AMGX_TPU_CAPI_ADMISSION")
+    try:
+        os.environ["AMGX_TPU_CAPI_ADMISSION"] = str(count // 2)
+        slv, mh, rh, sh = handles(systems)
+        rc = C.solver_solve_batch(slv, mh, rh, sh)
+        statuses = [C.solver_get_batch_status(slv, i) for i in range(count)]
+        iters = [C.solver_get_batch_iterations_number(slv, i)
+                 for i in range(count)]
+        os.environ["AMGX_TPU_CAPI_ADMISSION"] = "eight"
+        # the budget is read before any system: one is enough
+        slv2, mh2, rh2, sh2 = handles(systems[:1])
+        bad = []
+        for _ in range(2):
+            try:
+                bad.append(C.solver_solve_batch(slv2, mh2, rh2, sh2))
+            except C.AMGXError as e:
+                bad.append(e.rc)
+    finally:
+        if prev is None:
+            os.environ.pop("AMGX_TPU_CAPI_ADMISSION", None)
+        else:
+            os.environ["AMGX_TPU_CAPI_ADMISSION"] = prev
+    from amgx_tpu_torch.serve import BatchedSolveService
+
+    ref = BatchedSolveService(config=SERVE_PCG_AMG, max_batch=count,
+                              device=device).solve_many(
+        systems[:count // 2])
+    rec = {"mode": mode, "budget": count // 2, "rc": rc,
+           "statuses": statuses, "iterations": iters,
+           "bare_iterations": [int(r.iters) for r in ref],
+           "malformed_rcs": bad}
+    check(rc == C.RC_OK and statuses == [C.SOLVE_SUCCESS] * (count // 2)
+          + [C.SOLVE_FAILED] * (count - count // 2)
+          and iters[:count // 2] == rec["bare_iterations"],
+          f"gateway e capi: {rec}")
+    check(bad == [C.RC_BAD_CONFIGURATION] * 2,
+          f"gateway e capi: a malformed budget gave {bad}")
+    return rec
+
+
 PHASES = ("kernels", "bench_pcg", "bench_pcg_matrix_free",
           "fgmres_aggregation", "pcg_classical", "pcg_classical_cheby",
           "idr_dilu", "gmres_ilu0", "pbicgstab_agg_w", "amg_classical_kcycle",
           "pcg_agg_resetup", "refine_bf16_256", "mf_bf16", "classical_bf16",
           "device_match", "block4_amg_pcg", "eigensolvers", "setup_store",
-          "capi", "serve", "sessions", "faults_telemetry")
+          "capi", "serve", "sessions", "faults_telemetry", "gateway")
 NEEDS = {"bench_pcg_matrix_free": ("bench_pcg",),
          "faults_telemetry": ("bench_pcg",)}
 
@@ -7777,8 +8325,19 @@ def cpu_side_calls(phases):
         "serve": [(serve_cpu_side, SERVE_CPU_N)],
         "sessions": [(session_cpu_side, SESSION_CPU_N)],
         "faults_telemetry": [(zero_pivot_cpu, FT_N)],
+        "gateway": [(gateway_cpu_side, GATEWAY_CPU_N)],
     }
     return [c for p in phases for c in calls.get(p, ())]
+
+
+def child_threads(torch, calls):
+    """The torch threads of each CPU run of ``calls`` in the child: a
+    few for the runs that sit beside long card work, else as many as
+    the card's own process has."""
+    few = (block4_cmp_f32, block4_cmp_f64, eig_cmp_cpu, capi_cpu_side,
+           serve_cpu_side, session_cpu_side, gateway_cpu_side)
+    return [CHILD_THREADS if c[0] in few else torch.get_num_threads()
+            for c in calls]
 
 
 def selected_phases(argv):
@@ -7848,10 +8407,7 @@ def _main(argv=None):
     by_path = {}
     variants_by_path = {}
     calls = cpu_side_calls(phases)
-    CPU.start(calls, [CHILD_THREADS if c[0] in (
-        block4_cmp_f32, block4_cmp_f64, eig_cmp_cpu, capi_cpu_side,
-        serve_cpu_side, session_cpu_side)
-        else torch.get_num_threads() for c in calls])
+    CPU.start(calls, child_threads(torch, calls))
     if "kernels" in phases:
         recs += timed("kernels", kernel_phase, torch, peaks)
     ref = None
@@ -7901,13 +8457,20 @@ def _main(argv=None):
                                              peaks)
         variants_by_path.update(got)
         recs += c_recs
+    # the gateway phase warm-boots serve a's entry where both run
+    handoff = (store_dir() if "serve" in phases and "gateway" in phases
+               else None)
     if "serve" in phases:
-        variants_by_path.update(timed("serve", serve_phase, torch))
+        variants_by_path.update(timed(
+            "serve", lambda t: serve_phase(t, handoff=handoff), torch))
     if "sessions" in phases:
         variants_by_path.update(timed("sessions", session_phase, torch))
     if "faults_telemetry" in phases:
         by_path["faults_telemetry"] = timed("faults_telemetry",
                                             faults_phase, torch, ref)
+    if "gateway" in phases:
+        variants_by_path.update(timed(
+            "gateway", lambda t: gateway_phase(t, store=handoff), torch))
 
     # each kernel: the path whose count is its ``launches``, the case
     # whose times the summary gives, its source and the TPU kernel

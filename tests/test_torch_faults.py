@@ -429,19 +429,78 @@ def test_unknown_site_in_the_environment_warns(monkeypatch):
         tfaults.arm("smother_nan")
 
 
-def test_sites_and_sites_without_a_call_site():
-    """The twelve sites of the JAX package; the six whose modules are
-    not ported arm and disarm, and nothing meets them."""
+_SERVE_SITES = ("gateway_shed", "admission_quota", "drain_timeout",
+                "device_lost_dispatch", "device_lost_fetch", "fetch_hang")
+
+
+def _serve_site_outcome(pkg, site):
+    """Arm ``site`` once in ``pkg`` ("jax" or "torch") and drive the
+    path that meets it on two Poisson 8 x 8 systems: (what the path
+    gave, the site's fires, the service's counters)."""
+    if pkg == "jax":
+        from amgx_tpu.core import errors
+        from amgx_tpu.core import faults
+        from amgx_tpu.serve import BatchedSolveService, SolveGateway
+
+        kw = {}
+    else:
+        from amgx_tpu_torch.core import errors
+        from amgx_tpu_torch.core import faults
+        from amgx_tpu_torch.serve import BatchedSolveService, SolveGateway
+
+        kw = {"device": "cpu"}
+    sp = poisson_scipy((8, 8)).tocsr()
+    sp.sort_indices()
+    rng = np.random.default_rng(3)
+    bs = [rng.standard_normal(sp.shape[0]) for _ in range(2)]
+    svc = BatchedSolveService(max_batch=2, fetch_watchdog_s=0.5, **kw)
+    gw = SolveGateway(svc)
+    with faults.inject(site, 1):
+        if site in ("gateway_shed", "admission_quota"):
+            try:
+                gw.submit(sp, bs[0])
+                got = "admitted"
+            except errors.AdmissionRejected as e:
+                got = (type(e).__name__, e.reason, e.retry_after_s)
+        elif site == "drain_timeout":
+            ts = [gw.submit(sp, b) for b in bs]
+            got = gw.drain(timeout_s=30.0)
+            got = (got["settled"], got["timed_out"],
+                   [type(_outcome(t)).__name__ for t in ts])
+        else:
+            ts = [svc.submit(sp, b) for b in bs]
+            svc.flush()
+            got = [int(t.result().status) for t in ts]
+        fired = faults.fired(site)
+    keys = ("gateway_sheds", "shed_overloaded", "shed_quota",
+            "resilience_failovers", "resilience_watchdog_fires",
+            "quarantines", "batches", "failed_groups")
+    return got, fired, {k: svc.metrics.get(k) for k in keys}
+
+
+def _outcome(ticket):
+    try:
+        return ticket.result()
+    except Exception as e:  # noqa: BLE001 — the typed outcome
+        return e
+
+
+@pytest.mark.parametrize("site", _SERVE_SITES)
+def test_sites_and_sites_without_a_call_site(site, monkeypatch):
+    """The twelve sites of the JAX package; the six of the serving tier
+    (the gateway, admission, the drain, device-loss failover and the
+    fetch watchdog) each fire once on their own path, with the JAX
+    package's outcome and counters."""
     assert tfaults.SITES == jfaults.SITES and len(tfaults.SITES) == 12
-    waiting = ("gateway_shed", "admission_quota", "drain_timeout",
-               "device_lost_dispatch", "device_lost_fetch", "fetch_hang")
-    for site in waiting:
-        with tfaults.inject(site, -1):
-            assert tfaults.armed(site)
-            _run("torch", _krylov("PCG"))
-            assert tfaults.fired(site) == 0
-        assert not tfaults.armed(site)
-    assert tfaults.hang_seconds() == jfaults.hang_seconds()
+    assert set(_SERVE_SITES) <= set(tfaults.SITES)
+    monkeypatch.setenv("AMGX_TPU_FAULT_HANG_S", "1.5")
+    assert tfaults.hang_seconds() == jfaults.hang_seconds() == 1.5
+    jgot, jfired, jm = _serve_site_outcome("jax", site)
+    tgot, tfired, tm = _serve_site_outcome("torch", site)
+    assert tfired == jfired == 1
+    assert tgot == jgot
+    assert tm == jm
+    assert not tfaults.armed(site)
 
 
 def test_decisions_hold_for_a_build_and_loops_share_their_places():

@@ -874,9 +874,44 @@ def test_service_raises_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("param", ["donate", "placement",
                                    "fetch_watchdog_s", "failover"])
-def test_left_out_parameters_raise(param):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BatchedSolveService(device="cpu", **{param: True})
+def test_left_out_parameters_raise(param, monkeypatch):
+    """Only ``donate`` is left out; ``placement``, ``fetch_watchdog_s``
+    and ``failover`` resolve as the JAX package's do, their variables
+    included, and only the multi-device placements raise (queue A.9)."""
+    for var in ("AMGX_TPU_PLACEMENT", "AMGX_TPU_FETCH_WATCHDOG_S",
+                "AMGX_TPU_FAILOVER"):
+        monkeypatch.delenv(var, raising=False)
+    if param == "donate":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            BatchedSolveService(device="cpu", donate=True)
+        return
+    t, j = BatchedSolveService(device="cpu"), JService()
+    if param == "placement":
+        assert (t.placement.name, j.placement.name) == ("single", "single")
+        assert BatchedSolveService(device="cpu", placement="single"
+                                   ).placement.describe() == (
+            JService(placement="single").placement.describe())
+        with pytest.raises(NotImplementedError, match=r"A\.9"):
+            BatchedSolveService(device="cpu", placement="mesh:2")
+        monkeypatch.setenv("AMGX_TPU_PLACEMENT", "nope")
+        with pytest.raises(ValueError) as te:
+            BatchedSolveService(device="cpu")
+        with pytest.raises(ValueError) as je:
+            JService()
+        assert str(te.value) == str(je.value)
+    elif param == "fetch_watchdog_s":
+        assert t.fetch_watchdog_s == j.fetch_watchdog_s == 120.0
+        monkeypatch.setenv("AMGX_TPU_FETCH_WATCHDOG_S", "7.5")
+        assert (BatchedSolveService(device="cpu").fetch_watchdog_s
+                == JService().fetch_watchdog_s == 7.5)
+        assert BatchedSolveService(device="cpu",
+                                   fetch_watchdog_s=0).fetch_watchdog_s == 0
+    else:
+        assert t.failover is j.failover is True
+        monkeypatch.setenv("AMGX_TPU_FAILOVER", "0")
+        assert BatchedSolveService(device="cpu").failover is (
+            JService().failover) is False
+        assert BatchedSolveService(device="cpu", failover=True).failover
 
 
 # ---------------------------------------------------------------------

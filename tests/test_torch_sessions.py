@@ -6,7 +6,8 @@ x (rtol 1e-10 of its largest entry, f64; f32 iterations within one and x
 to 1e-4); the values-only fast path (no CSR extraction and no pattern
 hash after ``open``); lockstep groups; the documented differences (a
 service that is not started: no overlap, iterations + 2 host syncs a
-group); the stubs; the C API's session round trip in an ``h`` mode.
+group); placement, tenants and a gateway front; the C API's session
+round trip in an ``h`` mode.
 The overlap of an asynchronous step and persistence are ``tests/test_torch_async.py`` and
 ``tests/test_torch_warmboot.py``."""
 
@@ -405,21 +406,49 @@ def test_resetup_entry_unknown_fingerprint_raises():
 
 
 # ---------------------------------------------------------------------
-# what waits for later queue items
+# placement, tenants and a gateway front, as in the JAX package
 
 
 @pytest.mark.parametrize("call", ["placement", "tenant", "gateway"])
 def test_unported_session_parts_raise(call):
+    """What raised before the gateway's slice now runs as in the JAX
+    package: ``placement_device`` is None on one device (before and
+    after the first step), a session's tenant and lane reach its
+    tickets and records, and a gateway front admits each step (the
+    same steps as over the bare service)."""
+    from amgx_tpu.serve import SolveGateway as JGateway
+    from amgx_tpu_torch.serve import SolveGateway
+
     A0, values, u0, f, n = _heat_workload()
-    tm, _ = managers()
-    sess = tm.open(A0, session_id="stub")
-    run = {
-        "placement": lambda: sess.placement_device,
-        "tenant": lambda: tm.open(A0, tenant="cfd"),
-        "gateway": lambda: SessionManager(object()),
-    }[call]
-    with pytest.raises(NotImplementedError, match=r"A\.7\.7"):
-        run()
+    tm, jm = managers()
+    if call == "gateway":
+        tm = SessionManager(SolveGateway(BatchedSolveService(
+            config=STEP_CFG, max_batch=4, device="cpu")))
+        jm = JManager(JGateway(JService(config=STEP_CFG, max_batch=4)))
+        assert tm.gateway is not None and jm.gateway is not None
+    kw = {"tenant": "cfd", "lane": "batch"} if call == "tenant" else {}
+    ts = tm.open(A0, session_id="stub", **kw)
+    js = jm.open(A0, session_id="stub", **kw)
+    assert ts.placement_device is js.placement_device is None
+    for k in range(2):
+        tt = ts.step(values(k), _rhs(u0, f))
+        jt = js.step(values(k), _rhs(u0, f))
+        tm.flush()
+        jm.flush()
+        same(tt.result(), jt.result())
+    assert ts.placement_device is js.placement_device is None
+    assert (ts.tenant, ts.lane) == (js.tenant, js.lane)
+    trec = tm.service.recorder.records()[-1]
+    jrec = jm.service.recorder.records()[-1]
+    assert (trec.lane, trec.tenant) == (jrec.lane, jrec.tenant)
+    assert tm.service.metrics.snapshot()["lanes"].keys() == (
+        jm.service.metrics.snapshot()["lanes"].keys())
+    if call == "gateway":
+        for key in ("gateway_admitted", "gateway_completed",
+                    "gateway_sheds"):
+            assert tm.service.metrics.get(key) == jm.service.metrics.get(
+                key), key
+        assert tm.service.metrics.get("gateway_admitted") == 2
 
 
 # ---------------------------------------------------------------------

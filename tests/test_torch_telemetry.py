@@ -496,11 +496,14 @@ def test_flight_records_of_a_group_as_jax(sysmat):
             a.iterations, a.status, a.path, t.cfg_key)
         assert b.fingerprint == a.fingerprint
         assert set(b.stages) == set(a.stages)
-        assert (b.lane, b.tenant) == ("default", "-")
+        assert (b.lane, b.tenant) == (a.lane, a.tenant)
         json.dumps(b.to_dict())
     lat = t.metrics.snapshot()["latency"]
     assert all(lat[s]["count"] == 3 for s in lat)
-    assert t.metrics.snapshot()["tenant_device_s"]["-"]["default"] > 0
+    assert t.metrics.snapshot()["tenant_device_s"]["default"][
+        "interactive"] > 0
+    assert set(t.metrics.snapshot()["tenant_device_s"]) == set(
+        j.metrics.snapshot()["tenant_device_s"])
 
 
 def test_incident_on_forced_quarantine_as_jax(sysmat):
