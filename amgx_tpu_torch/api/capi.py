@@ -30,10 +30,14 @@ site ``capi_internal`` (``core/faults.py``) raises inside the solve path
 and comes back as an RC through the catch-all.  ``AMGX_TPU_CAPI_ADMISSION``
 fronts the batched solve and the sessions with the admission gateway
 (``amgx_tpu_torch.serve.gateway``): a shed system's status is FAILED.
-Not ported, each raising ``RC_NOT_IMPLEMENTED`` with the ``ROADMAP.md``
-queue that brings it: the fleet front of the batched solve (A.8), the
-distribution handles, partition data, one-ring maps, distributed
-reads and writes and setup on more than one device (A.9).
+``AMGX_TPU_FLEET`` sends the batched solve to a multi-process fleet
+(``amgx_tpu_torch.fleet``) instead: a registry directory or a
+``host:port`` list; a malformed spec or an empty registry fails with
+RC_BAD_CONFIGURATION, an unreachable worker with RC_IO_ERROR, and a
+session under it with RC_NOT_SUPPORTED_TARGET.  Not ported, each raising
+``RC_NOT_IMPLEMENTED`` with the ``ROADMAP.md`` queue that brings it: the
+distribution handles, partition data, one-ring maps, distributed reads
+and writes and setup on more than one device (A.9).
 """
 
 from __future__ import annotations
@@ -214,6 +218,8 @@ class _SolverHandle:
         self.batch_service = None
         # the admission gateway in front of it (AMGX_TPU_CAPI_ADMISSION)
         self.batch_gateway = None
+        # the fleet frontend that replaces both (AMGX_TPU_FLEET)
+        self.batch_fleet = None
         self.batch_pending = None
         self.batch_results = None
         # the sessions of solver_session_create, on batch_service
@@ -790,7 +796,12 @@ def solver_load(slv_h: int, path: str):
 
 
 def solver_destroy(slv_h):
-    _objects.pop(slv_h, None)
+    s = _objects.pop(slv_h, None)
+    if getattr(s, "batch_fleet", None) is not None:
+        try:
+            s.batch_fleet.close()
+        except Exception:  # noqa: BLE001 — teardown is best-effort
+            pass
     return RC_OK
 
 
@@ -798,11 +809,67 @@ def solver_destroy(slv_h):
 # batched solves (the serve layer) and the telemetry calls
 
 
+def _build_fleet_front(spec: str):
+    """``AMGX_TPU_FLEET`` -> a connected
+    :class:`~amgx_tpu_torch.fleet.frontend.FleetFrontend`.  The spec is a
+    worker-registry directory (every live announced worker attaches) or
+    a comma-separated ``host:port`` list.  A malformed spec, or a
+    registry with no live worker, raises RC_BAD_CONFIGURATION; a worker
+    that cannot be reached, RC_IO_ERROR."""
+    import os
+
+    from amgx_tpu_torch.fleet.frontend import FleetFrontend
+    from amgx_tpu_torch.fleet.registry import WorkerRecord, WorkerRegistry
+
+    spec = spec.strip()
+    if os.path.isdir(spec):
+        records = WorkerRegistry(spec).workers()
+        if not records:
+            raise AMGXError(RC_BAD_CONFIGURATION,
+                            f"AMGX_TPU_FLEET registry {spec!r} has no live "
+                            "workers")
+    else:
+        records = []
+        for i, item in enumerate(spec.split(",")):
+            host, sep, port = item.strip().rpartition(":")
+            try:
+                port_i = int(port)
+            except ValueError:
+                port_i = -1
+            if not sep or not host or not 0 < port_i < 65536:
+                raise AMGXError(
+                    RC_BAD_CONFIGURATION,
+                    "AMGX_TPU_FLEET must be a registry directory or a "
+                    f"host:port list, got {item.strip()!r}")
+            records.append(WorkerRecord(f"addr{i}", host, port_i, pid=0,
+                                        slot=i))
+    # a registry's slots need not be 0..n-1 (a worker lost, a fleet
+    # grown): the router covers the highest
+    front = FleetFrontend(capacity=max([len(records)]
+                                       + [r.slot + 1 for r in records]))
+    try:
+        for rec in records:
+            front.attach(rec)
+    except OSError as e:
+        front.close()
+        raise AMGXError(RC_IO_ERROR,
+                        f"AMGX_TPU_FLEET: cannot reach fleet worker: {e}"
+                        ) from None
+    return front
+
+
 def _ensure_batch_front(s):
     """The solver handle's submit front, built at its first batched
-    solve or session from the handle's config on the mode's device (the
-    JAX package's ``_ensure_batch_front`` without its fleet front, queue
-    A.8): the gateway where admission control is on, else the service.
+    solve or session (the JAX package's ``_ensure_batch_front``).
+
+    ``AMGX_TPU_FLEET=<registry directory | host:port[,host:port...]>``
+    sends the batched solves to a multi-process fleet
+    (:mod:`amgx_tpu_torch.fleet`) and builds no local service; its
+    workers solve with their own configuration.  A set but malformed or
+    unreachable fleet fails every call (:func:`_build_fleet_front`): it
+    never solves locally in silence.  Otherwise the front is built from
+    the handle's config on the mode's device: the gateway where
+    admission control is on, else the service.
 
     ``AMGX_TPU_CAPI_ADMISSION=<budget>`` fronts the service with a
     :class:`~amgx_tpu_torch.serve.gateway.SolveGateway` of that
@@ -811,6 +878,14 @@ def _ensure_batch_front(s):
     non-positive value, and a malformed ``AMGX_TPU_PLACEMENT``, fail
     every call with RC_BAD_CONFIGURATION: they are read before any
     handle state is set."""
+    if s.batch_fleet is None:
+        import os
+
+        fleet_env = os.environ.get("AMGX_TPU_FLEET", "")
+        if fleet_env:
+            s.batch_fleet = _build_fleet_front(fleet_env)
+    if s.batch_fleet is not None:
+        return s.batch_fleet
     if s.batch_service is None:
         import os
 
@@ -1070,6 +1145,14 @@ def solver_session_create(slv_h: int, mtx_h: int) -> int:
     if m.A is None:
         raise AMGXError(RC_BAD_PARAMETERS, "matrix not uploaded")
     front = _ensure_batch_front(s)
+    if s.batch_fleet is not None:
+        # sessions ride the fleet's wire verbs, not the handle's
+        # embedded session manager, which needs a local serve stack
+        raise AMGXError(
+            RC_NOT_SUPPORTED_TARGET,
+            "solver_session_create is not available with AMGX_TPU_FLEET "
+            "(sessions ride the fleet wire protocol, not the embedded "
+            "session manager)")
     if s.session_manager is None:
         from amgx_tpu_torch.sessions import SessionManager
 

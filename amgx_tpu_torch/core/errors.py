@@ -54,6 +54,14 @@ class SetupError(AMGXTPUError):
     rc = RC_CORE
 
 
+class SolveBreakdown(AMGXTPUError):
+    """Iteration breakdown that escaped the in-loop status machinery
+    (``RC_INTERNAL``, as in the JAX package; it crosses the fleet's wire
+    typed)."""
+
+    rc = RC_INTERNAL
+
+
 class ResourceError(AMGXTPUError):
     """Overflow/OOM-class failure: addressing limits, compile
     failures, exhausted deadlines."""

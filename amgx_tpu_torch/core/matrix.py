@@ -733,13 +733,28 @@ def _row_ids_np(row_offsets, n_rows):
     )
 
 
+def _entries_unique(row_ids, col_indices) -> bool:
+    """No (row, column) pair repeats: every row's columns strictly
+    increase (the sorted CSR of an upload; ``row_ids`` never decrease).
+    False as well when a row is not sorted."""
+    if col_indices.shape[0] < 2:
+        return True
+    return bool(np.all((col_indices[1:] > col_indices[:-1])
+                       | (row_ids[1:] != row_ids[:-1])))
+
+
 def _extract_diag_np(row_offsets, col_indices, values, n_rows):
     """(n_rows,) or, for (nnz, b, b) block values, (n_rows, b, b)."""
     diag = np.zeros((n_rows,) + values.shape[1:], dtype=values.dtype)
     row_ids = _row_ids_np(row_offsets, n_rows)
     hit = col_indices == row_ids
-    # sum duplicates, matching the DIA/ELL/CSR SpMV paths
-    np.add.at(diag, row_ids[hit], values[hit])
+    if _entries_unique(row_ids, col_indices):
+        # one entry a position: the sum below is 0 + v, an assignment
+        # (the + 0 keeps its +0.0 for a -0.0)
+        diag[row_ids[hit]] = values[hit] + values.dtype.type(0)
+    else:
+        # sum duplicates, matching the DIA/ELL/CSR SpMV paths
+        np.add.at(diag, row_ids[hit], values[hit])
     return diag
 
 
@@ -902,13 +917,21 @@ def _try_build_dia_np(row_offsets, col_indices, values, row_ids, n):
         return None, None, None
     dia_vals = np.zeros((uniq.shape[0], n), dtype=values.dtype)
     k = np.searchsorted(uniq, offs)
+    idx = np.arange(col_indices.shape[0], dtype=np.int32)
+    if _entries_unique(row_ids, col_indices):
+        # one entry a position: the scatters below reduce to
+        # assignments (0 + v keeps add.at's +0.0 for a -0.0), without
+        # ufunc.at's per-element cost
+        dia_vals[k, row_ids] = values + values.dtype.type(0)
+        dia_src = np.full((uniq.shape[0], n), -1, dtype=np.int32)
+        dia_src[k, row_ids] = idx
+        return tuple(int(o) for o in uniq), dia_vals, dia_src
     # add (not assign): duplicate (row,col) entries must sum, matching
     # the ELL/CSR SpMV paths
     np.add.at(dia_vals, (k, row_ids), values)
     # unbuffered minimum: FIRST occurrence wins
     sentinel = np.iinfo(np.int32).max
     dia_src = np.full((uniq.shape[0], n), sentinel, dtype=np.int32)
-    idx = np.arange(col_indices.shape[0], dtype=np.int32)
     np.minimum.at(dia_src, (k, row_ids), idx)
     dia_src[dia_src == sentinel] = -1
     return tuple(int(o) for o in uniq), dia_vals, dia_src

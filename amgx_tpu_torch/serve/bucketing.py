@@ -248,11 +248,12 @@ def pad_pattern(row_offsets, col_indices, n: int) -> PaddedPattern:
     fill_rows = np.repeat(
         np.arange(nb, dtype=np.int64), (lens - base_lens)
     )
-    fill_pos = np.setdiff1d(
-        np.arange(nnzb, dtype=np.int64),
-        np.concatenate([scatter, ones_pos]),
-        assume_unique=False,
-    )
+    # the slots left free, ascending (np.setdiff1d of the taken ones
+    # from every slot, without its sorts)
+    free = np.ones(nnzb, dtype=bool)
+    free[scatter] = False
+    free[ones_pos] = False
+    fill_pos = np.flatnonzero(free)
     ci[fill_pos] = last_col[fill_rows]
     ro32 = ro.astype(np.int32)
     fp = sparsity_fingerprint(ro32, ci, nb, nb, 1)

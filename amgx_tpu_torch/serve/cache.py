@@ -61,6 +61,9 @@ class HierarchyEntry:
     # the template solver's last solve(block=False) (the sequential
     # fallback's), which may still run on the dispatch worker
     pending: object = None
+    # the batch buckets whose batched solve has run a group (the first
+    # group of each is cold: the watchdog leaves its seconds out)
+    ran_buckets: set = dataclasses.field(default_factory=set)
 
     def settle(self):
         """Wait for the template solver's solve in flight, if any (the

@@ -31,6 +31,15 @@ and its tenant ``default`` unless the submit names one.  The gateway
 (``gateway_*``, ``shed_<reason>``), the lanes (``batch_deferrals``,
 ``batch_promotions``) and the failure domains (``resilience_*``) count
 here too.
+
+The fetch watchdog reads its own reservoir (:meth:`record_watchdog`,
+:meth:`watchdog_p99`): the batched loop's own seconds (its timing
+events on the card; off it, its wall seconds bounded by the process's
+CPU seconds), not the ``device`` window, which runs to the
+fetch, and of every group but the first of each batched solve, whose
+one-off first-call cost would lift the watchdog's 25 x p99 floor above
+a real hang on a cold service.  The ``device`` stage keeps every group
+and its whole window.
 """
 
 from __future__ import annotations
@@ -74,6 +83,8 @@ class ServeMetrics:
         self.times = defaultdict(float)
         self.latency = {s: LatencyReservoir() for s in TICKET_STAGES}
         self.lane_latency = defaultdict(LatencyReservoir)
+        # the watchdog's loop seconds (warm groups only)
+        self.watchdog_latency = LatencyReservoir()
         self.tenant_device: dict = defaultdict(float)
         # a gateway's device-seconds charge (tenant, lane, seconds),
         # called outside the lock; a failure counts telemetry_errors
@@ -144,6 +155,18 @@ class ServeMetrics:
             res = self.latency.get(stage)
             return None if res is None else res.percentile(q)
 
+    def record_watchdog(self, seconds: float):
+        """One warm group's loop seconds into the watchdog's
+        reservoir."""
+        with self._lock:
+            self.watchdog_latency.add(seconds)
+
+    def watchdog_p99(self):
+        """The p99 of the warm groups' loop seconds; None without
+        samples."""
+        with self._lock:
+            return self.watchdog_latency.percentile(99.0)
+
     def lane_percentile(self, lane: str, q: float):
         """A lane's percentile under the lock; None without samples."""
         with self._lock:
@@ -158,6 +181,7 @@ class ServeMetrics:
                 res.clear()
             for res in self.lane_latency.values():
                 res.clear()
+            self.watchdog_latency.clear()
             self.times.clear()
 
     def tenant_device_snapshot(self) -> dict:

@@ -3,10 +3,12 @@
 port's one policy, and :class:`DeviceHealthBoard`, the per-device
 breakers with the probe cadence they share with the fingerprint
 breaker (:func:`breaker_probe_every`).  Select with the service's
-``placement=`` or ``AMGX_TPU_PLACEMENT``.  The JAX package's
-``MeshPlacement``, ``AffinityPlacement`` (with its router) and
-``DistributedPlacement`` wait for the multi-GPU port (ROADMAP.md, queue
-A.9): their specs parse and raise ``NotImplementedError``.
+``placement=`` or ``AMGX_TPU_PLACEMENT``.  :class:`AffinityRouter`
+(``router.py``) is the host-pure affinity state the fleet routes worker
+processes with.  The JAX package's ``MeshPlacement``,
+``AffinityPlacement`` and ``DistributedPlacement`` wait for the
+multi-GPU port (ROADMAP.md, queue A.9): their specs parse and raise
+``NotImplementedError``.
 """
 
 from amgx_tpu_torch.serve.placement.health import (
@@ -22,8 +24,16 @@ from amgx_tpu_torch.serve.placement.policy import (
     placement_from_env,
     resolve_placement,
 )
+from amgx_tpu_torch.serve.placement.router import (
+    DEFAULT_ROW_THRESHOLD,
+    ENV_ROW_THRESHOLD,
+    AffinityRouter,
+)
 
 __all__ = [
+    "AffinityRouter",
+    "DEFAULT_ROW_THRESHOLD",
+    "ENV_ROW_THRESHOLD",
     "ENV_VAR",
     "DeviceHealthBoard",
     "breaker_probe_every",

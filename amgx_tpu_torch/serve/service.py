@@ -100,8 +100,8 @@ plain exceptions keep the quarantine path), and one whose fetch outran
 the watchdog re-dispatch the group once from that copy
 (``_failover_refetch``); a second loss settles every groupmate with a
 typed ``DeviceLostError``.  The watchdog (``fetch_watchdog_s``, default
-``AMGX_TPU_FETCH_WATCHDOG_S``, 120 s, and never below 25 x the observed
-p99 device seconds; <= 0 waits inline) waits for a group on a daemon
+``AMGX_TPU_FETCH_WATCHDOG_S``, 120 s, and never below 25 x the p99 of
+the warm groups' loop seconds; <= 0 waits inline) waits for a group on a daemon
 thread (``_DaemonFetchPool``), so a hung card never blocks ``result()``
 (the ``fetch_hang`` site sleeps there).  The port's loop reads a norm
 each iteration, so the requeue's loop runs on a fetch-pool thread and
@@ -291,6 +291,27 @@ def _block_ready(inflight):
     return res
 
 
+def _run_loop(device, fn, *args):
+    """Run a group's batched loop ``fn(*args)``: (its result, the CUDA
+    event recorded after its last launch (None off the card), its clock
+    for :meth:`_BatchResult.loop_s`).  On the card the clock is a pair
+    of timing events around the launches, so a fetch that comes late
+    adds nothing to it.  Off the card it is the smaller of the loop's
+    wall seconds and this process's CPU seconds over it, so that a host
+    that runs other processes meanwhile does not lengthen it."""
+    start = end = None
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0, c0 = time.perf_counter(), time.process_time()
+    res = fn(*args)
+    host_s = min(time.perf_counter() - t0, time.process_time() - c0)
+    if start is not None:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+    return res, end, (start, end, host_s)
+
+
 def _fetch_host(res):
     """The group's host fetch, the second half of its one sync (a hook
     the tests count): the loop has already read every host field
@@ -478,7 +499,7 @@ class _BatchResult:
     same typed error."""
 
     def __init__(self, service, inflight, pattern, tickets, Bb, t_flush,
-                 t_dispatch, plan=None, entry=None, retry=None):
+                 t_dispatch, plan=None, entry=None, retry=None, cold=False):
         self._service = service
         self.inflight = inflight
         self.res = None
@@ -492,6 +513,12 @@ class _BatchResult:
         # device-lost group re-dispatches from, once
         self.entry = entry
         self.retry = retry
+        # the first group of its batched solve: its seconds stay out of
+        # the watchdog's reservoir
+        self.cold = cold
+        # the loop's own clock (start event, end event, host seconds),
+        # set where the loop runs (:func:`_run_loop`)
+        self.loop_clock = None
         self.requeued = False
         self._lock = threading.Lock()
         self._fetched = False
@@ -514,6 +541,18 @@ class _BatchResult:
             return False
         event = fut.result()[1]
         return event is not None and not event.query()
+
+    def loop_s(self):
+        """The batched loop's own seconds, after the wait: the card's
+        time between the events recorded around its launches, or off the
+        card the host's (:func:`_run_loop`); None where it did not run."""
+        clock = self.loop_clock
+        if clock is None:
+            return None
+        start, end, host_s = clock
+        if start is None:
+            return host_s
+        return start.elapsed_time(end) / 1e3
 
     def _sync_once(self):
         """One attempt at the group's wait and fetch: the
@@ -564,6 +603,9 @@ class _BatchResult:
                     m.inc("telemetry_errors")
             pat = self.pattern
             m.add_time("device_busy_s", device_s)
+            loop_s = None if self.cold else self.loop_s()
+            if loop_s is not None:
+                m.record_watchdog(loop_s)
             m.record_batch((pat.nb, pat.nnzb, self.Bb), device_s,
                            len(self.tickets), self.Bb - len(self.tickets))
             m.inc("solved", len(self.tickets))
@@ -729,8 +771,8 @@ class BatchedSolveService:
     fetch_watchdog_s: the bound on a group's one blocking wait; past it
         the fetch settles with a typed ``DeviceLostError`` and the group
         requeues once.  None: ``AMGX_TPU_FETCH_WATCHDOG_S`` (default
-        120); <= 0 waits inline.  Never below 25 x the observed p99
-        device seconds.
+        120); <= 0 waits inline.  Never below 25 x the p99 of the warm
+        groups' loop seconds (:meth:`watchdog_s`).
     failover: keep a host copy of each flushed group's batched values,
         b and x0 (freed at its fetch), so that a device lost after
         dispatch requeues the group once; without it such a loss
@@ -1559,11 +1601,9 @@ class BatchedSolveService:
                         handed.set()
                     loop_err = None
                     try:
-                        res = plan.fn(entry.template, vals_d, bs_d, x0_d)
-                        event = None
-                        if self.device.type == "cuda":
-                            event = torch.cuda.Event()
-                            event.record()
+                        res, event, br.loop_clock = _run_loop(
+                            self.device, plan.fn, entry.template, vals_d,
+                            bs_d, x0_d)
                         self.metrics.inc("batches")
                     except Exception as e:  # noqa: BLE001 — settled below
                         res, loop_err = None, e
@@ -1622,9 +1662,12 @@ class BatchedSolveService:
                           "batch": Bb, "real": len(grp.requests),
                           "lane": grp.lane,
                           "fingerprint": grp.pattern.fingerprint[:16]})
+        cold = entry is not None and Bb not in entry.ran_buckets
+        if cold:
+            entry.ran_buckets.add(Bb)
         br = _BatchResult(self, inflight, grp.pattern,
                           [r.ticket for r in live], Bb, t_flush, t_dispatch,
-                          plan=plan, entry=entry, retry=retry)
+                          plan=plan, entry=entry, retry=retry, cold=cold)
         for r in live:
             r.ticket._batch = br
             r.ticket._done = True
@@ -1659,9 +1702,24 @@ class BatchedSolveService:
     # ------------------------------------------------------------------
     # failure domains: the watchdog and device-loss failover
 
-    # the watchdog never undercuts this multiple of the observed p99
-    # device seconds (long groups are not failed by a fixed bound)
+    # the watchdog never undercuts this multiple of the warm groups' p99
+    # loop seconds (long groups are not failed by a fixed bound)
     _WATCHDOG_P99_FACTOR = 25.0
+
+    def watchdog_s(self) -> float:
+        """The fetch watchdog a group's wait gets now:
+        ``fetch_watchdog_s``, raised to 25 x the p99 of the warm groups'
+        loop seconds (:meth:`_BatchResult.loop_s`: the loop alone, not
+        the window to a late fetch; each batched solve's first group is
+        left out, so that a cold process's one-off first-call cost does
+        not lift it above a real hang); <= 0: no watchdog."""
+        wd = self.fetch_watchdog_s
+        if not wd or wd <= 0:
+            return wd
+        p99 = self.metrics.watchdog_p99()
+        if p99:
+            wd = max(wd, self._WATCHDOG_P99_FACTOR * p99)
+        return wd
 
     def _watched_block(self, inflight, device_label=None, worker=True):
         """The group's one blocking wait (``_block_ready``) under the
@@ -1673,26 +1731,28 @@ class BatchedSolveService:
         hung card would.  ``worker``: ``inflight`` is a job of the
         dispatch worker (a requeue's is not)."""
         hang = faults.should_fire("fetch_hang")
-        wd = self.fetch_watchdog_s
+        wd = self.watchdog_s()
         if not wd or wd <= 0:
             if hang:
                 time.sleep(faults.hang_seconds())
             return _block_ready(inflight)
-        # a cold service has no history: size the watchdog above its
-        # largest first group
-        p99 = self.metrics.latency_percentile("device", 99.0)
-        if p99:
-            wd = max(wd, self._WATCHDOG_P99_FACTOR * p99)
+
+        gave_up = threading.Event()
 
         def work():
             if hang:
                 time.sleep(faults.hang_seconds())
+                if gave_up.is_set():
+                    # the watchdog settled the group during the hang:
+                    # nobody reads this wait any more
+                    return None
             return _block_ready(inflight)
 
         fut = _fetch_pool().submit(work)
         try:
             return fut.result(timeout=wd)
         except concurrent.futures.TimeoutError:
+            gave_up.set()
             self.metrics.inc("resilience_watchdog_fires")
             self._flight_incident(
                 "watchdog_fire",
@@ -1786,11 +1846,8 @@ class BatchedSolveService:
                 bs_d = nplan.put(retry["bs"])
                 x0_d = (nplan.zeros(Bb, pat.nb, retry["bs"].dtype)
                         if retry["x0"] is None else nplan.put(retry["x0"]))
-                res = nplan.fn(entry.template, vals_d, bs_d, x0_d)
-                event = None
-                if self.device.type == "cuda":
-                    event = torch.cuda.Event()
-                    event.record()
+                res, event, batch.loop_clock = _run_loop(
+                    self.device, nplan.fn, entry.template, vals_d, bs_d, x0_d)
                 self.metrics.inc("batches")
                 return res, event
 

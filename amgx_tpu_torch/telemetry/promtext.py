@@ -10,8 +10,9 @@ the trace buffer) to the Prometheus text-exposition format, so
 components never need to know metric grammar.  Family names and labels
 are those of the JAX package's catalog (doc/OBSERVABILITY.md): the
 ``amgx_gateway_*``, ``amgx_admission_*`` and ``amgx_resilience_*``
-families among them.  The mesh, distributed and fleet families wait for
-their sources (ROADMAP.md, queue A.8, A.9); a component of another kind
+families among them, and the fleet frontend's ``amgx_fleet_*``
+(:func:`fleet_families`).  The mesh and distributed families wait for
+their sources (ROADMAP.md, queue A.9); a component of another kind
 renders through the generic numeric walk.
 
 The model is a *family* table: ``name -> {"type", "help", "samples"}``
@@ -434,6 +435,83 @@ def gateway_families(fams: FamilyTable, comp: str, snap: dict) -> None:
                  {**labels, "kind": kind}, n)
 
 
+def fleet_families(fams: FamilyTable, comp: str, snap: dict) -> None:
+    """FleetFrontend.telemetry_snapshot() (multi-process fleet tier)
+    -> amgx_fleet_* families: submission/settlement counters,
+    cross-process affinity routing, per-worker breaker state, and the
+    wire round-trip latency summary."""
+    labels = {"component": comp}
+    counters = snap.get("counters") or {}
+    fams.add("amgx_fleet_submitted_total", "counter",
+             "solves submitted to fleet workers", labels,
+             counters.get("submitted"))
+    fams.add("amgx_fleet_completed_total", "counter",
+             "solves settled successfully over the wire", labels,
+             counters.get("completed"))
+    fams.add("amgx_fleet_typed_errors_total", "counter",
+             "tickets settled with a typed taxonomy error", labels,
+             counters.get("typed_errors"))
+    fams.add("amgx_fleet_retries_total", "counter",
+             "retryable typed errors re-submitted through routing",
+             labels, counters.get("retries"))
+    fams.add("amgx_fleet_requeued_total", "counter",
+             "in-flight tickets requeued to a healthy worker after a "
+             "connection loss", labels, counters.get("requeued"))
+    fams.add("amgx_fleet_requeue_failures_total", "counter",
+             "tickets settled typed after losing their requeue too",
+             labels, counters.get("requeue_failures"))
+    fams.add("amgx_fleet_conn_losses_total", "counter",
+             "worker connections lost unexpectedly", labels,
+             counters.get("conn_losses"))
+    routing = snap.get("routing") or {}
+    hits = routing.get("hits")
+    misses = routing.get("misses")
+    fams.add("amgx_fleet_affinity_hits_total", "counter",
+             "submits routed to a worker already warm for their "
+             "fingerprint", labels, hits)
+    fams.add("amgx_fleet_affinity_misses_total", "counter",
+             "submits routed cold (least-loaded fallback)", labels,
+             misses)
+    if hits is not None and misses is not None and (hits + misses):
+        fams.add("amgx_fleet_affinity_hit_ratio", "gauge",
+                 "warm-routing fraction of fleet submits", labels,
+                 hits / (hits + misses))
+    fams.add("amgx_fleet_workers", "gauge",
+             "workers currently attached and routable", labels,
+             len(routing.get("active") or ()))
+    fams.add("amgx_fleet_dist_routed_total", "counter",
+             "oversized patterns restricted to distributed-capable "
+             "workers", labels, routing.get("dist_routed"))
+    fams.add("amgx_fleet_route_fallbacks_total", "counter",
+             "submits routed with every pool worker's breaker open",
+             labels, routing.get("fallbacks"))
+    health = routing.get("health") or {}
+    fams.add("amgx_fleet_workers_unhealthy", "gauge",
+             "workers with an open breaker", labels,
+             health.get("unhealthy"))
+    fams.add("amgx_fleet_worker_trips_total", "counter",
+             "worker breaker trips (dead process = lost device one "
+             "tier up)", labels, health.get("trips"))
+    fams.add("amgx_fleet_worker_probes_total", "counter",
+             "half-open probes routed to tripped workers", labels,
+             health.get("probes"))
+    fams.add("amgx_fleet_worker_closes_total", "counter",
+             "worker breakers closed by a successful probe", labels,
+             health.get("closes"))
+    retry = snap.get("retry") or {}
+    fams.add("amgx_fleet_retry_giveups_total", "counter",
+             "retryable errors surfaced after exhausting attempts",
+             labels, retry.get("giveups"))
+    lat = snap.get("wire_latency") or {}
+    for stat in ("mean_s", "p50_s", "p99_s"):
+        fams.add(f"amgx_fleet_wire_latency_{stat}", "gauge",
+                 f"wire round-trip latency {stat.replace('_s', '')} "
+                 "(submit to settle)", labels, lat.get(stat))
+    fams.add("amgx_fleet_wire_requests", "gauge",
+             "wire round-trips in the latency reservoir", labels,
+             lat.get("count"))
+
+
 def tracing_families(fams: FamilyTable, comp: str, snap: dict) -> None:
     labels = {"component": comp}
     fams.add("amgx_trace_spans_total", "counter",
@@ -461,6 +539,7 @@ def generic_families(fams: FamilyTable, kind: str, comp: str,
 _RENDERERS = {
     "serve": serve_families,
     "gateway": gateway_families,
+    "fleet": fleet_families,
     "store": store_families,
     "solvers": solver_families,
     "sessions": session_families,

@@ -368,7 +368,41 @@ it waited for them:
    service's iterations, 8 FAILED; a malformed value RC 12 on every call.
    f. Check a's traffic at 4 x 24^3 on the card and in the CPU port:
    the same sheds, iterations equal, x to rtol 1e-9.
-25. Prints the per-kernel summary line (each kernel's launches on every
+25. fleet: the multi-process fleet (``amgx_tpu_torch.fleet``): two
+   worker processes (``chip_smoke.py --fleet-worker``, the port's
+   ``fleet.worker.main`` under ``SERVE_PCG_AMG``, each with its own CUDA
+   context on the one card) spawned by ``FleetSupervisor`` at the start
+   of the phase on serve a's exported store (an empty store when serve
+   does not run; they boot while this process solves the references),
+   and a ``FleetFrontend`` in this process, on 16 x 64^3 f64.
+   Each worker writes its kernel launches to a file beside the registry
+   every 0.5 s and at exit (``fleet_worker``); the summary line's
+   ``fleet`` path sums them over every worker process.  a. Two
+   fingerprints (serve a's systems and a 32 x 64 x 128 grid) spread
+   over the two workers, then a repeat round of 32 affinity hits; each
+   x as the in-process sequential solve's (status, iterations, rtol
+   1e-10); the groups each worker ran (frames arrive one by one, and a
+   waiting result flushes its group: groups of 1-2 systems) and
+   launches of one walk a group (each fingerprint's systems take one
+   iteration count, checked); ``nvidia-smi --query-compute-apps``.
+   b. A ``NonFiniteValuesError`` crosses the wire typed; no breaker
+   trips.  c. The rolling restart of one worker with its fingerprint's
+   16 systems in flight: each settles with the sequential x, the
+   drained process exits 0, the replacement warm-boots (its boot and
+   restore seconds) and serves the fingerprint (two systems) with no
+   setup and no coarsening.  d. kill -9 of the worker of a cold fingerprint's group
+   (a 128 x 64 x 32 grid): every ticket settles, answered before the
+   kill or requeued once to the survivor (x as the sequential solves')
+   or ``DeviceLostError``, one connection loss, and the survivor serves
+   on.  e. ``solver_solve_batch`` in dDDI
+   on 4 systems under ``AMGX_TPU_FLEET`` (the registry): RC 0, SUCCESS,
+   the sequential iterations and x, no local service.  At the end each
+   worker's launches are walks of the groups its metrics count: the
+   survivor's exactly, the drained worker's for 1 to 16 groups in
+   flight, the killed worker's (its last file) at most that bound.
+   Prints the spawn-to-announce seconds, the wire seconds a system and
+   the groups of each worker.
+26. Prints the per-kernel summary line (each kernel's launches on every
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``; one entry
@@ -387,6 +421,7 @@ import json
 import multiprocessing
 import subprocess
 import sys
+import threading
 import time
 import types
 import warnings
@@ -5559,7 +5594,6 @@ def capi_phase(torch, peaks=None, device="cuda", n=CAPI_N, n_cmp=CAPI_CMP_N,
         "seconds": summary["native_build_s"],
         "lib": os.path.basename(str(native["lib"])),
         "program": os.path.basename(str(native["program"]))}}), flush=True)
-
     # ---- b. the bench config in dFFI through the shim, in this process
     lib = ctypes.PyDLL(str(native["lib"]))
     check(lib.AMGX_initialize() == 0, "AMGX_initialize through the shim")
@@ -5709,6 +5743,24 @@ def capi_phase(torch, peaks=None, device="cuda", n=CAPI_N, n_cmp=CAPI_CMP_N,
             exact=False))
         del As
 
+    # e.'s C host program starts now, in a subprocess beside the
+    # comparison with the CPU port (no kernel is timed from here on): its
+    # interpreter and card start-up overlap that work
+    folder = store_dir()
+    cfg_file = os.path.join(folder, "bench.json")
+    with open(cfg_file, "w") as fh:
+        fh.write(BENCH_CFG.replace(
+            '"monitor_residual": 1,',
+            '"monitor_residual": 1, "print_solve_stats": 1,', 1))
+    xfile = os.path.join(folder, "x.bin")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in sys.path
+                                                      if p))
+    t_prog = time.perf_counter()
+    prog_proc = subprocess.Popen(
+        [str(native["program"]), str(n_c), capi_mode("DDI", device),
+         cfg_file, xfile], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env)
+
     # ---- c., d. the card against the CPU port at n_cmp^3
     sp = poisson_scipy((n_cmp,) * 3).tocsr()
     for label, letters, cfg, vdt in (
@@ -5731,27 +5783,16 @@ def capi_phase(torch, peaks=None, device="cuda", n=CAPI_N, n_cmp=CAPI_CMP_N,
               f"{label}: iterations card {it} vs cpu {cit}")
     print(json.dumps({"capi_card_vs_cpu": cmp}), flush=True)
 
-    # ---- e. the C host program in a subprocess, dDDI at n_c^3
-    folder = store_dir()
+    # ---- e. the C host program (started before c., d.'s comparison),
+    # dDDI at n_c^3
     try:
-        cfg_file = os.path.join(folder, "bench.json")
-        with open(cfg_file, "w") as fh:
-            fh.write(BENCH_CFG.replace(
-                '"monitor_residual": 1,',
-                '"monitor_residual": 1, "print_solve_stats": 1,', 1))
-        xfile = os.path.join(folder, "x.bin")
+        stdout, stderr = prog_proc.communicate(timeout=600)
+        prog_s = time.perf_counter() - t_prog
         mode = capi_mode("DDI", device)
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            p for p in sys.path if p))
-        t0 = time.perf_counter()
-        out = subprocess.run([str(native["program"]), str(n_c), mode,
-                              cfg_file, xfile], capture_output=True,
-                             text=True, timeout=600, env=env)
-        prog_s = time.perf_counter() - t0
-        check(out.returncode == 0,
-              f"capi_poisson exit {out.returncode}: {out.stdout[-2000:]}"
-              f"{out.stderr[-2000:]}")
-        prog = json.loads(out.stdout.strip().splitlines()[-1])
+        check(prog_proc.returncode == 0,
+              f"capi_poisson exit {prog_proc.returncode}: {stdout[-2000:]}"
+              f"{stderr[-2000:]}")
+        prog = json.loads(stdout.strip().splitlines()[-1])
         xc = np.fromfile(xfile, dtype=np.float64)
         spc = poisson_scipy((n_c,) * 3).tocsr()
         spc.sort_indices()
@@ -5772,6 +5813,9 @@ def capi_phase(torch, peaks=None, device="cuda", n=CAPI_N, n_cmp=CAPI_CMP_N,
         check(prog["rel_residual"] <= 1e-5,
               f"C program residual {prog['rel_residual']:.3e}")
     finally:
+        if prog_proc.poll() is None:
+            prog_proc.kill()
+            prog_proc.wait()
         shutil.rmtree(folder, ignore_errors=True)
     check(lib.AMGX_finalize() == 0, "AMGX_finalize through the shim")
     C.finalize()
@@ -5853,7 +5897,7 @@ def serve_family(shape, count, seed=0, dtype=np.float64):
     package's ``jittered_poisson_family``) in ``dtype``."""
     from amgx_tpu_torch.io.poisson import jittered_poisson_family
 
-    return [(sp.astype(dtype), b.astype(dtype))
+    return [(sp.astype(dtype, copy=False), b.astype(dtype, copy=False))
             for sp, b in jittered_poisson_family(shape, count, seed=seed)]
 
 
@@ -6197,24 +6241,27 @@ def serve_capi(torch, device, n, count=4):
 
 
 def serve_phase(torch, device="cuda", n=SERVE_N, B=SERVE_B,
-                n_cpu=SERVE_CPU_N, n_guard=SERVE_GUARD_N, handoff=None):
+                n_cpu=SERVE_CPU_N, n_guard=SERVE_GUARD_N, handoff=None,
+                keep=None):
     """The batched solve service (module docstring, phase 21), its
     main service's store in a directory under ``ci/artifacts`` removed
     at the end; with ``handoff`` (a directory), serve a's exported entry
-    is copied there first, for the gateway phase to warm-boot.  Returns
-    {path: launches per batched entry point}."""
+    is copied there first, for the gateway and fleet phases to
+    warm-boot; with ``keep`` (a dict), serve a's systems, their
+    sequential reference and its walk go there under (n, B), for the
+    fleet phase.  Returns {path: launches per batched entry point}."""
     import shutil
 
     folder = store_dir()
     try:
         return _serve_phase(torch, device, n, B, n_cpu, n_guard, folder,
-                            handoff)
+                            handoff, keep)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 
 
 def _serve_phase(torch, device, n, B, n_cpu, n_guard, folder,
-                 handoff=None):
+                 handoff=None, keep=None):
     from amgx_tpu_torch.serve import (
         CHEAP_PRECONDITIONER_CONFIG,
         COMM_AVOIDING_CONFIG,
@@ -6245,6 +6292,8 @@ def _serve_phase(torch, device, n, B, n_cpu, n_guard, folder,
     ref, seq_first_s, seq_rest_s = serve_seq(device, SERVE_PCG_AMG,
                                              systems, reuse=True)
     cmp_a = same_as_seq("serve a", got, ref)
+    if keep is not None:
+        keep[(n, B)] = (systems, ref, want)
     res_a = [true_residual(sp, b, g[2]) for (sp, b), g in zip(systems, got)]
     # ---- b. new coefficients on the cached pattern
     systems_b = [(sp * 1.01, b) for sp, b in systems]
@@ -6289,6 +6338,25 @@ def _serve_phase(torch, device, n, B, n_cpu, n_guard, folder,
                                                      systems, got)
     print(json.dumps({"serve_warm_boot": serve_warmboot(
         svc, systems, sync[0], device)}), flush=True)
+    # the fetch watchdog after a, b and l's groups: its floor, 25 x the
+    # p99 of the warm groups' loop seconds (the loop's timing events),
+    # beside 25 x the p99 of the device window (every group's, to its
+    # fetch, as before the repair)
+    m = svc.metrics
+    loops = m.watchdog_latency.summary()
+    window = m.latency["device"].summary()
+    wd = {"fetch_watchdog_s": svc.fetch_watchdog_s,
+          "watchdog_s": svc.watchdog_s(), "warm_groups": loops["count"],
+          "loop_s_p50": loops["p50_s"], "loop_s_p99": loops["p99_s"],
+          "floor_s": svc._WATCHDOG_P99_FACTOR * loops["p99_s"],
+          "window_floor_s": svc._WATCHDOG_P99_FACTOR * window["p99_s"],
+          "device_s_p50": window["p50_s"], "device_s_max": window["max_s"]}
+    print(json.dumps({"serve_watchdog": wd}), flush=True)
+    # each warm loop lies inside its group's window; the watchdog is the
+    # larger of its setting and the floor
+    check(loops["count"] > 0 and 0 < wd["loop_s_p99"] <= wd["device_s_max"]
+          and wd["watchdog_s"] == max(wd["fetch_watchdog_s"], wd["floor_s"]),
+          f"serve watchdog: {wd}")
     del svc, entry, amg, systems, systems_b, got, got_b, ref, sync
 
     # ---- c. DEFAULT_CONFIG in f32 (and an f32 group on the irregular
@@ -7790,7 +7858,8 @@ def gateway_phase(torch, device="cuda", n=GATEWAY_N, B=GATEWAY_B,
     try:
         return _gateway_phase(torch, device, n, B, folder)
     finally:
-        shutil.rmtree(folder, ignore_errors=True)
+        if store is None:
+            shutil.rmtree(folder, ignore_errors=True)
 
 
 def gateway_rounds(gw, base):
@@ -8265,12 +8334,574 @@ def gateway_capi(device, n, count):
     return rec
 
 
+FLEET_N = 64
+FLEET_B = 16
+# torch threads of a worker process (two workers and this process share
+# the host's cores)
+FLEET_WORKER_ENV = {"OMP_NUM_THREADS": "2"}
+FLEET_COUNTS_EVERY_S = 0.5
+
+
+def _write_json(path, obj):
+    import os
+
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def fleet_worker(argv):
+    """A worker process of the fleet phase (``chip_smoke.py --fleet-worker
+    <worker flags>``): the port's ``fleet.worker.main`` with
+    SERVE_PCG_AMG.  Beside the registry it writes
+    ``counts_<id>.json``, its kernel launches (:func:`variant_counts`,
+    counted from 0 at its start) every FLEET_COUNTS_EVERY_S and at exit
+    (a worker killed with SIGKILL keeps its last)."""
+    import os
+
+    from amgx_tpu_torch.fleet import worker
+
+    wid = argv[argv.index("--worker-id") + 1]
+    out = os.path.dirname(os.path.abspath(argv[argv.index("--registry") + 1]))
+    zero_counts()
+    stop = threading.Event()
+
+    def dump():
+        _write_json(os.path.join(out, f"counts_{wid}.json"),
+                    {"pid": os.getpid(), "counts": variant_counts()})
+
+    def loop():
+        while not stop.wait(FLEET_COUNTS_EVERY_S):
+            dump()
+
+    writer = threading.Thread(target=loop, daemon=True)
+    writer.start()
+    try:
+        return worker.main(argv, config=SERVE_PCG_AMG)
+    finally:
+        stop.set()
+        writer.join()
+        dump()
+
+
+def fleet_supervisor(root, store, device, B):
+    """A FleetSupervisor whose workers are :func:`fleet_worker` processes
+    on ``device`` (max_batch ``B``), with the seconds from each spawn to
+    its announce in ``spawn_s``."""
+    import os
+
+    from amgx_tpu_torch.fleet.lifecycle import FleetSupervisor
+
+    class Supervisor(FleetSupervisor):
+        worker_cmd = (sys.executable, os.path.abspath(__file__),
+                      "--fleet-worker")
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.spawn_s, self._t0 = {}, {}
+
+        def _start(self, slot, *args, **kwargs):
+            wid, proc = super()._start(slot, *args, **kwargs)
+            self._t0[wid] = time.perf_counter()
+            return wid, proc
+
+        def _announced(self, wid, proc):
+            rec = super()._announced(wid, proc)
+            self.spawn_s[wid] = time.perf_counter() - self._t0[wid]
+            return rec
+
+    return Supervisor(os.path.join(root, "registry"), store,
+                      env=FLEET_WORKER_ENV, spawn_timeout_s=600.0,
+                      worker_args=["--device", device, "--max-batch",
+                                   str(B)])
+
+
+def _in_thread(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` on a thread of its own: a future."""
+    import concurrent.futures
+
+    fut = concurrent.futures.Future()
+
+    def run():
+        try:
+            fut.set_result(fn(*args, **kwargs))
+        except BaseException as e:  # noqa: BLE001 — to the reader
+            fut.set_exception(e)
+
+    threading.Thread(target=run, daemon=True).start()
+    return fut
+
+
+def _fleet_seq_walk(torch, device, systems):
+    """:func:`fleet_seq` and the batched walk of one group of its
+    largest iteration count."""
+    ref, amg = fleet_seq(device, systems)
+    it = max(r[1] for r in ref)
+    return ref, batched_walk(amg, it + 1, it + 1, torch.float64)
+
+
+def fleet_seq(device, systems):
+    """:func:`serve_seq`'s reuse reference (one setup on system 0, then
+    values-only resetups), with its AMG preconditioner for the walks."""
+    import amgx_tpu_torch as T
+
+    s = A0 = None
+    out = []
+    for sp, b in systems:
+        if A0 is None:
+            A0 = T.SparseMatrix.from_scipy(sp, device=device)
+            s = T.create_solver(T.AMGConfig.from_string(SERVE_PCG_AMG),
+                                "default", device=device).setup(A0)
+        else:
+            s.resetup(A0.replace_values(sp.data))
+        r = s.solve(b)
+        out.append((int(r.status), int(r.iters), r.x.cpu().numpy()))
+    return out, s.precond
+
+
+def worker_groups(text):
+    """The groups a worker ran, from its ``metrics`` text: {bucket "(n,
+    nnz, batch)": [groups, real systems]}."""
+    import re
+
+    out = {}
+    for kind in ("calls", "instances"):
+        pat = (rf'^amgx_serve_bucket_{kind}_total\{{[^}}]*bucket="([^"]*)"'
+               r'[^}]*\} (\S+)$')
+        for bucket, v in re.findall(pat, text, re.M):
+            out.setdefault(bucket, [0, 0])[kind == "instances"] += int(
+                float(v))
+    return out
+
+
+def read_counts(root):
+    """Each worker's last launch counts (``counts_<id>.json``)."""
+    import glob
+    import os
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(root, "counts_*.json"))):
+        with open(path) as f:
+            out[os.path.basename(path)[7:-5]] = json.load(f)["counts"]
+    return out
+
+
+def fleet_phase(torch, device="cuda", n=FLEET_N, B=FLEET_B, store=None,
+                serve_a=None):
+    """The multi-process fleet (module docstring, phase 25): two worker
+    processes over the port's ``SolveGateway`` on one card, B x n^3 f64
+    under SERVE_PCG_AMG.  ``store``: the directory of serve a's exported
+    entry (the workers warm-boot it), else None (a store of the phase's
+    own); ``serve_a``: the serve phase's ``keep`` dict (serve a's
+    systems, reference and walk under (n, B)), else None (made here).
+    The workers start first (``FleetSupervisor.launch`` on a thread of
+    its own, after freeing this process's cached card memory for their
+    contexts) and boot while this process solves the references.
+    Returns {"fleet": launches per batched entry point, summed over
+    every worker process}."""
+    import os
+    import shutil
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    folder = store_dir()
+    sup = fleet_supervisor(folder, store or os.path.join(folder, "store"),
+                           device, B)
+    records = _in_thread(sup.launch, 2)
+    try:
+        return _fleet_phase(torch, device, n, B, store, folder, sup,
+                            records, (serve_a or {}).get((n, B)))
+    finally:
+        sup.terminate_all(timeout_s=120)
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def fleet_walk_mix(counts, walks, calls):
+    """The groups of each fingerprint, {label: groups}, whose walks
+    (``walks``: {label: launches per batched entry point of one group})
+    sum to ``counts`` (launches per batched entry point), ``calls``
+    groups in all (an int, or a range of them); None where no mix
+    does.  Fingerprints whose walks are equal count together, their
+    labels joined by "+"."""
+    merged = {}
+    for lab in sorted(walks):
+        same = next((m for m in merged if merged[m] == walks[lab]), None)
+        if same is None:
+            merged[lab] = walks[lab]
+        else:
+            merged[f"{same}+{lab}"] = merged.pop(same)
+    walks = merged
+    labels = sorted(walks)
+    entries = sorted({e for c in (counts, *walks.values()) for e in c})
+    for total in ([calls] if isinstance(calls, int) else calls):
+        for head in itertools.product(range(total + 1),
+                                      repeat=len(labels) - 1):
+            g = (*head, total - sum(head))
+            if g[-1] >= 0 and all(
+                    sum(k * walks[lab].get(e, 0) for k, lab in
+                        zip(g, labels)) == counts.get(e, 0)
+                    for e in entries):
+                return dict(zip(labels, g))
+    return None
+
+
+def group_calls(groups):
+    """The groups a worker ran in all, from :func:`worker_groups`."""
+    return sum(calls for calls, _real in groups.values())
+
+
+def boot_to_announce_s(front, record):
+    """The seconds from a worker's construction (its gateway built) to
+    its announce, its warm boot: its uptime (``health``) against its
+    registry record's announce time, both on this host's clock, within
+    the health reply's latency."""
+    up = front.health(record.slot)["worker"]["uptime_s"]
+    return record.started_at - (time.time() - up)
+
+
+def batched_only(counts):
+    """The batched entry points' launches of ``counts``."""
+    return {e: c for e, c in counts.items() if "batched" in e}
+
+
+def _fleet_round(front, families):
+    """Submit every system of ``families`` ({label: systems}), in order,
+    and read the results: ({label: [(status, iterations, x, history)]},
+    {label: [slot]}, seconds)."""
+    t0 = time.perf_counter()
+    tickets = {k: [front.submit(sp, b) for sp, b in systems]
+               for k, systems in families.items()}
+    got = {k: [(int(r.status), int(r.iters), r.x.numpy(), r.history)
+               for r in (t.result(timeout=900) for t in ts)]
+           for k, ts in tickets.items()}
+    slots = {k: [t._pending.slot for t in ts] for k, ts in tickets.items()}
+    return got, slots, time.perf_counter() - t0
+
+
+def _fleet_phase(torch, device, n, B, handoff, folder, sup, records,
+                 serve_a):
+    from amgx_tpu_torch.core.errors import (
+        AMGXTPUError,
+        DeviceLostError,
+        NonFiniteValuesError,
+    )
+    from amgx_tpu_torch.fleet.frontend import FleetFrontend
+
+    on_card = device == "cuda"
+    front = None
+    rec = {"n": n, "batch": B,
+           "store": "serve a's export" if handoff else "empty"}
+    paths = {}
+    fam, ref, walk = {}, {}, {}
+
+    def seq(k, known=None):
+        ref[k], walk[k] = known or _fleet_seq_walk(torch, device, fam[k])
+        walk[k] = batched_only(walk[k])
+        # a group's launches are one walk of its largest iteration
+        # count: with one count a fingerprint, every group's are known
+        # whatever the groups' sizes
+        its = sorted({r[1] for r in ref[k]})
+        check(len(its) == 1, f"fleet: fingerprint {k}'s systems take "
+              f"{its} iterations, not one count")
+
+    try:
+        # the workers boot while this process makes the systems and
+        # solves the references (serve a's, where the serve phase ran)
+        if serve_a is not None:
+            fam["a"] = serve_a[0]
+            seq("a", serve_a[1:])
+        else:
+            fam["a"] = serve_family((n,) * 3, B, seed=1)
+            seq("a")
+        fam["b"] = serve_family((n // 2, n, 2 * n), B, seed=43)
+        seq("b")
+        t0 = time.perf_counter()
+        records = records.result()
+        rec["wait_for_announce_s"] = time.perf_counter() - t0
+        rec["spawn_to_announce_s"] = dict(sup.spawn_s)
+        rec["warm_booted"] = {r.worker_id: r.extra.get("warm_booted")
+                              for r in records}
+        front = FleetFrontend(register_telemetry=False)
+        for r in records:
+            front.attach(r)
+        rec["boot_to_announce_s"] = {r.worker_id: boot_to_announce_s(
+            front, r) for r in records}
+
+        # ---- a. two fingerprints spread over the two workers; a repeat
+        # round, every submit an affinity hit; x as the sequential solves'
+        got, slots, secs = _fleet_round(front, fam)
+        cmp = {k: same_as_seq(f"fleet a {k}", got[k], ref[k]) for k in fam}
+        fp = {k: fam[k][0][0]._amgx_tpu_fp for k in fam}
+        worker_slot = {k: front.router.peek(fp[k]) for k in fam}
+        check(sorted(worker_slot.values()) == [0, 1]
+              and all(set(s) == {worker_slot[k]} for k, s in slots.items()),
+              f"fleet a: the fingerprints did not spread: {slots}")
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv"], capture_output=True, text=True,
+            timeout=60).stdout if on_card else ""
+        print(apps, flush=True)
+        h0 = front.router.snapshot()
+        got2, _, secs2 = _fleet_round(front, fam)
+        h1 = front.router.snapshot()
+        cmp2 = {k: same_as_seq(f"fleet a repeat {k}", got2[k], ref[k])
+                for k in fam}
+        hits = h1["hits"] - h0["hits"]
+        check(hits == 2 * B and h1["misses"] == h0["misses"],
+              f"fleet a: the repeat round's hits {hits} of {2 * B}")
+        time.sleep(2 * FLEET_COUNTS_EVERY_S)
+        counts = read_counts(folder)
+        groups = {r.worker_id: worker_groups(front.metrics_text(r.slot))
+                  for r in records}
+        n_groups = {k: group_calls(groups[records[worker_slot[k]].worker_id])
+                    for k in fam}
+        launches = batched_only(add_counts(*counts.values()))
+        want = add_counts(*[{e: c * n_groups[k] for e, c in walk[k].items()}
+                            for k in fam])
+        lat = front.wire_latency.summary()
+        rec["rounds"] = {
+            "slots": worker_slot, "iterations": {
+                k: sorted({g[1] for g in got[k]}) for k in fam},
+            "x_vs_sequential": cmp, "repeat_x_vs_sequential": cmp2,
+            "round_s": [secs, secs2], "repeat_hits": hits,
+            "wire_s_per_system": [secs / (2 * B), secs2 / (2 * B)],
+            "wire_latency": lat, "groups": groups,
+            "groups_by_fingerprint": n_groups,
+            "launches_by_worker": counts, "launches": launches,
+            "walk": want, "compute_apps": apps.strip().splitlines()}
+        if on_card:
+            for wid, c in counts.items():
+                check(c.get("dia_spmv_batched_f64", 0) > 0
+                      and c.get("ell_spmv_batched_f64", 0) > 0,
+                      f"fleet a: worker {wid} launched {c}")
+            check(launches == want,
+                  f"fleet a: launches {launches} != walk {want}")
+
+        # ---- b. a typed error crosses the wire; the worker is fine
+        bad = front.submit(fam["a"][0][0], np.full(n ** 3, np.nan))
+        try:
+            bad.result(timeout=300)
+            typed = None
+        except AMGXTPUError as e:
+            typed = type(e).__name__
+        rec["typed_error"] = {
+            "raised": typed,
+            "tripped": front.router.board.tripped_indices()}
+        check(typed == NonFiniteValuesError.__name__
+              and not rec["typed_error"]["tripped"],
+              f"fleet b: {rec['typed_error']}")
+
+        # ---- c. rolling restart of the worker of the fingerprint k: its
+        # admitted group in flight as the drain begins settles; the
+        # drained process exits 0; the replacement warm-boots; a system
+        # of the other fingerprint in flight first (its worker busy)
+        # sends k's next two to the replacement, cache hits with no setup
+        k = "a" if worker_slot["a"] != worker_slot["b"] and \
+            h1["busy_s"][worker_slot["a"]] <= h1["busy_s"][
+                worker_slot["b"]] else "b"
+        other = "b" if k == "a" else "a"
+        victim = records[worker_slot[k]]
+        inflight = [front.submit(sp, b) for sp, b in fam[k]]
+        t0 = time.perf_counter()
+        out = _in_thread(sup.rolling_restart, victim.worker_id, front,
+                         timeout_s=600)
+        fam["c"] = serve_family((2 * n, n, n // 2), B, seed=44)
+        seq("c")
+        out = out.result()
+        restart_s = time.perf_counter() - t0
+        settled = [(int(r.status), int(r.iters), r.x.numpy(), r.history)
+                   for r in (t.result(timeout=900) for t in inflight)]
+        cmp_c = same_as_seq("fleet c in flight", settled, ref[k])
+        new = out["replacement"]
+        h_new0 = front.health(new.slot)
+        new_boot_s = boot_to_announce_s(front, new)
+        got3, slots3, secs3 = _fleet_round(front, {other: fam[other][:1],
+                                                   k: fam[k][:2]})
+        same_as_seq("fleet c after", got3[k], ref[k])
+        h_new = front.health(new.slot)
+        rec["rolling_restart"] = {
+            "worker": victim.worker_id, "fingerprint": k,
+            "drain": out["drain"], "exit_code": out["exit_code"],
+            "restart_s": restart_s, "replacement": new.worker_id,
+            "replacement_spawn_to_announce_s": sup.spawn_s.get(new.worker_id),
+            "replacement_boot_to_announce_s": new_boot_s,
+            "in_flight_x_vs_sequential": cmp_c,
+            "replacement_slots": sorted(set(slots3[k])),
+            "replacement_serve": h_new["serve"],
+            "replacement_setup_evidence": h_new["setup_evidence"],
+            "replacement_warm_booted": h_new0["worker"]["warm_booted"],
+            "round_s": secs3}
+        print(json.dumps({"fleet_restart": rec["rolling_restart"]}),
+              flush=True)
+        rep = out["drain"]
+        check(rep["failed"] == 0 and rep["timed_out"] == 0
+              and rep["exported"] >= 1 and out["exit_code"] == 0,
+              f"fleet c: drain {rep}, exit code {out['exit_code']}")
+        check(h_new0["worker"]["warm_booted"] >= 1
+              and set(slots3[k]) == {new.slot}
+              and h_new["serve"]["setups"] == 0
+              and h_new["serve"]["cache_hits"] >= 1
+              and h_new["setup_evidence"]["coarsen_calls"] == 0
+              and h_new["setup_evidence"]["restored"] >= 1,
+              f"fleet c: the replacement {rec['rolling_restart']}")
+
+        # ---- d. kill -9 of the worker of a cold fingerprint's group:
+        # every ticket settles (x as the sequential solves') or raises
+        # DeviceLostError; the survivor serves on
+        live = {r.slot: r.worker_id for r in (*records, new)}
+        calls_d = {wid: group_calls(worker_groups(front.metrics_text(slot)))
+                   for slot, wid in live.items()}
+        snap0 = front.telemetry_snapshot()
+        tickets = [front.submit(sp, b) for sp, b in fam["c"]]
+        slot_c = tickets[0]._pending.slot
+        killed = live[slot_c]
+        t0 = time.perf_counter()
+        check(sup.kill(killed), f"fleet d: {killed} was not running")
+        outcomes, done = [], []
+        for t in tickets:
+            try:
+                r = t.result(timeout=900)
+                outcomes.append("ok")
+                done.append((int(r.status), int(r.iters), r.x.numpy(),
+                             r.history))
+            except DeviceLostError:
+                outcomes.append("DeviceLostError")
+        settle_s = time.perf_counter() - t0
+        # the supervisor reaps the killed process (and withdraws its
+        # registry record, which names a process that is gone)
+        killed_rc = sup.reap(killed, timeout_s=60)
+        cmp_d = (same_as_seq("fleet d requeued", done, [
+            ref["c"][i] for i, o in enumerate(outcomes) if o == "ok"])
+            if done else None)
+        snap = front.telemetry_snapshot()
+        survivor = 1 - slot_c
+        delta = {key: snap["counters"][key] - snap0["counters"][key]
+                 for key in ("conn_losses", "requeued", "requeue_failures")}
+        rec["kill9"] = {
+            "killed": killed, "exit_code": killed_rc,
+            "outcomes": sorted(set(outcomes)),
+            "ok": outcomes.count("ok"), "settle_s": settle_s,
+            "x_vs_sequential": cmp_d, "trips":
+                snap["routing"]["health"]["trips"],
+            "survivor": survivor, "survivor_ping": front.ping(survivor),
+            **delta}
+        print(json.dumps({"fleet_kill9": rec["kill9"]}), flush=True)
+        # the tickets the killed worker answered before the kill are
+        # settled; the rest (at least one: the kill came during the
+        # group) requeue once
+        check(len(outcomes) == B and delta["conn_losses"] == 1
+              and 1 <= delta["requeued"] + delta["requeue_failures"] <= B
+              and rec["kill9"]["survivor_ping"],
+              f"fleet d: {rec['kill9']}")
+
+        # ---- e. the C API over the fleet: AMGX_TPU_FLEET names the
+        # registry (the survivor alone now), solver_solve_batch on 4
+        # systems (dDDI; hDDI on the CPU); no local service
+        rec["capi"] = fleet_capi(device, sup.registry.root, fam["a"][:4],
+                                 ref["a"][:4])
+        print(json.dumps({"fleet_capi": rec["capi"]}), flush=True)
+        calls_end = group_calls(worker_groups(front.metrics_text(survivor)))
+    finally:
+        if front is not None:
+            front.close()
+        sup.terminate_all(timeout_s=120)
+    final = {wid: batched_only(c) for wid, c in read_counts(folder).items()}
+    paths["fleet"] = add_counts(*final.values())
+    # each worker's launches as walks of the groups it ran: the
+    # survivor's groups from its metrics at the end; the drained
+    # worker's since check a, 1 to B groups in flight at its drain; the
+    # killed worker's last file at most its groups before d and B more
+    mix = {live[survivor]: fleet_walk_mix(final.get(live[survivor], {}),
+                                          walk, calls_end),
+           victim.worker_id: fleet_walk_mix(add_counts(
+               final.get(victim.worker_id, {}), {
+                   e: -c for e, c in batched_only(
+                       counts[victim.worker_id]).items()}),
+               walk, range(1, B + 1))}
+    most = {e: (calls_d[killed] + B) * max(w.get(e, 0) for w in walk.values())
+            for e in set().union(*walk.values())}
+    rec["launches_by_worker"] = final
+    rec["launches"] = paths["fleet"]
+    rec["groups_of_walks"] = mix
+    rec["killed_at_most"] = most
+    print(json.dumps({"fleet": rec}), flush=True)
+    if on_card:
+        check(len(final) >= 3 and all(
+            c.get("dia_spmv_batched_f64", 0) > 0 for c in final.values()),
+            f"fleet: a worker launched nothing: {final}")
+        check(all(g is not None for g in mix.values()),
+              f"fleet: launches not walks of the groups run: {mix}, "
+              f"{final}, walks {walk}")
+        check(all(v <= most.get(e, 0) for e, v in final[killed].items()),
+              f"fleet: the killed worker launched {final[killed]}, more "
+              f"than {most}")
+    return paths
+
+
+def fleet_capi(device, registry, systems, ref):
+    """Check e: the C API's batched solve routed by ``AMGX_TPU_FLEET``."""
+    import os
+
+    from amgx_tpu_torch.api import capi as C
+
+    mode = "dDDI" if device == "cuda" else "hDDI"
+    prev = os.environ.get("AMGX_TPU_FLEET")
+    os.environ["AMGX_TPU_FLEET"] = registry
+    try:
+        C.initialize()
+        cfg = C.config_create(SERVE_PCG_AMG)
+        res_h = C.resources_create_simple(cfg)
+        mh, rh, sh = [], [], []
+        for sp, b in systems:
+            n = sp.shape[0]
+            m = C.matrix_create(res_h, mode)
+            C.matrix_upload_all(m, n, sp.nnz, 1, 1,
+                                sp.indptr.astype(np.int32),
+                                sp.indices.astype(np.int32), sp.data)
+            r = C.vector_create(res_h, mode)
+            C.vector_upload(r, n, 1, b)
+            x = C.vector_create(res_h, mode)
+            C.vector_set_zero(x, n, 1)
+            mh.append(m)
+            rh.append(r)
+            sh.append(x)
+        slv = C.solver_create(res_h, mode, cfg)
+        t0 = time.perf_counter()
+        rc = C.solver_solve_batch(slv, mh, rh, sh)
+        st = [C.solver_get_batch_status(slv, i) for i in range(len(sh))]
+        its = [C.solver_get_batch_iterations_number(slv, i)
+               for i in range(len(sh))]
+        secs = time.perf_counter() - t0
+        xs = [C.vector_download(h) for h in sh]
+        s = C._get(slv, C._SolverHandle)
+        local = s.batch_service is not None or s.batch_gateway is not None
+        fleet = s.batch_fleet is not None
+        C.solver_destroy(slv)
+    finally:
+        if prev is None:
+            os.environ.pop("AMGX_TPU_FLEET", None)
+        else:
+            os.environ["AMGX_TPU_FLEET"] = prev
+    worst = max(float(np.abs(x - rx).max() / np.abs(rx).max())
+                for x, (_s, _i, rx) in zip(xs, ref))
+    out = {"mode": mode, "rc": rc, "statuses": st, "iterations": its,
+           "sequential_iterations": [r[1] for r in ref],
+           "x_max_rel_diff": worst, "local_service": local,
+           "fleet_front": fleet, "solve_and_read_s": secs}
+    check(rc == C.RC_OK and st == [0] * len(sh) and fleet and not local
+          and its == [r[1] for r in ref] and worst <= 1e-10,
+          f"fleet e capi: {out}")
+    return out
+
+
 PHASES = ("kernels", "bench_pcg", "bench_pcg_matrix_free",
           "fgmres_aggregation", "pcg_classical", "pcg_classical_cheby",
           "idr_dilu", "gmres_ilu0", "pbicgstab_agg_w", "amg_classical_kcycle",
           "pcg_agg_resetup", "refine_bf16_256", "mf_bf16", "classical_bf16",
           "device_match", "block4_amg_pcg", "eigensolvers", "setup_store",
-          "capi", "serve", "sessions", "faults_telemetry", "gateway")
+          "capi", "serve", "sessions", "faults_telemetry", "gateway",
+          "fleet")
 NEEDS = {"bench_pcg_matrix_free": ("bench_pcg",),
          "faults_telemetry": ("bench_pcg",)}
 
@@ -8457,12 +9088,16 @@ def _main(argv=None):
                                              peaks)
         variants_by_path.update(got)
         recs += c_recs
-    # the gateway phase warm-boots serve a's entry where both run
-    handoff = (store_dir() if "serve" in phases and "gateway" in phases
-               else None)
+    # the gateway and fleet phases warm-boot serve a's entry where they
+    # run after it
+    handoff = (store_dir() if "serve" in phases and (
+        "gateway" in phases or "fleet" in phases) else None)
+    # serve a's systems, reference and walk, for the fleet phase
+    serve_a = {} if "fleet" in phases else None
     if "serve" in phases:
         variants_by_path.update(timed(
-            "serve", lambda t: serve_phase(t, handoff=handoff), torch))
+            "serve", lambda t: serve_phase(t, handoff=handoff, keep=serve_a),
+            torch))
     if "sessions" in phases:
         variants_by_path.update(timed("sessions", session_phase, torch))
     if "faults_telemetry" in phases:
@@ -8471,6 +9106,14 @@ def _main(argv=None):
     if "gateway" in phases:
         variants_by_path.update(timed(
             "gateway", lambda t: gateway_phase(t, store=handoff), torch))
+    if "fleet" in phases:
+        variants_by_path.update(timed(
+            "fleet", lambda t: fleet_phase(t, store=handoff,
+                                           serve_a=serve_a), torch))
+    if handoff is not None:
+        import shutil
+
+        shutil.rmtree(handoff, ignore_errors=True)
 
     # each kernel: the path whose count is its ``launches``, the case
     # whose times the summary gives, its source and the TPU kernel
@@ -8578,4 +9221,6 @@ def _main(argv=None):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        sys.exit(fleet_worker(sys.argv[2:]))
     sys.exit(main())

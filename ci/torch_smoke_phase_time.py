@@ -5,6 +5,9 @@ phase against its parent.
     python3 ci/torch_smoke_phase_time.py --phase kernels [--root DIR]
                                          [--tag NAME]
 
+(``--phase``: ``kernels``, ``pcg_classical``, ``refine_bf16_256``,
+``block4_amg_pcg``, ``capi`` or ``serve``.)
+
 Imports ``chip_smoke`` (and with it ``amgx_tpu_torch``) from ``--root``
 (default: the checkout that holds this script), builds that tree's
 kernels, and runs the phase as ``chip_smoke.py`` runs it (its CPU port
@@ -32,7 +35,8 @@ def main(argv=None):
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", required=True,
-                    choices=("kernels", "pcg_classical"))
+                    choices=("kernels", "pcg_classical", "refine_bf16_256",
+                             "block4_amg_pcg", "capi", "serve"))
     ap.add_argument("--root", default=here)
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
@@ -50,7 +54,12 @@ def main(argv=None):
     kernels.build()
     peaks = chip_smoke.peaks_for(torch.cuda.get_device_name(0))
     phase = {"kernels": chip_smoke.kernel_phase,
-             "pcg_classical": chip_smoke.classical_phase}[args.phase]
+             "pcg_classical": chip_smoke.classical_phase,
+             "refine_bf16_256": chip_smoke.refine_phase,
+             "block4_amg_pcg": chip_smoke.block4_amg_phase,
+             "capi": chip_smoke.capi_phase,
+             "serve": lambda t, _peaks: chip_smoke.serve_phase(t)}[
+                 args.phase]
     calls = chip_smoke.cpu_side_calls((args.phase,))
     # the parent's child_threads may not exist: the threads the phase's
     # runs get in chip_smoke.py's run
@@ -65,7 +74,10 @@ def main(argv=None):
         wait_s = chip_smoke.CPU.wait_s
     finally:
         chip_smoke.CPU.end()
-    recs = out[1] if isinstance(out, tuple) else out
+    # a phase's kernel cases: its second result, its result, or none
+    # (serve returns its launches only)
+    recs = (out[1] if isinstance(out, tuple)
+            else out if isinstance(out, list) else [])
     print(json.dumps({
         "tag": args.tag, "card": chip_smoke.card_line(),
         "phase": args.phase, "phase_s": secs, "cpu_side_wait_s": wait_s,

@@ -573,6 +573,155 @@ def test_session_checkpoint_cadence_and_recovery(sp8, tmp_path,
     same_x(jr, tr)
 
 
+# the scenario above in a process of its own: the port cold, as a process
+# that ran nothing before it (the watchdog's floor must not take the cold
+# first group's seconds)
+COLD_SESSION_SCRIPT = r"""
+import json, os, sys
+import numpy as np
+from amgx_tpu_torch.core import faults
+from amgx_tpu_torch.core.errors import DeviceLostError
+from amgx_tpu_torch.io.poisson import poisson_scipy
+from amgx_tpu_torch.serve import BatchedSolveService, SolveGateway
+from amgx_tpu_torch.sessions import SessionManager
+
+sp8 = poisson_scipy((8, 8)).tocsr()
+sp8.sort_indices()
+svc = BatchedSolveService(max_batch=4, store=sys.argv[1],
+                          fetch_watchdog_s=0.2, device="cpu")
+gw = SolveGateway(service=svc, max_inflight=32)
+mgr = SessionManager(gw, checkpoint_every=2, resetup_every=0)
+gw._session_mgr = mgr
+rng = np.random.default_rng(0)
+n = sp8.shape[0]
+base = np.asarray(sp8.data)
+sess = mgr.open(sp8, session_id="ckpt-test")
+statuses = []
+for k in range(5):
+    t = sess.step(base * (1.0 + 0.01 * k), rng.standard_normal(n))
+    gw.flush()
+    statuses.append(int(t.result().status))
+with faults.inject("fetch_hang", 2):
+    t = sess.step(base, rng.standard_normal(n))
+    gw.flush()
+    try:
+        t.result()
+        outcome = "returned"
+    except DeviceLostError:
+        outcome = "DeviceLostError"
+sess2 = mgr.recover("ckpt-test")
+t = sess2.step(base, rng.standard_normal(n))
+gw.flush()
+statuses.append(int(t.result().status))
+print(json.dumps({
+    "statuses": statuses, "hang_step": outcome,
+    "watchdog_fires": svc.metrics.get("resilience_watchdog_fires"),
+    "watchdog_s": svc.watchdog_s(), "step_idx": sess2.step_idx,
+    "restores": svc.metrics.get("resilience_restores")}))
+"""
+
+
+def test_session_watchdog_fires_in_a_cold_process(tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "AMGX_TPU_FAULT_HANG_S": "1.0",
+           "OMP_NUM_THREADS": "2",
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
+    env.pop("AMGX_TPU_FAULTS", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", COLD_SESSION_SCRIPT, str(tmp_path / "store")],
+        capture_output=True, text=True, timeout=120, env=env, cwd=repo)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["hang_step"] == "DeviceLostError", out
+    assert out["watchdog_fires"] >= 1, out
+    assert out["statuses"] == [0] * 6
+    assert (out["step_idx"], out["restores"]) == (5, 1)
+
+
+def test_watchdog_reservoir_holds_warm_loop_seconds(sp8):
+    """The watchdog's floor reads each warm group's loop alone: the
+    first group of the batched solve stays out, and a fetch that comes
+    late (here 0.3 s after the flush) lengthens the ``device`` window,
+    not the watchdog's samples."""
+    from amgx_tpu_torch.serve import BatchedSolveService
+
+    svc = BatchedSolveService(max_batch=2, fetch_watchdog_s=0.2,
+                              device="cpu")
+    rng = np.random.default_rng(7)
+    n = sp8.shape[0]
+    for _ in range(3):
+        ts = [svc.submit(sp8, rng.standard_normal(n)) for _ in range(2)]
+        svc.flush()
+        time.sleep(0.3)
+        assert [int(t.result().status) for t in ts] == [0, 0]
+    m = svc.metrics
+    assert m.watchdog_latency.count == 2
+    assert m.latency["device"].count == 6  # a sample a ticket
+    assert m.watchdog_p99() < 0.3 <= m.latency_percentile("device", 50.0)
+    assert svc.watchdog_s() == max(0.2, 25.0 * m.watchdog_p99())
+
+
+@pytest.mark.parametrize("work", ["sleep", "spin"])
+def test_cpu_loop_clock_counts_the_loop_own_work(work):
+    """Off the card a loop's watchdog seconds are the smaller of its wall
+    and its process's CPU seconds: time the host spends elsewhere (a
+    sleep stands for it) does not count, the loop's own work does."""
+    import torch
+
+    from amgx_tpu_torch.serve.service import _run_loop
+
+    def spin(s):
+        c0 = time.process_time()
+        while time.process_time() - c0 < s:
+            pass
+
+    res, event, clock = _run_loop(torch.device("cpu"),
+                                  time.sleep if work == "sleep" else spin,
+                                  0.3)
+    assert res is None and event is None and clock[:2] == (None, None)
+    if work == "sleep":
+        assert clock[2] < 0.1
+    else:
+        assert clock[2] >= 0.3
+
+
+def test_abandoned_hang_makes_no_late_wait(sp8, monkeypatch):
+    """A fetch the watchdog gave up on during an injected hang does not
+    wait for its group when the hang ends: nothing of it reaches the
+    module's wait afterwards (a later caller's hooks stay untouched)."""
+    import amgx_tpu_torch.serve.service as service_mod
+    from amgx_tpu_torch.core import faults
+    from amgx_tpu_torch.serve import BatchedSolveService
+
+    monkeypatch.setenv("AMGX_TPU_FAULT_HANG_S", "1.0")
+    svc = BatchedSolveService(max_batch=2, fetch_watchdog_s=0.2,
+                              device="cpu")
+    rng = np.random.default_rng(3)
+    n = sp8.shape[0]
+    for _ in range(3):
+        t = svc.submit(sp8, rng.standard_normal(n))
+        svc.flush()
+        assert int(t.result().status) == 0
+    with faults.inject("fetch_hang", 1):
+        t = svc.submit(sp8, rng.standard_normal(n))
+        svc.flush()
+        # the group requeues once from the failover copy
+        assert int(t.result().status) == 0
+    assert svc.metrics.get("resilience_watchdog_fires") == 1
+    waits = []
+    real = service_mod._block_ready
+    monkeypatch.setattr(service_mod, "_block_ready",
+                        lambda x: (waits.append(1), real(x))[1])
+    time.sleep(1.2)
+    assert waits == []
+
+
 def test_recover_without_checkpoint_keeps_live_session(sp8, tmp_path):
     def run(p):
         svc = _svc(p, max_batch=2, store=str(tmp_path / p.name))

@@ -64,7 +64,9 @@ def _cfg(main):
 
 SM = {"scope": "sm", "monitor_residual": 0}
 CONFIGS = {
-    # ROADMAP.md A.7.1's re-anchor case: two patterns, two batches
+    # the re-anchor case of ROADMAP.md A.7.1, which the batch rebuilds
+    # (make_batch_params, solvers/batched_loop.py) closed: two patterns,
+    # two batches
     "jacobi_l1_w": _cfg(_main("PCG", _amg(
         {**SM, "solver": "JACOBI_L1"}, selector="SIZE_2", cycle="W"))),
     "polynomial": _cfg(_main("PCG", _amg(
@@ -120,8 +122,9 @@ def counters(svc):
 
 
 def family(dtype):
-    """Two patterns: 6 systems of 12 x 11 and 3 of 9 x 8 (ROADMAP.md
-    A.7.1's PCG + AMG case), in ``dtype``."""
+    """Two patterns: 6 systems of 12 x 11 and 3 of 9 x 8 (the PCG + AMG
+    case of ROADMAP.md A.7.1, closed by the batch rebuilds), in
+    ``dtype``."""
     out = (jittered_poisson_family((12, 11), 6, seed=1)
            + jittered_poisson_family((9, 8), 3, seed=2))
     return [(sp.astype(dtype), b.astype(dtype)) for sp, b in out]
@@ -168,9 +171,10 @@ def test_rebuild_batches_as_jax_f32(name):
 
 
 def test_cheap_preconditioner_is_one_batch_as_jax():
-    """ROADMAP.md A.7.1's re-anchor case: CHEAP_PRECONDITIONER_CONFIG
-    on 6 jittered 20 x 18 systems is one batch (6 ``fallback_solves``
-    before the rebuilds), with the JAX package's corrections."""
+    """The re-anchor case of ROADMAP.md A.7.1 (closed by the batch
+    rebuilds): CHEAP_PRECONDITIONER_CONFIG on 6 jittered 20 x 18
+    systems is one batch (6 ``fallback_solves`` before the rebuilds),
+    with the JAX package's corrections."""
     systems = jittered_poisson_family((20, 18), 6, seed=0)
     tr, jr, ts, js = both(CHEAP_PRECONDITIONER_CONFIG, systems,
                           max_batch=8)

@@ -26,10 +26,11 @@ def test_cpu_side_calls_cross_to_a_child():
         assert getattr(chip_smoke, fn.__name__) is fn
         assert pickle.loads(pickle.dumps(call)) == call
     # every phase that holds the card to the CPU port starts its runs
+    # (the fleet's workers are held to solves on the card)
     started = {p for p in chip_smoke.PHASES
                if chip_smoke.cpu_side_calls((p,))}
     assert started == set(chip_smoke.PHASES) - {"kernels", "mf_bf16",
-                                                "setup_store"}
+                                                "setup_store", "fleet"}
 
 
 def test_started_run_equals_the_run_in_line():
@@ -86,3 +87,31 @@ def test_stencil_scipy_matches_a_coo_build():
         assert np.array_equal(got.indptr, want.indptr)
         assert np.array_equal(got.indices, want.indices)
         assert np.array_equal(got.data, want.data)
+
+
+def test_fleet_walk_mix_finds_the_groups_run():
+    """The fleet phase holds each worker's launches to walks of the
+    groups it ran: a mix of the fingerprints' walks with that many
+    groups in all, or none."""
+    dia, ell = "dia_spmv_batched_f64", "ell_spmv_batched_f64"
+    w, w2 = {dia: 182, ell: 52}, {dia: 196, ell: 60}
+    walks = {"a": w, "b": w, "c": w2}
+
+    def launches(n, n2):
+        return {dia: 182 * n + 196 * n2, ell: 52 * n + 60 * n2}
+
+    assert chip_smoke.fleet_walk_mix(launches(30, 3), walks, 33) == {
+        "a+b": 30, "c": 3}
+    assert chip_smoke.fleet_walk_mix(launches(30, 3), walks, 34) is None
+    assert chip_smoke.fleet_walk_mix(launches(16, 0), walks,
+                                     range(1, 17)) == {"a+b": 16, "c": 0}
+    assert chip_smoke.fleet_walk_mix(launches(16, 0), walks,
+                                     range(1, 16)) is None
+    off = {dia: 182 * 5 + 1, ell: 52 * 5}
+    assert chip_smoke.fleet_walk_mix(off, walks, range(1, 17)) is None
+    # an entry point no walk launches
+    stray = {**launches(2, 0), "sell_spmv_batched_f64": 1}
+    assert chip_smoke.fleet_walk_mix(stray, walks, 2) is None
+    assert chip_smoke.fleet_walk_mix({}, walks, 0) == {"a+b": 0, "c": 0}
+    assert chip_smoke.fleet_walk_mix(launches(4, 0), {"a": w, "b": w},
+                                     4) == {"a+b": 4}
