@@ -61,8 +61,13 @@
 //     of X, each term rounded in X (Term<1>), so that they too return the
 //     plain version's bits.
 //
-// Batched entry points (dia_spmv_batched_f32 / _f64, for the serve
-// layer's groups of same-pattern systems, amgx_tpu_torch/serve): B
+// The complex entry points (c64, c128, and c64 planes under c128 x for
+// dZCI) take one row a thread: a complex element is already an 8- or
+// 16-byte vector.  Each term is dtypes.cuh's complex rule.  Bound: bytes,
+// 8 or 16 a value.
+//
+// Batched entry points (dia_spmv_batched_f32 / _f64 / _c64 / _c128, for
+// the serve layer's groups of same-pattern systems, amgx_tpu_torch/serve): B
 // instances of one structure, planes (B, nd, n) (or one (nd, n) set
 // shared by every instance: a batch stride of 0), x and y (B, n).  The
 // batch is the grid's y axis; each instance runs the unbatched kernel's
@@ -379,7 +384,9 @@ int launch(const void* vals, const void* x, void* y, long long n,
            int shared = 0) {
   constexpr int kWide = static_cast<int>(sizeof(V) > sizeof(X) ? sizeof(V)
                                                                : sizeof(X));
-  constexpr int kMaxVec = 16 / kWide;
+  // a complex element is one vector load already: one row a thread
+  constexpr int kMaxVec =
+      IsComplex<V>::value || IsComplex<X>::value ? 1 : 16 / kWide;
   const int nd = a[0], nd_inst = a[1], vec = a[2], threads = a[3],
             blocks = a[4];
   const int* offsets = a + 5;
@@ -408,13 +415,15 @@ int launch(const void* vals, const void* x, void* y, long long n,
   const int64_t vs = shared ? 0 : static_cast<int64_t>(nd) * n;
   if (vec == 1) {
     launch_vec<V, X, K, 1>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
-  } else if (vec == 2) {
-    launch_vec<V, X, K, 2>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
-  } else if constexpr (kMaxVec >= 4) {
-    if (vec == 4) {
-      launch_vec<V, X, K, 4>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
-    } else if constexpr (kMaxVec >= 8) {
-      launch_vec<V, X, K, 8>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
+  } else if constexpr (kMaxVec >= 2) {
+    if (vec == 2) {
+      launch_vec<V, X, K, 2>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
+    } else if constexpr (kMaxVec >= 4) {
+      if (vec == 4) {
+        launch_vec<V, X, K, 4>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
+      } else if constexpr (kMaxVec >= 8) {
+        launch_vec<V, X, K, 8>(nd_inst, g, s, v, xx, yy, n, nd, o, vs);
+      }
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -458,6 +467,26 @@ extern "C" int dia_spmv_bf16_f32(const void* vals, const void* x, void* y,
   return launch<bf16, float, 1>(vals, x, y, n, plan, stream);
 }
 
+// the complex modes: dZZI (c128), dCCI (c64) and dZCI (c64 planes, c128
+// x and y), one row a thread (the plan's vec is 1 for a complex type),
+// each term the complex rule of dtypes.cuh in offset order from +0, so
+// that the stencil kernel's complex entry points return the same bits
+extern "C" int dia_spmv_c64(const void* vals, const void* x, void* y,
+                            long long n, const int* plan, void* stream) {
+  return launch<c64, c64, 0>(vals, x, y, n, plan, stream);
+}
+
+extern "C" int dia_spmv_c128(const void* vals, const void* x, void* y,
+                             long long n, const int* plan, void* stream) {
+  return launch<c128, c128, 0>(vals, x, y, n, plan, stream);
+}
+
+extern "C" int dia_spmv_c64_c128(const void* vals, const void* x, void* y,
+                                 long long n, const int* plan,
+                                 void* stream) {
+  return launch<c64, c128, 1>(vals, x, y, n, plan, stream);
+}
+
 // batch instances of one structure: planes (batch, nd, n), or one (nd,
 // n) set shared by all (shared != 0); x and y (batch, n); the plan is
 // the unbatched one for n rows (each instance's rows start at a multiple
@@ -473,4 +502,17 @@ extern "C" int dia_spmv_batched_f64(const void* vals, const void* x, void* y,
                                     const int* plan, void* stream) {
   return launch<double, double, 0>(vals, x, y, n, plan, stream, batch,
                                    shared);
+}
+
+extern "C" int dia_spmv_batched_c64(const void* vals, const void* x, void* y,
+                                    long long n, long long batch, int shared,
+                                    const int* plan, void* stream) {
+  return launch<c64, c64, 0>(vals, x, y, n, plan, stream, batch, shared);
+}
+
+extern "C" int dia_spmv_batched_c128(const void* vals, const void* x,
+                                     void* y, long long n, long long batch,
+                                     int shared, const int* plan,
+                                     void* stream) {
+  return launch<c128, c128, 0>(vals, x, y, n, plan, stream, batch, shared);
 }

@@ -87,6 +87,10 @@
 //     they return the plain version's bits; with L > 1 the tree adds the
 //     parts in another order, within a tolerance.
 // A bf16 value moves 2 bytes (a slot 6, column id included).
+//   * every kernel, batched ones included, in the complex modes: c64 and
+//     c128 values with x of their type (dCCI, dZZI), c64 values with c128
+//     x (dZCI), each term dtypes.cuh's complex rule; a complex element is
+//     one 8- or 16-byte load.
 //
 // Batched entry points, for the serve layer's groups of same-pattern
 // systems (amgx_tpu_torch/serve): the TPU package's _well_kernel under
@@ -248,7 +252,7 @@ sell_spmv_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
     }
 #pragma unroll
     for (int o = L / 2; o > 0; o >>= 1) {
-      acc = Term<K>::add(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+      acc = Term<K>::add(acc, shfl_xor(acc, o));
     }
     if (part == 0 && dst >= 0) store_y(y + dst, acc);
     if (next >= n_items) break;
@@ -273,7 +277,7 @@ constexpr int kMaxTile = 16;
 constexpr int kCopyChunk = 2048;
 
 // T values of xt through the read-only path as 16-byte vectors (8 bytes
-// for two f32 values)
+// for two f32 values; one c128 value a vector)
 template <int T>
 __device__ __forceinline__ void ldg_run(const double* p, double (&o)[T]) {
   static_assert(T % 2 == 0, "f64 runs load two values a vector");
@@ -282,6 +286,21 @@ __device__ __forceinline__ void ldg_run(const double* p, double (&o)[T]) {
     const double2 v = __ldg(reinterpret_cast<const double2*>(p + j));
     o[j] = v.x;
     o[j + 1] = v.y;
+  }
+}
+template <int T>
+__device__ __forceinline__ void ldg_run(const c128* p, c128 (&o)[T]) {
+#pragma unroll
+  for (int j = 0; j < T; ++j) o[j] = ld_ro(p + j);
+}
+template <int T>
+__device__ __forceinline__ void ldg_run(const c64* p, c64 (&o)[T]) {
+  static_assert(T % 2 == 0, "c64 runs load two values a vector");
+#pragma unroll
+  for (int j = 0; j < T; j += 2) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p + j));
+    o[j] = c64(v.x, v.y);
+    o[j + 1] = c64(v.z, v.w);
   }
 }
 template <int T>
@@ -324,7 +343,7 @@ batch_tiles_kernel(const V* __restrict__ x, V* __restrict__ xt, int64_t m,
       const int64_t c = c0 + (i - j * width);
       const int b = q * tile + j;
       buf[j * (width + 1) + (i - j * width)] =
-          b < batch && c < m ? __ldcs(x + static_cast<int64_t>(b) * m + c)
+          b < batch && c < m ? ld_cs(x + static_cast<int64_t>(b) * m + c)
                              : V(0);
     }
     __syncthreads();
@@ -454,8 +473,7 @@ sell_spmv_batched_kernel(const int* __restrict__ cols,
     for (int t = 0; t < T; ++t) {
 #pragma unroll
       for (int o = L / 2; o > 0; o >>= 1) {
-        acc[t] = Term<0>::add(acc[t],
-                              __shfl_xor_sync(0xffffffffu, acc[t], o));
+        acc[t] = Term<0>::add(acc[t], shfl_xor(acc[t], o));
       }
     }
     if (part == 0 && dst >= 0) {
@@ -463,7 +481,7 @@ sell_spmv_batched_kernel(const int* __restrict__ cols,
 #pragma unroll
       for (int t = 0; t < T; ++t) {
         if (t < nb) {
-          __stcs(y + static_cast<int64_t>(q * T + t) * n + dst, acc[t]);
+          st_cs(y + static_cast<int64_t>(q * T + t) * n + dst, acc[t]);
         }
       }
     }
@@ -720,6 +738,54 @@ extern "C" int sell_spmv_bf16_f32(const void* cols, const void* vals,
                                           n_slices, x, y, n, stream);
 }
 
+// the complex modes: dZZI (c128), dCCI (c64) and dZCI (c64 values, c128
+// x and y); each term dtypes.cuh's complex rule in slot order from +0,
+// the parts of L > 1 lanes added by the same xor tree
+extern "C" int ell_spmv_c64(const void* cols, const void* vals, int w,
+                            const void* x, void* y, long long n,
+                            void* stream) {
+  return launch<c64, c64, c64, 0>(cols, vals, w, x, y, n, stream);
+}
+
+extern "C" int ell_spmv_c128(const void* cols, const void* vals, int w,
+                             const void* x, void* y, long long n,
+                             void* stream) {
+  return launch<c128, c128, c128, 0>(cols, vals, w, x, y, n, stream);
+}
+
+extern "C" int ell_spmv_c64_c128(const void* cols, const void* vals, int w,
+                                 const void* x, void* y, long long n,
+                                 void* stream) {
+  return launch<c64, c128, c128, 1>(cols, vals, w, x, y, n, stream);
+}
+
+extern "C" int sell_spmv_c64(const void* cols, const void* vals,
+                             const void* offsets, const void* widths,
+                             const void* rows, long long n_slices,
+                             int lanes, const void* x, void* y, long long n,
+                             void* stream) {
+  return launch_sell<c64, c64, 0>(cols, vals, offsets, widths, rows,
+                                  n_slices, lanes, x, y, n, stream);
+}
+
+extern "C" int sell_spmv_c128(const void* cols, const void* vals,
+                              const void* offsets, const void* widths,
+                              const void* rows, long long n_slices,
+                              int lanes, const void* x, void* y, long long n,
+                              void* stream) {
+  return launch_sell<c128, c128, 0>(cols, vals, offsets, widths, rows,
+                                    n_slices, lanes, x, y, n, stream);
+}
+
+extern "C" int sell_spmv_c64_c128(const void* cols, const void* vals,
+                                  const void* offsets, const void* widths,
+                                  const void* rows, long long n_slices,
+                                  int lanes, const void* x, void* y,
+                                  long long n, void* stream) {
+  return launch_sell<c64, c128, 1>(cols, vals, offsets, widths, rows,
+                                   n_slices, lanes, x, y, n, stream);
+}
+
 // batch instances of one slot-major structure: cols (w, n), values
 // (batch, w, n) or one (w, n) set shared by all (shared != 0), x (batch,
 // m), y (batch, n)
@@ -767,6 +833,50 @@ extern "C" int sell_spmv_batched_f64(const void* cols, const void* vals,
                                      long long batch, int shared,
                                      void* scratch, void* stream) {
   return launch_sell_batched<double, kSellTile, kSellStep>(
+      cols, vals, offsets, widths, rows, n_slices, lanes, x, y, n, m, stored,
+      batch, shared, scratch, stream);
+}
+
+extern "C" int ell_spmv_batched_c64(const void* cols, const void* vals,
+                                    int w, const void* x, void* y,
+                                    long long n, long long m,
+                                    long long batch, int shared,
+                                    void* stream) {
+  return launch<c64, c64, c64, 0>(cols, vals, w, x, y, n, stream, m, batch,
+                                  shared);
+}
+
+extern "C" int ell_spmv_batched_c128(const void* cols, const void* vals,
+                                     int w, const void* x, void* y,
+                                     long long n, long long m,
+                                     long long batch, int shared,
+                                     void* stream) {
+  return launch<c128, c128, c128, 0>(cols, vals, w, x, y, n, stream, m,
+                                     batch, shared);
+}
+
+extern "C" int sell_spmv_batched_c64(const void* cols, const void* vals,
+                                     const void* offsets,
+                                     const void* widths, const void* rows,
+                                     long long n_slices, int lanes,
+                                     const void* x, void* y, long long n,
+                                     long long m, long long stored,
+                                     long long batch, int shared,
+                                     void* scratch, void* stream) {
+  return launch_sell_batched<c64, kSellTile, kSellStep>(
+      cols, vals, offsets, widths, rows, n_slices, lanes, x, y, n, m, stored,
+      batch, shared, scratch, stream);
+}
+
+extern "C" int sell_spmv_batched_c128(const void* cols, const void* vals,
+                                      const void* offsets,
+                                      const void* widths, const void* rows,
+                                      long long n_slices, int lanes,
+                                      const void* x, void* y, long long n,
+                                      long long m, long long stored,
+                                      long long batch, int shared,
+                                      void* scratch, void* stream) {
+  return launch_sell_batched<c128, kSellTile, kSellStep>(
       cols, vals, offsets, widths, rows, n_slices, lanes, x, y, n, m, stored,
       batch, shared, scratch, stream);
 }

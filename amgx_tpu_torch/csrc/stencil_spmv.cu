@@ -82,6 +82,14 @@
 // orders as it does the asynchronous copies.  Its bound is 2 * 2 * n
 // bytes (8.4 MB at 2,097,152 rows).
 //
+// Mixed pairs and complex: the coefficients' type V and the x and y type
+// T are apart (f32 with f64 x, bf16 with f32 x, c64 with c128 x), the
+// coefficients converted to T's compute type once, exactly; the tile
+// kernel stages T.  The complex instantiations (c64, c128, c64 under
+// c128) compute each term with dtypes.cuh's complex rule; a 16-byte
+// vector holds two c64 points or one c128, so the star takes vec 2 in
+// c64 and 1 in c128.
+//
 // Plain C interface, loaded with ctypes (amgx_tpu_torch/ops/kernels.py).
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
@@ -211,6 +219,20 @@ __device__ __forceinline__ void load_vec(const double* p, double* v) {
   }
 }
 template <int VEC>
+__device__ __forceinline__ void load_vec(const c64* p, c64* v) {
+  if constexpr (VEC == 2) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = c64(u.x, u.y), v[1] = c64(u.z, u.w);
+  } else {
+    v[0] = p[0];
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void load_vec(const c128* p, c128* v) {
+  static_assert(VEC == 1, "a c128 point is a 16-byte vector");
+  v[0] = p[0];
+}
+template <int VEC>
 __device__ __forceinline__ void store_vec(bf16* p, const float* v) {
   if constexpr (VEC == 8) {
     uint4 u;
@@ -239,6 +261,20 @@ __device__ __forceinline__ void store_vec(double* p, const double* v) {
   } else {
     p[0] = v[0];
   }
+}
+template <int VEC>
+__device__ __forceinline__ void store_vec(c64* p, const c64* v) {
+  if constexpr (VEC == 2) {
+    *reinterpret_cast<float4*>(p) =
+        make_float4(v[0].re, v[0].im, v[1].re, v[1].im);
+  } else {
+    p[0] = v[0];
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void store_vec(c128* p, const c128* v) {
+  static_assert(VEC == 1, "a c128 point is a 16-byte vector");
+  p[0] = v[0];
 }
 
 // BYTES bytes from global to shared memory: cp.async for 4, 8 or 16; a
@@ -285,10 +321,10 @@ __device__ __forceinline__ void copy_plane(T (*slots)[kSlotH][kSlotW<VEC>],
 // 27); the star has all of its 7.  A diagonal the stencil lacks gets
 // coefficient 0 and a mask bit that is never set, so its term is
 // fma(0, 0, acc) == acc: the sum of the diagonals present, in order.
-// K: how a term rounds (dtypes.cuh)
-template <typename T, int ND, int VEC, int K>
+// V: coefficients, T: x and y; K: how a term rounds (dtypes.cuh)
+template <typename V, typename T, int ND, int VEC, int K>
 __global__ void __launch_bounds__(kMaxThreads)
-stencil_tile_kernel(const T* __restrict__ coefs, const T* __restrict__ x,
+stencil_tile_kernel(const V* __restrict__ coefs, const T* __restrict__ x,
                     T* __restrict__ y, int nx, int ny, int nz, int zchunk,
                     unsigned present) {
   using C = typename Compute<T>::type;
@@ -312,7 +348,8 @@ stencil_tile_kernel(const T* __restrict__ coefs, const T* __restrict__ x,
   if constexpr (ND == 27) {
     for (int k = ty * blockDim.x + tx; k < ND; k += blockDim.x * blockDim.y) {
       box_coefs[k] =
-          (pm >> k) & 1u ? ldg_c(coefs + __popc(pm & ((1u << k) - 1u))) : C(0);
+          (pm >> k) & 1u ? C(ldg_c(coefs + __popc(pm & ((1u << k) - 1u))))
+                         : C(0);
     }
     __syncthreads();
   }
@@ -323,7 +360,7 @@ stencil_tile_kernel(const T* __restrict__ coefs, const T* __restrict__ x,
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
     const bool has = (pm >> k) & 1u;
-    c[k] = ND == 27 ? box_coefs[k] : ldg_c(coefs + k);
+    c[k] = ND == 27 ? box_coefs[k] : C(ldg_c(coefs + k));
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       const bool in = has &&
@@ -415,9 +452,9 @@ stencil_tile_kernel(const T* __restrict__ coefs, const T* __restrict__ x,
 
 // nd (<= 27) diagonals with any steps; planes outside [zlo, zhi) have
 // a z neighbour outside the grid
-template <typename T, int K>
+template <typename V, typename T, int K>
 __global__ void __launch_bounds__(kMaxThreads)
-stencil_spmv_kernel(const T* __restrict__ coefs, const Steps st, int nd,
+stencil_spmv_kernel(const V* __restrict__ coefs, const Steps st, int nd,
                     const T* __restrict__ x, T* __restrict__ y, int nx,
                     int ny, int nz, int zchunk, int zlo, int zhi) {
   using C = typename Compute<T>::type;
@@ -431,7 +468,7 @@ stencil_spmv_kernel(const T* __restrict__ coefs, const Steps st, int nd,
   for (int k = 0; k < kMaxDiags; ++k) {
     c[k] = C(0);
     if (k < nd) {
-      c[k] = ldg_c(coefs + k);
+      c[k] = C(ldg_c(coefs + k));
       const bool in = static_cast<unsigned>(ix + st.dx[k]) <
                           static_cast<unsigned>(nx) &&
                       static_cast<unsigned>(iy + st.dy[k]) <
@@ -469,24 +506,24 @@ stencil_spmv_kernel(const T* __restrict__ coefs, const Steps st, int nd,
   }
 }
 
-template <typename T>
-using TileKernel = void (*)(const T*, const T*, T*, int, int, int, int,
+template <typename V, typename T>
+using TileKernel = void (*)(const V*, const T*, T*, int, int, int, int,
                             unsigned);
 
 // the tile kernel for the star (nd_inst 7, vec 1 or 16 / sizeof(T)
 // points per thread) or a subset of the box (27, vec 1), or null
-template <typename T, int K>
-TileKernel<T> tile_kernel(int nd_inst, int vec) {
+template <typename V, typename T, int K>
+TileKernel<V, T> tile_kernel(int nd_inst, int vec) {
   constexpr int kV = 16 / static_cast<int>(sizeof(T));
-  if (nd_inst == 7 && vec == 1) return stencil_tile_kernel<T, 7, 1, K>;
-  if (nd_inst == 7 && vec == kV) return stencil_tile_kernel<T, 7, kV, K>;
-  if (nd_inst == 27 && vec == 1) return stencil_tile_kernel<T, 27, 1, K>;
+  if (nd_inst == 7 && vec == 1) return stencil_tile_kernel<V, T, 7, 1, K>;
+  if (nd_inst == 7 && vec == kV) return stencil_tile_kernel<V, T, 7, kV, K>;
+  if (nd_inst == 27 && vec == 1) return stencil_tile_kernel<V, T, 27, 1, K>;
   return nullptr;
 }
 
 // a: nd, nx, ny, nz, gx, gy, gz, bx, by, zchunk, nd_inst, vec, then
 // (dx, dy, dz) per diagonal (see stencil_spmv_f32)
-template <typename T, int K>
+template <typename V, typename T, int K>
 int launch(const void* coefs, const void* x, void* y, const int* a,
            void* stream) {
   const int nd = a[0], nx = a[1], ny = a[2], nz = a[3], gx = a[4],
@@ -502,7 +539,7 @@ int launch(const void* coefs, const void* x, void* y, const int* a,
       static_cast<long long>(gx) * bx * vec >= nx &&
       static_cast<long long>(gy) * by >= ny &&
       static_cast<long long>(gz) * zchunk >= nz;
-  const TileKernel<T> tile = tile_kernel<T, K>(nd_inst, vec);
+  const TileKernel<V, T> tile = tile_kernel<V, T, K>(nd_inst, vec);
   unsigned present = 0;
   if (nd_inst == 0) {
     ok = ok && vec == 1;
@@ -530,7 +567,7 @@ int launch(const void* coefs, const void* x, void* y, const int* a,
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(gx, gy, gz), block(bx, by);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* c = static_cast<const T*>(coefs);
+  const V* c = static_cast<const V*>(coefs);
   const T* xx = static_cast<const T*>(x);
   T* yy = static_cast<T*>(y);
   if (nd_inst != 0) {
@@ -553,8 +590,8 @@ int launch(const void* coefs, const void* x, void* y, const int* a,
     if (-dz > zlo) zlo = -dz;
     if (nz - dz < zhi) zhi = nz - dz;
   }
-  stencil_spmv_kernel<T, K><<<grid, block, 0, s>>>(c, st, nd, xx, yy, nx,
-                                                   ny, nz, zchunk, zlo, zhi);
+  stencil_spmv_kernel<V, T, K><<<grid, block, 0, s>>>(
+      c, st, nd, xx, yy, nx, ny, nz, zchunk, zlo, zhi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -568,15 +605,52 @@ int launch(const void* coefs, const void* x, void* y, const int* a,
 // then (dx, dy, dz) per diagonal in offsets order
 extern "C" int stencil_spmv_f32(const void* coefs, const void* x, void* y,
                                 const int* args, void* stream) {
-  return launch<float, 0>(coefs, x, y, args, stream);
+  return launch<float, float, 0>(coefs, x, y, args, stream);
 }
 
 extern "C" int stencil_spmv_f64(const void* coefs, const void* x, void* y,
                                 const int* args, void* stream) {
-  return launch<double, 0>(coefs, x, y, args, stream);
+  return launch<double, double, 0>(coefs, x, y, args, stream);
 }
 
 extern "C" int stencil_spmv_bf16(const void* coefs, const void* x, void* y,
                                  const int* args, void* stream) {
-  return launch<bf16, 2>(coefs, x, y, args, stream);
+  return launch<bf16, bf16, 2>(coefs, x, y, args, stream);
+}
+
+// the C API's mixed modes under MATRIX_FREE: f32 coefficients with f64 x
+// and y (dDFI / dIFI), bf16 coefficients with f32 x and y (dFBI); each
+// product, then each sum, rounded in the wider type (dtypes.cuh Term<1>),
+// so that each returns the bits of its plain version and of
+// dia_spmv_f32_f64 / dia_spmv_bf16_f32 on the same matrix
+extern "C" int stencil_spmv_f32_f64(const void* coefs, const void* x,
+                                    void* y, const int* args,
+                                    void* stream) {
+  return launch<float, double, 1>(coefs, x, y, args, stream);
+}
+
+extern "C" int stencil_spmv_bf16_f32(const void* coefs, const void* x,
+                                     void* y, const int* args,
+                                     void* stream) {
+  return launch<bf16, float, 1>(coefs, x, y, args, stream);
+}
+
+// the complex modes: dZZI (c128), dCCI (c64), dZCI (c64 coefficients,
+// c128 x and y); each term the complex rule of dtypes.cuh in offsets
+// order from +0, as dia_spmv_c64 / _c128 / _c64_c128 sum, so the two
+// agree bit for bit.  A 16-byte vector holds two c64 points or one c128
+extern "C" int stencil_spmv_c64(const void* coefs, const void* x, void* y,
+                                const int* args, void* stream) {
+  return launch<c64, c64, 0>(coefs, x, y, args, stream);
+}
+
+extern "C" int stencil_spmv_c128(const void* coefs, const void* x, void* y,
+                                 const int* args, void* stream) {
+  return launch<c128, c128, 0>(coefs, x, y, args, stream);
+}
+
+extern "C" int stencil_spmv_c64_c128(const void* coefs, const void* x,
+                                     void* y, const int* args,
+                                     void* stream) {
+  return launch<c64, c128, 1>(coefs, x, y, args, stream);
 }

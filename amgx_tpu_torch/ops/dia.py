@@ -19,9 +19,13 @@ these); the plain version computes in it with torch's own promotion,
 one rounding per product and per sum, and bf16 in bf16 as the JAX
 package's XLA path and its Pallas kernel do.  The kernel is built for
 (f32, f32), (f64, f64) and (bf16, bf16), the pairs a hierarchy's DIA
-operators meet, and for (f32, f64) and (bf16, f32), the operators of the
-C API's mixed modes (dDFI / dIFI, dFBI) under their wider vectors
-(``csrc/dtypes.cuh``); another pair on the card raises.
+operators meet, for (f32, f64) and (bf16, f32), the operators of the
+C API's mixed modes (dDFI / dIFI, dFBI) under their wider vectors, and
+for the complex modes' (c64, c64), (c128, c128) and (c64, c128) (dCCI,
+dZZI, dZCI; ``csrc/dtypes.cuh``: one row a thread, each term's real
+operations rounded one by one); another pair on the card raises.  The
+complex plain versions use torch's complex product, which may contract
+to an FMA: the kernel agrees with them within a tolerance.
 
 ``dia_spmv_batched`` is the serve layer's entry (B instances of one
 structure, the batch a grid axis of the same kernel).
@@ -192,9 +196,10 @@ def dia_spmv(dia_vals, offsets, x):
     if entry is None:
         raise NotImplementedError(
             f"dia_spmv: dtypes {dia_vals.dtype}/{x.dtype}; the kernel "
-            "takes float32, float64 or bfloat16 planes with x of their "
-            "dtype, bfloat16 planes with float32 x, or float32 planes "
-            "with float64 x"
+            "takes float32, float64, bfloat16, complex64 or complex128 "
+            "planes with x of their dtype, bfloat16 planes with float32 "
+            "x, float32 planes with float64 x, or complex64 planes with "
+            "complex128 x"
         )
     if not (dia_vals.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_spmv: inputs must be contiguous")
@@ -236,10 +241,10 @@ def dia_spmv_batched(dia_vals, offsets, x):
     """y = A_b @ x_b for B instances of one square DIA structure (the
     serve layer's groups): ``dia_vals`` (B, nd, n), or (nd, n) shared by
     every instance, ``offsets`` the nd sorted host ints, ``x`` (B, n).
-    On the card the ``dia_spmv_batched`` kernel (f32, f64) with the
-    unbatched launch plan, the batch a grid axis: each instance's y is
-    :func:`dia_spmv`'s bit for bit.  Counted in ``batched_launches``
-    and ``variant_launches``."""
+    On the card the ``dia_spmv_batched`` kernel (f32, f64, c64, c128)
+    with the unbatched launch plan, the batch a grid axis: each
+    instance's y is :func:`dia_spmv`'s bit for bit.  Counted in
+    ``batched_launches`` and ``variant_launches``."""
     global batched_launches
     if x.dim() != 2 or dia_vals.dim() not in (2, 3):
         raise ValueError(
@@ -270,7 +275,8 @@ def dia_spmv_batched(dia_vals, offsets, x):
     if entry is None:
         raise NotImplementedError(
             f"dia_spmv_batched: dtypes {dia_vals.dtype}/{x.dtype}; the "
-            "kernel takes float32 or float64 planes with x of their dtype")
+            "kernel takes float32, float64, complex64 or complex128 "
+            "planes with x of their dtype")
     if not (dia_vals.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_spmv_batched: inputs must be contiguous")
     if not 1 <= B <= 65535:

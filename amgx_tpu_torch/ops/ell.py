@@ -28,7 +28,11 @@ finer residual under ``level_dtype_policy`` COARSE; ``sell_spmv`` for
 (f32, f32), (f64, f64), (bf16, bf16), (bf16, f32) and (f32, f64), the
 last two for unstructured matrices in the C API's mixed modes (dFBI,
 dDFI / dIFI).  bf16 values take one lane a row only, so that their sums
-run in the plain version's order (``csrc/dtypes.cuh``).
+run in the plain version's order (``csrc/dtypes.cuh``).  Both kernels,
+and both batched ones, are also built for the complex modes' (c64,
+c64), (c128, c128) and (c64, c128) (dCCI, dZZI, dZCI; the batched ones
+for one dtype), held to the plain versions' torch complex products
+within a tolerance.
 
 The serve layer's batched entries take B instances of one structure,
 values batched or shared by every instance, in f32 and f64:
@@ -101,9 +105,10 @@ def ell_spmv(ell_cols, ell_vals, x):
     if entry is None:
         raise NotImplementedError(
             f"ell_spmv: dtypes {ell_vals.dtype}/{x.dtype}; the kernel "
-            "takes float32, float64 or bfloat16 values with x of their "
-            "dtype, bfloat16 values with float32 x, or float32 values "
-            "with float64 x"
+            "takes float32, float64, bfloat16, complex64 or complex128 "
+            "values with x of their dtype, bfloat16 values with float32 "
+            "x, float32 values with float64 x, or complex64 values with "
+            "complex128 x"
         )
     if ell_cols.dtype != torch.int32:
         raise ValueError(f"ell_spmv: cols must be int32, got {ell_cols.dtype}")
@@ -141,7 +146,7 @@ def ell_spmv_batched(ell_cols, ell_vals, x):
     (the serve layer's groups): ``ell_cols`` (w, n_rows) int32 shared,
     ``ell_vals`` (B, w, n_rows) or (w, n_rows) shared by every instance
     (AMG's transfers), ``x`` (B, n_cols).  On the card the
-    ``ell_spmv_batched`` kernel (f32, f64), each instance's y
+    ``ell_spmv_batched`` kernel (f32, f64, c64, c128), each instance's y
     :func:`ell_spmv`'s bit for bit."""
     global batched_launches
     if x.dim() != 2 or ell_cols.dim() != 2 \
@@ -164,7 +169,8 @@ def ell_spmv_batched(ell_cols, ell_vals, x):
     if entry is None:
         raise NotImplementedError(
             f"ell_spmv_batched: dtypes {ell_vals.dtype}/{x.dtype}; the "
-            "kernel takes float32 or float64 values with x of their dtype")
+            "kernel takes float32, float64, complex64 or complex128 values "
+            "with x of their dtype")
     if ell_cols.dtype != torch.int32:
         raise ValueError(
             f"ell_spmv_batched: cols must be int32, got {ell_cols.dtype}")
@@ -292,9 +298,10 @@ def sell_spmv(S: SlicedEll, x):
     if entry is None:
         raise NotImplementedError(
             f"sell_spmv: dtypes {S.vals.dtype}/{x.dtype}; the kernel "
-            "takes float32, float64 or bfloat16 values with x of their "
-            "dtype, bfloat16 values with float32 x, or float32 values "
-            "with float64 x"
+            "takes float32, float64, bfloat16, complex64 or complex128 "
+            "values with x of their dtype, bfloat16 values with float32 "
+            "x, float32 values with float64 x, or complex64 values with "
+            "complex128 x"
         )
     if (S.cols.dtype, S.offsets.dtype, S.widths.dtype) != (
             torch.int32, torch.int64, torch.int32) or (
@@ -331,7 +338,7 @@ def sell_spmv_batched(S: SlicedEll, x):
     """y = A_b @ x_b for B instances of one sliced ELL structure (the
     serve layer's groups): ``S.vals`` (B, stored) or (stored,) shared by
     every instance (AMG's transfers), ``x`` (B, n_cols).  On the card
-    the ``sell_spmv_batched`` kernel (f32, f64) with the plan
+    the ``sell_spmv_batched`` kernel (f32, f64, c64, c128) with the plan
     ``S.lanes``, each instance's y :func:`sell_spmv`'s bit for bit."""
     global sell_batched_launches
     if x.dim() != 2 or S.vals.dim() not in (1, 2) \
@@ -358,7 +365,8 @@ def sell_spmv_batched(S: SlicedEll, x):
     if entry is None:
         raise NotImplementedError(
             f"sell_spmv_batched: dtypes {S.vals.dtype}/{x.dtype}; the "
-            "kernel takes float32 or float64 values with x of their dtype")
+            "kernel takes float32, float64, complex64 or complex128 values "
+            "with x of their dtype")
     if (S.cols.dtype, S.offsets.dtype, S.widths.dtype) != (
             torch.int32, torch.int64, torch.int32) or (
             S.rows is not None and S.rows.dtype != torch.int32):

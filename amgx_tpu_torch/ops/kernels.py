@@ -66,26 +66,30 @@ _SELL = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _P)
 _SELL_BATCHED = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _LL, _LL, _LL, _LL,
                  _I, _P, _P)
 _STENCIL = (_P, _P, _P, _P, _P)
+# the (values, x) pairs every unbatched kernel is built for: one dtype
+# (f32, f64, bf16, c64, c128), or the narrower values under wider x of
+# the mixed modes (dFBI, dDFI / dIFI, dZCI); the batched kernels take
+# values and x of one dtype
+PAIRS = ("f32", "f64", "bf16", "bf16_f32", "f32_f64", "c64", "c128",
+         "c64_c128")
+BATCHED = ("f32", "f64", "c64", "c128")
 _SIGNATURES = {
     "dia_spmv": {
-        **{f"dia_spmv_{t}": _DIA
-           for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
-        **{f"dia_spmv_batched_{t}": _DIA_BATCHED for t in ("f32", "f64")},
+        **{f"dia_spmv_{t}": _DIA for t in PAIRS},
+        **{f"dia_spmv_batched_{t}": _DIA_BATCHED for t in BATCHED},
     },
     "ell_spmv": {
-        **{f"ell_spmv_{t}": _ELL
-           for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
-        **{f"ell_spmv_batched_{t}": _ELL_BATCHED for t in ("f32", "f64")},
-        **{f"sell_spmv_{t}": _SELL
-           for t in ("f32", "f64", "bf16", "bf16_f32", "f32_f64")},
-        **{f"sell_spmv_batched_{t}": _SELL_BATCHED for t in ("f32", "f64")},
+        **{f"ell_spmv_{t}": _ELL for t in PAIRS},
+        **{f"ell_spmv_batched_{t}": _ELL_BATCHED for t in BATCHED},
+        **{f"sell_spmv_{t}": _SELL for t in PAIRS},
+        **{f"sell_spmv_batched_{t}": _SELL_BATCHED for t in BATCHED},
     },
-    "stencil_spmv": {f"stencil_spmv_{t}": _STENCIL
-                     for t in ("f32", "f64", "bf16")},
+    "stencil_spmv": {f"stencil_spmv_{t}": _STENCIL for t in PAIRS},
 }
 
 _SHORT = {torch.float32: "f32", torch.float64: "f64",
-          torch.bfloat16: "bf16"}
+          torch.bfloat16: "bf16", torch.complex64: "c64",
+          torch.complex128: "c128"}
 
 
 def entry_point(kernel: str, vals_dtype, x_dtype):

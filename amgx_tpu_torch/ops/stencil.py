@@ -22,16 +22,23 @@ Dispatch of :func:`stencil_spmv`, chosen by the static ``meta.kind``:
 
   * a CPU tensor takes the plain version;
   * ``kind == "const"`` on a CUDA tensor launches the kernel or raises
-    (f32, f64 and bf16 coefficients with x of their dtype; the TPU gates
-    ``_MIN_ROWS`` and ``_HALO_MAX`` are not carried over), with the
-    geometry :func:`stencil_launch_plan` gives;
+    (f32, f64, bf16, c64 and c128 coefficients with x of their dtype,
+    and the mixed modes' f32 with f64 x, bf16 with f32 x and c64 with
+    c128 x; the TPU gates ``_MIN_ROWS`` and ``_HALO_MAX`` are not
+    carried over), with the geometry :func:`stencil_launch_plan`
+    gives;
   * ``kind == "axis"`` takes the plain version's stock torch ops on
     any device, as the JAX package sends it to XLA (its Pallas kernel
     computes only the constant case).
 
 y has the promoted dtype of the coefficients and x; in bf16 every
 product and sum rounds to bf16, in the plain version and the kernel
-alike, as in ``ops/dia.py``, so the bitwise contract holds in bf16 too.
+alike, as in ``ops/dia.py``, so the bitwise contract holds in bf16 too,
+and in the mixed pairs, whose kernels round each product and each sum
+in the wider type as torch's promotion does.  The complex kernels sum
+with the DIA kernel's complex rule (``csrc/dtypes.cuh``), so the two
+kernels agree bit for bit; torch's complex product may contract to an
+FMA, so the plain versions agree with them within a tolerance.
 
 ``launches`` counts kernel launches (never plain-version calls) and
 ``variant_launches`` the same per entry point; reset them by assigning
@@ -399,8 +406,9 @@ def stencil_spmv(A, x):
     if entry is None:
         raise NotImplementedError(
             f"stencil_spmv: dtypes {coefs.dtype}/{x.dtype}; the kernel "
-            "takes float32, float64 or bfloat16 coefficients with x of "
-            "their dtype"
+            "takes float32, float64, bfloat16, complex64 or complex128 "
+            "coefficients with x of their dtype, bfloat16 with float32 x, "
+            "float32 with float64 x, or complex64 with complex128 x"
         )
     if nd > MAX_DIAGS:
         raise ValueError(
@@ -413,7 +421,7 @@ def stencil_spmv(A, x):
     if n == 0:
         return y
     # 16-byte vectors where x starts on a 16-byte boundary (y, just
-    # allocated, does)
+    # allocated, does): 4 points in f32, 2 in f64 and c64, 1 in c128
     vec = 16 // x.element_size() if x.data_ptr() % 16 == 0 else 1
     _, args = _launch_args(meta.grid, meta.steps, vec, x.device.index)
     fn = getattr(kernels.library("stencil_spmv"), entry)

@@ -51,8 +51,12 @@ def _guarded_solve(W, rhs):
     diag = torch.abs(torch.diagonal(W, dim1=-2, dim2=-1).real)
     delta = torch.amax(diag, dim=-1, keepdim=True)[..., None] \
         * torch.finfo(rdt).eps * 4.0 + torch.finfo(rdt).tiny
-    sol = torch.linalg.solve(
-        W + delta * torch.eye(s, dtype=W.dtype, device=W.device), rhs
+    # solve_ex without its check: a singular W gives the non-finite
+    # result the guard turns into zeros (jnp.linalg.solve does not
+    # raise either), and nothing reads the info flag back from the card
+    sol, _ = torch.linalg.solve_ex(
+        W + delta * torch.eye(s, dtype=W.dtype, device=W.device), rhs,
+        check_errors=False,
     )
     return torch.where(torch.isfinite(sol), sol, torch.zeros_like(sol))
 

@@ -243,6 +243,44 @@ it waited for them:
    Through the shim, a bad handle returns RC_BAD_PARAMETERS, an unknown
    mode RC_BAD_MODE and ``AMGX_solver_solve_batch`` on a handle that
    names no solver RC_BAD_PARAMETERS.
+20.1 capi_complex: the mode table's complex modes on the card through
+   the C API's handles, on the complex-shifted Laplacian L + i 0.3 I of
+   ``poisson_3d_7pt`` (``shifted``), counts zeroed just before setup and
+   read just after the solve.  a.-c. GMRES(20) + SIZE_2 aggregation AMG
+   (``CX_AMG_CFG``) at 128^3 in dZZI, dCCI (tolerance 1e-5) and dZCI (a
+   c64 hierarchy under c128 vectors): status 0, the true residual in
+   complex128 within 10 x the tolerance (GMRES stops on the
+   preconditioned one; 1e-5 in dZCI, whose c64 hierarchy rounds M^-1 r
+   to c64), launches per entry point equal to the walk
+   (``cx_amg_walk``: GMRES's A v on ``dia_spmv_c128`` / ``_c64`` /
+   ``_c64_c128``, the cycle in the hierarchy's dtype); at 64^3 the card
+   against the CPU port (hZZI: iterations equal, x to rtol 1e-9; hCCI,
+   hZCI: iterations within one, x to rtol 1e-4).  d. MATRIX_FREE in
+   dZZI and dZCI through the solver entry on a MATRIX_FREE upload (the
+   C API's upload builds DIA, its ``matrix_free`` rebuilds the
+   hierarchy's level 0 only): the top and level-0 A-SpMVs on
+   ``stencil_spmv_c128`` / ``_c64_c128`` / ``_c64``, as walked, x bit
+   for bit a.'s and c.'s.  e. The bench config with ``matrix_free`` 1
+   in the dDFI and dFBI dtypes (f32 / bf16 matrix, f64 / f32 vectors;
+   in dFBI its hierarchy in bf16, ``MF_BF16_CFG``):
+   PCG's A p on ``stencil_spmv_f32_f64`` / ``_bf16_f32``, x bit for bit
+   the DIA upload's.  f. GMRES + BLOCK_JACOBI on
+   ``irregular_poisson(64)`` shifted in dZZI, dCCI and dZCI (the sliced
+   layout: ``sell_spmv_c128`` / ``_c64`` / ``_c64_c128``) and on a
+   shuffled periodic 64^3 grid (``torus_poisson``) in dZCI (slot-major:
+   ``ell_spmv_c64_c128``),
+   launches as walked.  g. ``solver_solve_batch`` in dZZI and dCCI on 16
+   jittered 32^3 systems (PBICGSTAB + the AMG with Galerkin plans) and 4
+   irregular ones (PBICGSTAB + BLOCK_JACOBI): the batched complex entry
+   points launched, each x to rtol 1e-10 (1e-4 in dCCI) of its
+   sequential solve.  Each of the 20 entry points the slice adds is held
+   to its plain version at its path's shape (within TOL of the row's
+   |A||x| for the complex ones, bit for bit for the stencil's mixed
+   pairs; every stencil case bit for bit with the DIA kernel on the same
+   matrix) and timed, beside torch's CSR product.  h. The port's
+   ``amgx_capi`` CLI in two subprocesses: ``-p 64 64 64 -mode dDDI`` with
+   the bench config and a complex 24^3 ``.mtx`` in ``-mode dZZI``: exit
+   0, status success and the residual table.
 21. serve: the batched solve service (``amgx_tpu_torch.serve``) on the
    card.  a. The main path: 16 systems of ``jittered_poisson_family
    ((64, 64, 64), 16)`` in f64 under ``SERVE_PCG_AMG`` (tests/test_serve.
@@ -406,9 +444,9 @@ it waited for them:
    path; ``launches`` is those on its own path: the bench PCG slice for
    ``dia_spmv`` and ``ell_spmv``, the MATRIX_FREE slice for
    ``stencil_spmv``, the classical slice for ``sell_spmv``; one entry
-   for each bf16, mixed-dtype and batched entry point, its launches
-   from its path in ``VARIANTS``), then the device line last.  Each phase's
-   seconds print on a ``phase_s`` line.
+   for each bf16, mixed-dtype, complex and batched entry point, its
+   launches from its path in ``VARIANTS``), then the device line
+   last.  Each phase's seconds print on a ``phase_s`` line.
 
 Exits non-zero without a result when CUDA is unavailable.  Imports
 nothing of JAX or of the JAX package ``amgx_tpu``.
@@ -626,8 +664,11 @@ ACTIVITY = {"dia_spmv": "dia_spmv_kernel", "ell_spmv": "ell_spmv_kernel",
 
 # kernel-vs-plain tolerance on max|y_kernel - y_plain| / max|y_plain|:
 # both sum in the same order from +0.0; the kernel contracts each
-# multiply-add into one FMA, the plain version rounds twice
-TOL = {"float32": 1e-5, "float64": 1e-13}
+# multiply-add into one FMA, the plain version rounds twice.  Complex:
+# the kernel rounds each real operation of a term on its own, torch's
+# complex product may contract to an FMA
+TOL = {"float32": 1e-5, "float64": 1e-13, "complex64": 1e-5,
+       "complex128": 1e-13}
 
 
 def timed(name, fn, *args):
@@ -2072,6 +2113,34 @@ def shuffled_poisson(m, seed=0):
     return A
 
 
+def torus_poisson(m, seed=0):
+    """The 7-point Laplacian of a periodic m^3 grid with its unknowns
+    shuffled: every row holds 7 entries, so its upload takes the
+    slot-major ELL layout (no DIA, no sliced layout: its slices would all
+    be as wide).  Singular (constants are its null space) until
+    shifted."""
+    import scipy.sparse as sps
+
+    n = m ** 3
+    i = np.arange(n)
+    ix, iy, iz = i % m, (i // m) % m, i // (m * m)
+    rows, cols = [i], [i]
+    for d in (1, m, m * m):
+        for s in (-1, 1):
+            jx = (ix + s) % m if d == 1 else ix
+            jy = (iy + s) % m if d == m else iy
+            jz = (iz + s) % m if d == m * m else iz
+            rows.append(i)
+            cols.append(jx + m * (jy + m * jz))
+    vals = np.concatenate([np.full(n, 6.0)] + [np.full(n, -1.0)] * 6)
+    A = sps.csr_matrix((vals, (np.concatenate(rows), np.concatenate(cols))),
+                       shape=(n, n))
+    p = np.random.default_rng(seed).permutation(n)
+    A = A[p][:, p].tocsr()
+    A.sort_indices()
+    return A
+
+
 def irregular_poisson(m, seed=0, frac=0.1, extra=8):
     """:func:`shuffled_poisson` plus the graph Laplacian of random
     long-range couplings (weight 0.25) from a tenth of the unknowns,
@@ -3477,6 +3546,34 @@ VARIANTS = {
                           "capi dDFI irregular"),
     "sell_spmv_bf16_f32": (_ELL_SRC, _WELL, "capi_dFBI_sell",
                            "capi dFBI irregular"),
+    # the complex modes and MATRIX_FREE in the mixed modes (the
+    # capi_complex phase)
+    **{f"dia_spmv_{t}": (_DIA_SRC, "amgx_tpu/ops/pallas_dia.py:76",
+                         f"complex_d{m}", f"capi_complex d{m} A ")
+       for t, m in (("c128", "ZZI"), ("c64", "CCI"), ("c64_c128", "ZCI"))},
+    **{f"ell_spmv_{t}": (_ELL_SRC, _WELL, p, c) for t, p, c in (
+        ("c128", "complex_dZZI", "capi_complex dZZI level0 R"),
+        ("c64", "complex_dCCI", "capi_complex dCCI level0 R"),
+        ("c64_c128", "complex_ell_dZCI", "capi_complex ell dZCI"))},
+    **{f"sell_spmv_{t}": (_ELL_SRC, _WELL, f"complex_sell_d{m}",
+                          f"capi_complex sell d{m}")
+       for t, m in (("c128", "ZZI"), ("c64", "CCI"), ("c64_c128", "ZCI"))},
+    **{f"stencil_spmv_{t}": ("amgx_tpu_torch/csrc/stencil_spmv.cu",
+                             "amgx_tpu/ops/pallas_stencil.py:64",
+                             f"complex_mf_d{m}",
+                             f"capi_complex MF d{m} A {SLICE_N}^3 {c}")
+       for t, m, c in (("c128", "ZZI", "complex128/complex128"),
+                       ("c64", "ZCI", "complex64/complex64"),
+                       ("c64_c128", "ZCI", "complex64/complex128"),
+                       ("f32_f64", "DFI", "float32/float64"),
+                       ("bf16_f32", "FBI", "bfloat16/float32"))},
+    **{f"{k}_spmv_batched_{t}": (
+        _DIA_SRC if k == "dia" else _ELL_SRC,
+        "amgx_tpu/ops/pallas_dia.py:76" if k == "dia" else _WELL,
+        f"complex_batch_d{m}_{'irregular' if k == 'sell' else 'grid'}",
+        f"capi_complex {k}_spmv_batched_{t}")
+       for k in ("dia", "ell", "sell")
+       for t, m in (("c128", "ZZI"), ("c64", "CCI"))},
 }
 
 
@@ -3666,12 +3763,11 @@ def variant_case(torch, timer, peaks, name, label, m, x, run, plain,
           f"{tuple(yp.shape)}")
     check(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
     ro, ci, _ = m._host
-    vals = host_array(m.values).astype(np.float64)
-    sp = sps.csr_matrix((np.abs(vals), ci, ro), shape=m.shape)
-    xh = host_array(x).astype(np.float64)
-    scale = sp @ np.abs(xh)
-    d = np.abs(host_array(y).astype(np.float64)
-               - host_array(yp).astype(np.float64))
+    vals = np.abs(host_array(m.values)).astype(np.float64)
+    sp = sps.csr_matrix((vals, ci, ro), shape=m.shape)
+    scale = sp @ np.abs(host_array(x)).astype(np.float64)
+    wide = np.complex128 if y.is_complex() else np.float64
+    d = np.abs(host_array(y).astype(wide) - host_array(yp).astype(wide))
     same = bool(torch.equal(y, yp))
     rel_row = float(np.max(d / np.maximum(scale, 1e-300))) if d.size else 0.0
     if exact:
@@ -3697,10 +3793,11 @@ def variant_case(torch, timer, peaks, name, label, m, x, run, plain,
         print(json.dumps({"library_none": {"case": label,
                                            "error": str(e)[:200]}}),
               flush=True)
-    nz = m.nnz
-    kind = "f64" if y.dtype == torch.float64 else "f32"
+    # a complex term is 4 products and 4 sums in the real type
+    ops = (8 if y.is_complex() else 2) * m.nnz
+    kind = "f64" if y.dtype in (torch.float64, torch.complex128) else "f32"
     t_bytes = nbytes / peaks["bw"] * 1e3
-    t_ops = 2 * nz / peaks[kind] * 1e3
+    t_ops = ops / peaks[kind] * 1e3
     rec = {
         "case": label, "kernel": name,
         "dtypes": [str(m.dtype)[6:], str(x.dtype)[6:], str(y.dtype)[6:]],
@@ -3711,7 +3808,7 @@ def variant_case(torch, timer, peaks, name, label, m, x, run, plain,
         "kernel_device_ms": timer.device(run, ACTIVITY[name.split("_")[0]
                                                        + "_spmv"]),
         "plain_ms": timer(plain), "library_ms": lib,
-        "bytes": int(nbytes), "ops": 2 * nz,
+        "bytes": int(nbytes), "ops": ops,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         **(extra or {}),
@@ -5822,9 +5919,10 @@ def capi_phase(torch, peaks=None, device="cuda", n=CAPI_N, n_cmp=CAPI_CMP_N,
     return variants, recs, counts
 
 
-def mixed_dia_case(torch, peaks, name, label, A, x):
+def mixed_dia_case(torch, peaks, name, label, A, x, exact=True):
     """``dia_spmv`` on a mixed pair at its path's shape: bit for bit
-    with the plain version, timed as every variant case (bytes: the
+    with the plain version (a complex pair, ``exact`` False: within TOL
+    of the row's |A||x|), timed as every variant case (bytes: the
     nonzeros in the planes' dtype, x read and y written in x's, the
     offsets)."""
     from amgx_tpu_torch.ops import dia
@@ -5841,7 +5939,7 @@ def mixed_dia_case(torch, peaks, name, label, A, x):
         lambda: dia.dia_spmv_plain(A.dia_vals, A.dia_offsets, x),
         nbytes=vs * A.nnz + 2 * xs * A.n_rows + 4 * len(A.dia_offsets),
         extra={"plan": {k: v for k, v in plan._asdict().items()
-                        if k != "offsets"}})
+                        if k != "offsets"}}, exact=exact)
 
 
 def mixed_sell_case(torch, peaks, name, label, A, x, exact=True):
@@ -5856,6 +5954,681 @@ def mixed_sell_case(torch, peaks, name, label, A, x, exact=True):
         lambda: ell.sell_spmv(S, x), lambda: ell.sell_spmv_plain(S, x),
         nbytes=(4 + vs) * A.nnz + xs * (A.n_cols + A.n_rows),
         extra={"sell": sell_info(S, A.nnz)}, exact=exact)
+
+
+# ---------------------------------------------------------------------------
+# the complex modes of the mode table (dZZI, dCCI, dZCI) through the C
+# API, MATRIX_FREE in the complex and mixed modes, and the port's
+# amgx_capi CLI: PHASES "capi_complex"
+
+CX_N = SLICE_N
+CX_CMP_N = 64
+CX_SELL_N = 64
+CX_BATCH_N = 32
+CX_BATCH_B = 16
+CX_CLI_N = 64
+CX_MTX_N = 24
+# the imaginary shift of the complex-shifted Laplacian L + i sigma I (the
+# shifted-Laplacian preconditioner of Helmholtz problems): complex
+# symmetric, not Hermitian, so the solves take GMRES and BiCGStab
+CX_SIGMA = 0.3
+# tests/test_complex.py:127-150 (GMRES(20) + SIZE_2 aggregation AMG,
+# BLOCK_JACOBI 0.7, DENSE_LU) with min_coarse_rows 2048 for its 32
+CX_AMG_CFG = (
+    '{"config_version": 2, "solver": {"scope": "main",'
+    ' "solver": "GMRES", "max_iters": 100, "gmres_n_restart": 20,'
+    ' "tolerance": 1e-08, "monitor_residual": 1,'
+    ' "convergence": "RELATIVE_INI",'
+    ' "preconditioner": {"scope": "amg", "solver": "AMG",'
+    ' "algorithm": "AGGREGATION", "selector": "SIZE_2",'
+    ' "smoother": {"scope": "j", "solver": "BLOCK_JACOBI",'
+    ' "relaxation_factor": 0.7, "monitor_residual": 0},'
+    ' "max_iters": 1, "min_coarse_rows": 2048,'
+    ' "coarse_solver": "DENSE_LU_SOLVER", "monitor_residual": 0}}}'
+)
+CX_AMG_CFG_C = CX_AMG_CFG.replace('"tolerance": 1e-08', '"tolerance": 1e-05')
+CX_MF_CFG = CX_AMG_CFG.replace('"selector": "SIZE_2",',
+                               '"selector": "SIZE_2", "matrix_free": 1,')
+CX_MF_CFG_C = CX_AMG_CFG_C.replace('"selector": "SIZE_2",',
+                                   '"selector": "SIZE_2", "matrix_free": 1,')
+# GMRES(20) + two BLOCK_JACOBI sweeps, for the unstructured uploads
+CX_JACOBI_CFG = JACOBI_CFG.replace(
+    '"solver": "PCG",', '"solver": "GMRES", "gmres_n_restart": 20,')
+CX_JACOBI_CFG_C = CX_JACOBI_CFG.replace('"tolerance": 1e-08',
+                                        '"tolerance": 1e-05')
+# the batched solve: PBICGSTAB (GMRES has no batched form) over CX_AMG's
+# hierarchy with Galerkin plans on every level (the serve layer's
+# batched AMG needs them)
+CX_SERVE_CFG = CX_AMG_CFG.replace(
+    '"solver": "GMRES", "max_iters": 100, "gmres_n_restart": 20,',
+    '"solver": "PBICGSTAB", "max_iters": 100,').replace(
+    '"min_coarse_rows": 2048,',
+    '"min_coarse_rows": 512, "structure_reuse_levels": -1,')
+CX_SERVE_CFG_C = CX_SERVE_CFG.replace('"tolerance": 1e-08',
+                                      '"tolerance": 1e-05')
+CX_SERVE_JACOBI_CFG = JACOBI_CFG.replace('"solver": "PCG",',
+                                         '"solver": "PBICGSTAB",')
+CX_DT = {"Z": np.complex128, "C": np.complex64}
+
+
+def shifted(sp, dtype=np.complex128):
+    """``sp + i CX_SIGMA I`` in ``dtype``, its indices sorted."""
+    import scipy.sparse as sps
+
+    out = (sp + 1j * CX_SIGMA * sps.eye_array(sp.shape[0])).tocsr()
+    out.sort_indices()
+    return out.astype(dtype)
+
+
+def complex_rhs(n, seed, dtype=np.complex128):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        dtype)
+
+
+def complex_rel_residual(sp, b, x):
+    """||b - A x|| / ||b|| in complex128 (scipy)."""
+    sp = sp.astype(np.complex128)
+    b, x = b.astype(np.complex128), x.astype(np.complex128)
+    return float(np.linalg.norm(b - sp @ x) / np.linalg.norm(b))
+
+
+def gmres_cycles(s, iters):
+    """Preconditioner applications (and A-SpMVs) of a left-preconditioned
+    GMRES solve of ``iters`` iterations: one residual a restart cycle
+    (r0 included), one A v and one M apply an iteration."""
+    return -(-iters // s.restart) + iters
+
+
+def cx_amg_walk(s, iters, x_dtype):
+    """Launches per entry point of a GMRES + AMG solve (``s``): the
+    top A-SpMVs on ``s.A`` with x of ``x_dtype``, the cycles in the
+    hierarchy's dtype (:func:`derived_variant_launches`)."""
+    cyc = gmres_cycles(s, iters)
+    return derived_variant_launches(s.precond, cyc, top=((s.A, x_dtype,
+                                                          cyc),))
+
+
+def cx_jacobi_walk(s, iters, x_dtype):
+    """Launches of a GMRES + BLOCK_JACOBI solve: each of the cycles'
+    A-SpMVs and M applies, and every Jacobi sweep after the first of
+    each apply, on ``s.A`` with x of ``x_dtype``."""
+    from amgx_tpu_torch.ops import kernels
+
+    cyc = gmres_cycles(s, iters)
+    return {kernels.entry_point(counter_of(s.A), s.A.dtype, x_dtype):
+            cyc * (1 + max(s.precond.max_iters - 1, 0))}
+
+
+def capi_complex_cpu_side(n_cmp):
+    """The CPU port's side of the capi_complex phase: CX_AMG_CFG in
+    hZZI, hCCI and hZCI at ``n_cmp``^3: {mode letters: (status,
+    iterations, x)}."""
+    import amgx_tpu_torch
+    from amgx_tpu_torch.io.poisson import poisson_scipy
+
+    amgx_tpu_torch.initialize()
+    base = poisson_scipy((n_cmp,) * 3).tocsr()
+    out = {}
+    for letters, cfg in (("ZZI", CX_AMG_CFG), ("CCI", CX_AMG_CFG_C),
+                         ("ZCI", CX_AMG_CFG)):
+        f = capi_flow("h" + letters, cfg, shifted(base, CX_DT[letters[1]]),
+                      complex_rhs(base.shape[0], 7, CX_DT[letters[0]]))
+        out[letters] = (f["status"], f["iterations"], f["x"])
+    return out
+
+
+def cx_stencil_case(torch, peaks, name, label, A, x, twin, exact=False):
+    """``stencil_spmv`` on the MATRIX_FREE ``A`` against its plain
+    version (:func:`variant_case`: within TOL of the row's |A||x| in
+    complex, bit for bit for the mixed pairs), and bit for bit against
+    the DIA kernel on the same matrix (``twin``, its DIA upload in the
+    same dtype)."""
+    from amgx_tpu_torch.ops import dia, stencil
+
+    run = lambda: stencil.stencil_spmv(A, x)  # noqa: E731
+    rec = variant_case(
+        torch, Timer(torch), peaks, name, label, A, x, run,
+        lambda: stencil.stencil_spmv_plain(A.mf_meta, A.mf_coefs, x),
+        nbytes=2 * x.element_size() * A.n_rows
+        + A.mf_coefs.element_size() * A.mf_coefs.numel(), exact=exact)
+    same = bool(torch.equal(run(), dia.dia_spmv(twin.dia_vals,
+                                                twin.dia_offsets, x)))
+    check(same, f"{label}: stencil kernel vs DIA kernel not bit for bit")
+    rec["bitwise_dia_kernel"] = same
+    return rec
+
+
+def cx_ell_case(torch, peaks, name, label, A, x):
+    """The slot-major ELL kernel on ``A``'s ELL arrays, within TOL of the
+    row's |A||x| of its plain version."""
+    from amgx_tpu_torch.ops import ell
+
+    return variant_case(
+        torch, Timer(torch), peaks, name, label, A, x,
+        lambda: ell.ell_spmv(A.ell_cols, A.ell_vals, x),
+        lambda: ell.ell_spmv_plain(A.ell_cols, A.ell_vals, x),
+        nbytes=(4 + A.ell_vals.element_size()) * A.nnz + x.element_size()
+        * (A.n_cols + A.n_rows), exact=False)
+
+
+def cx_batched_cases(torch, peaks, rng, amg, n, B):
+    """The six complex batched entry points at the batched paths'
+    shapes: the template's level-0 A (DIA, batched planes) and R
+    (slot-major ELL, shared values) of ``amg``'s hierarchy, and the
+    irregular pattern's padded template (sliced ELL, batched values),
+    B instances each, in c128 and c64."""
+    import dataclasses
+
+    from amgx_tpu_torch.ops import dia, ell
+    from amgx_tpu_torch.serve.bucketing import pad_pattern
+
+    timer, recs = Timer(torch), []
+    lv0 = amg.levels[0]
+
+    def mv_of(lib, x, label):
+        """``torch.mv`` of the block-diagonal CSR, or None (printed)
+        where torch has no product for it."""
+        try:
+            torch.mv(lib, x.reshape(-1))
+            return lambda: torch.mv(lib, x.reshape(-1))
+        except (RuntimeError, NotImplementedError) as e:
+            print(json.dumps({"library_none": {"case": label,
+                                               "error": str(e)[:200]}}),
+                  flush=True)
+            return None
+
+    irr = shifted(irregular_poisson(n))
+    pat = pad_pattern(irr.indptr, irr.indices, irr.shape[0])
+    for dt, short in ((torch.complex128, "c128"), (torch.complex64, "c64")):
+        npdt = np.complex128 if short == "c128" else np.complex64
+        isz = torch.empty((), dtype=dt).element_size()
+
+        def cx(shape):
+            return torch.from_numpy(rng.standard_normal(shape) + 1j
+                                    * rng.standard_normal(shape)).cuda().to(dt)
+
+        A = lv0.A.astype(dt)
+        ro, ci, _ = A._host
+        nf = A.n_rows
+        Ab = A.replace_values_batched(A.values * (1.0 + 0.05 * cx((B, A.nnz))))
+        x = cx((B, nf))
+        name = f"dia_spmv_batched_{short}"
+        lib = blockdiag_csr(torch, ro, ci, Ab.values, nf)
+        recs.append(batched_case(
+            torch, timer, peaks, name, f"capi_complex {name} level0 A B{B} "
+            f"{n}^3",
+            lambda: dia.dia_spmv_batched(Ab.dia_vals, Ab.dia_offsets, x),
+            lambda: dia.dia_spmv_batched_plain(Ab.dia_vals, Ab.dia_offsets,
+                                               x),
+            lambda i: dia.dia_spmv(Ab.dia_vals[i].contiguous(),
+                                   Ab.dia_offsets, x[i]),
+            mv_of(lib, x, name),
+            nbytes=isz * B * (A.nnz + 2 * nf) + 4 * len(A.dia_offsets),
+            nops=8 * B * A.nnz, dtype=dt))
+        R = lv0.R.astype(dt)
+        check(R.format == "ELL" and R.sell is None,
+              f"level-0 R: {R.format}, sliced {R.sell is not None}")
+        rro, rci, _ = R._host
+        xr = cx((B, R.n_cols))
+        w = int(R.ell_cols.shape[0])
+        name = f"ell_spmv_batched_{short}"
+        lib = blockdiag_csr(torch, rro, rci,
+                            R.values.expand(B, -1).contiguous(), R.n_cols)
+        recs.append(batched_case(
+            torch, timer, peaks, name, f"capi_complex {name} level0 R "
+            f"{R.n_rows}x{R.n_cols} w={w} shared B{B}",
+            lambda: ell.ell_spmv_batched(R.ell_cols, R.ell_vals, xr),
+            lambda: ell.ell_spmv_batched_plain(R.ell_cols, R.ell_vals, xr),
+            lambda i: ell.ell_spmv(R.ell_cols, R.ell_vals, xr[i]),
+            mv_of(lib, xr, name),
+            nbytes=(4 + isz) * R.nnz + isz * B * (R.n_rows + R.n_cols),
+            nops=8 * B * R.nnz, dtype=dt))
+        T_ = pat.template_matrix(irr.data.astype(npdt), npdt,
+                                 accel_formats=("ell",), device="cuda")
+        check(T_.format == "ELL" and T_.sell is not None,
+              f"irregular template {T_.format}, sliced "
+              f"{T_.sell is not None}")
+        vals = np.stack([pat.embed_values(
+            irr.data * (1.0 + 0.05 * rng.standard_normal(irr.nnz)), npdt)
+            for _ in range(B)])
+        Tb = T_.replace_values_batched(torch.from_numpy(vals).cuda())
+        xs = cx((B, pat.nb))
+        S = Tb.sell
+        name = f"sell_spmv_batched_{short}"
+        lib = blockdiag_csr(torch, pat.row_offsets, pat.col_indices,
+                            Tb.values, pat.nb)
+        recs.append(batched_case(
+            torch, timer, peaks, name, f"capi_complex {name} irregular A "
+            f"{pat.nb} B{B}",
+            lambda: ell.sell_spmv_batched(S, xs),
+            lambda: ell.sell_spmv_batched_plain(S, xs),
+            lambda i: ell.sell_spmv(dataclasses.replace(S, vals=S.vals[i]),
+                                    xs[i]),
+            mv_of(lib, xs, name),
+            nbytes=4 * irr.nnz + isz * B * (irr.nnz + 2 * pat.nb),
+            nops=8 * B * irr.nnz, dtype=dt,
+            extra={"lanes": S.lanes, "stored_slots": S.stored}))
+        del A, Ab, R, T_, Tb, lib
+    return recs
+
+
+def cx_served(device, cfg, systems):
+    """``AMGX_solver_solve_batch`` in the handle layer over ``systems``
+    (the mode from their dtypes, on ``device``): [(status, iterations,
+    x)] and the batched launches per entry point, counted from just
+    before the batched solve to the last download."""
+    from amgx_tpu_torch.api import capi as C
+
+    letters = "ZZI" if systems[0][1].dtype == np.complex128 else "CCI"
+    mode = capi_mode(letters, device)
+    c = C.config_create(cfg)
+    r = C.resources_create_simple(c)
+    s = C.solver_create(r, mode, c)
+    mats, rhs, sols = [], [], []
+    for sp, b in systems:
+        A, vb, vx = (C.matrix_create(r, mode), C.vector_create(r, mode),
+                     C.vector_create(r, mode))
+        C.matrix_upload_all(A, sp.shape[0], sp.nnz, 1, 1, sp.indptr,
+                            sp.indices, sp.data)
+        C.vector_upload(vb, sp.shape[0], 1, b)
+        C.vector_set_zero(vx, sp.shape[0], 1)
+        mats.append(A)
+        rhs.append(vb)
+        sols.append(vx)
+    zero_counts()
+    t0 = time.perf_counter()
+    C.solver_solve_batch(s, mats, rhs, sols)
+    xs = [C.vector_download(v) for v in sols]
+    secs = time.perf_counter() - t0
+    launches = batched_counts()
+    out = [(C.solver_get_batch_status(s, i),
+            C.solver_get_batch_iterations_number(s, i), xs[i])
+           for i in range(len(systems))]
+    for h in sols + rhs:
+        C.vector_destroy(h)
+    for h in mats:
+        C.matrix_destroy(h)
+    C.solver_destroy(s)
+    C.resources_destroy(r)
+    C.config_destroy(c)
+    return out, launches, secs
+
+
+def cx_family(base, count, seed, dtype):
+    """``count`` systems on the pattern of ``base`` (complex): every
+    entry jittered by 5 % in magnitude, a complex right-hand side
+    each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(count):
+        sp = base.copy()
+        sp.data = sp.data * (1.0 + 0.05 * rng.standard_normal(sp.nnz))
+        out.append((sp.astype(dtype), complex_rhs(sp.shape[0], seed + k,
+                                                  dtype)))
+    return out
+
+
+def table_of(text):
+    """The residual table of a ``print_solve_stats`` output, its timing
+    lines left out: [(label, residual, rate or None)] and the status."""
+    rows, status = [], None
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) in (2, 3) and (parts[0] == "Ini" or parts[0].isdigit()):
+            try:
+                vals = [float(p) for p in parts[1:]]
+            except ValueError:
+                continue
+            rows.append((parts[0], vals[0], vals[1] if len(vals) > 1
+                         else None))
+        elif line.strip().startswith("Solve status:"):
+            status = line.split(":", 1)[1].strip()
+    return rows, status
+
+
+def cli_run(args, env):
+    """``python -m amgx_tpu_torch.examples.amgx_capi`` with ``args`` in
+    a subprocess started now (the caller waits on it)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "amgx_tpu_torch.examples.amgx_capi", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def capi_complex_phase(torch, peaks=None, device="cuda", n=CX_N,
+                       n_cmp=CX_CMP_N, n_sell=CX_SELL_N, n_batch=CX_BATCH_N,
+                       B=CX_BATCH_B, n_cli=CX_CLI_N, n_mtx=CX_MTX_N):
+    """The mode table's complex modes on the card through the C API, and
+    MATRIX_FREE in the complex and mixed modes (module docstring, phase
+    capi_complex).  Returns ({path: launches per entry point}, kernel
+    case records)."""
+    import os
+    import shutil
+
+    import amgx_tpu_torch as T
+    from amgx_tpu_torch.io.matrix_market import write_system
+    from amgx_tpu_torch.io.poisson import poisson_rhs, poisson_scipy
+    from amgx_tpu_torch.ops import kernels
+
+    on_card = device == "cuda"
+    variants, recs = {}, []
+    rng = np.random.default_rng(22)
+    base = poisson_scipy((n,) * 3).tocsr()
+    base.sort_indices()
+    N = base.shape[0]
+    bz = complex_rhs(N, 7)
+    sols = {}
+
+    def cx_x(m, dt):
+        return torch.from_numpy(complex_rhs(m, 3)).to(device).to(dt)
+
+    # ---- a., b., c. GMRES + SIZE_2 AMG in dZZI, dCCI, dZCI at n^3
+    # the true residual's bound: 10 x the tolerance, as GMRES stops on
+    # the left-preconditioned residual; in dZCI the c64 hierarchy's
+    # rounding (M^-1 r to c64 precision) bounds it at 1e-5
+    for letters, cfg, rel_max in (("ZZI", CX_AMG_CFG, 1e-7),
+                                  ("CCI", CX_AMG_CFG_C, 1e-4),
+                                  ("ZCI", CX_AMG_CFG, 1e-5)):
+        vdt, mdt = CX_DT[letters[0]], CX_DT[letters[1]]
+        sp = shifted(base, mdt)
+        f = capi_flow(capi_mode(letters, device), cfg, sp, bz.astype(vdt))
+        s, iters = f["solver"], f["iterations"]
+        xt = torch.complex128 if letters[0] == "Z" else torch.complex64
+        want = cx_amg_walk(s, iters, xt)
+        rel = complex_rel_residual(sp, bz, f["x"])
+        lv = s.precond.levels
+        rec = {"n": n, "sigma": CX_SIGMA, "status": f["status"],
+               "iterations": iters, "x_dtype": str(f["x"].dtype),
+               "matrix_dtype": str(s.A.dtype)[6:],
+               "hierarchy_dtype": str(lv[0].A.dtype)[6:],
+               "levels": [(m.A.n_rows, m.A.format) for m in lv],
+               "true_rel_residual_c128": rel, "launches": f["launches"],
+               "derived": want, "upload_s": f["upload_s"],
+               "setup_s": f["setup_s"], "solve_s": f["solve_s"]}
+        print(json.dumps({f"capi_complex_d{letters}": rec}), flush=True)
+        check(f["status"] == 0 and f["x"].dtype == vdt,
+              f"d{letters} status {f['status']}, x {f['x'].dtype}")
+        check(rel <= rel_max, f"d{letters} true relative residual "
+              f"{rel:.3e} > {rel_max}")
+        check(str(lv[0].A.dtype) == f"torch.{np.dtype(mdt).name}",
+              f"d{letters} hierarchy in {lv[0].A.dtype}")
+        check_variants(f"capi_complex d{letters}", f["launches"], want,
+                       device)
+        variants[f"complex_d{letters}"] = f["launches"]
+        sols[letters] = f["x"]
+        if on_card:
+            A0 = lv[0].A
+            top = s.A
+            recs.append(mixed_dia_case(
+                torch, peaks, kernels.entry_point("dia_spmv", top.dtype,
+                                                  xt),
+                f"capi_complex d{letters} A {n}^3 {str(top.dtype)[6:]}/"
+                f"{str(xt)[6:]}", top, cx_x(top.n_rows, xt), exact=False))
+            if letters != "ZCI":
+                R = lv[0].R
+                check(R.format == "ELL" and R.sell is None,
+                      f"d{letters} level-0 R {R.format}")
+                recs.append(cx_ell_case(
+                    torch, peaks,
+                    kernels.entry_point("ell_spmv", R.dtype, A0.dtype),
+                    f"capi_complex d{letters} level0 R {R.n_rows}x"
+                    f"{R.n_cols} {str(R.dtype)[6:]}", R,
+                    cx_x(R.n_cols, A0.dtype)))
+        del f, s, lv, sp
+
+    # ---- d. MATRIX_FREE in dZZI and dZCI: a MATRIX_FREE upload in the
+    # modes' dtypes through the solver entry (the C API's upload builds
+    # DIA: its matrix_free rebuilds only the hierarchy's level 0)
+    for letters, cfg in (("ZZI", CX_MF_CFG), ("ZCI", CX_MF_CFG)):
+        vdt, mdt = CX_DT[letters[0]], CX_DT[letters[1]]
+        sp = shifted(base, mdt)
+        A = T.SparseMatrix.from_csr(sp.indptr, sp.indices, sp.data,
+                                    accel_formats=MF_FORMATS, device=device)
+        check(A.has_matrix_free, f"d{letters} upload not MATRIX_FREE")
+        zero_counts()
+        t0 = time.perf_counter()
+        s = T.create_solver(T.AMGConfig.from_string(cfg), "default",
+                            device=device).setup(A)
+        r = s.solve(bz.astype(vdt))
+        secs = time.perf_counter() - t0
+        got = variant_counts()
+        xt = torch.complex128 if letters[0] == "Z" else torch.complex64
+        iters = int(r.iters)
+        want = cx_amg_walk(s, iters, xt)
+        x = r.x.cpu().numpy()
+        lv = s.precond.levels
+        same = bool(np.array_equal(x, sols[letters]))
+        print(json.dumps({f"capi_complex_mf_d{letters}": {
+            "n": n, "status": int(r.status), "iterations": iters,
+            "levels": [(m.A.n_rows, m.A.format) for m in lv],
+            "launches": got, "derived": want, "x_bitwise_dia": same,
+            "setup_solve_s": secs}}), flush=True)
+        # the walk puts every top and level-0 SpMV on the stencil kernel
+        check(int(r.status) == 0 and s.A.has_matrix_free
+              and lv[0].A.has_matrix_free,
+              f"MF d{letters}: status {int(r.status)}, top {s.A.format}, "
+              f"level 0 {lv[0].A.format}")
+        check_variants(f"capi_complex MF d{letters}", got, want, device)
+        check(same, f"MF d{letters}: x differs from the DIA solve's")
+        variants[f"complex_mf_d{letters}"] = got
+        if on_card:
+            D = T.SparseMatrix.from_csr(sp.indptr, sp.indices, sp.data,
+                                        device=device)
+            for xdt in sorted({xt, lv[0].A.dtype}, key=str):
+                recs.append(cx_stencil_case(
+                    torch, peaks,
+                    kernels.entry_point("stencil_spmv", A.dtype, xdt),
+                    f"capi_complex MF d{letters} A {n}^3 "
+                    f"{str(A.dtype)[6:]}/{str(xdt)[6:]}", A,
+                    cx_x(A.n_rows, xdt), D))
+            del D
+        del A, s, r, lv
+
+    # ---- e. MATRIX_FREE in the dDFI and dFBI dtypes, the bench config
+    # (in dFBI with its hierarchy in the matrix's bf16, MF_BF16_CFG: the
+    # SIZE_8 transfers are built in f32 and a bf16 level's residual has
+    # no (f32, bf16) kernel): the stencil kernel's mixed pairs, x bit for
+    # bit the DIA upload's
+    for letters, mdt, vdt, cfg in (
+            ("DFI", torch.float32, np.float64, BENCH_CFG),
+            ("FBI", torch.bfloat16, np.float32, MF_BF16_CFG)):
+        b = poisson_rhs(N, dtype=vdt)
+        xs, counts, fmts = {}, {}, {}
+        mf_cfg = cfg.replace('"cycle": "V",',
+                             '"cycle": "V", "matrix_free": 1,')
+        for formats, text in ((MF_FORMATS, mf_cfg),
+                              (("dia", "dense", "ell"), cfg)):
+            A = T.SparseMatrix.from_csr(
+                base.indptr, base.indices, base.data.astype(np.float32),
+                accel_formats=formats, device=device).astype(mdt)
+            zero_counts()
+            s = T.create_solver(T.AMGConfig.from_string(text), "default",
+                                device=device).setup(A)
+            r = s.solve(b)
+            got = variant_counts()
+            it = int(r.iters)
+            want = derived_variant_launches(
+                s.precond, it + 1,
+                top=((s.A, torch.from_numpy(b).dtype, it + 1),))
+            check(int(r.status) == 0, f"d{letters} {A.format}: status "
+                  f"{int(r.status)}")
+            check_variants(f"capi_complex d{letters} {A.format}", got,
+                           want, device)
+            key = "mf" if "matrix_free" in formats else "dia"
+            xs[key], counts[key], fmts[key] = (r.x.cpu().numpy(), got,
+                                               A.format)
+            if key == "mf" and on_card:
+                D = T.SparseMatrix.from_csr(
+                    base.indptr, base.indices, base.data.astype(np.float32),
+                    device=device).astype(mdt)
+                xdt = torch.from_numpy(b).dtype
+                recs.append(cx_stencil_case(
+                    torch, peaks,
+                    kernels.entry_point("stencil_spmv", mdt, xdt),
+                    f"capi_complex MF d{letters} A {n}^3 {str(mdt)[6:]}/"
+                    f"{str(xdt)[6:]}", A, torch.from_numpy(
+                        rng.standard_normal(N)).to(device).to(xdt), D,
+                    exact=True))
+                del D
+            del A, s, r
+        same = bool(np.array_equal(xs["mf"], xs["dia"]))
+        print(json.dumps({f"capi_complex_mf_d{letters}": {
+            "n": n, "formats": fmts, "launches": counts,
+            "x_bitwise_dia": same}}), flush=True)
+        check(same, f"MF d{letters}: x differs from the DIA upload's")
+        variants[f"complex_mf_d{letters}"] = counts["mf"]
+
+    # ---- f. unstructured uploads: the sliced layout in dZZI, dCCI and
+    # dZCI, the slot-major one (a shuffled periodic grid) in dZCI
+    irr = shifted(irregular_poisson(n_sell))
+    shuf = shifted(torus_poisson(n_sell))
+    for label, sp0, letters in (("sell", irr, "ZZI"), ("sell", irr, "CCI"),
+                                ("sell", irr, "ZCI"), ("ell", shuf, "ZCI")):
+        vdt, mdt = CX_DT[letters[0]], CX_DT[letters[1]]
+        sp = sp0.astype(mdt)
+        cfg = CX_JACOBI_CFG_C if letters == "CCI" else CX_JACOBI_CFG
+        b = complex_rhs(sp.shape[0], 9, vdt)
+        f = capi_flow(capi_mode(letters, device), cfg, sp, b)
+        s, iters = f["solver"], f["iterations"]
+        xt = torch.complex128 if letters[0] == "Z" else torch.complex64
+        want = cx_jacobi_walk(s, iters, xt)
+        sliced = s.A.sell is not None
+        print(json.dumps({f"capi_complex_{label}_d{letters}": {
+            "n": n_sell, "rows": sp.shape[0], "nonzeros": sp.nnz,
+            "format": s.A.format, "sliced": sliced,
+            "status": f["status"], "iterations": iters,
+            "true_rel_residual_c128": complex_rel_residual(sp, b, f["x"]),
+            "launches": f["launches"], "derived": want,
+            "setup_s": f["setup_s"], "solve_s": f["solve_s"]}}),
+            flush=True)
+        check(f["status"] == 0, f"{label} d{letters} status {f['status']}")
+        check(s.A.format == "ELL" and sliced == (label == "sell"),
+              f"{label} d{letters}: {s.A.format}, sliced {sliced}")
+        check_variants(f"capi_complex {label} d{letters}", f["launches"],
+                       want, device)
+        variants[f"complex_{label}_d{letters}"] = f["launches"]
+        if on_card:
+            name = next(iter(want))
+            case_label = (f"capi_complex {label} d{letters} {n_sell}^3 "
+                          f"{str(s.A.dtype)[6:]}/{str(xt)[6:]}")
+            x = cx_x(s.A.n_cols, xt)
+            recs.append(
+                mixed_sell_case(torch, peaks, name, case_label, s.A, x,
+                                exact=False) if sliced else
+                cx_ell_case(torch, peaks, name, case_label, s.A, x))
+        del f, s
+
+    # ---- g. the C API's batched solve in dZZI and dCCI on B n_batch^3
+    # systems, each against its sequential solve (one setup on system
+    # 0, then resetup), and on the irregular pattern
+    fam = shifted(poisson_scipy((n_batch,) * 3).tocsr())
+    irr_b = shifted(irregular_poisson(n_batch))
+    for letters, cfg, rtol in (("ZZI", CX_SERVE_CFG, 1e-10),
+                               ("CCI", CX_SERVE_CFG_C, 1e-4)):
+        dt = CX_DT[letters[0]]
+        jac = CX_SERVE_JACOBI_CFG if letters == "ZZI" else \
+            CX_SERVE_JACOBI_CFG.replace('"tolerance": 1e-08',
+                                        '"tolerance": 1e-05')
+        for label, sp0, cnt, c in (("grid", fam, B, cfg),
+                                   ("irregular", irr_b, 4, jac)):
+            systems = cx_family(sp0, cnt, 31, dt)
+            got, launches, secs = cx_served(device, c, systems)
+            ref, _, _ = serve_seq(device, c, systems, True)
+            rec = same_as_seq(f"batched d{letters} {label}",
+                              [(st, it, x, None) for st, it, x in got], ref,
+                              rtol=rtol,
+                              iters_within=0 if letters == "ZZI" else 1)
+            print(json.dumps({f"capi_complex_batch_d{letters}_{label}": {
+                "n": n_batch, "batch": cnt, **rec, "launches": launches,
+                "solve_batch_s": secs}}), flush=True)
+            short = "c128" if letters == "ZZI" else "c64"
+            names = ([f"dia_spmv_batched_{short}",
+                      f"ell_spmv_batched_{short}"] if label == "grid"
+                     else [f"sell_spmv_batched_{short}"])
+            if on_card:
+                for nm in names:
+                    check(launches.get(nm, 0) > 0,
+                          f"batched d{letters} {label}: {nm} not launched")
+            variants[f"complex_batch_d{letters}_{label}"] = launches
+    if on_card:
+        tmpl = T.create_solver(T.AMGConfig.from_string(CX_SERVE_CFG),
+                               "default", device=device).setup(
+            T.SparseMatrix.from_scipy(fam, device=device))
+        recs += cx_batched_cases(torch, peaks, rng, tmpl.precond, n_batch, B)
+        del tmpl
+
+    # ---- h. (started now, beside the comparison with the CPU port: no
+    # kernel is timed from here on) the port's amgx_capi CLI
+    folder = store_dir()
+    cfg_file = os.path.join(folder, "bench.json")
+    with open(cfg_file, "w") as fh:
+        fh.write(BENCH_CFG)
+    cx_file = os.path.join(folder, "cx.json")
+    with open(cx_file, "w") as fh:
+        fh.write(CX_AMG_CFG)
+    mtx = os.path.join(folder, "shifted.mtx")
+    msp = shifted(poisson_scipy((n_mtx,) * 3).tocsr())
+    write_system(mtx, T.SparseMatrix.from_scipy(msp, accel_formats=(),
+                                                device="cpu"),
+                 rhs=complex_rhs(msp.shape[0], 5))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in sys.path
+                                                      if p))
+    t_cli = time.perf_counter()
+    clis = {
+        "dDDI": cli_run(["-p", str(n_cli), str(n_cli), str(n_cli), "-c",
+                         cfg_file, "-mode", capi_mode("DDI", device)], env),
+        "dZZI": cli_run(["-m", mtx, "-c", cx_file, "-mode",
+                         capi_mode("ZZI", device)], env),
+    }
+    try:
+        # ---- a.-c. the card against the CPU port at n_cmp^3
+        cmp_base = poisson_scipy((n_cmp,) * 3).tocsr()
+        cpu = CPU.get(capi_complex_cpu_side, n_cmp)
+        cmp = {}
+        for letters, cfg in (("ZZI", CX_AMG_CFG), ("CCI", CX_AMG_CFG_C),
+                             ("ZCI", CX_AMG_CFG)):
+            f = capi_flow(capi_mode(letters, device), cfg,
+                          shifted(cmp_base, CX_DT[letters[1]]),
+                          complex_rhs(cmp_base.shape[0], 7,
+                                      CX_DT[letters[0]]))
+            st, it, x = f["status"], f["iterations"], f["x"]
+            cst, cit, cx_ = cpu[letters]
+            wide = letters == "ZZI"
+            xinf = float(np.abs(cx_).max())
+            d = float(np.abs(x.astype(np.complex128)
+                             - cx_.astype(np.complex128)).max())
+            tol = 1e-9 if wide else 1e-4
+            cmp[letters] = {"iterations": it, "cpu_iterations": cit,
+                            "status": st, "cpu_status": cst,
+                            "max_abs_diff_vs_cpu": d, "x_inf": xinf}
+            check(st == cst == 0, f"d{letters} {n_cmp}^3: status card {st}, "
+                  f"cpu {cst}")
+            check(it == cit if wide else abs(it - cit) <= 1,
+                  f"d{letters} {n_cmp}^3: iterations card {it} vs cpu {cit}")
+            check(d <= tol * xinf, f"d{letters} {n_cmp}^3: x card vs CPU "
+                  f"{d:.3e} > {tol} x {xinf:.3e}")
+        print(json.dumps({"capi_complex_card_vs_cpu": cmp}), flush=True)
+
+        # ---- h. the CLI's two runs: exit 0 and the residual table
+        cli = {}
+        for label, proc in clis.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            rows, status = table_of(stdout)
+            cli[label] = {"exit": proc.returncode, "table_rows": len(rows),
+                          "status": status,
+                          "final_residual": rows[-1][1] if rows else None}
+            check(proc.returncode == 0 and status == "success" and rows,
+                  f"amgx_capi {label}: exit {proc.returncode}, status "
+                  f"{status}: {stdout[-1500:]}{stderr[-1500:]}")
+        cli["process_s"] = time.perf_counter() - t_cli
+        print(json.dumps({"capi_complex_cli": cli}), flush=True)
+    finally:
+        for proc in clis.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(folder, ignore_errors=True)
+    return variants, recs
 
 
 # every phase in the order a run takes them; a phase named on the
@@ -7266,7 +8039,8 @@ def batched_case(torch, timer, peaks, name, label, run, plain, instance,
     instance, to the unbatched entry point (``instance(i)``) and within
     TOL to its plain batched version; timed as :func:`kernel_case`
     times (cold, warm, device), with the plain version and ``lib`` (a
-    block-diagonal CSR ``torch.mv`` of the same work)."""
+    block-diagonal CSR ``torch.mv`` of the same work; None where torch
+    has none for the dtype)."""
     y, yp = run(), plain()
     torch.cuda.synchronize()
     check(y.shape == yp.shape, f"{label}: shape {y.shape} vs {yp.shape}")
@@ -7276,20 +8050,22 @@ def batched_case(torch, timer, peaks, name, label, run, plain, instance,
     err, rel = rel_err(y, yp)
     tol = TOL[str(dtype).replace("torch.", "")]
     check(rel <= tol, f"{label}: kernel vs plain rel err {rel:.3e} > {tol}")
-    yl = lib()
+    yl = lib() if lib is not None else None
     torch.cuda.synchronize()
-    kind = "f64" if dtype == torch.float64 else "f32"
+    kind = "f64" if dtype in (torch.float64, torch.complex128) else "f32"
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = nops / peaks[kind] * 1e3
     rec = {
         "case": label, "kernel": name, "dtype": kind, "batch": y.shape[0],
         "bitwise_unbatched": bitwise, "max_abs_err": err,
         "max_rel_err": rel, "tol": tol,
-        "library_max_abs_err": float((yl.reshape(y.shape) - yp).abs().max()),
+        "library_max_abs_err": (None if yl is None else float(
+            (yl.reshape(y.shape) - yp).abs().max())),
         "kernel_ms": timer(run), "kernel_ms_warm_l2": timer(run, flush=False),
         "kernel_device_ms": timer.device(run, ACTIVITY.get(
             name.rsplit("_", 1)[0], ACTIVITY[name.split("_batched")[0]])),
-        "plain_ms": timer(plain), "library_ms": timer(lib),
+        "plain_ms": timer(plain),
+        "library_ms": None if lib is None else timer(lib),
         "bytes": int(nbytes), "ops": int(nops),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -8900,8 +9676,8 @@ PHASES = ("kernels", "bench_pcg", "bench_pcg_matrix_free",
           "idr_dilu", "gmres_ilu0", "pbicgstab_agg_w", "amg_classical_kcycle",
           "pcg_agg_resetup", "refine_bf16_256", "mf_bf16", "classical_bf16",
           "device_match", "block4_amg_pcg", "eigensolvers", "setup_store",
-          "capi", "serve", "sessions", "faults_telemetry", "gateway",
-          "fleet")
+          "capi", "capi_complex", "serve", "sessions", "faults_telemetry",
+          "gateway", "fleet")
 NEEDS = {"bench_pcg_matrix_free": ("bench_pcg",),
          "faults_telemetry": ("bench_pcg",)}
 
@@ -8953,6 +9729,7 @@ def cpu_side_calls(phases):
         "eigensolvers": [(eig_cmp_cpu, EIG_CMP_N, PAGERANK_CMP_NODES, share)
                          for share in EIG_CPU_SPLIT],
         "capi": [(capi_cpu_side, CAPI_CMP_N, CAPI_SELL_N)],
+        "capi_complex": [(capi_complex_cpu_side, CX_CMP_N)],
         "serve": [(serve_cpu_side, SERVE_CPU_N)],
         "sessions": [(session_cpu_side, SESSION_CPU_N)],
         "faults_telemetry": [(zero_pivot_cpu, FT_N)],
@@ -8966,7 +9743,8 @@ def child_threads(torch, calls):
     few for the runs that sit beside long card work, else as many as
     the card's own process has."""
     few = (block4_cmp_f32, block4_cmp_f64, eig_cmp_cpu, capi_cpu_side,
-           serve_cpu_side, session_cpu_side, gateway_cpu_side)
+           capi_complex_cpu_side, serve_cpu_side, session_cpu_side,
+           gateway_cpu_side)
     return [CHILD_THREADS if c[0] in few else torch.get_num_threads()
             for c in calls]
 
@@ -9088,6 +9866,10 @@ def _main(argv=None):
                                              peaks)
         variants_by_path.update(got)
         recs += c_recs
+    if "capi_complex" in phases:
+        got, x_recs = timed("capi_complex", capi_complex_phase, torch, peaks)
+        variants_by_path.update(got)
+        recs += x_recs
     # the gateway and fleet phases warm-boot serve a's entry where they
     # run after it
     handoff = (store_dir() if "serve" in phases and (

@@ -201,13 +201,21 @@ def _solve_both(cfg_text, m, dtype, seed=0):
     return js.solve(b), ts.solve(b), ts
 
 
-def _assert_parity(jr, tr, dtype):
+def _assert_parity(jr, tr, dtype, band=None):
+    """``band``: the (lowest, highest) iteration count of the JAX
+    package on this case across XLA's CPU instruction sets, where that
+    count moves with them (``JAX_ITERS_BAND``): the port is held to the
+    band, widened by the f32 tolerance of one, in place of the count of
+    the JAX run beside it."""
     xj, xt = np.asarray(jr.x), tr.x.numpy()
     assert xt.dtype == xj.dtype
     assert tr.status == int(jr.status)
     if dtype == np.float64:
         assert tr.iters == int(jr.iters)
         rtol = 1e-10
+    elif band is not None:
+        assert band[0] - 1 <= tr.iters <= band[1] + 1
+        rtol = 1e-4
     else:
         assert abs(tr.iters - int(jr.iters)) <= 1
         rtol = 1e-4
@@ -234,13 +242,35 @@ KRYLOV = {
 }
 
 
+# The JAX package's iteration count of a case that moves with XLA's CPU
+# vectorisation alone: BICGSTAB in f32 on the 10^3 system takes 32
+# iterations with XLA_FLAGS=--xla_cpu_max_isa=SSE4_2, 31 with AVX2 and 31
+# with the default (AVX-512), each in a fresh process on one host
+# (ci/torch_jax_isa_band.py); the port takes 33 whatever XLA does.  Its
+# true relative residual in f64 is then held to 1e-6, what the f32 x of
+# either package reaches (the JAX package's: 3.5e-7) when the recurred
+# one meets the 1e-8 tolerance.
+JAX_ITERS_BAND = {("bicgstab", np.float32): (31, 32)}
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("name", sorted(KRYLOV))
 def test_krylov_solve_matches_jax(name, dtype):
-    jr, tr, _ = _solve_both(KRYLOV[name], poisson_scipy((10, 10, 10)),
-                            dtype)
-    _assert_parity(jr, tr, dtype)
+    """Status, iterations and x as ``_assert_parity`` holds them; where
+    the JAX package's own count moves with XLA's CPU instruction set
+    (``JAX_ITERS_BAND``: BICGSTAB f32, JAX 32 / 31 / 31 iterations under
+    SSE4_2 / AVX2 / AVX-512, the band 31-32, the port 33), the port's
+    count within that band widened by one and its true residual under
+    1e-6."""
+    m = poisson_scipy((10, 10, 10))
+    jr, tr, _ = _solve_both(KRYLOV[name], m, dtype)
+    band = JAX_ITERS_BAND.get((name, dtype))
+    _assert_parity(jr, tr, dtype, band)
     assert tr.status == SUCCESS
+    if band is not None:
+        b = poisson_rhs(m.shape[0], dtype=dtype, seed=0).astype(np.float64)
+        x = tr.x.numpy().astype(np.float64)
+        assert np.linalg.norm(b - m @ x) / np.linalg.norm(b) <= 1e-6
 
 
 @pytest.mark.parametrize("solver", ["FGMRES", "GMRES", "PBICGSTAB", "PCGF"])

@@ -349,20 +349,25 @@ def test_sstep_residual_replacement():
     s = 8 the small Gram systems have condition numbers near 3e11, so
     last-bit differences of the Gram product (torch and XLA sum in
     another order) move the iterates at 1e-5 from the first outer
-    iteration on: the iteration counts agree within one and x is held
-    to the true residual, not to the JAX package's x."""
+    iteration on, and the JAX package's own count moves with XLA's CPU
+    vectorisation: without the guard 10 iterations with
+    XLA_FLAGS=--xla_cpu_max_isa=SSE4_2, 9 with AVX2 and 8 with the
+    default (AVX-512), with it 8, 9 and 9, each in a fresh process on
+    one host (ci/torch_jax_isa_band.py); the port takes 10 and 9.  So
+    the port's count is held to that band widened by one, and x to the
+    true residual, not to the JAX package's x."""
     sp, b = _poisson()
     sp = (sp + sps.diags_array(
         np.linspace(0.0, 50.0, sp.shape[0]) ** 2 * 1e-4)).tocsr()
     sp.sort_indices()
     res = {}
-    for every in (0, 1):
+    for every, (lo, hi) in ((0, (8, 10)), (1, (8, 9))):
         text = _krylov_cfg("SSTEP_PCG",
                            f'"s_step": 8, "sstep_replace_every": {every},')
         js, ts = _setup_both(text, sp, nested=True)
         jr, tr = js.solve(b), ts.solve(b)
         assert tr.status == int(jr.status) == SUCCESS
-        assert abs(tr.iters - int(jr.iters)) <= 1
+        assert lo - 1 <= tr.iters <= hi + 1
         res[every] = (_rel_res(sp, tr.x.numpy(), b),
                       _rel_res(sp, np.asarray(jr.x), b))
     for k in (0, 1):
